@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ogl_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — `ogl_tpu_torch.foam.solve("p", ...)`, GKOCG
+on a 128x128x64 (1,048,576-cell) Poisson pressure system in OpenFOAM LDU
+form, preconditioner `none` and scalar `BJ`, then a steady-state step —
+after building the port's kernels from the sources in this checkout and
+holding each against its plain PyTorch version on the card, at the slice's
+size and at 256x256x128 (8,388,608 rows).
+
+Phases (any failure raises, and the script exits non-zero):
+  1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
+     compute capability 9.0 required;
+  2. build: the CUDA C++ kernels (nvcc, sm_90a) and nvcc's register report;
+  3. kernels vs plain versions at 1M and 8.4M rows: max error against the
+     stated tolerance, median times (CUDA events), implied GB/s;
+  4. the main path: both solves, launch counts of every kernel, the true
+     float64 residual, and the iteration count against the same solve run
+     by the merged CG over the plain kernel functions on the card;
+  5. a steady-state step (diag scaled by 1.01, new b): only the diag block
+     and the RHS may cross to the device.
+The line before the last is one JSON object describing each kernel; the
+last line is {"ok": true, "device": {...}}.  Without CUDA it exits with
+an error and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ogl_tpu_torch import foam, kernels, registry, testing
+from ogl_tpu_torch.kernels import _build
+from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
+from ogl_tpu_torch.kernels.fused import CgKernels, k1_plain, k2_plain, k2i_plain
+from ogl_tpu_torch.solve import cg_fused, stopping
+
+GRID_1M = (128, 128, 64)
+GRID_8M = (256, 256, 128)
+TOL = 1e-6
+# float32 recurrence residual vs the float64 residual of the returned x:
+# the two drift apart by rounding over hundreds of iterations
+TRUE_RESIDUAL_MARGIN = 10.0
+VEC_RTOL = 1e-5  # elementwise: |err| <= VEC_RTOL * max(1, max|plain|) (FMA vs mul+add)
+SUM_RTOL = 1e-4  # block sums: summed in another order than torch.sum
+
+KERNELS = {
+    "dia_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/dia_spmv.cu",
+                 "ogl_tpu/kernels/pallas_spmv.py:38"),
+    "cg_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k1.cu",
+              "ogl_tpu/kernels/fused.py:36"),
+    "cg_k2": ("triton", "ogl_tpu_torch/kernels/fused.py",
+              "ogl_tpu/kernels/fused.py:396"),
+    "cg_k2i": ("triton", "ogl_tpu_torch/kernels/fused.py",
+               "ogl_tpu/kernels/fused.py:492"),
+}
+
+
+class PlainCgKernels(CgKernels):
+    """CgKernels whose steps are the plain PyTorch versions, on any device:
+    the independent reference the main path's iteration count is held to."""
+
+    def k1(self, data, z, p, beta):
+        return k1_plain(data, self.offsets, z, p, beta)
+
+    def k2(self, alpha, x, r, p, q, invd, z):
+        return k2_plain(alpha, x, r, p, q, invd, z)
+
+    def k2i(self, alpha, x, r, p, q):
+        return k2i_plain(alpha, x, r, p, q)
+
+
+def poisson_dia(dims, device):
+    """The Dia data of testing.poisson_ldu(dims) (3-D, Dirichlet), built
+    analytically on the device: -1 to each existing neighbour, 6 on the
+    diagonal (neighbours + boundary faces)."""
+    nx, ny, nz = dims
+    n = nx * ny * nz
+    i = torch.arange(n, device=device)
+    ix, iy, iz = i % nx, (i // nx) % ny, i // (nx * ny)
+    one = torch.ones(n, device=device)
+    nb = [iz > 0, iy > 0, ix > 0, None, ix < nx - 1, iy < ny - 1, iz < nz - 1]
+    data = torch.stack([6.0 * one if m is None else torch.where(m, -one, 0 * one)
+                        for m in nb])
+    return data.contiguous(), (-nx * ny, -nx, -1, 0, 1, nx, nx * ny)
+
+
+def time_pair(kernel_fn, plain_fn, reps=20):
+    """Median ms of kernel and plain version, CUDA events, warmed up, timed
+    in turns (plain, kernel, kernel, plain)."""
+    for fn in (kernel_fn, plain_fn):
+        for _ in range(3):
+            fn()
+    samples = {"k": [], "p": []}
+    for tag, fn in (("p", plain_fn), ("k", kernel_fn), ("k", kernel_fn), ("p", plain_fn)):
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        for s, e in events:
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        samples[tag] += [s.elapsed_time(e) for s, e in events]
+    return statistics.median(samples["k"]), statistics.median(samples["p"])
+
+
+def vec_err(got, want):
+    err = float((got - want).abs().max())
+    tol = VEC_RTOL * max(1.0, float(want.abs().max()))
+    return err, tol
+
+
+def sum_err(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def check_kernels(dims, device, report):
+    data, offsets = poisson_dia(dims, device)
+    nd, n = data.shape
+    g = torch.Generator(device=device).manual_seed(0)
+    vec = {k: torch.randn(n, device=device, generator=g) for k in ("x", "r", "p", "z", "q")}
+    invd = 1.0 / data[offsets.index(0)]
+    kern = CgKernels(n, offsets, device)
+    plan = DiaPlan(n, offsets, device)
+    alpha = torch.tensor(1e-3, device=device)
+    beta = torch.tensor(0.37, device=device)
+    label = "x".join(map(str, dims))
+
+    def run_k2(k2fn, jacobi):
+        x, r, z = vec["x"].clone(), vec["r"].clone(), torch.empty(n, device=device)
+        if jacobi:
+            s = k2fn(alpha, x, r, vec["p"], vec["q"], invd, z)
+            return (x, r, z), s
+        return (x, r), k2fn(alpha, x, r, vec["p"], vec["q"])
+
+    cases = {
+        "dia_spmv": (lambda: ((dia_spmv(plan, data, vec["x"]),), ()),
+                     lambda: ((dia_spmv_plain(data, offsets, vec["x"]),), ()),
+                     (nd + 2) * n * 4),
+        "cg_k1": (lambda: (lambda o: (o[:2], o[2:]))(kern.k1(data, vec["z"], vec["p"], beta)),
+                  lambda: (lambda o: (o[:2], o[2:]))(k1_plain(data, offsets, vec["z"],
+                                                              vec["p"], beta)),
+                  (nd + 4) * n * 4),
+        "cg_k2": (lambda: run_k2(kern.k2, True), lambda: run_k2(k2_plain, True), 8 * n * 4),
+        "cg_k2i": (lambda: run_k2(kern.k2i, False), lambda: run_k2(k2i_plain, False),
+                   6 * n * 4),
+    }
+    for name, (kfn, pfn, nbytes) in cases.items():
+        (kv, ks), (pv, ps) = kfn(), pfn()
+        torch.cuda.synchronize()
+        errs = [vec_err(a, b) for a, b in zip(kv, pv)]
+        max_err = max(e for e, _ in errs)
+        sums = [sum_err(a, b) for a, b in zip(ks, ps)]
+        ok = all(e <= t for e, t in errs) and all(s <= SUM_RTOL for s in sums)
+        if name in ("cg_k2", "cg_k2i"):  # time the in-place updates on fixed buffers
+            x, r, z = vec["x"].clone(), vec["r"].clone(), torch.empty(n, device=device)
+            if name == "cg_k2":
+                kt = lambda: kern.k2(alpha, x, r, vec["p"], vec["q"], invd, z)  # noqa: E731
+                pt = lambda: k2_plain(alpha, x, r, vec["p"], vec["q"], invd, z)  # noqa: E731
+            else:
+                kt = lambda: kern.k2i(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
+                pt = lambda: k2i_plain(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
+        else:
+            kt, pt = kfn, pfn
+        ms, plain_ms = time_pair(kt, pt)
+        print(f"  {name:9s} {label:12s} max_abs_err {max_err:.3e} (tol "
+              f"{max(t for _, t in errs):.1e}) sum_rel_err "
+              f"{max(sums, default=0.0):.1e} (tol {SUM_RTOL:.0e})  kernel {ms:.4f} ms "
+              f"{nbytes / ms / 1e6:.1f} GB/s  plain {plain_ms:.4f} ms "
+              f"{nbytes / plain_ms / 1e6:.1f} GB/s  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{name} at {label} disagrees with its plain version")
+        report.setdefault(name, {})[label] = {"max_abs_err": max_err, "ms": ms,
+                                              "plain_ms": plain_ms}
+    del data, vec, invd
+    torch.cuda.empty_cache()
+
+
+def true_residual(data, offsets, x, b):
+    """‖b − A x‖₁ / normfactor in float64 on the card, with the OpenFOAM
+    norm factor of the zero initial guess."""
+    a64, x64, b64 = data.double(), x.double(), b.double()
+    r = b64 - dia_spmv_plain(a64, offsets, x64)
+    x0 = torch.zeros_like(b64)
+    b_sub = b64 - dia_spmv_plain(a64, offsets, x0)
+    nf = float(torch.sum((b64 - b_sub).abs() + b_sub.abs())) + stopping.small_of(torch.float64)
+    return float(r.abs().sum()) / nf
+
+
+def profile_step(solve_fn):
+    """Run one foam step under torch.profiler; print the step's wall time,
+    the device's busy time by kernel and its idle share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, perf = solve_fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("profiler recorded no device activity: device busy time not measured")
+        return
+    by_name: dict = {}
+    for e in dev:
+        c = by_name.setdefault(e.name, [0, 0.0])
+        c[0] += 1
+        c[1] += e.time_range.elapsed_us()
+    busy = sum(t for _, t in by_name.values())
+    it = max(perf.n_iterations, 1)
+    print(f"step wall {wall_us / 1e3:.3f} ms, {perf.n_iterations} iterations: device busy "
+          f"{busy / 1e3:.3f} ms ({busy / it:.2f} us/iteration), idle share "
+          f"{1 - busy / wall_us:.3f}; wall/iteration {wall_us / it:.2f} us")
+    for name, (count, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {total:10.1f} us  x{count:5d}  {total / count:8.2f} us/launch  {name[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False: this run needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    return run(torch.device("cuda"), GRID_1M, GRID_8M)
+
+
+def run(device, grid_main, grid_big) -> int:
+    print("== phase 1: device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    import triton
+
+    cc = torch.cuda.get_device_capability(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__} "
+          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
+          f"sm_{cc[0]}{cc[1]} count {torch.cuda.device_count()}")
+    if cc != (9, 0):
+        raise RuntimeError(f"compute capability {cc}: the kernels are built for sm_90a")
+
+    print("== phase 2: build")
+    info = _build.build_info()
+    print(f"built={info['built']} in {info['seconds']:.2f} s -> {info['path']}")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+    print("== phase 3: kernels vs plain versions "
+          f"(vector tol {VEC_RTOL:.0e}*max(1,max|plain|), sum rtol {SUM_RTOL:.0e})")
+    report: dict = {}
+    for dims in (grid_main, grid_big):
+        check_kernels(dims, device, report)
+
+    print("== phase 4: main path, foam.solve at "
+          f"{'x'.join(map(str, grid_main))} = {int(np.prod(grid_main))} cells")
+    t0 = time.perf_counter()
+    m = testing.poisson_ldu(grid_main)
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    print(f"LDU system built on the host in {time.perf_counter() - t0:.2f} s")
+    ctl = {"solver": "GKOCG", "executor": "cuda", "tolerance": TOL, "relTol": 0,
+           "verbose": 1}
+    pcs = {"p": "none", "pBJ": {"preconditioner": "BJ"}}
+    registry.global_registry.clear()
+    kernels.reset_launches()
+    solves = {}
+    for field, pc in pcs.items():
+        t0 = time.perf_counter()
+        x, perf = foam.solve(field, m, b, {**ctl, "preconditioner": pc})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        print(f"{field}: first solve wall {wall:.3f} s")
+        solves[field] = (x, perf)
+
+    print("== phase 5: steady-state steps (diag x1.01, new b) on field p")
+    steps = []
+    m_k, b_k = m, b
+    for k in (2, 3):  # step 2 also builds the value map once; step 3 is steady
+        m_k = dataclasses.replace(m_k, diag=np.asarray(m_k.diag) * 1.01)
+        b_k = (b_k * 1.01 + 0.1).astype(np.float32)
+        t0 = time.perf_counter()
+        x_k, perf_k = foam.solve("p", m_k, b_k, {**ctl, "preconditioner": "none"})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf_k.print()
+        slv = registry.global_registry.get("p_solver")
+        lt = slv.last_timings
+        print(f"p step {k}: wall {wall * 1e3:.3f} ms, of which update "
+              f"{lt.get('update_device_values', 0.0) * 1e3:.3f} ms and solve "
+              f"{lt.get('solve', 0.0) * 1e3:.3f} ms; blocks uploaded "
+              f"{slv.last_blocks_uploaded}, {slv.last_upload_bytes} bytes, rhs uploaded "
+              f"{slv.last_rhs_uploaded}")
+        if slv.last_blocks_uploaded != (1, 2) or not slv.last_rhs_uploaded:
+            raise RuntimeError(f"step {k} uploaded more than the diag block + RHS")
+        steps.append((f"p step {k}", x_k, perf_k, torch.tensor(b_k, device=device),
+                      slv.matrix.data.clone()))
+    launches = dict(kernels.launches)
+    print(f"launch counts over the main path: {launches}")
+
+    # ---- checks of the main path --------------------------------------
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"the main path never launched {missing}")
+    offsets = slv.matrix.offsets
+    data_ref, offs_ref = poisson_dia(grid_main, device)
+    if offsets != offs_ref or not torch.equal(
+            registry.global_registry.get("pBJ_solver").matrix.data, data_ref):
+        raise RuntimeError("the Dia data of the LDU path differs from the analytic stencil")
+    b_dev = torch.tensor(b, device=device)
+    checks = [("p", solves["p"][0], solves["p"][1], b_dev, data_ref, None),
+              ("pBJ", solves["pBJ"][0], solves["pBJ"][1], b_dev, data_ref,
+               1.0 / data_ref[offsets.index(0)]),
+              *((name, x, perf, bb, dd, None) for name, x, perf, bb, dd in steps)]
+    params = stopping.StoppingParams(tolerance=TOL, rel_tol=0.0, min_iter=0,
+                                     max_iter=1000, frequency=1)
+    for name, x, perf, bb, dd, invd in checks:
+        if not (perf.converged and perf.final_residual < TOL):
+            raise RuntimeError(f"{name}: did not converge: {perf}")
+        if x.shape != (m.n,) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{name}: solution not finite of shape ({m.n},)")
+        tr = true_residual(dd, offsets, x, bb)
+        line = (f"{name}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} "
+                f"(limit {TRUE_RESIDUAL_MARGIN:g} x {TOL:g})")
+        if not name.startswith("p step"):  # steps run adapted (minIter/frequency)
+            plain = cg_fused(PlainCgKernels(m.n, offsets, device), dd, bb,
+                             torch.zeros_like(bb), params, invd=invd)
+            line += f"; plain-kernel merged CG on the card: {plain.iters} iterations"
+            if abs(plain.iters - perf.n_iterations) > 1:
+                raise RuntimeError(f"{name}: {perf.n_iterations} iterations vs "
+                                   f"{plain.iters} with the plain kernels")
+        print(line)
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")
+
+    print("== phase 6: where the time goes (torch.profiler over one more step)")
+    m_k = dataclasses.replace(m_k, diag=np.asarray(m_k.diag) * 1.01)
+    b_k = (b_k * 1.01 + 0.1).astype(np.float32)
+    profile_step(lambda: foam.solve("p", m_k, b_k, {**ctl, "preconditioner": "none"}))
+
+    rows = []
+    for name, (route, source, replaces) in KERNELS.items():
+        r = report[name]["x".join(map(str, grid_main))]
+        rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"]})
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

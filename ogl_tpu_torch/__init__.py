@@ -1,0 +1,46 @@
+"""ogl_tpu_torch — the PyTorch/CUDA port of ogl_tpu.
+
+Counterpart: ogl_tpu/__init__.py.  The JAX package `ogl_tpu` stays the
+reference; this package runs the same solver front end on torch tensors,
+with every kernel of its path written by hand for NVIDIA Hopper (CUDA C++
+for sm_90a, or Triton for fused elementwise passes).  It imports torch and
+numpy and never jax or ogl_tpu.
+
+Slice covered so far: the GKOCG pressure solve — OpenFOAM LDU ingest, the
+Dia format, the delta-gated coefficient upload, and the merged two-kernel
+CG with the OpenFOAM stopping criterion, preconditioner `none` or scalar
+`BJ`, float32, one device.  Controls outside that slice raise
+NotImplementedError (see ogl_tpu_torch.foam.solver).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+__all__ = ["device_for", "__version__"]
+
+_HOST_EXECUTORS = ("reference", "omp", "cpu")
+_ACCELERATOR_EXECUTORS = ("cuda", "tpu", "hip", "dpcpp")
+
+
+def device_for(executor: str) -> torch.device:
+    """The torch device an fvSolution `executor` keyword selects
+    (counterpart of ogl_tpu/foam/solver.py `_device_for`).
+
+    reference/omp/cpu run on the host; every accelerator executor —
+    including the default `tpu`, so an unchanged fvSolution runs on the
+    card — maps to the CUDA device.  Without CUDA an accelerator executor
+    raises: it never quietly falls back to the CPU."""
+    if executor in _HOST_EXECUTORS:
+        return torch.device("cpu")
+    if executor in _ACCELERATOR_EXECUTORS:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"executor '{executor}' needs a CUDA device, and torch "
+                "reports none; use executor cpu to run on the host")
+        return torch.device("cuda")
+    raise ValueError(
+        f"unknown executor {executor!r}; valid: "
+        f"{_HOST_EXECUTORS + _ACCELERATOR_EXECUTORS}")

@@ -1,0 +1,6 @@
+from ogl_tpu_torch.foam.solver import (
+    FoamSolver as FoamSolver,
+    SolverPerformance as SolverPerformance,
+    solve as solve,
+)
+from ogl_tpu_torch.foam.api import GKOCG as GKOCG

@@ -1,0 +1,393 @@
+"""The OpenFOAM-facing solver layer of the port: one persistent FoamSolver
+per field, orchestrated like the reference's lduLduBase.
+
+Counterpart: ogl_tpu/foam/solver.py.
+
+  first solve:   LDU sparsity → Dia on the device (raw LDU blocks left
+                 resident) → preconditioner → merged-kernel CG
+  steady state:  per-block delta upload (unchanged blocks never cross to
+                 the device) → one on-device gather + scatter into the Dia
+                 data → preconditioner regeneration gated on a changed
+                 operator and the TTL → merged-kernel CG
+
+Slice implemented: GKOCG, preconditioner `none` or scalar `BJ`, float32,
+one device, the Dia format.  Every control outside it raises
+NotImplementedError naming its ROADMAP.md item; none is silently ignored.
+`fusedCG false` routes to the general CG (solve/cg.py).  The reference's
+TPU-only route gates (Pallas usability, the 32k-row floor of the merged
+kernels, the working-set gate of the z-free variant) are not carried
+over: every Dia + diagonal-preconditioner float32 solve takes the merged
+route, on either device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from ogl_tpu_torch import __version__ as _version
+from ogl_tpu_torch import common, device_for, precond, registry
+from ogl_tpu_torch.config import SolverConfig, parse_controls
+from ogl_tpu_torch.core import formats, ldu
+from ogl_tpu_torch.kernels import spmv
+from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.solve import stopping
+from ogl_tpu_torch.solve.cg import cg
+from ogl_tpu_torch.solve.cg_fused import cg_fused
+from ogl_tpu_torch.solve.krylov import single_device_ops
+
+__all__ = ["SolverPerformance", "FoamSolver", "solve", "unsupported"]
+
+
+class SolverPerformance(NamedTuple):
+    """What OpenFOAM's solverPerformance reports back into the log."""
+
+    solver_name: str
+    field_name: str
+    initial_residual: float
+    final_residual: float
+    n_iterations: int
+    converged: bool
+
+    def print(self):  # OpenFOAM log line format
+        print(
+            f"{self.solver_name}:  Solving for {self.field_name}, "
+            f"Initial residual = {self.initial_residual:g}, "
+            f"Final residual = {self.final_residual:g}, "
+            f"No Iterations {self.n_iterations}"
+        )
+
+
+def unsupported(cfg: SolverConfig) -> str | None:
+    """Why the port cannot run `cfg` yet (naming the ROADMAP.md item that
+    ports it), or None when the slice covers it."""
+    pc = cfg.precond
+    if cfg.solver != "GKOCG":
+        return f"solver {cfg.solver} (ROADMAP.md A9)"
+    if pc.name not in precond.PORTED:
+        item = "A11" if pc.name == "Multigrid" else "A10"
+        return f"preconditioner {pc.name} (ROADMAP.md {item})"
+    if pc.name == "BJ" and pc.max_block_size != 1:
+        return f"BJ maxBlockSize {pc.max_block_size} (ROADMAP.md A10)"
+    if pc.name == "BJ" and pc.value_precision == "bfloat16":
+        return "preconditioner precision bfloat16 (ROADMAP.md A10)"
+    if cfg.matrix_format_explicit and cfg.matrix_format != "Dia":
+        item = "A13" if cfg.matrix_format in ("Gdia", "Xell") else "A2"
+        return f"matrixFormat {cfg.matrix_format} (ROADMAP.md {item})"
+    if cfg.dtype != "float32":
+        return f"dtype {cfg.dtype} (ROADMAP.md A14)"
+    if cfg.pipelined_cg:
+        return "pipelinedCG true (ROADMAP.md A12)"
+    if cfg.reorder != "none":
+        return f"reorder {cfg.reorder} (ROADMAP.md A15)"
+    if cfg.upload_precision != "default":
+        return f"uploadPrecision {cfg.upload_precision} (ROADMAP.md A7)"
+    if cfg.export or cfg.debug:
+        return "export/debug (ROADMAP.md A15)"
+    return None
+
+
+def _res_eval_seconds(mv, x, b, device: torch.device, k: int = 8) -> float:
+    """Seconds per residual-norm evaluation ‖b − A x‖₁ — the criterion's
+    per-check cost that adaptMinIter weighs (lduLduBase.H:287-293).  On
+    CUDA the k chained evaluations are timed with CUDA events around the
+    Dia SpMV kernel; on the host with the wall clock.  Measured on every
+    solve, as OGL does (the JAX reference measures once per solver)."""
+    def f():
+        return torch.sum(torch.abs(b - mv(x)))
+
+    f()  # warm
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            f()
+        end.record()
+        end.synchronize()
+        return max(start.elapsed_time(end) * 1e-3, 1e-12) / k
+    t0 = time.perf_counter()
+    for _ in range(k):
+        f()
+    return max(time.perf_counter() - t0, 1e-12) / k
+
+
+class FoamSolver:
+    """Per-field persistent solver (stored in the registry by field name)."""
+
+    def __init__(self, field_name: str, controls: dict | SolverConfig):
+        self.field = field_name
+        self.cfg = controls if isinstance(controls, SolverConfig) else parse_controls(controls)
+        why = unsupported(self.cfg)
+        if why is not None:
+            raise NotImplementedError(f"{field_name}: {why} is not ported to ogl_tpu_torch yet")
+        self.device = device_for(self.cfg.executor)
+        self.dtype = torch.float32
+        self.np_dtype = np.float32
+        self.sparsity: ldu.LduSparsity | None = None
+        self.matrix: formats.Dia | None = None
+        self.kern: CgKernels | None = None
+        self._n = 0
+        self._coeff_epoch = 0
+        self._value_map = None
+        self._permute_dev = None
+        self._coo_host_cache = None
+        self._blocks_host = None  # raw LDU source blocks of the last update
+        self._blocks_prev = None  # private copies backing the delta compare
+        self._blocks_dev = None  # device-resident per-block uploads
+        self._blocks_stale = None  # device copy out of date vs host values
+        self._b_prev = None
+        self._b_dev = None
+        self._precond_op = None
+        self._pc_built_epoch = None
+        self._res_eval_time = 0.0
+        self.last_blocks_changed = (0, 0)
+        self.last_blocks_uploaded = (0, 0)
+        self.last_upload_bytes = 0
+        self.last_rhs_uploaded = False
+        self.last_timings: dict = {}
+        self.props = registry.global_registry.properties(field_name)
+        self.timings = common.Timings()
+
+    def _timed(self, name: str):
+        return common.timed(name, self.cfg.verbose, self.field, self.timings,
+                            self.device)
+
+    # -- matrix ---------------------------------------------------------
+    def _convert(self, coo: formats.Coo) -> formats.Dia:
+        """First-solve conversion.  Without an explicit matrixFormat the
+        matrix must pass the Dia test of the reference's auto-routing
+        (at most 64 distinct offsets); no other format is ported."""
+        if not self.cfg.matrix_format_explicit and not spmv.fits_dia(
+                coo.rows, coo.cols, coo.shape[0]):
+            raise NotImplementedError(
+                f"{self.field}: the matrix has more than 64 distinct diagonals, so "
+                "it does not route to Dia, and no other format is ported to "
+                "ogl_tpu_torch yet (ROADMAP.md A2, A13)")
+        return formats.coo_to_dia(coo, self.device)
+
+    def _update_matrix(self, m: ldu.LduMatrix):
+        cfg = self.cfg
+        first = self.sparsity is None
+        if first:
+            with self._timed("init_host_sparsity"):
+                self.sparsity = ldu.build_local_sparsity(m)
+        if not (first or cfg.update_sys_matrix):
+            return
+        with self._timed("update_local_matrix"):
+            self._blocks_host = ldu.host_blocks(self.sparsity, m, self.np_dtype)
+            self._coo_host_cache = None
+            self._n = m.n
+        nb = len(self._blocks_host)
+        if first or self.matrix is None or cfg.regenerate:
+            self._coeff_epoch += 1
+            self._blocks_prev = [np.array(blk) for blk in self._blocks_host]
+            self._blocks_dev = [None] * nb
+            self._blocks_stale = [False] * nb
+            self.last_blocks_changed = (nb, nb)
+            with self._timed("convert_format"):
+                self.matrix = self._convert(self.coo_host())
+                if not cfg.regenerate:
+                    # leave the raw blocks resident: later steps upload
+                    # only the blocks whose values change
+                    self._stage_blocks()
+            self.kern = CgKernels(m.n, self.matrix.offsets, self.device)
+            return
+        # steady state: upload the changed raw blocks, then one gather +
+        # scatter on the device (the reference's in-place device value
+        # overwrite, CsrMatrixWrapper.H:74-136)
+        if self._value_map is None:
+            c = self.coo_host()
+            self._value_map = formats.value_map(self.matrix, c.rows, c.cols)
+            self._permute_dev = torch.tensor(
+                self.sparsity.permute.astype(np.int64), device=self.device)
+        with self._timed("update_device_values"):
+            self._detect_changed_blocks()
+            blocks_dev = self._stage_blocks()
+            vals = ldu.assemble_from_blocks(blocks_dev, self._permute_dev,
+                                            cfg.scaling)
+            self.matrix = self._value_map.update(self.matrix, vals)
+        if self.last_blocks_changed[0] > 0:
+            self._coeff_epoch += 1
+
+    def _detect_changed_blocks(self) -> None:
+        """Host-side per-block change detection against the previous step's
+        values; marks changed blocks' device copies stale."""
+        changed = 0
+        for i, blk in enumerate(self._blocks_host):
+            prev = self._blocks_prev[i]
+            if prev.shape == blk.shape and np.array_equal(prev, blk):
+                continue
+            changed += 1
+            self._blocks_stale[i] = True
+            # private copy: a caller mutating its LDU arrays in place must
+            # not alias the compare baseline
+            self._blocks_prev[i] = np.array(blk)
+        self.last_blocks_changed = (changed, len(self._blocks_host))
+
+    def _stage_blocks(self) -> list:
+        """Upload every block whose device copy is missing or stale;
+        resident-and-current blocks never cross to the device."""
+        uploaded = 0
+        nbytes = 0
+        for i, blk in enumerate(self._blocks_host):
+            if self._blocks_dev[i] is not None and not self._blocks_stale[i]:
+                continue
+            self._blocks_dev[i] = torch.tensor(blk, device=self.device)
+            self._blocks_stale[i] = False
+            uploaded += 1
+            nbytes += blk.nbytes
+        self.last_blocks_uploaded = (uploaded, len(self._blocks_host))
+        self.last_upload_bytes = nbytes
+        return self._blocks_dev
+
+    def coo_host(self) -> formats.Coo:
+        """Host-side COO of the CURRENT coefficients (lazy row-major
+        gather, for format conversion and preconditioner setup)."""
+        if self._coo_host_cache is None:
+            blocks = self._blocks_host
+            src = np.concatenate(blocks) if len(blocks) > 1 else blocks[0]
+            vals = src[self.sparsity.permute]
+            if self.cfg.scaling != 1.0:
+                vals = vals * np.asarray(self.cfg.scaling, vals.dtype)
+            self._coo_host_cache = formats.Coo(
+                rows=self.sparsity.rows, cols=self.sparsity.cols, vals=vals,
+                shape=(self._n, self._n))
+        return self._coo_host_cache
+
+    # -- preconditioner (TTL caching, Preconditioner.H:353-431) ---------
+    def _update_precond(self):
+        pc = self.cfg.precond
+        if pc.name == "none":
+            self._precond_op = None
+            return
+        if self._precond_op is not None and self._pc_built_epoch == self._coeff_epoch:
+            # operator coefficients unchanged since the last build: the
+            # rebuild would be identical, so skip it (TTL frozen too)
+            return
+        if self._precond_op is not None and self.props.precond_caching_left > 0:
+            self.props.precond_caching_left -= 1
+            return
+        with self._timed("generate_preconditioner"):
+            self._precond_op = precond.build(pc, self.coo_host(), self.device)
+        self._pc_built_epoch = self._coeff_epoch
+        self.props.precond_caching_left = pc.caching
+
+    # -- right-hand side --------------------------------------------------
+    def _update_rhs(self, b) -> torch.Tensor:
+        if not self.cfg.update_rhs and self._b_dev is not None:
+            self.last_rhs_uploaded = False
+            return self._b_dev
+        b_host = np.asarray(b)
+        if self.cfg.scaling != 1.0:
+            # the RHS scales with the matrix (lduLduBase.H:244-252), so the
+            # solution is invariant under `scaling`
+            b_host = b_host * np.asarray(self.cfg.scaling, self.np_dtype)
+        b_host = np.asarray(b_host, self.np_dtype)
+        if (self._b_prev is not None and self._b_prev.shape == b_host.shape
+                and np.array_equal(self._b_prev, b_host)):
+            self.last_rhs_uploaded = False  # unchanged RHS stays resident
+            return self._b_dev
+        self._b_dev = torch.tensor(b_host, device=self.device)
+        self._b_prev = np.array(b_host)
+        self.last_rhs_uploaded = True
+        return self._b_dev
+
+    # -- solve ----------------------------------------------------------
+    def solve(self, m: ldu.LduMatrix, b, psi=None, time_value: str | None = None
+              ) -> tuple[Any, SolverPerformance]:
+        """One solve: returns (x, SolverPerformance), x a tensor on the
+        solver's device.  `psi` is the initial guess (used when
+        updateInitGuess).  `time_value` is accepted for interface parity
+        (it only names export directories, which are not ported)."""
+        cfg = self.cfg
+        if cfg.verbose > 0 and self.sparsity is None:
+            print(f"OGL-TPU (PyTorch port {_version})\n"
+                  f"  torch:         {torch.__version__}\n"
+                  f"  device:        {self._device_name()}\n"
+                  f"  matrix format: Dia\n"
+                  f"  dtype:         {cfg.dtype}\n"
+                  f"  executor:      {cfg.executor}")
+        self._update_matrix(m)
+        self._update_precond()
+        b_dev = self._update_rhs(b)
+        if psi is not None and cfg.update_init_guess:
+            x0 = torch.tensor(np.asarray(psi, self.np_dtype), device=self.device)
+        else:
+            x0 = torch.zeros_like(b_dev)
+
+        stopping_cfg = cfg.stopping.adapted(
+            self.props.prev_solve_iters, self.props.prev_rel_res_cost, cfg.export)
+        if cfg.verbose > 0 and stopping_cfg is not cfg.stopping:
+            common.log(cfg.verbose, 0,
+                       f"stopping criterion minIter {stopping_cfg.min_iter} "
+                       f"frequency {stopping_cfg.frequency}")
+        params = stopping.StoppingParams.of(stopping_cfg)
+        invd = self._precond_op.state if self._precond_op is not None else None
+
+        with self._timed("solve"):
+            if cfg.fused_cg:
+                res = cg_fused(self.kern, self.kern.pack_values(self.matrix),
+                               b_dev, x0, params, invd=invd)
+            else:
+                ops = single_device_ops(
+                    spmv.matvec(self.matrix), m.n,
+                    precond=self._precond_op.bind(invd) if invd is not None else None)
+                res = cg(ops, b_dev, x0, params)
+            # one batched fetch of the stats, inside the timed region
+            init_rn, final_rn, conv = torch.stack([
+                res.init_res_norm.double(), res.final_res_norm.double(),
+                res.converged.double()]).tolist()
+        solve_t = self.timings["solve"]
+        self.last_timings = dict(self.timings)
+        self.timings.clear()
+        iters = res.iters
+
+        self._res_eval_time = _res_eval_seconds(
+            spmv.matvec(self.matrix), res.x, b_dev, self.device)
+        time_per_iter = solve_t / max(iters, 1)
+        self.props.prev_rel_res_cost = time_per_iter / self._res_eval_time
+        self.props.prev_solve_iters = iters
+        self.props.init_residual = init_rn
+        self.props.final_residual = final_rn
+
+        if cfg.verbose > 0:
+            # copy-back bandwidth (reference times dist_x.copy_back(),
+            # lduLduBase.H:277-281)
+            t0 = time.perf_counter()
+            res.x.cpu()
+            copy_t = max(time.perf_counter() - t0, 1e-9)
+            print(
+                "\nStatistics:\n"
+                f"\tTime per iteration: {time_per_iter * 1e6:.3f} [mu s]\n"
+                f"\tTime per residual norm calculation: {self._res_eval_time * 1e6:.3f} [mu s]\n"
+                f"\tTime per iteration and DOF: {time_per_iter * 1e9 / m.n:.3f} [ns]\n"
+                f"\tRetrieve results bandwidth "
+                f"{4 * m.n / copy_t / 1e9:.3g} [GByte/s]"
+            )
+
+        perf = SolverPerformance(
+            solver_name=f"{cfg.solver}_Dia",
+            field_name=self.field,
+            initial_residual=init_rn,
+            final_residual=final_rn,
+            n_iterations=iters,
+            converged=bool(conv),
+        )
+        return res.x, perf
+
+    def _device_name(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return "cpu"
+
+
+def solve(field_name: str, m: ldu.LduMatrix, b, controls: dict | SolverConfig, psi=None):
+    """Functional entry: get-or-create the per-field FoamSolver from the
+    registry (the objectRegistry pattern) and run one solve."""
+    solver = registry.global_registry.get_or_init(
+        f"{field_name}_solver", lambda: FoamSolver(field_name, controls))
+    return solver.solve(m, b, psi=psi)

@@ -1,0 +1,52 @@
+"""Build the port's objects from the JAX package's data, handed over as
+numpy arrays.
+
+Counterpart: none — this is the bridge the parity tests use.  It imports
+neither package's jax side: callers convert the reference's arrays with
+numpy first (np.asarray on a jax array), and this module only reads them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ogl_tpu_torch.core.formats import Dia
+from ogl_tpu_torch.core.ldu import LduMatrix, LocalInterface
+
+__all__ = ["dia_from_arrays", "ldu_from_arrays", "unframe_reference"]
+
+
+def dia_from_arrays(data, offsets, shape, device: torch.device | str = "cpu") -> Dia:
+    """A port Dia from (nd, n) data, its offsets and the matrix shape."""
+    arr = np.ascontiguousarray(np.asarray(data))
+    return Dia(data=torch.tensor(arr, device=device),
+               offsets=tuple(int(o) for o in offsets),
+               shape=tuple(int(s) for s in shape))
+
+
+def ldu_from_arrays(n, lower_addr, upper_addr, diag, upper, lower=None,
+                    local_interfaces=()) -> LduMatrix:
+    """A port LduMatrix from numpy arrays.  `local_interfaces` items are
+    anything with rows/cols/coeffs attributes (the reference's
+    LocalInterface included)."""
+    ifaces = tuple(LocalInterface(rows=np.asarray(li.rows), cols=np.asarray(li.cols),
+                                  coeffs=np.asarray(li.coeffs))
+                   for li in local_interfaces)
+    return LduMatrix(
+        n=int(n),
+        lower_addr=np.asarray(lower_addr),
+        upper_addr=np.asarray(upper_addr),
+        diag=np.asarray(diag),
+        upper=np.asarray(upper),
+        lower=None if lower is None else np.asarray(lower),
+        local_interfaces=ifaces,
+    )
+
+
+def unframe_reference(xf, n: int, tile: int) -> np.ndarray:
+    """The port's flat (n,) vector from a reference halo-framed
+    (Rp + 2T, 128) vector: drop the T zero rows at either end and the
+    padding past n (ogl_tpu/kernels/fused.py `CgKernels.unframe`)."""
+    xf = np.asarray(xf)
+    return xf[tile: xf.shape[0] - tile].reshape(-1)[:n].copy()

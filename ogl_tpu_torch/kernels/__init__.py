@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch twins.
+
+Counterpart: ogl_tpu/kernels/.  Each kernel wrapper launches its kernel
+for CUDA tensors (or raises) and runs the plain version only for tensors
+on the CPU.  `launches` counts kernel launches per wrapper — incremented
+right after a launch succeeds and nowhere else — so a run can show that
+its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+launches: dict[str, int] = {"dia_spmv": 0, "cg_k1": 0, "cg_k2": 0, "cg_k2i": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0

@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA C++ kernels (ogl_tpu_torch/kernels/csrc).
+
+All `*.cu` sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/<hash>/libogl_torch_kernels.so csrc/*.cu
+
+The build directory is keyed by a hash of the sources (and the flags), so
+an edit rebuilds.  Nothing here runs on import: the first CUDA launch
+calls `library()`, which builds if needed and raises if nvcc is missing or
+the build fails.  There is no fallback.
+
+Every C entry point takes raw device pointers and the CUDA stream as
+`void*` (ctypes.c_void_p — an unannotated Python int would be cut to 32
+bits) and returns `cudaGetLastError()` after its launch; `check()` raises
+on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["library", "check", "build_info"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+LIB_NAME = "libogl_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+
+# name -> argtypes; every entry point returns int (a cudaError_t)
+_SIGNATURES = {
+    # data, offsets, nd, x, y, n, threads, stream
+    "ogl_dia_spmv": (_P, _P, _INT, _P, _P, _I64, _INT, _P),
+    # data, offsets, nd, z, p, beta, pout, q, partials, n, threads, grid, stream
+    "ogl_cg_k1": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+}
+
+_lock = threading.Lock()
+_state: dict = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc" if cand else None
+        if p is not None and p.is_file():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the port's CUDA kernels cannot be built")
+    return found
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> str:
+    """Compile every .cu into `out` (written atomically); returns nvcc's
+    output (-Xptxas -v: registers, shared memory and spills per kernel)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    log = proc.stdout + proc.stderr
+    (out.parent / "build.log").write_text(log)
+    return log
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built from csrc/ on first use."""
+    with _lock:
+        lib = _state.get("lib")
+        if lib is not None:
+            return lib
+        out = BUILD / _source_hash() / LIB_NAME
+        t0 = time.perf_counter()
+        built = not out.is_file()
+        if built:
+            log = _build(out)
+        else:
+            log_file = out.parent / "build.log"
+            log = log_file.read_text() if log_file.is_file() else ""
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ogl_error_string.argtypes = (ctypes.c_int,)
+        lib.ogl_error_string.restype = ctypes.c_char_p
+        _state.update(lib=lib, path=str(out), built=built, log=log,
+                      seconds=time.perf_counter() - t0)
+        return lib
+
+
+def build_info() -> dict:
+    """Where the library came from: path, whether this process built it,
+    the seconds build+load took and nvcc's -Xptxas -v report."""
+    library()
+    return {k: _state[k] for k in ("path", "built", "seconds", "log")}
+
+
+def check(code: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if code != 0:
+        name = library().ogl_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({name}) at launch")

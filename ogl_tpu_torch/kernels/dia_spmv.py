@@ -1,0 +1,100 @@
+"""Dia (stencil) SpMV: the CUDA C++ kernel `csrc/dia_spmv.cu` and its
+plain PyTorch twin.
+
+Counterpart: ogl_tpu/kernels/pallas_spmv.py (`_kernel`, `dia_matvec`,
+`dia_spmv`).  The port keeps vectors flat — (n,) float32 — and the Dia
+data as a contiguous (nd, n) float32 tensor, so no padded (R, 128) view
+or halo frame exists here.
+
+`dia_spmv(plan, data, x)` launches the kernel for CUDA tensors and runs
+`dia_spmv_plain` only for tensors on the CPU; on a CUDA tensor it never
+falls back, it raises on a wrong device, dtype, shape or contiguity and on
+a refused launch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ogl_tpu_torch import kernels
+from ogl_tpu_torch.kernels import _build
+
+__all__ = ["DiaPlan", "dia_spmv", "dia_spmv_plain", "THREADS", "MAX_DIAGS"]
+
+THREADS = 256  # rows per block (one thread per row)
+MAX_DIAGS = 64  # the kernels stage the offsets in a 64-entry shared array
+
+
+class DiaPlan:
+    """Static structure of a Dia matrix on one device: n, the host offsets
+    tuple and the same offsets as an int32 device tensor (what the CUDA
+    kernels read).  Values are not part of the plan, so one plan serves
+    every coefficient update of the same sparsity."""
+
+    def __init__(self, n: int, offsets, device: torch.device | str):
+        self.n = int(n)
+        self.offsets = tuple(int(o) for o in offsets)
+        if len(self.offsets) > MAX_DIAGS:
+            raise ValueError(
+                f"{len(self.offsets)} diagonals: the Dia kernels take at most {MAX_DIAGS}")
+        self.offsets_dev = torch.tensor(self.offsets, dtype=torch.int32,
+                                        device=device)
+        self.device = self.offsets_dev.device  # resolved: cuda -> cuda:0
+
+    @classmethod
+    def of(cls, mat) -> "DiaPlan":
+        return cls(mat.shape[0], mat.offsets, mat.data.device)
+
+
+def dia_spmv_plain(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
+    """y = Σ_k data[k] ⊙ x[i + offsets[k]] (zero outside [0, n)), summed in
+    offset order — the reference's `spmv_dia`."""
+    n = x.shape[0]
+    offs = tuple(offsets)
+    lo = max(0, -min(offs)) if offs else 0
+    hi = max(0, max(offs)) if offs else 0
+    xp = torch.nn.functional.pad(x, (lo, hi))
+    y = torch.zeros_like(x)
+    for k, off in enumerate(offs):
+        y = y + data[k] * xp[lo + off: lo + off + n]
+    return y
+
+
+def check_operands(plan: DiaPlan, data: torch.Tensor | None,
+                   *vectors: torch.Tensor) -> None:
+    """Raise unless data (when given) is a contiguous (nd, n) float32
+    tensor and every vector a contiguous (n,) float32 tensor, all on the
+    plan's device."""
+    nd, n = len(plan.offsets), plan.n
+    checks = [(f"vector {i}", v, (n,)) for i, v in enumerate(vectors)]
+    if data is not None:
+        checks.append(("data", data, (nd, n)))
+    for name, t, shape in checks:
+        if t.device != plan.device:
+            raise ValueError(f"{name} is on {t.device}, the plan on {plan.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {t.dtype}; the kernels take float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dia_spmv(plan: DiaPlan, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for the Dia matrix (plan, data)."""
+    if x.device.type == "cpu" and data.device.type == "cpu":
+        return dia_spmv_plain(data, plan.offsets, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"dia_spmv: no kernel for device {x.device}")
+    check_operands(plan, data, x)
+    lib = _build.library()
+    y = torch.empty_like(x)
+    _build.check(lib.ogl_dia_spmv(
+        data.data_ptr(), plan.offsets_dev.data_ptr(), len(plan.offsets),
+        x.data_ptr(), y.data_ptr(), plan.n, THREADS, stream_of(x)), "dia_spmv")
+    kernels.launches["dia_spmv"] += 1
+    return y

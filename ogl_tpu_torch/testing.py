@@ -1,0 +1,108 @@
+"""Problem generators shared by tests and the chip smoke run.
+
+Counterpart: ogl_tpu/testing.py (`grid_shape`, `poisson_ldu`,
+`convection_diffusion_ldu`, `to_dense_ldu`, `poisson_dense`), carried over
+unchanged: the same numpy outputs, returned as the port's LduMatrix.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ogl_tpu_torch.core import ldu
+
+__all__ = ["poisson_ldu", "poisson_dense", "convection_diffusion_ldu",
+           "to_dense_ldu", "grid_shape"]
+
+
+def grid_shape(dims):
+    return (dims, 1, 1) if isinstance(dims, int) else tuple(dims) + (1,) * (3 - len(dims))
+
+
+def poisson_ldu(dims, dirichlet_boundary: bool = True) -> ldu.LduMatrix:
+    """FV Poisson (pressure-equation-like) system on a structured grid in
+    OpenFOAM LDU form: faces sorted by (owner, neighbour) ascending owners,
+    diag = number of neighbours (+ boundary contribution), upper = -1.
+
+    dims: int or tuple up to 3-D.  With dirichlet_boundary=True boundary
+    cells get an extra diagonal unit (pinning the nullspace, like a fixed-
+    value patch); otherwise the matrix is singular (pure Neumann) like a
+    real incompressible pressure equation.
+    """
+    nx, ny, nz = grid_shape(dims)
+    n = nx * ny * nz
+    cid = np.arange(n).reshape(nz, ny, nx)  # (k, j, i) layout
+
+    owners, nbrs = [], []
+    if nx > 1:
+        owners.append(cid[:, :, :-1].ravel())
+        nbrs.append(cid[:, :, 1:].ravel())
+    if ny > 1:
+        owners.append(cid[:, :-1, :].ravel())
+        nbrs.append(cid[:, 1:, :].ravel())
+    if nz > 1:
+        owners.append(cid[:-1, :, :].ravel())
+        nbrs.append(cid[1:, :, :].ravel())
+    owners = np.concatenate(owners) if owners else np.zeros(0, np.int64)
+    nbrs = np.concatenate(nbrs) if nbrs else np.zeros(0, np.int64)
+    order = np.lexsort((nbrs, owners))
+    lower_addr = owners[order].astype(np.int64)
+    upper_addr = nbrs[order].astype(np.int64)
+    diag = np.zeros(n)
+    np.add.at(diag, lower_addr, 1.0)
+    np.add.at(diag, upper_addr, 1.0)
+    if dirichlet_boundary:
+        # boundary faces contribute to the diagonal only
+        bmask = np.zeros((nz, ny, nx))
+        for ax, m in ((2, nx), (1, ny), (0, nz)):
+            if m > 1:
+                idx = [slice(None)] * 3
+                idx[ax] = 0
+                bmask[tuple(idx)] += 1
+                idx[ax] = m - 1
+                bmask[tuple(idx)] += 1
+        diag += bmask.ravel()
+    return ldu.LduMatrix(
+        n=n,
+        lower_addr=lower_addr,
+        upper_addr=upper_addr,
+        diag=diag,
+        upper=np.full(len(lower_addr), -1.0),
+    )
+
+
+def convection_diffusion_ldu(dims, peclet: float = 0.5) -> ldu.LduMatrix:
+    """Non-symmetric convection-diffusion system (upwinded convection adds
+    ±peclet to the off-diagonals), exercising the asymmetric LDU path."""
+    base = poisson_ldu(dims)
+    nf = base.n_faces
+    upper = base.upper - peclet  # downstream coupling
+    lower = np.full(nf, -1.0) + peclet  # upstream coupling
+    diag = base.diag + 2 * abs(peclet)  # keep diagonally dominant
+    return ldu.LduMatrix(
+        n=base.n,
+        lower_addr=base.lower_addr,
+        upper_addr=base.upper_addr,
+        diag=diag,
+        upper=upper,
+        lower=lower,
+    )
+
+
+def to_dense_ldu(m: ldu.LduMatrix) -> np.ndarray:
+    """Densify any LduMatrix (incl. non-symmetric and local interfaces)."""
+    a = np.zeros((m.n, m.n))
+    np.fill_diagonal(a, m.diag)
+    lower = m.upper if m.symmetric else m.lower
+    np.add.at(a, (np.asarray(m.lower_addr), np.asarray(m.upper_addr)),
+              np.asarray(m.upper))
+    np.add.at(a, (np.asarray(m.upper_addr), np.asarray(m.lower_addr)),
+              np.asarray(lower))
+    for li in m.local_interfaces:
+        np.add.at(a, (np.asarray(li.rows), np.asarray(li.cols)),
+                  -np.asarray(li.coeffs))
+    return a
+
+
+def poisson_dense(dims, dirichlet_boundary: bool = True) -> np.ndarray:
+    return to_dense_ldu(poisson_ldu(dims, dirichlet_boundary))

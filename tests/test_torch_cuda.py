@@ -1,0 +1,162 @@
+"""The port's kernels on an NVIDIA GPU against their plain PyTorch twins,
+and the foam path on the card against the same solve on the CPU.
+
+Every test here needs a CUDA device and carries the `cuda` marker; without
+one it skips (decided in the fixture, never at import).  On a machine with
+a card and without jax, run them with
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(--noconftest: tests/conftest.py configures jax, which these tests do not
+use).  Tolerances: elementwise outputs may differ by the fused
+multiply-adds the compilers form (a few ulp); block sums are summed in
+another order than torch.sum's (rtol 1e-4)."""
+
+import numpy as np
+import pytest
+import torch
+
+from ogl_tpu_torch import foam, kernels, registry, testing
+from ogl_tpu_torch.core import formats, ldu
+from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
+from ogl_tpu_torch.kernels.fused import CgKernels, k1_plain, k2_plain, k2i_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    registry.global_registry.clear()
+    yield torch.device("cuda")
+    registry.global_registry.clear()
+
+
+def _banded(n, offsets, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    data = torch.randn((len(offsets), n), generator=g)
+    for k, off in enumerate(offsets):  # zero outside [0, n), as Dia stores it
+        i = torch.arange(n)
+        data[k, (i + off < 0) | (i + off >= n)] = 0.0
+    return data.to(device)
+
+
+def _poisson(dims, device):
+    m = testing.poisson_ldu(dims)
+    return formats.coo_to_dia(ldu.ldu_to_coo_host(m, dtype=np.float32), device)
+
+
+def _vec(n, seed, device, lo=None):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    v = torch.rand(n, generator=g) * 0.1 + lo if lo is not None else torch.randn(n, generator=g)
+    return v.to(device)
+
+
+def _close(got, want, rtol=1e-5):
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * scale)
+
+
+CASES = [("poisson", (32, 16, 8)), ("banded", 1000), ("banded", 257)]
+
+
+def _case(case, device):
+    kind, size = case
+    if kind == "poisson":
+        mat = _poisson(size, device)
+        return mat.data, mat.offsets
+    offsets = (-300, -5, -1, 0, 1, 5, 300) if size > 600 else (-5, -1, 0, 1, 5)
+    return _banded(size, offsets, 1, device), offsets
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_dia_spmv_kernel_matches_plain(dev, case):
+    data, offsets = _case(case, dev)
+    n = data.shape[1]
+    plan = DiaPlan(n, offsets, dev)
+    x = _vec(n, 2, dev)
+    kernels.reset_launches()
+    y = dia_spmv(plan, data, x)
+    torch.cuda.synchronize()
+    assert kernels.launches["dia_spmv"] == 1
+    _close(y, dia_spmv_plain(data, offsets, x))
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_k1_kernel_matches_plain(dev, case):
+    data, offsets = _case(case, dev)
+    n = data.shape[1]
+    kern = CgKernels(n, offsets, dev)
+    z, p = _vec(n, 3, dev), _vec(n, 4, dev)
+    beta = torch.tensor(0.37, device=dev)
+    kernels.reset_launches()
+    pw, q, delta = kern.k1(data, z, p, beta)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_k1"] == 1
+    pw2, q2, d2 = k1_plain(data, offsets, z, p, beta)
+    _close(pw, pw2)
+    _close(q, q2)
+    torch.testing.assert_close(delta, d2, rtol=1e-4, atol=1e-4 * float(d2.abs()))
+    # apply: K1 with z and p aliased to one buffer, beta = 0
+    _close(kern.apply(data, z), dia_spmv_plain(data, offsets, z))
+
+
+@pytest.mark.parametrize("n", [1000, 4096, 70001])
+def test_k2_kernels_match_plain(dev, n):
+    kern = CgKernels(n, (0,), dev)
+    alpha = torch.tensor(-0.21, device=dev)
+    p, q, invd = _vec(n, 5, dev), _vec(n, 6, dev), _vec(n, 7, dev, lo=0.1)
+    for jacobi in (True, False):
+        xs = [_vec(n, 8, dev) for _ in range(2)]
+        rs = [_vec(n, 9, dev) for _ in range(2)]
+        zs = [torch.empty(n, device=dev) for _ in range(2)]
+        kernels.reset_launches()
+        if jacobi:
+            got = kern.k2(alpha, xs[0], rs[0], p, q, invd, zs[0])
+            want = k2_plain(alpha, xs[1], rs[1], p, q, invd, zs[1])
+            _close(zs[0], zs[1])
+        else:
+            got = kern.k2i(alpha, xs[0], rs[0], p, q)
+            want = k2i_plain(alpha, xs[1], rs[1], p, q)
+        torch.cuda.synchronize()
+        assert kernels.launches["cg_k2" if jacobi else "cg_k2i"] == 1
+        _close(xs[0], xs[1])
+        _close(rs[0], rs[1])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+
+
+def test_wrappers_raise_on_bad_operands(dev):
+    n = 512
+    kern = CgKernels(n, (-1, 0, 1), dev)
+    data = _banded(n, (-1, 0, 1), 0, dev)
+    x = _vec(n, 1, dev)
+    beta = torch.tensor(0.5, device=dev)
+    with pytest.raises(TypeError, match="0-d float32"):
+        kern.k1(data, x, x, 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        kern.k1(data.double(), x, x, beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern.k1(data, x, torch.randn(2 * n, device=dev)[::2], beta)
+    with pytest.raises(ValueError, match="shape"):
+        kern.k2i(beta, x, x[:-1], x, x)
+    with pytest.raises(ValueError, match="is on"):
+        dia_spmv(kern.plan, data.cpu(), x)
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+def test_foam_solve_on_card_matches_cpu(dev, pc):
+    m = testing.poisson_ldu((32, 32, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": "GKOCG", "matrixFormat": "Dia", "tolerance": 1e-6, "relTol": 0,
+           "adaptMinIter": False,
+           "preconditioner": pc if pc == "none" else {"preconditioner": "BJ"}}
+    x_cpu, perf_cpu = foam.FoamSolver("p", {**ctl, "executor": "cpu"}).solve(m, b)
+    kernels.reset_launches()
+    x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
+    assert x.device.type == "cuda"
+    assert kernels.launches["cg_k1"] > 0 and kernels.launches["dia_spmv"] > 0
+    assert kernels.launches["cg_k2" if pc == "BJ" else "cg_k2i"] > 0
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
