@@ -3,27 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — `ogl_tpu_torch.foam.solve("p", ...)`, GKOCG
-on a 128x128x64 (1,048,576-cell) Poisson pressure system in OpenFOAM LDU
-form, preconditioner `none` and scalar `BJ`, then a steady-state step —
-after building the port's kernels from the sources in this checkout and
-holding each against its plain PyTorch version on the card, at the slice's
-size and at 256x256x128 (8,388,608 rows).
+Drives the port's two main paths through `ogl_tpu_torch.foam.solve` on a
+128x128x64 (1,048,576-cell) Poisson pressure system in OpenFOAM LDU form:
+GKOCG with preconditioner `none` and scalar `BJ` (slice 1), and the
+AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2),
+each followed by steady-state steps — after building the port's kernels
+from the sources in this checkout and holding each against its plain
+PyTorch version on the card, at the slices' size and at 256x256x128
+(8,388,608 rows).
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a) and nvcc's register report;
-  3. kernels vs plain versions at 1M and 8.4M rows: max error against the
+  3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
+     with float32 and bfloat16 coefficients): max error against the
      stated tolerance, median times (CUDA events), implied GB/s;
-  4. the main path: both solves, launch counts of every kernel, the true
+  4. slice 1's path: both solves, launch counts of its kernels, the true
      float64 residual, and the iteration count against the same solve run
      by the merged CG over the plain kernel functions on the card;
-  5. a steady-state step (diag scaled by 1.01, new b): only the diag block
-     and the RHS may cross to the device.
-The line before the last is one JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.  Without CUDA it exits with
-an error and prints no result.
+  5. slice 1's steady-state steps (diag scaled by 1.01, new b): only the
+     diag block and the RHS may cross to the device;
+  6. torch.profiler over one more slice-1 step;
+  7. the AMG path: GKOCG + Multigrid and GKOMultigrid, the hierarchy, the
+     preconditioner build time, launch counts, the true float64 residual
+     and the iteration count against the same solve over the plain twins
+     (merged CG and smoothers) on the card; two steady steps that rebuild
+     the hierarchy; torch.profiler over one more step.
+Each path's launch counts are set to 0 just before it and read just after;
+a kernel of the path that never launched fails the run.  The line before
+the last is one JSON object describing each kernel; the last line is
+{"ok": true, "device": {...}}.  Without CUDA it exits with an error and
+prints no result.
 """
 
 from __future__ import annotations
@@ -39,10 +50,13 @@ import numpy as np
 import torch
 
 from ogl_tpu_torch import foam, kernels, registry, testing
+from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
-from ogl_tpu_torch.kernels.fused import CgKernels, k1_plain, k2_plain, k2i_plain
-from ogl_tpu_torch.solve import cg_fused, stopping
+from ogl_tpu_torch.kernels.fused import (CgKernels, k1_plain, k2_plain, k2i_plain,
+                                         k2n_plain, kresid_plain, ksweep_plain)
+from ogl_tpu_torch.precond import amg
+from ogl_tpu_torch.solve import cg_fused, ir, krylov, stopping
 
 GRID_1M = (128, 128, 64)
 GRID_8M = (256, 256, 128)
@@ -53,16 +67,30 @@ TRUE_RESIDUAL_MARGIN = 10.0
 VEC_RTOL = 1e-5  # elementwise: |err| <= VEC_RTOL * max(1, max|plain|) (FMA vs mul+add)
 SUM_RTOL = 1e-4  # block sums: summed in another order than torch.sum
 
+RELAX = 0.9  # the AMG smoother's damping (ogl_tpu_torch/precond/amg.py)
+
+# name -> (route, source, TPU kernel it replaces, phase-3 case its JSON row reports)
 KERNELS = {
     "dia_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/dia_spmv.cu",
-                 "ogl_tpu/kernels/pallas_spmv.py:38"),
+                 "ogl_tpu/kernels/pallas_spmv.py:38", "dia_spmv"),
     "cg_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k1.cu",
-              "ogl_tpu/kernels/fused.py:36"),
+              "ogl_tpu/kernels/fused.py:36", "cg_k1"),
     "cg_k2": ("triton", "ogl_tpu_torch/kernels/fused.py",
-              "ogl_tpu/kernels/fused.py:396"),
+              "ogl_tpu/kernels/fused.py:396", "cg_k2"),
     "cg_k2i": ("triton", "ogl_tpu_torch/kernels/fused.py",
-               "ogl_tpu/kernels/fused.py:492"),
+               "ogl_tpu/kernels/fused.py:492", "cg_k2i"),
+    "cg_k2n": ("triton", "ogl_tpu_torch/kernels/fused.py",
+               "ogl_tpu/kernels/fused.py:382", "cg_k2n"),
+    # the AMG path packs its smoother coefficients in bfloat16
+    "amg_sweep": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_smooth.cu",
+                  "ogl_tpu/kernels/fused.py:195", "amg_sweep[bf16]"),
+    "amg_resid": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_smooth.cu",
+                  "ogl_tpu/kernels/fused.py:242", "amg_resid[bf16]"),
 }
+SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_k2", "cg_k2i")
+AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
+AMG_SOLVES = {"pMG": {"solver": "GKOCG", "preconditioner": "Multigrid"},
+              "pGMG": {"solver": "GKOMultigrid"}}
 
 
 class PlainCgKernels(CgKernels):
@@ -77,6 +105,15 @@ class PlainCgKernels(CgKernels):
 
     def k2i(self, alpha, x, r, p, q):
         return k2i_plain(alpha, x, r, p, q)
+
+    def k2n(self, alpha, x, r, p, q):
+        return k2n_plain(alpha, x, r, p, q)
+
+    def ksweep(self, data, x, b, invd, relax, out=None):
+        return ksweep_plain(data, self.offsets, x, b, invd, relax)
+
+    def kresid(self, data, x, b, out=None):
+        return kresid_plain(data, self.offsets, x, b)
 
 
 def poisson_dia(dims, device):
@@ -142,6 +179,10 @@ def check_kernels(dims, device, report):
             return (x, r, z), s
         return (x, r), k2fn(alpha, x, r, vec["p"], vec["q"])
 
+    def run_k2n(k2nfn):
+        x, r = vec["x"].clone(), vec["r"].clone()
+        return (x, r), (k2nfn(alpha, x, r, vec["p"], vec["q"]),)
+
     cases = {
         "dia_spmv": (lambda: ((dia_spmv(plan, data, vec["x"]),), ()),
                      lambda: ((dia_spmv_plain(data, offsets, vec["x"]),), ()),
@@ -153,7 +194,20 @@ def check_kernels(dims, device, report):
         "cg_k2": (lambda: run_k2(kern.k2, True), lambda: run_k2(k2_plain, True), 8 * n * 4),
         "cg_k2i": (lambda: run_k2(kern.k2i, False), lambda: run_k2(k2i_plain, False),
                    6 * n * 4),
+        "cg_k2n": (lambda: run_k2n(kern.k2n), lambda: run_k2n(k2n_plain), 6 * n * 4),
     }
+    # the smoother passes, on float32 and on bfloat16 coefficients; the plain
+    # versions read the same coefficients widened to float32
+    for tag, d in (("f32", data), ("bf16", data.to(torch.bfloat16))):
+        coef = nd * n * d.element_size()
+        cases[f"amg_sweep[{tag}]"] = (
+            lambda d=d: ((kern.ksweep(d, vec["x"], vec["r"], invd, RELAX),), ()),
+            lambda d=d: ((ksweep_plain(d, offsets, vec["x"], vec["r"], invd, RELAX),), ()),
+            coef + 4 * n * 4)
+        cases[f"amg_resid[{tag}]"] = (
+            lambda d=d: ((kern.kresid(d, vec["x"], vec["r"]),), ()),
+            lambda d=d: ((kresid_plain(d, offsets, vec["x"], vec["r"]),), ()),
+            coef + 3 * n * 4)
     for name, (kfn, pfn, nbytes) in cases.items():
         (kv, ks), (pv, ps) = kfn(), pfn()
         torch.cuda.synchronize()
@@ -161,18 +215,21 @@ def check_kernels(dims, device, report):
         max_err = max(e for e, _ in errs)
         sums = [sum_err(a, b) for a, b in zip(ks, ps)]
         ok = all(e <= t for e, t in errs) and all(s <= SUM_RTOL for s in sums)
-        if name in ("cg_k2", "cg_k2i"):  # time the in-place updates on fixed buffers
+        if name in ("cg_k2", "cg_k2i", "cg_k2n"):  # time the in-place updates on fixed buffers
             x, r, z = vec["x"].clone(), vec["r"].clone(), torch.empty(n, device=device)
             if name == "cg_k2":
                 kt = lambda: kern.k2(alpha, x, r, vec["p"], vec["q"], invd, z)  # noqa: E731
                 pt = lambda: k2_plain(alpha, x, r, vec["p"], vec["q"], invd, z)  # noqa: E731
-            else:
+            elif name == "cg_k2i":
                 kt = lambda: kern.k2i(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
                 pt = lambda: k2i_plain(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
+            else:
+                kt = lambda: kern.k2n(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
+                pt = lambda: k2n_plain(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
         else:
             kt, pt = kfn, pfn
         ms, plain_ms = time_pair(kt, pt)
-        print(f"  {name:9s} {label:12s} max_abs_err {max_err:.3e} (tol "
+        print(f"  {name:15s} {label:12s} max_abs_err {max_err:.3e} (tol "
               f"{max(t for _, t in errs):.1e}) sum_rel_err "
               f"{max(sums, default=0.0):.1e} (tol {SUM_RTOL:.0e})  kernel {ms:.4f} ms "
               f"{nbytes / ms / 1e6:.1f} GB/s  plain {plain_ms:.4f} ms "
@@ -181,7 +238,7 @@ def check_kernels(dims, device, report):
             raise RuntimeError(f"{name} at {label} disagrees with its plain version")
         report.setdefault(name, {})[label] = {"max_abs_err": max_err, "ms": ms,
                                               "plain_ms": plain_ms}
-    del data, vec, invd
+    del data, vec, invd, cases
     torch.cuda.empty_cache()
 
 
@@ -217,11 +274,155 @@ def profile_step(solve_fn):
         c[1] += e.time_range.elapsed_us()
     busy = sum(t for _, t in by_name.values())
     it = max(perf.n_iterations, 1)
+    launched = sum(c for name, (c, _) in by_name.items() if not name.startswith("Memcpy"))
     print(f"step wall {wall_us / 1e3:.3f} ms, {perf.n_iterations} iterations: device busy "
           f"{busy / 1e3:.3f} ms ({busy / it:.2f} us/iteration), idle share "
-          f"{1 - busy / wall_us:.3f}; wall/iteration {wall_us / it:.2f} us")
+          f"{1 - busy / wall_us:.3f}; wall/iteration {wall_us / it:.2f} us; "
+          f"{launched} device kernels ({launched / it:.1f} per iteration)")
     for name, (count, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  {total:10.1f} us  x{count:5d}  {total / count:8.2f} us/launch  {name[:90]}")
+
+
+def host_costs(op, device) -> None:
+    """Host µs per call of each kind of launch on the AMG path, on its
+    16,384-row level (device work far below the host's), and of one whole
+    cycle at the fine level: 200 calls (50 cycles) between two syncs."""
+    lv = next(lv for lv in op.state if lv.n <= 16384)
+    print(f"host cost per call (host clock; kernels on the {lv.n}-row level):")
+    g = torch.Generator(device=device).manual_seed(1)
+    x, b = (torch.randn(lv.n, device=device, generator=g) for _ in range(2))
+    x2, r2 = x.clone(), b.clone()
+    r_fine = torch.randn(op.state[0].n, device=device, generator=g)
+    alpha = torch.tensor(1e-3, device=device)
+    calls = {
+        "amg_sweep (ctypes)": lambda: lv.kern.ksweep(lv.data_s, x, b, lv.inv_diag, RELAX),
+        "cg_k1 (ctypes)": lambda: lv.kern.k1(lv.mat.data, x, b, alpha),
+        "cg_k2n (triton)": lambda: lv.kern.k2n(alpha, x2, r2, x, b),
+        "x + b (torch eager)": lambda: x + b,
+        "torch.sum(x) (torch eager)": lambda: torch.sum(x),
+        "V-cycle at the fine level": lambda: op(r_fine),
+    }
+    for name, fn in calls.items():
+        k = 50 if name.startswith("V-cycle") else 200
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        torch.cuda.synchronize()
+        print(f"  {name:28s} {(time.perf_counter() - t0) / k * 1e6:8.1f} us per call")
+
+
+def describe_hierarchy(levels) -> None:
+    for i, lv in enumerate(levels):
+        if lv.nc:
+            what = f"smoother coefficients {str(lv.data_s.dtype).removeprefix('torch.')}"
+        else:
+            what = "dense inverse" if lv.coarse_inv is not None else "fixed-iteration CG"
+        print(f"  level {i}: {lv.n} rows, offsets {lv.mat.offsets}, {what}")
+
+
+def plain_cycle(op):
+    """The same hierarchy and V-cycle with every kernel call replaced by its
+    plain twin: the independent reference of the AMG path on the card."""
+    cfg = PrecondConfig()
+    levels = [dataclasses.replace(lv, kern=PlainCgKernels(lv.n, lv.mat.offsets,
+                                                          lv.mat.data.device))
+              for lv in op.state]
+    return amg.cycle_op(levels, cfg.cycle, RELAX, cfg.smoother_sweeps, cfg.coarse_solver_iters)
+
+
+def amg_path(m, b, device, ctl) -> dict:
+    """Phase 7: GKOCG + Multigrid and GKOMultigrid through foam.solve, two
+    steady steps that rebuild the hierarchy, the checks, and a profiled
+    step.  Returns the launch counts of the path."""
+    print(f"== phase 7: the AMG path, foam.solve at {m.n} cells")
+    kernels.reset_launches()
+    solves = {}
+    for field, extra in AMG_SOLVES.items():
+        t0 = time.perf_counter()
+        x, perf = foam.solve(field, m, b, {**ctl, **extra})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        slv = registry.global_registry.get(f"{field}_solver")
+        lt = slv.last_timings
+        print(f"{field}: first solve wall {wall:.3f} s; generate_preconditioner "
+              f"{lt['generate_preconditioner'] * 1e3:.1f} ms; solve {lt['solve'] * 1e3:.3f} ms "
+              f"= {lt['solve'] / max(perf.n_iterations, 1) * 1e6:.1f} us per iteration")
+        describe_hierarchy(slv._precond_op.state)
+        solves[field] = (x, perf, slv._precond_op, slv.matrix.data.clone())
+
+    ctl_mg = {**ctl, **AMG_SOLVES["pMG"]}
+    steps = []
+    m_k, b_k = m, b
+    for k in (2, 3):
+        m_k = dataclasses.replace(m_k, diag=np.asarray(m_k.diag) * 1.01)
+        b_k = (b_k * 1.01 + 0.1).astype(np.float32)
+        op_before = registry.global_registry.get("pMG_solver")._precond_op
+        t0 = time.perf_counter()
+        x_k, perf_k = foam.solve("pMG", m_k, b_k, ctl_mg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf_k.print()
+        slv = registry.global_registry.get("pMG_solver")
+        lt = slv.last_timings
+        print(f"pMG step {k}: wall {wall * 1e3:.3f} ms, of which update "
+              f"{lt.get('update_device_values', 0.0) * 1e3:.3f} ms, generate_preconditioner "
+              f"{lt.get('generate_preconditioner', 0.0) * 1e3:.3f} ms and solve "
+              f"{lt.get('solve', 0.0) * 1e3:.3f} ms; blocks uploaded {slv.last_blocks_uploaded}")
+        fine = slv._precond_op.state[0]
+        want = 1.0 / slv.matrix.data[slv.matrix.offsets.index(0)]
+        if slv._precond_op is op_before or not torch.allclose(fine.inv_diag, want, rtol=1e-6):
+            raise RuntimeError(f"pMG step {k}: the hierarchy was not rebuilt from the "
+                               "current coefficients")
+        steps.append((f"pMG step {k}", x_k, perf_k, torch.tensor(b_k, device=device),
+                      slv.matrix.data.clone()))
+    launches = {k: kernels.launches[k] for k in AMG_KERNELS}
+    print(f"launch counts over the AMG path: {dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"the AMG path never launched {missing}")
+
+    b_dev = torch.tensor(b, device=device)
+    offsets = slv.matrix.offsets
+    params = stopping.StoppingParams(tolerance=TOL, rel_tol=0.0, min_iter=0,
+                                     max_iter=1000, frequency=1)
+    checks = [(f, x, perf, b_dev, data, op) for f, (x, perf, op, data) in solves.items()]
+    checks += [(name, x, perf, bb, dd, None) for name, x, perf, bb, dd in steps]
+    for name, x, perf, bb, dd, op in checks:
+        if not (perf.converged and perf.final_residual < TOL):
+            raise RuntimeError(f"{name}: did not converge: {perf}")
+        if x.shape != (m.n,) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{name}: solution not finite of shape ({m.n},)")
+        tr = true_residual(dd, offsets, x, bb)
+        line = (f"{name}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} "
+                f"(limit {TRUE_RESIDUAL_MARGIN:g} x {TOL:g})")
+        if op is not None:  # first solves: against the plain twins on the card
+            cyc, x0 = plain_cycle(op), torch.zeros_like(bb)
+            if name == "pMG":
+                plain = cg_fused(PlainCgKernels(m.n, offsets, device), dd, bb, x0, params,
+                                 precond=cyc)
+            else:
+                ops = krylov.single_device_ops(
+                    lambda v, dd=dd: dia_spmv_plain(dd, offsets, v), m.n, precond=cyc)
+                plain = ir(ops, bb, x0, params)
+            line += f"; over the plain twins on the card: {plain.iters} iterations"
+            if abs(plain.iters - perf.n_iterations) > 1:
+                raise RuntimeError(f"{name}: {perf.n_iterations} iterations vs "
+                                   f"{plain.iters} over the plain twins")
+        print(line)
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")
+
+    host_costs(solves["pMG"][2], device)
+    # a new b on the same operator: the hierarchy stays, the step is the solve
+    print("torch.profiler over one more pMG step (new b, same operator):")
+    b_k = (b_k * 1.01 + 0.1).astype(np.float32)
+    profile_step(lambda: foam.solve("pMG", m_k, b_k, ctl_mg))
+    return launches
 
 
 def main() -> int:
@@ -260,7 +461,7 @@ def run(device, grid_main, grid_big) -> int:
     for dims in (grid_main, grid_big):
         check_kernels(dims, device, report)
 
-    print("== phase 4: main path, foam.solve at "
+    print("== phase 4: slice 1's path, foam.solve at "
           f"{'x'.join(map(str, grid_main))} = {int(np.prod(grid_main))} cells")
     t0 = time.perf_counter()
     m = testing.poisson_ldu(grid_main)
@@ -303,13 +504,13 @@ def run(device, grid_main, grid_big) -> int:
             raise RuntimeError(f"step {k} uploaded more than the diag block + RHS")
         steps.append((f"p step {k}", x_k, perf_k, torch.tensor(b_k, device=device),
                       slv.matrix.data.clone()))
-    launches = dict(kernels.launches)
-    print(f"launch counts over the main path: {launches}")
+    launches = {k: kernels.launches[k] for k in SLICE1_KERNELS}
+    print(f"launch counts over slice 1's path: {dict(kernels.launches)}")
 
     # ---- checks of the main path --------------------------------------
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
-        raise RuntimeError(f"the main path never launched {missing}")
+        raise RuntimeError(f"slice 1's path never launched {missing}")
     offsets = slv.matrix.offsets
     data_ref, offs_ref = poisson_dia(grid_main, device)
     if offsets != offs_ref or not torch.equal(
@@ -347,12 +548,15 @@ def run(device, grid_main, grid_big) -> int:
     b_k = (b_k * 1.01 + 0.1).astype(np.float32)
     profile_step(lambda: foam.solve("p", m_k, b_k, {**ctl, "preconditioner": "none"}))
 
+    launches_amg = amg_path(m, b, device, {**ctl, "verbose": 0})
+
     rows = []
-    for name, (route, source, replaces) in KERNELS.items():
-        r = report[name]["x".join(map(str, grid_main))]
+    for name, (route, source, replaces, case) in KERNELS.items():
+        r = report[case]["x".join(map(str, grid_main))]
         rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                     "launches": launches.get(name, 0) + launches_amg.get(name, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

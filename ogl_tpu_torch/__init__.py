@@ -6,11 +6,12 @@ with every kernel of its path written by hand for NVIDIA Hopper (CUDA C++
 for sm_90a, or Triton for fused elementwise passes).  It imports torch and
 numpy and never jax or ogl_tpu.
 
-Slice covered so far: the GKOCG pressure solve — OpenFOAM LDU ingest, the
-Dia format, the delta-gated coefficient upload, and the merged two-kernel
-CG with the OpenFOAM stopping criterion, preconditioner `none` or scalar
-`BJ`, float32, one device.  Controls outside that slice raise
-NotImplementedError (see ogl_tpu_torch.foam.solver).
+Slices covered so far: the GKOCG pressure solve — OpenFOAM LDU ingest,
+the Dia format, the delta-gated coefficient upload, and the merged
+two-kernel CG with the OpenFOAM stopping criterion, preconditioner
+`none`, scalar `BJ` or `Multigrid` (AMG) — and GKOMultigrid; float32, one
+device.  Controls outside those slices raise NotImplementedError (see
+ogl_tpu_torch.foam.solver).
 """
 
 from __future__ import annotations

@@ -4,3 +4,4 @@ from ogl_tpu_torch.foam.solver import (
     solve as solve,
 )
 from ogl_tpu_torch.foam.api import GKOCG as GKOCG
+from ogl_tpu_torch.foam.api import GKOMultigrid as GKOMultigrid

@@ -1,8 +1,8 @@
 """Named solver classes — the reference's registered solver surface.
 
-Counterpart: ogl_tpu/foam/api.py.  Only GKOCG is ported; it registers for
-symmetric matrices only (reference GKOCG.C:16), checked on
-LduMatrix.symmetric.
+Counterpart: ogl_tpu/foam/api.py.  GKOCG and GKOMultigrid are ported;
+GKOCG registers for symmetric matrices only (reference GKOCG.C:16),
+checked on LduMatrix.symmetric.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 from ogl_tpu_torch.core.ldu import LduMatrix
 from ogl_tpu_torch.foam.solver import FoamSolver
 
-__all__ = ["GKOCG"]
+__all__ = ["GKOCG", "GKOMultigrid"]
 
 
 class _NamedSolver(FoamSolver):
@@ -36,3 +36,10 @@ class GKOCG(_NamedSolver):
 
     SOLVER = "GKOCG"
     SYMMETRIC_ONLY = True
+
+
+class GKOMultigrid(_NamedSolver):
+    """AMG as the solver: Richardson around one AMG cycle (reference
+    Solver/Multigrid/)."""
+
+    SOLVER = "GKOMultigrid"

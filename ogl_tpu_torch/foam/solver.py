@@ -10,14 +10,15 @@ Counterpart: ogl_tpu/foam/solver.py.
                  data → preconditioner regeneration gated on a changed
                  operator and the TTL → merged-kernel CG
 
-Slice implemented: GKOCG, preconditioner `none` or scalar `BJ`, float32,
-one device, the Dia format.  Every control outside it raises
+Slice implemented: GKOCG with preconditioner `none`, scalar `BJ` or
+`Multigrid` (AMG), and GKOMultigrid (Richardson around one AMG cycle);
+float32, one device, the Dia format.  Every control outside it raises
 NotImplementedError naming its ROADMAP.md item; none is silently ignored.
-`fusedCG false` routes to the general CG (solve/cg.py).  The reference's
-TPU-only route gates (Pallas usability, the 32k-row floor of the merged
-kernels, the working-set gate of the z-free variant) are not carried
-over: every Dia + diagonal-preconditioner float32 solve takes the merged
-route, on either device.
+`fusedCG false` routes GKOCG to the general CG (solve/cg.py).  The
+reference's TPU-only route gates (Pallas usability, the 32k-row floor of
+the merged kernels, the working-set gate of the z-free variant, the frame
+geometry its framed AMG must share) are not carried over: every GKOCG
+solve takes the merged route, on either device.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ogl_tpu_torch.kernels.fused import CgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import cg
 from ogl_tpu_torch.solve.cg_fused import cg_fused
+from ogl_tpu_torch.solve.ir import ir
 from ogl_tpu_torch.solve.krylov import single_device_ops
 
 __all__ = ["SolverPerformance", "FoamSolver", "solve", "unsupported"]
@@ -65,21 +67,20 @@ def unsupported(cfg: SolverConfig) -> str | None:
     """Why the port cannot run `cfg` yet (naming the ROADMAP.md item that
     ports it), or None when the slice covers it."""
     pc = cfg.precond
-    if cfg.solver != "GKOCG":
+    if cfg.solver not in ("GKOCG", "GKOMultigrid"):
         return f"solver {cfg.solver} (ROADMAP.md A9)"
     if pc.name not in precond.PORTED:
-        item = "A11" if pc.name == "Multigrid" else "A10"
-        return f"preconditioner {pc.name} (ROADMAP.md {item})"
+        return f"preconditioner {pc.name} (ROADMAP.md A10)"
     if pc.name == "BJ" and pc.max_block_size != 1:
         return f"BJ maxBlockSize {pc.max_block_size} (ROADMAP.md A10)"
-    if pc.name == "BJ" and pc.value_precision == "bfloat16":
+    if pc.name != "none" and pc.value_precision == "bfloat16":
         return "preconditioner precision bfloat16 (ROADMAP.md A10)"
     if cfg.matrix_format_explicit and cfg.matrix_format != "Dia":
         item = "A13" if cfg.matrix_format in ("Gdia", "Xell") else "A2"
         return f"matrixFormat {cfg.matrix_format} (ROADMAP.md {item})"
     if cfg.dtype != "float32":
         return f"dtype {cfg.dtype} (ROADMAP.md A14)"
-    if cfg.pipelined_cg:
+    if cfg.pipelined_cg and cfg.solver == "GKOCG":
         return "pipelinedCG true (ROADMAP.md A12)"
     if cfg.reorder != "none":
         return f"reorder {cfg.reorder} (ROADMAP.md A15)"
@@ -261,7 +262,8 @@ class FoamSolver:
     # -- preconditioner (TTL caching, Preconditioner.H:353-431) ---------
     def _update_precond(self):
         pc = self.cfg.precond
-        if pc.name == "none":
+        amg_solver = self.cfg.solver == "GKOMultigrid" and pc.name == "none"
+        if pc.name == "none" and not amg_solver:
             self._precond_op = None
             return
         if self._precond_op is not None and self._pc_built_epoch == self._coeff_epoch:
@@ -272,7 +274,11 @@ class FoamSolver:
             self.props.precond_caching_left -= 1
             return
         with self._timed("generate_preconditioner"):
-            self._precond_op = precond.build(pc, self.coo_host(), self.device)
+            if amg_solver:  # AMG as the solver: Richardson around its cycle
+                self._precond_op = precond.amg_of(pc, self.coo_host(), self.device)
+            else:
+                self._precond_op = precond.build(pc, self.coo_host(), self.device,
+                                                 verbose=self.cfg.verbose)
         self._pc_built_epoch = self._coeff_epoch
         self.props.precond_caching_left = pc.caching
 
@@ -326,16 +332,20 @@ class FoamSolver:
                        f"stopping criterion minIter {stopping_cfg.min_iter} "
                        f"frequency {stopping_cfg.frequency}")
         params = stopping.StoppingParams.of(stopping_cfg)
-        invd = self._precond_op.state if self._precond_op is not None else None
+        pc_op = self._precond_op
+        apply_pc = pc_op.bind(pc_op.state) if pc_op is not None else None
 
         with self._timed("solve"):
-            if cfg.fused_cg:
-                res = cg_fused(self.kern, self.kern.pack_values(self.matrix),
-                               b_dev, x0, params, invd=invd)
+            if cfg.solver == "GKOMultigrid":
+                res = ir(single_device_ops(spmv.matvec(self.matrix), m.n, precond=apply_pc),
+                         b_dev, x0, params)
+            elif cfg.fused_cg:
+                jacobi = cfg.precond.name == "BJ"
+                res = cg_fused(self.kern, self.kern.pack_values(self.matrix), b_dev, x0,
+                               params, invd=pc_op.state if jacobi else None,
+                               precond=apply_pc if not jacobi else None)
             else:
-                ops = single_device_ops(
-                    spmv.matvec(self.matrix), m.n,
-                    precond=self._precond_op.bind(invd) if invd is not None else None)
+                ops = single_device_ops(spmv.matvec(self.matrix), m.n, precond=apply_pc)
                 res = cg(ops, b_dev, x0, params)
             # one batched fetch of the stats, inside the timed region
             init_rn, final_rn, conv = torch.stack([

@@ -13,8 +13,10 @@ import torch
 
 from ogl_tpu_torch.core.formats import Dia
 from ogl_tpu_torch.core.ldu import LduMatrix, LocalInterface
+from ogl_tpu_torch.precond.amg import Level, make_level
 
-__all__ = ["dia_from_arrays", "ldu_from_arrays", "unframe_reference"]
+__all__ = ["dia_from_arrays", "ldu_from_arrays", "unframe_reference",
+           "amg_levels_from_reference"]
 
 
 def dia_from_arrays(data, offsets, shape, device: torch.device | str = "cpu") -> Dia:
@@ -50,3 +52,27 @@ def unframe_reference(xf, n: int, tile: int) -> np.ndarray:
     padding past n (ogl_tpu/kernels/fused.py `CgKernels.unframe`)."""
     xf = np.asarray(xf)
     return xf[tile: xf.shape[0] - tile].reshape(-1)[:n].copy()
+
+
+def amg_levels_from_reference(levels, device: torch.device | str = "cpu",
+                              smoother_dtype: torch.dtype = torch.float32) -> list[Level]:
+    """The port's AMG levels from the reference's `_Level` list
+    (ogl_tpu/precond/amg.py): each level's Dia operator (`mat.data`,
+    `mat.offsets`, `mat.shape`), `inv_diag`, `agg` (pgm) or `grid` tuple,
+    `natural`, `width`, `nc` and `coarse_inv`, read with np.asarray.  The
+    smoother coefficients are packed in `smoother_dtype` (float32 here:
+    the reference's CPU cycle is float32 throughout)."""
+    out = []
+    for lv in levels:
+        mat = lv.mat
+        if type(mat).__name__ != "Dia":
+            raise TypeError(f"level operator {type(mat).__name__}: only Dia levels "
+                            "have a port counterpart (ROADMAP.md A13, A2)")
+        out.append(make_level(
+            dia_from_arrays(mat.data, mat.offsets, mat.shape, device),
+            np.asarray(lv.inv_diag), int(lv.nc),
+            agg=None if lv.agg is None else np.asarray(lv.agg),
+            natural=bool(lv.natural), grid=lv.grid, width=int(lv.width),
+            coarse_inv=None if lv.coarse_inv is None else np.asarray(lv.coarse_inv),
+            smoother_dtype=smoother_dtype))
+    return out

@@ -9,7 +9,8 @@ its main path went through the kernels.
 
 from __future__ import annotations
 
-launches: dict[str, int] = {"dia_spmv": 0, "cg_k1": 0, "cg_k2": 0, "cg_k2i": 0}
+launches: dict[str, int] = {"dia_spmv": 0, "cg_k1": 0, "cg_k2": 0, "cg_k2i": 0,
+                            "cg_k2n": 0, "amg_sweep": 0, "amg_resid": 0}
 
 
 def reset_launches() -> None:

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA C++ kernels (ogl_tpu_torch/kernels/csrc).
 
-All `*.cu` sources compile with nvcc into one shared library with a plain C
+Each `*.cu` source compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
 interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/<hash>/libogl_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o build/<hash>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/<hash>/libogl_torch_kernels.so build/<hash>/*.o
 
 The build directory is keyed by a hash of the sources (and the flags), so
 an edit rebuilds.  Nothing here runs on import: the first CUDA launch
@@ -34,12 +37,14 @@ __all__ = ["library", "check", "build_info"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 LIB_NAME = "libogl_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 
 # name -> argtypes; every entry point returns int (a cudaError_t)
 _SIGNATURES = {
@@ -47,6 +52,10 @@ _SIGNATURES = {
     "ogl_dia_spmv": (_P, _P, _INT, _P, _P, _I64, _INT, _P),
     # data, offsets, nd, z, p, beta, pout, q, partials, n, threads, grid, stream
     "ogl_cg_k1": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # data, data_bf16, offsets, nd, x, b, invd, relax, out, n, threads, stream
+    "ogl_amg_sweep": (_P, _INT, _P, _INT, _P, _P, _P, _F32, _P, _I64, _INT, _P),
+    # data, data_bf16, offsets, nd, x, b, out, n, threads, stream
+    "ogl_amg_resid": (_P, _INT, _P, _INT, _P, _P, _P, _I64, _INT, _P),
 }
 
 _lock = threading.Lock()
@@ -78,22 +87,45 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _start(cmd: list) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _wait(procs: list) -> str:
+    """Wait for every (cmd, Popen) of _start; raise on the first that
+    failed (after stopping the rest); returns their joined output."""
+    log = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{stdout}\n{stderr}")
+        log.append(stdout + stderr)
+    return "".join(log)
+
+
 def _build(out: Path) -> str:
-    """Compile every .cu into `out` (written atomically); returns nvcc's
-    output (-Xptxas -v: registers, shared memory and spills per kernel)."""
+    """Compile every .cu with its own nvcc, all at once, then link into
+    `out` (written atomically); returns nvcc's output (-Xptxas -v:
+    registers, shared memory and spills per kernel)."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [str(out.parent / f"{s.stem}.o") for s in cu]
+    log = _wait([_start([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)])
+                 for s, o in zip(cu, objs)])
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        log += _wait([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs])])
+    except RuntimeError:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+        raise
     os.replace(tmp, out)
-    log = proc.stdout + proc.stderr
     (out.parent / "build.log").write_text(log)
     return log
 

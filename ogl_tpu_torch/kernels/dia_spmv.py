@@ -61,19 +61,21 @@ def dia_spmv_plain(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor
 
 
 def check_operands(plan: DiaPlan, data: torch.Tensor | None,
-                   *vectors: torch.Tensor) -> None:
-    """Raise unless data (when given) is a contiguous (nd, n) float32
-    tensor and every vector a contiguous (n,) float32 tensor, all on the
-    plan's device."""
+                   *vectors: torch.Tensor,
+                   data_dtypes: tuple = (torch.float32,)) -> None:
+    """Raise unless data (when given) is a contiguous (nd, n) tensor of one
+    of `data_dtypes` and every vector a contiguous (n,) float32 tensor, all
+    on the plan's device."""
     nd, n = len(plan.offsets), plan.n
-    checks = [(f"vector {i}", v, (n,)) for i, v in enumerate(vectors)]
+    checks = [(f"vector {i}", v, (n,), (torch.float32,)) for i, v in enumerate(vectors)]
     if data is not None:
-        checks.append(("data", data, (nd, n)))
-    for name, t, shape in checks:
+        checks.append(("data", data, (nd, n), data_dtypes))
+    for name, t, shape, dtypes in checks:
         if t.device != plan.device:
             raise ValueError(f"{name} is on {t.device}, the plan on {plan.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {t.dtype}; the kernels take float32")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} has dtype {t.dtype}; the kernels take "
+                            f"{' or '.join(str(d) for d in dtypes)}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():

@@ -1,16 +1,26 @@
-"""Merged-CG kernels for the Dia (stencil) path: K1 in CUDA C++
-(`csrc/cg_k1.cu`), K2 and K2i in Triton (bodies below), each beside its
-plain PyTorch twin.
+"""Merged-CG and AMG-smoother kernels for the Dia (stencil) path: K1 and
+the smoother passes in CUDA C++ (`csrc/cg_k1.cu`, `csrc/amg_smooth.cu`),
+K2, K2i and K2n in Triton (bodies below), each beside its plain PyTorch
+twin.
 
-Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`apply`/
-`pack_values`, kernels `_k1_kernel`, `_k2_kernel`, `_k2i_kernel`).  Two
-kernels per CG iteration:
+Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
+`ksweep`/`kresid`/`apply`/`pack_values`, kernels `_k1_kernel`,
+`_k2_kernel`, `_k2i_kernel`, `_k2n_kernel`, `_sweep_kernel`,
+`_resid_kernel`).  Two kernels per CG iteration:
 
   K1   p' = z + β·p ;  q = A p' ;  δ = Σ p'·q
   K2   x' = x + α·p' ;  r' = r − α·q ;  z' = invd ⊙ r' ;  ρ' = Σ r'·z' ;
        s = Σ|r'|          (the residual 1-norm of the criterion comes free)
   K2i  K2 for identity preconditioning (z ≡ r): no z write, no invd read,
        ρ' = Σ r'·r'
+  K2n  K2 for a rich preconditioner (AMG): x', r' and s only — z and ρ
+       come from the preconditioner's cycle
+and the AMG smoother's two passes, each one stencil apply:
+  sweep  out = x + relax·invd ⊙ (b − A x)
+  resid  out = b − A x
+whose coefficients may be packed in bfloat16 (`pack_values(mat, dtype)`;
+the reference's choice for its smoother operators): they are widened to
+float32 in the kernel and sums accumulate in float32.
 
 Layout: flat (n,) float32 vectors and a contiguous (nd, n) Dia data
 tensor.  The reference's halo-framed (Rp + 2T, 128) layout exists for the
@@ -22,20 +32,24 @@ torch.sum outside the kernel — deterministic, no float atomics.
 α and β are 0-d float32 tensors on the device: the kernels read them
 through a pointer, so a launch never waits for the host.  K2/K2i update
 x, r (and z) IN PLACE: every element is read and written by the same
-program, so there is no race; the plain versions do the same.
+program, so there is no race; the plain versions do the same.  K2n does
+too.  The smoother passes cannot: they read x at the neighbours of other
+blocks, so they write a buffer of their own, and refuse an `out` that
+overlaps an operand.
 
 Dispatch, the same for every wrapper: tensors on the CPU run the plain
 version; CUDA tensors launch the kernel or raise (wrong device, dtype,
 shape, contiguity, or a refused launch) — there is no fallback.  Each
 launch counts in `ogl_tpu_torch.kernels.launches`.
 
-K2/K2i (Triton) replace ogl_tpu/kernels/fused.py `_k2_kernel` and
-`_k2i_kernel`.  They are pure elementwise streams with two block sums, no
-neighbour reads and no index tables — the case where Triton writes the
-same kernel as CUDA C++ with less code.  Bound: device-memory bandwidth,
-8 float32 streams per row for K2 (x, r, p, q, invd in; x, r, z out) and 6
-for K2i, at a handful of flops each.  Design: one program per BLOCK rows,
-masked coalesced loads/stores, tl.sum per program into a partials array.
+K2/K2i/K2n (Triton) replace ogl_tpu/kernels/fused.py `_k2_kernel`,
+`_k2i_kernel` and `_k2n_kernel`.  They are pure elementwise streams with
+one or two block sums, no neighbour reads and no index tables — the case
+where Triton writes the same kernel as CUDA C++ with less code.  Bound:
+device-memory bandwidth, 8 float32 streams per row for K2 (x, r, p, q,
+invd in; x, r, z out) and 6 for K2i and K2n, at a handful of flops each.
+Design: one program per BLOCK rows, masked coalesced loads/stores, tl.sum
+per program into a partials array.
 """
 
 from __future__ import annotations
@@ -47,10 +61,13 @@ from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             dia_spmv_plain, stream_of)
 
-__all__ = ["CgKernels", "k1_plain", "k2_plain", "k2i_plain"]
+__all__ = ["CgKernels", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
+           "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
 K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
 K2_WARPS = 4
+# coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
+SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
 
 # ---- plain PyTorch twins (CPU path, and the reference on the card) ------
 
@@ -75,6 +92,24 @@ def k2i_plain(alpha, x, r, p, q):
     x += alpha * p
     r -= alpha * q
     return torch.sum(r * r), torch.sum(torch.abs(r))
+
+
+def k2n_plain(alpha, x, r, p, q):
+    """In place: x += α·p, r −= α·q; returns ‖r‖₁."""
+    x += alpha * p
+    r -= alpha * q
+    return torch.sum(torch.abs(r))
+
+
+def kresid_plain(data, offsets, x, b):
+    """b − A x; bfloat16 data is widened to float32 (x's type) before the
+    products, as the kernel does."""
+    return b - dia_spmv_plain(data.to(x.dtype), offsets, x)
+
+
+def ksweep_plain(data, offsets, x, b, invd, relax):
+    """x + relax·invd ⊙ (b − A x): one damped Jacobi sweep."""
+    return x + relax * invd * kresid_plain(data, offsets, x, b)
 
 
 # ---- Triton bodies (compiled on the first CUDA launch) ------------------
@@ -126,6 +161,22 @@ def _k2i_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr,
     tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
 
 
+def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
+              BLOCK: "tl.constexpr"):
+    pid = tl.program_id(0)
+    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    alpha = tl.load(alpha_ptr)
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
+    r = tl.load(r_ptr + offs, mask=mask, other=0.0)
+    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
+    q = tl.load(q_ptr + offs, mask=mask, other=0.0)
+    ro = r - alpha * q
+    tl.store(x_ptr + offs, x + alpha * p, mask=mask)
+    tl.store(r_ptr + offs, ro, mask=mask)
+    tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
+
+
 def _triton_kernels() -> dict:
     global tl
     if not _TRITON:
@@ -133,7 +184,8 @@ def _triton_kernels() -> dict:
         import triton.language
 
         tl = triton.language
-        _TRITON.update(k2=triton.jit(_k2_body), k2i=triton.jit(_k2i_body))
+        _TRITON.update(k2=triton.jit(_k2_body), k2i=triton.jit(_k2i_body),
+                       k2n=triton.jit(_k2n_body))
     return _TRITON
 
 
@@ -152,6 +204,23 @@ def _require_cuda(what: str, t: torch.Tensor) -> None:
         raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    start = t.data_ptr()
+    return start, start + t.numel() * t.element_size()
+
+
+def _check_no_overlap(what: str, out: torch.Tensor, *operands) -> None:
+    """Raise if `out` shares memory with any operand (a smoother pass reads
+    its operands while other blocks write `out`)."""
+    lo, hi = _span(out)
+    for t in operands:
+        if t.device == out.device:
+            a, b = _span(t)
+            if a < hi and lo < b:
+                raise ValueError(f"{what}: out overlaps an operand; it needs a "
+                                 "buffer of its own")
+
+
 class CgKernels:
     """Merged-CG steps for one Dia sparsity on one device.
 
@@ -168,11 +237,14 @@ class CgKernels:
         self.dtype = torch.float32
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
 
-    def pack_values(self, mat) -> torch.Tensor:
-        """The Dia data as the kernels take it: contiguous (nd, n) float32."""
+    def pack_values(self, mat, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The Dia data as the kernels take it: contiguous (nd, n), float32
+        unless `dtype` overrides the storage type (bfloat16 for the smoother
+        operators: the smoother kernels widen it to float32 and halve the
+        coefficient bytes they read)."""
         if tuple(mat.offsets) != self.offsets:
             raise ValueError("matrix offsets do not match this plan")
-        return mat.data.to(self.dtype).contiguous()
+        return mat.data.to(dtype or self.dtype).contiguous()
 
     # ---- K1 (CUDA C++) -------------------------------------------------
     def k1(self, data, z, p, beta):
@@ -214,15 +286,61 @@ class CgKernels:
             return k2i_plain(alpha, x, r, p, q)
         return self._launch_k2("k2i", alpha, x, r, p, q)
 
-    def _launch_k2(self, name, alpha, *vectors):
+    def k2n(self, alpha, x, r, p, q):
+        """K2 without z and ρ (a rich preconditioner makes z), in place on
+        x and r; returns ‖r‖₁ as a 0-d tensor."""
+        if _on_cpu(alpha, x, r, p, q):
+            return k2n_plain(alpha, x, r, p, q)
+        (absr,) = self._launch_k2("k2n", alpha, x, r, p, q, sums=1)
+        return absr
+
+    def _launch_k2(self, name, alpha, *vectors, sums: int = 2):
         _require_cuda(name, vectors[0])
         check_operands(self.plan, None, *vectors)
         _check_scalar("alpha", alpha, self.device)
         kern = _triton_kernels()[name]
         grid = -(-self.n // K2_BLOCK)
-        rho = torch.empty(grid, dtype=torch.float32, device=self.device)
-        absr = torch.empty(grid, dtype=torch.float32, device=self.device)
-        kern[(grid,)](alpha, *vectors, rho, absr, self.n,
+        partials = [torch.empty(grid, dtype=torch.float32, device=self.device)
+                    for _ in range(sums)]
+        kern[(grid,)](alpha, *vectors, *partials, self.n,
                       BLOCK=K2_BLOCK, num_warps=K2_WARPS)
         kernels.launches[f"cg_{name}"] += 1
-        return torch.sum(rho), torch.sum(absr)
+        return tuple(torch.sum(s) for s in partials)
+
+    # ---- AMG smoother passes (CUDA C++) --------------------------------
+    def ksweep(self, data, x, b, invd, relax: float, out=None):
+        """One damped Jacobi sweep x + relax·invd ⊙ (b − A x), into `out`
+        (a new buffer when None; never one overlapping an operand)."""
+        if out is not None:
+            _check_no_overlap("ksweep", out, data, x, b, invd)
+        if _on_cpu(data, x, b, invd, out):
+            y = ksweep_plain(data, self.offsets, x, b, invd, relax)
+            return y if out is None else out.copy_(y)
+        return self._launch_smooth("amg_sweep", data, x, b, invd, relax, out)
+
+    def kresid(self, data, x, b, out=None):
+        """The residual b − A x, into `out` as ksweep."""
+        if out is not None:
+            _check_no_overlap("kresid", out, data, x, b)
+        if _on_cpu(data, x, b, out):
+            y = kresid_plain(data, self.offsets, x, b)
+            return y if out is None else out.copy_(y)
+        return self._launch_smooth("amg_resid", data, x, b, None, 0.0, out)
+
+    def _launch_smooth(self, name, data, x, b, invd, relax, out):
+        _require_cuda(name, x)
+        out = torch.empty_like(x) if out is None else out
+        vectors = (x, b, out) if invd is None else (x, b, invd, out)
+        check_operands(self.plan, data, *vectors, data_dtypes=SMOOTHER_DTYPES)
+        lib = _build.library()
+        common = (data.data_ptr(), int(data.dtype == torch.bfloat16),
+                  self.plan.offsets_dev.data_ptr(), len(self.offsets),
+                  x.data_ptr(), b.data_ptr())
+        tail = (out.data_ptr(), self.n, THREADS, stream_of(x))
+        if invd is None:
+            code = lib.ogl_amg_resid(*common, *tail)
+        else:
+            code = lib.ogl_amg_sweep(*common, invd.data_ptr(), float(relax), *tail)
+        _build.check(code, name)
+        kernels.launches[name] += 1
+        return out

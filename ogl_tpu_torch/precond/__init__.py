@@ -1,48 +1,80 @@
 """Preconditioners of the port.
 
-Counterpart: ogl_tpu/precond/__init__.py.  The slice covers `none` and
-scalar `BJ` (maxBlockSize 1); `build` raises NotImplementedError for every
-other name, naming the ROADMAP.md item that ports it.
+Counterpart: ogl_tpu/precond/__init__.py.  The slice covers `none`, scalar
+`BJ` (maxBlockSize 1) and `Multigrid` (precond/amg.py); `build` raises
+NotImplementedError for every other name, naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.core.formats import Coo
 
-__all__ = ["PrecondOp", "build", "block_jacobi", "VALID", "PORTED"]
+__all__ = ["PrecondOp", "build", "amg_of", "block_jacobi", "VALID", "PORTED"]
 
 VALID = ("none", "BJ", "ILU", "ILUT", "IRILU", "IC", "ICT", "ISAI", "GISAI", "Multigrid")
-PORTED = ("none", "BJ")
+PORTED = ("none", "BJ", "Multigrid")
 
 
 class PrecondOp:
     """A preconditioner as (apply function, state): `state` holds the
-    device tensors (invd for Jacobi), `apply_fn(state, r)` applies M⁻¹."""
+    device tensors (invd for Jacobi, the levels for AMG), `apply_fn(state,
+    r)` applies M⁻¹."""
 
     def __init__(self, apply_fn: Callable[[Any, Any], Any], state: Any):
         self.apply_fn = apply_fn
         self.state = state
 
+    def __call__(self, r):
+        return self.apply_fn(self.state, r)
+
     def bind(self, state):
         return lambda r: self.apply_fn(state, r)
 
 
+from ogl_tpu_torch.precond import amg  # noqa: E402  (the module)
 from ogl_tpu_torch.precond.jacobi import block_jacobi  # noqa: E402
 
 
-def build(cfg: PrecondConfig, coo: Coo, device) -> PrecondOp:
+def build(cfg: PrecondConfig, coo: Coo, device, verbose: int = 0) -> PrecondOp:
     """Factory mirroring init_preconditioner_impl (Preconditioner.H:83-351)
     for the ported names."""
+    if cfg.value_precision == "bfloat16" and cfg.name != "none":
+        raise NotImplementedError(
+            "preconditioner precision bfloat16 (the state cast) is not ported yet "
+            "(ROADMAP.md A10)")
+    if verbose > 0 and cfg.name == "Multigrid":
+        print(f"Generate preconditioner Multigrid MaxLevels {cfg.max_levels} "
+              f"MinCoarseRows {cfg.min_coarse_rows} ZeroGuess "
+              f"{int(cfg.zero_guess)} Cycle {cfg.cycle} "
+              "(zeroGuess log-only, as in the reference)")
     if cfg.name == "none":
         return PrecondOp(lambda s, r: r, ())
     if cfg.name == "BJ":
         return block_jacobi(coo, cfg.max_block_size, device)
+    if cfg.name == "Multigrid":
+        return amg_of(cfg, coo, device)
     if cfg.name in VALID:
-        item = "A11" if cfg.name == "Multigrid" else "A10"
         raise NotImplementedError(
-            f"preconditioner {cfg.name} is not ported yet (ROADMAP.md {item})")
+            f"preconditioner {cfg.name} is not ported yet (ROADMAP.md A10)")
     raise ValueError(
         f"unsupported preconditioner: {cfg.name}\nValid choices: {', '.join(VALID)}")
+
+
+def amg_of(cfg: PrecondConfig, coo: Coo, device) -> PrecondOp:
+    """The AMG cycle with the Multigrid controls of `cfg` (also what
+    GKOMultigrid iterates).  The smoother coefficients are packed in
+    bfloat16, the reference's packing for its fused levels, unless
+    `precision float32` keeps the state float32 — as the reference's state
+    cast to float32 widens those packed blocks again."""
+    smoother = torch.float32 if cfg.value_precision == "float32" else torch.bfloat16
+    return amg.amg(coo, device, smoother_dtype=smoother, max_levels=cfg.max_levels,
+                   min_coarse_rows=cfg.min_coarse_rows, cycle=cfg.cycle,
+                   coarse_solver_iters=cfg.coarse_solver_iters,
+                   aggregation=cfg.aggregation, width=cfg.coarsening_rate,
+                   coarse_solver=cfg.coarse_solver, smooth_iters=cfg.smoother_sweeps)

@@ -1,0 +1,417 @@
+"""Algebraic multigrid: the "Multigrid" preconditioner and the cycle that
+GKOMultigrid iterates.
+
+Counterpart: ogl_tpu/precond/amg.py (`pgm_aggregate`, `natural_aggregate`,
+`grid_dims_of`, `grid_aggregate`, `build_hierarchy`, `_ell_of`, the
+transfers, `_smooth`, `_coarse_solve`, `cg_fixed_iters`, `amg`).
+
+Setup runs on the host, as in the reference: aggregation (2×-per-axis
+geometric blocks for a box-grid stencil — `auto`/`grid` —, consecutive
+runs — `natural` —, or greedy pairwise matching — `pgm`, the pure-Python
+loop, slow at 1M rows), Galerkin coarse operators by index-mapped duplicate
+sums in SciPy, and a dense inverse of the coarsest operator.  The numpy
+and SciPy steps are the reference's, step for step, so both packages build
+the same hierarchy from the same COO.  Each level is then uploaded once:
+its Dia operator (float32), 1/diag, and — on every level but the coarsest
+— the coefficients the smoother reads, packed in `smoother_dtype`.
+
+The cycle (v, w or f; one cycle from a zero guess per application) runs
+every Jacobi sweep and residual through the smoother kernels
+(`CgKernels.ksweep`/`kresid`, CUDA C++ on the card, plain twins on the
+CPU), the transfers as plain reshapes and sums (`grid`/`natural`) or
+`index_add_`/`index_select` (`pgm`) — XLA ops in the reference, not
+Pallas kernels —, and the coarsest solve as one `torch.mv` against the
+dense inverse (or, for `coarseSolver cg`, fixed-iteration CG on the Dia
+SpMV kernel).
+
+Deliberate differences from the reference:
+  * smoother coefficients are packed in `smoother_dtype` (bfloat16 by
+    default) on every smoothing level and on either device.  The
+    reference packs bfloat16 only for its fused TPU levels of at least
+    32k rows (amg.py:301-324) and stays float32 on the CPU; the float32
+    packing is `smoother_dtype=torch.float32` (fvSolution: the
+    preconditioner's `precision float32`).
+  * the reference keeps a second, halo-framed copy of the cycle
+    (`framed_fn`, `fine_plan`) so that its merged CG shares the fine
+    level's frame; the port's vectors are flat, so the merged CG calls
+    `apply_fn` itself.
+  * a level operator with more than 64 distinct offsets raises
+    NotImplementedError (the reference falls back to Gdia, then Ell).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ogl_tpu_torch.core.formats import Coo, Dia, coo_to_dia
+from ogl_tpu_torch.kernels.dia_spmv import MAX_DIAGS, dia_spmv
+from ogl_tpu_torch.kernels.fused import CgKernels
+
+__all__ = ["Level", "make_level", "amg", "cycle_op", "build_hierarchy",
+           "pgm_aggregate", "natural_aggregate", "grid_dims_of", "grid_aggregate",
+           "grid_restrict", "grid_prolong", "cg_fixed_iters"]
+
+LANES = 128  # the reference's Gdia row width (kernels/gdia.py)
+GDIA_MAX_PLANES = 48  # the plane budget of its Gdia level operators (amg.py:394)
+DENSE_COARSE_MAX = 4096  # largest coarsest level solved by a dense inverse
+
+
+def pgm_aggregate(a_csr) -> np.ndarray:
+    """Greedy deterministic pairwise matching on strength |a_ij| (Ginkgo
+    amgx_pgm with deterministic matching): each unaggregated vertex pairs
+    with its strongest unaggregated neighbour; leftovers join their
+    strongest neighbour's aggregate; isolated vertices become singletons.
+    Returns agg[i] = coarse index.  Pure Python: O(nnz) interpreted steps."""
+    n = a_csr.shape[0]
+    indptr, indices, data = a_csr.indptr, a_csr.indices, np.abs(a_csr.data)
+    agg = np.full(n, -1, np.int64)
+    nc = 0
+    for i in range(n):
+        if agg[i] >= 0:
+            continue
+        best, best_w = -1, 0.0
+        for p in range(indptr[i], indptr[i + 1]):
+            j = indices[p]
+            if j != i and agg[j] < 0 and data[p] > best_w:
+                best, best_w = j, data[p]
+        if best >= 0:
+            agg[i] = agg[best] = nc
+            nc += 1
+    for i in range(n):
+        if agg[i] >= 0:
+            continue
+        best, best_w = -1, 0.0
+        for p in range(indptr[i], indptr[i + 1]):
+            j = indices[p]
+            if j != i and agg[j] >= 0 and data[p] > best_w:
+                best, best_w = j, data[p]
+        if best >= 0:
+            agg[i] = agg[best]
+        else:
+            agg[i] = nc
+            nc += 1
+    return agg
+
+
+def natural_aggregate(n: int, width: int = 2) -> np.ndarray:
+    """Group `width` consecutive rows: aggregate c = {w·c, …, w·c+w−1}."""
+    return np.arange(n, dtype=np.int64) // width
+
+
+def grid_dims_of(offsets, n: int):
+    """(nz, ny, nx) of a lexicographic box-grid stencil operator from its
+    diagonal offsets ({0, ±1, ±nx, ±nx·ny}, or the 2-D / 1-D subsets), or
+    None when the offsets are not of that form or n does not factor."""
+    pos = sorted(o for o in offsets if o > 0)
+    neg = sorted(-o for o in offsets if o < 0)
+    if pos != neg or len(pos) > 3 or 0 not in offsets:
+        return None
+    if not pos:
+        return None
+    if pos[0] != 1:
+        return None
+    if len(pos) == 1:
+        return (1, 1, n)
+    nx = pos[1]
+    if len(pos) == 2:
+        if n % nx:
+            return None
+        return (1, n // nx, nx)
+    s2 = pos[2]
+    if s2 % nx or n % s2:
+        return None
+    return (n // s2, s2 // nx, nx)
+
+
+def grid_aggregate(dims):
+    """2×-per-axis block aggregation of a (nz, ny, nx) lexicographic grid
+    (rate 8 in 3-D, 4 in 2-D); odd axes get a trailing partial block.
+    Returns (agg ids, coarse dims)."""
+    nz, ny, nx = dims
+    n = nz * ny * nx
+    i = np.arange(n, dtype=np.int64)
+    ix = i % nx
+    iy = (i // nx) % ny
+    iz = i // (nx * ny)
+    nxc = (nx + 1) // 2 if nx > 1 else 1
+    nyc = (ny + 1) // 2 if ny > 1 else 1
+    nzc = (nz + 1) // 2 if nz > 1 else 1
+    cx = np.minimum(ix // 2, nxc - 1) if nx > 1 else ix * 0
+    cy = np.minimum(iy // 2, nyc - 1) if ny > 1 else iy * 0
+    cz = np.minimum(iz // 2, nzc - 1) if nz > 1 else iz * 0
+    agg = (cz * nyc + cy) * nxc + cx
+    return agg, (nzc, nyc, nxc)
+
+
+@dataclasses.dataclass(frozen=True)
+class Level:
+    """One level of the hierarchy, on the device.  `agg` is set for pgm
+    aggregation only (natural and grid transfers are reshapes); `data_s`
+    (the smoother's coefficients) on every level but the coarsest, and
+    `coarse_inv` on the coarsest when the direct solve applies."""
+
+    n: int
+    nc: int  # coarse rows; 0 on the coarsest level
+    mat: Dia  # float32 level operator
+    inv_diag: torch.Tensor  # (n,) float32
+    kern: CgKernels  # the level's Dia plan: smoother passes, coarse SpMV
+    agg: torch.Tensor | None = None  # (n,) int64 coarse ids (pgm)
+    natural: bool = False
+    grid: tuple | None = None  # (nz, ny, nx, nzc, nyc, nxc)
+    width: int = 2  # natural aggregate size
+    data_s: torch.Tensor | None = None  # (nd, n) smoother coefficients
+    coarse_inv: torch.Tensor | None = None  # (n, n) float32
+
+
+def make_level(mat: Dia, inv_diag, nc: int, *, agg=None, natural=False, grid=None,
+               width=2, coarse_inv=None, smoother_dtype=torch.bfloat16) -> Level:
+    """A Level from its operator and host (numpy) arrays, copied to the
+    operator's device; packs the smoother coefficients when nc > 0."""
+    device = mat.data.device
+    kern = CgKernels(mat.shape[0], mat.offsets, device)
+    return Level(
+        n=mat.shape[0], nc=nc, mat=mat, kern=kern,
+        inv_diag=torch.tensor(np.asarray(inv_diag), device=device),
+        agg=None if agg is None else torch.tensor(
+            np.asarray(agg).astype(np.int64), device=device),
+        natural=natural, grid=None if grid is None else tuple(int(g) for g in grid),
+        width=width,
+        data_s=kern.pack_values(mat, dtype=smoother_dtype) if nc > 0 else None,
+        coarse_inv=None if coarse_inv is None else torch.tensor(
+            np.asarray(coarse_inv), device=device))
+
+
+def _gdia_planes(rows: np.ndarray, cols: np.ndarray) -> int:
+    """Planes of the reference's Gdia packing (kernels/gdia.py gdia_layout):
+    summed over the 128-row block offsets q, the most entries one row has
+    at q."""
+    q = cols // LANES - rows // LANES
+    pairs, counts = np.unique(np.stack([q, rows]), axis=1, return_counts=True)
+    starts = np.flatnonzero(np.r_[True, np.diff(pairs[0]) != 0])
+    return int(np.maximum.reduceat(counts, starts).sum())
+
+
+def _ell_of(a_csr, dtype, device) -> Dia:
+    """The level operator as a port Dia (at most 64 distinct offsets).
+    Wider operators raise, naming the format the reference would pick."""
+    a_csr.sort_indices()
+    a = a_csr.tocoo()
+    coo = Coo(rows=a.row.astype(np.int32, copy=False),
+              cols=a.col.astype(np.int32, copy=False),
+              vals=a.data.astype(dtype, copy=False), shape=a.shape)
+    n = a.shape[0]
+    diffs = np.subtract(coo.cols, coo.rows, dtype=np.int64)
+    present = np.zeros(2 * n - 1, np.bool_)
+    present[diffs + (n - 1)] = True
+    n_offs = int(present.sum())
+    if n_offs <= MAX_DIAGS:
+        return coo_to_dia(coo, device)
+    planes = _gdia_planes(coo.rows.astype(np.int64), coo.cols.astype(np.int64))
+    fmt = ("Gdia (ROADMAP.md A13)" if planes <= GDIA_MAX_PLANES
+           else "Ell (ROADMAP.md A2)")
+    raise NotImplementedError(
+        f"AMG level of {n} rows has {n_offs} distinct diagonals (> {MAX_DIAGS}): "
+        f"it needs the {fmt} level format, not ported to ogl_tpu_torch yet")
+
+
+def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,
+                    aggregation: str = "natural", width: int = 2,
+                    coarse_solver: str = "direct",
+                    device: torch.device | str = "cpu",
+                    smoother_dtype: torch.dtype = torch.bfloat16) -> list[Level]:
+    """The level list, finest first, on `device` (reference
+    build_hierarchy, amg.py:187-298)."""
+    import scipy.sparse as sp
+
+    rows = np.asarray(coo.rows)
+    cols = np.asarray(coo.cols)
+    vals = np.asarray(coo.vals)
+    dtype = vals.dtype
+    a = sp.csr_matrix((vals, (rows, cols)), shape=coo.shape)
+    natural = aggregation == "natural"
+    grid_dims = None
+    if aggregation in ("auto", "grid"):
+        diffs = np.unique(np.subtract(cols, rows, dtype=np.int64))
+        grid_dims = grid_dims_of([int(d) for d in diffs], a.shape[0])
+        natural = grid_dims is None
+
+    # a direct coarse solve ends the coarsening as soon as the dense block
+    # is small enough (min_coarse_rows stays a lower bound)
+    stop_rows = min_coarse_rows
+    if coarse_solver == "direct":
+        n0 = a.shape[0]
+        stop_rows = max(min_coarse_rows, min(DENSE_COARSE_MAX // 2, n0 // 16))
+
+    levels: list[Level] = []
+    for _ in range(max_levels):
+        n = a.shape[0]
+        if n <= stop_rows:
+            break
+        gtuple = None
+        if grid_dims is not None:
+            agg, coarse_dims = grid_aggregate(grid_dims)
+            gtuple = tuple(grid_dims) + tuple(coarse_dims)
+        elif natural:
+            agg = natural_aggregate(n, width)
+        else:
+            agg = pgm_aggregate(a)
+        nc = int(agg.max()) + 1
+        if nc >= n:  # no coarsening progress
+            break
+        d = a.diagonal()
+        d = np.where(np.abs(d) > 1e-300, d, 1.0)
+        levels.append(make_level(
+            _ell_of(a, dtype, device), (1.0 / d).astype(dtype), nc,
+            agg=None if (natural or gtuple is not None) else agg,
+            natural=natural, grid=gtuple, width=width, smoother_dtype=smoother_dtype))
+        if grid_dims is not None:
+            grid_dims = coarse_dims
+        # Galerkin product with a one-hot P: A_c[agg[r], agg[c]] += A[r, c]
+        ac = a.tocoo()
+        a = sp.csr_matrix((ac.data, (agg[ac.row], agg[ac.col])), shape=(nc, nc))
+        a.sum_duplicates()
+    d = a.diagonal()
+    d = np.where(np.abs(d) > 1e-300, d, 1.0)
+    n_c = a.shape[0]
+    coarse_inv = None
+    if coarse_solver == "direct" and n_c <= DENSE_COARSE_MAX:
+        dense = a.toarray().astype(np.float64)
+        # pure-Neumann pressure systems are singular up to the constant
+        # vector: fall back to the pseudo-inverse
+        try:
+            inv = np.linalg.inv(dense)
+            if not np.all(np.isfinite(inv)):
+                raise np.linalg.LinAlgError
+        except np.linalg.LinAlgError:
+            inv = np.linalg.pinv(dense, rcond=1e-12)
+        coarse_inv = inv.astype(dtype)
+    levels.append(make_level(_ell_of(a, dtype, device), (1.0 / d).astype(dtype), 0,
+                             coarse_inv=coarse_inv))
+    return levels
+
+
+# ---- transfers (piecewise-constant P; restrict is its transpose) --------
+
+
+def _block_shape(g):
+    nz, ny, nx, nzc, nyc, nxc = g
+    return (2 if nz > 1 else 1), (2 if ny > 1 else 1), (2 if nx > 1 else 1)
+
+
+def grid_restrict(g, r: torch.Tensor) -> torch.Tensor:
+    """Block sums over the 2× blocks of a grid level (odd axes zero-padded)."""
+    nz, ny, nx, nzc, nyc, nxc = g
+    bz, by, bx = _block_shape(g)
+    r3 = r.reshape(nz, ny, nx)
+    pad = (0, bx * nxc - nx, 0, by * nyc - ny, 0, bz * nzc - nz)
+    if any(pad):
+        r3 = torch.nn.functional.pad(r3, pad)
+    return r3.reshape(nzc, bz, nyc, by, nxc, bx).sum(dim=(1, 3, 5)).reshape(-1)
+
+
+def grid_prolong(g, ec: torch.Tensor) -> torch.Tensor:
+    """Piecewise-constant injection, the transpose of grid_restrict."""
+    nz, ny, nx, nzc, nyc, nxc = g
+    bz, by, bx = _block_shape(g)
+    e = ec.reshape(nzc, 1, nyc, 1, nxc, 1).expand(nzc, bz, nyc, by, nxc, bx)
+    return e.reshape(nzc * bz, nyc * by, nxc * bx)[:nz, :ny, :nx].reshape(-1)
+
+
+def _restrict(lv: Level, r: torch.Tensor) -> torch.Tensor:
+    if lv.grid is not None:
+        return grid_restrict(lv.grid, r)
+    if lv.natural:
+        pad = lv.width * lv.nc - lv.n
+        rp = torch.nn.functional.pad(r, (0, pad)) if pad else r
+        return rp.reshape(lv.nc, lv.width).sum(dim=1)
+    return torch.zeros(lv.nc, dtype=r.dtype, device=r.device).index_add_(0, lv.agg, r)
+
+
+def _prolong(lv: Level, ec: torch.Tensor) -> torch.Tensor:
+    if lv.grid is not None:
+        return grid_prolong(lv.grid, ec)
+    if lv.natural:
+        return ec[:, None].expand(lv.nc, lv.width).reshape(-1)[: lv.n]
+    return ec.index_select(0, lv.agg)
+
+
+# ---- coarse solve and cycle ---------------------------------------------
+
+
+def cg_fixed_iters(apply_fn, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """`iters` CG steps from a zero guess, breakdown-guarded; no host read."""
+    tiny = 1e-30
+    x = torch.zeros_like(b)
+    r, p = b, b
+    rho = torch.sum(b * b)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    for _ in range(iters):
+        q = apply_fn(p)
+        pq = torch.sum(p * q)
+        ok = torch.abs(pq) > tiny
+        alpha = torch.where(ok, rho / torch.where(ok, pq, one), 0.0)
+        x = x + alpha * p
+        r = r - alpha * q
+        rho_new = torch.sum(r * r)
+        ok = rho > tiny
+        beta = torch.where(ok, rho_new / torch.where(ok, rho, one), 0.0)
+        p = r + beta * p
+        rho = rho_new
+    return x
+
+
+def _coarse_solve(lv: Level, b: torch.Tensor, iters: int) -> torch.Tensor:
+    if lv.coarse_inv is not None:
+        return torch.mv(lv.coarse_inv, b)
+    return cg_fixed_iters(lambda v: dia_spmv(lv.kern.plan, lv.mat.data, v), b, iters)
+
+
+def cycle_op(levels, cycle: str = "v", relax: float = 0.9, smooth_iters: int = 2,
+             coarse_solver_iters: int = 4):
+    """The preconditioner: one `cycle` from a zero guess over `levels`."""
+    from ogl_tpu_torch.precond import PrecondOp
+
+    n_levels = len(levels)
+
+    def sweeps(lv: Level, x, b, k: int):
+        for _ in range(k):
+            x = lv.kern.ksweep(lv.data_s, x, b, lv.inv_diag, relax)
+        return x
+
+    def run_level(lvls, li: int, b, w_mode: bool):
+        lv = lvls[li]
+        if li == n_levels - 1:
+            return _coarse_solve(lv, b, coarse_solver_iters)
+        recurse = 2 if (w_mode and li < n_levels - 2) else 1
+        # pre-smooth from the zero guess: the first sweep needs no A x
+        if smooth_iters > 0:
+            x = sweeps(lv, relax * lv.inv_diag * b, b, smooth_iters - 1)
+        else:
+            x = torch.zeros_like(b)
+        for cyc in range(recurse):
+            r = lv.kern.kresid(lv.data_s, x, b)
+            ec = run_level(lvls, li + 1, _restrict(lv, r),
+                           w_mode or (cycle == "f" and cyc == 0))
+            x = sweeps(lv, x + _prolong(lv, ec), b, smooth_iters)
+        return x
+
+    def apply(lvls, r):
+        return run_level(lvls, 0, r, cycle == "w")
+
+    return PrecondOp(apply, tuple(levels))
+
+
+def amg(coo: Coo, device: torch.device | str = "cpu", max_levels: int = 9,
+        min_coarse_rows: int = 10, cycle: str = "v", coarse_solver_iters: int = 4,
+        relax: float = 0.9, smooth_iters: int = 2, aggregation: str = "natural",
+        width: int = 8, coarse_solver: str = "direct",
+        smoother_dtype: torch.dtype = torch.bfloat16):
+    """Build the hierarchy of `coo` on `device` and return its cycle as a
+    PrecondOp (state: the levels)."""
+    levels = build_hierarchy(coo, max_levels, min_coarse_rows, aggregation,
+                             width=width, coarse_solver=coarse_solver, device=device,
+                             smoother_dtype=smoother_dtype)
+    return cycle_op(levels, cycle, relax, smooth_iters, coarse_solver_iters)

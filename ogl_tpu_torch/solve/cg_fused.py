@@ -3,8 +3,11 @@
 Counterpart: ogl_tpu/solve/cg_fused.py.  Same recurrences, criterion and
 gating as solve/cg.py; each iteration is K1 (p-update + SpMV + δ) and K2
 (x/r/z updates + ρ and ‖r‖₁), so the residual norm the criterion needs
-comes free.  The preconditioner is diagonal: `invd` None → identity (K2i,
-no z stream), else scalar Jacobi (K2).
+comes free.  The preconditioner is diagonal — `invd` None → identity (K2i,
+no z stream), else scalar Jacobi (K2) — or rich: `precond` (the AMG
+cycle) maps r to z, and each iteration runs K1, then K2n (x, r and ‖r‖₁
+only), then z = precond(r) and ρ = Σ r·z (the reference's
+`precond_framed` route, which the port runs on flat vectors).
 
 The loop runs on the host.  The iteration counter and the minIter/
 frequency gating are host integers; α, β, ρ, δ, ‖r‖₁ and the normalised
@@ -29,19 +32,19 @@ from ogl_tpu_torch.solve.cg import SolveResult
 __all__ = ["cg_fused"]
 
 
-def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None) -> SolveResult:
+def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None, precond=None) -> SolveResult:
     """b, x0, invd: flat (n,) float32 tensors on kern's device; data:
-    kern.pack_values(mat)."""
+    kern.pack_values(mat); precond: r -> z (excludes invd)."""
     dtype = kern.dtype
     n = kern.n
-    identity = invd is None
+    identity = invd is None and precond is None
     x = x0.to(dtype).clone()
     r = b - kern.apply(data, x)
     if identity:
         z = r  # z ≡ r: K1 reads r, K2i drops the z stream
         rho = torch.sum(r * r)
     else:
-        z = invd * r
+        z = precond(r) if precond is not None else invd * r
         rho = torch.sum(r * z)
     absr = torch.sum(torch.abs(r))
 
@@ -66,6 +69,10 @@ def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None) -> SolveResult:
         rho_old = rho
         if identity:
             rho, absr = kern.k2i(alpha, x, r, p, q)
+        elif precond is not None:
+            absr = kern.k2n(alpha, x, r, p, q)
+            z = precond(r)
+            rho = torch.sum(r * z)
         else:
             rho, absr = kern.k2(alpha, x, r, p, q, invd, z)
         st = st.replace(iter=st.iter + 1)

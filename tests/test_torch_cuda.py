@@ -19,7 +19,8 @@ import torch
 from ogl_tpu_torch import foam, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
-from ogl_tpu_torch.kernels.fused import CgKernels, k1_plain, k2_plain, k2i_plain
+from ogl_tpu_torch.kernels.fused import (CgKernels, k1_plain, k2_plain, k2i_plain,
+                                         k2n_plain, kresid_plain, ksweep_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -158,5 +159,84 @@ def test_foam_solve_on_card_matches_cpu(dev, pc):
     assert x.device.type == "cuda"
     assert kernels.launches["cg_k1"] > 0 and kernels.launches["dia_spmv"] > 0
     assert kernels.launches["cg_k2" if pc == "BJ" else "cg_k2i"] > 0
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [4097, 16384])
+def test_k2n_kernel_matches_plain(dev, n):
+    kern = CgKernels(n, (0,), dev)
+    alpha = torch.tensor(0.43, device=dev)
+    p, q = _vec(n, 5, dev), _vec(n, 6, dev)
+    xs = [_vec(n, 8, dev) for _ in range(2)]
+    rs = [_vec(n, 9, dev) for _ in range(2)]
+    kernels.reset_launches()
+    got = kern.k2n(alpha, xs[0], rs[0], p, q)
+    want = k2n_plain(alpha, xs[1], rs[1], p, q)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_k2n"] == 1
+    _close(xs[0], xs[1])
+    _close(rs[0], rs[1])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+
+
+# an odd banded level, and the 16,384-row level of the 1M-cell hierarchy
+SMOOTHER_CASES = [("banded", 1001), ("poisson", (32, 32, 16))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", SMOOTHER_CASES, ids=str)
+def test_smoother_kernels_match_plain(dev, case, dtype):
+    data, offsets = _case(case, dev)
+    n = data.shape[1]
+    kern = CgKernels(n, offsets, dev)
+    data = data.to(dtype)
+    x, b, invd = _vec(n, 2, dev), _vec(n, 3, dev), _vec(n, 4, dev, lo=0.1)
+    kernels.reset_launches()
+    sweep = kern.ksweep(data, x, b, invd, 0.9)
+    resid = kern.kresid(data, x, b)
+    torch.cuda.synchronize()
+    assert kernels.launches["amg_sweep"] == 1 and kernels.launches["amg_resid"] == 1
+    # the plain versions read the same (bfloat16) data widened to float32
+    _close(sweep, ksweep_plain(data, offsets, x, b, invd, 0.9))
+    _close(resid, kresid_plain(data, offsets, x, b))
+    out = torch.empty_like(x)
+    assert kern.kresid(data, x, b, out=out) is out
+    _close(out, resid, rtol=0)
+
+
+def test_smoother_wrappers_raise_on_bad_operands(dev):
+    n = 513
+    kern = CgKernels(n, (-1, 0, 1), dev)
+    data = _banded(n, (-1, 0, 1), 0, dev)
+    x, b, invd = _vec(n, 1, dev), _vec(n, 2, dev), _vec(n, 3, dev, lo=0.1)
+    with pytest.raises(ValueError, match="overlaps"):
+        kern.ksweep(data, x, b, invd, 0.9, out=x)
+    with pytest.raises(ValueError, match="overlaps"):
+        kern.kresid(data, x, b, out=x)
+    with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
+        kern.ksweep(data.double(), x, b, invd, 0.9)
+    with pytest.raises(TypeError, match="float32"):
+        kern.kresid(data, x.double(), b)
+    with pytest.raises(TypeError, match="float32"):
+        kern.k2n(torch.tensor(0.5, device=dev), x, b.double(), x, x)
+
+
+@pytest.mark.parametrize("solver", ["GKOCG", "GKOMultigrid"])
+def test_foam_amg_on_card_matches_cpu(dev, solver):
+    m = testing.poisson_ldu((32, 32, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": solver, "matrixFormat": "Dia", "tolerance": 1e-6, "relTol": 0,
+           "adaptMinIter": False}
+    if solver == "GKOCG":
+        ctl["preconditioner"] = "Multigrid"
+    x_cpu, perf_cpu = foam.FoamSolver("p", {**ctl, "executor": "cpu"}).solve(m, b)
+    kernels.reset_launches()
+    x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
+    assert x.device.type == "cuda"
+    assert kernels.launches["amg_sweep"] > 0 and kernels.launches["amg_resid"] > 0
+    assert kernels.launches["dia_spmv"] > 0
+    if solver == "GKOCG":
+        assert kernels.launches["cg_k1"] > 0 and kernels.launches["cg_k2n"] > 0
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)

@@ -1,7 +1,8 @@
-"""The merged-CG kernels' plain versions (what the wrappers run for CPU
-tensors) against the reference's Pallas K1/K2/K2i in interpret mode, on
-the same random inputs.  Elementwise outputs rtol=atol=1e-6; the block
-sums δ, ρ, ‖r‖₁ rtol=1e-5, because they are summed in another order."""
+"""The merged-CG and AMG-smoother kernels' plain versions (what the
+wrappers run for CPU tensors) against the reference's Pallas K1/K2/K2i/K2n
+and ksweep/kresid in interpret mode, on the same random inputs.
+Elementwise outputs rtol=atol=1e-6; the block sums δ, ρ, ‖r‖₁ rtol=1e-5,
+because they are summed in another order."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,8 @@ from ogl_tpu.core import ldu as ref_ldu
 from ogl_tpu.kernels.fused import make_cg_kernels
 from ogl_tpu_torch import interop, kernels, registry
 from ogl_tpu_torch.kernels.dia_spmv import dia_spmv_plain
-from ogl_tpu_torch.kernels.fused import CgKernels, k1_plain, k2_plain, k2i_plain
+from ogl_tpu_torch.kernels.fused import (CgKernels, k1_plain, k2_plain, k2i_plain,
+                                         k2n_plain, kresid_plain, ksweep_plain)
 
 torch.set_num_threads(2)
 
@@ -122,3 +124,60 @@ def test_wrappers_dispatch_cpu_tensors_to_plain(case):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     with pytest.raises(ValueError, match="offsets"):
         CgKernels(n, mat.offsets[1:], "cpu").pack_values(mat)
+
+
+def test_k2n_plain_matches_reference(case):
+    ref, rkern, data3, mat, vec = case
+    alpha = -0.37
+    fr = {k: rkern.frame(v) for k, v in vec.items()}
+    xo, ro, absr = rkern.k2n(alpha, fr["x"], fr["r"], fr["p"], fr["q"])
+    x, r = _t(vec["x"]), _t(vec["r"])
+    absr2 = k2n_plain(_scalar(alpha), x, r, _t(vec["p"]), _t(vec["q"]))
+    np.testing.assert_allclose(x.numpy(), _unframe(rkern, xo), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(r.numpy(), _unframe(rkern, ro), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(absr2), float(absr), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoother_plain_matches_reference(case, dtype):
+    """ksweep/kresid on coefficients packed in `dtype` (the reference packs
+    its smoother operators in bfloat16); both widen them to float32."""
+    ref, rkern, data3, mat, vec = case
+    relax = 0.9
+    data3 = rkern.pack_values(ref, dtype=getattr(jnp, dtype))
+    data = CgKernels(ref.shape[0], mat.offsets, "cpu").pack_values(
+        mat, dtype=getattr(torch, dtype))
+    fr = {k: rkern.frame(v) for k, v in vec.items()}
+    want_sweep = _unframe(rkern, rkern.ksweep(data3, fr["x"], fr["r"], fr["invd"], relax))
+    want_resid = _unframe(rkern, rkern.kresid(data3, fr["x"], fr["r"]))
+    x, b, invd = _t(vec["x"]), _t(vec["r"]), _t(vec["invd"])
+    np.testing.assert_allclose(ksweep_plain(data, mat.offsets, x, b, invd, relax).numpy(),
+                               want_sweep, rtol=1e-6, atol=1e-6 * np.abs(want_sweep).max())
+    np.testing.assert_allclose(kresid_plain(data, mat.offsets, x, b).numpy(),
+                               want_resid, rtol=1e-6, atol=1e-6 * np.abs(want_resid).max())
+
+
+def test_smoother_wrappers_dispatch_cpu_tensors_to_plain(case):
+    ref, rkern, data3, mat, vec = case
+    n = ref.shape[0]
+    kern = CgKernels(n, mat.offsets, "cpu")
+    data = kern.pack_values(mat, dtype=torch.bfloat16)
+    x, b, invd = _t(vec["x"]), _t(vec["r"]), _t(vec["invd"])
+    kernels.reset_launches()
+    got = kern.ksweep(data, x, b, invd, 0.9)
+    torch.testing.assert_close(got, ksweep_plain(data, mat.offsets, x, b, invd, 0.9),
+                               rtol=0, atol=0)
+    out = torch.empty(n)
+    assert kern.kresid(data, x, b, out=out) is out
+    torch.testing.assert_close(out, kresid_plain(data, mat.offsets, x, b), rtol=0, atol=0)
+    a1, a2 = _t(vec["x"]), _t(vec["x"])
+    r1, r2 = _t(vec["r"]), _t(vec["r"])
+    s1 = kern.k2n(_scalar(0.3), a1, r1, _t(vec["p"]), _t(vec["q"]))
+    s2 = k2n_plain(_scalar(0.3), a2, r2, _t(vec["p"]), _t(vec["q"]))
+    for g, w in ((a1, a2), (r1, r2), (s1, s2)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert sum(kernels.launches.values()) == 0
+    with pytest.raises(ValueError, match="overlaps"):
+        kern.ksweep(data, x, b, invd, 0.9, out=x)
+    with pytest.raises(ValueError, match="overlaps"):
+        kern.kresid(data, x, b, out=b[1:])
