@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through `ogl_tpu_torch.foam.solve` on a
-128x128x64 (1,048,576-cell) Poisson pressure system in OpenFOAM LDU form:
-GKOCG with preconditioner `none` and scalar `BJ` (slice 1), and the
-AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2),
-each followed by steady-state steps — after building the port's kernels
-from the sources in this checkout and holding each against its plain
-PyTorch version on the card, at the slices' size and at 256x256x128
-(8,388,608 rows).
+Drives the port's three main paths through `ogl_tpu_torch.foam.solve` at
+1,048,576 cells in OpenFOAM LDU form: on a 128x128x64 Poisson pressure
+system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1) and the
+AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2);
+then the unstructured-mesh solve (slice 3) on a kNN-6 FV graph (auto-routed
+to Xell) and on the Poisson grid renumbered inside each x-line (auto-routed
+to Gdia) — each followed by steady-state steps, after building the port's
+kernels from the sources in this checkout and holding each against its
+plain PyTorch version on the card, at the slices' size and at 8,388,608
+rows.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
@@ -29,7 +31,15 @@ Phases (any failure raises, and the script exits non-zero):
      preconditioner build time, launch counts, the true float64 residual
      and the iteration count against the same solve over the plain twins
      (merged CG and smoothers) on the card; two steady steps that rebuild
-     the hierarchy; torch.profiler over one more step.
+     the hierarchy; torch.profiler over one more step;
+  8. the unstructured path: the two meshes built on the host (timed),
+     GKOCG `none` and `BJ` on each with no matrixFormat (routed format,
+     launch counts, true float64 residual, iterations against the merged
+     CG over the plain twins on the card), one steady step per mesh, the
+     kNN mesh once more in its points' numbering with `reorder rcm`; then
+     the Gdia and Xell kernels against their plain versions (Gdia also at
+     8,388,608 rows, built on the device), torch's CSR SpMV beside the Xell
+     kernel for the record, and a profile of one steady step per format.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel of the path that never launched fails the run.  The line before
 the last is one JSON object describing each kernel; the last line is
@@ -51,15 +61,16 @@ import torch
 
 from ogl_tpu_torch import foam, kernels, registry, testing
 from ogl_tpu_torch.config import PrecondConfig
-from ogl_tpu_torch.kernels import _build
+from ogl_tpu_torch.kernels import _build, gdia, spmv, xell
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
-from ogl_tpu_torch.kernels.fused import (CgKernels, k1_plain, k2_plain, k2i_plain,
-                                         k2n_plain, kresid_plain, ksweep_plain)
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k2_plain,
+                                         k2i_plain, k2n_plain, kresid_plain, ksweep_plain)
 from ogl_tpu_torch.precond import amg
 from ogl_tpu_torch.solve import cg_fused, ir, krylov, stopping
 
 GRID_1M = (128, 128, 64)
 GRID_8M = (256, 256, 128)
+KNN_1M = 1 << 20  # cells of the kNN-6 FV graph
 TOL = 1e-6
 # float32 recurrence residual vs the float64 residual of the returned x:
 # the two drift apart by rounding over hundreds of iterations
@@ -69,36 +80,45 @@ SUM_RTOL = 1e-4  # block sums: summed in another order than torch.sum
 
 RELAX = 0.9  # the AMG smoother's damping (ogl_tpu_torch/precond/amg.py)
 
-# name -> (route, source, TPU kernel it replaces, phase-3 case its JSON row reports)
+# name -> (route, source, TPU kernel it replaces, phase-3/8 case its JSON row
+# reports, and the label of that case's run: None = the 1M Poisson grid)
 KERNELS = {
     "dia_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/dia_spmv.cu",
-                 "ogl_tpu/kernels/pallas_spmv.py:38", "dia_spmv"),
+                 "ogl_tpu/kernels/pallas_spmv.py:38", "dia_spmv", None),
     "cg_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k1.cu",
-              "ogl_tpu/kernels/fused.py:36", "cg_k1"),
+              "ogl_tpu/kernels/fused.py:36", "cg_k1", None),
     "cg_k2": ("triton", "ogl_tpu_torch/kernels/fused.py",
-              "ogl_tpu/kernels/fused.py:396", "cg_k2"),
+              "ogl_tpu/kernels/fused.py:396", "cg_k2", None),
     "cg_k2i": ("triton", "ogl_tpu_torch/kernels/fused.py",
-               "ogl_tpu/kernels/fused.py:492", "cg_k2i"),
+               "ogl_tpu/kernels/fused.py:492", "cg_k2i", None),
     "cg_k2n": ("triton", "ogl_tpu_torch/kernels/fused.py",
-               "ogl_tpu/kernels/fused.py:382", "cg_k2n"),
+               "ogl_tpu/kernels/fused.py:382", "cg_k2n", None),
     # the AMG path packs its smoother coefficients in bfloat16
     "amg_sweep": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_smooth.cu",
-                  "ogl_tpu/kernels/fused.py:195", "amg_sweep[bf16]"),
+                  "ogl_tpu/kernels/fused.py:195", "amg_sweep[bf16]", None),
     "amg_resid": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_smooth.cu",
-                  "ogl_tpu/kernels/fused.py:242", "amg_resid[bf16]"),
+                  "ogl_tpu/kernels/fused.py:242", "amg_resid[bf16]", None),
+    "gdia_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/gdia.cu",
+                  "ogl_tpu/kernels/gdia.py:183", "gdia_spmv", "shuffled"),
+    "gdia_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/gdia.cu",
+                "ogl_tpu/kernels/fused.py:111", "gdia_k1", "shuffled"),
+    # the spill correction _spill_corr (xell.py:430) runs inside both
+    "xell_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/xell.cu",
+                  "ogl_tpu/kernels/xell.py:462, ogl_tpu/kernels/xell.py:430",
+                  "xell_spmv", "knn"),
+    "xell_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/xell.cu",
+                "ogl_tpu/kernels/xell.py:525, ogl_tpu/kernels/xell.py:430",
+                "xell_k1", "knn"),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_k2", "cg_k2i")
 AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
+UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i")
 AMG_SOLVES = {"pMG": {"solver": "GKOCG", "preconditioner": "Multigrid"},
               "pGMG": {"solver": "GKOMultigrid"}}
 
 
-class PlainCgKernels(CgKernels):
-    """CgKernels whose steps are the plain PyTorch versions, on any device:
-    the independent reference the main path's iteration count is held to."""
-
-    def k1(self, data, z, p, beta):
-        return k1_plain(data, self.offsets, z, p, beta)
+class PlainSteps:
+    """K2, K2i and K2n as the plain PyTorch versions, on any device."""
 
     def k2(self, alpha, x, r, p, q, invd, z):
         return k2_plain(alpha, x, r, p, q, invd, z)
@@ -109,11 +129,36 @@ class PlainCgKernels(CgKernels):
     def k2n(self, alpha, x, r, p, q):
         return k2n_plain(alpha, x, r, p, q)
 
+
+class PlainCgKernels(PlainSteps, CgKernels):
+    """CgKernels whose steps are the plain PyTorch versions, on any device:
+    the independent reference the main path's iteration count is held to."""
+
+    def k1(self, data, z, p, beta):
+        return k1_plain(data, self.offsets, z, p, beta)
+
     def ksweep(self, data, x, b, invd, relax, out=None):
         return ksweep_plain(data, self.offsets, x, b, invd, relax)
 
     def kresid(self, data, x, b, out=None):
         return kresid_plain(data, self.offsets, x, b)
+
+
+class PlainGdiaCgKernels(PlainSteps, GdiaCgKernels):
+    def k1(self, data, z, p, beta):
+        return gdia.gdia_k1_plain(*data, self.plane_offsets, z, p, beta)
+
+
+class PlainXellCgKernels(PlainSteps, xell.XellCgKernels):
+    def k1(self, data, z, p, beta):
+        return xell.xell_k1_plain(self.plan, *data, z, p, beta)
+
+
+def plain_plan(mat):
+    """The merged-CG plan over the plain twins for a Gdia or Xell matrix."""
+    if isinstance(mat, gdia.Gdia):
+        return PlainGdiaCgKernels(mat.shape[0], mat.plane_offsets, mat.vals.device)
+    return PlainXellCgKernels(xell.XellPlan.of(mat))
 
 
 def poisson_dia(dims, device):
@@ -209,12 +254,7 @@ def check_kernels(dims, device, report):
             lambda d=d: ((kresid_plain(d, offsets, vec["x"], vec["r"]),), ()),
             coef + 3 * n * 4)
     for name, (kfn, pfn, nbytes) in cases.items():
-        (kv, ks), (pv, ps) = kfn(), pfn()
-        torch.cuda.synchronize()
-        errs = [vec_err(a, b) for a, b in zip(kv, pv)]
-        max_err = max(e for e, _ in errs)
-        sums = [sum_err(a, b) for a, b in zip(ks, ps)]
-        ok = all(e <= t for e, t in errs) and all(s <= SUM_RTOL for s in sums)
+        kt = pt = None
         if name in ("cg_k2", "cg_k2i", "cg_k2n"):  # time the in-place updates on fixed buffers
             x, r, z = vec["x"].clone(), vec["r"].clone(), torch.empty(n, device=device)
             if name == "cg_k2":
@@ -226,29 +266,46 @@ def check_kernels(dims, device, report):
             else:
                 kt = lambda: kern.k2n(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
                 pt = lambda: k2n_plain(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
-        else:
-            kt, pt = kfn, pfn
-        ms, plain_ms = time_pair(kt, pt)
-        print(f"  {name:15s} {label:12s} max_abs_err {max_err:.3e} (tol "
-              f"{max(t for _, t in errs):.1e}) sum_rel_err "
-              f"{max(sums, default=0.0):.1e} (tol {SUM_RTOL:.0e})  kernel {ms:.4f} ms "
-              f"{nbytes / ms / 1e6:.1f} GB/s  plain {plain_ms:.4f} ms "
-              f"{nbytes / plain_ms / 1e6:.1f} GB/s  {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"{name} at {label} disagrees with its plain version")
-        report.setdefault(name, {})[label] = {"max_abs_err": max_err, "ms": ms,
-                                              "plain_ms": plain_ms}
+        compare(name, label, kfn, pfn, nbytes, report, kt, pt)
     del data, vec, invd, cases
     torch.cuda.empty_cache()
 
 
+def compare(name, label, kfn, pfn, nbytes, report, kt=None, pt=None):
+    """Run kernel and plain version once on the same inputs (each returns
+    (vectors, sums)), hold them to the tolerances, time them (`kt`/`pt`
+    when the timed call differs) and record the row in `report`."""
+    (kv, ks), (pv, ps) = kfn(), pfn()
+    torch.cuda.synchronize()
+    errs = [vec_err(a, b) for a, b in zip(kv, pv)]
+    max_err = max(e for e, _ in errs)
+    sums = [sum_err(a, b) for a, b in zip(ks, ps)]
+    ok = all(e <= t for e, t in errs) and all(s <= SUM_RTOL for s in sums)
+    ms, plain_ms = time_pair(kt or kfn, pt or pfn)
+    print(f"  {name:15s} {label:12s} max_abs_err {max_err:.3e} (tol "
+          f"{max(t for _, t in errs):.1e}) sum_rel_err "
+          f"{max(sums, default=0.0):.1e} (tol {SUM_RTOL:.0e})  kernel {ms:.4f} ms "
+          f"{nbytes / ms / 1e6:.1f} GB/s  plain {plain_ms:.4f} ms "
+          f"{nbytes / plain_ms / 1e6:.1f} GB/s  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name} at {label} disagrees with its plain version")
+    report.setdefault(name, {})[label] = {"max_abs_err": max_err, "ms": ms,
+                                          "plain_ms": plain_ms}
+
+
 def true_residual(data, offsets, x, b):
-    """‖b − A x‖₁ / normfactor in float64 on the card, with the OpenFOAM
-    norm factor of the zero initial guess."""
-    a64, x64, b64 = data.double(), x.double(), b.double()
-    r = b64 - dia_spmv_plain(a64, offsets, x64)
-    x0 = torch.zeros_like(b64)
-    b_sub = b64 - dia_spmv_plain(a64, offsets, x0)
+    """‖b − A x‖₁ / normfactor in float64 on the card for a Dia matrix."""
+    a64 = data.double()
+    return true_residual_mv(lambda v: dia_spmv_plain(a64, offsets, v), x, b)
+
+
+def true_residual_mv(mv64, x, b):
+    """‖b − A x‖₁ / normfactor in float64 on the card, `mv64` a float64
+    product with A, with the OpenFOAM norm factor of the zero initial
+    guess."""
+    x64, b64 = x.double(), b.double()
+    r = b64 - mv64(x64)
+    b_sub = b64 - mv64(torch.zeros_like(b64))
     nf = float(torch.sum((b64 - b_sub).abs() + b_sub.abs())) + stopping.small_of(torch.float64)
     return float(r.abs().sum()) / nf
 
@@ -425,15 +482,286 @@ def amg_path(m, b, device, ctl) -> dict:
     return launches
 
 
+# ---- phase 8: the unstructured path -----------------------------------------
+
+
+def gdia_on_device(rows, cols, vals, n):
+    """Gdia packing of a row-major sorted COO on the device — the layout of
+    kernels/gdia.py `gdia_layout` (planes by block-row offset q ascending;
+    within q, the k-th entry of a row goes to the q's k-th plane), which
+    the host packing takes seconds to build at 8.4M rows."""
+    dev = rows.device
+    r = -(-n // 128)
+    q = cols // 128 - rows // 128
+    planes_v, planes_l, offsets = [], [], []
+    for qv in torch.unique(q).tolist():
+        sel = torch.nonzero(q == qv).squeeze(1)
+        dst = rows[sel]
+        _, inverse, counts = torch.unique_consecutive(dst, return_inverse=True,
+                                                      return_counts=True)
+        starts = torch.cumsum(counts, 0) - counts
+        plane_of = torch.arange(len(dst), device=dev) - starts[inverse]
+        for k in range(int(plane_of.max()) + 1):
+            on = plane_of == k
+            v = torch.zeros(r * 128, dtype=torch.float32, device=dev)
+            ll = torch.zeros(r * 128, dtype=torch.int8, device=dev)
+            v[dst[on]] = vals[sel[on]]
+            ll[dst[on]] = (cols[sel[on]] % 128).to(torch.int8)
+            planes_v.append(v.view(r, 128))
+            planes_l.append(ll.view(r, 128))
+            offsets.append(int(qv))
+    return gdia.Gdia(vals=torch.stack(planes_v), lidx=torch.stack(planes_l),
+                     plane_offsets=tuple(offsets), shape=(n, n))
+
+
+def shuffled_poisson_coo_on_device(dims, seed, device):
+    """testing.shuffled_poisson_ldu(dims) built on the device (torch's
+    generator, so another permutation than numpy's): the 7-point Poisson
+    COO with its cells renumbered inside each 128-cell run, row-major."""
+    nx, ny, nz = dims
+    n = nx * ny * nz
+    g = torch.Generator(device=device).manual_seed(seed)
+    runs = n // 128
+    inv = (torch.arange(runs, device=device)[:, None] * 128 + torch.argsort(
+        torch.rand(runs, 128, generator=g, device=device), dim=1)).reshape(-1)
+    i = torch.arange(n, device=device)
+    ix, iy, iz = i % nx, (i // nx) % ny, i // (nx * ny)
+    rows, cols, vals = [inv], [inv], [torch.full((n,), 6.0, device=device)]
+    for d, mask in ((-nx * ny, iz > 0), (-nx, iy > 0), (-1, ix > 0), (1, ix < nx - 1),
+                    (nx, iy < ny - 1), (nx * ny, iz < nz - 1)):
+        src = i[mask]
+        rows.append(inv[src])
+        cols.append(inv[src + d])
+        vals.append(torch.full((len(src),), -1.0, device=device))
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    order = torch.argsort(rows * n + cols)
+    return rows[order], cols[order], vals[order], n
+
+
+def check_unstructured_kernels(cases, report):
+    """Phase 8's kernel checks: each (label, matrix) against the plain
+    versions, on random vectors; bytes are the minimum each kernel moves."""
+    for label, mat in cases:
+        n = mat.shape[0]
+        dev = mat.vals.device
+        g = torch.Generator(device=dev).manual_seed(0)
+        x, z, p = (torch.randn(n, device=dev, generator=g) for _ in range(3))
+        beta = torch.tensor(0.37, device=dev)
+
+        def k1_out(o):
+            return o[:2], o[2:]
+
+        if isinstance(mat, gdia.Gdia):
+            plan, nps = gdia.GdiaPlan.of(mat), len(mat.plane_offsets)
+            data = (mat.vals, mat.lidx)
+            print(f"  [{label}: {n} rows, Gdia, {nps} planes {mat.plane_offsets}]")
+            compare("gdia_spmv", label, lambda: ((gdia.gdia_spmv(plan, *data, x),), ()),
+                    lambda: ((gdia.gdia_spmv_plain(*data, mat.plane_offsets, x),), ()),
+                    (nps * 5 + 8) * n, report)
+            compare("gdia_k1", label, lambda: k1_out(gdia.gdia_k1(plan, *data, z, p, beta)),
+                    lambda: k1_out(gdia.gdia_k1_plain(*data, mat.plane_offsets, z, p, beta)),
+                    (nps * 5 + 16) * n, report)
+        else:
+            plan = xell.XellPlan.of(mat)
+            data = (mat.vals, mat.ll, mat.bbT, mat.spill.vals)
+            spill = plan.n_spill * 12 + (4 * n if plan.n_spill else 0)
+            print(f"  [{label}: {n} rows, Xell, K {mat.n_slots}, c_left {mat.c_left}, c_chunks "
+                  f"{mat.c_chunks}, spill {plan.n_spill}]")
+            compare("xell_spmv", label, lambda: ((xell.xell_spmv(plan, *data, x),), ()),
+                    lambda: ((xell.xell_spmv_plain(plan, *data, x),), ()),
+                    (mat.n_slots * 7 + 8) * n + spill, report)
+            compare("xell_k1", label, lambda: k1_out(xell.xell_k1(plan, *data, z, p, beta)),
+                    lambda: k1_out(xell.xell_k1_plain(plan, *data, z, p, beta)),
+                    (mat.n_slots * 7 + 16) * n + spill, report)
+
+
+def csr_beside_xell(coo, mat, device):
+    """For the record (never on the path): torch's own CSR SpMV on the same
+    matrix beside the Xell kernel, timed in turns."""
+    n = coo.shape[0]
+    rows = torch.tensor(coo.rows.astype(np.int64), device=device)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    csr = torch.sparse_csr_tensor(crow, torch.tensor(coo.cols.astype(np.int64), device=device),
+                                  torch.tensor(coo.vals, device=device), size=(n, n),
+                                  check_invariants=True)
+    x = torch.randn(n, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    mv = spmv.matvec(mat)
+    err, tol = vec_err(csr @ x, mv(x))
+    csr_ms, xell_ms = time_pair(lambda: csr @ x, lambda: mv(x))
+    print(f"  torch CSR SpMV (sparse_csr_tensor @ x) {csr_ms:.4f} ms beside the Xell kernel "
+          f"{xell_ms:.4f} ms on the same matrix, nnz {len(coo.rows)}; max abs difference "
+          f"{err:.1e} (tol {tol:.1e})")
+    if err > tol:
+        raise RuntimeError("torch's CSR SpMV and the Xell kernel disagree")
+
+
+def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
+    """Phase 8.  Returns the launch counts of the path."""
+    print(f"== phase 8: the unstructured path, foam.solve at {knn_n} (kNN-6) and "
+          f"{int(np.prod(grid))} (shuffled grid) cells")
+    t0 = time.perf_counter()
+    m_orig, perm = testing.knn_ldu(knn_n)
+    t1 = time.perf_counter()
+    m_knn = testing.renumber_ldu(m_orig, np.argsort(perm))
+    t2 = time.perf_counter()
+    m_shuf = testing.shuffled_poisson_ldu(grid)
+    t3 = time.perf_counter()
+    print(f"host set-up: kNN-6 graph ({m_orig.n_faces} faces) {t1 - t0:.2f} s, its RCM "
+          f"renumbering {t2 - t1:.2f} s; shuffled grid {t3 - t2:.2f} s")
+    b_knn = np.random.default_rng(0).normal(size=m_knn.n).astype(np.float32)
+    b_shuf = np.random.default_rng(0).normal(size=m_shuf.n).astype(np.float32)
+    b_orig = np.empty_like(b_knn)
+    b_orig[perm] = b_knn  # the same system in the points' numbering
+    meshes = {"pK": (m_knn, b_knn, "Xell"), "pS": (m_shuf, b_shuf, "Gdia")}
+    pcs = {"": "none", "BJ": {"preconditioner": "BJ"}}
+
+    kernels.reset_launches()
+    solves = {}
+    for mesh, (m, b, fmt) in meshes.items():
+        for tag, pc in pcs.items():
+            field = mesh + tag
+            t0 = time.perf_counter()
+            x, perf = foam.solve(field, m, b, {**ctl, "preconditioner": pc})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            perf.print()
+            slv = registry.global_registry.get(f"{field}_solver")
+            lt = slv.last_timings
+            print(f"{field}: first solve wall {wall:.3f} s; init_host_sparsity "
+                  f"{lt['init_host_sparsity'] * 1e3:.1f} ms, convert_format "
+                  f"{lt['convert_format'] * 1e3:.1f} ms, solve {lt['solve'] * 1e3:.3f} ms = "
+                  f"{lt['solve'] / max(perf.n_iterations, 1) * 1e6:.1f} us per iteration")
+            if perf.solver_name != f"GKOCG_{fmt}":
+                raise RuntimeError(f"{field} routed to {perf.solver_name}, not GKOCG_{fmt}")
+            invd = torch.tensor(1.0 / np.asarray(m.diag, np.float32), device=device) \
+                if tag else None
+            solves[field] = (x, perf, slv.matrix, torch.tensor(b, device=device), invd)
+
+    steps = {}
+    for mesh, (m, b, fmt) in meshes.items():
+        m2 = dataclasses.replace(m, diag=np.asarray(m.diag) * 1.01)
+        b2 = (b * 1.01 + 0.1).astype(np.float32)
+        t0 = time.perf_counter()
+        x2, perf2 = foam.solve(mesh, m2, b2, {**ctl, "preconditioner": "none"})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf2.print()
+        slv = registry.global_registry.get(f"{mesh}_solver")
+        lt = slv.last_timings
+        print(f"{mesh} steady step: wall {wall * 1e3:.3f} ms, of which update "
+              f"{lt.get('update_device_values', 0.0) * 1e3:.3f} ms and solve "
+              f"{lt.get('solve', 0.0) * 1e3:.3f} ms; blocks uploaded "
+              f"{slv.last_blocks_uploaded}, rhs uploaded {slv.last_rhs_uploaded}")
+        if slv.last_blocks_uploaded != (1, 2) or not slv.last_rhs_uploaded:
+            raise RuntimeError(f"{mesh} steady step uploaded more than the diag block + RHS")
+        steps[mesh] = (x2, perf2, slv.matrix, torch.tensor(b2, device=device), m2, b2)
+
+    t0 = time.perf_counter()
+    x_r, perf_r = foam.solve("pKrcm", m_orig, b_orig,
+                             {**ctl, "preconditioner": "none", "reorder": "rcm"})
+    torch.cuda.synchronize()
+    perf_r.print()
+    lt = registry.global_registry.get("pKrcm_solver").last_timings
+    print(f"pKrcm (points' numbering, reorder rcm): first solve wall "
+          f"{time.perf_counter() - t0:.3f} s; reorder {lt['reorder'] * 1e3:.1f} ms, "
+          f"convert_format {lt['convert_format'] * 1e3:.1f} ms")
+    launches = {k: kernels.launches[k] for k in UNSTRUCTURED_KERNELS}
+    print(f"launch counts over the unstructured path: {dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"the unstructured path never launched {missing}")
+    if perf_r.solver_name != "GKOCG_Xell":
+        raise RuntimeError(f"pKrcm routed to {perf_r.solver_name}, not GKOCG_Xell")
+    if abs(perf_r.n_iterations - solves["pK"][1].n_iterations) > 1:
+        raise RuntimeError(f"pKrcm: {perf_r.n_iterations} iterations vs "
+                           f"{solves['pK'][1].n_iterations} on the pre-renumbered mesh")
+
+    # ---- checks of the path ------------------------------------------------
+    params = stopping.StoppingParams(tolerance=TOL, rel_tol=0.0, min_iter=0,
+                                     max_iter=1000, frequency=1)
+    checks = [(f, x, perf, mat, bb, invd) for f, (x, perf, mat, bb, invd) in solves.items()]
+    checks += [(f"{mesh} step", x, perf, mat, bb, None)
+               for mesh, (x, perf, mat, bb, _, _) in steps.items()]
+    perm_dev = torch.tensor(perm, device=device)
+    checks.append(("pKrcm", x_r[perm_dev], perf_r, solves["pK"][2], solves["pK"][3], None))
+    for name, x, perf, mat, bb, invd in checks:
+        if not (perf.converged and perf.final_residual < TOL):
+            raise RuntimeError(f"{name}: did not converge: {perf}")
+        if x.shape != (mat.shape[0],) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{name}: solution not finite of shape ({mat.shape[0]},)")
+        tr = true_residual_mv(lambda v, mat=mat: spmv.spmv(mat, v), x, bb)
+        line = (f"{name}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} "
+                f"(limit {TRUE_RESIDUAL_MARGIN:g} x {TOL:g})")
+        if name in solves:
+            kern = plain_plan(mat)
+            plain = cg_fused(kern, kern.pack_values(mat), bb, torch.zeros_like(bb), params,
+                             invd=invd)
+            line += f"; plain-twin merged CG on the card: {plain.iters} iterations"
+            if abs(plain.iters - perf.n_iterations) > 1:
+                raise RuntimeError(f"{name}: {perf.n_iterations} iterations vs "
+                                   f"{plain.iters} with the plain twins")
+        print(line)
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")
+
+    # ---- the kernels against their plain versions (launches not counted) ---
+    print("kernels vs plain versions "
+          f"(vector tol {VEC_RTOL:.0e}*max(1,max|plain|), sum rtol {SUM_RTOL:.0e}):")
+    # the solvers' current containers and host COOs (after the steady step)
+    knn_mat, shuf_mat = steps["pK"][2], steps["pS"][2]
+    coo_knn = registry.global_registry.get("pK_solver").coo_host()
+    coo_shuf = registry.global_registry.get("pS_solver").coo_host()
+    t0 = time.perf_counter()
+    extra = [("knn nospill", xell.xell_from_coo(coo_knn, spill_frac=0.0, device=device)),
+             ("shuffled", xell.xell_from_coo(coo_shuf, device=device))]
+    print(f"  host packing of the two extra Xell containers: {time.perf_counter() - t0:.2f} s")
+    dev_rows = torch.tensor(coo_shuf.rows.astype(np.int64), device=device)
+    dev_cols = torch.tensor(coo_shuf.cols.astype(np.int64), device=device)
+    on_dev = gdia_on_device(dev_rows, dev_cols, torch.tensor(coo_shuf.vals, device=device),
+                            coo_shuf.shape[0])
+    if (on_dev.plane_offsets != shuf_mat.plane_offsets
+            or not torch.equal(on_dev.vals, shuf_mat.vals)
+            or not torch.equal(on_dev.lidx, shuf_mat.lidx)):
+        raise RuntimeError("the device Gdia packing differs from the host packing")
+    del on_dev, dev_rows, dev_cols
+    t0 = time.perf_counter()
+    big = gdia_on_device(*shuffled_poisson_coo_on_device(grid_big, 0, device))
+    torch.cuda.synchronize()
+    print(f"  shuffled grid {'x'.join(map(str, grid_big))} = {big.shape[0]} rows: Gdia "
+          f"built on the device in {time.perf_counter() - t0:.2f} s")
+    rows64, cols64 = coo_knn.rows.astype(np.int64), coo_knn.cols.astype(np.int64)
+    q = cols64 // 128 - rows64 // 128
+    print(f"  Gdia kernels on the kNN mesh: skipped — its RCM'd bandwidth of "
+          f"{int(np.abs(rows64 - cols64).max())} rows spans "
+          f"{int(np.count_nonzero(np.bincount(q - q.min())))} block-row offsets (at "
+          "least one plane each, 5 bytes per row and plane); the ladder found it past "
+          "Gdia's 48-plane budget and routed it to Xell")
+    report: dict = {}
+    check_unstructured_kernels([("knn", knn_mat), extra[0], ("shuffled", shuf_mat),
+                                extra[1], ("shuffled big", big)], report)
+    del big, extra
+    torch.cuda.empty_cache()
+    csr_beside_xell(coo_knn, knn_mat, device)
+
+    for mesh, (x2, perf2, mat, bb, m2, b2) in steps.items():
+        print(f"torch.profiler over one more {mesh} step ({type(mat).__name__}; new b):")
+        b3 = (b2 * 1.01 + 0.1).astype(np.float32)
+        profile_step(lambda m2=m2, b3=b3, mesh=mesh: foam.solve(
+            mesh, m2, b3, {**ctl, "preconditioner": "none"}))
+    return launches, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    return run(torch.device("cuda"), GRID_1M, GRID_8M)
+    return run(torch.device("cuda"), GRID_1M, GRID_8M, KNN_1M)
 
 
-def run(device, grid_main, grid_big) -> int:
+def run(device, grid_main, grid_big, knn_n) -> int:
     print("== phase 1: device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -549,12 +877,15 @@ def run(device, grid_main, grid_big) -> int:
     profile_step(lambda: foam.solve("p", m_k, b_k, {**ctl, "preconditioner": "none"}))
 
     launches_amg = amg_path(m, b, device, {**ctl, "verbose": 0})
+    launches_un, report_un = unstructured_path(device, knn_n, grid_main, grid_big, ctl)
+    report.update(report_un)
 
     rows = []
-    for name, (route, source, replaces, case) in KERNELS.items():
-        r = report[case]["x".join(map(str, grid_main))]
+    for name, (route, source, replaces, case, label) in KERNELS.items():
+        r = report[case][label or "x".join(map(str, grid_main))]
         rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                     "launches": launches.get(name, 0) + launches_amg.get(name, 0),
+                     "launches": (launches.get(name, 0) + launches_amg.get(name, 0)
+                                  + launches_un.get(name, 0)),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": rows}))

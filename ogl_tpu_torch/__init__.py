@@ -7,11 +7,12 @@ for sm_90a, or Triton for fused elementwise passes).  It imports torch and
 numpy and never jax or ogl_tpu.
 
 Slices covered so far: the GKOCG pressure solve — OpenFOAM LDU ingest,
-the Dia format, the delta-gated coefficient upload, and the merged
-two-kernel CG with the OpenFOAM stopping criterion, preconditioner
-`none`, scalar `BJ` or `Multigrid` (AMG) — and GKOMultigrid; float32, one
-device.  Controls outside those slices raise NotImplementedError (see
-ogl_tpu_torch.foam.solver).
+the Dia, Gdia and Xell formats with the reference's auto-routing between
+them (and `reorder rcm`), the delta-gated coefficient upload, and the
+merged two-kernel CG with the OpenFOAM stopping criterion, preconditioner
+`none`, scalar `BJ` or `Multigrid` (AMG, Dia only) — and GKOMultigrid;
+float32, one device.  Controls outside those slices raise
+NotImplementedError (see ogl_tpu_torch.foam.solver).
 """
 
 from __future__ import annotations

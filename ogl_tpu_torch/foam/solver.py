@@ -3,26 +3,32 @@ per field, orchestrated like the reference's lduLduBase.
 
 Counterpart: ogl_tpu/foam/solver.py.
 
-  first solve:   LDU sparsity → Dia on the device (raw LDU blocks left
+  first solve:   LDU sparsity (→ RCM renumbering under `reorder rcm`) →
+                 Dia, Gdia or Xell on the device (raw LDU blocks left
                  resident) → preconditioner → merged-kernel CG
   steady state:  per-block delta upload (unchanged blocks never cross to
-                 the device) → one on-device gather + scatter into the Dia
-                 data → preconditioner regeneration gated on a changed
-                 operator and the TTL → merged-kernel CG
+                 the device) → one on-device gather + scatter into the
+                 container's values → preconditioner regeneration gated on
+                 a changed operator and the TTL → merged-kernel CG
 
 Slice implemented: GKOCG with preconditioner `none`, scalar `BJ` or
 `Multigrid` (AMG), and GKOMultigrid (Richardson around one AMG cycle);
-float32, one device, the Dia format.  Every control outside it raises
-NotImplementedError naming its ROADMAP.md item; none is silently ignored.
-`fusedCG false` routes GKOCG to the general CG (solve/cg.py).  The
-reference's TPU-only route gates (Pallas usability, the 32k-row floor of
-the merged kernels, the working-set gate of the z-free variant, the frame
-geometry its framed AMG must share) are not carried over: every GKOCG
-solve takes the merged route, on either device.
+float32, one device.  Without an explicit matrixFormat the matrix takes
+the reference's format ladder (kernels/spmv.py `pack_fast`): Dia, else
+Gdia, else Xell; `matrixFormat Dia/Gdia/Xell` is honoured.  GKOCG runs the
+merged two-kernel CG on each of the three (CgKernels, GdiaCgKernels,
+XellCgKernels); AMG runs on Dia only.  Every control outside the slice
+raises NotImplementedError naming its ROADMAP.md item; none is silently
+ignored.  `fusedCG false` routes GKOCG to the general CG (solve/cg.py).
+The reference's TPU-only route gates (Pallas usability, the 32k-row floor
+of the merged kernels, the working-set gate of the z-free variant, the
+frame geometry its framed AMG must share) are not carried over: every
+GKOCG solve takes the merged route, on either device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, NamedTuple
 
@@ -33,8 +39,11 @@ from ogl_tpu_torch import __version__ as _version
 from ogl_tpu_torch import common, device_for, precond, registry
 from ogl_tpu_torch.config import SolverConfig, parse_controls
 from ogl_tpu_torch.core import formats, ldu
+from ogl_tpu_torch.core.reorder import rcm_permutation
 from ogl_tpu_torch.kernels import spmv
-from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
+from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
+from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels, xell_from_coo
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import cg
 from ogl_tpu_torch.solve.cg_fused import cg_fused
@@ -42,6 +51,10 @@ from ogl_tpu_torch.solve.ir import ir
 from ogl_tpu_torch.solve.krylov import single_device_ops
 
 __all__ = ["SolverPerformance", "FoamSolver", "solve", "unsupported"]
+
+# the explicit matrixFormat converters of the port (the reference's
+# _FORMAT_CONVERTERS for the formats ported so far)
+_CONVERTERS = {"Dia": formats.coo_to_dia, "Gdia": gdia_from_coo, "Xell": xell_from_coo}
 
 
 class SolverPerformance(NamedTuple):
@@ -75,15 +88,15 @@ def unsupported(cfg: SolverConfig) -> str | None:
         return f"BJ maxBlockSize {pc.max_block_size} (ROADMAP.md A10)"
     if pc.name != "none" and pc.value_precision == "bfloat16":
         return "preconditioner precision bfloat16 (ROADMAP.md A10)"
-    if cfg.matrix_format_explicit and cfg.matrix_format != "Dia":
-        item = "A13" if cfg.matrix_format in ("Gdia", "Xell") else "A2"
-        return f"matrixFormat {cfg.matrix_format} (ROADMAP.md {item})"
+    if cfg.matrix_format_explicit and cfg.matrix_format not in _CONVERTERS:
+        return f"matrixFormat {cfg.matrix_format} (ROADMAP.md A2)"
+    if (cfg.matrix_format_explicit and cfg.matrix_format != "Dia"
+            and _uses_amg(cfg)):
+        return f"Multigrid on a {cfg.matrix_format} matrix (ROADMAP.md A11)"
     if cfg.dtype != "float32":
         return f"dtype {cfg.dtype} (ROADMAP.md A14)"
     if cfg.pipelined_cg and cfg.solver == "GKOCG":
         return "pipelinedCG true (ROADMAP.md A12)"
-    if cfg.reorder != "none":
-        return f"reorder {cfg.reorder} (ROADMAP.md A15)"
     if cfg.upload_precision != "default":
         return f"uploadPrecision {cfg.upload_precision} (ROADMAP.md A7)"
     if cfg.export or cfg.debug:
@@ -91,11 +104,15 @@ def unsupported(cfg: SolverConfig) -> str | None:
     return None
 
 
+def _uses_amg(cfg: SolverConfig) -> bool:
+    return cfg.precond.name == "Multigrid" or cfg.solver == "GKOMultigrid"
+
+
 def _res_eval_seconds(mv, x, b, device: torch.device, k: int = 8) -> float:
     """Seconds per residual-norm evaluation ‖b − A x‖₁ — the criterion's
     per-check cost that adaptMinIter weighs (lduLduBase.H:287-293).  On
     CUDA the k chained evaluations are timed with CUDA events around the
-    Dia SpMV kernel; on the host with the wall clock.  Measured on every
+    format's SpMV kernel; on the host with the wall clock.  Measured on every
     solve, as OGL does (the JAX reference measures once per solver)."""
     def f():
         return torch.sum(torch.abs(b - mv(x)))
@@ -129,10 +146,12 @@ class FoamSolver:
         self.dtype = torch.float32
         self.np_dtype = np.float32
         self.sparsity: ldu.LduSparsity | None = None
-        self.matrix: formats.Dia | None = None
-        self.kern: CgKernels | None = None
+        self.matrix: formats.Dia | Gdia | Xell | None = None
+        self.kern: CgKernels | XellCgKernels | None = None
         self._n = 0
         self._coeff_epoch = 0
+        self._reorder = None  # (perm, inv, rows, cols, entry_order) under rcm
+        self._inv_dev = None
         self._value_map = None
         self._permute_dev = None
         self._coo_host_cache = None
@@ -158,17 +177,59 @@ class FoamSolver:
                             self.device)
 
     # -- matrix ---------------------------------------------------------
-    def _convert(self, coo: formats.Coo) -> formats.Dia:
-        """First-solve conversion.  Without an explicit matrixFormat the
-        matrix must pass the Dia test of the reference's auto-routing
-        (at most 64 distinct offsets); no other format is ported."""
-        if not self.cfg.matrix_format_explicit and not spmv.fits_dia(
-                coo.rows, coo.cols, coo.shape[0]):
-            raise NotImplementedError(
-                f"{self.field}: the matrix has more than 64 distinct diagonals, so "
-                "it does not route to Dia, and no other format is ported to "
-                "ogl_tpu_torch yet (ROADMAP.md A2, A13)")
-        return formats.coo_to_dia(coo, self.device)
+    def _convert(self, coo: formats.Coo):
+        """First-solve conversion.  An explicit matrixFormat is honoured;
+        otherwise the reference's ladder picks the format (Dia → Gdia →
+        Xell).  A matrix of at least 32,768 rows that no ported format
+        takes raises the reference's error for its Ell landing."""
+        fmt = self.cfg.matrix_format
+        n = coo.shape[0]
+        if self.cfg.matrix_format_explicit:
+            return _CONVERTERS[fmt](coo, device=self.device)
+        try:
+            mat = spmv.pack_fast(coo.rows, coo.cols, coo.vals, n, presorted=True,
+                                 device=self.device)
+        except NotImplementedError:
+            if n < spmv.XELL_MIN_ROWS:
+                raise
+            raise RuntimeError(
+                f"{self.field}: no fast-path format covers this {n}-row matrix "
+                "(Dia/Gdia/Xell all rejected it).  Renumber the mesh (reorder: "
+                "rcm) to reduce bandwidth; the Ell format, which takes any "
+                "sparsity, is not ported yet (ROADMAP.md A2).") from None
+        eff = type(mat).__name__
+        if eff != fmt:
+            common.log(self.cfg.verbose, 0,
+                       f"{self.field}: matrixFormat auto-routed {fmt} -> {eff} "
+                       "(fast path; set matrixFormat explicitly to override)")
+        return mat
+
+    def _kernel_plan(self):
+        """The merged-CG plan of the format the matrix took."""
+        m = self.matrix
+        if isinstance(m, Gdia):
+            return GdiaCgKernels(self._n, m.plane_offsets, self.device)
+        if isinstance(m, Xell):
+            return XellCgKernels.for_matrix(m)
+        return CgKernels(self._n, m.offsets, self.device)
+
+    def _init_reorder(self) -> None:
+        """`reorder rcm`: the RCM permutation of the sparsity and the
+        renumbered row-major structure (the reference's renumberMesh
+        analogue, ogl_tpu/foam/solver.py:258-278).  b and the initial guess
+        are permuted in on entry, x out on exit."""
+        sp = self.sparsity
+        n = sp.n
+        perm = rcm_permutation(formats.Coo(rows=sp.rows, cols=sp.cols,
+                                           vals=np.zeros(sp.nnz, np.float32), shape=(n, n)))
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        rp = inv[sp.rows]
+        cp = inv[sp.cols]
+        entry_order = np.lexsort((cp, rp))
+        self._reorder = (perm, inv, rp[entry_order].astype(np.int32),
+                         cp[entry_order].astype(np.int32), entry_order)
+        self._inv_dev = torch.tensor(inv, device=self.device)
 
     def _update_matrix(self, m: ldu.LduMatrix):
         cfg = self.cfg
@@ -176,6 +237,11 @@ class FoamSolver:
         if first:
             with self._timed("init_host_sparsity"):
                 self.sparsity = ldu.build_local_sparsity(m)
+            if cfg.reorder == "rcm":
+                with self._timed("reorder"):
+                    self._init_reorder()
+            elif cfg.reorder != "none":
+                raise ValueError(f"unknown reorder {cfg.reorder!r}; use none|rcm")
         if not (first or cfg.update_sys_matrix):
             return
         with self._timed("update_local_matrix"):
@@ -195,7 +261,12 @@ class FoamSolver:
                     # leave the raw blocks resident: later steps upload
                     # only the blocks whose values change
                     self._stage_blocks()
-            self.kern = CgKernels(m.n, self.matrix.offsets, self.device)
+            if _uses_amg(cfg) and not isinstance(self.matrix, formats.Dia):
+                raise NotImplementedError(
+                    f"{self.field}: Multigrid on a {type(self.matrix).__name__} matrix "
+                    "(AMG levels in the Gdia/Xell formats) is not ported to "
+                    "ogl_tpu_torch yet (ROADMAP.md A11)")
+            self.kern = self._kernel_plan()
             return
         # steady state: upload the changed raw blocks, then one gather +
         # scatter on the device (the reference's in-place device value
@@ -203,8 +274,15 @@ class FoamSolver:
         if self._value_map is None:
             c = self.coo_host()
             self._value_map = formats.value_map(self.matrix, c.rows, c.cols)
-            self._permute_dev = torch.tensor(
-                self.sparsity.permute.astype(np.int64), device=self.device)
+            if isinstance(self.matrix, (Gdia, Xell)):
+                # the value map holds what the host layout was kept for
+                self.matrix = dataclasses.replace(self.matrix, layout=None)
+            permute = self.sparsity.permute.astype(np.int64)
+            if self._reorder is not None:
+                # compose with the renumbering: one gather per step yields
+                # the values in the renumbered row-major order
+                permute = permute[self._reorder[4]]
+            self._permute_dev = torch.tensor(permute, device=self.device)
         with self._timed("update_device_values"):
             self._detect_changed_blocks()
             blocks_dev = self._stage_blocks()
@@ -254,9 +332,13 @@ class FoamSolver:
             vals = src[self.sparsity.permute]
             if self.cfg.scaling != 1.0:
                 vals = vals * np.asarray(self.cfg.scaling, vals.dtype)
-            self._coo_host_cache = formats.Coo(
-                rows=self.sparsity.rows, cols=self.sparsity.cols, vals=vals,
-                shape=(self._n, self._n))
+            if self._reorder is not None:
+                _, _, rows, cols, entry_order = self._reorder
+                vals = vals[entry_order]
+            else:
+                rows, cols = self.sparsity.rows, self.sparsity.cols
+            self._coo_host_cache = formats.Coo(rows=rows, cols=cols, vals=vals,
+                                               shape=(self._n, self._n))
         return self._coo_host_cache
 
     # -- preconditioner (TTL caching, Preconditioner.H:353-431) ---------
@@ -288,6 +370,8 @@ class FoamSolver:
             self.last_rhs_uploaded = False
             return self._b_dev
         b_host = np.asarray(b)
+        if self._reorder is not None:
+            b_host = b_host[self._reorder[0]]
         if self.cfg.scaling != 1.0:
             # the RHS scales with the matrix (lduLduBase.H:244-252), so the
             # solution is invariant under `scaling`
@@ -310,18 +394,22 @@ class FoamSolver:
         updateInitGuess).  `time_value` is accepted for interface parity
         (it only names export directories, which are not ported)."""
         cfg = self.cfg
-        if cfg.verbose > 0 and self.sparsity is None:
+        first = self.sparsity is None
+        self._update_matrix(m)
+        if cfg.verbose > 0 and first:  # names the format the matrix took
             print(f"OGL-TPU (PyTorch port {_version})\n"
                   f"  torch:         {torch.__version__}\n"
                   f"  device:        {self._device_name()}\n"
-                  f"  matrix format: Dia\n"
+                  f"  matrix format: {type(self.matrix).__name__}\n"
                   f"  dtype:         {cfg.dtype}\n"
                   f"  executor:      {cfg.executor}")
-        self._update_matrix(m)
         self._update_precond()
         b_dev = self._update_rhs(b)
         if psi is not None and cfg.update_init_guess:
-            x0 = torch.tensor(np.asarray(psi, self.np_dtype), device=self.device)
+            psi_host = np.asarray(psi, self.np_dtype)
+            if self._reorder is not None:
+                psi_host = psi_host[self._reorder[0]]
+            x0 = torch.tensor(psi_host, device=self.device)
         else:
             x0 = torch.zeros_like(b_dev)
 
@@ -380,13 +468,15 @@ class FoamSolver:
             )
 
         perf = SolverPerformance(
-            solver_name=f"{cfg.solver}_Dia",
+            solver_name=f"{cfg.solver}_{type(self.matrix).__name__}",
             field_name=self.field,
             initial_residual=init_rn,
             final_residual=final_rn,
             n_iterations=iters,
             converged=bool(conv),
         )
+        if self._reorder is not None:  # back to the caller's numbering
+            return res.x[self._inv_dev], perf
         return res.x, perf
 
     def _device_name(self) -> str:

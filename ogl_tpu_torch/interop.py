@@ -11,12 +11,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ogl_tpu_torch.core.formats import Dia
+from ogl_tpu_torch.core.formats import Coo, Dia
 from ogl_tpu_torch.core.ldu import LduMatrix, LocalInterface
+from ogl_tpu_torch.kernels.gdia import Gdia
+from ogl_tpu_torch.kernels.xell import Xell, spill_csr
 from ogl_tpu_torch.precond.amg import Level, make_level
 
 __all__ = ["dia_from_arrays", "ldu_from_arrays", "unframe_reference",
-           "amg_levels_from_reference"]
+           "amg_levels_from_reference", "gdia_from_reference", "xell_from_reference"]
 
 
 def dia_from_arrays(data, offsets, shape, device: torch.device | str = "cpu") -> Dia:
@@ -76,3 +78,29 @@ def amg_levels_from_reference(levels, device: torch.device | str = "cpu",
             coarse_inv=None if lv.coarse_inv is None else np.asarray(lv.coarse_inv),
             smoother_dtype=smoother_dtype))
     return out
+
+
+def gdia_from_reference(m, device: torch.device | str = "cpu") -> Gdia:
+    """The port's Gdia from a reference Gdia (`vals`, `lidx`,
+    `plane_offsets`, `shape`, read with np.asarray)."""
+    return Gdia(vals=torch.tensor(np.asarray(m.vals), device=device),
+                lidx=torch.tensor(np.asarray(m.lidx), device=device),
+                plane_offsets=tuple(int(q) for q in m.plane_offsets),
+                shape=tuple(int(s) for s in m.shape))
+
+
+def xell_from_reference(m, device: torch.device | str = "cpu") -> Xell:
+    """The port's Xell from a reference Xell (`vals`, `ll`, `bbT`, the COO
+    `spill`, `c_left`, `c_chunks`, `shape`, read with np.asarray); the
+    spill's per-row CSR is built here, as xell_from_coo builds it."""
+    def up(a, dtype=None):
+        a = np.asarray(a)
+        return torch.tensor(a if dtype is None else a.astype(dtype), device=device)
+
+    shape = tuple(int(s) for s in m.shape)
+    rows, cols = np.asarray(m.spill.rows), np.asarray(m.spill.cols)
+    spill = Coo(rows=up(rows, np.int32), cols=up(cols, np.int32),
+                vals=up(m.spill.vals), shape=shape)
+    return Xell(vals=up(m.vals), ll=up(m.ll), bbT=up(m.bbT), spill=spill,
+                spill_csr=spill_csr(rows, cols, shape[0], device),
+                c_left=int(m.c_left), c_chunks=int(m.c_chunks), shape=shape)

@@ -56,6 +56,17 @@ _SIGNATURES = {
     "ogl_amg_sweep": (_P, _INT, _P, _INT, _P, _P, _P, _F32, _P, _I64, _INT, _P),
     # data, data_bf16, offsets, nd, x, b, out, n, threads, stream
     "ogl_amg_resid": (_P, _INT, _P, _INT, _P, _P, _P, _I64, _INT, _P),
+    # vals, lidx, qoffs, np, r, x, y, n, threads, stream
+    "ogl_gdia_spmv": (_P, _P, _P, _INT, _I64, _P, _P, _I64, _INT, _P),
+    # vals, lidx, qoffs, np, r, z, p, beta, pout, q, partials, n, threads, grid, stream
+    "ogl_gdia_k1": (_P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, x, y, n,
+    # threads, stream
+    "ogl_xell_spmv": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _INT, _P),
+    # vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, z, p, beta,
+    # pout, q, partials, n, threads, grid, stream
+    "ogl_xell_k1": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I64, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,8 @@ import torch
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build
 
-__all__ = ["DiaPlan", "dia_spmv", "dia_spmv_plain", "THREADS", "MAX_DIAGS"]
+__all__ = ["DiaPlan", "dia_spmv", "dia_spmv_plain", "THREADS", "MAX_DIAGS",
+           "check_operands", "stream_of", "on_cpu", "require_cuda", "check_scalar"]
 
 THREADS = 256  # rows per block (one thread per row)
 MAX_DIAGS = 64  # the kernels stage the offsets in a 64-entry shared array
@@ -84,6 +85,25 @@ def check_operands(plan: DiaPlan, data: torch.Tensor | None,
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---- dispatch helpers shared by every wrapper of the port ----------------
+
+
+def on_cpu(*ts) -> bool:
+    """True when every tensor argument lies on the CPU (the plain route)."""
+    return all(t.device.type == "cpu" for t in ts if isinstance(t, torch.Tensor))
+
+
+def require_cuda(what: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+def check_scalar(name: str, s, device: torch.device) -> None:
+    if not (isinstance(s, torch.Tensor) and s.dim() == 0
+            and s.dtype == torch.float32 and s.device == device):
+        raise TypeError(f"{name} must be a 0-d float32 tensor on {device}")
 
 
 def dia_spmv(plan: DiaPlan, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,10 @@ and the AMG smoother's two passes, each one stencil apply:
   resid  out = b − A x
 whose coefficients may be packed in bfloat16 (`pack_values(mat, dtype)`;
 the reference's choice for its smoother operators): they are widened to
-float32 in the kernel and sums accumulate in float32.
+float32 in the kernel and sums accumulate in float32.  `GdiaCgKernels`
+(counterpart of the reference's class of that name, `_k1_gdia_kernel`) is
+the same plan for a Gdia matrix: its K1 is the Gdia kernel of
+kernels/gdia.py (`csrc/gdia.cu`), K2/K2i/K2n are shared.
 
 Layout: flat (n,) float32 vectors and a contiguous (nd, n) Dia data
 tensor.  The reference's halo-framed (Rp + 2T, 128) layout exists for the
@@ -59,9 +62,11 @@ import torch
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
-                                            dia_spmv_plain, stream_of)
+                                            check_scalar, dia_spmv_plain, on_cpu,
+                                            require_cuda, stream_of)
+from ogl_tpu_torch.kernels.gdia import GdiaPlan, gdia_k1
 
-__all__ = ["CgKernels", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
+__all__ = ["CgKernels", "GdiaCgKernels", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
            "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
 K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
@@ -189,21 +194,6 @@ def _triton_kernels() -> dict:
     return _TRITON
 
 
-def _check_scalar(name: str, s, device: torch.device) -> None:
-    if not (isinstance(s, torch.Tensor) and s.dim() == 0
-            and s.dtype == torch.float32 and s.device == device):
-        raise TypeError(f"{name} must be a 0-d float32 tensor on {device}")
-
-
-def _on_cpu(*ts) -> bool:
-    return all(t.device.type == "cpu" for t in ts if isinstance(t, torch.Tensor))
-
-
-def _require_cuda(what: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {t.device}")
-
-
 def _span(t: torch.Tensor) -> tuple[int, int]:
     start = t.data_ptr()
     return start, start + t.numel() * t.element_size()
@@ -249,11 +239,11 @@ class CgKernels:
     # ---- K1 (CUDA C++) -------------------------------------------------
     def k1(self, data, z, p, beta):
         """(p', q, δ) — p' and q in new buffers, δ a 0-d tensor."""
-        if _on_cpu(data, z, p, beta):
+        if on_cpu(data, z, p, beta):
             return k1_plain(data, self.offsets, z, p, beta)
-        _require_cuda("k1", z)
+        require_cuda("k1", z)
         check_operands(self.plan, data, z, p)
-        _check_scalar("beta", beta, self.device)
+        check_scalar("beta", beta, self.device)
         lib = _build.library()
         pout = torch.empty_like(p)
         q = torch.empty_like(p)
@@ -275,29 +265,29 @@ class CgKernels:
     # ---- K2 / K2i (Triton) ---------------------------------------------
     def k2(self, alpha, x, r, p, q, invd, z):
         """In place on x, r, z; returns (ρ, ‖r‖₁) as 0-d tensors."""
-        if _on_cpu(alpha, x, r, p, q, invd, z):
+        if on_cpu(alpha, x, r, p, q, invd, z):
             return k2_plain(alpha, x, r, p, q, invd, z)
         return self._launch_k2("k2", alpha, x, r, p, q, invd, z)
 
     def k2i(self, alpha, x, r, p, q):
         """K2 for identity preconditioning, in place on x and r; returns
         (ρ = Σ r·r, ‖r‖₁) as 0-d tensors."""
-        if _on_cpu(alpha, x, r, p, q):
+        if on_cpu(alpha, x, r, p, q):
             return k2i_plain(alpha, x, r, p, q)
         return self._launch_k2("k2i", alpha, x, r, p, q)
 
     def k2n(self, alpha, x, r, p, q):
         """K2 without z and ρ (a rich preconditioner makes z), in place on
         x and r; returns ‖r‖₁ as a 0-d tensor."""
-        if _on_cpu(alpha, x, r, p, q):
+        if on_cpu(alpha, x, r, p, q):
             return k2n_plain(alpha, x, r, p, q)
         (absr,) = self._launch_k2("k2n", alpha, x, r, p, q, sums=1)
         return absr
 
     def _launch_k2(self, name, alpha, *vectors, sums: int = 2):
-        _require_cuda(name, vectors[0])
+        require_cuda(name, vectors[0])
         check_operands(self.plan, None, *vectors)
-        _check_scalar("alpha", alpha, self.device)
+        check_scalar("alpha", alpha, self.device)
         kern = _triton_kernels()[name]
         grid = -(-self.n // K2_BLOCK)
         partials = [torch.empty(grid, dtype=torch.float32, device=self.device)
@@ -313,7 +303,7 @@ class CgKernels:
         (a new buffer when None; never one overlapping an operand)."""
         if out is not None:
             _check_no_overlap("ksweep", out, data, x, b, invd)
-        if _on_cpu(data, x, b, invd, out):
+        if on_cpu(data, x, b, invd, out):
             y = ksweep_plain(data, self.offsets, x, b, invd, relax)
             return y if out is None else out.copy_(y)
         return self._launch_smooth("amg_sweep", data, x, b, invd, relax, out)
@@ -322,13 +312,13 @@ class CgKernels:
         """The residual b − A x, into `out` as ksweep."""
         if out is not None:
             _check_no_overlap("kresid", out, data, x, b)
-        if _on_cpu(data, x, b, out):
+        if on_cpu(data, x, b, out):
             y = kresid_plain(data, self.offsets, x, b)
             return y if out is None else out.copy_(y)
         return self._launch_smooth("amg_resid", data, x, b, None, 0.0, out)
 
     def _launch_smooth(self, name, data, x, b, invd, relax, out):
-        _require_cuda(name, x)
+        require_cuda(name, x)
         out = torch.empty_like(x) if out is None else out
         vectors = (x, b, out) if invd is None else (x, b, invd, out)
         check_operands(self.plan, data, *vectors, data_dtypes=SMOOTHER_DTYPES)
@@ -344,3 +334,26 @@ class CgKernels:
         _build.check(code, name)
         kernels.launches[name] += 1
         return out
+
+
+class GdiaCgKernels(CgKernels):
+    """Merged-CG steps for one Gdia sparsity: K1 is the Gdia kernel
+    (`csrc/gdia.cu` `ogl_gdia_k1`, launched through kernels/gdia.py
+    `gdia_k1`); K2, K2i and K2n are the structure-free Triton kernels of
+    CgKernels.  Packed coefficients are a (vals, lidx) pair.  The Dia
+    smoother passes are not for a Gdia matrix (AMG on Gdia levels is not
+    ported: the solver raises before it would build one)."""
+
+    def __init__(self, n: int, plane_offsets, device: torch.device | str):
+        super().__init__(n, (), device)
+        self.gplan = GdiaPlan(n, plane_offsets, self.device)
+        self.plane_offsets = self.gplan.plane_offsets
+
+    def pack_values(self, mat, dtype: torch.dtype | None = None) -> tuple:
+        if tuple(mat.plane_offsets) != self.plane_offsets:
+            raise ValueError("matrix plane offsets do not match this plan")
+        return mat.vals.to(dtype or self.dtype).contiguous(), mat.lidx
+
+    def k1(self, data, z, p, beta):
+        """(p', q, δ) — p' and q in new buffers, δ a 0-d tensor."""
+        return gdia_k1(self.gplan, *data, z, p, beta)

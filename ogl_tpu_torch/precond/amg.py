@@ -36,7 +36,8 @@ Deliberate differences from the reference:
     level's frame; the port's vectors are flat, so the merged CG calls
     `apply_fn` itself.
   * a level operator with more than 64 distinct offsets raises
-    NotImplementedError (the reference falls back to Gdia, then Ell).
+    NotImplementedError (the reference falls back to Gdia, then Ell:
+    ROADMAP.md A11, A2).
 """
 
 from __future__ import annotations
@@ -210,7 +211,7 @@ def _ell_of(a_csr, dtype, device) -> Dia:
     if n_offs <= MAX_DIAGS:
         return coo_to_dia(coo, device)
     planes = _gdia_planes(coo.rows.astype(np.int64), coo.cols.astype(np.int64))
-    fmt = ("Gdia (ROADMAP.md A13)" if planes <= GDIA_MAX_PLANES
+    fmt = ("Gdia (ROADMAP.md A11)" if planes <= GDIA_MAX_PLANES
            else "Ell (ROADMAP.md A2)")
     raise NotImplementedError(
         f"AMG level of {n} rows has {n_offs} distinct diagonals (> {MAX_DIAGS}): "

@@ -108,13 +108,14 @@ def test_bf16_packing_and_coarse_cg_hierarchy():
         torch.testing.assert_close(lv.data_s, lv.mat.data.to(torch.bfloat16), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dims,item", [((16, 16), "A13"), ((64, 64), "A2")], ids=str)
+@pytest.mark.parametrize("dims,item", [((16, 16), "A11"), ((64, 64), "A2")], ids=str)
 def test_wide_level_raises_naming_its_format(dims, item):
     """pgm on a renumbered operator: the reference packs the level as Gdia
-    (A13) or, past Gdia's plane budget, as Ell (A2); the port raises."""
+    or, past Gdia's plane budget, as Ell; the port raises, naming AMG on
+    Gdia levels (A11) or the Ell format (A2)."""
     coo = _permuted(dims)
     ref = ref_amg.build_hierarchy(coo, 9, 10, "pgm", width=8)
-    want = {"A13": "Gdia", "A2": "Ell"}[item]
+    want = {"A11": "Gdia", "A2": "Ell"}[item]
     assert type(ref[0].mat).__name__ == want
     with pytest.raises(NotImplementedError, match=f"{want} \\(ROADMAP.md {item}\\)"):
         amg.build_hierarchy(_port_coo(coo), 9, 10, "pgm", width=8)

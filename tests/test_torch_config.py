@@ -94,13 +94,15 @@ UNSUPPORTED = [
     ({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}}, "A10"),
     ({"preconditioner": {"preconditioner": "BJ", "maxBlockSize": 4}}, "A10"),
     ({"matrixFormat": "Csr"}, "A2"),
-    ({"matrixFormat": "Xell"}, "A13"),
+    ({"matrixFormat": "Ell"}, "A2"),
     ({"dtype": "float64"}, "A14"),
     ({"pipelinedCG": True}, "A12"),
-    ({"reorder": "rcm"}, "A15"),
+    ({"matrixFormat": "Gdia", "preconditioner": "Multigrid"}, "A11"),
     ({"uploadPrecision": "bfloat16"}, "A7"),
     ({"export": True}, "A15"),
     ({"debug": True}, "A15"),
+    ({"matrixFormat": "Xell", "solver": "GKOMultigrid"}, "A11"),
+    ({"matrixFormat": "Sell"}, "A2"),
 ]
 
 

@@ -19,8 +19,9 @@ import torch
 from ogl_tpu_torch import foam, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
-from ogl_tpu_torch.kernels.fused import (CgKernels, k1_plain, k2_plain, k2i_plain,
-                                         k2n_plain, kresid_plain, ksweep_plain)
+from ogl_tpu_torch.kernels import gdia, xell
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k2_plain,
+                                         k2i_plain, k2n_plain, kresid_plain, ksweep_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -238,5 +239,123 @@ def test_foam_amg_on_card_matches_cpu(dev, solver):
     assert kernels.launches["dia_spmv"] > 0
     if solver == "GKOCG":
         assert kernels.launches["cg_k1"] > 0 and kernels.launches["cg_k2n"] > 0
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+# ---- the unstructured path: Gdia and Xell kernels -------------------------
+
+
+def _knn_coo(n):
+    """The RCM'd kNN graph of testing.knn_ldu(n) as a float32 Coo."""
+    m, perm = testing.knn_ldu(n)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    return ldu.ldu_to_coo_host(testing.renumber_ldu(m, inv), dtype=np.float32)
+
+
+# n = 20000 is not a multiple of 128 and spans two Xell tiles (c_left > 0)
+GDIA_CASES = [("knn", 20000), ("shuffled_poisson", (128, 16, 8))]
+
+
+@pytest.mark.parametrize("case", GDIA_CASES, ids=str)
+def test_gdia_kernels_match_plain(dev, case):
+    kind, size = case
+    if kind == "knn":
+        mat = gdia.gdia_from_coo(_knn_coo(size), max_planes=4096, device=dev)
+    else:
+        coo = ldu.ldu_to_coo_host(testing.shuffled_poisson_ldu(size), dtype=np.float32)
+        mat = gdia.gdia_from_coo(coo, device=dev)
+    n = mat.shape[0]
+    plan = gdia.GdiaPlan.of(mat)
+    x, z, p = _vec(n, 2, dev), _vec(n, 3, dev), _vec(n, 4, dev)
+    beta = torch.tensor(0.37, device=dev)
+    kernels.reset_launches()
+    y = gdia.gdia_spmv(plan, mat.vals, mat.lidx, x)
+    pw, q, delta = gdia.gdia_k1(plan, mat.vals, mat.lidx, z, p, beta)
+    torch.cuda.synchronize()
+    assert kernels.launches["gdia_spmv"] == 1 and kernels.launches["gdia_k1"] == 1
+    _close(y, gdia.gdia_spmv_plain(mat.vals, mat.lidx, mat.plane_offsets, x))
+    pw2, q2, d2 = gdia.gdia_k1_plain(mat.vals, mat.lidx, mat.plane_offsets, z, p, beta)
+    _close(pw, pw2)
+    _close(q, q2)
+    torch.testing.assert_close(delta, d2, rtol=1e-4, atol=1e-4 * float(d2.abs()))
+    kern = GdiaCgKernels(n, mat.plane_offsets, dev)  # apply: z and p aliased, beta 0
+    _close(kern.apply(kern.pack_values(mat), x), y)
+
+
+@pytest.mark.parametrize("spill_frac", [0.002, 0.08])
+def test_xell_kernels_match_plain(dev, spill_frac):
+    mat = xell.xell_from_coo(_knn_coo(20000), spill_frac=spill_frac, device=dev)
+    n = mat.shape[0]
+    assert n % 128 and mat.c_left > 0 and mat.spill.vals.shape[0] > 0
+    plan = xell.XellPlan.of(mat)
+    data = (mat.vals, mat.ll, mat.bbT, mat.spill.vals)
+    x, z, p = _vec(n, 2, dev), _vec(n, 3, dev), _vec(n, 4, dev)
+    beta = torch.tensor(0.37, device=dev)
+    kernels.reset_launches()
+    y = xell.xell_spmv(plan, *data, x)
+    pw, q, delta = xell.xell_k1(plan, *data, z, p, beta)
+    torch.cuda.synchronize()
+    assert kernels.launches["xell_spmv"] == 1 and kernels.launches["xell_k1"] == 1
+    _close(y, xell.xell_spmv_plain(plan, *data, x))
+    pw2, q2, d2 = xell.xell_k1_plain(plan, *data, z, p, beta)
+    _close(pw, pw2)
+    _close(q, q2)
+    torch.testing.assert_close(delta, d2, rtol=1e-4, atol=1e-4 * float(d2.abs()))
+    kern = xell.XellCgKernels.for_matrix(mat)
+    _close(kern.apply(kern.pack_values(mat), x), y)
+    # no spill: the kernels take a NULL spill table
+    nospill = xell.xell_from_coo(_knn_coo(20000), spill_frac=0.0, device=dev)
+    assert nospill.spill.vals.shape[0] == 0
+    plan0 = xell.XellPlan.of(nospill)
+    data0 = (nospill.vals, nospill.ll, nospill.bbT, nospill.spill.vals)
+    _close(xell.xell_spmv(plan0, *data0, x), xell.xell_spmv_plain(plan0, *data0, x))
+    _close(xell.xell_spmv(plan0, *data0, x), y)
+
+
+def test_unstructured_wrappers_raise_on_bad_operands(dev):
+    coo = _knn_coo(20000)
+    g = gdia.gdia_from_coo(coo, max_planes=4096, device=dev)
+    m = xell.xell_from_coo(coo, device=dev)
+    gp, xp = gdia.GdiaPlan.of(g), xell.XellPlan.of(m)
+    x = _vec(g.shape[0], 1, dev)
+    xd = (m.vals, m.ll, m.bbT, m.spill.vals)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        gdia.gdia_spmv(gp, g.vals, g.lidx, x.cpu())
+    with pytest.raises(ValueError, match="is on"):
+        xell.xell_spmv(xp, m.vals.cpu(), *xd[1:], x)
+    with pytest.raises(TypeError, match="float32"):
+        gdia.gdia_spmv(gp, g.vals, g.lidx, x.double())
+    with pytest.raises(TypeError, match="int8"):
+        gdia.gdia_spmv(gp, g.vals, g.lidx.int(), x)
+    with pytest.raises(TypeError, match="int16"):
+        xell.xell_spmv(xp, m.vals, m.ll, m.bbT.int(), m.spill.vals, x)
+    with pytest.raises(TypeError, match="0-d float32"):
+        xell.xell_k1(xp, *xd, x, x, 0.5)
+    with pytest.raises(ValueError, match="shape"):
+        xell.xell_spmv(xp, *xd, x[:-1])
+
+
+@pytest.mark.parametrize("fmt", ["Gdia", "Xell"])
+def test_foam_unstructured_on_card_matches_cpu(dev, fmt):
+    """Auto-routing on the card: the shuffled grid takes Gdia (with BJ), the
+    kNN graph at 32,768 cells Xell (with none); each launches its format's
+    kernels."""
+    if fmt == "Gdia":
+        m, pc = testing.shuffled_poisson_ldu((32, 32, 16)), {"preconditioner": "BJ"}
+    else:
+        m, perm = testing.knn_ldu(1 << 15)
+        m, pc = testing.renumber_ldu(m, np.argsort(perm)), "none"
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": "GKOCG", "tolerance": 1e-6, "relTol": 0, "adaptMinIter": False,
+           "preconditioner": pc}
+    x_cpu, perf_cpu = foam.FoamSolver("p", {**ctl, "executor": "cpu"}).solve(m, b)
+    kernels.reset_launches()
+    x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
+    assert x.device.type == "cuda" and perf.solver_name == f"GKOCG_{fmt}"
+    name = fmt.lower()
+    assert kernels.launches[f"{name}_k1"] > 0 and kernels.launches[f"{name}_spmv"] > 0
+    assert kernels.launches["cg_k2" if fmt == "Gdia" else "cg_k2i"] > 0
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
