@@ -3,24 +3,28 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths through `ogl_tpu_torch.foam.solve` at
+Drives the port's four main paths through `ogl_tpu_torch.foam.solve` at
 1,048,576 cells in OpenFOAM LDU form: on a 128x128x64 Poisson pressure
 system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1) and the
 AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2);
 then the unstructured-mesh solve (slice 3) on a kNN-6 FV graph (auto-routed
 to Xell) and on the Poisson grid renumbered inside each x-line (auto-routed
-to Gdia) — each followed by steady-state steps, after building the port's
-kernels from the sources in this checkout and holding each against its
-plain PyTorch version on the card, at the slices' size and at 8,388,608
-rows.
+to Gdia); then (slice 4) the pipelined GKOCG and GKOBiCGStab, on the
+Poisson grid, on an asymmetric convection-diffusion system and on the
+shuffled grid — each followed by steady-state steps, after building the
+port's kernels from the sources in this checkout and holding each against
+its plain PyTorch version on the card, at the slices' size and at
+8,388,608 rows.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a) and nvcc's register report;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
-     with float32 and bfloat16 coefficients): max error against the
-     stated tolerance, median times (CUDA events), implied GB/s;
+     with float32 and bfloat16 coefficients, KA and KB_pipe with identity
+     and Jacobi, K1B with distinct b and c and with b = c): max error
+     against the stated tolerance, median times (CUDA events), implied
+     GB/s, torch's CSR SpMV beside the Dia SpMV;
   4. slice 1's path: both solves, launch counts of its kernels, the true
      float64 residual, and the iteration count against the same solve run
      by the merged CG over the plain kernel functions on the card;
@@ -38,11 +42,22 @@ Phases (any failure raises, and the script exits non-zero):
      CG over the plain twins on the card), one steady step per mesh, the
      kNN mesh once more in its points' numbering with `reorder rcm`; then
      the Gdia and Xell kernels against their plain versions (Gdia also at
-     8,388,608 rows, built on the device), torch's CSR SpMV beside the Xell
-     kernel for the record, and a profile of one steady step per format.
+     8,388,608 rows, built on the device), torch's CSR SpMV beside the Gdia
+     and Xell kernels, and a profile of one steady step per format;
+  9. slice 4: GKOCG `pipelinedCG true` (`none`, `BJ`) and GKOBiCGStab as
+     the reference bench ran it (`BJ`, `none`, `none` + `fusedBiCGStab`)
+     on the Poisson grid; GKOBiCGStab `BJ` on convection-diffusion with a
+     diag-only step and a step that changes every block; GKOBiCGStab `none`
+     on the shuffled grid (Gdia).  Each solve: the true float64 residual,
+     the same route over the plain twins on the card, free-running and
+     pinned to the first iterations, and the kernel route again (the same
+     count) and with b nudged by one ulp; a profile of one steady step
+     each of the merged BiCGStab and the pipelined CG.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel of the path that never launched fails the run.  The line before
-the last is one JSON object describing each kernel; the last line is
+the last is one JSON object describing each kernel, with the least time
+the card could take for its work (published H100 SXM peaks) and torch's
+own call for the same function where there is one; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits with an error and
 prints no result.
 """
@@ -61,12 +76,16 @@ import torch
 
 from ogl_tpu_torch import foam, kernels, registry, testing
 from ogl_tpu_torch.config import PrecondConfig
+from ogl_tpu_torch.core import formats
 from ogl_tpu_torch.kernels import _build, gdia, spmv, xell
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
-from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k2_plain,
-                                         k2i_plain, k2n_plain, kresid_plain, ksweep_plain)
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
+                                         k2_plain, k2i_plain, k2n_plain, ka_plain,
+                                         kb_pipe_plain, kb_update_plain, kresid_plain,
+                                         ksweep_plain)
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.solve import cg_fused, ir, krylov, stopping
+from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
+                                 krylov, stopping)
 
 GRID_1M = (128, 128, 64)
 GRID_8M = (256, 256, 128)
@@ -79,6 +98,10 @@ VEC_RTOL = 1e-5  # elementwise: |err| <= VEC_RTOL * max(1, max|plain|) (FMA vs m
 SUM_RTOL = 1e-4  # block sums: summed in another order than torch.sum
 
 RELAX = 0.9  # the AMG smoother's damping (ogl_tpu_torch/precond/amg.py)
+# published NVIDIA H100 SXM peaks (data sheet, at the full 700 W): device
+# memory, and float32 outside the tensor cores — the denominators of bound_ms
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 # name -> (route, source, TPU kernel it replaces, phase-3/8 case its JSON row
 # reports, and the label of that case's run: None = the 1M Poisson grid)
@@ -109,10 +132,20 @@ KERNELS = {
     "xell_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/xell.cu",
                 "ogl_tpu/kernels/xell.py:525, ogl_tpu/kernels/xell.py:430",
                 "xell_k1", "knn"),
+    "cg_ka": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_pipe.cu",
+              "ogl_tpu/kernels/fused.py:415", "cg_ka[none]", None),
+    "cg_kb_pipe": ("triton", "ogl_tpu_torch/kernels/fused.py",
+                   "ogl_tpu/kernels/fused.py:477", "cg_kb_pipe[none]", None),
+    "bicgstab_k1b": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab.cu",
+                     "ogl_tpu/kernels/fused.py:283", "bicgstab_k1b", None),
+    "bicgstab_kb_update": ("triton", "ogl_tpu_torch/kernels/fused.py",
+                           "ogl_tpu/kernels/fused.py:363", "bicgstab_kb_update", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_k2", "cg_k2i")
 AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
 UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i")
+SLICE4_KERNELS = ("cg_ka", "cg_kb_pipe", "bicgstab_k1b", "bicgstab_kb_update", "dia_spmv",
+                  "gdia_spmv")
 AMG_SOLVES = {"pMG": {"solver": "GKOCG", "preconditioner": "Multigrid"},
               "pGMG": {"solver": "GKOMultigrid"}}
 
@@ -142,6 +175,18 @@ class PlainCgKernels(PlainSteps, CgKernels):
 
     def kresid(self, data, x, b, out=None):
         return kresid_plain(data, self.offsets, x, b)
+
+    def ka(self, data, r, invd=None):
+        return ka_plain(data, self.offsets, r, invd)
+
+    def kb_pipe(self, w, p, s, x, r, alpha, beta, invd=None):
+        return kb_pipe_plain(w, p, s, x, r, alpha, beta, invd)
+
+    def k1b(self, data, a, b, c, rhat, ca, cb, out=None):
+        return k1b_plain(data, self.offsets, a, b, c, rhat, ca, cb)
+
+    def kb_update(self, x, p, s, t, rhat, alpha, omega, r):
+        return kb_update_plain(x, p, s, t, rhat, alpha, omega, r)
 
 
 class PlainGdiaCgKernels(PlainSteps, GdiaCgKernels):
@@ -205,16 +250,18 @@ def sum_err(got, want):
     return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
 
 
-def check_kernels(dims, device, report):
+def check_kernels(dims, device, report, with_library=False):
     data, offsets = poisson_dia(dims, device)
     nd, n = data.shape
     g = torch.Generator(device=device).manual_seed(0)
-    vec = {k: torch.randn(n, device=device, generator=g) for k in ("x", "r", "p", "z", "q")}
+    vec = {k: torch.randn(n, device=device, generator=g)
+           for k in ("x", "r", "p", "z", "q", "s", "t")}
     invd = 1.0 / data[offsets.index(0)]
     kern = CgKernels(n, offsets, device)
     plan = DiaPlan(n, offsets, device)
     alpha = torch.tensor(1e-3, device=device)
     beta = torch.tensor(0.37, device=device)
+    omega = torch.tensor(-0.61, device=device)
     label = "x".join(map(str, dims))
 
     def run_k2(k2fn, jacobi):
@@ -228,18 +275,32 @@ def check_kernels(dims, device, report):
         x, r = vec["x"].clone(), vec["r"].clone()
         return (x, r), (k2nfn(alpha, x, r, vec["p"], vec["q"]),)
 
+    def run_kb_pipe(fn, iv):  # on copies: p, s, x, r are updated in place
+        p, s, x, r = (vec[k].clone() for k in ("p", "s", "x", "r"))
+        fn(vec["q"], p, s, x, r, alpha, beta, iv)
+        return (p, s, x, r), ()
+
+    def run_kb_update(fn):
+        x, r = vec["x"].clone(), torch.empty(n, device=device)
+        sums = fn(x, vec["p"], vec["s"], vec["t"], vec["r"], alpha, omega, r)
+        return (x, r), sums
+
+    def split(o, k):  # (vectors, sums) of a kernel's output tuple
+        return o[:k], o[k:]
+
+    # name -> (kernel, plain version, minimum bytes, operations)
     cases = {
         "dia_spmv": (lambda: ((dia_spmv(plan, data, vec["x"]),), ()),
                      lambda: ((dia_spmv_plain(data, offsets, vec["x"]),), ()),
-                     (nd + 2) * n * 4),
-        "cg_k1": (lambda: (lambda o: (o[:2], o[2:]))(kern.k1(data, vec["z"], vec["p"], beta)),
-                  lambda: (lambda o: (o[:2], o[2:]))(k1_plain(data, offsets, vec["z"],
-                                                              vec["p"], beta)),
-                  (nd + 4) * n * 4),
-        "cg_k2": (lambda: run_k2(kern.k2, True), lambda: run_k2(k2_plain, True), 8 * n * 4),
+                     (nd + 2) * n * 4, 2 * nd * n),
+        "cg_k1": (lambda: split(kern.k1(data, vec["z"], vec["p"], beta), 2),
+                  lambda: split(k1_plain(data, offsets, vec["z"], vec["p"], beta), 2),
+                  (nd + 4) * n * 4, (2 * nd + 4) * n),
+        "cg_k2": (lambda: run_k2(kern.k2, True), lambda: run_k2(k2_plain, True), 8 * n * 4,
+                  9 * n),
         "cg_k2i": (lambda: run_k2(kern.k2i, False), lambda: run_k2(k2i_plain, False),
-                   6 * n * 4),
-        "cg_k2n": (lambda: run_k2n(kern.k2n), lambda: run_k2n(k2n_plain), 6 * n * 4),
+                   6 * n * 4, 8 * n),
+        "cg_k2n": (lambda: run_k2n(kern.k2n), lambda: run_k2n(k2n_plain), 6 * n * 4, 6 * n),
     }
     # the smoother passes, on float32 and on bfloat16 coefficients; the plain
     # versions read the same coefficients widened to float32
@@ -248,33 +309,66 @@ def check_kernels(dims, device, report):
         cases[f"amg_sweep[{tag}]"] = (
             lambda d=d: ((kern.ksweep(d, vec["x"], vec["r"], invd, RELAX),), ()),
             lambda d=d: ((ksweep_plain(d, offsets, vec["x"], vec["r"], invd, RELAX),), ()),
-            coef + 4 * n * 4)
+            coef + 4 * n * 4, (2 * nd + 4) * n)
         cases[f"amg_resid[{tag}]"] = (
             lambda d=d: ((kern.kresid(d, vec["x"], vec["r"]),), ()),
             lambda d=d: ((kresid_plain(d, offsets, vec["x"], vec["r"]),), ()),
-            coef + 3 * n * 4)
-    for name, (kfn, pfn, nbytes) in cases.items():
-        kt = pt = None
-        if name in ("cg_k2", "cg_k2i", "cg_k2n"):  # time the in-place updates on fixed buffers
-            x, r, z = vec["x"].clone(), vec["r"].clone(), torch.empty(n, device=device)
-            if name == "cg_k2":
-                kt = lambda: kern.k2(alpha, x, r, vec["p"], vec["q"], invd, z)  # noqa: E731
-                pt = lambda: k2_plain(alpha, x, r, vec["p"], vec["q"], invd, z)  # noqa: E731
-            elif name == "cg_k2i":
-                kt = lambda: kern.k2i(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
-                pt = lambda: k2i_plain(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
-            else:
-                kt = lambda: kern.k2n(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
-                pt = lambda: k2n_plain(alpha, x, r, vec["p"], vec["q"])  # noqa: E731
-        compare(name, label, kfn, pfn, nbytes, report, kt, pt)
-    del data, vec, invd, cases
+            coef + 3 * n * 4, (2 * nd + 1) * n)
+    # slice 4: KA and KB_pipe with identity and Jacobi, K1B with distinct b
+    # and c and with b = c (the second K1B of an iteration), KB_update
+    for tag, iv in (("none", None), ("BJ", invd)):
+        jac = iv is not None
+        cases[f"cg_ka[{tag}]"] = (
+            lambda iv=iv: split(kern.ka(data, vec["r"], iv), 1),
+            lambda iv=iv: split(ka_plain(data, offsets, vec["r"], iv), 1),
+            (nd + 2 + jac) * n * 4, (2 * nd + 6 + jac) * n)
+        cases[f"cg_kb_pipe[{tag}]"] = (
+            lambda iv=iv: run_kb_pipe(kern.kb_pipe, iv),
+            lambda iv=iv: run_kb_pipe(kb_pipe_plain, iv),
+            (9 + jac) * n * 4, (8 + jac) * n)
+    for tag, c in (("", vec["t"]), ("[b is c]", vec["s"])):
+        cases[f"bicgstab_k1b{tag}"] = (
+            lambda c=c: split(kern.k1b(data, vec["x"], vec["s"], c, vec["r"], beta, omega), 2),
+            lambda c=c: split(k1b_plain(data, offsets, vec["x"], vec["s"], c, vec["r"], beta,
+                                        omega), 2),
+            (nd + 6 - (c is vec["s"])) * n * 4, (2 * nd + 10) * n)
+    cases["bicgstab_kb_update"] = (lambda: run_kb_update(kern.kb_update),
+                                   lambda: run_kb_update(kb_update_plain), 7 * n * 4, 10 * n)
+    # the in-place updates are timed on fixed buffers (no copies in the loop)
+    x, r, z = vec["x"].clone(), vec["r"].clone(), torch.empty(n, device=device)
+    p, s = vec["p"].clone(), vec["s"].clone()
+    timed = {
+        "cg_k2": (lambda: kern.k2(alpha, x, r, vec["p"], vec["q"], invd, z),
+                  lambda: k2_plain(alpha, x, r, vec["p"], vec["q"], invd, z)),
+        "cg_k2i": (lambda: kern.k2i(alpha, x, r, vec["p"], vec["q"]),
+                   lambda: k2i_plain(alpha, x, r, vec["p"], vec["q"])),
+        "cg_k2n": (lambda: kern.k2n(alpha, x, r, vec["p"], vec["q"]),
+                   lambda: k2n_plain(alpha, x, r, vec["p"], vec["q"])),
+        "bicgstab_kb_update": (
+            lambda: kern.kb_update(x, vec["p"], vec["s"], vec["t"], vec["r"], alpha, omega, z),
+            lambda: kb_update_plain(x, vec["p"], vec["s"], vec["t"], vec["r"], alpha, omega,
+                                    z)),
+    }
+    for tag, iv in (("none", None), ("BJ", invd)):
+        timed[f"cg_kb_pipe[{tag}]"] = (
+            lambda iv=iv: kern.kb_pipe(vec["q"], p, s, x, r, alpha, beta, iv),
+            lambda iv=iv: kb_pipe_plain(vec["q"], p, s, x, r, alpha, beta, iv))
+    for name, (kfn, pfn, nbytes, nflops) in cases.items():
+        compare(name, label, kfn, pfn, nbytes, nflops, report, *timed.get(name, ()))
+    if with_library:
+        csr = csr_of_coo(*dia_coo(data, offsets), n)
+        library_beside("dia_spmv", label, csr, lambda v: dia_spmv(plan, data, v), vec["x"],
+                       report)
+    del data, vec, invd, cases, timed, x, r, z, p, s
     torch.cuda.empty_cache()
 
 
-def compare(name, label, kfn, pfn, nbytes, report, kt=None, pt=None):
+def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None):
     """Run kernel and plain version once on the same inputs (each returns
     (vectors, sums)), hold them to the tolerances, time them (`kt`/`pt`
-    when the timed call differs) and record the row in `report`."""
+    when the timed call differs) and record the row in `report`, with the
+    least time the card could take: the larger of the minimum bytes over
+    the memory rate and the operations over the float32 rate."""
     (kv, ks), (pv, ps) = kfn(), pfn()
     torch.cuda.synchronize()
     errs = [vec_err(a, b) for a, b in zip(kv, pv)]
@@ -282,15 +376,55 @@ def compare(name, label, kfn, pfn, nbytes, report, kt=None, pt=None):
     sums = [sum_err(a, b) for a, b in zip(ks, ps)]
     ok = all(e <= t for e, t in errs) and all(s <= SUM_RTOL for s in sums)
     ms, plain_ms = time_pair(kt or kfn, pt or pfn)
-    print(f"  {name:15s} {label:12s} max_abs_err {max_err:.3e} (tol "
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nflops / PEAK_F32_FLOPS * 1e3
+    print(f"  {name:22s} {label:12s} max_abs_err {max_err:.3e} (tol "
           f"{max(t for _, t in errs):.1e}) sum_rel_err "
           f"{max(sums, default=0.0):.1e} (tol {SUM_RTOL:.0e})  kernel {ms:.4f} ms "
           f"{nbytes / ms / 1e6:.1f} GB/s  plain {plain_ms:.4f} ms "
-          f"{nbytes / plain_ms / 1e6:.1f} GB/s  {'ok' if ok else 'FAIL'}")
+          f"{nbytes / plain_ms / 1e6:.1f} GB/s  bound {max(bytes_ms, ops_ms):.4f} ms  "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{name} at {label} disagrees with its plain version")
-    report.setdefault(name, {})[label] = {"max_abs_err": max_err, "ms": ms,
-                                          "plain_ms": plain_ms}
+    report.setdefault(name, {})[label] = {
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def dia_coo(data, offsets):
+    """The nonzero entries of a Dia matrix as device COO triplets."""
+    nd, n = data.shape
+    i = torch.arange(n, device=data.device)
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(offsets):
+        keep = (i + off >= 0) & (i + off < n) & (data[k] != 0)
+        rows.append(i[keep])
+        cols.append(i[keep] + off)
+        vals.append(data[k][keep])
+    return torch.cat(rows), torch.cat(cols), torch.cat(vals)
+
+
+def csr_of_coo(rows, cols, vals, n):
+    """torch's CSR tensor of COO triplets (device tensors), for library_ms."""
+    order = torch.argsort(rows * n + cols)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    return torch.sparse_csr_tensor(crow, cols[order], vals[order], size=(n, n),
+                                   check_invariants=True)
+
+
+def library_beside(name, label, csr, mv, x, report):
+    """For the record (never on the path): torch's own CSR SpMV (cuSPARSE
+    behind `sparse_csr_tensor @ x`) on the same matrix beside the kernel,
+    timed in turns; its median is the kernel row's library_ms."""
+    err, tol = vec_err(csr @ x, mv(x))
+    lib_ms, kern_ms = time_pair(lambda: csr @ x, lambda: mv(x))
+    print(f"  torch CSR SpMV (sparse_csr_tensor @ x) {lib_ms:.4f} ms beside {name} "
+          f"{kern_ms:.4f} ms on the same matrix ({label}, nnz {csr.values().numel()}); max "
+          f"abs difference {err:.1e} (tol {tol:.1e})")
+    if err > tol:
+        raise RuntimeError(f"torch's CSR SpMV and {name} disagree")
+    report[name][label]["library_ms"] = lib_ms
 
 
 def true_residual(data, offsets, x, b):
@@ -557,43 +691,35 @@ def check_unstructured_kernels(cases, report):
             print(f"  [{label}: {n} rows, Gdia, {nps} planes {mat.plane_offsets}]")
             compare("gdia_spmv", label, lambda: ((gdia.gdia_spmv(plan, *data, x),), ()),
                     lambda: ((gdia.gdia_spmv_plain(*data, mat.plane_offsets, x),), ()),
-                    (nps * 5 + 8) * n, report)
+                    (nps * 5 + 8) * n, 2 * nps * n, report)
             compare("gdia_k1", label, lambda: k1_out(gdia.gdia_k1(plan, *data, z, p, beta)),
                     lambda: k1_out(gdia.gdia_k1_plain(*data, mat.plane_offsets, z, p, beta)),
-                    (nps * 5 + 16) * n, report)
+                    (nps * 5 + 16) * n, (2 * nps + 4) * n, report)
         else:
             plan = xell.XellPlan.of(mat)
             data = (mat.vals, mat.ll, mat.bbT, mat.spill.vals)
             spill = plan.n_spill * 12 + (4 * n if plan.n_spill else 0)
+            flops = 2 * (mat.n_slots * n + plan.n_spill)
             print(f"  [{label}: {n} rows, Xell, K {mat.n_slots}, c_left {mat.c_left}, c_chunks "
                   f"{mat.c_chunks}, spill {plan.n_spill}]")
             compare("xell_spmv", label, lambda: ((xell.xell_spmv(plan, *data, x),), ()),
                     lambda: ((xell.xell_spmv_plain(plan, *data, x),), ()),
-                    (mat.n_slots * 7 + 8) * n + spill, report)
+                    (mat.n_slots * 7 + 8) * n + spill, flops, report)
             compare("xell_k1", label, lambda: k1_out(xell.xell_k1(plan, *data, z, p, beta)),
                     lambda: k1_out(xell.xell_k1_plain(plan, *data, z, p, beta)),
-                    (mat.n_slots * 7 + 16) * n + spill, report)
+                    (mat.n_slots * 7 + 16) * n + spill, flops + 4 * n, report)
 
 
-def csr_beside_xell(coo, mat, device):
-    """For the record (never on the path): torch's own CSR SpMV on the same
-    matrix beside the Xell kernel, timed in turns."""
+def library_of(coo, mat, label, report):
+    """library_beside for a solver's host COO and its Gdia or Xell matrix."""
+    dev = mat.vals.device
     n = coo.shape[0]
-    rows = torch.tensor(coo.rows.astype(np.int64), device=device)
-    crow = torch.zeros(n + 1, dtype=torch.int64, device=device)
-    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
-    csr = torch.sparse_csr_tensor(crow, torch.tensor(coo.cols.astype(np.int64), device=device),
-                                  torch.tensor(coo.vals, device=device), size=(n, n),
-                                  check_invariants=True)
-    x = torch.randn(n, device=device, generator=torch.Generator(device=device).manual_seed(0))
-    mv = spmv.matvec(mat)
-    err, tol = vec_err(csr @ x, mv(x))
-    csr_ms, xell_ms = time_pair(lambda: csr @ x, lambda: mv(x))
-    print(f"  torch CSR SpMV (sparse_csr_tensor @ x) {csr_ms:.4f} ms beside the Xell kernel "
-          f"{xell_ms:.4f} ms on the same matrix, nnz {len(coo.rows)}; max abs difference "
-          f"{err:.1e} (tol {tol:.1e})")
-    if err > tol:
-        raise RuntimeError("torch's CSR SpMV and the Xell kernel disagree")
+    csr = csr_of_coo(torch.tensor(coo.rows.astype(np.int64), device=dev),
+                     torch.tensor(coo.cols.astype(np.int64), device=dev),
+                     torch.tensor(coo.vals, device=dev), n)
+    x = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    name = "gdia_spmv" if isinstance(mat, gdia.Gdia) else "xell_spmv"
+    library_beside(name, label, csr, spmv.matvec(mat), x, report)
 
 
 def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
@@ -743,7 +869,8 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
                                 extra[1], ("shuffled big", big)], report)
     del big, extra
     torch.cuda.empty_cache()
-    csr_beside_xell(coo_knn, knn_mat, device)
+    library_of(coo_knn, knn_mat, "knn", report)
+    library_of(coo_shuf, shuf_mat, "shuffled", report)
 
     for mesh, (x2, perf2, mat, bb, m2, b2) in steps.items():
         print(f"torch.profiler over one more {mesh} step ({type(mat).__name__}; new b):")
@@ -751,6 +878,188 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
         profile_step(lambda m2=m2, b3=b3, mesh=mesh: foam.solve(
             mesh, m2, b3, {**ctl, "preconditioner": "none"}))
     return launches, report
+
+
+# ---- phase 9: slice 4, the pipelined CG and GKOBiCGStab ----------------------
+
+# field -> (controls, system, free-running count gated at ±1 against the
+# plain-twin route).  GKOCG pipelinedCG on the Poisson grid, then
+# GKOBiCGStab as the reference bench ran it there (bench.py:799-806), on the
+# asymmetric convection-diffusion system and on the shuffled grid (Gdia).
+# BiCGStab's float32 residual history on a Poisson system is erratic: two
+# routes whose sums round differently agree over the first iterations and
+# then part, and stop apart by more than one iteration near the tolerance —
+# so there the routes are held to each other pinned at PINNED_ITERS, and
+# their free-running counts are printed side by side.
+SLICE4_SOLVES = {
+    "pP": ({"solver": "GKOCG", "pipelinedCG": True, "preconditioner": "none"}, "poisson", True),
+    "pPBJ": ({"solver": "GKOCG", "pipelinedCG": True,
+              "preconditioner": {"preconditioner": "BJ"}}, "poisson", True),
+    "uBJ": ({"solver": "GKOBiCGStab", "preconditioner": {"preconditioner": "BJ"}}, "poisson",
+            False),
+    "u": ({"solver": "GKOBiCGStab", "preconditioner": "none"}, "poisson", False),
+    "uF": ({"solver": "GKOBiCGStab", "preconditioner": "none", "fusedBiCGStab": True},
+           "poisson", False),
+    "uCD": ({"solver": "GKOBiCGStab", "preconditioner": {"preconditioner": "BJ"}},
+            "convection-diffusion", True),
+    "uS": ({"solver": "GKOBiCGStab", "preconditioner": "none"}, "shuffled", False),
+}
+PINNED_ITERS = (10, 25)  # gated at the first: normalised residuals within PINNED_RTOL
+PINNED_RTOL = 1e-4
+
+
+def route_solve(snap, b, params, plain):
+    """Solve again from a zero guess on the route a foam solve took
+    (`snap`: route, matrix, merged plan, invd), with the kernels or
+    (plain=True) over the plain twins on the card."""
+    route, mat, kern, invd = snap
+    n = mat.shape[0]
+    x0 = torch.zeros_like(b)
+    if route in ("cg_pipe_fused", "bicgstab_fused"):
+        kern = PlainCgKernels(n, mat.offsets, b.device) if plain else kern
+        if route == "cg_pipe_fused":
+            return cg_pipelined_fused(kern, mat.data, b, x0, params, invd=invd)
+        return bicgstab_fused(kern, mat.data, b, x0, params)
+    if route != "bicgstab":
+        raise RuntimeError(f"phase 9 has no check for route {route}")
+    mv = (lambda v: spmv.spmv(mat, v)) if plain else spmv.matvec(mat)
+    pc = (lambda r: invd * r) if invd is not None else None
+    return bicgstab(krylov.single_device_ops(mv, n, precond=pc), b, x0, params)
+
+
+def snapshot(slv):
+    """What route_solve needs of a solver, the matrix values copied (later
+    steady steps overwrite them)."""
+    mat = slv.matrix
+    mat = dataclasses.replace(mat, data=mat.data.clone()) if isinstance(mat, formats.Dia) else mat
+    invd = slv._precond_op.state.clone() if slv.cfg.precond.name == "BJ" else None
+    return slv.route, mat, slv.kern, invd
+
+
+def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
+    """Phase 9.  Returns the launch counts of the path."""
+    n = m.n
+    print(f"== phase 9: slice 4, the pipelined CG and GKOBiCGStab, foam.solve at {n} cells")
+    t0 = time.perf_counter()
+    systems = {"poisson": (m, b), "convection-diffusion": (
+        testing.convection_diffusion_ldu(grid), b), "shuffled": (
+        testing.shuffled_poisson_ldu(grid), b)}
+    print(f"host set-up: convection-diffusion and shuffled systems {time.perf_counter() - t0:.2f} s")
+    ctl = {**ctl, "verbose": 0}
+    kernels.reset_launches()
+    solves = {}
+    for field, (spec, system, _) in SLICE4_SOLVES.items():
+        mk, bk = systems[system]
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        x, perf = foam.solve(field, mk, bk, {**ctl, **spec})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        slv = registry.global_registry.get(f"{field}_solver")
+        it = max(perf.n_iterations, 1)
+        used = {k: round((v - before[k]) / it, 2) for k, v in kernels.launches.items()
+                if v > before[k]}
+        print(f"{field} ({system}, route {slv.route}): first solve wall {wall:.3f} s; solve "
+              f"{slv.last_timings['solve'] * 1e3:.3f} ms = "
+              f"{slv.last_timings['solve'] / it * 1e6:.1f} us per iteration; launches per "
+              f"iteration {used}")
+        solves[field] = (x, perf, snapshot(slv), mk, torch.tensor(bk, device=device))
+    print(f"pipelined CG iterations {solves['pP'][1].n_iterations} (none), "
+          f"{solves['pPBJ'][1].n_iterations} (BJ) beside the classical merged CG's "
+          f"{cg_iters['p']} and {cg_iters['pBJ']} (phase 4); GKOBiCGStab none unfused "
+          f"{solves['u'][1].n_iterations}, fused {solves['uF'][1].n_iterations}")
+
+    # the asymmetric system's steady steps: diag only, then every block
+    m_cd = systems["convection-diffusion"][0]
+    steps = []
+    for tag, mk, bk, want in (
+            ("diag-only", dataclasses.replace(m_cd, diag=np.asarray(m_cd.diag) * 1.01),
+             b * 1.01 + 0.1, (1, 3)),
+            ("all blocks", dataclasses.replace(
+                m_cd, diag=np.asarray(m_cd.diag) * 1.02, upper=np.asarray(m_cd.upper) * 0.98,
+                lower=np.asarray(m_cd.lower) * 0.97), b * 0.9 - 0.1, (3, 3))):
+        bk = bk.astype(np.float32)
+        t0 = time.perf_counter()
+        x, perf = foam.solve("uCD", mk, bk, {**ctl, **SLICE4_SOLVES["uCD"][0]})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        slv = registry.global_registry.get("uCD_solver")
+        lt = slv.last_timings
+        print(f"uCD {tag} step: wall {wall * 1e3:.3f} ms, of which update "
+              f"{lt.get('update_device_values', 0.0) * 1e3:.3f} ms and solve "
+              f"{lt.get('solve', 0.0) * 1e3:.3f} ms; blocks uploaded "
+              f"{slv.last_blocks_uploaded}, rhs uploaded {slv.last_rhs_uploaded}")
+        if slv.last_blocks_uploaded != want or not slv.last_rhs_uploaded:
+            raise RuntimeError(f"uCD {tag} step uploaded {slv.last_blocks_uploaded} blocks, "
+                               f"not {want}, and the RHS")
+        steps.append((f"uCD {tag} step", x, perf, slv.matrix.data.clone(), slv.matrix.offsets,
+                      torch.tensor(bk, device=device)))
+    launches = {k: kernels.launches[k] for k in SLICE4_KERNELS}
+    print(f"launch counts over slice 4's path: {dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"slice 4's path never launched {missing}")
+
+    # ---- checks of the path ------------------------------------------------
+    for name, x, perf, dd, offs, bb in steps:
+        if not (perf.converged and perf.final_residual < TOL):
+            raise RuntimeError(f"{name}: did not converge: {perf}")
+        tr = true_residual(dd, offs, x, bb)
+        print(f"{name}: iterations {perf.n_iterations}, true float64 residual {tr:.3e}")
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")
+    for field, (x, perf, snap, mk, bb) in solves.items():
+        gated = SLICE4_SOLVES[field][2]
+        mat = snap[1]
+        if not (perf.converged and perf.final_residual < TOL):
+            raise RuntimeError(f"{field}: did not converge: {perf}")
+        if x.shape != (n,) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{field}: solution not finite of shape ({n},)")
+        tr = true_residual_mv(lambda v, mat=mat: spmv.spmv(mat, v), x, bb)
+        params = stopping.StoppingParams.of(
+            registry.global_registry.get(f"{field}_solver").cfg.stopping)
+        plain = route_solve(snap, bb, params, plain=True)
+        line = (f"{field}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
+                f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
+                f"card: {plain.iters} iterations ({'gated at ±1' if gated else 'not gated'})")
+        for k in PINNED_ITERS:
+            pin = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=k, max_iter=k,
+                                          frequency=1)
+            rk, rp = (float(route_solve(snap, bb, pin, twins).final_res_norm)
+                      for twins in (False, True))
+            rel = abs(rk - rp) / rp
+            line += f"; pinned {k}: residual {rk:.4e} vs {rp:.4e} (rel {rel:.1e})"
+            if k == PINNED_ITERS[0] and rel > PINNED_RTOL:
+                raise RuntimeError(f"{field}: after {k} iterations the kernels' residual "
+                                   f"{rk:.4e} differs from the plain twins' {rp:.4e}")
+        # the kernels are deterministic (no float atomics): the same inputs
+        # give the same count; b nudged by one ulp shows how far rounding
+        # alone moves the stop
+        again = route_solve(snap, bb, params, plain=False).iters
+        nudged = route_solve(snap, bb * (1 + 2.0 ** -23), params, plain=False).iters
+        line += (f"; the kernel route again: {again} iterations, with b x (1 + 2^-23): "
+                 f"{nudged}")
+        print(line)
+        if again != perf.n_iterations:
+            raise RuntimeError(f"{field}: the kernel route took {again} iterations from the "
+                               f"inputs that took {perf.n_iterations}")
+        if gated and abs(plain.iters - perf.n_iterations) > 1:
+            raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain.iters} "
+                               "over the plain twins")
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
+
+    for field in ("uF", "pP"):
+        spec = SLICE4_SOLVES[field][0]
+        print(f"torch.profiler over one steady step of {field} (diag x1.01, new b):")
+        m2 = dataclasses.replace(m, diag=np.asarray(m.diag) * 1.01)
+        b2 = (b * 1.01 + 0.1).astype(np.float32)
+        profile_step(lambda field=field, spec=spec, m2=m2, b2=b2: foam.solve(
+            field, m2, b2, {**ctl, **spec}))
+    return launches
 
 
 def main() -> int:
@@ -787,7 +1096,7 @@ def run(device, grid_main, grid_big, knn_n) -> int:
           f"(vector tol {VEC_RTOL:.0e}*max(1,max|plain|), sum rtol {SUM_RTOL:.0e})")
     report: dict = {}
     for dims in (grid_main, grid_big):
-        check_kernels(dims, device, report)
+        check_kernels(dims, device, report, with_library=dims == grid_main)
 
     print("== phase 4: slice 1's path, foam.solve at "
           f"{'x'.join(map(str, grid_main))} = {int(np.prod(grid_main))} cells")
@@ -879,15 +1188,18 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     launches_amg = amg_path(m, b, device, {**ctl, "verbose": 0})
     launches_un, report_un = unstructured_path(device, knn_n, grid_main, grid_big, ctl)
     report.update(report_un)
+    launches_4 = slice4_path(m, b, grid_main, device, ctl,
+                             {k: v[1].n_iterations for k, v in solves.items()})
 
     rows = []
+    paths = (launches, launches_amg, launches_un, launches_4)
     for name, (route, source, replaces, case, label) in KERNELS.items():
         r = report[case][label or "x".join(map(str, grid_main))]
         rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                     "launches": (launches.get(name, 0) + launches_amg.get(name, 0)
-                                  + launches_un.get(name, 0)),
+                     "launches": sum(path.get(name, 0) for path in paths),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ Slices covered so far: the GKOCG pressure solve — OpenFOAM LDU ingest,
 the Dia, Gdia and Xell formats with the reference's auto-routing between
 them (and `reorder rcm`), the delta-gated coefficient upload, and the
 merged two-kernel CG with the OpenFOAM stopping criterion, preconditioner
-`none`, scalar `BJ` or `Multigrid` (AMG, Dia only) — and GKOMultigrid;
-float32, one device.  Controls outside those slices raise
-NotImplementedError (see ogl_tpu_torch.foam.solver).
+`none`, scalar `BJ` or `Multigrid` (AMG, Dia only) — GKOMultigrid, the
+pipelined GKOCG (`pipelinedCG true`) and GKOBiCGStab on symmetric and
+asymmetric matrices (merged with `fusedBiCGStab true`); float32, one
+device.  Controls outside those slices raise NotImplementedError (see
+ogl_tpu_torch.foam.solver).
 """
 
 from __future__ import annotations

@@ -4,4 +4,5 @@ from ogl_tpu_torch.foam.solver import (
     solve as solve,
 )
 from ogl_tpu_torch.foam.api import GKOCG as GKOCG
+from ogl_tpu_torch.foam.api import GKOBiCGStab as GKOBiCGStab
 from ogl_tpu_torch.foam.api import GKOMultigrid as GKOMultigrid

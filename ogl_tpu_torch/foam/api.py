@@ -1,7 +1,8 @@
 """Named solver classes — the reference's registered solver surface.
 
-Counterpart: ogl_tpu/foam/api.py.  GKOCG and GKOMultigrid are ported;
-GKOCG registers for symmetric matrices only (reference GKOCG.C:16),
+Counterpart: ogl_tpu/foam/api.py.  GKOCG, GKOBiCGStab and GKOMultigrid
+are ported; GKOCG registers for symmetric matrices only (reference
+GKOCG.C:16), GKOBiCGStab for both (the reference's sym and asym tables),
 checked on LduMatrix.symmetric.
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 from ogl_tpu_torch.core.ldu import LduMatrix
 from ogl_tpu_torch.foam.solver import FoamSolver
 
-__all__ = ["GKOCG", "GKOMultigrid"]
+__all__ = ["GKOCG", "GKOBiCGStab", "GKOMultigrid"]
 
 
 class _NamedSolver(FoamSolver):
@@ -36,6 +37,12 @@ class GKOCG(_NamedSolver):
 
     SOLVER = "GKOCG"
     SYMMETRIC_ONLY = True
+
+
+class GKOBiCGStab(_NamedSolver):
+    """BiCGStab (symmetric and asymmetric, reference Solver/BiCGStab/)."""
+
+    SOLVER = "GKOBiCGStab"
 
 
 class GKOMultigrid(_NamedSolver):

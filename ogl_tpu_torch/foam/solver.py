@@ -11,19 +11,30 @@ Counterpart: ogl_tpu/foam/solver.py.
                  container's values → preconditioner regeneration gated on
                  a changed operator and the TTL → merged-kernel CG
 
-Slice implemented: GKOCG with preconditioner `none`, scalar `BJ` or
-`Multigrid` (AMG), and GKOMultigrid (Richardson around one AMG cycle);
-float32, one device.  Without an explicit matrixFormat the matrix takes
-the reference's format ladder (kernels/spmv.py `pack_fast`): Dia, else
-Gdia, else Xell; `matrixFormat Dia/Gdia/Xell` is honoured.  GKOCG runs the
-merged two-kernel CG on each of the three (CgKernels, GdiaCgKernels,
-XellCgKernels); AMG runs on Dia only.  Every control outside the slice
-raises NotImplementedError naming its ROADMAP.md item; none is silently
-ignored.  `fusedCG false` routes GKOCG to the general CG (solve/cg.py).
+Slices implemented: GKOCG and GKOBiCGStab with preconditioner `none`,
+scalar `BJ` or `Multigrid` (AMG), and GKOMultigrid (Richardson around one
+AMG cycle); float32, one device.  Without an explicit matrixFormat the
+matrix takes the reference's format ladder (kernels/spmv.py `pack_fast`):
+Dia, else Gdia, else Xell; `matrixFormat Dia/Gdia/Xell` is honoured.  AMG
+runs on Dia only.  Every control outside the slices raises
+NotImplementedError naming its ROADMAP.md item; none is silently ignored.
+
+Routing follows the reference's `_make_solve_fn`:
+  GKOCG                merged two-kernel CG on each format (CgKernels,
+                       GdiaCgKernels, XellCgKernels); `fusedCG false` →
+                       the general CG (solve/cg.py)
+  GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
+                       (KA + KB_pipe, solve/cg_pipe_fused.py); Gdia, Xell,
+                       Multigrid or `fusedCG false` → the general
+                       pipelined CG (solve/cg_pipe.py)
+  GKOBiCGStab          the general BiCGStab over the format's SpMV kernel
+                       (solve/bicgstab.py); `fusedBiCGStab true` with
+                       `none` on Dia → the merged BiCGStab (K1B, K1B,
+                       KB_update; solve/bicgstab_fused.py)
 The reference's TPU-only route gates (Pallas usability, the 32k-row floor
-of the merged kernels, the working-set gate of the z-free variant, the
-frame geometry its framed AMG must share) are not carried over: every
-GKOCG solve takes the merged route, on either device.
+of the merged kernels, the f32-frame test, the working-set gate of the
+z-free variant, the frame geometry its framed AMG must share) are not
+carried over: every solve takes its route on either device.
 """
 
 from __future__ import annotations
@@ -45,8 +56,12 @@ from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
 from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
 from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels, xell_from_coo
 from ogl_tpu_torch.solve import stopping
+from ogl_tpu_torch.solve.bicgstab import bicgstab
+from ogl_tpu_torch.solve.bicgstab_fused import bicgstab_fused
 from ogl_tpu_torch.solve.cg import cg
 from ogl_tpu_torch.solve.cg_fused import cg_fused
+from ogl_tpu_torch.solve.cg_pipe import cg_pipelined
+from ogl_tpu_torch.solve.cg_pipe_fused import cg_pipelined_fused
 from ogl_tpu_torch.solve.ir import ir
 from ogl_tpu_torch.solve.krylov import single_device_ops
 
@@ -80,7 +95,7 @@ def unsupported(cfg: SolverConfig) -> str | None:
     """Why the port cannot run `cfg` yet (naming the ROADMAP.md item that
     ports it), or None when the slice covers it."""
     pc = cfg.precond
-    if cfg.solver not in ("GKOCG", "GKOMultigrid"):
+    if cfg.solver not in ("GKOCG", "GKOBiCGStab", "GKOMultigrid"):
         return f"solver {cfg.solver} (ROADMAP.md A9)"
     if pc.name not in precond.PORTED:
         return f"preconditioner {pc.name} (ROADMAP.md A10)"
@@ -95,8 +110,6 @@ def unsupported(cfg: SolverConfig) -> str | None:
         return f"Multigrid on a {cfg.matrix_format} matrix (ROADMAP.md A11)"
     if cfg.dtype != "float32":
         return f"dtype {cfg.dtype} (ROADMAP.md A14)"
-    if cfg.pipelined_cg and cfg.solver == "GKOCG":
-        return "pipelinedCG true (ROADMAP.md A12)"
     if cfg.upload_precision != "default":
         return f"uploadPrecision {cfg.upload_precision} (ROADMAP.md A7)"
     if cfg.export or cfg.debug:
@@ -106,6 +119,23 @@ def unsupported(cfg: SolverConfig) -> str | None:
 
 def _uses_amg(cfg: SolverConfig) -> bool:
     return cfg.precond.name == "Multigrid" or cfg.solver == "GKOMultigrid"
+
+
+def _route(cfg: SolverConfig, matrix) -> str:
+    """The solve route of `cfg` on `matrix` (the reference's
+    `_make_solve_fn`, foam/solver.py:624-748, without its TPU-only gates):
+    "cg_fused", "cg", "cg_pipe_fused", "cg_pipe", "bicgstab_fused",
+    "bicgstab" or "ir"."""
+    diag_pc = cfg.precond.name in ("none", "BJ")
+    dia = isinstance(matrix, formats.Dia)
+    if cfg.solver == "GKOMultigrid":
+        return "ir"
+    if cfg.solver == "GKOBiCGStab":
+        fused = cfg.fused_bicgstab and cfg.precond.name == "none" and dia
+        return "bicgstab_fused" if fused else "bicgstab"
+    if cfg.pipelined_cg:
+        return "cg_pipe_fused" if cfg.fused_cg and diag_pc and dia else "cg_pipe"
+    return "cg_fused" if cfg.fused_cg else "cg"
 
 
 def _res_eval_seconds(mv, x, b, device: torch.device, k: int = 8) -> float:
@@ -147,7 +177,8 @@ class FoamSolver:
         self.np_dtype = np.float32
         self.sparsity: ldu.LduSparsity | None = None
         self.matrix: formats.Dia | Gdia | Xell | None = None
-        self.kern: CgKernels | XellCgKernels | None = None
+        self.kern: CgKernels | XellCgKernels | None = None  # the merged routes' plan
+        self.route = ""  # _route() of the matrix the first solve converted
         self._n = 0
         self._coeff_epoch = 0
         self._reorder = None  # (perm, inv, rows, cols, entry_order) under rcm
@@ -266,7 +297,9 @@ class FoamSolver:
                     f"{self.field}: Multigrid on a {type(self.matrix).__name__} matrix "
                     "(AMG levels in the Gdia/Xell formats) is not ported to "
                     "ogl_tpu_torch yet (ROADMAP.md A11)")
-            self.kern = self._kernel_plan()
+            self.route = _route(cfg, self.matrix)
+            merged = self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused")
+            self.kern = self._kernel_plan() if merged else None
             return
         # steady state: upload the changed raw blocks, then one gather +
         # scatter on the device (the reference's in-place device value
@@ -423,18 +456,22 @@ class FoamSolver:
         pc_op = self._precond_op
         apply_pc = pc_op.bind(pc_op.state) if pc_op is not None else None
 
+        route = self.route
         with self._timed("solve"):
-            if cfg.solver == "GKOMultigrid":
-                res = ir(single_device_ops(spmv.matvec(self.matrix), m.n, precond=apply_pc),
-                         b_dev, x0, params)
-            elif cfg.fused_cg:
-                jacobi = cfg.precond.name == "BJ"
-                res = cg_fused(self.kern, self.kern.pack_values(self.matrix), b_dev, x0,
-                               params, invd=pc_op.state if jacobi else None,
-                               precond=apply_pc if not jacobi else None)
-            else:
+            invd = pc_op.state if cfg.precond.name == "BJ" else None
+            if route in ("ir", "cg", "cg_pipe", "bicgstab"):
                 ops = single_device_ops(spmv.matvec(self.matrix), m.n, precond=apply_pc)
-                res = cg(ops, b_dev, x0, params)
+                general = {"ir": ir, "cg": cg, "cg_pipe": cg_pipelined, "bicgstab": bicgstab}
+                res = general[route](ops, b_dev, x0, params)
+            else:
+                data = self.kern.pack_values(self.matrix)
+                if route == "cg_fused":
+                    res = cg_fused(self.kern, data, b_dev, x0, params, invd=invd,
+                                   precond=apply_pc if invd is None else None)
+                elif route == "cg_pipe_fused":
+                    res = cg_pipelined_fused(self.kern, data, b_dev, x0, params, invd=invd)
+                else:
+                    res = bicgstab_fused(self.kern, data, b_dev, x0, params)
             # one batched fetch of the stats, inside the timed region
             init_rn, final_rn, conv = torch.stack([
                 res.init_res_norm.double(), res.final_res_norm.double(),

@@ -67,6 +67,11 @@ _SIGNATURES = {
     # pout, q, partials, n, threads, grid, stream
     "ogl_xell_k1": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I64, _INT, _I64, _P),
+    # data, offsets, nd, r, invd (NULL = identity), w, partials, n, threads, grid, stream
+    "ogl_cg_ka": (_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # data, offsets, nd, a, b, c, rhat, ca, cb, w, q, partials, n, threads, grid, stream
+    "ogl_bicgstab_k1b": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
+                         _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -6,6 +6,7 @@
 // 32, at most 1024.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ogl {
 
@@ -26,6 +27,31 @@ __device__ __forceinline__ void block_sum_to(float v, float* out) {
     float w = lane < n_warps ? s_warp[lane] : 0.0f;
     w = warp_sum(w);
     if (lane == 0) out[blockIdx.x] = w;
+  }
+}
+
+// N sums at once: out[k * gridDim.x + blockIdx.x] = the block's sum of v[k],
+// so `out` is an (N, grid) array whose rows torch.sum(out, dim=1) finishes.
+// One barrier for all N (calling block_sum_to N times would need a barrier
+// between the calls, since they share s_warp).
+template <int N>
+__device__ __forceinline__ void block_sums_to(const float (&v)[N], float* out) {
+  __shared__ float s_warps[N][32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float w = warp_sum(v[k]);
+    if (lane == 0) s_warps[k][warp] = w;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x / 32;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float w = warp_sum(lane < n_warps ? s_warps[k][lane] : 0.0f);
+      if (lane == 0) out[(int64_t)k * gridDim.x + blockIdx.x] = w;
+    }
   }
 }
 

@@ -1,12 +1,14 @@
-"""Merged-CG and AMG-smoother kernels for the Dia (stencil) path: K1 and
-the smoother passes in CUDA C++ (`csrc/cg_k1.cu`, `csrc/amg_smooth.cu`),
-K2, K2i and K2n in Triton (bodies below), each beside its plain PyTorch
-twin.
+"""Merged-Krylov and AMG-smoother kernels for the Dia (stencil) path: K1,
+KA, K1B and the smoother passes in CUDA C++ (`csrc/cg_k1.cu`,
+`csrc/cg_pipe.cu`, `csrc/bicgstab.cu`, `csrc/amg_smooth.cu`), K2, K2i,
+K2n, KB_pipe and KB_update in Triton (bodies below), each beside its plain
+PyTorch twin.
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
-`ksweep`/`kresid`/`apply`/`pack_values`, kernels `_k1_kernel`,
-`_k2_kernel`, `_k2i_kernel`, `_k2n_kernel`, `_sweep_kernel`,
-`_resid_kernel`).  Two kernels per CG iteration:
+`ka`/`kb_pipe`/`k1b`/`kb_update`/`ksweep`/`kresid`/`apply`/`pack_values`,
+kernels `_k1_kernel`, `_k2_kernel`, `_k2i_kernel`, `_k2n_kernel`,
+`_ka_kernel`, `_kb_pipe_kernel`, `_k1b_kernel`, `_kb_update_kernel`,
+`_sweep_kernel`, `_resid_kernel`).  Two kernels per CG iteration:
 
   K1   p' = z + β·p ;  q = A p' ;  δ = Σ p'·q
   K2   x' = x + α·p' ;  r' = r − α·q ;  z' = invd ⊙ r' ;  ρ' = Σ r'·z' ;
@@ -15,6 +17,13 @@ Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
        ρ' = Σ r'·r'
   K2n  K2 for a rich preconditioner (AMG): x', r' and s only — z and ρ
        come from the preconditioner's cycle
+two per iteration of the pipelined (Chronopoulos–Gear) CG
+(solve/cg_pipe_fused.py):
+  KA       u = invd ⊙ r (or r) ;  w = A u ;  (γ = Σ r·u, δ = Σ w·u, ‖r‖₁)
+  KB_pipe  p' = u + β·p ;  s' = w + β·s ;  x' = x + α·p' ;  r' = r − α·s'
+three per iteration of the merged BiCGStab (solve/bicgstab_fused.py):
+  K1B        w = a + ca·b + cb·c ;  q = A w ;  (Σ r̂·q, Σ q·w, Σ q·q)
+  KB_update  x' = x + α·p + ω·s ;  r' = s − ω·t ;  (Σ r̂·r', ‖r'‖₁)
 and the AMG smoother's two passes, each one stencil apply:
   sweep  out = x + relax·invd ⊙ (b − A x)
   resid  out = b − A x
@@ -32,13 +41,14 @@ TPU's (8, 128) tiling and static DMA windows; the port has no frame, so
 itself.  Cross-block sums are one float32 partial per block, summed with
 torch.sum outside the kernel — deterministic, no float atomics.
 
-α and β are 0-d float32 tensors on the device: the kernels read them
-through a pointer, so a launch never waits for the host.  K2/K2i update
-x, r (and z) IN PLACE: every element is read and written by the same
-program, so there is no race; the plain versions do the same.  K2n does
-too.  The smoother passes cannot: they read x at the neighbours of other
-blocks, so they write a buffer of their own, and refuse an `out` that
-overlaps an operand.
+α, β, ω, ca and cb are 0-d float32 tensors on the device: the kernels
+read them through a pointer, so a launch never waits for the host.
+K2/K2i update x, r (and z) IN PLACE: every element is read and written by
+the same program, so there is no race; the plain versions do the same.
+K2n, KB_pipe (p, s, x, r) and KB_update (x, and r' into r) do too.  The
+stencil passes cannot: they read their inputs at the neighbours of other
+blocks, so they write buffers of their own, and the smoother passes and
+K1B refuse an `out` that overlaps an operand.
 
 Dispatch, the same for every wrapper: tensors on the CPU run the plain
 version; CUDA tensors launch the kernel or raise (wrong device, dtype,
@@ -53,6 +63,14 @@ device-memory bandwidth, 8 float32 streams per row for K2 (x, r, p, q,
 invd in; x, r, z out) and 6 for K2i and K2n, at a handful of flops each.
 Design: one program per BLOCK rows, masked coalesced loads/stores, tl.sum
 per program into a partials array.
+
+KB_pipe and KB_update (Triton) replace `_kb_pipe_kernel` and
+`_kb_update_kernel`, the same kind of stream.  Bound: device-memory
+bandwidth — KB_pipe 9 float32 streams per row (w, p, s, x, r in; p, s, x,
+r out; 36 B), 10 with Jacobi (invd in, u = invd·r formed before r is
+stored); KB_update 7 (x, p, s, t, r̂ in; x, r out; 28 B).  Design as K2,
+with KB_update's two sums as the rows of one (2, grid) partials array, so
+one torch.sum finishes both (KA and K1B do the same with three).
 """
 
 from __future__ import annotations
@@ -67,6 +85,7 @@ from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
 from ogl_tpu_torch.kernels.gdia import GdiaPlan, gdia_k1
 
 __all__ = ["CgKernels", "GdiaCgKernels", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
+           "ka_plain", "kb_pipe_plain", "k1b_plain", "kb_update_plain",
            "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
 K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
@@ -104,6 +123,39 @@ def k2n_plain(alpha, x, r, p, q):
     x += alpha * p
     r -= alpha * q
     return torch.sum(torch.abs(r))
+
+
+def ka_plain(data, offsets, r, invd=None):
+    """(w, γ, δ, ‖r‖₁) with u = invd ⊙ r (r when invd is None), w = A u,
+    γ = Σ r·u, δ = Σ w·u."""
+    u = r if invd is None else invd * r
+    w = dia_spmv_plain(data, offsets, u)
+    return w, torch.sum(r * u), torch.sum(w * u), torch.sum(torch.abs(r))
+
+
+def kb_pipe_plain(w, p, s, x, r, alpha, beta, invd=None):
+    """In place: p = u + β·p, s = w + β·s, x += α·p, r −= α·s, with
+    u = invd ⊙ r (r when invd is None) taken before r changes."""
+    u = r if invd is None else invd * r
+    torch.add(u, beta * p, out=p)
+    torch.add(w, beta * s, out=s)
+    x += alpha * p
+    r -= alpha * s
+
+
+def k1b_plain(data, offsets, a, b, c, rhat, ca, cb):
+    """(w, q, Σ r̂·q, Σ q·w, Σ q·q) with w = a + ca·b + cb·c, q = A w."""
+    w = a + ca * b + cb * c
+    q = dia_spmv_plain(data, offsets, w)
+    return w, q, torch.sum(rhat * q), torch.sum(q * w), torch.sum(q * q)
+
+
+def kb_update_plain(x, p, s, t, rhat, alpha, omega, r):
+    """In place: x = x + α·p + ω·s, r = s − ω·t; returns (Σ r̂·r, ‖r‖₁)."""
+    x += alpha * p
+    x += omega * s
+    torch.sub(s, omega * t, out=r)
+    return torch.sum(rhat * r), torch.sum(torch.abs(r))
 
 
 def kresid_plain(data, offsets, x, b):
@@ -182,6 +234,47 @@ def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
     tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
 
 
+def _kb_pipe_body(alpha_ptr, beta_ptr, w_ptr, p_ptr, s_ptr, x_ptr, r_ptr, invd_ptr, n,
+                  JACOBI: "tl.constexpr", BLOCK: "tl.constexpr"):
+    pid = tl.program_id(0)
+    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    alpha = tl.load(alpha_ptr)
+    beta = tl.load(beta_ptr)
+    r = tl.load(r_ptr + offs, mask=mask, other=0.0)
+    if JACOBI:
+        u = tl.load(invd_ptr + offs, mask=mask, other=0.0) * r
+    else:
+        u = r
+    po = u + beta * tl.load(p_ptr + offs, mask=mask, other=0.0)
+    so = tl.load(w_ptr + offs, mask=mask, other=0.0) + beta * tl.load(
+        s_ptr + offs, mask=mask, other=0.0)
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
+    tl.store(p_ptr + offs, po, mask=mask)
+    tl.store(s_ptr + offs, so, mask=mask)
+    tl.store(x_ptr + offs, x + alpha * po, mask=mask)
+    tl.store(r_ptr + offs, r - alpha * so, mask=mask)
+
+
+def _kb_update_body(alpha_ptr, omega_ptr, x_ptr, p_ptr, s_ptr, t_ptr, rhat_ptr, r_ptr,
+                    rr_ptr, absr_ptr, n, BLOCK: "tl.constexpr"):
+    pid = tl.program_id(0)
+    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    alpha = tl.load(alpha_ptr)
+    omega = tl.load(omega_ptr)
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
+    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
+    s = tl.load(s_ptr + offs, mask=mask, other=0.0)
+    t = tl.load(t_ptr + offs, mask=mask, other=0.0)
+    rhat = tl.load(rhat_ptr + offs, mask=mask, other=0.0)
+    ro = s - omega * t
+    tl.store(x_ptr + offs, x + alpha * p + omega * s, mask=mask)
+    tl.store(r_ptr + offs, ro, mask=mask)
+    tl.store(rr_ptr + pid, tl.sum(rhat * ro, axis=0))
+    tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
+
+
 def _triton_kernels() -> dict:
     global tl
     if not _TRITON:
@@ -190,7 +283,8 @@ def _triton_kernels() -> dict:
 
         tl = triton.language
         _TRITON.update(k2=triton.jit(_k2_body), k2i=triton.jit(_k2i_body),
-                       k2n=triton.jit(_k2n_body))
+                       k2n=triton.jit(_k2n_body), kb_pipe=triton.jit(_kb_pipe_body),
+                       kb_update=triton.jit(_kb_update_body))
     return _TRITON
 
 
@@ -267,35 +361,108 @@ class CgKernels:
         """In place on x, r, z; returns (ρ, ‖r‖₁) as 0-d tensors."""
         if on_cpu(alpha, x, r, p, q, invd, z):
             return k2_plain(alpha, x, r, p, q, invd, z)
-        return self._launch_k2("k2", alpha, x, r, p, q, invd, z)
+        return self._launch_stream("k2", "cg_k2", {"alpha": alpha}, (x, r, p, q, invd, z),
+                                   sums=2)
 
     def k2i(self, alpha, x, r, p, q):
         """K2 for identity preconditioning, in place on x and r; returns
         (ρ = Σ r·r, ‖r‖₁) as 0-d tensors."""
         if on_cpu(alpha, x, r, p, q):
             return k2i_plain(alpha, x, r, p, q)
-        return self._launch_k2("k2i", alpha, x, r, p, q)
+        return self._launch_stream("k2i", "cg_k2i", {"alpha": alpha}, (x, r, p, q), sums=2)
 
     def k2n(self, alpha, x, r, p, q):
         """K2 without z and ρ (a rich preconditioner makes z), in place on
         x and r; returns ‖r‖₁ as a 0-d tensor."""
         if on_cpu(alpha, x, r, p, q):
             return k2n_plain(alpha, x, r, p, q)
-        (absr,) = self._launch_k2("k2n", alpha, x, r, p, q, sums=1)
+        (absr,) = self._launch_stream("k2n", "cg_k2n", {"alpha": alpha}, (x, r, p, q), sums=1)
         return absr
 
-    def _launch_k2(self, name, alpha, *vectors, sums: int = 2):
+    # ---- pipelined CG: KA (CUDA C++), KB_pipe (Triton) ------------------
+    def ka(self, data, r, invd=None):
+        """(w, γ, δ, ‖r‖₁): u = invd ⊙ r (r when invd is None), w = A u in a
+        new buffer, γ = Σ r·u, δ = Σ w·u and ‖r‖₁ as 0-d tensors."""
+        if on_cpu(data, r, invd):
+            return ka_plain(data, self.offsets, r, invd)
+        require_cuda("ka", r)
+        check_operands(self.plan, data, r, *(() if invd is None else (invd,)))
+        lib = _build.library()
+        w = torch.empty_like(r)
+        grid = -(-self.n // THREADS)
+        partials = torch.empty((3, grid), dtype=torch.float32, device=self.device)
+        _build.check(lib.ogl_cg_ka(
+            data.data_ptr(), self.plan.offsets_dev.data_ptr(), len(self.offsets),
+            r.data_ptr(), None if invd is None else invd.data_ptr(), w.data_ptr(),
+            partials.data_ptr(), self.n, THREADS, grid, stream_of(r)), "cg_ka")
+        kernels.launches["cg_ka"] += 1
+        return (w, *torch.sum(partials, dim=1).unbind())
+
+    def kb_pipe(self, w, p, s, x, r, alpha, beta, invd=None):
+        """In place on p, s, x and r: p = u + β·p, s = w + β·s, x += α·p,
+        r −= α·s, with u = invd ⊙ r (r when invd is None)."""
+        if on_cpu(w, p, s, x, r, alpha, beta, invd):
+            return kb_pipe_plain(w, p, s, x, r, alpha, beta, invd)
+        jacobi = invd is not None
+        self._launch_stream("kb_pipe", "cg_kb_pipe", {"alpha": alpha, "beta": beta},
+                            (w, p, s, x, r, invd if jacobi else r), JACOBI=jacobi)
+
+    # ---- merged BiCGStab: K1B (CUDA C++), KB_update (Triton) ------------
+    def k1b(self, data, a, b, c, rhat, ca, cb, out=None):
+        """(w, q, Σ r̂·q, Σ q·w, Σ q·q) with w = a + ca·b + cb·c, q = A w.
+        w and q go into new buffers, or into `out` = (w, q), which must not
+        overlap an operand: other blocks read a, b and c at the neighbours.
+        b and c may be one tensor."""
+        if out is not None:
+            _check_no_overlap("k1b", out[0], data, a, b, c, rhat, out[1])
+            _check_no_overlap("k1b", out[1], data, a, b, c, rhat)
+        if on_cpu(data, a, b, c, rhat, ca, cb, *(out or ())):
+            res = k1b_plain(data, self.offsets, a, b, c, rhat, ca, cb)
+            if out is None:
+                return res
+            return (out[0].copy_(res[0]), out[1].copy_(res[1]), *res[2:])
+        require_cuda("k1b", a)
+        w, q = out if out is not None else (torch.empty_like(a), torch.empty_like(a))
+        check_operands(self.plan, data, a, b, c, rhat, w, q)
+        check_scalar("ca", ca, self.device)
+        check_scalar("cb", cb, self.device)
+        lib = _build.library()
+        grid = -(-self.n // THREADS)
+        partials = torch.empty((3, grid), dtype=torch.float32, device=self.device)
+        _build.check(lib.ogl_bicgstab_k1b(
+            data.data_ptr(), self.plan.offsets_dev.data_ptr(), len(self.offsets),
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), rhat.data_ptr(), ca.data_ptr(),
+            cb.data_ptr(), w.data_ptr(), q.data_ptr(), partials.data_ptr(), self.n,
+            THREADS, grid, stream_of(a)), "bicgstab_k1b")
+        kernels.launches["bicgstab_k1b"] += 1
+        return (w, q, *torch.sum(partials, dim=1).unbind())
+
+    def kb_update(self, x, p, s, t, rhat, alpha, omega, r):
+        """In place: x = x + α·p + ω·s, and r' = s − ω·t into `r` (a buffer
+        the iteration no longer reads); returns (Σ r̂·r', ‖r'‖₁) as 0-d
+        tensors."""
+        if on_cpu(x, p, s, t, rhat, alpha, omega, r):
+            return kb_update_plain(x, p, s, t, rhat, alpha, omega, r)
+        return self._launch_stream("kb_update", "bicgstab_kb_update",
+                                   {"alpha": alpha, "omega": omega}, (x, p, s, t, rhat, r),
+                                   sums=2)
+
+    def _launch_stream(self, name, counter, scalars: dict, vectors, sums: int = 0,
+                       **constexprs):
+        """Launch the Triton stream `name` (K2, K2i, K2n, KB_pipe, KB_update)
+        over (n,) vectors, its 0-d `scalars` read through pointers.  With
+        `sums`, each sum's per-program partials fill one row of a (sums,
+        grid) array, and one torch.sum finishes them all."""
         require_cuda(name, vectors[0])
         check_operands(self.plan, None, *vectors)
-        check_scalar("alpha", alpha, self.device)
-        kern = _triton_kernels()[name]
+        for what, sc in scalars.items():
+            check_scalar(what, sc, self.device)
         grid = -(-self.n // K2_BLOCK)
-        partials = [torch.empty(grid, dtype=torch.float32, device=self.device)
-                    for _ in range(sums)]
-        kern[(grid,)](alpha, *vectors, *partials, self.n,
-                      BLOCK=K2_BLOCK, num_warps=K2_WARPS)
-        kernels.launches[f"cg_{name}"] += 1
-        return tuple(torch.sum(s) for s in partials)
+        partials = torch.empty((sums, grid), dtype=torch.float32, device=self.device)
+        _triton_kernels()[name][(grid,)](*scalars.values(), *vectors, *partials, self.n,
+                                         BLOCK=K2_BLOCK, num_warps=K2_WARPS, **constexprs)
+        kernels.launches[counter] += 1
+        return torch.sum(partials, dim=1).unbind() if sums else ()
 
     # ---- AMG smoother passes (CUDA C++) --------------------------------
     def ksweep(self, data, x, b, invd, relax: float, out=None):

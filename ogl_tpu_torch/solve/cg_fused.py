@@ -29,14 +29,22 @@ from ogl_tpu_torch.kernels.fused import CgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import SolveResult
 
-__all__ = ["cg_fused"]
+__all__ = ["cg_fused", "merged_norm_factor"]
+
+
+def merged_norm_factor(kern: CgKernels, data, r, x, b):
+    """The OpenFOAM norm factor (StoppingCriterion.C:32-69) on the initial
+    state, with A applied through the plan's K1 (`apply`)."""
+    xavg = torch.sum(x) / kern.n
+    axref = kern.apply(data, torch.ones_like(x) * xavg)
+    b_sub = b - axref
+    return torch.sum(torch.abs(r - b_sub) + torch.abs(b_sub)) + stopping.small_of(kern.dtype)
 
 
 def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None, precond=None) -> SolveResult:
     """b, x0, invd: flat (n,) float32 tensors on kern's device; data:
     kern.pack_values(mat); precond: r -> z (excludes invd)."""
     dtype = kern.dtype
-    n = kern.n
     identity = invd is None and precond is None
     x = x0.to(dtype).clone()
     r = b - kern.apply(data, x)
@@ -47,13 +55,7 @@ def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None, precond=None) -> Solv
         z = precond(r) if precond is not None else invd * r
         rho = torch.sum(r * z)
     absr = torch.sum(torch.abs(r))
-
-    # norm factor (StoppingCriterion.C:32-69) on the initial state
-    xavg = torch.sum(x) / n
-    axref = kern.apply(data, torch.ones_like(x) * xavg)
-    b_sub = b - axref
-    nf = torch.sum(torch.abs(r - b_sub) + torch.abs(b_sub)) + stopping.small_of(dtype)
-
+    nf = merged_norm_factor(kern, data, r, x, b)
     st = stopping.init_state(dtype, b.device).replace(norm_factor=nf)
     p = torch.zeros_like(b)
     rho_old = torch.ones((), dtype=dtype, device=b.device)

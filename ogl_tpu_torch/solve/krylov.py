@@ -23,12 +23,17 @@ class Ops:
     precond: r -> M^{-1} r  (identity when unpreconditioned)
     sum:     elementwise tensor -> 0-d sum
     global_size: number of DOF (for mean())
+    allreduce: a stacked vector of partial sums -> the global sums; the
+             grouped reductions of BiCGStab and the pipelined CG go through
+             it (identity on one device, a collective in a later
+             distributed layer)
     """
 
     matvec: Callable[[Any], Any]
     precond: Callable[[Any], Any]
     sum: Callable[[Any], Any]
     global_size: int
+    allreduce: Callable[[Any], Any] = lambda v: v
 
     def dot(self, a, b):
         return self.sum(a * b)

@@ -89,14 +89,14 @@ def test_testing_problems_match_reference(dims):
 
 
 UNSUPPORTED = [
-    ({"solver": "GKOBiCGStab"}, "A9"),
+    ({"solver": "GKOGMRES"}, "A9"),
     ({"preconditioner": "ILU"}, "A10"),
     ({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}}, "A10"),
     ({"preconditioner": {"preconditioner": "BJ", "maxBlockSize": 4}}, "A10"),
     ({"matrixFormat": "Csr"}, "A2"),
     ({"matrixFormat": "Ell"}, "A2"),
     ({"dtype": "float64"}, "A14"),
-    ({"pipelinedCG": True}, "A12"),
+    ({"solver": "GKOBiCGStab", "dtype": "float64"}, "A14"),
     ({"matrixFormat": "Gdia", "preconditioner": "Multigrid"}, "A11"),
     ({"uploadPrecision": "bfloat16"}, "A7"),
     ({"export": True}, "A15"),

@@ -20,8 +20,10 @@ from ogl_tpu_torch import foam, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels import gdia, xell
-from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k2_plain,
-                                         k2i_plain, k2n_plain, kresid_plain, ksweep_plain)
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
+                                         k2_plain, k2i_plain, k2n_plain, ka_plain,
+                                         kb_pipe_plain, kb_update_plain, kresid_plain,
+                                         ksweep_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -357,5 +359,134 @@ def test_foam_unstructured_on_card_matches_cpu(dev, fmt):
     name = fmt.lower()
     assert kernels.launches[f"{name}_k1"] > 0 and kernels.launches[f"{name}_spmv"] > 0
     assert kernels.launches["cg_k2" if fmt == "Gdia" else "cg_k2i"] > 0
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+# ---- slice 4: the pipelined-CG and merged-BiCGStab kernels ----------------
+
+
+@pytest.mark.parametrize("jacobi", [False, True], ids=["none", "BJ"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_ka_kernel_matches_plain(dev, case, jacobi):
+    data, offsets = _case(case, dev)
+    n = data.shape[1]
+    kern = CgKernels(n, offsets, dev)
+    r, invd = _vec(n, 3, dev), _vec(n, 4, dev, lo=0.1) if jacobi else None
+    kernels.reset_launches()
+    w, *sums = kern.ka(data, r, invd)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_ka"] == 1
+    w2, *sums2 = ka_plain(data, offsets, r, invd)
+    _close(w, w2)
+    for g, want in zip(sums, sums2):
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4 * float(want.abs()))
+
+
+@pytest.mark.parametrize("jacobi", [False, True], ids=["none", "BJ"])
+@pytest.mark.parametrize("n", [1000, 70001])
+def test_kb_pipe_kernel_matches_plain(dev, n, jacobi):
+    kern = CgKernels(n, (0,), dev)
+    alpha, beta = torch.tensor(-0.21, device=dev), torch.tensor(0.63, device=dev)
+    w, invd = _vec(n, 5, dev), _vec(n, 6, dev, lo=0.1) if jacobi else None
+    got = [_vec(n, seed, dev) for seed in (7, 8, 9, 10)]  # p, s, x, r
+    want = [t.clone() for t in got]
+    kernels.reset_launches()
+    kern.kb_pipe(w, *got, alpha, beta, invd)
+    kb_pipe_plain(w, *want, alpha, beta, invd)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_kb_pipe"] == 1
+    for g, want_t in zip(got, want):
+        _close(g, want_t)
+
+
+@pytest.mark.parametrize("b_is_c", [False, True], ids=["b,c", "b is c"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_k1b_kernel_matches_plain(dev, case, b_is_c):
+    data, offsets = _case(case, dev)
+    n = data.shape[1]
+    kern = CgKernels(n, offsets, dev)
+    a, b, rhat = _vec(n, 3, dev), _vec(n, 4, dev), _vec(n, 5, dev)
+    c = b if b_is_c else _vec(n, 6, dev)
+    ca, cb = torch.tensor(0.43, device=dev), torch.tensor(-0.29, device=dev)
+    kernels.reset_launches()
+    w, q, *sums = kern.k1b(data, a, b, c, rhat, ca, cb)
+    torch.cuda.synchronize()
+    assert kernels.launches["bicgstab_k1b"] == 1
+    w2, q2, *sums2 = k1b_plain(data, offsets, a, b, c, rhat, ca, cb)
+    _close(w, w2)
+    _close(q, q2)
+    for g, want in zip(sums, sums2):
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4 * float(want.abs()))
+    out = (torch.empty_like(a), torch.empty_like(a))
+    w3, q3, *_ = kern.k1b(data, a, b, c, rhat, ca, cb, out=out)
+    assert w3 is out[0] and q3 is out[1]
+    _close(q3, q, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1000, 70001])
+def test_kb_update_kernel_matches_plain(dev, n):
+    kern = CgKernels(n, (0,), dev)
+    alpha, omega = torch.tensor(0.37, device=dev), torch.tensor(-0.61, device=dev)
+    p, s, t, rhat = (_vec(n, seed, dev) for seed in (5, 6, 7, 8))
+    xs = [_vec(n, 9, dev) for _ in range(2)]
+    rs = [torch.empty(n, device=dev) for _ in range(2)]
+    kernels.reset_launches()
+    got = kern.kb_update(xs[0], p, s, t, rhat, alpha, omega, rs[0])
+    want = kb_update_plain(xs[1], p, s, t, rhat, alpha, omega, rs[1])
+    torch.cuda.synchronize()
+    assert kernels.launches["bicgstab_kb_update"] == 1
+    _close(xs[0], xs[1])
+    _close(rs[0], rs[1])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+
+
+def test_slice4_wrappers_raise_on_bad_operands(dev):
+    n = 513
+    kern = CgKernels(n, (-1, 0, 1), dev)
+    data = _banded(n, (-1, 0, 1), 0, dev)
+    a, b, rhat = _vec(n, 1, dev), _vec(n, 2, dev), _vec(n, 3, dev)
+    ca = torch.tensor(0.5, device=dev)
+    with pytest.raises(ValueError, match="overlaps"):  # K1B's output over an input
+        kern.k1b(data, a, b, b, rhat, ca, ca, out=(b, torch.empty_like(a)))
+    with pytest.raises(ValueError, match="overlaps"):
+        kern.k1b(data, a, b, b, rhat, ca, ca, out=(torch.empty_like(a), a[1:]))
+    with pytest.raises(TypeError, match="0-d float32"):
+        kern.k1b(data, a, b, b, rhat, 0.5, ca)
+    with pytest.raises(TypeError, match="float32"):
+        kern.ka(data, a, b.double())
+    with pytest.raises(ValueError, match="shape"):
+        kern.kb_pipe(a, b, rhat, a, b[:-1], ca, ca)
+    with pytest.raises(TypeError, match="0-d float32"):
+        kern.kb_update(a, b, rhat, a, b, ca, 0.5, torch.empty_like(a))
+
+
+SLICE4_SOLVES = {
+    "pipelined-none": ("GKOCG", {"pipelinedCG": True}, "none", ("cg_ka", "cg_kb_pipe")),
+    "pipelined-BJ": ("GKOCG", {"pipelinedCG": True}, {"preconditioner": "BJ"},
+                     ("cg_ka", "cg_kb_pipe")),
+    "bicgstab-BJ": ("GKOBiCGStab", {}, {"preconditioner": "BJ"}, ("dia_spmv",)),
+    "bicgstab-fused": ("GKOBiCGStab", {"fusedBiCGStab": True}, "none",
+                       ("bicgstab_k1b", "bicgstab_kb_update")),
+}
+
+
+@pytest.mark.parametrize("name", list(SLICE4_SOLVES))
+def test_foam_slice4_on_card_matches_cpu(dev, name):
+    """The pipelined CG on the Poisson system and BiCGStab on the asymmetric
+    convection-diffusion system (on which float32 BiCGStab converges
+    smoothly), on the card against the same solve on the CPU."""
+    solver, extra, pc, launched = SLICE4_SOLVES[name]
+    m = (testing.poisson_ldu((32, 32, 16)) if solver == "GKOCG"
+         else testing.convection_diffusion_ldu((32, 32, 16)))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": solver, "matrixFormat": "Dia", "tolerance": 1e-6, "relTol": 0,
+           "adaptMinIter": False, "preconditioner": pc, **extra}
+    x_cpu, perf_cpu = foam.FoamSolver("p", {**ctl, "executor": "cpu"}).solve(m, b)
+    kernels.reset_launches()
+    x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
+    assert x.device.type == "cuda"
+    assert all(kernels.launches[k] > 0 for k in launched)
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
