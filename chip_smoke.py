@@ -3,18 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths through `ogl_tpu_torch.foam.solve` at
-1,048,576 cells in OpenFOAM LDU form: on a 128x128x64 Poisson pressure
+Drives the port's five main paths at 1,048,576 cells in OpenFOAM LDU form,
+through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
 system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1) and the
 AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2);
 then the unstructured-mesh solve (slice 3) on a kNN-6 FV graph (auto-routed
 to Xell) and on the Poisson grid renumbered inside each x-line (auto-routed
 to Gdia); then (slice 4) the pipelined GKOCG and GKOBiCGStab, on the
 Poisson grid, on an asymmetric convection-diffusion system and on the
-shuffled grid — each followed by steady-state steps, after building the
-port's kernels from the sources in this checkout and holding each against
-its plain PyTorch version on the card, at the slices' size and at
-8,388,608 rows.
+shuffled grid — each followed by steady-state steps; then (slice 5) the
+headline lanes of the bench, `ogl_tpu_torch.bench.run`, on the read-peak
+kernel, the SpMV roofline at 8,388,608 rows and the merged CG — after
+building the port's kernels from the sources in this checkout and holding
+each against its plain PyTorch version on the card, at the slices' size
+and at 8,388,608 rows.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
@@ -52,12 +54,23 @@ Phases (any failure raises, and the script exits non-zero):
      the same route over the plain twins on the card, free-running and
      pinned to the first iterations, and the kernel route again (the same
      count) and with b nudged by one ulp; a profile of one steady step
-     each of the merged BiCGStab and the pipelined CG.
+     each of the merged BiCGStab and the pipelined CG;
+ 10. slice 5, the bench's headline lanes: the read-peak plane-sum kernel
+     against its plain version at 7 x 1,048,576 and 7 x 8,388,608 (torch.sum
+     beside it), the card line and published rate, then
+     `ogl_tpu_torch.bench.run`: the triad and read-dominant peaks (CUDA
+     events over replayed CUDA graphs, and the device timeline), the Dia
+     SpMV roofline at 8,388,608 rows against max(published, triad, read
+     peak) with its device-timeline cross-check, the merged CG at 1M and
+     8.4M (time/iter/DOF, the reference's JSON line, implied bandwidth,
+     device busy), the foam per-step, device-only and diag-only lanes.
+     Any fraction of a peak above 1.05 fails the run.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel of the path that never launched fails the run.  The line before
 the last is one JSON object describing each kernel, with the least time
-the card could take for its work (published H100 SXM peaks) and torch's
-own call for the same function where there is one; the last line is
+the card could take for its work (published H100 SXM peaks), its share of
+the read peak measured in phase 10, and torch's own call for the same
+function where there is one; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits with an error and
 prints no result.
 """
@@ -74,10 +87,10 @@ import time
 import numpy as np
 import torch
 
-from ogl_tpu_torch import foam, kernels, registry, testing
+from ogl_tpu_torch import bench, foam, kernels, registry, testing
 from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.core import formats
-from ogl_tpu_torch.kernels import _build, gdia, spmv, xell
+from ogl_tpu_torch.kernels import _build, device_time, gdia, roofline, spmv, xell
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
                                          k2_plain, k2i_plain, k2n_plain, ka_plain,
@@ -140,12 +153,17 @@ KERNELS = {
                      "ogl_tpu/kernels/fused.py:283", "bicgstab_k1b", None),
     "bicgstab_kb_update": ("triton", "ogl_tpu_torch/kernels/fused.py",
                            "ogl_tpu/kernels/fused.py:363", "bicgstab_kb_update", None),
+    # "big": at the bench's shape, 7 planes of the 8.4M grid's rows
+    "read_peak": ("cuda", "ogl_tpu_torch/kernels/csrc/read_peak.cu",
+                  "ogl_tpu/kernels/roofline.py:200", "read_peak", "big"),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_k2", "cg_k2i")
 AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
 UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i")
 SLICE4_KERNELS = ("cg_ka", "cg_kb_pipe", "bicgstab_k1b", "bicgstab_kb_update", "dia_spmv",
                   "gdia_spmv")
+BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_k2i")
+READ_PLANES = 7  # the read peak's planes (roofline.measure_read_peak's default)
 AMG_SOLVES = {"pMG": {"solver": "GKOCG", "preconditioner": "Multigrid"},
               "pGMG": {"solver": "GKOMultigrid"}}
 
@@ -386,7 +404,7 @@ def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None):
     if not ok:
         raise RuntimeError(f"{name} at {label} disagrees with its plain version")
     report.setdefault(name, {})[label] = {
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "gbps": nbytes / ms / 1e6,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -415,15 +433,22 @@ def csr_of_coo(rows, cols, vals, n):
 
 def library_beside(name, label, csr, mv, x, report):
     """For the record (never on the path): torch's own CSR SpMV (cuSPARSE
-    behind `sparse_csr_tensor @ x`) on the same matrix beside the kernel,
-    timed in turns; its median is the kernel row's library_ms."""
-    err, tol = vec_err(csr @ x, mv(x))
-    lib_ms, kern_ms = time_pair(lambda: csr @ x, lambda: mv(x))
-    print(f"  torch CSR SpMV (sparse_csr_tensor @ x) {lib_ms:.4f} ms beside {name} "
-          f"{kern_ms:.4f} ms on the same matrix ({label}, nnz {csr.values().numel()}); max "
+    behind `sparse_csr_tensor @ x`) on the same matrix beside the kernel."""
+    library_call(name, label, "torch CSR SpMV (sparse_csr_tensor @ x)", lambda: csr @ x,
+                 lambda: mv(x), f"the same matrix, nnz {csr.values().numel()}", report)
+
+
+def library_call(name, label, what, lib_fn, kern_fn, on, report):
+    """One torch call that computes the kernel's function on the same
+    inputs, held to the kernel's result and timed beside it in turns; its
+    median is the kernel row's library_ms (for the record: the port never
+    calls it)."""
+    err, tol = vec_err(lib_fn(), kern_fn())
+    lib_ms, kern_ms = time_pair(lib_fn, kern_fn)
+    print(f"  {what} {lib_ms:.4f} ms beside {name} {kern_ms:.4f} ms on {on} ({label}); max "
           f"abs difference {err:.1e} (tol {tol:.1e})")
     if err > tol:
-        raise RuntimeError(f"torch's CSR SpMV and {name} disagree")
+        raise RuntimeError(f"{what} and {name} disagree")
     report[name][label]["library_ms"] = lib_ms
 
 
@@ -446,15 +471,15 @@ def true_residual_mv(mv64, x, b):
 
 def profile_step(solve_fn):
     """Run one foam step under torch.profiler; print the step's wall time,
-    the device's busy time by kernel and its idle share of the step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    the device's busy time (the union of its event intervals) by kernel and
+    its idle share of the step."""
+    def step():
         t0 = time.perf_counter()
         _, perf = solve_fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return perf, (time.perf_counter() - t0) * 1e6
+
+    (perf, wall_us), dev = device_time.device_events(step)
     if not dev:
         print("profiler recorded no device activity: device busy time not measured")
         return
@@ -463,7 +488,7 @@ def profile_step(solve_fn):
         c = by_name.setdefault(e.name, [0, 0.0])
         c[0] += 1
         c[1] += e.time_range.elapsed_us()
-    busy = sum(t for _, t in by_name.values())
+    busy = device_time.busy_seconds(dev) * 1e6
     it = max(perf.n_iterations, 1)
     launched = sum(c for name, (c, _) in by_name.items() if not name.startswith("Memcpy"))
     print(f"step wall {wall_us / 1e3:.3f} ms, {perf.n_iterations} iterations: device busy "
@@ -1062,6 +1087,60 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
     return launches
 
 
+# ---- phase 10: slice 5, the bench's headline lanes ---------------------------
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def check_read_peak(grids, device, report) -> None:
+    """The plane-sum kernel against its plain version on READ_PLANES planes
+    of each grid's rows, with c = 1 (the bench's carry), and torch.sum(d, 0)
+    — the same function at c = 1 — beside it."""
+    one = torch.ones((), device=device)
+    g = torch.Generator(device=device).manual_seed(0)
+    for dims in grids:
+        n = int(np.prod(dims))
+        label = "x".join(map(str, dims))
+        d = torch.randn((READ_PLANES, n), device=device, generator=g)
+        print(f"  [{label}: {READ_PLANES} planes of {n} rows]")
+        compare("read_peak", label, lambda: ((roofline.plane_sum(one, d),), ()),
+                lambda: ((roofline.plane_sum_plain(one, d),), ()),
+                (READ_PLANES + 1) * n * 4, READ_PLANES * n, report)
+        library_call("read_peak", label, "torch.sum(d, 0)", lambda: torch.sum(d, 0),
+                     lambda: roofline.plane_sum(one, d), "the same planes", report)
+        del d
+    torch.cuda.empty_cache()
+
+
+def bench_path(device, grid_main, grid_big, report) -> tuple:
+    """Phase 10.  Returns the launch counts of the path and the bench's
+    peaks."""
+    print("== phase 10: slice 5, the bench's headline lanes (ogl_tpu_torch.bench.run) at "
+          f"{int(np.prod(grid_main))} and {int(np.prod(grid_big))} rows")
+    print("read-peak kernel vs plain version "
+          f"(vector tol {VEC_RTOL:.0e}*max(1,max|plain|)):")
+    check_read_peak((grid_main, grid_big), device, report)
+    print(card_line())
+    print(f"published memory rate of {torch.cuda.get_device_name(0)}: "
+          f"{roofline.hbm_peak_gbps(device):.0f} GB/s")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = bench.run(device, grid_main, grid_big)
+    launches = {k: kernels.launches[k] for k in BENCH_KERNELS}
+    print(f"bench lanes {time.perf_counter() - t0:.1f} s; launch counts over the bench path "
+          f"(a graph-replayed chain counts the launches of its capture): "
+          f"{dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"the bench path never launched {missing}")
+    return launches, res["peaks"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs an "
@@ -1072,10 +1151,7 @@ def main() -> int:
 
 def run(device, grid_main, grid_big, knn_n) -> int:
     print("== phase 1: device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_line())
     import triton
 
     cc = torch.cuda.get_device_capability(0)
@@ -1191,16 +1267,21 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     launches_4 = slice4_path(m, b, grid_main, device, ctl,
                              {k: v[1].n_iterations for k, v in solves.items()})
 
+    launches_5, peaks = bench_path(device, grid_main, grid_big, report)
+
     rows = []
-    paths = (launches, launches_amg, launches_un, launches_4)
+    paths = (launches, launches_amg, launches_un, launches_4, launches_5)
+    labels = {None: "x".join(map(str, grid_main)), "big": "x".join(map(str, grid_big))}
     for name, (route, source, replaces, case, label) in KERNELS.items():
-        r = report[case][label or "x".join(map(str, grid_main))]
+        r = report[case][labels.get(label, label)]
         rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
                      "launches": sum(path.get(name, 0) for path in paths),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
-    print(json.dumps({"kernels": rows}))
+                     "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                     "read_peak_share": r["gbps"] / peaks["read_gbps"]})
+    print(json.dumps({"kernels": rows, "read_peak_gbps": {
+        "events": peaks["read_gbps"], "device": peaks["read_device_gbps"]}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ merged two-kernel CG with the OpenFOAM stopping criterion, preconditioner
 pipelined GKOCG (`pipelinedCG true`) and GKOBiCGStab on symmetric and
 asymmetric matrices (merged with `fusedBiCGStab true`); float32, one
 device.  Controls outside those slices raise NotImplementedError (see
-ogl_tpu_torch.foam.solver).
+ogl_tpu_torch.foam.solver).  The measurement path of the reference's
+bench: kernels/roofline.py (the read-peak kernel, chained timing over
+CUDA graphs), kernels/device_time.py (device busy time from
+torch.profiler) and bench.py, the headline lanes (`python -m
+ogl_tpu_torch.bench`).
 """
 
 from __future__ import annotations

@@ -72,6 +72,8 @@ _SIGNATURES = {
     # data, offsets, nd, a, b, c, rhat, ca, cb, w, q, partials, n, threads, grid, stream
     "ogl_bicgstab_k1b": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
                          _I64, _P),
+    # c, d, nd, y, n, threads, stream
+    "ogl_read_peak": (_P, _P, _INT, _P, _I64, _INT, _P),
 }
 
 _lock = threading.Lock()

@@ -16,10 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from ogl_tpu_torch import foam, kernels, registry, testing
+from ogl_tpu_torch import bench, foam, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
-from ogl_tpu_torch.kernels import gdia, xell
+from ogl_tpu_torch.kernels import device_time, gdia, roofline, xell
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
                                          k2_plain, k2i_plain, k2n_plain, ka_plain,
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
@@ -490,3 +490,89 @@ def test_foam_slice4_on_card_matches_cpu(dev, name):
     assert all(kernels.launches[k] > 0 for k in launched)
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+# ---- slice 5: the read-peak plane sum and the measurement path -------------
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 8_388_608])
+@pytest.mark.parametrize("nd", [1, 7, 9])
+def test_plane_sum_kernel_matches_plain(dev, nd, n):
+    g = torch.Generator(device=dev).manual_seed(nd)
+    d = torch.randn((nd, n), generator=g, device=dev)
+    c = torch.tensor(-0.37, device=dev)
+    kernels.reset_launches()
+    y = roofline.plane_sum(c, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["read_peak"] == 1 and y.shape == (n,)
+    # the kernel rounds the product and each sum on its own, as the plain
+    # version's separate ops do; the tolerance allows a last-bit difference
+    _close(y, roofline.plane_sum_plain(c, d))
+
+
+def test_plane_sum_wrapper_raises_on_bad_operands(dev):
+    d = torch.randn((7, 513), device=dev)
+    c = torch.tensor(1.0, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        roofline.plane_sum(c, d.double())
+    with pytest.raises(TypeError, match="nd >= 1"):
+        roofline.plane_sum(c, d[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        roofline.plane_sum(c, d[:, ::2])
+    with pytest.raises(TypeError, match="0-d float32"):
+        roofline.plane_sum(c.cpu(), d)
+
+
+def test_measure_chained_replays_the_chain(dev):
+    """The captured graph's output equals an eager chain of the same length
+    (the same kernels on the same inputs), and the measured rate of the Dia
+    SpMV beyond the L2 stays under the published peak."""
+    mat = bench._poisson_dia((32, 16, 8), dev)
+    data = mat.data / 12.0  # spectral radius <= 1: the chain stays finite
+    plan = DiaPlan.of(mat)
+
+    def mv(v, data):
+        return dia_spmv(plan, data, v)
+
+    x0 = _vec(mat.shape[0], 1, dev)
+    graph, _, out = roofline._capture_chain(mv, x0, 8, (data,))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = x0
+    for _ in range(8):
+        want = mv(want, data)
+    assert torch.equal(out, want)
+    big = bench._poisson_dia(bench.GRID_8M, dev)
+    big_plan = DiaPlan.of(big)
+    r = roofline.measure_chained(lambda v, data: dia_spmv(big_plan, data, v),
+                                 torch.ones(big.shape[0], device=dev), iters=256,
+                                 operands=(big.data,), bytes_moved=roofline.spmv_bytes(big))
+    assert r.peak_gbps == roofline.hbm_peak_gbps(dev)
+    assert 0 < r.gbps <= 1.05 * r.peak_gbps
+
+
+def test_device_busy_seconds_and_the_read_peaks(dev):
+    mat = bench._poisson_dia((64, 64, 32), dev)
+    plan = DiaPlan.of(mat)
+    x = torch.ones(mat.shape[0], device=dev)
+    busy = device_time.device_busy_seconds(lambda: [dia_spmv(plan, mat.data, x)
+                                                    for _ in range(20)])
+    assert busy > 0
+    per = roofline.measure_device_chained(lambda v, d: dia_spmv(plan, d, v), x, 20,
+                                          operands=(mat.data,))
+    assert 0 < per < busy
+    published = roofline.hbm_peak_gbps(dev)
+    for gbps in (roofline.measure_read_peak(chain_len=200),
+                 roofline.measure_read_peak_device(iters=200)):
+        assert 0 < gbps <= 1.05 * published
+
+
+def test_time_device_solve_on_the_card(dev):
+    m = testing.poisson_ldu((32, 32, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    x, perf = foam.solve("p", m, b, {"solver": "GKOCG", "executor": "cuda",
+                                     "tolerance": 1e-6, "relTol": 0})
+    slv = registry.global_registry.get("p_solver")
+    assert slv.time_device_solve() > 0
+    again = slv._redispatch()
+    assert again.iters == perf.n_iterations and torch.equal(again.x, x)
