@@ -26,7 +26,8 @@ Phases (any failure raises, and the script exits non-zero):
      with float32 and bfloat16 coefficients, KA and KB_pipe with identity
      and Jacobi, K1B with distinct b and c and with b = c): max error
      against the stated tolerance, median times (CUDA events), implied
-     GB/s, torch's CSR SpMV beside the Dia SpMV;
+     GB/s, torch's CSR SpMV beside the Dia SpMV and torch.addmv(b, A_csr,
+     x, alpha=-1) beside the float32 residual kernel, at both sizes;
   4. slice 1's path: both solves, launch counts of its kernels, the true
      float64 residual, and the iteration count against the same solve run
      by the merged CG over the plain kernel functions on the card;
@@ -43,9 +44,13 @@ Phases (any failure raises, and the script exits non-zero):
      launch counts, true float64 residual, iterations against the merged
      CG over the plain twins on the card), one steady step per mesh, the
      kNN mesh once more in its points' numbering with `reorder rcm`; then
-     the Gdia and Xell kernels against their plain versions (Gdia also at
-     8,388,608 rows, built on the device), torch's CSR SpMV beside the Gdia
-     and Xell kernels, and a profile of one steady step per format;
+     the Gdia and Xell kernels against their plain versions (also on the
+     shuffled grid at 8,388,608 rows: Gdia built on the device, Xell packed
+     on the host), torch's CSR SpMV beside the Gdia and Xell SpMVs at both
+     sizes, with the Xell SpMV's earlier design (one thread per row: K1
+     with beta 0) in the same turns, the profiler's device time per launch
+     of the Xell SpMV and of torch's CSR SpMV, and a profile of one steady
+     step per format;
   9. slice 4: GKOCG `pipelinedCG true` (`none`, `BJ`) and GKOBiCGStab as
      the reference bench ran it (`BJ`, `none`, `none` + `fusedBiCGStab`)
      on the Poisson grid; GKOBiCGStab `BJ` on convection-diffusion with a
@@ -56,8 +61,9 @@ Phases (any failure raises, and the script exits non-zero):
      count) and with b nudged by one ulp; a profile of one steady step
      each of the merged BiCGStab and the pipelined CG;
  10. slice 5, the bench's headline lanes: the read-peak plane-sum kernel
-     against its plain version at 7 x 1,048,576 and 7 x 8,388,608 (torch.sum
-     beside it), the card line and published rate, then
+     against its plain version at 7 x 1,048,576 and 7 x 8,388,608 (bit-equal;
+     torch.sum beside it; the profiler's device time per launch of both),
+     the card line and published rate, then
      `ogl_tpu_torch.bench.run`: the triad and read-dominant peaks (CUDA
      events over replayed CUDA graphs, and the device timeline), the Dia
      SpMV roofline at 8,388,608 rows against max(published, triad, read
@@ -65,12 +71,13 @@ Phases (any failure raises, and the script exits non-zero):
      8.4M (time/iter/DOF, the reference's JSON line, implied bandwidth,
      device busy), the foam per-step, device-only and diag-only lanes.
      Any fraction of a peak above 1.05 fails the run.
-Each path's launch counts are set to 0 just before it and read just after;
-a kernel of the path that never launched fails the run.  The line before
-the last is one JSON object describing each kernel, with the least time
-the card could take for its work (published H100 SXM peaks), its share of
-the read peak measured in phase 10, and torch's own call for the same
-function where there is one; the last line is
+Each phase prints its wall time.  Each path's launch counts are set to 0
+just before it and read just after; a kernel of the path that never
+launched fails the run.  The line before the last is one JSON object
+describing each kernel, with the least time the card could take for its
+work (published H100 SXM peaks), its share of the read peak measured in
+phase 10, torch's own call for the same function where there is one, and
+under "cases" every variant and size it was checked on; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits with an error and
 prints no result.
 """
@@ -239,23 +246,50 @@ def poisson_dia(dims, device):
     return data.contiguous(), (-nx * ny, -nx, -1, 0, 1, nx, nx * ny)
 
 
-def time_pair(kernel_fn, plain_fn, reps=20):
-    """Median ms of kernel and plain version, CUDA events, warmed up, timed
-    in turns (plain, kernel, kernel, plain)."""
-    for fn in (kernel_fn, plain_fn):
+def time_turns(fns, reps=20):
+    """Median ms of each function of the dict `fns`, CUDA events, warmed up,
+    timed in turns: the functions in order, then in reverse order."""
+    for fn in fns.values():
         for _ in range(3):
             fn()
-    samples = {"k": [], "p": []}
-    for tag, fn in (("p", plain_fn), ("k", kernel_fn), ("k", kernel_fn), ("p", plain_fn)):
+    samples = {tag: [] for tag in fns}
+    for tag in [*fns, *reversed(fns)]:
         events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                   for _ in range(reps)]
         for s, e in events:
             s.record()
-            fn()
+            fns[tag]()
             e.record()
         torch.cuda.synchronize()
         samples[tag] += [s.elapsed_time(e) for s, e in events]
-    return statistics.median(samples["k"]), statistics.median(samples["p"])
+    return {tag: statistics.median(v) for tag, v in samples.items()}
+
+
+def time_pair(kernel_fn, plain_fn, reps=20):
+    """Median ms of kernel and plain version, timed in turns (plain, kernel,
+    kernel, plain)."""
+    t = time_turns({"p": plain_fn, "k": kernel_fn}, reps)
+    return t["k"], t["p"]
+
+
+def device_ms_per_launch(fn, reps=50):
+    """The device time of one call of `fn` from the profiler's timeline: the
+    summed durations of its kernels over `reps` calls, over reps.  Beside
+    the CUDA-event time it says whether the call is bound by the host's
+    launch or by the device."""
+    fn()
+    torch.cuda.synchronize()
+    _, events = device_time.device_events(lambda: [fn() for _ in range(reps)])
+    kern = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    if not kern:
+        raise RuntimeError("torch.profiler recorded no kernel: device time not measured")
+    return sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
+
+
+def phase_done(label, since):
+    now = time.perf_counter()
+    print(f"-- {label} wall {now - since:.1f} s")
+    return now
 
 
 def vec_err(got, want):
@@ -268,7 +302,7 @@ def sum_err(got, want):
     return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
 
 
-def check_kernels(dims, device, report, with_library=False):
+def check_kernels(dims, device, report):
     data, offsets = poisson_dia(dims, device)
     nd, n = data.shape
     g = torch.Generator(device=device).manual_seed(0)
@@ -373,11 +407,22 @@ def check_kernels(dims, device, report, with_library=False):
             lambda iv=iv: kb_pipe_plain(vec["q"], p, s, x, r, alpha, beta, iv))
     for name, (kfn, pfn, nbytes, nflops) in cases.items():
         compare(name, label, kfn, pfn, nbytes, nflops, report, *timed.get(name, ()))
-    if with_library:
-        csr = csr_of_coo(*dia_coo(data, offsets), n)
-        library_beside("dia_spmv", label, csr, lambda v: dia_spmv(plan, data, v), vec["x"],
-                       report)
-    del data, vec, invd, cases, timed, x, r, z, p, s
+    csr = csr_of_coo(*dia_coo(data, offsets), n)
+    library_beside("dia_spmv", label, csr, lambda v: dia_spmv(plan, data, v), vec["x"], report)
+    # the float32 residual b - A x as one torch call, where the card's torch
+    # takes a CUDA CSR matrix in addmv
+    def addmv():
+        return torch.addmv(vec["r"], csr, vec["x"], alpha=-1)
+
+    try:
+        addmv()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  torch.addmv(b, A_csr, x, alpha=-1) refused on the card ({type(e).__name__}: "
+              f"{e}): amg_resid[f32] has no single library call")
+    else:
+        library_call("amg_resid[f32]", label, "torch.addmv(b, A_csr, x, alpha=-1)", addmv,
+                     lambda: kern.kresid(data, vec["x"], vec["r"]), "the same matrix", report)
+    del data, vec, invd, cases, timed, x, r, z, p, s, csr
     torch.cuda.empty_cache()
 
 
@@ -431,25 +476,66 @@ def csr_of_coo(rows, cols, vals, n):
                                    check_invariants=True)
 
 
-def library_beside(name, label, csr, mv, x, report):
+def library_beside(name, label, csr, mv, x, report, earlier=None):
     """For the record (never on the path): torch's own CSR SpMV (cuSPARSE
     behind `sparse_csr_tensor @ x`) on the same matrix beside the kernel."""
     library_call(name, label, "torch CSR SpMV (sparse_csr_tensor @ x)", lambda: csr @ x,
-                 lambda: mv(x), f"the same matrix, nnz {csr.values().numel()}", report)
+                 lambda: mv(x), f"the same matrix, nnz {csr.values().numel()}", report,
+                 earlier and (earlier[0], lambda: earlier[1](x)))
 
 
-def library_call(name, label, what, lib_fn, kern_fn, on, report):
+def library_call(name, label, what, lib_fn, kern_fn, on, report, earlier=None):
     """One torch call that computes the kernel's function on the same
     inputs, held to the kernel's result and timed beside it in turns; its
     median is the kernel row's library_ms (for the record: the port never
-    calls it)."""
-    err, tol = vec_err(lib_fn(), kern_fn())
-    lib_ms, kern_ms = time_pair(lib_fn, kern_fn)
-    print(f"  {what} {lib_ms:.4f} ms beside {name} {kern_ms:.4f} ms on {on} ({label}); max "
-          f"abs difference {err:.1e} (tol {tol:.1e})")
-    if err > tol:
-        raise RuntimeError(f"{what} and {name} disagree")
-    report[name][label]["library_ms"] = lib_ms
+    calls it).  `earlier`: (description, function) of the kernel's earlier
+    design on the same inputs, held to the same result and timed in the
+    same turns."""
+    want = kern_fn()
+    fns = {"library": lib_fn, "kernel": kern_fn}
+    if earlier:
+        fns["earlier"] = earlier[1]
+    errs = {tag: vec_err(fn(), want) for tag, fn in fns.items() if tag != "kernel"}
+    t = time_turns(fns)
+    row = report[name][label]
+    row.update(library_ms=t["library"], kernel_ms_beside_library=t["kernel"])
+    line = (f"  {what} {t['library']:.4f} ms beside {name} {t['kernel']:.4f} ms")
+    if earlier:
+        row["earlier_design_ms"] = t["earlier"]
+        line += f" and its earlier design ({earlier[0]}) {t['earlier']:.4f} ms"
+    print(f"{line} on {on} ({label}); max abs difference "
+          + ", ".join(f"{tag} {e:.1e} (tol {tol:.1e})" for tag, (e, tol) in errs.items()))
+    bad = [tag for tag, (e, tol) in errs.items() if e > tol]
+    if bad:
+        raise RuntimeError(f"{name} and its {bad} disagree")
+
+
+def chain_ms(fn, reps=50):
+    """CUDA-event ms per call over `reps` calls enqueued back to back: the
+    device's time per call when the host keeps ahead of it, the host's when
+    it does not."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_beside(name, label, kern_fn, lib_fn, report):
+    """For the kernel and its library call: the profiler's device time per
+    launch and the time per call of a back-to-back chain, beside the
+    CUDA-event times of the check (timed around each call)."""
+    row = report[name][label]
+    for tag, fn in (("", kern_fn), ("library_", lib_fn)):
+        row[f"{tag}device_ms"] = device_ms_per_launch(fn)
+        row[f"{tag}chain_ms"] = chain_ms(fn)
+    print(f"  {name} ({label}): device time per launch {row['device_ms']:.4f} ms (profiler), "
+          f"chained {row['chain_ms']:.4f} ms, around each call {row['ms']:.4f} ms; the library "
+          f"call: device {row['library_device_ms']:.4f} ms, chained "
+          f"{row['library_chain_ms']:.4f} ms, around each call {row['library_ms']:.4f} ms")
 
 
 def true_residual(data, offsets, x, b):
@@ -735,16 +821,31 @@ def check_unstructured_kernels(cases, report):
                     (mat.n_slots * 7 + 16) * n + spill, flops + 4 * n, report)
 
 
+def xell_beside(label, csr, mat, x, report):
+    """library_beside for the Xell SpMV, with its earlier design in the
+    same turns — still the K1 kernel's one thread per row:
+    `XellCgKernels.apply`, K1 with beta = 0 — and device_beside."""
+    kern = xell.XellCgKernels.for_matrix(mat)
+    data = kern.pack_values(mat)
+    mv = spmv.matvec(mat)
+    library_beside("xell_spmv", label, csr, mv, x, report,
+                   earlier=("one thread per row: K1 with beta 0", lambda v: kern.apply(data, v)))
+    device_beside("xell_spmv", label, lambda: mv(x), lambda: csr @ x, report)
+
+
 def library_of(coo, mat, label, report):
-    """library_beside for a solver's host COO and its Gdia or Xell matrix."""
+    """library_beside (xell_beside) for a solver's host COO and its Gdia
+    (Xell) matrix."""
     dev = mat.vals.device
-    n = coo.shape[0]
     csr = csr_of_coo(torch.tensor(coo.rows.astype(np.int64), device=dev),
                      torch.tensor(coo.cols.astype(np.int64), device=dev),
-                     torch.tensor(coo.vals, device=dev), n)
-    x = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    name = "gdia_spmv" if isinstance(mat, gdia.Gdia) else "xell_spmv"
-    library_beside(name, label, csr, spmv.matvec(mat), x, report)
+                     torch.tensor(coo.vals, device=dev), coo.shape[0])
+    x = torch.randn(coo.shape[0], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    if isinstance(mat, gdia.Gdia):
+        library_beside("gdia_spmv", label, csr, spmv.matvec(mat), x, report)
+    else:
+        xell_beside(label, csr, mat, x, report)
 
 
 def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
@@ -878,10 +979,22 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
         raise RuntimeError("the device Gdia packing differs from the host packing")
     del on_dev, dev_rows, dev_cols
     t0 = time.perf_counter()
-    big = gdia_on_device(*shuffled_poisson_coo_on_device(grid_big, 0, device))
+    big_coo = shuffled_poisson_coo_on_device(grid_big, 0, device)
+    big_csr = csr_of_coo(*big_coo)
+    big = gdia_on_device(*big_coo)
     torch.cuda.synchronize()
-    print(f"  shuffled grid {'x'.join(map(str, grid_big))} = {big.shape[0]} rows: Gdia "
-          f"built on the device in {time.perf_counter() - t0:.2f} s")
+    t1 = time.perf_counter()
+    rows, cols, vals, n_big = big_coo
+    big_xell = xell.xell_from_coo(
+        formats.Coo(rows=rows.cpu().numpy().astype(np.int32),
+                    cols=cols.cpu().numpy().astype(np.int32), vals=vals.cpu().numpy(),
+                    shape=(n_big, n_big)),
+        c_max=9, device=device)  # the kernels read c_left only; the window spans 9 chunks
+    torch.cuda.synchronize()
+    print(f"  shuffled grid {'x'.join(map(str, grid_big))} = {n_big} rows: Gdia built on "
+          f"the device in {t1 - t0:.2f} s; Xell packed on the host in "
+          f"{time.perf_counter() - t1:.2f} s")
+    del big_coo, rows, cols, vals
     rows64, cols64 = coo_knn.rows.astype(np.int64), coo_knn.cols.astype(np.int64)
     q = cols64 // 128 - rows64 // 128
     print(f"  Gdia kernels on the kNN mesh: skipped — its RCM'd bandwidth of "
@@ -891,11 +1004,18 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
           "Gdia's 48-plane budget and routed it to Xell")
     report: dict = {}
     check_unstructured_kernels([("knn", knn_mat), extra[0], ("shuffled", shuf_mat),
-                                extra[1], ("shuffled big", big)], report)
-    del big, extra
+                                extra[1], ("shuffled big", big), ("shuffled big", big_xell)],
+                               report)
+    del extra
     torch.cuda.empty_cache()
     library_of(coo_knn, knn_mat, "knn", report)
     library_of(coo_shuf, shuf_mat, "shuffled", report)
+    x_big = torch.randn(n_big, device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+    library_beside("gdia_spmv", "shuffled big", big_csr, spmv.matvec(big), x_big, report)
+    xell_beside("shuffled big", big_csr, big_xell, x_big, report)
+    del big, big_xell, big_csr, x_big
+    torch.cuda.empty_cache()
 
     for mesh, (x2, perf2, mat, bb, m2, b2) in steps.items():
         print(f"torch.profiler over one more {mesh} step ({type(mat).__name__}; new b):")
@@ -1111,8 +1231,12 @@ def check_read_peak(grids, device, report) -> None:
         compare("read_peak", label, lambda: ((roofline.plane_sum(one, d),), ()),
                 lambda: ((roofline.plane_sum_plain(one, d),), ()),
                 (READ_PLANES + 1) * n * 4, READ_PLANES * n, report)
+        if report["read_peak"][label]["max_abs_err"] != 0.0:
+            raise RuntimeError(f"read_peak at {label} is not bit-equal to its plain version")
         library_call("read_peak", label, "torch.sum(d, 0)", lambda: torch.sum(d, 0),
                      lambda: roofline.plane_sum(one, d), "the same planes", report)
+        device_beside("read_peak", label, lambda: roofline.plane_sum(one, d),
+                      lambda: torch.sum(d, 0), report)
         del d
     torch.cuda.empty_cache()
 
@@ -1150,6 +1274,7 @@ def main() -> int:
 
 
 def run(device, grid_main, grid_big, knn_n) -> int:
+    t_ph = time.perf_counter()
     print("== phase 1: device")
     print(card_line())
     import triton
@@ -1161,6 +1286,7 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     if cc != (9, 0):
         raise RuntimeError(f"compute capability {cc}: the kernels are built for sm_90a")
 
+    t_ph = phase_done("phase 1", t_ph)
     print("== phase 2: build")
     info = _build.build_info()
     print(f"built={info['built']} in {info['seconds']:.2f} s -> {info['path']}")
@@ -1168,12 +1294,14 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+    t_ph = phase_done("phase 2", t_ph)
     print("== phase 3: kernels vs plain versions "
           f"(vector tol {VEC_RTOL:.0e}*max(1,max|plain|), sum rtol {SUM_RTOL:.0e})")
     report: dict = {}
     for dims in (grid_main, grid_big):
-        check_kernels(dims, device, report, with_library=dims == grid_main)
+        check_kernels(dims, device, report)
 
+    t_ph = phase_done("phase 3", t_ph)
     print("== phase 4: slice 1's path, foam.solve at "
           f"{'x'.join(map(str, grid_main))} = {int(np.prod(grid_main))} cells")
     t0 = time.perf_counter()
@@ -1195,6 +1323,7 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         print(f"{field}: first solve wall {wall:.3f} s")
         solves[field] = (x, perf)
 
+    t_ph = phase_done("phase 4 (solves)", t_ph)
     print("== phase 5: steady-state steps (diag x1.01, new b) on field p")
     steps = []
     m_k, b_k = m, b
@@ -1256,18 +1385,23 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")
 
+    t_ph = phase_done("phase 5 and phase 4's checks", t_ph)
     print("== phase 6: where the time goes (torch.profiler over one more step)")
     m_k = dataclasses.replace(m_k, diag=np.asarray(m_k.diag) * 1.01)
     b_k = (b_k * 1.01 + 0.1).astype(np.float32)
     profile_step(lambda: foam.solve("p", m_k, b_k, {**ctl, "preconditioner": "none"}))
 
+    t_ph = phase_done("phase 6", t_ph)
     launches_amg = amg_path(m, b, device, {**ctl, "verbose": 0})
+    t_ph = phase_done("phase 7", t_ph)
     launches_un, report_un = unstructured_path(device, knn_n, grid_main, grid_big, ctl)
     report.update(report_un)
+    t_ph = phase_done("phase 8", t_ph)
     launches_4 = slice4_path(m, b, grid_main, device, ctl,
                              {k: v[1].n_iterations for k, v in solves.items()})
-
+    t_ph = phase_done("phase 9", t_ph)
     launches_5, peaks = bench_path(device, grid_main, grid_big, report)
+    phase_done("phase 10", t_ph)
 
     rows = []
     paths = (launches, launches_amg, launches_un, launches_4, launches_5)
@@ -1279,7 +1413,9 @@ def run(device, grid_main, grid_big, knn_n) -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                     "read_peak_share": r["gbps"] / peaks["read_gbps"]})
+                     "read_peak_share": r["gbps"] / peaks["read_gbps"],
+                     "cases": {k: v for k, v in report.items()
+                               if k == name or k.startswith(name + "[")}})
     print(json.dumps({"kernels": rows, "read_peak_gbps": {
         "events": peaks["read_gbps"], "device": peaks["read_device_gbps"]}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

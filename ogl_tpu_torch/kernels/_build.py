@@ -61,8 +61,8 @@ _SIGNATURES = {
     # vals, lidx, qoffs, np, r, z, p, beta, pout, q, partials, n, threads, grid, stream
     "ogl_gdia_k1": (_P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, x, y, n,
-    # threads, stream
-    "ogl_xell_spmv": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _INT, _P),
+    # bands, stream
+    "ogl_xell_spmv": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     # vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, z, p, beta,
     # pout, q, partials, n, threads, grid, stream
     "ogl_xell_k1": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -72,8 +72,8 @@ _SIGNATURES = {
     # data, offsets, nd, a, b, c, rhat, ca, cb, w, q, partials, n, threads, grid, stream
     "ogl_bicgstab_k1b": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
                          _I64, _P),
-    # c, d, nd, y, n, threads, stream
-    "ogl_read_peak": (_P, _P, _INT, _P, _I64, _INT, _P),
+    # c, d, nd, y, n, vec, blocks, stream
+    "ogl_read_peak": (_P, _P, _INT, _P, _I64, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

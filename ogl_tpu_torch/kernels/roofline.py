@@ -23,6 +23,7 @@ measurements run on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -31,13 +32,12 @@ import torch
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.core.formats import Coo, Dia
 from ogl_tpu_torch.kernels import _build, device_time
-from ogl_tpu_torch.kernels.dia_spmv import (THREADS, check_scalar, on_cpu, require_cuda,
-                                             stream_of)
+from ogl_tpu_torch.kernels.dia_spmv import check_scalar, on_cpu, require_cuda, stream_of
 
 __all__ = ["spmv_bytes", "spmv_flops", "hbm_peak_gbps", "Roofline", "measure",
            "measure_chained", "measure_stream_peak", "measure_read_peak",
            "measure_read_peak_device", "measure_device_chained", "plane_sum",
-           "plane_sum_plain"]
+           "plane_sum_plain", "plane_sum_launch"]
 
 # Published device-memory rate per card [GB/s] (NVIDIA's data sheets), keyed
 # by substrings of torch.cuda.get_device_name; every substring must match.
@@ -47,6 +47,8 @@ _HBM_PEAK = (
 )
 _CPU_PEAK = 50.0  # nominal, for relative numbers in CPU runs (as the reference's)
 GRAPH_LEN = 8  # applies per captured CUDA graph of measure_chained
+PLANE_SUM_THREADS = 256  # csrc/read_peak.cu kThreads
+PLANE_SUM_BLOCKS_PER_SM = 4
 
 
 def _device_name(device) -> str:
@@ -133,6 +135,22 @@ def plane_sum_plain(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def plane_sum_launch(n: int, d_ptr: int, y_ptr: int, sm_count: int) -> tuple[int, int]:
+    """(vec, blocks) of a plane-sum launch: vec = 1 takes the kernel's float4
+    branch, which needs every plane and y 16-byte aligned (n % 4 == 0 and
+    aligned bases); the grid is persistent, PLANE_SUM_BLOCKS_PER_SM blocks
+    of PLANE_SUM_THREADS per SM, fewer when the rows (quads) run out."""
+    vec = int(n % 4 == 0 and d_ptr % 16 == 0 and y_ptr % 16 == 0)
+    steps = n // 4 if vec else n
+    blocks = min(-(-steps // PLANE_SUM_THREADS), PLANE_SUM_BLOCKS_PER_SM * sm_count)
+    return vec, max(blocks, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def plane_sum(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """The plane sum of the (nd, n) float32 tensor `d` with the 0-d float32
     tensor `c`: the kernel for CUDA tensors, the plain version for tensors
@@ -149,8 +167,9 @@ def plane_sum(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     nd, n = d.shape
     lib = _build.library()
     y = torch.empty(n, dtype=torch.float32, device=d.device)
-    _build.check(lib.ogl_read_peak(c.data_ptr(), d.data_ptr(), nd, y.data_ptr(), n,
-                                   THREADS, stream_of(d)), "read_peak")
+    vec, blocks = plane_sum_launch(n, d.data_ptr(), y.data_ptr(), _sm_count(d.device.index))
+    _build.check(lib.ogl_read_peak(c.data_ptr(), d.data_ptr(), nd, y.data_ptr(), n, vec,
+                                   blocks, stream_of(d)), "read_peak")
     kernels.launches["read_peak"] += 1
     return y
 
@@ -311,11 +330,11 @@ def measure_read_peak(read_streams: int = 7, rows: int = 65536, tile: int = 512,
     """Measured READ-dominant streaming rate [GB/s], shaped like the Dia
     SpMV: the plane-sum kernel reads `read_streams` planes and writes one,
     with no x reads — less work per byte than the SpMV, meant as a ceiling
-    the SpMV is held to (the one-thread-per-row kernel and the pass's
-    reduction read below the Dia SpMV on the H100: PERF.md §6).
-    Each pass feeds a 0-d carry to the
-    next (c read through a device pointer).  Timed by measure_chained over
-    chains of chain_len and 2·chain_len passes (CUDA events, the slope).
+    the SpMV is held to (the pass's separate reduction and scalar launches
+    keep it near the Dia SpMV's rate on the H100: PERF.md §6).  Each pass
+    feeds a 0-d carry to the next (c read through a device pointer).  Timed
+    by measure_chained over chains of chain_len and 2·chain_len passes
+    (CUDA events, the slope).
 
     Bytes per pass: (read_streams + 2)·rows·128·4."""
     one_pass, d, bytes_per_pass = _read_peak_kernel(read_streams, rows, tile, device)

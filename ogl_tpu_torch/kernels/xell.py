@@ -54,11 +54,12 @@ from ogl_tpu_torch.kernels.fused import CgKernels
 
 LANES = 128
 TB = 128  # block rows per destination tile
+BAND_ROWS = 16 * LANES  # destination rows per block of the SpMV kernel
 
 __all__ = ["Xell", "XellLayout", "SpillCsr", "XellPlan", "XellCgKernels",
            "xell_layout", "xell_from_coo", "xell_to_coo", "spill_csr",
            "xell_spmv_plain", "xell_k1_plain", "xell_spmv", "xell_k1",
-           "xell_matvec", "spmv_xell"]
+           "xell_matvec", "spmv_xell", "band_grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,6 +392,12 @@ def _spill_args(plan: XellPlan, spill_vals) -> tuple:
             spill_vals.data_ptr())
 
 
+def band_grid(n: int) -> int:
+    """Blocks of the SpMV kernel: one per band of BAND_ROWS destination rows
+    (16 consecutive block rows t of one tile), the last one ragged."""
+    return -(-n // BAND_ROWS)
+
+
 def xell_spmv(plan: XellPlan, vals, ll, bbT, spill_vals, x):
     """y = A x for the Xell matrix (plan, vals, ll, bbT, spill_vals)."""
     if on_cpu(vals, ll, bbT, spill_vals, x):
@@ -401,8 +408,8 @@ def xell_spmv(plan: XellPlan, vals, ll, bbT, spill_vals, x):
     y = torch.empty_like(x)
     _build.check(lib.ogl_xell_spmv(
         vals.data_ptr(), ll.data_ptr(), bbT.data_ptr(), plan.n_slots, plan.c_left,
-        *_spill_args(plan, spill_vals), x.data_ptr(), y.data_ptr(), plan.n, THREADS,
-        stream_of(x)), "xell_spmv")
+        *_spill_args(plan, spill_vals), x.data_ptr(), y.data_ptr(), plan.n,
+        band_grid(plan.n), stream_of(x)), "xell_spmv")
     kernels.launches["xell_spmv"] += 1
     return y
 

@@ -316,6 +316,55 @@ def test_xell_kernels_match_plain(dev, spill_frac):
     _close(xell.xell_spmv(plan0, *data0, x), y)
 
 
+def _xell_graph(n, hubs, width=1500, k=4, seed=1):
+    """A random graph whose sources lie within `width` rows of their
+    destination (a window of a few chunks), diagonally dominant, with 48
+    extra entries in each of the `hubs` rows: those rows spill."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n), k)
+    hsrc = np.repeat(np.asarray(hubs, np.int64), 48)
+    src = np.concatenate([src, hsrc])
+    dst = np.clip(src + rng.integers(-width, width + 1, size=src.size), 0, n - 1)
+    r = np.concatenate([src, np.arange(n)])
+    c = np.concatenate([dst, np.arange(n)])
+    _, idx = np.unique(r * n + c, return_index=True)  # row-major, no duplicates
+    r, c = r[idx], c[idx]
+    v = np.where(r == c, 8.0, rng.normal(size=r.size)).astype(np.float32)
+    return formats.Coo(rows=r.astype(np.int32), cols=c.astype(np.int32), vals=v, shape=(n, n))
+
+
+# the SpMV kernel's edges: n = 1 (mod 128) below one band of 2,048 rows and
+# over four tiles (the last band ragged, c_left > 0); K above the 4-slot
+# shared ring; spill rows at band edges, and no spill at all
+XELL_EDGE_CASES = {
+    "short": (1921, (0, 1919, 1920), {}),
+    "tiles": (3 * 16384 + 129, (0, 2047, 2048, 16383, 16384, 32767, 49152, 49280), {}),
+    "tiles_nospill": (3 * 16384 + 129, (2047, 16384, 49280), {"spill_frac": 0.0, "k_max": 64}),
+}
+
+
+@pytest.mark.parametrize("name", list(XELL_EDGE_CASES))
+def test_xell_spmv_edges_match_plain(dev, name):
+    n, hubs, pack = XELL_EDGE_CASES[name]
+    mat = xell.xell_from_coo(_xell_graph(n, hubs), device=dev, **pack)
+    plan = xell.XellPlan.of(mat)
+    assert n % 128 == 1 and mat.n_slots > 4
+    sp_rows = set(mat.spill.rows.cpu().tolist())
+    if name == "tiles":
+        assert mat.c_left > 0 and {0, 2047, 2048, 16383, 16384, n - 1} <= sp_rows
+    if name == "tiles_nospill":
+        assert not sp_rows
+    data = (mat.vals, mat.ll, mat.bbT, mat.spill.vals)
+    x = _vec(n, 2, dev)
+    kernels.reset_launches()
+    y = xell.xell_spmv(plan, *data, x)
+    torch.cuda.synchronize()
+    assert kernels.launches["xell_spmv"] == 1 and y.shape == (n,)
+    _close(y, xell.xell_spmv_plain(plan, *data, x))
+    # the K1 kernel (one thread per row) computes the same product at beta 0
+    _close(xell.XellCgKernels(plan).apply(data, x), y)
+
+
 def test_unstructured_wrappers_raise_on_bad_operands(dev):
     coo = _knn_coo(20000)
     g = gdia.gdia_from_coo(coo, max_planes=4096, device=dev)
@@ -508,6 +557,25 @@ def test_plane_sum_kernel_matches_plain(dev, nd, n):
     # the kernel rounds the product and each sum on its own, as the plain
     # version's separate ops do; the tolerance allows a last-bit difference
     _close(y, roofline.plane_sum_plain(c, d))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 1001, 1002, 1003, 1004, 65539, 1 << 20])
+@pytest.mark.parametrize("nd", [1, 7, 9])
+def test_plane_sum_edges_are_exact(dev, nd, n, offset):
+    """Both branches of the kernel (float4 when n % 4 == 0 and the planes
+    are 16-byte aligned, scalar otherwise, here also for a base one float
+    off) round as the plain version: error 0, with c != 1 and nd above the
+    kernel's 8 planes in flight."""
+    g = torch.Generator(device=dev).manual_seed(n + nd)
+    flat = torch.randn(nd * n + offset, generator=g, device=dev)
+    d = flat[offset:].view(nd, n)
+    c = torch.tensor(-0.37, device=dev)
+    kernels.reset_launches()
+    y = roofline.plane_sum(c, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["read_peak"] == 1
+    assert torch.equal(y, roofline.plane_sum_plain(c, d))
 
 
 def test_plane_sum_wrapper_raises_on_bad_operands(dev):

@@ -80,6 +80,23 @@ def test_plane_sum_raises_without_a_kernel_for_the_device():
         roofline.plane_sum(torch.ones((), device="meta"), d)
 
 
+@pytest.mark.parametrize("n, d_ptr, y_ptr, want", [
+    (256 * 256 * 128, 0, 512, (1, 528)),  # float4 quads, 4 blocks per SM
+    (1 << 20, 256, 0, (1, 528)),
+    (4096, 0, 0, (1, 4)),                 # fewer quads than the persistent grid
+    (1000, 0, 0, (1, 1)),
+    (1001, 0, 0, (0, 4)),                 # n % 4 != 0: the scalar branch
+    (1002, 0, 0, (0, 4)),
+    (1003, 0, 0, (0, 4)),
+    (3, 0, 0, (0, 1)),                    # short n
+    (1 << 20, 4, 0, (0, 528)),            # planes not 16-byte aligned
+    (1 << 20, 0, 8, (0, 528)),            # y not 16-byte aligned
+    (0, 0, 0, (1, 1)),
+])
+def test_plane_sum_launch_geometry(n, d_ptr, y_ptr, want):
+    assert roofline.plane_sum_launch(n, d_ptr, y_ptr, 132) == want
+
+
 def _systems(dims):
     m, ref_m = testing.poisson_ldu(dims), ref_testing.poisson_ldu(dims)
     coo = ldu.ldu_to_coo_host(m, dtype=np.float32)

@@ -282,3 +282,17 @@ def test_pack_fast_raises_on_the_ell_landing(n):
     why = "Xell packing failed" if n >= 1 << 15 else "Xell is not tried"
     with pytest.raises(NotImplementedError, match=f"{why}.*ROADMAP.md A2"):
         spmv.pack_fast(r, c, v, n)
+
+
+@pytest.mark.parametrize("n, bands", [(0, 0), (1, 1), (1921, 1), (2048, 1), (2049, 2),
+                                      (3 * 16384 + 129, 25), (1 << 20, 512),
+                                      (256 * 256 * 128, 4096)])
+def test_band_grid_covers_the_rows_inside_the_padded_tiles(n, bands):
+    """The SpMV kernel's grid: one block per 2,048-row band (16 block rows
+    of one tile), the last one ragged, and no band past the tiles that the
+    packing pads the storage to."""
+    assert xell.BAND_ROWS == 16 * xell.LANES == 2048
+    assert xell.band_grid(n) == bands
+    assert bands * xell.BAND_ROWS >= n
+    tiles = max(-(-max(-(-n // xell.LANES), 1) // xell.TB), 1)
+    assert bands * xell.BAND_ROWS <= tiles * xell.TB * xell.LANES
