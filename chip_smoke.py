@@ -5,7 +5,8 @@
 
 Drives the port's five main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
-system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1) and the
+system, GKOCG with preconditioner `none` (its whole loop one launch of the
+persistent CG kernel) and scalar `BJ` (slice 1) and the
 AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2);
 then the unstructured-mesh solve (slice 3) on a kNN-6 FV graph (auto-routed
 to Xell) and on the Poisson grid renumbered inside each x-line (auto-routed
@@ -21,19 +22,27 @@ and at 8,388,608 rows.
 Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
      compute capability 9.0 required;
-  2. build: the CUDA C++ kernels (nvcc, sm_90a) and nvcc's register report;
+  2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
+     and the grid of the persistent CG loop kernel (co-resident blocks);
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
      with float32 and bfloat16 coefficients, KA and KB_pipe with identity
      and Jacobi, K1B with distinct b and c and with b = c): max error
      against the stated tolerance, median times (CUDA events), implied
      GB/s, torch's CSR SpMV beside the Dia SpMV and torch.addmv(b, A_csr,
-     x, alpha=-1) beside the float32 residual kernel, at both sizes;
-  4. slice 1's path: both solves, launch counts of its kernels, the true
-     float64 residual, and the iteration count against the same solve run
-     by the merged CG over the plain kernel functions on the card;
+     x, alpha=-1) beside the float32 residual kernel, at both sizes; then
+     the CG loop kernel against its plain twin (x after 30 iterations),
+     timed per iteration in turns with the twin and with the host loop over
+     the K1 and K2i kernels (200 iterations, the criterion checked at each),
+     also at 64x64x48, about one row per thread of its grid (its fixed cost
+     per iteration);
+  4. slice 1's path: both solves, launch counts of its kernels (a `none`
+     solve: the loop kernel once, K1 twice for its set-up, no K2i), the
+     true float64 residual, and the iteration count against the same solve
+     run by the merged CG over the plain kernel functions on the card (and,
+     for p, against its 275 iterations);
   5. slice 1's steady-state steps (diag scaled by 1.01, new b): only the
-     diag block and the RHS may cross to the device;
-  6. torch.profiler over one more slice-1 step;
+     diag block and the RHS may cross to the device, one loop launch each;
+  6. torch.profiler over one more slice-1 step (kernels per solve);
   7. the AMG path: GKOCG + Multigrid and GKOMultigrid, the hierarchy, the
      preconditioner build time, launch counts, the true float64 residual
      and the iteration count against the same solve over the plain twins
@@ -69,8 +78,9 @@ Phases (any failure raises, and the script exits non-zero):
      SpMV roofline at 8,388,608 rows against max(published, triad, read
      peak) with its device-timeline cross-check, the merged CG at 1M and
      8.4M (time/iter/DOF, the reference's JSON line, implied bandwidth,
-     device busy), the foam per-step, device-only and diag-only lanes.
-     Any fraction of a peak above 1.05 fails the run.
+     device busy; µs per iteration and idle share printed after the run),
+     the foam per-step, device-only and diag-only lanes.  Any fraction of
+     a peak above 1.05 fails the run.
 Each phase prints its wall time.  Each path's launch counts are set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  The line before the last is one JSON object
@@ -104,8 +114,10 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
+from ogl_tpu_torch.kernels.fused import LOOP_THREADS, cg_loop_plain
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
                                  krylov, stopping)
+from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
 
 GRID_1M = (128, 128, 64)
 GRID_8M = (256, 256, 128)
@@ -132,7 +144,7 @@ KERNELS = {
               "ogl_tpu/kernels/fused.py:36", "cg_k1", None),
     "cg_k2": ("triton", "ogl_tpu_torch/kernels/fused.py",
               "ogl_tpu/kernels/fused.py:396", "cg_k2", None),
-    "cg_k2i": ("triton", "ogl_tpu_torch/kernels/fused.py",
+    "cg_k2i": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k2i.cu",
                "ogl_tpu/kernels/fused.py:492", "cg_k2i", None),
     "cg_k2n": ("triton", "ogl_tpu_torch/kernels/fused.py",
                "ogl_tpu/kernels/fused.py:382", "cg_k2n", None),
@@ -163,13 +175,26 @@ KERNELS = {
     # "big": at the bench's shape, 7 planes of the 8.4M grid's rows
     "read_peak": ("cuda", "ogl_tpu_torch/kernels/csrc/read_peak.cu",
                   "ogl_tpu/kernels/roofline.py:200", "read_peak", "big"),
+    # the whole identity-preconditioned CG loop: K1 and K2i as its phases;
+    # its row's times are per iteration
+    "cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_loop.cu",
+                "ogl_tpu/kernels/fused.py:36, ogl_tpu/kernels/fused.py:492", "cg_loop", None),
 }
-SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_k2", "cg_k2i")
+SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_k2", "cg_loop")
 AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
 UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i")
 SLICE4_KERNELS = ("cg_ka", "cg_kb_pipe", "bicgstab_k1b", "bicgstab_kb_update", "dia_spmv",
                   "gdia_spmv")
-BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_k2i")
+BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_loop")
+# a `none` solve on Dia: the loop kernel once, K1 twice (the set-up's r0 and
+# norm factor), no K2i
+NONE_SOLVE_LAUNCHES = {"cg_loop": 1, "cg_k1": 2, "cg_k2i": 0}
+P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
+LOOP_ITERS = (30, 200)  # the loop's check (x against the plain twin), its timing
+# about one row per thread of the loop kernel's grid (3 x 132 blocks of 512 on
+# an H100): its time per iteration is the loop's fixed cost (two grid
+# barriers, the partial sums, the phases' ramps)
+LOOP_FIXED_GRID = (64, 64, 48)
 READ_PLANES = 7  # the read peak's planes (roofline.measure_read_peak's default)
 AMG_SOLVES = {"pMG": {"solver": "GKOCG", "preconditioner": "Multigrid"},
               "pGMG": {"solver": "GKOMultigrid"}}
@@ -212,6 +237,11 @@ class PlainCgKernels(PlainSteps, CgKernels):
 
     def kb_update(self, x, p, s, t, rhat, alpha, omega, r):
         return kb_update_plain(x, p, s, t, rhat, alpha, omega, r)
+
+
+class HostLoopCgKernels(CgKernels):
+    """CgKernels that cg_fused does not recognise as the Dia plan itself, so
+    its identity solve keeps the host loop over the K1 and K2i kernels."""
 
 
 class PlainGdiaCgKernels(PlainSteps, GdiaCgKernels):
@@ -284,6 +314,15 @@ def device_ms_per_launch(fn, reps=50):
     if not kern:
         raise RuntimeError("torch.profiler recorded no kernel: device time not measured")
     return sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
+
+
+def check_none_solve_launches(what, before):
+    """A `none` solve on Dia runs its whole loop as one launch of the loop
+    kernel: NONE_SOLVE_LAUNCHES between `before` and now."""
+    got = {k: kernels.launches[k] - before[k] for k in NONE_SOLVE_LAUNCHES}
+    print(f"  {what}: launches in this solve {got}")
+    if got != NONE_SOLVE_LAUNCHES:
+        raise RuntimeError(f"{what}: launched {got} in one solve, not {NONE_SOLVE_LAUNCHES}")
 
 
 def phase_done(label, since):
@@ -422,8 +461,61 @@ def check_kernels(dims, device, report):
     else:
         library_call("amg_resid[f32]", label, "torch.addmv(b, A_csr, x, alpha=-1)", addmv,
                      lambda: kern.kresid(data, vec["x"], vec["r"]), "the same matrix", report)
-    del data, vec, invd, cases, timed, x, r, z, p, s, csr
+    del vec, invd, cases, timed, x, r, z, p, s, csr
+    check_loop(kern, data, offsets, label, report)
+    del data
     torch.cuda.empty_cache()
+
+
+def check_loop(kern, data, offsets, label, report):
+    """The loop kernel against its plain twin from the same set-up (b random,
+    x0 = 0) over LOOP_ITERS[0] iterations (x held to the vector
+    tolerance), then timed in turns over LOOP_ITERS[1] with the plain twin
+    and the host loop over today's K1 and K2i kernels (cg_fused with
+    HostLoopCgKernels, whose time also holds the set-up's two applies):
+    ms per iteration, and the bound per iteration.  The runs stop at maxIter
+    with tolerance 0, so the criterion is checked at every iteration, as in
+    a solve with frequency 1: the host loop reads one bool per iteration."""
+    nd, n = data.shape
+    b = torch.randn(n, device=data.device,
+                    generator=torch.Generator(device=data.device).manual_seed(1))
+    x0 = torch.zeros_like(b)
+    r0 = b - kern.apply(data, x0)
+    state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
+             merged_norm_factor(kern, data, r0, x0, b))
+    host = HostLoopCgKernels(n, offsets, data.device)
+
+    def iterations(k):  # tolerance 0: exactly k iterations, each checked
+        return stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=k,
+                                       frequency=1)
+
+    def run(k, plain):
+        x, r = x0.clone(), r0.clone()
+        rec = (cg_loop_plain(data, offsets, x, r, *state, iterations(k)) if plain
+               else kern.cg_loop(data, x, r, *state, iterations(k)))
+        return x, rec[0]
+
+    (xk, ik), (xp, ip) = run(LOOP_ITERS[0], False), run(LOOP_ITERS[0], True)
+    err, tol = vec_err(xk, xp)
+    k = LOOP_ITERS[1]
+    t = time_turns({"plain": lambda: run(k, True), "kernel": lambda: run(k, False),
+                    "host loop": lambda: cg_fused(host, data, b, x0, iterations(k))}, reps=5)
+    nbytes = ((nd + 4) * 4 + 24) * n  # per iteration: K1 (nd + 4 streams), K2i (6)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    ms = {tag: v / k for tag, v in t.items()}
+    ok = err <= tol and ik == ip == LOOP_ITERS[0]
+    print(f"  {'cg_loop':22s} {label:12s} max_abs_err {err:.3e} (tol {tol:.1e}) after "
+          f"{ik} / {ip} iterations; per iteration (over {k}, checked at each): kernel "
+          f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s, plain "
+          f"{ms['plain']:.4f} ms, host loop "
+          f"over K1 + K2i {ms['host loop']:.4f} ms, bound {bound:.4f} ms  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"cg_loop at {label} disagrees with its plain version")
+    report.setdefault("cg_loop", {})[label] = {
+        "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+        "host_loop_ms": ms["host loop"], "gbps": nbytes / ms["kernel"] / 1e6,
+        "bound_ms": bound, "bound_by": "bytes", "per": "iteration", "iterations": k}
 
 
 def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None):
@@ -580,7 +672,7 @@ def profile_step(solve_fn):
     print(f"step wall {wall_us / 1e3:.3f} ms, {perf.n_iterations} iterations: device busy "
           f"{busy / 1e3:.3f} ms ({busy / it:.2f} us/iteration), idle share "
           f"{1 - busy / wall_us:.3f}; wall/iteration {wall_us / it:.2f} us; "
-          f"{launched} device kernels ({launched / it:.1f} per iteration)")
+          f"{launched} device kernels per solve ({launched / it:.2f} per iteration)")
     for name, (count, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  {total:10.1f} us  x{count:5d}  {total / count:8.2f} us/launch  {name[:90]}")
 
@@ -1262,6 +1354,14 @@ def bench_path(device, grid_main, grid_big, report) -> tuple:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise RuntimeError(f"the bench path never launched {missing}")
+    for key in ("cg", "cg_big"):
+        lane = res[key]
+        busy = lane.get("device_ms")
+        idle = ("not measured" if busy is None else
+                f"device busy {busy * 1e3 / lane['iters']:.2f} us per iteration, idle share "
+                f"{max(0.0, 1 - busy / lane['solve_ms']):.3f}")
+        print(f"bench CG lane {key} (n={lane['n']}): {lane['us_per_iter']:.2f} us per iteration "
+              f"over {lane['iters']} iterations; {idle}")
     return launches, res["peaks"]
 
 
@@ -1293,6 +1393,10 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = CgKernels(1, (0,), device).loop_blocks()
+    print(f"cg_loop grid: {blocks} co-resident blocks of {LOOP_THREADS} threads ({blocks // sms} "
+          f"per SM on {sms} SMs; its registers per thread in the ptxas line of cg_loop_kernel)")
 
     t_ph = phase_done("phase 2", t_ph)
     print("== phase 3: kernels vs plain versions "
@@ -1300,6 +1404,10 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     report: dict = {}
     for dims in (grid_main, grid_big):
         check_kernels(dims, device, report)
+    data, offsets = poisson_dia(LOOP_FIXED_GRID, device)
+    check_loop(CgKernels(data.shape[1], offsets, device), data, offsets,
+               "x".join(map(str, LOOP_FIXED_GRID)), report)
+    del data
 
     t_ph = phase_done("phase 3", t_ph)
     print("== phase 4: slice 1's path, foam.solve at "
@@ -1315,12 +1423,15 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     kernels.reset_launches()
     solves = {}
     for field, pc in pcs.items():
+        before = dict(kernels.launches)
         t0 = time.perf_counter()
         x, perf = foam.solve(field, m, b, {**ctl, "preconditioner": pc})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         perf.print()
         print(f"{field}: first solve wall {wall:.3f} s")
+        if pc == "none":
+            check_none_solve_launches(field, before)
         solves[field] = (x, perf)
 
     t_ph = phase_done("phase 4 (solves)", t_ph)
@@ -1330,11 +1441,13 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     for k in (2, 3):  # step 2 also builds the value map once; step 3 is steady
         m_k = dataclasses.replace(m_k, diag=np.asarray(m_k.diag) * 1.01)
         b_k = (b_k * 1.01 + 0.1).astype(np.float32)
+        before = dict(kernels.launches)
         t0 = time.perf_counter()
         x_k, perf_k = foam.solve("p", m_k, b_k, {**ctl, "preconditioner": "none"})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         perf_k.print()
+        check_none_solve_launches(f"p step {k}", before)
         slv = registry.global_registry.get("p_solver")
         lt = slv.last_timings
         print(f"p step {k}: wall {wall * 1e3:.3f} ms, of which update "
@@ -1381,6 +1494,8 @@ def run(device, grid_main, grid_big, knn_n) -> int:
             if abs(plain.iters - perf.n_iterations) > 1:
                 raise RuntimeError(f"{name}: {perf.n_iterations} iterations vs "
                                    f"{plain.iters} with the plain kernels")
+        if name == "p" and abs(perf.n_iterations - P_ITERS) > 1:
+            raise RuntimeError(f"p: {perf.n_iterations} iterations, not {P_ITERS} +- 1")
         print(line)
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")

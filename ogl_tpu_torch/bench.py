@@ -12,11 +12,12 @@ lanes, `_device_busy_of`, `_poisson_dia`, the per-step lane of
      against the denominator max(published, triad, read-dominant peak),
      calibrated on every run; a fraction above 1.05 raises.  Cross-checked
      on the device timeline against the read peak on the same clock.
-  2. CG 1M: the merged CG (K1 + K2i, preconditioner none) on b = A·x_true,
+  2. CG 1M: the merged CG (preconditioner none; on the card one launch of
+     the persistent loop kernel, K1 and K2i its phases) on b = A·x_true,
      time/iter and time/iter/DOF by slope timing; the reference's JSON
      line; the implied bandwidth; the device-timeline cross-check.
   3. CG 8.4M: the same at 8,388,608 rows, with the minimum bytes of its
-     two kernels per iteration.
+     two phases per iteration.
   4. The foam per-step lane: GKOCG's first solve at 1M, three steady
      steps (upper and diag nudged), the phase split, the device-only
      solve (`FoamSolver.time_device_solve`), three diag-only steps that
@@ -149,7 +150,8 @@ def _check_solve(what: str, res_or_perf, mat, x, b) -> float:
 
 
 def _cg_solver(mat: formats.Dia, b, max_iter: int):
-    """The merged CG (K1 + K2i) on mat from a zero guess, as a closure."""
+    """The merged CG on mat from a zero guess, as a closure: on the card
+    its whole loop is one launch of the persistent CG kernel."""
     kern = CgKernels(mat.shape[0], mat.offsets, b.device)
     data = kern.pack_values(mat)
     params = stopping.StoppingParams(tolerance=TOL, rel_tol=0.0, min_iter=0,

@@ -74,6 +74,14 @@ _SIGNATURES = {
                          _I64, _P),
     # c, d, nd, y, n, vec, blocks, stream
     "ogl_read_peak": (_P, _P, _INT, _P, _I64, _INT, _I64, _P),
+    # alpha, x, r, p, q, partials, n, vec, blocks, stream
+    "ogl_cg_k2i": (_P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # threads, blocks (out)
+    "ogl_cg_loop_grid": (_INT, ctypes.POINTER(_I64)),
+    # data, offsets, nd, x, r, p, pn, q, rho, absr, nf, partials, record, n, tol,
+    # rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_cg_loop": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32,
+                    _INT, _INT, _INT, _INT, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -7,6 +7,8 @@
 //
 // Replaces: ogl_tpu/kernels/fused.py `_k1_kernel` (called through
 // `CgKernels.k1`, and `CgKernels.apply` = K1 with z = p = x, beta = 0).
+// The persistent CG loop (cg_loop.cu) runs the same row body as its K1
+// phase (cg_k1.cuh).
 //
 // Bound: device-memory bandwidth.  Minimum traffic per row: nd coefficients
 // + z and p in + p' and q out = (nd + 4) * n * 4 bytes, about 2*nd + 4 flops.
@@ -25,16 +27,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_sum.cuh"
+#include "cg_k1.cuh"
+
 namespace {
-
-constexpr int kMaxDiags = 64;
-constexpr int kWarp = 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int s = kWarp / 2; s > 0; s >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, s);
-  return v;
-}
 
 __global__ void cg_k1_kernel(const float* __restrict__ data,
                              const int* __restrict__ offsets, int nd,
@@ -42,8 +38,7 @@ __global__ void cg_k1_kernel(const float* __restrict__ data,
                              const float* __restrict__ beta_ptr,
                              float* __restrict__ pout, float* __restrict__ q,
                              float* __restrict__ partials, int64_t n) {
-  __shared__ int s_off[kMaxDiags];
-  __shared__ float s_warp[1024 / kWarp];
+  __shared__ int s_off[ogl::kMaxDiags];
   for (int k = threadIdx.x; k < nd; k += blockDim.x) s_off[k] = offsets[k];
   __syncthreads();
 
@@ -51,32 +46,13 @@ __global__ void cg_k1_kernel(const float* __restrict__ data,
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   float prod = 0.0f;
   if (i < n) {
-    float acc = 0.0f;
-    for (int k = 0; k < nd; ++k) {
-      const int64_t j = i + s_off[k];
-      if (j >= 0 && j < n) {
-        const float pw = z[j] + beta * p[j];
-        acc += data[(int64_t)k * n + i] * pw;
-      }
-    }
-    const float pc = z[i] + beta * p[i];
+    float pc;
+    const float acc = ogl::k1_row(data, s_off, nd, z, p, beta, i, n, &pc);
     pout[i] = pc;
     q[i] = acc;
     prod = pc * acc;
   }
-
-  // block reduction of p'.q: warps, then the first warp over the warp sums
-  prod = warp_sum(prod);
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  if (lane == 0) s_warp[warp] = prod;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x / kWarp;
-    float v = lane < n_warps ? s_warp[lane] : 0.0f;
-    v = warp_sum(v);
-    if (lane == 0) partials[blockIdx.x] = v;
-  }
+  ogl::block_sum_to(prod, partials);
 }
 
 }  // namespace
@@ -88,8 +64,8 @@ extern "C" int ogl_cg_k1(const float* data, const int* offsets, int nd,
                          const float* z, const float* p, const float* beta,
                          float* pout, float* q, float* partials, int64_t n,
                          int threads, int64_t grid, void* stream) {
-  if (nd < 0 || nd > kMaxDiags || threads < kWarp || threads > 1024 ||
-      threads % kWarp != 0 || n < 0 || grid * threads < n)
+  if (nd < 0 || nd > ogl::kMaxDiags || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || n < 0 || grid * threads < n)
     return static_cast<int>(cudaErrorInvalidValue);
   if (grid == 0) return 0;
   cg_k1_kernel<<<static_cast<unsigned int>(grid), threads, 0,

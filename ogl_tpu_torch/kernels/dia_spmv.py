@@ -14,13 +14,16 @@ a refused launch.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build
 
 __all__ = ["DiaPlan", "dia_spmv", "dia_spmv_plain", "THREADS", "MAX_DIAGS",
-           "check_operands", "stream_of", "on_cpu", "require_cuda", "check_scalar"]
+           "check_operands", "stream_of", "on_cpu", "require_cuda", "check_scalar",
+           "sm_count", "persistent_launch"]
 
 THREADS = 256  # rows per block (one thread per row)
 MAX_DIAGS = 64  # the kernels stage the offsets in a 64-entry shared array
@@ -98,6 +101,23 @@ def on_cpu(*ts) -> bool:
 def require_cuda(what: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def persistent_launch(n: int, ptrs, sms: int, threads: int = 256,
+                      blocks_per_sm: int = 4) -> tuple[int, int]:
+    """(vec, blocks) of a grid-stride launch over n rows: vec = 1 takes a
+    kernel's float4 branch over row quads, which needs n % 4 == 0 and every
+    pointer of `ptrs` 16-byte aligned; the grid is persistent,
+    `blocks_per_sm` blocks of `threads` per SM, fewer when the rows (quads)
+    run out."""
+    vec = int(n % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    steps = n // 4 if vec else n
+    return vec, max(min(-(-steps // threads), blocks_per_sm * sms), 1)
 
 
 def check_scalar(name: str, s, device: torch.device) -> None:

@@ -1,7 +1,8 @@
 """Merged-Krylov and AMG-smoother kernels for the Dia (stencil) path: K1,
-KA, K1B and the smoother passes in CUDA C++ (`csrc/cg_k1.cu`,
-`csrc/cg_pipe.cu`, `csrc/bicgstab.cu`, `csrc/amg_smooth.cu`), K2, K2i,
-K2n, KB_pipe and KB_update in Triton (bodies below), each beside its plain
+K2i, KA, K1B, the smoother passes and the whole identity-preconditioned CG
+loop in CUDA C++ (`csrc/cg_k1.cu`, `csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`,
+`csrc/bicgstab.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`), K2, K2n,
+KB_pipe and KB_update in Triton (bodies below), each beside its plain
 PyTorch twin.
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
@@ -24,6 +25,11 @@ two per iteration of the pipelined (Chronopoulos–Gear) CG
 three per iteration of the merged BiCGStab (solve/bicgstab_fused.py):
   K1B        w = a + ca·b + cb·c ;  q = A w ;  (Σ r̂·q, Σ q·w, Σ q·q)
   KB_update  x' = x + α·p + ω·s ;  r' = s − ω·t ;  (Σ r̂·r', ‖r'‖₁)
+the whole merged CG loop for identity preconditioning on a Dia matrix, as
+one persistent cooperative kernel (`cg_loop`; no counterpart kernel — the
+reference runs K1, K2i and the criterion inside one `jax.lax.while_loop`):
+  each iteration the criterion on ‖r‖₁, β, K1, a grid barrier, K2i, a grid
+  barrier; one launch per solve and one host read at its end
 and the AMG smoother's two passes, each one stencil apply:
   sweep  out = x + relax·invd ⊙ (b − A x)
   resid  out = b − A x
@@ -55,14 +61,16 @@ version; CUDA tensors launch the kernel or raise (wrong device, dtype,
 shape, contiguity, or a refused launch) — there is no fallback.  Each
 launch counts in `ogl_tpu_torch.kernels.launches`.
 
-K2/K2i/K2n (Triton) replace ogl_tpu/kernels/fused.py `_k2_kernel`,
-`_k2i_kernel` and `_k2n_kernel`.  They are pure elementwise streams with
-one or two block sums, no neighbour reads and no index tables — the case
-where Triton writes the same kernel as CUDA C++ with less code.  Bound:
-device-memory bandwidth, 8 float32 streams per row for K2 (x, r, p, q,
-invd in; x, r, z out) and 6 for K2i and K2n, at a handful of flops each.
-Design: one program per BLOCK rows, masked coalesced loads/stores, tl.sum
-per program into a partials array.
+K2/K2n (Triton) replace ogl_tpu/kernels/fused.py `_k2_kernel` and
+`_k2n_kernel`.  They are pure elementwise streams with one or two block
+sums, no neighbour reads and no index tables — the case where Triton
+writes the same kernel as CUDA C++ with less code.  Bound: device-memory
+bandwidth, 8 float32 streams per row for K2 (x, r, p, q, invd in; x, r, z
+out) and 6 for K2n, at a handful of flops each.  Design: one program per
+BLOCK rows, masked coalesced loads/stores, tl.sum per program into a
+partials array.  K2i (`_k2i_kernel`) is CUDA C++ (`csrc/cg_k2i.cu`): its
+body is also the K2i phase of the loop kernel, which a Triton kernel could
+not be.
 
 KB_pipe and KB_update (Triton) replace `_kb_pipe_kernel` and
 `_kb_update_kernel`, the same kind of stream.  Bound: device-memory
@@ -75,21 +83,25 @@ one torch.sum finishes both (KA and K1B do the same with three).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             check_scalar, dia_spmv_plain, on_cpu,
-                                            require_cuda, stream_of)
+                                            persistent_launch, require_cuda, sm_count,
+                                            stream_of)
 from ogl_tpu_torch.kernels.gdia import GdiaPlan, gdia_k1
 
 __all__ = ["CgKernels", "GdiaCgKernels", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
-           "ka_plain", "kb_pipe_plain", "k1b_plain", "kb_update_plain",
+           "cg_loop_plain", "ka_plain", "kb_pipe_plain", "k1b_plain", "kb_update_plain",
            "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
 K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
 K2_WARPS = 4
+LOOP_THREADS = 512  # threads per block of the loop kernel (csrc/cg_loop.cu kMaxThreads)
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -116,6 +128,30 @@ def k2i_plain(alpha, x, r, p, q):
     x += alpha * p
     r -= alpha * q
     return torch.sum(r * r), torch.sum(torch.abs(r))
+
+
+def cg_loop_plain(data, offsets, x, r, rho, absr, nf, cfg):
+    """The loop kernel's function: the merged CG loop of solve/cg_fused.py
+    for identity preconditioning over k1_plain and k2i_plain, from the
+    set-up's x, r, ρ = Σ r·r, ‖r‖₁ and norm factor nf, with the criterion
+    of solve/stopping.py (cfg: StoppingParams) read on the host at each
+    check.  x and r are updated in place; returns the kernel's record:
+    (iterations, final and initial normalised residual, converged) — an int
+    and three 0-d tensors."""
+    from ogl_tpu_torch.solve import stopping  # not at the top: solve imports this module
+
+    st = stopping.init_state(x.dtype, x.device).replace(norm_factor=nf)
+    p, rho_old, zero = torch.zeros_like(x), torch.ones_like(nf), torch.zeros_like(nf)
+    while st.iter < cfg.max_iter + cfg.frequency:
+        st = stopping.check_from_norm(cfg, st, absr)
+        if st.converged:
+            break
+        beta = zero if st.iter == 0 else rho / rho_old
+        p, q, delta = k1_plain(data, offsets, r, p, beta)
+        alpha, rho_old = rho / delta, rho
+        rho, absr = k2i_plain(alpha, x, r, p, q)
+        st = st.replace(iter=st.iter + 1)
+    return st.iter, st.res_norm, st.init_res_norm, stopping.satisfied(cfg, st)
 
 
 def k2n_plain(alpha, x, r, p, q):
@@ -200,24 +236,6 @@ def _k2_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, invd_ptr, z_ptr,
     tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
 
 
-def _k2i_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr,
-              rho_ptr, absr_ptr, n, BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    alpha = tl.load(alpha_ptr)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
-    r = tl.load(r_ptr + offs, mask=mask, other=0.0)
-    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
-    q = tl.load(q_ptr + offs, mask=mask, other=0.0)
-    xo = x + alpha * p
-    ro = r - alpha * q
-    tl.store(x_ptr + offs, xo, mask=mask)
-    tl.store(r_ptr + offs, ro, mask=mask)
-    tl.store(rho_ptr + pid, tl.sum(ro * ro, axis=0))
-    tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
-
-
 def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
               BLOCK: "tl.constexpr"):
     pid = tl.program_id(0)
@@ -282,8 +300,8 @@ def _triton_kernels() -> dict:
         import triton.language
 
         tl = triton.language
-        _TRITON.update(k2=triton.jit(_k2_body), k2i=triton.jit(_k2i_body),
-                       k2n=triton.jit(_k2n_body), kb_pipe=triton.jit(_kb_pipe_body),
+        _TRITON.update(k2=triton.jit(_k2_body), k2n=triton.jit(_k2n_body),
+                       kb_pipe=triton.jit(_kb_pipe_body),
                        kb_update=triton.jit(_kb_update_body))
     return _TRITON
 
@@ -320,6 +338,7 @@ class CgKernels:
         self.device = self.plan.device
         self.dtype = torch.float32
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        self._loop_blocks = None  # co-resident blocks of the loop kernel, queried once
 
     def pack_values(self, mat, dtype: torch.dtype | None = None) -> torch.Tensor:
         """The Dia data as the kernels take it: contiguous (nd, n), float32
@@ -356,7 +375,7 @@ class CgKernels:
         _, q, _ = self.k1(data, x, x, self._zero)
         return q
 
-    # ---- K2 / K2i (Triton) ---------------------------------------------
+    # ---- K2 (Triton), K2i (CUDA C++) -------------------------------------
     def k2(self, alpha, x, r, p, q, invd, z):
         """In place on x, r, z; returns (ρ, ‖r‖₁) as 0-d tensors."""
         if on_cpu(alpha, x, r, p, q, invd, z):
@@ -369,7 +388,17 @@ class CgKernels:
         (ρ = Σ r·r, ‖r‖₁) as 0-d tensors."""
         if on_cpu(alpha, x, r, p, q):
             return k2i_plain(alpha, x, r, p, q)
-        return self._launch_stream("k2i", "cg_k2i", {"alpha": alpha}, (x, r, p, q), sums=2)
+        require_cuda("k2i", x)
+        check_operands(self.plan, None, x, r, p, q)
+        check_scalar("alpha", alpha, self.device)
+        vec, blocks = persistent_launch(self.n, [t.data_ptr() for t in (x, r, p, q)],
+                                        sm_count(self.device.index))
+        partials = torch.empty((2, blocks), dtype=torch.float32, device=self.device)
+        _build.check(_build.library().ogl_cg_k2i(
+            alpha.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
+            partials.data_ptr(), self.n, vec, blocks, stream_of(x)), "cg_k2i")
+        kernels.launches["cg_k2i"] += 1
+        return torch.sum(partials, dim=1).unbind()
 
     def k2n(self, alpha, x, r, p, q):
         """K2 without z and ρ (a rich preconditioner makes z), in place on
@@ -378,6 +407,48 @@ class CgKernels:
             return k2n_plain(alpha, x, r, p, q)
         (absr,) = self._launch_stream("k2n", "cg_k2n", {"alpha": alpha}, (x, r, p, q), sums=1)
         return absr
+
+    # ---- the whole identity-preconditioned loop (CUDA C++) --------------
+    def loop_blocks(self) -> int:
+        """The loop kernel's co-resident blocks of LOOP_THREADS on this
+        plan's card (occupancy × SMs), queried once; raises on a card
+        without cooperative launch."""
+        if self._loop_blocks is None:
+            blocks = ctypes.c_int64()
+            with torch.cuda.device(self.device):
+                _build.check(_build.library().ogl_cg_loop_grid(LOOP_THREADS,
+                                                               ctypes.byref(blocks)),
+                             "cg_loop (occupancy query)")
+            self._loop_blocks = blocks.value
+        return self._loop_blocks
+
+    def cg_loop(self, data, x, r, rho, absr, nf, cfg):
+        """The merged CG loop for identity preconditioning from the set-up's
+        state (solve/cg_fused.py): x and r, updated in place; ρ = Σ r·r,
+        ‖r‖₁ and the norm factor as 0-d tensors; cfg the StoppingParams.
+        One cooperative launch on the card, then one host read of its
+        record; returns (iterations, final and initial normalised residual,
+        converged) — an int and three 0-d CPU tensors."""
+        if on_cpu(data, x, r, rho, absr, nf):
+            return cg_loop_plain(data, self.offsets, x, r, rho, absr, nf, cfg)
+        require_cuda("cg_loop", x)
+        check_operands(self.plan, data, x, r)
+        for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
+            check_scalar(what, sc, self.device)
+        blocks = min(self.loop_blocks(), -(-self.n // LOOP_THREADS))
+        p, pn, q = torch.zeros_like(x), torch.empty_like(x), torch.empty_like(x)
+        partials = torch.empty(3 * blocks, dtype=torch.float32, device=self.device)
+        record = torch.empty(4, dtype=torch.float32, device=self.device)
+        vec = int(self.n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, r, p, pn, q)))
+        _build.check(_build.library().ogl_cg_loop(
+            data.data_ptr(), self.plan.offsets_dev.data_ptr(), len(self.offsets),
+            x.data_ptr(), r.data_ptr(), p.data_ptr(), pn.data_ptr(), q.data_ptr(),
+            rho.data_ptr(), absr.data_ptr(), nf.data_ptr(), partials.data_ptr(),
+            record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter,
+            cfg.max_iter, cfg.frequency, vec, LOOP_THREADS, blocks, stream_of(x)), "cg_loop")
+        kernels.launches["cg_loop"] += 1
+        host = record.cpu()
+        return int(host.view(torch.int32)[0]), host[1], host[2], host[3] != 0
 
     # ---- pipelined CG: KA (CUDA C++), KB_pipe (Triton) ------------------
     def ka(self, data, r, invd=None):
@@ -449,7 +520,7 @@ class CgKernels:
 
     def _launch_stream(self, name, counter, scalars: dict, vectors, sums: int = 0,
                        **constexprs):
-        """Launch the Triton stream `name` (K2, K2i, K2n, KB_pipe, KB_update)
+        """Launch the Triton stream `name` (K2, K2n, KB_pipe, KB_update)
         over (n,) vectors, its 0-d `scalars` read through pointers.  With
         `sums`, each sum's per-program partials fill one row of a (sums,
         grid) array, and one torch.sum finishes them all."""
@@ -506,7 +577,7 @@ class CgKernels:
 class GdiaCgKernels(CgKernels):
     """Merged-CG steps for one Gdia sparsity: K1 is the Gdia kernel
     (`csrc/gdia.cu` `ogl_gdia_k1`, launched through kernels/gdia.py
-    `gdia_k1`); K2, K2i and K2n are the structure-free Triton kernels of
+    `gdia_k1`); K2, K2i and K2n are the structure-free kernels of
     CgKernels.  Packed coefficients are a (vals, lidx) pair.  The Dia
     smoother passes are not for a Gdia matrix (AMG on Gdia levels is not
     ported: the solver raises before it would build one)."""

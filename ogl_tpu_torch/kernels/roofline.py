@@ -23,7 +23,6 @@ measurements run on the card.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import time
 
 import numpy as np
@@ -32,7 +31,8 @@ import torch
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.core.formats import Coo, Dia
 from ogl_tpu_torch.kernels import _build, device_time
-from ogl_tpu_torch.kernels.dia_spmv import check_scalar, on_cpu, require_cuda, stream_of
+from ogl_tpu_torch.kernels.dia_spmv import (check_scalar, on_cpu, persistent_launch,
+                                            require_cuda, sm_count, stream_of)
 
 __all__ = ["spmv_bytes", "spmv_flops", "hbm_peak_gbps", "Roofline", "measure",
            "measure_chained", "measure_stream_peak", "measure_read_peak",
@@ -140,15 +140,8 @@ def plane_sum_launch(n: int, d_ptr: int, y_ptr: int, sm_count: int) -> tuple[int
     branch, which needs every plane and y 16-byte aligned (n % 4 == 0 and
     aligned bases); the grid is persistent, PLANE_SUM_BLOCKS_PER_SM blocks
     of PLANE_SUM_THREADS per SM, fewer when the rows (quads) run out."""
-    vec = int(n % 4 == 0 and d_ptr % 16 == 0 and y_ptr % 16 == 0)
-    steps = n // 4 if vec else n
-    blocks = min(-(-steps // PLANE_SUM_THREADS), PLANE_SUM_BLOCKS_PER_SM * sm_count)
-    return vec, max(blocks, 1)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return persistent_launch(n, (d_ptr, y_ptr), sm_count, PLANE_SUM_THREADS,
+                             PLANE_SUM_BLOCKS_PER_SM)
 
 
 def plane_sum(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -167,7 +160,7 @@ def plane_sum(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     nd, n = d.shape
     lib = _build.library()
     y = torch.empty(n, dtype=torch.float32, device=d.device)
-    vec, blocks = plane_sum_launch(n, d.data_ptr(), y.data_ptr(), _sm_count(d.device.index))
+    vec, blocks = plane_sum_launch(n, d.data_ptr(), y.data_ptr(), sm_count(d.device.index))
     _build.check(lib.ogl_read_peak(c.data_ptr(), d.data_ptr(), nd, y.data_ptr(), n, vec,
                                    blocks, stream_of(d)), "read_peak")
     kernels.launches["read_peak"] += 1

@@ -9,12 +9,17 @@ cycle) maps r to z, and each iteration runs K1, then K2n (x, r and ‖r‖₁
 only), then z = precond(r) and ρ = Σ r·z (the reference's
 `precond_framed` route, which the port runs on flat vectors).
 
-The loop runs on the host.  The iteration counter and the minIter/
-frequency gating are host integers; α, β, ρ, δ, ‖r‖₁ and the normalised
-residual stay 0-d device tensors; the host reads one bool per checked
-iteration.  When that bool says converged the loop breaks before K1/K2,
-which yields exactly the iterate and count of the reference's branchless
-α = 0 freeze (its x and r are unchanged on that last pass).
+With identity preconditioning on a Dia matrix on the card the whole loop,
+criterion included, is one persistent kernel (`CgKernels.cg_loop`,
+csrc/cg_loop.cu): one launch per solve and one host read of its record,
+as the reference runs the loop as one device program.  Every other case
+— the CPU, BJ, a rich preconditioner, the Gdia and Xell plans — loops on
+the host.  The iteration counter and the minIter/frequency gating are then
+host integers; α, β, ρ, δ, ‖r‖₁ and the normalised residual stay 0-d
+device tensors; the host reads one bool per checked iteration.  When that
+bool says converged the loop breaks before K1/K2, which yields exactly the
+iterate and count of the reference's branchless α = 0 freeze (its x and r
+are unchanged on that last pass).
 
 The reference gates the z-free K2i on a working-set size measured on its
 TPU; that gate is not carried over — `preconditioner none` always takes
@@ -56,6 +61,10 @@ def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None, precond=None) -> Solv
         rho = torch.sum(r * z)
     absr = torch.sum(torch.abs(r))
     nf = merged_norm_factor(kern, data, r, x, b)
+    if identity and type(kern) is CgKernels and b.device.type == "cuda":
+        iters, rn, init_rn, converged = kern.cg_loop(data, x, r, rho, absr, nf, cfg)
+        return SolveResult(x=x, iters=iters, init_res_norm=init_rn, final_res_norm=rn,
+                           converged=converged)
     st = stopping.init_state(dtype, b.device).replace(norm_factor=nf)
     p = torch.zeros_like(b)
     rho_old = torch.ones((), dtype=dtype, device=b.device)

@@ -1,8 +1,10 @@
 """OpenFOAM-compatible stopping criterion.
 
 Counterpart: ogl_tpu/solve/stopping.py, which carries the criterion as
-loop state inside one compiled device program.  The port's loops run on
-the host, so the split is:
+loop state inside one compiled device program.  So does the port's CG loop
+kernel (kernels/csrc/cg_loop.cu, the `none` solve on Dia on the card),
+which evaluates the same gating and test in float32 on the device.  The
+port's other loops run on the host, so the split is:
 
   * host integers: the iteration counter and the minIter/frequency gating
     (`would_check`) — they depend only on the iteration index;

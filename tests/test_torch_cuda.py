@@ -20,10 +20,12 @@ from ogl_tpu_torch import bench, foam, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels import device_time, gdia, roofline, xell
-from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
-                                         k2_plain, k2i_plain, k2n_plain, ka_plain,
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, cg_loop_plain, k1_plain,
+                                         k1b_plain, k2_plain, k2i_plain, k2n_plain, ka_plain,
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
+from ogl_tpu_torch.solve import stopping
+from ogl_tpu_torch.solve.cg_fused import cg_fused, merged_norm_factor
 
 pytestmark = pytest.mark.cuda
 
@@ -131,6 +133,32 @@ def test_k2_kernels_match_plain(dev, n):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [4096, 4097])
+def test_k2i_kernel_branches_match_plain(dev, n, offset):
+    """Both branches of the K2i kernel: float4 (n % 4 == 0, every stream
+    16-byte aligned) and scalar (n = 1 mod 4, or every stream one float off
+    an aligned base)."""
+    kern = CgKernels(n, (0,), dev)
+    alpha = torch.tensor(0.29, device=dev)
+
+    def vec(seed):
+        return _vec(n + offset, seed, dev)[offset:]
+
+    p, q = vec(5), vec(6)
+    x0, r0 = vec(8), vec(9)
+    x, r = x0.clone(), r0.clone()
+    kernels.reset_launches()
+    got = kern.k2i(alpha, x0, r0, p, q)
+    want = k2i_plain(alpha, x, r, p, q)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_k2i"] == 1
+    _close(x0, x)
+    _close(r0, r)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+
+
 def test_wrappers_raise_on_bad_operands(dev):
     n = 512
     kern = CgKernels(n, (-1, 0, 1), dev)
@@ -161,9 +189,114 @@ def test_foam_solve_on_card_matches_cpu(dev, pc):
     x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
     assert x.device.type == "cuda"
     assert kernels.launches["cg_k1"] > 0 and kernels.launches["dia_spmv"] > 0
-    assert kernels.launches["cg_k2" if pc == "BJ" else "cg_k2i"] > 0
+    if pc == "BJ":
+        assert kernels.launches["cg_k2"] > 0
+    else:  # the whole loop is one launch: no K2i, and K1 only in the set-up
+        assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k2i"] == 0
+        assert kernels.launches["cg_k1"] == 2
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+# ---- the persistent CG loop ------------------------------------------------
+
+# 7x7x7: n below one block of the loop (512 rows); 10x10x10: two blocks;
+# 17x241: n = 1 (mod 4), the K2i phase's scalar branch; 128x128x64: the
+# slices' 1M cells (chip_smoke.py also checks 8.4M)
+LOOP_GRIDS = [(7, 7, 7), (10, 10, 10), (17, 241, 1), (128, 128, 64)]
+LOOP_TOL = 1e-6
+
+
+def _loop_setup(dims, dev):
+    mat = bench._poisson_dia(dims, dev)
+    n = mat.shape[0]
+    kern = CgKernels(n, mat.offsets, dev)
+    b = _vec(n, 11, dev)
+    return kern, kern.pack_values(mat), b
+
+
+def _loop_state(kern, data, b):
+    """The set-up of solve/cg_fused.py from a zero guess."""
+    x = torch.zeros_like(b)
+    r = b - kern.apply(data, x)
+    return (x, r, torch.sum(r * r), torch.sum(torch.abs(r)),
+            merged_norm_factor(kern, data, r, x, b))
+
+
+@pytest.mark.parametrize("dims", LOOP_GRIDS, ids=str)
+def test_cg_loop_matches_plain(dev, dims):
+    kern, data, b = _loop_setup(dims, dev)
+    free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                   max_iter=2000, frequency=1)
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=30, max_iter=30,
+                                     frequency=1)
+    for cfg in (pinned, free):
+        x_p, *state_p = _loop_state(kern, data, b)
+        it_p, rn_p, _, conv_p = cg_loop_plain(data, kern.offsets, x_p, *state_p, cfg)
+        runs = []
+        for _ in range(3):  # the kernel repeats its own count and iterate exactly
+            kernels.reset_launches()
+            x, *state = _loop_state(kern, data, b)
+            runs.append((x, *kern.cg_loop(data, x, *state, cfg)))
+            torch.cuda.synchronize()
+            # one loop launch; K1 only for the set-up's two applies
+            assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k1"] == 2
+            assert sum(kernels.launches.values()) == 3
+        x, it, rn, _, conv = runs[0]
+        assert all(run[1] == it and torch.equal(run[0], x) for run in runs[1:])
+        if cfg is pinned:
+            assert it == it_p == 30 and not conv
+            _close(x, x_p)
+        else:
+            assert bool(conv) and bool(conv_p) and abs(it - it_p) <= 1
+            assert float(rn) < LOOP_TOL
+            r64 = b.double() - dia_spmv_plain(data.double(), kern.offsets, x.double())
+            assert float(r64.abs().sum() / state[-1].double()) <= 10 * LOOP_TOL
+            torch.testing.assert_close(x, x_p, rtol=0, atol=1e-3)
+
+
+def test_cg_fused_takes_the_loop_on_the_card(dev):
+    """cg_fused routes identity on a Dia plan to the one launch; BJ and a
+    plan that is not the Dia CgKernels itself keep the host loop."""
+    kern, data, b = _loop_setup((32, 16, 8), dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=1000, frequency=1)
+    kernels.reset_launches()
+    res = cg_fused(kern, data, b, torch.zeros_like(b), cfg)
+    assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k2i"] == 0
+    assert res.iters > 0 and bool(res.converged)
+    assert res.final_res_norm.device.type == "cpu"
+
+    class HostLoop(CgKernels):
+        pass
+
+    host = HostLoop(kern.n, kern.offsets, dev)
+    kernels.reset_launches()
+    res_h = cg_fused(host, data, b, torch.zeros_like(b), cfg)
+    assert kernels.launches["cg_loop"] == 0 and kernels.launches["cg_k2i"] == res_h.iters
+    assert abs(res_h.iters - res.iters) <= 1
+    torch.testing.assert_close(res_h.x, res.x, rtol=0, atol=1e-3)
+
+
+def test_cg_loop_refused_cooperative_launch_raises(dev):
+    """A grid above the co-resident blocks is refused by the cooperative
+    launch; the wrapper raises, falls back to nothing, and the next launch
+    is unaffected."""
+    kern, data, b = _loop_setup((128, 128, 64), dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=5, frequency=1)
+    x, *state = _loop_state(kern, data, b)
+    kern.cg_loop(data, x, *state, cfg)
+    co_resident = kern._loop_blocks
+    assert 0 < co_resident < -(-kern.n // 512)
+    kern._loop_blocks = 4 * co_resident
+    kernels.reset_launches()
+    x, *state = _loop_state(kern, data, b)
+    with pytest.raises(RuntimeError, match="cg_loop: CUDA error"):
+        kern.cg_loop(data, x, *state, cfg)
+    assert kernels.launches["cg_loop"] == 0
+    kern._loop_blocks = co_resident
+    assert kern.cg_loop(data, x, *state, cfg)[0] == 5
 
 
 @pytest.mark.parametrize("n", [4097, 16384])
