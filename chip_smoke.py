@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (ogl_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns PARENT . . PARENT   (phase 3's kernels in turns)
 
 Drives the port's five main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
-system, GKOCG with preconditioner `none` (its whole loop one launch of the
-persistent CG kernel) and scalar `BJ` (slice 1) and the
+system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1; each
+solve's whole loop one launch of the persistent CG kernel) and the
 AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2);
 then the unstructured-mesh solve (slice 3) on a kNN-6 FV graph (auto-routed
 to Xell) and on the Poisson grid renumbered inside each x-line (auto-routed
@@ -23,20 +24,24 @@ Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
-     and the grid of the persistent CG loop kernel (co-resident blocks);
+     and, for each of the persistent CG loop kernel's four variants (Dia or
+     Gdia, identity or Jacobi), its grid (co-resident blocks) and registers;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
      with float32 and bfloat16 coefficients, KA and KB_pipe with identity
      and Jacobi, K1B with distinct b and c and with b = c): max error
      against the stated tolerance, median times (CUDA events), implied
      GB/s, torch's CSR SpMV beside the Dia SpMV and torch.addmv(b, A_csr,
      x, alpha=-1) beside the float32 residual kernel, at both sizes; then
-     the CG loop kernel against its plain twin (x after 30 iterations),
-     timed per iteration in turns with the twin and with the host loop over
-     the K1 and K2i kernels (200 iterations, the criterion checked at each),
-     also at 64x64x48, about one row per thread of its grid (its fixed cost
-     per iteration);
-  4. slice 1's path: both solves, launch counts of its kernels (a `none`
-     solve: the loop kernel once, K1 twice for its set-up, no K2i), the
+     the CG loop kernel's Dia variants (identity, Jacobi) against their
+     plain twin (x after 30 iterations), timed per iteration in turns with
+     the twin and with the host loop over the K1 and K2 (K2i) kernels (200
+     iterations, the criterion checked at each), also at 64x64x48, about
+     one row per thread of its grid (its fixed cost per iteration); then on
+     the shuffled grid built on the device at both sizes the Gdia SpMV and
+     the row-quad Gdia K1 against their plain versions and the loop's two
+     Gdia variants as the Dia ones;
+  4. slice 1's path: both solves, launch counts of its kernels (each
+     solve: the loop kernel once, K1 twice for its set-up, no K2 or K2i), the
      true float64 residual, and the iteration count against the same solve
      run by the merged CG over the plain kernel functions on the card (and,
      for p, against its 275 iterations);
@@ -50,7 +55,8 @@ Phases (any failure raises, and the script exits non-zero):
      the hierarchy; torch.profiler over one more step;
   8. the unstructured path: the two meshes built on the host (timed),
      GKOCG `none` and `BJ` on each with no matrixFormat (routed format,
-     launch counts, true float64 residual, iterations against the merged
+     launch counts — each Gdia solve one loop launch, the Gdia K1 twice for
+     its set-up —, true float64 residual, iterations against the merged
      CG over the plain twins on the card), one steady step per mesh, the
      kNN mesh once more in its points' numbering with `reorder rcm`; then
      the Gdia and Xell kernels against their plain versions (also on the
@@ -89,12 +95,16 @@ work (published H100 SXM peaks), its share of the read peak measured in
 phase 10, torch's own call for the same function where there is one, and
 under "cases" every variant and size it was checked on; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits with an error and
-prints no result.
+prints no result.  `--turns` runs phase 3's kernel checks (and the Gdia
+kernels on the device-built shuffled grid) from each given checkout in
+order, one process each, and prints their kernel lines: an earlier commit
+unpacked with `git archive` against this one on the same card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -114,7 +124,7 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.kernels.fused import LOOP_THREADS, cg_loop_plain
+from ogl_tpu_torch.kernels.fused import LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS, cg_loop_plain
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
                                  krylov, stopping)
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
@@ -142,7 +152,7 @@ KERNELS = {
                  "ogl_tpu/kernels/pallas_spmv.py:38", "dia_spmv", None),
     "cg_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k1.cu",
               "ogl_tpu/kernels/fused.py:36", "cg_k1", None),
-    "cg_k2": ("triton", "ogl_tpu_torch/kernels/fused.py",
+    "cg_k2": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k2.cu",
               "ogl_tpu/kernels/fused.py:396", "cg_k2", None),
     "cg_k2i": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k2i.cu",
                "ogl_tpu/kernels/fused.py:492", "cg_k2i", None),
@@ -175,20 +185,28 @@ KERNELS = {
     # "big": at the bench's shape, 7 planes of the 8.4M grid's rows
     "read_peak": ("cuda", "ogl_tpu_torch/kernels/csrc/read_peak.cu",
                   "ogl_tpu/kernels/roofline.py:200", "read_peak", "big"),
-    # the whole identity-preconditioned CG loop: K1 and K2i as its phases;
-    # its row's times are per iteration
+    # the whole merged CG loop: K1 (Dia or Gdia) and K2 (Jacobi) or K2i
+    # (identity) as its phases; its row's times are per iteration, its
+    # cases one per variant (cg_loop = Dia none, cg_loop[Dia BJ], ...)
     "cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_loop.cu",
-                "ogl_tpu/kernels/fused.py:36, ogl_tpu/kernels/fused.py:492", "cg_loop", None),
+                "ogl_tpu/kernels/fused.py:36, ogl_tpu/kernels/fused.py:111, "
+                "ogl_tpu/kernels/fused.py:396, ogl_tpu/kernels/fused.py:492", "cg_loop", None),
 }
-SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_k2", "cg_loop")
+SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
-UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i")
+# cg_k2 and cg_k2i: the Xell solves' host loops (BJ, none)
+UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i",
+                        "cg_loop")
 SLICE4_KERNELS = ("cg_ka", "cg_kb_pipe", "bicgstab_k1b", "bicgstab_kb_update", "dia_spmv",
                   "gdia_spmv")
 BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_loop")
-# a `none` solve on Dia: the loop kernel once, K1 twice (the set-up's r0 and
-# norm factor), no K2i
-NONE_SOLVE_LAUNCHES = {"cg_loop": 1, "cg_k1": 2, "cg_k2i": 0}
+# a GKOCG `none` or `BJ` solve on Dia (Gdia): the loop kernel once, its K1
+# twice (the set-up's r0 and norm factor), no K2 and no K2i
+LOOP_SOLVE_LAUNCHES = {"cg_loop": 1, "cg_k1": 2, "cg_k2": 0, "cg_k2i": 0}
+GDIA_LOOP_SOLVE_LAUNCHES = {"cg_loop": 1, "gdia_k1": 2, "cg_k2": 0, "cg_k2i": 0}
+# the loop kernel's four variants (bits of csrc/cg_loop.cu), as phase 2 names them
+LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
+                 LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
 LOOP_ITERS = (30, 200)  # the loop's check (x against the plain twin), its timing
 # about one row per thread of the loop kernel's grid (3 x 132 blocks of 512 on
@@ -241,7 +259,12 @@ class PlainCgKernels(PlainSteps, CgKernels):
 
 class HostLoopCgKernels(CgKernels):
     """CgKernels that cg_fused does not recognise as the Dia plan itself, so
-    its identity solve keeps the host loop over the K1 and K2i kernels."""
+    its solves keep the host loop over the K1 and K2 (K2i) kernels."""
+
+
+class HostLoopGdiaCgKernels(GdiaCgKernels):
+    """The same for a Gdia plan: the host loop over the Gdia K1 and K2
+    (K2i) kernels."""
 
 
 class PlainGdiaCgKernels(PlainSteps, GdiaCgKernels):
@@ -304,25 +327,40 @@ def time_pair(kernel_fn, plain_fn, reps=20):
 
 def device_ms_per_launch(fn, reps=50):
     """The device time of one call of `fn` from the profiler's timeline: the
-    summed durations of its kernels over `reps` calls, over reps.  Beside
-    the CUDA-event time it says whether the call is bound by the host's
-    launch or by the device."""
+    summed durations of its kernels over `reps` calls, over reps (None, not
+    measured, when two profiles record no kernel).  Beside the CUDA-event
+    time it says whether the call is bound by the host's launch or by the
+    device."""
     fn()
     torch.cuda.synchronize()
-    _, events = device_time.device_events(lambda: [fn() for _ in range(reps)])
-    kern = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
-    if not kern:
-        raise RuntimeError("torch.profiler recorded no kernel: device time not measured")
-    return sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
+    for _ in range(2):  # the profiler has come back empty now and then: once more
+        _, events = device_time.device_events(lambda: [fn() for _ in range(reps)])
+        kern = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+        if kern:
+            return sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
+    print("  torch.profiler recorded no kernel twice: device time not measured")
+    return None
 
 
-def check_none_solve_launches(what, before):
-    """A `none` solve on Dia runs its whole loop as one launch of the loop
-    kernel: NONE_SOLVE_LAUNCHES between `before` and now."""
-    got = {k: kernels.launches[k] - before[k] for k in NONE_SOLVE_LAUNCHES}
+def check_loop_solve_launches(what, before, want=LOOP_SOLVE_LAUNCHES):
+    """A `none` or `BJ` solve on Dia (Gdia: want=GDIA_LOOP_SOLVE_LAUNCHES)
+    runs its whole loop as one launch of the loop kernel: `want` between
+    `before` and now."""
+    got = {k: kernels.launches[k] - before[k] for k in want}
     print(f"  {what}: launches in this solve {got}")
-    if got != NONE_SOLVE_LAUNCHES:
-        raise RuntimeError(f"{what}: launched {got} in one solve, not {NONE_SOLVE_LAUNCHES}")
+    if got != want:
+        raise RuntimeError(f"{what}: launched {got} in one solve, not {want}")
+
+
+def loop_ptxas(log, variant):
+    """nvcc's -Xptxas -v lines (registers, spills) of cg_loop_kernel<variant>,
+    whose mangled name holds cg_loop_kernelILi<variant>E."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and f"cg_loop_kernelILi{variant}E" in line:
+            return [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
+                    if "registers" in ln or "spill" in ln]
+    return ["not in the build log"]
 
 
 def phase_done(label, since):
@@ -462,28 +500,41 @@ def check_kernels(dims, device, report):
         library_call("amg_resid[f32]", label, "torch.addmv(b, A_csr, x, alpha=-1)", addmv,
                      lambda: kern.kresid(data, vec["x"], vec["r"]), "the same matrix", report)
     del vec, invd, cases, timed, x, r, z, p, s, csr
-    check_loop(kern, data, offsets, label, report)
+    check_dia_loops(data, offsets, label, report)
     del data
     torch.cuda.empty_cache()
 
 
-def check_loop(kern, data, offsets, label, report):
-    """The loop kernel against its plain twin from the same set-up (b random,
-    x0 = 0) over LOOP_ITERS[0] iterations (x held to the vector
-    tolerance), then timed in turns over LOOP_ITERS[1] with the plain twin
-    and the host loop over today's K1 and K2i kernels (cg_fused with
-    HostLoopCgKernels, whose time also holds the set-up's two applies):
-    ms per iteration, and the bound per iteration.  The runs stop at maxIter
-    with tolerance 0, so the criterion is checked at every iteration, as in
-    a solve with frequency 1: the host loop reads one bool per iteration."""
-    nd, n = data.shape
-    b = torch.randn(n, device=data.device,
-                    generator=torch.Generator(device=data.device).manual_seed(1))
+def loop_bytes(data, n, jacobi):
+    """Minimum bytes per iteration of the loop kernel: K1 (the coefficients,
+    z (r) and p in, p' and q out) and K2i (x, r, p', q in; x, r out), with
+    Jacobi also invd in and z out."""
+    if isinstance(data, tuple):  # Gdia: np values (4 B) and lanes (1 B) per row
+        k1 = (data[0].shape[0] * 5 + 16) * n
+    else:
+        k1 = (data.shape[0] + 4) * 4 * n
+    return k1 + (32 if jacobi else 24) * n
+
+
+def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop"):
+    """The loop kernel against its plain twin (over `plain_k1`) from the same
+    set-up (b random, x0 = 0) over LOOP_ITERS[0] iterations (x held to the
+    vector tolerance), then timed in turns over LOOP_ITERS[1] with the plain
+    twin and the host loop over the standalone kernels (cg_fused with a
+    plan that keeps the host loop, whose time also holds the set-up's two
+    applies): ms per iteration, and the bound per iteration.  The runs stop
+    at maxIter with tolerance 0, so the criterion is checked at every
+    iteration, as in a solve with frequency 1: the host loop reads one bool
+    per iteration.  invd: the Jacobi variant (the K2 phase)."""
+    n, dev = kern.n, kern.device
+    b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
     r0 = b - kern.apply(data, x0)
-    state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
+    z0 = None if invd is None else invd * r0
+    state = (torch.sum(r0 * (r0 if z0 is None else z0)), torch.sum(torch.abs(r0)),
              merged_norm_factor(kern, data, r0, x0, b))
-    host = HostLoopCgKernels(n, offsets, data.device)
+    host = (HostLoopGdiaCgKernels(n, kern.plane_offsets, dev) if isinstance(kern, GdiaCgKernels)
+            else HostLoopCgKernels(n, kern.offsets, dev))
 
     def iterations(k):  # tolerance 0: exactly k iterations, each checked
         return stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=k,
@@ -491,31 +542,60 @@ def check_loop(kern, data, offsets, label, report):
 
     def run(k, plain):
         x, r = x0.clone(), r0.clone()
-        rec = (cg_loop_plain(data, offsets, x, r, *state, iterations(k)) if plain
-               else kern.cg_loop(data, x, r, *state, iterations(k)))
+        z = None if z0 is None else z0.clone()
+        rec = (cg_loop_plain(plain_k1, x, r, *state, iterations(k), invd, z) if plain
+               else kern.cg_loop(data, x, r, *state, iterations(k), invd=invd, z=z))
         return x, rec[0]
 
     (xk, ik), (xp, ip) = run(LOOP_ITERS[0], False), run(LOOP_ITERS[0], True)
     err, tol = vec_err(xk, xp)
     k = LOOP_ITERS[1]
     t = time_turns({"plain": lambda: run(k, True), "kernel": lambda: run(k, False),
-                    "host loop": lambda: cg_fused(host, data, b, x0, iterations(k))}, reps=5)
-    nbytes = ((nd + 4) * 4 + 24) * n  # per iteration: K1 (nd + 4 streams), K2i (6)
+                    "host loop": lambda: cg_fused(host, data, b, x0, iterations(k), invd=invd)},
+                   reps=5)
+    nbytes = loop_bytes(data, n, invd is not None)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
     ms = {tag: v / k for tag, v in t.items()}
     ok = err <= tol and ik == ip == LOOP_ITERS[0]
-    print(f"  {'cg_loop':22s} {label:12s} max_abs_err {err:.3e} (tol {tol:.1e}) after "
+    k2 = "K2" if invd is not None else "K2i"
+    print(f"  {case:22s} {label:20s} max_abs_err {err:.3e} (tol {tol:.1e}) after "
           f"{ik} / {ip} iterations; per iteration (over {k}, checked at each): kernel "
           f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s, plain "
-          f"{ms['plain']:.4f} ms, host loop "
-          f"over K1 + K2i {ms['host loop']:.4f} ms, bound {bound:.4f} ms  "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{ms['plain']:.4f} ms, host loop over K1 + {k2} {ms['host loop']:.4f} ms, bound "
+          f"{bound:.4f} ms ({nbytes / n:.0f} B/row)  {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError(f"cg_loop at {label} disagrees with its plain version")
-    report.setdefault("cg_loop", {})[label] = {
+        raise RuntimeError(f"{case} at {label} disagrees with its plain version")
+    report.setdefault(case, {})[label] = {
         "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
         "host_loop_ms": ms["host loop"], "gbps": nbytes / ms["kernel"] / 1e6,
         "bound_ms": bound, "bound_by": "bytes", "per": "iteration", "iterations": k}
+
+
+def check_dia_loops(data, offsets, label, report):
+    """check_loop for the two Dia variants: identity and Jacobi."""
+    kern = CgKernels(data.shape[1], offsets, data.device)
+    plain_k1 = functools.partial(k1_plain, data, offsets)
+    check_loop(kern, data, plain_k1, label, report)
+    check_loop(kern, data, plain_k1, label, report, invd=1.0 / data[offsets.index(0)],
+               case="cg_loop[Dia BJ]")
+
+
+def check_gdia(grids, device, report):
+    """Phase 3's Gdia checks on the shuffled grid built on the device at
+    each size: the SpMV and the row-quad K1 against their plain versions
+    (check_unstructured_kernels), then the loop's two Gdia variants."""
+    for dims in grids:
+        mat = gdia_on_device(*shuffled_poisson_coo_on_device(dims, 0, device))
+        label = "shuffled " + "x".join(map(str, dims))
+        check_unstructured_kernels([(label, mat)], report)
+        kern = GdiaCgKernels(mat.shape[0], mat.plane_offsets, device)
+        data = kern.pack_values(mat)
+        plain_k1 = functools.partial(gdia.gdia_k1_plain, *data, mat.plane_offsets)
+        check_loop(kern, data, plain_k1, label, report, case="cg_loop[Gdia none]")
+        invd = torch.full((mat.shape[0],), 1.0 / 6.0, device=device)  # the stencil's diagonal
+        check_loop(kern, data, plain_k1, label, report, invd=invd, case="cg_loop[Gdia BJ]")
+        del mat, kern, data
+        torch.cuda.empty_cache()
 
 
 def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None):
@@ -624,9 +704,11 @@ def device_beside(name, label, kern_fn, lib_fn, report):
     for tag, fn in (("", kern_fn), ("library_", lib_fn)):
         row[f"{tag}device_ms"] = device_ms_per_launch(fn)
         row[f"{tag}chain_ms"] = chain_ms(fn)
-    print(f"  {name} ({label}): device time per launch {row['device_ms']:.4f} ms (profiler), "
+    dev = {k: "not measured" if row[k] is None else f"{row[k]:.4f} ms"
+           for k in ("device_ms", "library_device_ms")}
+    print(f"  {name} ({label}): device time per launch {dev['device_ms']} (profiler), "
           f"chained {row['chain_ms']:.4f} ms, around each call {row['ms']:.4f} ms; the library "
-          f"call: device {row['library_device_ms']:.4f} ms, chained "
+          f"call: device {dev['library_device_ms']}, chained "
           f"{row['library_chain_ms']:.4f} ms, around each call {row['library_ms']:.4f} ms")
 
 
@@ -965,11 +1047,14 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
     for mesh, (m, b, fmt) in meshes.items():
         for tag, pc in pcs.items():
             field = mesh + tag
+            before = dict(kernels.launches)
             t0 = time.perf_counter()
             x, perf = foam.solve(field, m, b, {**ctl, "preconditioner": pc})
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             perf.print()
+            if fmt == "Gdia":
+                check_loop_solve_launches(field, before, GDIA_LOOP_SOLVE_LAUNCHES)
             slv = registry.global_registry.get(f"{field}_solver")
             lt = slv.last_timings
             print(f"{field}: first solve wall {wall:.3f} s; init_host_sparsity "
@@ -986,11 +1071,14 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
     for mesh, (m, b, fmt) in meshes.items():
         m2 = dataclasses.replace(m, diag=np.asarray(m.diag) * 1.01)
         b2 = (b * 1.01 + 0.1).astype(np.float32)
+        before = dict(kernels.launches)
         t0 = time.perf_counter()
         x2, perf2 = foam.solve(mesh, m2, b2, {**ctl, "preconditioner": "none"})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         perf2.print()
+        if fmt == "Gdia":
+            check_loop_solve_launches(f"{mesh} steady step", before, GDIA_LOOP_SOLVE_LAUNCHES)
         slv = registry.global_registry.get(f"{mesh}_solver")
         lt = slv.last_timings
         print(f"{mesh} steady step: wall {wall * 1e3:.3f} ms, of which update "
@@ -1365,11 +1453,48 @@ def bench_path(device, grid_main, grid_big, report) -> tuple:
     return launches, res["peaks"]
 
 
+# one turn of `--turns`: phase 3's Dia kernels at 1M and 8.4M rows, then the
+# Gdia SpMV and K1 on the shuffled grid built on the device at both sizes —
+# only functions that this script's earlier versions have too
+TURN_CODE = (
+    "import torch, chip_smoke as s; d = torch.device('cuda'); r = {}\n"
+    "for g in (s.GRID_1M, s.GRID_8M): s.check_kernels(g, d, r)\n"
+    "for g in (s.GRID_1M, s.GRID_8M): s.check_unstructured_kernels([("
+    "'shuffled ' + 'x'.join(map(str, g)), s.gdia_on_device(*s.shuffled_poisson_coo_on_device("
+    "g, 0, d)))], r)\n")
+TURN_LINES = ("cg_k2 ", "cg_k2i ", "gdia_k1 ", "gdia_spmv ", "cg_loop")
+
+
+def turns(trees) -> int:
+    """Phase 3's kernel checks from each checkout of `trees` in order, one
+    process each, run from that checkout (so with its own kernels): give
+    an earlier commit unpacked with `git archive` and this one, as
+    `--turns PARENT . . PARENT`, to time both on one card in turns.  Each
+    turn's whole output is printed, then every turn's kernel lines again
+    as a summary."""
+    print(card_line())
+    summary, rc = [], 0
+    for i, tree in enumerate(trees, 1):
+        res = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=tree, capture_output=True,
+                             text=True, timeout=600)
+        print(f"== turn {i} ({tree}) rc={res.returncode}\n{res.stdout}{res.stderr}")
+        summary.append(f"turn {i} ({tree}) rc={res.returncode}")
+        summary += [line[:240] for line in res.stdout.splitlines()
+                    if line.lstrip().startswith(TURN_LINES)]
+        rc = res.returncode
+        if rc != 0:
+            break
+    print("\n".join(summary))
+    return rc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--turns"]:
+        return turns(sys.argv[2:])
     return run(torch.device("cuda"), GRID_1M, GRID_8M, KNN_1M)
 
 
@@ -1394,9 +1519,12 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = CgKernels(1, (0,), device).loop_blocks()
-    print(f"cg_loop grid: {blocks} co-resident blocks of {LOOP_THREADS} threads ({blocks // sms} "
-          f"per SM on {sms} SMs; its registers per thread in the ptxas line of cg_loop_kernel)")
+    probe = CgKernels(1, (0,), device)
+    for variant, what in LOOP_VARIANTS.items():
+        blocks = probe.loop_blocks(variant)
+        print(f"cg_loop grid, {what} (cg_loop_kernel<{variant}>): {blocks} co-resident blocks "
+              f"of {LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
+              + "; ".join(loop_ptxas(info["log"], variant)))
 
     t_ph = phase_done("phase 2", t_ph)
     print("== phase 3: kernels vs plain versions "
@@ -1405,9 +1533,9 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     for dims in (grid_main, grid_big):
         check_kernels(dims, device, report)
     data, offsets = poisson_dia(LOOP_FIXED_GRID, device)
-    check_loop(CgKernels(data.shape[1], offsets, device), data, offsets,
-               "x".join(map(str, LOOP_FIXED_GRID)), report)
+    check_dia_loops(data, offsets, "x".join(map(str, LOOP_FIXED_GRID)), report)
     del data
+    check_gdia((grid_main, grid_big), device, report)
 
     t_ph = phase_done("phase 3", t_ph)
     print("== phase 4: slice 1's path, foam.solve at "
@@ -1430,8 +1558,7 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         wall = time.perf_counter() - t0
         perf.print()
         print(f"{field}: first solve wall {wall:.3f} s")
-        if pc == "none":
-            check_none_solve_launches(field, before)
+        check_loop_solve_launches(field, before)
         solves[field] = (x, perf)
 
     t_ph = phase_done("phase 4 (solves)", t_ph)
@@ -1447,7 +1574,7 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         perf_k.print()
-        check_none_solve_launches(f"p step {k}", before)
+        check_loop_solve_launches(f"p step {k}", before)
         slv = registry.global_registry.get("p_solver")
         lt = slv.last_timings
         print(f"p step {k}: wall {wall * 1e3:.3f} ms, of which update "

@@ -21,8 +21,9 @@ NotImplementedError naming its ROADMAP.md item; none is silently ignored.
 
 Routing follows the reference's `_make_solve_fn`:
   GKOCG                merged two-kernel CG on each format (CgKernels,
-                       GdiaCgKernels, XellCgKernels; `none` on Dia on the
-                       card: one launch of the loop kernel); `fusedCG
+                       GdiaCgKernels, XellCgKernels; `none` or `BJ` on
+                       Dia or Gdia on the card: one launch of the loop
+                       kernel); `fusedCG
                        false` → the general CG (solve/cg.py)
   GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
                        (KA + KB_pipe, solve/cg_pipe_fused.py); Gdia, Xell,

@@ -56,9 +56,9 @@ _SIGNATURES = {
     "ogl_amg_sweep": (_P, _INT, _P, _INT, _P, _P, _P, _F32, _P, _I64, _INT, _P),
     # data, data_bf16, offsets, nd, x, b, out, n, threads, stream
     "ogl_amg_resid": (_P, _INT, _P, _INT, _P, _P, _P, _I64, _INT, _P),
-    # vals, lidx, qoffs, np, r, x, y, n, threads, stream
-    "ogl_gdia_spmv": (_P, _P, _P, _INT, _I64, _P, _P, _I64, _INT, _P),
-    # vals, lidx, qoffs, np, r, z, p, beta, pout, q, partials, n, threads, grid, stream
+    # vals, lidx, qoffs, np, r, x, y, n, vec, blocks, stream
+    "ogl_gdia_spmv": (_P, _P, _P, _INT, _I64, _P, _P, _I64, _INT, _I64, _P),
+    # vals, lidx, qoffs, np, r, z, p, beta, pout, q, partials, n, vec, blocks, stream
     "ogl_gdia_k1": (_P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, x, y, n,
     # bands, stream
@@ -74,14 +74,17 @@ _SIGNATURES = {
                          _I64, _P),
     # c, d, nd, y, n, vec, blocks, stream
     "ogl_read_peak": (_P, _P, _INT, _P, _I64, _INT, _I64, _P),
+    # alpha, x, r, p, q, invd, z, partials, n, vec, blocks, stream
+    "ogl_cg_k2": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # alpha, x, r, p, q, partials, n, vec, blocks, stream
     "ogl_cg_k2i": (_P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
-    # threads, blocks (out)
-    "ogl_cg_loop_grid": (_INT, ctypes.POINTER(_I64)),
-    # data, offsets, nd, x, r, p, pn, q, rho, absr, nf, partials, record, n, tol,
-    # rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
-    "ogl_cg_loop": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32,
-                    _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, threads, blocks (out)
+    "ogl_cg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # variant, coef, lidx, offsets, nd, rows, x, r, z, invd, p, pn, q, rho, absr, nf,
+    # partials, record, n, tol, rel_tol, min_iter, max_iter, frequency, vec, threads,
+    # blocks, stream
+    "ogl_cg_loop": (_INT, _P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

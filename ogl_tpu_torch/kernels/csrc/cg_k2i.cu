@@ -14,10 +14,12 @@
 // Bound: device-memory bandwidth.  Per row it reads x, r, p, q and writes x
 // and r: 24 bytes for 8 flops.
 //
-// Design: a persistent grid (a few blocks per SM, the count from the caller,
-// who sizes it from the SM count) strides over row quads with float4 loads
-// and stores when every stream is 16-byte aligned and n % 4 == 0; otherwise
-// the same kernel takes its scalar branch, one row per step.  alpha is read
+// Design: a grid-stride grid sized by the caller from the SM count
+// (kernels/fused.py K2_BLOCKS_PER_SM: one row quad per thread up to 8.4M
+// rows, each thread striding over several beyond) walks row quads with
+// float4 loads and stores when every stream is 16-byte aligned and
+// n % 4 == 0; otherwise the same kernel takes its scalar branch, one row
+// per step.  alpha is read
 // through a device pointer, so a launch never waits for the host.  One
 // partial pair per block, from one shared-memory pass (block_sum.cuh): no
 // float atomics, so the sums are deterministic.

@@ -12,94 +12,89 @@
 // (`GdiaCgKernels.k1`, and `apply` = K1 with z = p = x, beta = 0).  The TPU
 // kernels DMA a halo window of block rows per tile and gather lanes in
 // registers (`take_along_axis`); on the GPU the gather is a plain load.
+// Both run the row body of gdia_k1.cuh, which is also the K1 phase of the
+// persistent CG loop's Gdia variants (cg_loop.cu).
 //
 // Bound: device-memory bandwidth.  Minimum traffic per row: np values (4 B)
 // and np lanes (1 B) + x in and y out = np*5 + 8 bytes for the SpMV;
 // + z, p in and p', q out = np*5 + 16 bytes for K1, at 2*np (+4) flops.
 //
-// Design: one thread per row, rows contiguous across a warp, so the value
-// and lane streams (k*R*128 + i) and the outputs are coalesced; a warp's 32
-// rows lie in one block row, so its gathered sources fall in one 128-row
-// block (+ q_k): one or two 128-byte lines per plane.  The plane offsets are
-// read by every thread from one address (a broadcast).  K1 recomputes
-// z[j] + beta*p[j] at every source instead of reading p' back (other blocks
-// may not have written it yet; z and p may alias).  beta arrives through a
-// device pointer, so a launch never waits for the host.  Float32
-// accumulation in plane order (the plain version's order); int64 indices.
+// Design: gdia_k1.cuh — one thread per row quad, 16-byte loads of the value
+// and 4-byte loads of the lane streams, the plane offsets in shared memory —
+// over a grid of one quad per thread, for both kernels (the SpMV is the K1
+// body without p, beta and p').  Float32 accumulation in plane order (the
+// plain version's order); int64 indices.  beta arrives through a device
+// pointer, so a launch never waits for the host; z and p may alias.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_sum.cuh"
+#include "gdia_k1.cuh"
 
 namespace {
 
+constexpr int kThreads = 256;
+
 template <bool kK1>
-__global__ void gdia_kernel(const float* __restrict__ vals,
-                            const int8_t* __restrict__ lidx,
-                            const int* __restrict__ qoffs, int np, int64_t r,
-                            const float* z, const float* p,
-                            const float* __restrict__ beta_ptr,
-                            float* __restrict__ pout, float* __restrict__ q,
-                            float* __restrict__ partials, int64_t n) {
-  const float beta = kK1 ? *beta_ptr : 0.0f;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t plane = r * 128;
-  float prod = 0.0f;
-  if (i < n) {
-    const int64_t row = i >> 7;
-    float acc = 0.0f;
-    for (int k = 0; k < np; ++k) {
-      const int64_t at = (int64_t)k * plane + i;
-      const int64_t j = (row + __ldg(qoffs + k)) * 128 + (int64_t)lidx[at];
-      if (j >= 0 && j < n) {
-        const float src = kK1 ? z[j] + beta * p[j] : z[j];
-        acc += vals[at] * src;
-      }
-    }
-    q[i] = acc;
-    if (kK1) {
-      const float pc = z[i] + beta * p[i];
-      pout[i] = pc;
-      prod = pc * acc;
-    }
-  }
-  if (kK1) ogl::block_sum_to(prod, partials);
+__global__ void __launch_bounds__(kThreads)
+    gdia_kernel(const float* __restrict__ vals, const int8_t* __restrict__ lidx,
+                const int* __restrict__ qoffs, int np, int64_t r, const float* z,
+                const float* p, const float* __restrict__ beta_ptr, float* pout, float* q,
+                float* __restrict__ partials, int64_t n, int vec) {
+  __shared__ int s_q[ogl::kGdiaMaxPlanes];
+  for (int k = threadIdx.x; k < np; k += blockDim.x) s_q[k] = qoffs[k];
+  __syncthreads();
+  const float dot = ogl::gdia_span<kK1>(
+      vals, lidx, s_q, np, r * ogl::kGdiaLanes, z, p, kK1 ? *beta_ptr : 0.0f, pout, q, n, vec,
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+      static_cast<int64_t>(gridDim.x) * blockDim.x);
+  if (kK1) ogl::block_sum_to(dot, partials);
 }
 
-bool bad_launch(int np, int64_t r, int64_t n, int threads, int64_t grid) {
-  return np < 1 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
-         n < 0 || r * 128 < n || grid * threads < n;
+// 0 when the shapes, the grid and the alignment suit the kernels, else the
+// error to return: vals must be 16-byte and lidx 4-byte aligned; vec != 0
+// needs the vectors 16-byte aligned.
+int bad_launch(const float* vals, const int8_t* lidx, int np, int64_t r, int64_t n,
+               int64_t blocks, int vec, const void* a, const void* b, const void* c,
+               const void* d) {
+  if (np < 1 || np > ogl::kGdiaMaxPlanes || n < 0 || r * 128 < n || blocks < 1 ||
+      blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t vectors = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                            reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d);
+  if ((reinterpret_cast<uintptr_t>(vals) & 15) || (reinterpret_cast<uintptr_t>(lidx) & 3) ||
+      (vec && (vectors & 15)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return 0;
 }
 
 }  // namespace
 
-// y = A x.  Launches ceil(n / threads) blocks on `stream`; returns
-// cudaGetLastError() (0 = launched).
-extern "C" int ogl_gdia_spmv(const float* vals, const int8_t* lidx,
-                             const int* qoffs, int np, int64_t r,
-                             const float* x, float* y, int64_t n, int threads,
-                             void* stream) {
-  const int64_t grid = (n + threads - 1) / (threads > 0 ? threads : 1);
-  if (bad_launch(np, r, n, threads, grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (grid == 0) return 0;
-  gdia_kernel<false><<<static_cast<unsigned int>(grid), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      vals, lidx, qoffs, np, r, x, x, nullptr, nullptr, y, nullptr, n);
+// y = A x: `blocks` blocks of 256 threads, each thread striding over row
+// quads (one quad each when blocks = ceil(ceil(n / 4) / 256)); vec != 0
+// takes the float4 path for x and y.  Returns cudaGetLastError() (0 =
+// launched).
+extern "C" int ogl_gdia_spmv(const float* vals, const int8_t* lidx, const int* qoffs, int np,
+                             int64_t r, const float* x, float* y, int64_t n, int vec,
+                             int64_t blocks, void* stream) {
+  if (const int bad = bad_launch(vals, lidx, np, r, n, blocks, vec, x, y, x, y)) return bad;
+  gdia_kernel<false><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(vals, lidx, qoffs, np, r, x, x,
+                                                            nullptr, nullptr, y, nullptr, n,
+                                                            vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1; `partials` holds `grid` floats and grid must cover n.
+// K1, on the grid of the SpMV; `partials` holds `blocks` floats; vec != 0
+// takes the float4 path for z, p, pout and q.
 extern "C" int ogl_gdia_k1(const float* vals, const int8_t* lidx,
                            const int* qoffs, int np, int64_t r, const float* z,
                            const float* p, const float* beta, float* pout,
-                           float* q, float* partials, int64_t n, int threads,
-                           int64_t grid, void* stream) {
-  if (bad_launch(np, r, n, threads, grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (grid == 0) return 0;
-  gdia_kernel<true><<<static_cast<unsigned int>(grid), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      vals, lidx, qoffs, np, r, z, p, beta, pout, q, partials, n);
+                           float* q, float* partials, int64_t n, int vec,
+                           int64_t blocks, void* stream) {
+  if (const int bad = bad_launch(vals, lidx, np, r, n, blocks, vec, z, p, pout, q)) return bad;
+  gdia_kernel<true><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(vals, lidx, qoffs, np, r, z, p, beta,
+                                                           pout, q, partials, n, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
 """Merged-Krylov and AMG-smoother kernels for the Dia (stencil) path: K1,
-K2i, KA, K1B, the smoother passes and the whole identity-preconditioned CG
-loop in CUDA C++ (`csrc/cg_k1.cu`, `csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`,
-`csrc/bicgstab.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`), K2, K2n,
-KB_pipe and KB_update in Triton (bodies below), each beside its plain
-PyTorch twin.
+K2, K2i, KA, K1B, the smoother passes and the whole merged CG loop in CUDA
+C++ (`csrc/cg_k1.cu`, `csrc/cg_k2.cu`, `csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`,
+`csrc/bicgstab.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`), K2n, KB_pipe
+and KB_update in Triton (bodies below), each beside its plain PyTorch
+twin.
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
 `ka`/`kb_pipe`/`k1b`/`kb_update`/`ksweep`/`kresid`/`apply`/`pack_values`,
@@ -25,11 +25,13 @@ two per iteration of the pipelined (Chronopoulos–Gear) CG
 three per iteration of the merged BiCGStab (solve/bicgstab_fused.py):
   K1B        w = a + ca·b + cb·c ;  q = A w ;  (Σ r̂·q, Σ q·w, Σ q·q)
   KB_update  x' = x + α·p + ω·s ;  r' = s − ω·t ;  (Σ r̂·r', ‖r'‖₁)
-the whole merged CG loop for identity preconditioning on a Dia matrix, as
-one persistent cooperative kernel (`cg_loop`; no counterpart kernel — the
-reference runs K1, K2i and the criterion inside one `jax.lax.while_loop`):
-  each iteration the criterion on ‖r‖₁, β, K1, a grid barrier, K2i, a grid
-  barrier; one launch per solve and one host read at its end
+the whole merged CG loop on a Dia or a Gdia matrix, with identity or
+scalar Jacobi preconditioning, as one persistent cooperative kernel
+(`cg_loop`; no counterpart kernel — the reference runs K1, K2 or K2i and
+the criterion inside one `jax.lax.while_loop`):
+  each iteration the criterion on ‖r‖₁, β, K1 (the Dia or the Gdia row
+  body), a grid barrier, K2 (Jacobi) or K2i (identity), a grid barrier;
+  one launch per solve and one host read at its end
 and the AMG smoother's two passes, each one stencil apply:
   sweep  out = x + relax·invd ⊙ (b − A x)
   resid  out = b − A x
@@ -38,7 +40,8 @@ the reference's choice for its smoother operators): they are widened to
 float32 in the kernel and sums accumulate in float32.  `GdiaCgKernels`
 (counterpart of the reference's class of that name, `_k1_gdia_kernel`) is
 the same plan for a Gdia matrix: its K1 is the Gdia kernel of
-kernels/gdia.py (`csrc/gdia.cu`), K2/K2i/K2n are shared.
+kernels/gdia.py (`csrc/gdia.cu`, row body `csrc/gdia_k1.cuh`), K2/K2i/K2n
+and the loop kernel are shared.
 
 Layout: flat (n,) float32 vectors and a contiguous (nd, n) Dia data
 tensor.  The reference's halo-framed (Rp + 2T, 128) layout exists for the
@@ -61,16 +64,16 @@ version; CUDA tensors launch the kernel or raise (wrong device, dtype,
 shape, contiguity, or a refused launch) — there is no fallback.  Each
 launch counts in `ogl_tpu_torch.kernels.launches`.
 
-K2/K2n (Triton) replace ogl_tpu/kernels/fused.py `_k2_kernel` and
-`_k2n_kernel`.  They are pure elementwise streams with one or two block
-sums, no neighbour reads and no index tables — the case where Triton
-writes the same kernel as CUDA C++ with less code.  Bound: device-memory
-bandwidth, 8 float32 streams per row for K2 (x, r, p, q, invd in; x, r, z
-out) and 6 for K2n, at a handful of flops each.  Design: one program per
+K2n (Triton) replaces ogl_tpu/kernels/fused.py `_k2n_kernel`: a pure
+elementwise stream with one block sum, no neighbour reads and no index
+tables — the case where Triton writes the same kernel as CUDA C++ with
+less code.  Bound: device-memory bandwidth, 6 float32 streams per row (x,
+r, p, q in; x, r out) at a handful of flops.  Design: one program per
 BLOCK rows, masked coalesced loads/stores, tl.sum per program into a
-partials array.  K2i (`_k2i_kernel`) is CUDA C++ (`csrc/cg_k2i.cu`): its
-body is also the K2i phase of the loop kernel, which a Triton kernel could
-not be.
+partials array.  K2 (`_k2_kernel`, 8 streams: invd in and z out besides)
+and K2i (`_k2i_kernel`) are CUDA C++ (`csrc/cg_k2.cu`, `csrc/cg_k2i.cu`):
+their bodies are also the K2 phases of the loop kernel, which a Triton
+kernel could not be.
 
 KB_pipe and KB_update (Triton) replace `_kb_pipe_kernel` and
 `_kb_update_kernel`, the same kind of stream.  Bound: device-memory
@@ -84,24 +87,30 @@ one torch.sum finishes both (KA and K1B do the same with three).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ogl_tpu_torch import kernels
-from ogl_tpu_torch.kernels import _build
+from ogl_tpu_torch.kernels import _build, gdia
 from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             check_scalar, dia_spmv_plain, on_cpu,
                                             persistent_launch, require_cuda, sm_count,
                                             stream_of)
-from ogl_tpu_torch.kernels.gdia import GdiaPlan, gdia_k1
 
-__all__ = ["CgKernels", "GdiaCgKernels", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
+__all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
            "cg_loop_plain", "ka_plain", "kb_pipe_plain", "k1b_plain", "kb_update_plain",
            "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
 K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
 K2_WARPS = 4
+# the K2/K2i grid cap, blocks of 256 per SM: one row quad per thread up to 8.4M
+# rows (timed on the H100 in turns against 4, 8 and 16 per SM, which give each
+# thread a loop of quads: level or faster)
+K2_BLOCKS_PER_SM = 64
 LOOP_THREADS = 512  # threads per block of the loop kernel (csrc/cg_loop.cu kMaxThreads)
+# the loop kernel's variant bits (csrc/cg_loop.cu): scalar Jacobi, the Gdia apply
+LOOP_JACOBI, LOOP_GDIA = 1, 2
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -130,12 +139,14 @@ def k2i_plain(alpha, x, r, p, q):
     return torch.sum(r * r), torch.sum(torch.abs(r))
 
 
-def cg_loop_plain(data, offsets, x, r, rho, absr, nf, cfg):
+def cg_loop_plain(k1, x, r, rho, absr, nf, cfg, invd=None, z=None):
     """The loop kernel's function: the merged CG loop of solve/cg_fused.py
-    for identity preconditioning over k1_plain and k2i_plain, from the
-    set-up's x, r, ρ = Σ r·r, ‖r‖₁ and norm factor nf, with the criterion
-    of solve/stopping.py (cfg: StoppingParams) read on the host at each
-    check.  x and r are updated in place; returns the kernel's record:
+    with identity (invd and z None: k2i_plain) or scalar Jacobi (k2_plain)
+    preconditioning over the plan's K1 — `k1(z, p, β) -> (p', q, δ)`, the
+    Dia or the Gdia apply — from the set-up's x, r (z = invd ⊙ r), ρ = Σ r·z
+    (Σ r·r), ‖r‖₁ and norm factor nf, with the criterion of
+    solve/stopping.py (cfg: StoppingParams) read on the host at each check.
+    x, r and z are updated in place; returns the kernel's record:
     (iterations, final and initial normalised residual, converged) — an int
     and three 0-d tensors."""
     from ogl_tpu_torch.solve import stopping  # not at the top: solve imports this module
@@ -147,9 +158,12 @@ def cg_loop_plain(data, offsets, x, r, rho, absr, nf, cfg):
         if st.converged:
             break
         beta = zero if st.iter == 0 else rho / rho_old
-        p, q, delta = k1_plain(data, offsets, r, p, beta)
+        p, q, delta = k1(r if invd is None else z, p, beta)
         alpha, rho_old = rho / delta, rho
-        rho, absr = k2i_plain(alpha, x, r, p, q)
+        if invd is None:
+            rho, absr = k2i_plain(alpha, x, r, p, q)
+        else:
+            rho, absr = k2_plain(alpha, x, r, p, q, invd, z)
         st = st.replace(iter=st.iter + 1)
     return st.iter, st.res_norm, st.init_res_norm, stopping.satisfied(cfg, st)
 
@@ -213,27 +227,6 @@ def ksweep_plain(data, offsets, x, b, invd, relax):
 
 tl = None
 _TRITON: dict = {}
-
-
-def _k2_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, invd_ptr, z_ptr,
-             rho_ptr, absr_ptr, n, BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    alpha = tl.load(alpha_ptr)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
-    r = tl.load(r_ptr + offs, mask=mask, other=0.0)
-    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
-    q = tl.load(q_ptr + offs, mask=mask, other=0.0)
-    invd = tl.load(invd_ptr + offs, mask=mask, other=0.0)
-    xo = x + alpha * p
-    ro = r - alpha * q
-    zo = invd * ro
-    tl.store(x_ptr + offs, xo, mask=mask)
-    tl.store(r_ptr + offs, ro, mask=mask)
-    tl.store(z_ptr + offs, zo, mask=mask)
-    tl.store(rho_ptr + pid, tl.sum(ro * zo, axis=0))
-    tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
 
 
 def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
@@ -300,7 +293,7 @@ def _triton_kernels() -> dict:
         import triton.language
 
         tl = triton.language
-        _TRITON.update(k2=triton.jit(_k2_body), k2n=triton.jit(_k2n_body),
+        _TRITON.update(k2n=triton.jit(_k2n_body),
                        kb_pipe=triton.jit(_kb_pipe_body),
                        kb_update=triton.jit(_kb_update_body))
     return _TRITON
@@ -338,7 +331,7 @@ class CgKernels:
         self.device = self.plan.device
         self.dtype = torch.float32
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        self._loop_blocks = None  # co-resident blocks of the loop kernel, queried once
+        self._loop_blocks: dict = {}  # variant -> co-resident blocks of the loop kernel
 
     def pack_values(self, mat, dtype: torch.dtype | None = None) -> torch.Tensor:
         """The Dia data as the kernels take it: contiguous (nd, n), float32
@@ -375,29 +368,37 @@ class CgKernels:
         _, q, _ = self.k1(data, x, x, self._zero)
         return q
 
-    # ---- K2 (Triton), K2i (CUDA C++) -------------------------------------
+    # ---- K2, K2i (CUDA C++) ----------------------------------------------
     def k2(self, alpha, x, r, p, q, invd, z):
         """In place on x, r, z; returns (ρ, ‖r‖₁) as 0-d tensors."""
         if on_cpu(alpha, x, r, p, q, invd, z):
             return k2_plain(alpha, x, r, p, q, invd, z)
-        return self._launch_stream("k2", "cg_k2", {"alpha": alpha}, (x, r, p, q, invd, z),
-                                   sums=2)
+        return self._launch_k2("k2", alpha, (x, r, p, q, invd, z))
 
     def k2i(self, alpha, x, r, p, q):
         """K2 for identity preconditioning, in place on x and r; returns
         (ρ = Σ r·r, ‖r‖₁) as 0-d tensors."""
         if on_cpu(alpha, x, r, p, q):
             return k2i_plain(alpha, x, r, p, q)
-        require_cuda("k2i", x)
-        check_operands(self.plan, None, x, r, p, q)
+        return self._launch_k2("k2i", alpha, (x, r, p, q))
+
+    def _launch_k2(self, what, alpha, vectors):
+        """Launch `ogl_cg_<what>` (csrc/cg_k2.cu, cg_k2i.cu) over `vectors`
+        in its C argument order, on a grid of at most K2_BLOCKS_PER_SM
+        blocks per SM, with the float4 branch where every vector allows it;
+        returns (ρ, ‖r‖₁)."""
+        require_cuda(what, vectors[0])
+        check_operands(self.plan, None, *vectors)
         check_scalar("alpha", alpha, self.device)
-        vec, blocks = persistent_launch(self.n, [t.data_ptr() for t in (x, r, p, q)],
-                                        sm_count(self.device.index))
+        vec, blocks = persistent_launch(self.n, [t.data_ptr() for t in vectors],
+                                        sm_count(self.device.index),
+                                        blocks_per_sm=K2_BLOCKS_PER_SM)
         partials = torch.empty((2, blocks), dtype=torch.float32, device=self.device)
-        _build.check(_build.library().ogl_cg_k2i(
-            alpha.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
-            partials.data_ptr(), self.n, vec, blocks, stream_of(x)), "cg_k2i")
-        kernels.launches["cg_k2i"] += 1
+        entry = getattr(_build.library(), f"ogl_cg_{what}")
+        _build.check(entry(alpha.data_ptr(), *(t.data_ptr() for t in vectors),
+                           partials.data_ptr(), self.n, vec, blocks, stream_of(vectors[0])),
+                     f"cg_{what}")
+        kernels.launches[f"cg_{what}"] += 1
         return torch.sum(partials, dim=1).unbind()
 
     def k2n(self, alpha, x, r, p, q):
@@ -408,41 +409,58 @@ class CgKernels:
         (absr,) = self._launch_stream("k2n", "cg_k2n", {"alpha": alpha}, (x, r, p, q), sums=1)
         return absr
 
-    # ---- the whole identity-preconditioned loop (CUDA C++) --------------
-    def loop_blocks(self) -> int:
-        """The loop kernel's co-resident blocks of LOOP_THREADS on this
-        plan's card (occupancy × SMs), queried once; raises on a card
+    # ---- the whole merged CG loop (CUDA C++) -----------------------------
+    def loop_blocks(self, variant: int = 0) -> int:
+        """The co-resident blocks of LOOP_THREADS of the loop kernel's
+        `variant` (LOOP_JACOBI | LOOP_GDIA bits) on this plan's card
+        (occupancy × SMs), queried once per variant; raises on a card
         without cooperative launch."""
-        if self._loop_blocks is None:
+        if variant not in self._loop_blocks:
             blocks = ctypes.c_int64()
             with torch.cuda.device(self.device):
-                _build.check(_build.library().ogl_cg_loop_grid(LOOP_THREADS,
+                _build.check(_build.library().ogl_cg_loop_grid(variant, LOOP_THREADS,
                                                                ctypes.byref(blocks)),
                              "cg_loop (occupancy query)")
-            self._loop_blocks = blocks.value
-        return self._loop_blocks
+            self._loop_blocks[variant] = blocks.value
+        return self._loop_blocks[variant]
 
-    def cg_loop(self, data, x, r, rho, absr, nf, cfg):
-        """The merged CG loop for identity preconditioning from the set-up's
-        state (solve/cg_fused.py): x and r, updated in place; ρ = Σ r·r,
-        ‖r‖₁ and the norm factor as 0-d tensors; cfg the StoppingParams.
-        One cooperative launch on the card, then one host read of its
-        record; returns (iterations, final and initial normalised residual,
-        converged) — an int and three 0-d CPU tensors."""
-        if on_cpu(data, x, r, rho, absr, nf):
-            return cg_loop_plain(data, self.offsets, x, r, rho, absr, nf, cfg)
+    def _loop_apply(self, data, vectors):
+        """The loop kernel's apply for this plan, after checking `data` and
+        `vectors` against it: (variant bits, (coef, lidx, offsets, nd,
+        rows)) — the Dia data and offsets here."""
+        check_operands(self.plan, data, *vectors)
+        return 0, (data.data_ptr(), None, self.plan.offsets_dev.data_ptr(), len(self.offsets), 0)
+
+    def cg_loop(self, data, x, r, rho, absr, nf, cfg, invd=None, z=None):
+        """The merged CG loop from the set-up's state (solve/cg_fused.py):
+        x and r (and, with Jacobi, z = invd ⊙ r), updated in place; ρ = Σ r·z
+        (Σ r·r with identity: invd and z None), ‖r‖₁ and the norm factor as
+        0-d tensors; cfg the StoppingParams.  One cooperative launch on the
+        card, then one host read of its record; returns (iterations, final
+        and initial normalised residual, converged) — an int and three 0-d
+        CPU tensors."""
+        if (invd is None) != (z is None):
+            raise ValueError("cg_loop: invd and z come together (Jacobi) or not at all")
+        coef = data if isinstance(data, tuple) else (data,)
+        if on_cpu(*coef, x, r, rho, absr, nf, invd, z):
+            return cg_loop_plain(functools.partial(self.k1, data), x, r, rho, absr, nf, cfg,
+                                 invd, z)
         require_cuda("cg_loop", x)
-        check_operands(self.plan, data, x, r)
+        jacobi = invd is not None
+        vectors = (x, r, z, invd) if jacobi else (x, r)
+        variant, apply = self._loop_apply(data, vectors)
+        variant |= LOOP_JACOBI if jacobi else 0
         for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
             check_scalar(what, sc, self.device)
-        blocks = min(self.loop_blocks(), -(-self.n // LOOP_THREADS))
+        blocks = min(self.loop_blocks(variant), -(-self.n // LOOP_THREADS))
         p, pn, q = torch.zeros_like(x), torch.empty_like(x), torch.empty_like(x)
         partials = torch.empty(3 * blocks, dtype=torch.float32, device=self.device)
         record = torch.empty(4, dtype=torch.float32, device=self.device)
-        vec = int(self.n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, r, p, pn, q)))
+        vec = int(self.n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                          for t in (*vectors, p, pn, q)))
         _build.check(_build.library().ogl_cg_loop(
-            data.data_ptr(), self.plan.offsets_dev.data_ptr(), len(self.offsets),
-            x.data_ptr(), r.data_ptr(), p.data_ptr(), pn.data_ptr(), q.data_ptr(),
+            variant, *apply, x.data_ptr(), r.data_ptr(), z.data_ptr() if jacobi else None,
+            invd.data_ptr() if jacobi else None, p.data_ptr(), pn.data_ptr(), q.data_ptr(),
             rho.data_ptr(), absr.data_ptr(), nf.data_ptr(), partials.data_ptr(),
             record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter,
             cfg.max_iter, cfg.frequency, vec, LOOP_THREADS, blocks, stream_of(x)), "cg_loop")
@@ -520,7 +538,7 @@ class CgKernels:
 
     def _launch_stream(self, name, counter, scalars: dict, vectors, sums: int = 0,
                        **constexprs):
-        """Launch the Triton stream `name` (K2, K2n, KB_pipe, KB_update)
+        """Launch the Triton stream `name` (K2n, KB_pipe, KB_update)
         over (n,) vectors, its 0-d `scalars` read through pointers.  With
         `sums`, each sum's per-program partials fill one row of a (sums,
         grid) array, and one torch.sum finishes them all."""
@@ -578,13 +596,14 @@ class GdiaCgKernels(CgKernels):
     """Merged-CG steps for one Gdia sparsity: K1 is the Gdia kernel
     (`csrc/gdia.cu` `ogl_gdia_k1`, launched through kernels/gdia.py
     `gdia_k1`); K2, K2i and K2n are the structure-free kernels of
-    CgKernels.  Packed coefficients are a (vals, lidx) pair.  The Dia
-    smoother passes are not for a Gdia matrix (AMG on Gdia levels is not
-    ported: the solver raises before it would build one)."""
+    CgKernels, and the loop kernel runs its Gdia variants (the K1 phase
+    from `csrc/gdia_k1.cuh`).  Packed coefficients are a (vals, lidx) pair.
+    The Dia smoother passes are not for a Gdia matrix (AMG on Gdia levels
+    is not ported: the solver raises before it would build one)."""
 
     def __init__(self, n: int, plane_offsets, device: torch.device | str):
         super().__init__(n, (), device)
-        self.gplan = GdiaPlan(n, plane_offsets, self.device)
+        self.gplan = gdia.GdiaPlan(n, plane_offsets, self.device)
         self.plane_offsets = self.gplan.plane_offsets
 
     def pack_values(self, mat, dtype: torch.dtype | None = None) -> tuple:
@@ -594,4 +613,10 @@ class GdiaCgKernels(CgKernels):
 
     def k1(self, data, z, p, beta):
         """(p', q, δ) — p' and q in new buffers, δ a 0-d tensor."""
-        return gdia_k1(self.gplan, *data, z, p, beta)
+        return gdia.gdia_k1(self.gplan, *data, z, p, beta)
+
+    def _loop_apply(self, data, vectors):
+        vals, lidx = data
+        gdia.check_operands(self.gplan, vals, lidx, *vectors)
+        return LOOP_GDIA, (vals.data_ptr(), lidx.data_ptr(), self.gplan.offsets_dev.data_ptr(),
+                           len(self.plane_offsets), self.gplan.r)

@@ -1,6 +1,8 @@
 """Gdia — block-row DIA with per-entry source lanes: the container, its
-host packing, the CUDA C++ kernels `csrc/gdia.cu` (SpMV and merged-CG K1)
-and their plain PyTorch twins.
+host packing, the CUDA C++ kernels `csrc/gdia.cu` (SpMV and merged-CG K1,
+whose row body `csrc/gdia_k1.cuh` is also the K1 phase of the CG loop
+kernel's Gdia variants; THREADS threads per block, one row quad each) and
+their plain PyTorch twins.
 
 Counterpart: ogl_tpu/kernels/gdia.py (`Gdia`, `gdia_layout`,
 `gdia_from_coo`, `spmv_gdia`, `gdia_matvec` and the Pallas `_gdia_kernel`)
@@ -45,9 +47,11 @@ from ogl_tpu_torch.kernels.dia_spmv import (THREADS, check_scalar, on_cpu, requi
                                             stream_of)
 
 LANES = 128
+MAX_PLANES = 1024  # the kernels stage the plane offsets in a table of this size
 
 __all__ = ["Gdia", "GdiaPlan", "gdia_layout", "gdia_from_coo", "gdia_spmv_plain",
-           "gdia_k1_plain", "gdia_spmv", "gdia_k1", "gdia_matvec", "spmv_gdia"]
+           "gdia_k1_plain", "gdia_spmv", "gdia_k1", "gdia_matvec", "spmv_gdia",
+           "check_operands", "MAX_PLANES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +157,9 @@ class GdiaPlan:
         self.n = int(n)
         self.r = max(math.ceil(self.n / LANES), 1)
         self.plane_offsets = tuple(int(q) for q in plane_offsets)
+        if len(self.plane_offsets) > MAX_PLANES:
+            raise ValueError(f"{len(self.plane_offsets)} planes: the Gdia kernels take at "
+                             f"most {MAX_PLANES}")
         self.offsets_dev = torch.tensor(self.plane_offsets, dtype=torch.int32,
                                         device=device)
         self.device = self.offsets_dev.device
@@ -196,7 +203,10 @@ def spmv_gdia(m: Gdia, x):
 # ---- wrappers -------------------------------------------------------------
 
 
-def _check(plan: GdiaPlan, vals, lidx, *vectors) -> None:
+def check_operands(plan: GdiaPlan, vals, lidx, *vectors) -> None:
+    """Raise unless vals/lidx are contiguous (planes, R, 128) float32/int8
+    tensors and every vector a contiguous (n,) float32 tensor, all on the
+    plan's device."""
     shape = (len(plan.plane_offsets), plan.r, LANES)
     checks = [("vals", vals, shape, torch.float32), ("lidx", lidx, shape, torch.int8)]
     checks += [(f"vector {i}", v, (plan.n,), torch.float32) for i, v in enumerate(vectors)]
@@ -211,18 +221,28 @@ def _check(plan: GdiaPlan, vals, lidx, *vectors) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
+def _blocks(plan: GdiaPlan) -> int:
+    """The kernels' grid: one row quad per thread of THREADS."""
+    return max(-(-plan.n // (4 * THREADS)), 1)
+
+
+def _vec(*vectors) -> int:
+    """1 when every vector is 16-byte aligned: the kernels' float4 path."""
+    return int(all(t.data_ptr() % 16 == 0 for t in vectors))
+
+
 def gdia_spmv(plan: GdiaPlan, vals, lidx, x):
     """y = A x for the Gdia matrix (plan, vals, lidx)."""
     if on_cpu(vals, lidx, x):
         return gdia_spmv_plain(vals, lidx, plan.plane_offsets, x)
     require_cuda("gdia_spmv", x)
-    _check(plan, vals, lidx, x)
+    check_operands(plan, vals, lidx, x)
     lib = _build.library()
     y = torch.empty_like(x)
     _build.check(lib.ogl_gdia_spmv(
         vals.data_ptr(), lidx.data_ptr(), plan.offsets_dev.data_ptr(),
         len(plan.plane_offsets), plan.r, x.data_ptr(), y.data_ptr(), plan.n,
-        THREADS, stream_of(x)), "gdia_spmv")
+        _vec(x, y), _blocks(plan), stream_of(x)), "gdia_spmv")
     kernels.launches["gdia_spmv"] += 1
     return y
 
@@ -233,18 +253,18 @@ def gdia_k1(plan: GdiaPlan, vals, lidx, z, p, beta):
     if on_cpu(vals, lidx, z, p, beta):
         return gdia_k1_plain(vals, lidx, plan.plane_offsets, z, p, beta)
     require_cuda("gdia_k1", z)
-    _check(plan, vals, lidx, z, p)
+    check_operands(plan, vals, lidx, z, p)
     check_scalar("beta", beta, plan.device)
     lib = _build.library()
     pout = torch.empty_like(p)
     q = torch.empty_like(p)
-    grid = -(-plan.n // THREADS)
-    partials = torch.empty(grid, dtype=torch.float32, device=plan.device)
+    blocks = _blocks(plan)
+    partials = torch.empty(blocks, dtype=torch.float32, device=plan.device)
     _build.check(lib.ogl_gdia_k1(
         vals.data_ptr(), lidx.data_ptr(), plan.offsets_dev.data_ptr(),
         len(plan.plane_offsets), plan.r, z.data_ptr(), p.data_ptr(), beta.data_ptr(),
-        pout.data_ptr(), q.data_ptr(), partials.data_ptr(), plan.n, THREADS, grid,
-        stream_of(z)), "gdia_k1")
+        pout.data_ptr(), q.data_ptr(), partials.data_ptr(), plan.n, _vec(z, p, pout, q),
+        blocks, stream_of(z)), "gdia_k1")
     kernels.launches["gdia_k1"] += 1
     return pout, q, torch.sum(partials)
 

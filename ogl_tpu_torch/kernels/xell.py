@@ -447,7 +447,7 @@ def xell_matvec(m: Xell):
 class XellCgKernels:
     """Merged-CG steps for one Xell sparsity on one device: K1 is the Xell
     kernel with the spill in-kernel (so q and δ include it); K2, K2i and
-    K2n are the structure-free Triton kernels of a CgKernels delegate, as
+    K2n are the structure-free kernels of a CgKernels delegate, as
     the reference delegates them.  Vectors are flat (n,): the reference's
     `frame`/`unframe` are dropped."""
 

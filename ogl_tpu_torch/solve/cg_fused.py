@@ -9,12 +9,12 @@ cycle) maps r to z, and each iteration runs K1, then K2n (x, r and ‖r‖₁
 only), then z = precond(r) and ρ = Σ r·z (the reference's
 `precond_framed` route, which the port runs on flat vectors).
 
-With identity preconditioning on a Dia matrix on the card the whole loop,
-criterion included, is one persistent kernel (`CgKernels.cg_loop`,
-csrc/cg_loop.cu): one launch per solve and one host read of its record,
-as the reference runs the loop as one device program.  Every other case
-— the CPU, BJ, a rich preconditioner, the Gdia and Xell plans — loops on
-the host.  The iteration counter and the minIter/frequency gating are then
+With identity or scalar Jacobi preconditioning on a Dia or a Gdia matrix
+on the card the whole loop, criterion included, is one persistent kernel
+(`CgKernels.cg_loop`, csrc/cg_loop.cu): one launch per solve and one host
+read of its record, as the reference runs the loop as one device program.
+Every other case — the CPU, a rich preconditioner, the Xell plan — loops
+on the host.  The iteration counter and the minIter/frequency gating are then
 host integers; α, β, ρ, δ, ‖r‖₁ and the normalised residual stay 0-d
 device tensors; the host reads one bool per checked iteration.  When that
 bool says converged the loop breaks before K1/K2, which yields exactly the
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import SolveResult
 
@@ -61,8 +61,10 @@ def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None, precond=None) -> Solv
         rho = torch.sum(r * z)
     absr = torch.sum(torch.abs(r))
     nf = merged_norm_factor(kern, data, r, x, b)
-    if identity and type(kern) is CgKernels and b.device.type == "cuda":
-        iters, rn, init_rn, converged = kern.cg_loop(data, x, r, rho, absr, nf, cfg)
+    # the exact type: subclasses that override a step keep the host loop
+    if precond is None and type(kern) in (CgKernels, GdiaCgKernels) and b.device.type == "cuda":
+        iters, rn, init_rn, converged = kern.cg_loop(data, x, r, rho, absr, nf, cfg, invd=invd,
+                                                     z=None if identity else z)
         return SolveResult(x=x, iters=iters, init_res_norm=init_rn, final_res_norm=rn,
                            converged=converged)
     st = stopping.init_state(dtype, b.device).replace(norm_factor=nf)

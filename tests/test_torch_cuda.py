@@ -12,6 +12,8 @@ use).  Tolerances: elementwise outputs may differ by the fused
 multiply-adds the compilers form (a few ulp); block sums are summed in
 another order than torch.sum's (rtol 1e-4)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -134,6 +136,32 @@ def test_k2_kernels_match_plain(dev, n):
 
 
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [343, 1000, 4097, 1 << 20])
+def test_k2_kernel_branches_match_plain(dev, n, offset):
+    """Both branches of the CUDA K2: float4 (n % 4 == 0, every stream
+    16-byte aligned) and scalar (n % 4 != 0, or every stream one float off
+    an aligned base)."""
+    kern = CgKernels(n, (0,), dev)
+    alpha = torch.tensor(-0.31, device=dev)
+
+    def vec(seed, lo=None):
+        return _vec(n + offset, seed, dev, lo)[offset:]
+
+    p, q, invd = vec(5), vec(6), vec(7, lo=0.1)
+    x0, r0, z0 = vec(8), vec(9), vec(10)
+    x, r, z = x0.clone(), r0.clone(), z0.clone()
+    kernels.reset_launches()
+    got = kern.k2(alpha, x0, r0, p, q, invd, z0)
+    want = k2_plain(alpha, x, r, p, q, invd, z)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_k2"] == 1 and sum(kernels.launches.values()) == 1
+    for g, w in ((x0, x), (r0, r), (z0, z)):
+        _close(g, w)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
 @pytest.mark.parametrize("n", [4096, 4097])
 def test_k2i_kernel_branches_match_plain(dev, n, offset):
     """Both branches of the K2i kernel: float4 (n % 4 == 0, every stream
@@ -189,11 +217,9 @@ def test_foam_solve_on_card_matches_cpu(dev, pc):
     x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
     assert x.device.type == "cuda"
     assert kernels.launches["cg_k1"] > 0 and kernels.launches["dia_spmv"] > 0
-    if pc == "BJ":
-        assert kernels.launches["cg_k2"] > 0
-    else:  # the whole loop is one launch: no K2i, and K1 only in the set-up
-        assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k2i"] == 0
-        assert kernels.launches["cg_k1"] == 2
+    # the whole loop is one launch: no K2 or K2i, and K1 only in the set-up
+    assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k1"] == 2
+    assert kernels.launches["cg_k2"] == kernels.launches["cg_k2i"] == 0
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
 
@@ -215,32 +241,36 @@ def _loop_setup(dims, dev):
     return kern, kern.pack_values(mat), b
 
 
-def _loop_state(kern, data, b):
-    """The set-up of solve/cg_fused.py from a zero guess."""
+def _loop_state(kern, data, b, invd=None):
+    """The set-up of solve/cg_fused.py from a zero guess: (x, r, ρ, ‖r‖₁,
+    nf) and z = invd ⊙ r (None with identity)."""
     x = torch.zeros_like(b)
     r = b - kern.apply(data, x)
-    return (x, r, torch.sum(r * r), torch.sum(torch.abs(r)),
-            merged_norm_factor(kern, data, r, x, b))
+    z = None if invd is None else invd * r
+    return (x, r, torch.sum(r * (r if z is None else z)), torch.sum(torch.abs(r)),
+            merged_norm_factor(kern, data, r, x, b)), z
 
 
-@pytest.mark.parametrize("dims", LOOP_GRIDS, ids=str)
-def test_cg_loop_matches_plain(dev, dims):
-    kern, data, b = _loop_setup(dims, dev)
+def _check_loop(kern, data, b, invd, plain_k1, k1_counter, mv64):
+    """The loop kernel against its plain twin (over `plain_k1`) pinned at 30
+    iterations and free-running to LOOP_TOL: three launches repeat their
+    count and iterate exactly; each launches the loop once and `k1_counter`
+    twice (the set-up's r0 and norm factor), nothing else."""
     free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
                                    max_iter=2000, frequency=1)
     pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=30, max_iter=30,
                                      frequency=1)
     for cfg in (pinned, free):
-        x_p, *state_p = _loop_state(kern, data, b)
-        it_p, rn_p, _, conv_p = cg_loop_plain(data, kern.offsets, x_p, *state_p, cfg)
+        (x_p, *state_p), z_p = _loop_state(kern, data, b, invd)
+        it_p, rn_p, _, conv_p = cg_loop_plain(plain_k1, x_p, *state_p, cfg, invd, z_p)
         runs = []
         for _ in range(3):  # the kernel repeats its own count and iterate exactly
             kernels.reset_launches()
-            x, *state = _loop_state(kern, data, b)
-            runs.append((x, *kern.cg_loop(data, x, *state, cfg)))
+            (x, *state), z = _loop_state(kern, data, b, invd)
+            runs.append((x, *kern.cg_loop(data, x, *state, cfg, invd=invd, z=z)))
             torch.cuda.synchronize()
             # one loop launch; K1 only for the set-up's two applies
-            assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k1"] == 2
+            assert kernels.launches["cg_loop"] == 1 and kernels.launches[k1_counter] == 2
             assert sum(kernels.launches.values()) == 3
         x, it, rn, _, conv = runs[0]
         assert all(run[1] == it and torch.equal(run[0], x) for run in runs[1:])
@@ -250,14 +280,73 @@ def test_cg_loop_matches_plain(dev, dims):
         else:
             assert bool(conv) and bool(conv_p) and abs(it - it_p) <= 1
             assert float(rn) < LOOP_TOL
-            r64 = b.double() - dia_spmv_plain(data.double(), kern.offsets, x.double())
+            r64 = b.double() - mv64(x.double())
             assert float(r64.abs().sum() / state[-1].double()) <= 10 * LOOP_TOL
             torch.testing.assert_close(x, x_p, rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("dims", LOOP_GRIDS, ids=str)
+def test_cg_loop_matches_plain(dev, dims):
+    kern, data, b = _loop_setup(dims, dev)
+    _check_loop(kern, data, b, None, functools.partial(k1_plain, data, kern.offsets), "cg_k1",
+                lambda v: dia_spmv_plain(data.double(), kern.offsets, v))
+
+
+def _sym_graph(n, width, seed=3):
+    """A symmetric, diagonally dominant random graph: each row couples to
+    three rows within `width` above it (and they back), so its Gdia planes
+    span a few block-row offsets and n need not be a multiple of 128."""
+    rng = np.random.default_rng(seed)
+    i = np.repeat(np.arange(n), 3)
+    j = i + rng.integers(1, width + 1, size=i.size)
+    keep = j < n
+    i, j = i[keep], j[keep]
+    v = -rng.random(i.size).astype(np.float32)
+    rows, cols, vals = (np.concatenate(t) for t in ((i, j), (j, i), (v, v)))
+    diag = np.bincount(rows, weights=-vals, minlength=n).astype(np.float32) + 1.0
+    rows, cols = np.concatenate([rows, np.arange(n)]), np.concatenate([cols, np.arange(n)])
+    vals = np.concatenate([vals, diag])
+    _, idx = np.unique(rows * n + cols, return_index=True)
+    return formats.Coo(rows=rows[idx].astype(np.int32), cols=cols[idx].astype(np.int32),
+                       vals=vals[idx].astype(np.float32), shape=(n, n))
+
+
+# the loop's three other variants: Dia with Jacobi on LOOP_GRIDS' edge sizes;
+# Gdia on the shuffled grid (128 rows: below one block; 4,096; 1M) and on a
+# random graph of 1,001 rows (n = 1 mod 4 and not a multiple of 128)
+LOOP_VARIANT_CASES = [("Dia BJ", (7, 7, 7)), ("Dia BJ", (17, 241, 1)),
+                      ("Dia BJ", (128, 128, 64)), ("Gdia none", (8, 8, 2)),
+                      ("Gdia none", 1001), ("Gdia none", (128, 128, 64)),
+                      ("Gdia BJ", (16, 16, 16)), ("Gdia BJ", 1001), ("Gdia BJ", (128, 128, 64))]
+
+
+@pytest.mark.parametrize("route,size", LOOP_VARIANT_CASES, ids=str)
+def test_cg_loop_variants_match_plain(dev, route, size):
+    if route == "Dia BJ":
+        kern, data, b = _loop_setup(size, dev)
+        invd = 1.0 / data[kern.offsets.index(0)]
+        _check_loop(kern, data, b, invd, functools.partial(k1_plain, data, kern.offsets),
+                    "cg_k1", lambda v: dia_spmv_plain(data.double(), kern.offsets, v))
+        return
+    coo = (_sym_graph(size, 200) if isinstance(size, int) else
+           ldu.ldu_to_coo_host(testing.shuffled_poisson_ldu(size), dtype=np.float32))
+    mat = gdia.gdia_from_coo(coo, max_planes=gdia.MAX_PLANES, device=dev)
+    n = mat.shape[0]
+    kern = GdiaCgKernels(n, mat.plane_offsets, dev)
+    data = kern.pack_values(mat)
+    b = _vec(n, 11, dev)
+    diag = torch.zeros(n, device=dev).index_put_(
+        (torch.tensor(coo.rows[coo.rows == coo.cols].astype(np.int64), device=dev),),
+        torch.tensor(coo.vals[coo.rows == coo.cols], device=dev))
+    invd = 1.0 / diag if route.endswith("BJ") else None
+    plain_k1 = functools.partial(gdia.gdia_k1_plain, *data, mat.plane_offsets)
+    _check_loop(kern, data, b, invd, plain_k1, "gdia_k1",
+                lambda v: gdia.gdia_spmv_plain(data[0].double(), data[1], mat.plane_offsets, v))
+
+
 def test_cg_fused_takes_the_loop_on_the_card(dev):
-    """cg_fused routes identity on a Dia plan to the one launch; BJ and a
-    plan that is not the Dia CgKernels itself keep the host loop."""
+    """cg_fused routes identity and Jacobi on a Dia plan to the one launch;
+    a plan that is not the Dia CgKernels itself keeps the host loop."""
     kern, data, b = _loop_setup((32, 16, 8), dev)
     cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
                                   max_iter=1000, frequency=1)
@@ -266,6 +355,11 @@ def test_cg_fused_takes_the_loop_on_the_card(dev):
     assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k2i"] == 0
     assert res.iters > 0 and bool(res.converged)
     assert res.final_res_norm.device.type == "cpu"
+    kernels.reset_launches()
+    invd = 1.0 / data[kern.offsets.index(0)]
+    res_bj = cg_fused(kern, data, b, torch.zeros_like(b), cfg, invd=invd)
+    assert kernels.launches["cg_loop"] == 1 and kernels.launches["cg_k2"] == 0
+    assert res_bj.iters > 0 and bool(res_bj.converged)
 
     class HostLoop(CgKernels):
         pass
@@ -285,17 +379,17 @@ def test_cg_loop_refused_cooperative_launch_raises(dev):
     kern, data, b = _loop_setup((128, 128, 64), dev)
     cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
                                   max_iter=5, frequency=1)
-    x, *state = _loop_state(kern, data, b)
+    (x, *state), _ = _loop_state(kern, data, b)
     kern.cg_loop(data, x, *state, cfg)
-    co_resident = kern._loop_blocks
+    co_resident = kern._loop_blocks[0]
     assert 0 < co_resident < -(-kern.n // 512)
-    kern._loop_blocks = 4 * co_resident
+    kern._loop_blocks[0] = 4 * co_resident
     kernels.reset_launches()
-    x, *state = _loop_state(kern, data, b)
+    (x, *state), _ = _loop_state(kern, data, b)
     with pytest.raises(RuntimeError, match="cg_loop: CUDA error"):
         kern.cg_loop(data, x, *state, cfg)
     assert kernels.launches["cg_loop"] == 0
-    kern._loop_blocks = co_resident
+    kern._loop_blocks[0] = co_resident
     assert kern.cg_loop(data, x, *state, cfg)[0] == 5
 
 
@@ -419,6 +513,28 @@ def test_gdia_kernels_match_plain(dev, case):
     _close(kern.apply(kern.pack_values(mat), x), y)
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [100, 1001, 5003])
+def test_gdia_k1_edges_match_plain(dev, n, offset):
+    """The row-quad K1: n below one block of 1,024 rows, n not a multiple of
+    128 nor of 4 (a ragged last quad), z and p aligned (float4 path) or one
+    float off (scalar path)."""
+    mat = gdia.gdia_from_coo(_sym_graph(n, 200), max_planes=gdia.MAX_PLANES, device=dev)
+    plan = gdia.GdiaPlan.of(mat)
+    z, p = (_vec(n + offset, seed, dev)[offset:] for seed in (3, 4))
+    beta = torch.tensor(-0.41, device=dev)
+    kernels.reset_launches()
+    pw, q, delta = gdia.gdia_k1(plan, mat.vals, mat.lidx, z, p, beta)
+    torch.cuda.synchronize()
+    assert kernels.launches["gdia_k1"] == 1 and sum(kernels.launches.values()) == 1
+    pw2, q2, d2 = gdia.gdia_k1_plain(mat.vals, mat.lidx, mat.plane_offsets, z, p, beta)
+    _close(pw, pw2)
+    _close(q, q2)
+    torch.testing.assert_close(delta, d2, rtol=1e-4, atol=1e-4 * float(d2.abs()))
+    _close(GdiaCgKernels(n, mat.plane_offsets, dev).apply((mat.vals, mat.lidx), z),
+           gdia.gdia_spmv(plan, mat.vals, mat.lidx, z))
+
+
 @pytest.mark.parametrize("spill_frac", [0.002, 0.08])
 def test_xell_kernels_match_plain(dev, spill_frac):
     mat = xell.xell_from_coo(_knn_coo(20000), spill_frac=spill_frac, device=dev)
@@ -540,7 +656,11 @@ def test_foam_unstructured_on_card_matches_cpu(dev, fmt):
     assert x.device.type == "cuda" and perf.solver_name == f"GKOCG_{fmt}"
     name = fmt.lower()
     assert kernels.launches[f"{name}_k1"] > 0 and kernels.launches[f"{name}_spmv"] > 0
-    assert kernels.launches["cg_k2" if fmt == "Gdia" else "cg_k2i"] > 0
+    if fmt == "Gdia":  # BJ on Gdia: one loop launch, K1 only in the set-up
+        assert kernels.launches["cg_loop"] == 1 and kernels.launches["gdia_k1"] == 2
+        assert kernels.launches["cg_k2"] == 0
+    else:
+        assert kernels.launches["cg_k2i"] > 0
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
 
