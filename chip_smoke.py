@@ -25,7 +25,8 @@ Phases (any failure raises, and the script exits non-zero):
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
      and, for each of the persistent CG loop kernel's four variants (Dia or
-     Gdia, identity or Jacobi), its grid (co-resident blocks) and registers;
+     Gdia, identity or Jacobi) and the pipelined loop kernel's two (identity
+     or Jacobi), its grid (co-resident blocks) and registers;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
      with float32 and bfloat16 coefficients, KA and KB_pipe with identity
      and Jacobi, K1B with distinct b and c and with b = c): max error
@@ -36,7 +37,9 @@ Phases (any failure raises, and the script exits non-zero):
      plain twin (x after 30 iterations), timed per iteration in turns with
      the twin and with the host loop over the K1 and K2 (K2i) kernels (200
      iterations, the criterion checked at each), also at 64x64x48, about
-     one row per thread of its grid (its fixed cost per iteration); then on
+     one row per thread of its grid (its fixed cost per iteration); the
+     pipelined loop kernel's two variants the same way, against its plain
+     twin and the host loop over the KA and KB_pipe kernels; then on
      the shuffled grid built on the device at both sizes the Gdia SpMV and
      the row-quad Gdia K1 against their plain versions and the loop's two
      Gdia variants as the Dia ones;
@@ -66,7 +69,9 @@ Phases (any failure raises, and the script exits non-zero):
      with beta 0) in the same turns, the profiler's device time per launch
      of the Xell SpMV and of torch's CSR SpMV, and a profile of one steady
      step per format;
-  9. slice 4: GKOCG `pipelinedCG true` (`none`, `BJ`) and GKOBiCGStab as
+  9. slice 4: GKOCG `pipelinedCG true` (`none`, `BJ`; each solve the
+     pipelined loop kernel once, K1 twice for its set-up, no KA or KB_pipe;
+     `none` at 275 iterations) and GKOBiCGStab as
      the reference bench ran it (`BJ`, `none`, `none` + `fusedBiCGStab`)
      on the Poisson grid; GKOBiCGStab `BJ` on convection-diffusion with a
      diag-only step and a step that changes every block; GKOBiCGStab `none`
@@ -96,9 +101,11 @@ phase 10, torch's own call for the same function where there is one, and
 under "cases" every variant and size it was checked on; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits with an error and
 prints no result.  `--turns` runs phase 3's kernel checks (and the Gdia
-kernels on the device-built shuffled grid) from each given checkout in
-order, one process each, and prints their kernel lines: an earlier commit
-unpacked with `git archive` against this one on the same card.
+kernels on the device-built shuffled grid, and 200 pinned iterations of
+cg_pipelined_fused on the Dia plan at 1M and 8.4M rows) from each given
+checkout in order, one process each, and prints their kernel lines: an
+earlier commit unpacked with `git archive` against this one on the same
+card.
 """
 
 from __future__ import annotations
@@ -124,7 +131,8 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.kernels.fused import LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS, cg_loop_plain
+from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS, cg_loop_plain,
+                                         cg_pipe_loop_plain)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
                                  krylov, stopping)
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
@@ -176,7 +184,7 @@ KERNELS = {
                 "xell_k1", "knn"),
     "cg_ka": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_pipe.cu",
               "ogl_tpu/kernels/fused.py:415", "cg_ka[none]", None),
-    "cg_kb_pipe": ("triton", "ogl_tpu_torch/kernels/fused.py",
+    "cg_kb_pipe": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_kb_pipe.cu",
                    "ogl_tpu/kernels/fused.py:477", "cg_kb_pipe[none]", None),
     "bicgstab_k1b": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab.cu",
                      "ogl_tpu/kernels/fused.py:283", "bicgstab_k1b", None),
@@ -191,22 +199,31 @@ KERNELS = {
     "cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_loop.cu",
                 "ogl_tpu/kernels/fused.py:36, ogl_tpu/kernels/fused.py:111, "
                 "ogl_tpu/kernels/fused.py:396, ogl_tpu/kernels/fused.py:492", "cg_loop", None),
+    # the whole merged pipelined CG loop: KA and KB_pipe as its phases; its
+    # row's times are per iteration, its cases cg_pipe_loop[none] and [BJ]
+    "cg_pipe_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_pipe_loop.cu",
+                     "ogl_tpu/kernels/fused.py:415, ogl_tpu/kernels/fused.py:477",
+                     "cg_pipe_loop[none]", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
 # cg_k2 and cg_k2i: the Xell solves' host loops (BJ, none)
 UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i",
                         "cg_loop")
-SLICE4_KERNELS = ("cg_ka", "cg_kb_pipe", "bicgstab_k1b", "bicgstab_kb_update", "dia_spmv",
+SLICE4_KERNELS = ("cg_pipe_loop", "bicgstab_k1b", "bicgstab_kb_update", "dia_spmv",
                   "gdia_spmv")
 BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_loop")
 # a GKOCG `none` or `BJ` solve on Dia (Gdia): the loop kernel once, its K1
 # twice (the set-up's r0 and norm factor), no K2 and no K2i
 LOOP_SOLVE_LAUNCHES = {"cg_loop": 1, "cg_k1": 2, "cg_k2": 0, "cg_k2i": 0}
 GDIA_LOOP_SOLVE_LAUNCHES = {"cg_loop": 1, "gdia_k1": 2, "cg_k2": 0, "cg_k2i": 0}
+# a GKOCG `pipelinedCG` solve (`none` or `BJ`) on Dia: the pipelined loop
+# kernel once, K1 twice (the set-up's r0 and norm factor), no KA or KB_pipe
+PIPE_LOOP_SOLVE_LAUNCHES = {"cg_pipe_loop": 1, "cg_k1": 2, "cg_ka": 0, "cg_kb_pipe": 0}
 # the loop kernel's four variants (bits of csrc/cg_loop.cu), as phase 2 names them
 LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
                  LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
+PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
 LOOP_ITERS = (30, 200)  # the loop's check (x against the plain twin), its timing
 # about one row per thread of the loop kernel's grid (3 x 132 blocks of 512 on
@@ -352,12 +369,12 @@ def check_loop_solve_launches(what, before, want=LOOP_SOLVE_LAUNCHES):
         raise RuntimeError(f"{what}: launched {got} in one solve, not {want}")
 
 
-def loop_ptxas(log, variant):
-    """nvcc's -Xptxas -v lines (registers, spills) of cg_loop_kernel<variant>,
-    whose mangled name holds cg_loop_kernelILi<variant>E."""
+def loop_ptxas(log, variant, kernel="cg_loop_kernel"):
+    """nvcc's -Xptxas -v lines (registers, spills) of kernel<variant>, whose
+    mangled name holds <kernel>ILi<variant>E."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and f"cg_loop_kernelILi{variant}E" in line:
+        if "Compiling entry" in line and f"{kernel}ILi{variant}E" in line:
             return [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
                     if "registers" in ln or "spill" in ln]
     return ["not in the build log"]
@@ -516,16 +533,49 @@ def loop_bytes(data, n, jacobi):
     return k1 + (32 if jacobi else 24) * n
 
 
+def checked_iterations(k):
+    """Stopping parameters of exactly k iterations, each checked: tolerance 0
+    never stops the loop before maxIter, and frequency 1 checks at every
+    iteration, as in a solve with frequency 1 (the host loop reads one bool
+    per iteration)."""
+    return stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=k,
+                                   frequency=1)
+
+
+def loop_row(case, label, run, host_solve, host_what, nbytes, n, report):
+    """A loop kernel against its plain twin from one set-up: `run(k, plain)`
+    runs k checked iterations of the kernel (plain=False) or of the twin and
+    returns (x, iterations); after LOOP_ITERS[0] iterations x is held to the
+    vector tolerance; then both are timed in turns over LOOP_ITERS[1] with
+    `host_solve(k)`, the host loop over the standalone kernels (whose time
+    also holds the set-up's two applies): ms per iteration, and the bound
+    per iteration (`nbytes` over the memory rate)."""
+    (xk, ik), (xp, ip) = run(LOOP_ITERS[0], False), run(LOOP_ITERS[0], True)
+    err, tol = vec_err(xk, xp)
+    k = LOOP_ITERS[1]
+    t = time_turns({"plain": lambda: run(k, True), "kernel": lambda: run(k, False),
+                    "host loop": lambda: host_solve(k)}, reps=5)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    ms = {tag: v / k for tag, v in t.items()}
+    ok = err <= tol and ik == ip == LOOP_ITERS[0]
+    print(f"  {case:22s} {label:20s} max_abs_err {err:.3e} (tol {tol:.1e}) after "
+          f"{ik} / {ip} iterations; per iteration (over {k}, checked at each): kernel "
+          f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s, plain "
+          f"{ms['plain']:.4f} ms, host loop over {host_what} {ms['host loop']:.4f} ms, bound "
+          f"{bound:.4f} ms ({nbytes / n:.0f} B/row)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{case} at {label} disagrees with its plain version")
+    report.setdefault(case, {})[label] = {
+        "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+        "host_loop_ms": ms["host loop"], "gbps": nbytes / ms["kernel"] / 1e6,
+        "bound_ms": bound, "bound_by": "bytes", "per": "iteration", "iterations": k}
+
+
 def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop"):
     """The loop kernel against its plain twin (over `plain_k1`) from the same
-    set-up (b random, x0 = 0) over LOOP_ITERS[0] iterations (x held to the
-    vector tolerance), then timed in turns over LOOP_ITERS[1] with the plain
-    twin and the host loop over the standalone kernels (cg_fused with a
-    plan that keeps the host loop, whose time also holds the set-up's two
-    applies): ms per iteration, and the bound per iteration.  The runs stop
-    at maxIter with tolerance 0, so the criterion is checked at every
-    iteration, as in a solve with frequency 1: the host loop reads one bool
-    per iteration.  invd: the Jacobi variant (the K2 phase)."""
+    set-up (b random, x0 = 0), timed in turns with the host loop over the
+    standalone kernels (cg_fused with a plan that keeps the host loop):
+    loop_row.  invd: the Jacobi variant (the K2 phase)."""
     n, dev = kern.n, kern.device
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
@@ -536,48 +586,56 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop"):
     host = (HostLoopGdiaCgKernels(n, kern.plane_offsets, dev) if isinstance(kern, GdiaCgKernels)
             else HostLoopCgKernels(n, kern.offsets, dev))
 
-    def iterations(k):  # tolerance 0: exactly k iterations, each checked
-        return stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=k,
-                                       frequency=1)
-
     def run(k, plain):
         x, r = x0.clone(), r0.clone()
         z = None if z0 is None else z0.clone()
-        rec = (cg_loop_plain(plain_k1, x, r, *state, iterations(k), invd, z) if plain
-               else kern.cg_loop(data, x, r, *state, iterations(k), invd=invd, z=z))
+        rec = (cg_loop_plain(plain_k1, x, r, *state, checked_iterations(k), invd, z) if plain
+               else kern.cg_loop(data, x, r, *state, checked_iterations(k), invd=invd, z=z))
         return x, rec[0]
 
-    (xk, ik), (xp, ip) = run(LOOP_ITERS[0], False), run(LOOP_ITERS[0], True)
-    err, tol = vec_err(xk, xp)
-    k = LOOP_ITERS[1]
-    t = time_turns({"plain": lambda: run(k, True), "kernel": lambda: run(k, False),
-                    "host loop": lambda: cg_fused(host, data, b, x0, iterations(k), invd=invd)},
-                   reps=5)
-    nbytes = loop_bytes(data, n, invd is not None)
-    bound = nbytes / PEAK_BYTES_PER_S * 1e3
-    ms = {tag: v / k for tag, v in t.items()}
-    ok = err <= tol and ik == ip == LOOP_ITERS[0]
-    k2 = "K2" if invd is not None else "K2i"
-    print(f"  {case:22s} {label:20s} max_abs_err {err:.3e} (tol {tol:.1e}) after "
-          f"{ik} / {ip} iterations; per iteration (over {k}, checked at each): kernel "
-          f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s, plain "
-          f"{ms['plain']:.4f} ms, host loop over K1 + {k2} {ms['host loop']:.4f} ms, bound "
-          f"{bound:.4f} ms ({nbytes / n:.0f} B/row)  {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError(f"{case} at {label} disagrees with its plain version")
-    report.setdefault(case, {})[label] = {
-        "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
-        "host_loop_ms": ms["host loop"], "gbps": nbytes / ms["kernel"] / 1e6,
-        "bound_ms": bound, "bound_by": "bytes", "per": "iteration", "iterations": k}
+    loop_row(case, label, run,
+             lambda k: cg_fused(host, data, b, x0, checked_iterations(k), invd=invd),
+             "K1 + " + ("K2" if invd is not None else "K2i"),
+             loop_bytes(data, n, invd is not None), n, report)
+
+
+def check_pipe_loop(kern, data, label, report, invd=None):
+    """The pipelined loop kernel against its plain twin (over ka_plain and
+    kb_pipe_plain) from the same set-up (b random, x0 = 0), timed in turns
+    with the host loop over the KA and KB_pipe kernels (cg_pipelined_fused
+    with a plan that keeps the host loop): loop_row.  Minimum bytes per
+    iteration and row: KA the coefficients, r in and w out; KB_pipe 9
+    streams; invd once in each phase with Jacobi."""
+    n, dev = kern.n, kern.device
+    b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    x0 = torch.zeros_like(b)
+    r0 = b - kern.apply(data, x0)
+    nf = merged_norm_factor(kern, data, r0, x0, b)
+    host = HostLoopCgKernels(n, kern.offsets, dev)
+    plain_ka = functools.partial(ka_plain, data, kern.offsets)
+
+    def run(k, plain):
+        x, r = x0.clone(), r0.clone()
+        rec = (cg_pipe_loop_plain(plain_ka, kb_pipe_plain, x, r, nf, checked_iterations(k), invd)
+               if plain else kern.cg_pipe_loop(data, x, r, nf, checked_iterations(k), invd))
+        return x, rec[0]
+
+    jacobi = invd is not None
+    loop_row(f"cg_pipe_loop[{'BJ' if jacobi else 'none'}]", label, run,
+             lambda k: cg_pipelined_fused(host, data, b, x0, checked_iterations(k), invd=invd),
+             "KA + KB_pipe", ((data.shape[0] + 2) * 4 + 36 + 8 * jacobi) * n, n, report)
 
 
 def check_dia_loops(data, offsets, label, report):
-    """check_loop for the two Dia variants: identity and Jacobi."""
+    """check_loop for the two Dia variants (identity and Jacobi), then
+    check_pipe_loop for the pipelined loop's two."""
     kern = CgKernels(data.shape[1], offsets, data.device)
     plain_k1 = functools.partial(k1_plain, data, offsets)
+    invd = 1.0 / data[offsets.index(0)]
     check_loop(kern, data, plain_k1, label, report)
-    check_loop(kern, data, plain_k1, label, report, invd=1.0 / data[offsets.index(0)],
-               case="cg_loop[Dia BJ]")
+    check_loop(kern, data, plain_k1, label, report, invd=invd, case="cg_loop[Dia BJ]")
+    check_pipe_loop(kern, data, label, report)
+    check_pipe_loop(kern, data, label, report, invd=invd)
 
 
 def check_gdia(grids, device, report):
@@ -1282,6 +1340,8 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
         wall = time.perf_counter() - t0
         perf.print()
         slv = registry.global_registry.get(f"{field}_solver")
+        if field in ("pP", "pPBJ"):  # the whole loop is one launch
+            check_loop_solve_launches(field, before, PIPE_LOOP_SOLVE_LAUNCHES)
         it = max(perf.n_iterations, 1)
         used = {k: round((v - before[k]) / it, 2) for k, v in kernels.launches.items()
                 if v > before[k]}
@@ -1374,6 +1434,8 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
         if gated and abs(plain.iters - perf.n_iterations) > 1:
             raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain.iters} "
                                "over the plain twins")
+        if field == "pP" and abs(perf.n_iterations - P_ITERS) > 1:
+            raise RuntimeError(f"pP: {perf.n_iterations} iterations, not {P_ITERS} +- 1")
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
 
@@ -1454,15 +1516,29 @@ def bench_path(device, grid_main, grid_big, report) -> tuple:
 
 
 # one turn of `--turns`: phase 3's Dia kernels at 1M and 8.4M rows, then the
-# Gdia SpMV and K1 on the shuffled grid built on the device at both sizes —
-# only functions that this script's earlier versions have too
+# Gdia SpMV and K1 on the shuffled grid built on the device at both sizes,
+# then 200 checked iterations of the merged pipelined CG on the Dia plan at
+# both sizes (one launch of the loop kernel where a tree has it, else the
+# host loop over KA and KB_pipe) — only functions that this script's earlier
+# versions have too
 TURN_CODE = (
     "import torch, chip_smoke as s; d = torch.device('cuda'); r = {}\n"
     "for g in (s.GRID_1M, s.GRID_8M): s.check_kernels(g, d, r)\n"
     "for g in (s.GRID_1M, s.GRID_8M): s.check_unstructured_kernels([("
     "'shuffled ' + 'x'.join(map(str, g)), s.gdia_on_device(*s.shuffled_poisson_coo_on_device("
-    "g, 0, d)))], r)\n")
-TURN_LINES = ("cg_k2 ", "cg_k2i ", "gdia_k1 ", "gdia_spmv ", "cg_loop")
+    "g, 0, d)))], r)\n"
+    "pin = s.stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=200, "
+    "frequency=1)\n"
+    "for g in (s.GRID_1M, s.GRID_8M):\n"
+    "    data, offs = s.poisson_dia(g, d); n = data.shape[1]; k = s.CgKernels(n, offs, d)\n"
+    "    b = torch.randn(n, device=d, generator=torch.Generator(device=d).manual_seed(1))\n"
+    "    for tag, iv in (('none', None), ('BJ', 1.0 / data[offs.index(0)])):\n"
+    "        ms = s.time_turns({0: lambda: s.cg_pipelined_fused(k, data, b, torch.zeros_like(b), "
+    "pin, invd=iv)}, reps=3)[0] / 200\n"
+    "        print(f'  cg_pipelined_fused[{tag}] {n} rows: {ms:.4f} ms per iteration over 200, "
+    "checked at each (its set-up included)')\n")
+TURN_LINES = ("cg_k2 ", "cg_k2i ", "gdia_k1 ", "gdia_spmv ", "cg_loop", "cg_ka", "cg_kb_pipe",
+              "cg_pipe")
 
 
 def turns(trees) -> int:
@@ -1525,6 +1601,11 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         print(f"cg_loop grid, {what} (cg_loop_kernel<{variant}>): {blocks} co-resident blocks "
               f"of {LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
               + "; ".join(loop_ptxas(info["log"], variant)))
+    for variant, what in PIPE_LOOP_VARIANTS.items():
+        blocks = probe.pipe_loop_blocks(variant)
+        print(f"cg_pipe_loop grid, {what} (cg_pipe_loop_kernel<{variant}>): {blocks} co-resident "
+              f"blocks of {LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
+              + "; ".join(loop_ptxas(info["log"], variant, "cg_pipe_loop_kernel")))
 
     t_ph = phase_done("phase 2", t_ph)
     print("== phase 3: kernels vs plain versions "

@@ -85,6 +85,14 @@ _SIGNATURES = {
     # blocks, stream
     "ogl_cg_loop": (_INT, _P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # alpha, beta, w, p, s, x, r, invd (NULL = identity), n, vec, blocks, stream
+    "ogl_cg_kb_pipe": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # variant, threads, blocks (out)
+    "ogl_cg_pipe_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # variant, data, offsets, nd, invd, x, r, p, s, w, nf, partials, record, n, tol,
+    # rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_cg_pipe_loop": (_INT, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32,
+                         _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

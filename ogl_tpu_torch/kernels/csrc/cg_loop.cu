@@ -24,7 +24,9 @@
 // `jax.lax.while_loop` around them with the criterion as loop state
 // (ogl_tpu/solve/cg_fused.py:82-123, ogl_tpu/solve/stopping.py).  Plain twin:
 // `cg_loop_plain` in ogl_tpu_torch/kernels/fused.py.  The phases are the
-// standalone kernels' bodies: cg_k1.cuh, gdia_k1.cuh, cg_k2.cuh, cg_k2i.cuh.
+// standalone kernels' bodies: cg_k1.cuh, gdia_k1.cuh, cg_k2.cuh, cg_k2i.cuh;
+// the criterion, the block-order sums and the cooperative launch are
+// loop.cuh's, shared with the pipelined loop (cg_pipe_loop.cu).
 //
 // Bound: device-memory bandwidth.  Per iteration and row, Dia: K1 reads nd
 // coefficients, z (r) and p and writes p' and q; K2i reads x, r, p' and q
@@ -61,6 +63,7 @@
 #include "cg_k2.cuh"
 #include "cg_k2i.cuh"
 #include "gdia_k1.cuh"
+#include "loop.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -78,14 +81,6 @@ constexpr int kGdia = 2;    // the Gdia apply (else Dia)
 constexpr int min_blocks_per_sm(int variant) {
   return variant == 0 ? 3 : variant == kJacobi ? 3 : 2;
 }
-
-struct Criterion {
-  float tol;
-  float rel_tol;
-  int min_iter;
-  int max_iter;
-  int frequency;
-};
 
 // The vectors of the loop, all rewritten inside the launch (plain pointers);
 // z is null with identity preconditioning.
@@ -106,40 +101,6 @@ struct Scalars {
   float* record;
 };
 
-__device__ __forceinline__ bool hit(const Criterion& c, float rn, float init_rn) {
-  return rn < c.tol || (c.rel_tol > 0.0f && rn < c.rel_tol * init_rn);
-}
-
-// The N sums of rows v[k * count .. (k + 1) * count) as every thread of the
-// block sees them: each thread adds its strided share in index order, then
-// the block reduces in a fixed order, so every block gets the same bits.
-template <int N>
-__device__ __forceinline__ void block_totals(const float* v, int count, float (&out)[N]) {
-  __shared__ float s_warps[N][32];
-  __shared__ float s_total[N];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float acc = 0.0f;
-    for (int b = threadIdx.x; b < count; b += blockDim.x) acc += v[(int64_t)k * count + b];
-    acc = ogl::warp_sum(acc);
-    if (lane == 0) s_warps[k][warp] = acc;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x / 32;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float w = ogl::warp_sum(lane < n_warps ? s_warps[k][lane] : 0.0f);
-      if (lane == 0) s_total[k] = w;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) out[k] = s_total[k];
-}
-
 // coef: the Dia data (nd, n) or the Gdia values (nd planes, R, 128); lidx
 // the Gdia lanes (null for Dia); offsets: the nd diagonal offsets or plane
 // block-row offsets; invd: the Jacobi inverse diagonal (null with identity).
@@ -148,7 +109,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
     cg_loop_kernel(const float* __restrict__ coef, const int8_t* __restrict__ lidx,
                    const int* __restrict__ offsets, int nd, int64_t rows,
                    const float* __restrict__ invd, Vectors v, Scalars s, int64_t n, int vec,
-                   Criterion c) {
+                   ogl::Criterion c) {
   constexpr bool jacobi = (V & kJacobi) != 0;
   constexpr bool gdia = (V & kGdia) != 0;
   cg::grid_group grid = cg::this_grid();
@@ -171,11 +132,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
   int it = 0;
   while (it < hard_cap) {
     // 1. the criterion (stopping.check_from_norm), the same in every block
-    if (!((it > 0 && it < c.min_iter) || it % c.frequency != 0)) {
-      rn = absr / nf;
-      if (it == 0) init_rn = rn;
-      if (it >= c.max_iter || hit(c, rn, init_rn)) break;
-    }
+    if (ogl::stop_at(c, it, absr, nf, rn, init_rn)) break;
     // 2-3. beta, then K1 over this thread's rows (Dia) or row quads (Gdia)
     const float beta = it == 0 ? 0.0f : rho / rho_old;
     float dot = 0.0f;
@@ -195,7 +152,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
     grid.sync();
     // 4-5. delta, alpha, then K2 (K2i) over this thread's rows (or quads)
     float delta[1];
-    block_totals<1>(delta_parts, blocks, delta);
+    ogl::block_totals<1>(delta_parts, blocks, delta);
     const float alpha = rho / delta[0];
     rho_old = rho;
     float sums[2] = {0.0f, 0.0f};
@@ -207,7 +164,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
     ogl::block_sums_to<2>(sums, k2_parts);
     grid.sync();
     // 6-7. rho' and ||r||_1; p' becomes p
-    block_totals<2>(k2_parts, blocks, sums);
+    ogl::block_totals<2>(k2_parts, blocks, sums);
     rho = sums[0];
     absr = sums[1];
     float* t = p;
@@ -215,12 +172,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
     pn = t;
     ++it;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    reinterpret_cast<int*>(s.record)[0] = it;
-    s.record[1] = rn;
-    s.record[2] = init_rn;
-    s.record[3] = hit(c, rn, init_rn) ? 1.0f : 0.0f;
-  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) ogl::write_record(s.record, it, rn, init_rn, c);
 }
 
 const void* loop_kernel(int variant) {
@@ -233,10 +185,6 @@ const void* loop_kernel(int variant) {
   }
 }
 
-bool misaligned(const void* a, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(a) & (bytes - 1)) != 0;
-}
-
 }  // namespace
 
 // The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia) with
@@ -247,18 +195,7 @@ extern "C" int ogl_cg_loop_grid(int variant, int threads, int64_t* blocks) {
   const void* kernel = loop_kernel(variant);
   if (kernel == nullptr || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
-  cudaGetLastError();  // a failed query must not surface at the next launch check
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *blocks = static_cast<int64_t>(per_sm) * sms;
-  return 0;
+  return ogl::coop_grid(kernel, threads, blocks);
 }
 
 // One cooperative launch of `blocks` blocks of `threads` on `stream`: the
@@ -291,21 +228,15 @@ extern "C" int ogl_cg_loop(int variant, const float* coef, const int8_t* lidx,
   if (gdia ? (nd < 1 || nd > ogl::kGdiaMaxPlanes || lidx == nullptr || rows * 128 < n)
            : (nd < 0 || nd > ogl::kMaxDiags))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (gdia && (misaligned(coef, 16) || misaligned(lidx, 4)))
+  if (gdia && (ogl::misaligned(coef, 16) || ogl::misaligned(lidx, 4)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  if (vec && ((n & 3) != 0 || misaligned(x, 16) || misaligned(r, 16) || misaligned(p, 16) ||
-              misaligned(pn, 16) || misaligned(q, 16) ||
-              (jacobi && (misaligned(z, 16) || misaligned(invd, 16)))))
+  if (vec && ((n & 3) != 0 || ogl::misaligned(x, 16) || ogl::misaligned(r, 16) ||
+              ogl::misaligned(p, 16) || ogl::misaligned(pn, 16) || ogl::misaligned(q, 16) ||
+              (jacobi && (ogl::misaligned(z, 16) || ogl::misaligned(invd, 16)))))
     return static_cast<int>(cudaErrorMisalignedAddress);
   Vectors v{x, r, jacobi ? z : nullptr, p, pn, q};
   Scalars s{rho, absr, nf, partials, record};
-  Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
+  ogl::Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
   void* args[] = {&coef, &lidx, &offsets, &nd, &rows, &invd, &v, &s, &n, &vec, &c};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel, dim3(static_cast<unsigned int>(blocks)), dim3(threads), args, 0,
-      static_cast<cudaStream_t>(stream));
-  // also clears a refused launch's error, which would else surface at the
-  // next kernel's cudaGetLastError()
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  return ogl::coop_launch(kernel, blocks, threads, args, stream);
 }

@@ -21,16 +21,17 @@
 // moves no byte beyond the minimum.  The neighbour reads of r and invd are
 // shared with adjacent rows and mostly hit L1/L2.  Identity and Jacobi are
 // two instantiations of one template (no ones vector is streamed).  The
-// three block partials come out of one shared-memory pass (block_sum.cuh);
-// no float atomics, so the sums are deterministic.
+// row body (cg_ka.cuh) is also the KA phase of the persistent pipelined-CG
+// loop (cg_pipe_loop.cu).  The three block partials come out of one
+// shared-memory pass (block_sum.cuh); no float atomics, so the sums are
+// deterministic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_sum.cuh"
+#include "cg_ka.cuh"
 
 namespace {
-
-constexpr int kMaxDiags = 64;
 
 template <bool kJacobi>
 __global__ void cg_ka_kernel(const float* __restrict__ data,
@@ -39,28 +40,13 @@ __global__ void cg_ka_kernel(const float* __restrict__ data,
                              const float* __restrict__ invd,
                              float* __restrict__ w,
                              float* __restrict__ partials, int64_t n) {
-  __shared__ int s_off[kMaxDiags];
+  __shared__ int s_off[ogl::kMaxDiags];
   for (int k = threadIdx.x; k < nd; k += blockDim.x) s_off[k] = offsets[k];
   __syncthreads();
 
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   float sums[3] = {0.0f, 0.0f, 0.0f};
-  if (i < n) {
-    float acc = 0.0f;
-    for (int k = 0; k < nd; ++k) {
-      const int64_t j = i + s_off[k];
-      if (j >= 0 && j < n) {
-        const float u = kJacobi ? invd[j] * r[j] : r[j];
-        acc += data[(int64_t)k * n + i] * u;
-      }
-    }
-    const float rc = r[i];
-    const float uc = kJacobi ? invd[i] * rc : rc;
-    w[i] = acc;
-    sums[0] = rc * uc;
-    sums[1] = acc * uc;
-    sums[2] = fabsf(rc);
-  }
+  if (i < n) ogl::ka_row<kJacobi>(data, s_off, nd, r, invd, w, i, n, sums);
   ogl::block_sums_to<3>(sums, partials);
 }
 
@@ -75,7 +61,7 @@ extern "C" int ogl_cg_ka(const float* data, const int* offsets, int nd,
                          const float* r, const float* invd, float* w,
                          float* partials, int64_t n, int threads, int64_t grid,
                          void* stream) {
-  if (nd < 0 || nd > kMaxDiags || threads < 32 || threads > 1024 ||
+  if (nd < 0 || nd > ogl::kMaxDiags || threads < 32 || threads > 1024 ||
       threads % 32 != 0 || n < 0 || grid * threads < n)
     return static_cast<int>(cudaErrorInvalidValue);
   if (grid == 0) return 0;

@@ -109,14 +109,15 @@ def sm_count(index) -> int:
 
 
 def persistent_launch(n: int, ptrs, sms: int, threads: int = 256,
-                      blocks_per_sm: int = 4) -> tuple[int, int]:
+                      blocks_per_sm: int = 4, tail: bool = False) -> tuple[int, int]:
     """(vec, blocks) of a grid-stride launch over n rows: vec = 1 takes a
-    kernel's float4 branch over row quads, which needs n % 4 == 0 and every
-    pointer of `ptrs` 16-byte aligned; the grid is persistent,
-    `blocks_per_sm` blocks of `threads` per SM, fewer when the rows (quads)
-    run out."""
-    vec = int(n % 4 == 0 and all(p % 16 == 0 for p in ptrs))
-    steps = n // 4 if vec else n
+    kernel's float4 branch over row quads, which needs every pointer of
+    `ptrs` 16-byte aligned and n % 4 == 0 — or, with `tail`, a kernel that
+    takes the last quad of an n % 4 != 0 row by row; the grid is
+    persistent, `blocks_per_sm` blocks of `threads` per SM, fewer when the
+    rows (quads) run out."""
+    vec = int((tail or n % 4 == 0) and all(p % 16 == 0 for p in ptrs))
+    steps = -(-n // 4) if vec else n
     return vec, max(min(-(-steps // threads), blocks_per_sm * sms), 1)
 
 

@@ -1,9 +1,10 @@
 """Merged-Krylov and AMG-smoother kernels for the Dia (stencil) path: K1,
-K2, K2i, KA, K1B, the smoother passes and the whole merged CG loop in CUDA
-C++ (`csrc/cg_k1.cu`, `csrc/cg_k2.cu`, `csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`,
-`csrc/bicgstab.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`), K2n, KB_pipe
-and KB_update in Triton (bodies below), each beside its plain PyTorch
-twin.
+K2, K2i, KA, KB_pipe, K1B, the smoother passes and the whole merged CG and
+merged pipelined-CG loops in CUDA C++ (`csrc/cg_k1.cu`, `csrc/cg_k2.cu`,
+`csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`, `csrc/cg_kb_pipe.cu`,
+`csrc/bicgstab.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`,
+`csrc/cg_pipe_loop.cu`), K2n and KB_update in Triton (bodies below), each
+beside its plain PyTorch twin.
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
 `ka`/`kb_pipe`/`k1b`/`kb_update`/`ksweep`/`kresid`/`apply`/`pack_values`,
@@ -32,6 +33,13 @@ the criterion inside one `jax.lax.while_loop`):
   each iteration the criterion on ‖r‖₁, β, K1 (the Dia or the Gdia row
   body), a grid barrier, K2 (Jacobi) or K2i (identity), a grid barrier;
   one launch per solve and one host read at its end
+the whole merged pipelined-CG loop on a Dia matrix, with identity or
+scalar Jacobi preconditioning, as a second persistent cooperative kernel
+(`cg_pipe_loop`; the reference runs KA, KB_pipe and the criterion inside
+one `jax.lax.while_loop`):
+  each iteration KA (row body `csrc/cg_ka.cuh`), a grid barrier, the
+  criterion on ‖r‖₁, α and β, KB_pipe (body `csrc/cg_kb_pipe.cuh`), a
+  grid barrier
 and the AMG smoother's two passes, each one stencil apply:
   sweep  out = x + relax·invd ⊙ (b − A x)
   resid  out = b − A x
@@ -75,13 +83,13 @@ and K2i (`_k2i_kernel`) are CUDA C++ (`csrc/cg_k2.cu`, `csrc/cg_k2i.cu`):
 their bodies are also the K2 phases of the loop kernel, which a Triton
 kernel could not be.
 
-KB_pipe and KB_update (Triton) replace `_kb_pipe_kernel` and
-`_kb_update_kernel`, the same kind of stream.  Bound: device-memory
-bandwidth — KB_pipe 9 float32 streams per row (w, p, s, x, r in; p, s, x,
-r out; 36 B), 10 with Jacobi (invd in, u = invd·r formed before r is
-stored); KB_update 7 (x, p, s, t, r̂ in; x, r out; 28 B).  Design as K2,
-with KB_update's two sums as the rows of one (2, grid) partials array, so
-one torch.sum finishes both (KA and K1B do the same with three).
+KB_update (Triton) replaces `_kb_update_kernel`, the same kind of
+stream.  Bound: device-memory bandwidth — 7 float32 streams per row (x, p,
+s, t, r̂ in; x, r out; 28 B).  Design as K2n, with its two sums as the rows
+of one (2, grid) partials array, so one torch.sum finishes both (KA and
+K1B do the same with three).  KB_pipe (`_kb_pipe_kernel`: 9 streams, 36 B,
+10 with Jacobi) is CUDA C++ (`csrc/cg_kb_pipe.cu`): its body is also the
+KB_pipe phase of the pipelined loop kernel.
 """
 
 from __future__ import annotations
@@ -98,9 +106,10 @@ from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             persistent_launch, require_cuda, sm_count,
                                             stream_of)
 
-__all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "k1_plain", "k2_plain", "k2i_plain", "k2n_plain",
-           "cg_loop_plain", "ka_plain", "kb_pipe_plain", "k1b_plain", "kb_update_plain",
-           "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
+__all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "k1_plain", "k2_plain",
+           "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
+           "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "ksweep_plain",
+           "kresid_plain", "SMOOTHER_DTYPES"]
 
 K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
 K2_WARPS = 4
@@ -108,8 +117,10 @@ K2_WARPS = 4
 # rows (timed on the H100 in turns against 4, 8 and 16 per SM, which give each
 # thread a loop of quads: level or faster)
 K2_BLOCKS_PER_SM = 64
-LOOP_THREADS = 512  # threads per block of the loop kernel (csrc/cg_loop.cu kMaxThreads)
-# the loop kernel's variant bits (csrc/cg_loop.cu): scalar Jacobi, the Gdia apply
+# threads per block of the loop kernels (csrc/cg_loop.cu, cg_pipe_loop.cu kMaxThreads)
+LOOP_THREADS = 512
+# the loop kernels' variant bits (csrc/cg_loop.cu; cg_pipe_loop.cu takes the
+# first): scalar Jacobi, the Gdia apply
 LOOP_JACOBI, LOOP_GDIA = 1, 2
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
@@ -193,6 +204,41 @@ def kb_pipe_plain(w, p, s, x, r, alpha, beta, invd=None):
     r -= alpha * s
 
 
+def cg_pipe_loop_plain(ka, kb_pipe, x, r, nf, cfg, invd=None):
+    """The pipelined loop kernel's function, and the host loop of
+    solve/cg_pipe_fused.py: the merged pipelined CG over the plan's KA —
+    `ka(r, invd) -> (w, γ, δ, ‖r‖₁)` — and KB_pipe — `kb_pipe(w, p, s, x, r,
+    α, β, invd)`, in place — with identity (invd None) or scalar Jacobi
+    preconditioning, from the set-up's x, r = b − A x and norm factor nf,
+    with the criterion of solve/stopping.py (cfg: StoppingParams) read on
+    the host at each check.  The check reads the ‖r‖₁ that KA returns for
+    the incoming r; when it says converged the loop breaks before KB_pipe and
+    does not count the pass — the reference's α = 0 freeze.  x and r are
+    updated in place; returns (iterations, final and initial normalised
+    residual, converged) — an int and three 0-d tensors."""
+    from ogl_tpu_torch.solve import stopping  # not at the top: solve imports this module
+
+    st = stopping.init_state(x.dtype, x.device).replace(norm_factor=nf)
+    p, s = torch.zeros_like(x), torch.zeros_like(x)
+    zero = torch.zeros_like(nf)
+    gamma_old = alpha_old = torch.ones_like(nf)
+    while st.iter < cfg.max_iter + cfg.frequency:
+        w, gamma, delta, absr = ka(r, invd)
+        st = stopping.check_from_norm(cfg, st, absr)
+        if st.converged:
+            break
+        if st.iter == 0:
+            beta, denom = zero, delta
+        else:
+            beta = gamma / gamma_old
+            denom = delta - beta * gamma / alpha_old
+        alpha = gamma / denom
+        kb_pipe(w, p, s, x, r, alpha, beta, invd)
+        gamma_old, alpha_old = gamma, alpha
+        st = st.replace(iter=st.iter + 1)
+    return st.iter, st.res_norm, st.init_res_norm, stopping.satisfied(cfg, st)
+
+
 def k1b_plain(data, offsets, a, b, c, rhat, ca, cb):
     """(w, q, Σ r̂·q, Σ q·w, Σ q·q) with w = a + ca·b + cb·c, q = A w."""
     w = a + ca * b + cb * c
@@ -245,28 +291,6 @@ def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
     tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
 
 
-def _kb_pipe_body(alpha_ptr, beta_ptr, w_ptr, p_ptr, s_ptr, x_ptr, r_ptr, invd_ptr, n,
-                  JACOBI: "tl.constexpr", BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    alpha = tl.load(alpha_ptr)
-    beta = tl.load(beta_ptr)
-    r = tl.load(r_ptr + offs, mask=mask, other=0.0)
-    if JACOBI:
-        u = tl.load(invd_ptr + offs, mask=mask, other=0.0) * r
-    else:
-        u = r
-    po = u + beta * tl.load(p_ptr + offs, mask=mask, other=0.0)
-    so = tl.load(w_ptr + offs, mask=mask, other=0.0) + beta * tl.load(
-        s_ptr + offs, mask=mask, other=0.0)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
-    tl.store(p_ptr + offs, po, mask=mask)
-    tl.store(s_ptr + offs, so, mask=mask)
-    tl.store(x_ptr + offs, x + alpha * po, mask=mask)
-    tl.store(r_ptr + offs, r - alpha * so, mask=mask)
-
-
 def _kb_update_body(alpha_ptr, omega_ptr, x_ptr, p_ptr, s_ptr, t_ptr, rhat_ptr, r_ptr,
                     rr_ptr, absr_ptr, n, BLOCK: "tl.constexpr"):
     pid = tl.program_id(0)
@@ -293,9 +317,7 @@ def _triton_kernels() -> dict:
         import triton.language
 
         tl = triton.language
-        _TRITON.update(k2n=triton.jit(_k2n_body),
-                       kb_pipe=triton.jit(_kb_pipe_body),
-                       kb_update=triton.jit(_kb_update_body))
+        _TRITON.update(k2n=triton.jit(_k2n_body), kb_update=triton.jit(_kb_update_body))
     return _TRITON
 
 
@@ -316,6 +338,14 @@ def _check_no_overlap(what: str, out: torch.Tensor, *operands) -> None:
                                  "buffer of its own")
 
 
+def _read_record(record: torch.Tensor) -> tuple:
+    """The one host read of a loop kernel's 4-word record (csrc/loop.cuh
+    `write_record`): (iterations, final and initial normalised residual,
+    converged) — an int and three 0-d CPU tensors."""
+    host = record.cpu()
+    return int(host.view(torch.int32)[0]), host[1], host[2], host[3] != 0
+
+
 class CgKernels:
     """Merged-CG steps for one Dia sparsity on one device.
 
@@ -331,7 +361,9 @@ class CgKernels:
         self.device = self.plan.device
         self.dtype = torch.float32
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        self._loop_blocks: dict = {}  # variant -> co-resident blocks of the loop kernel
+        # variant -> co-resident blocks of the loop kernel, of the pipelined one
+        self._loop_blocks: dict = {}
+        self._pipe_loop_blocks: dict = {}
 
     def pack_values(self, mat, dtype: torch.dtype | None = None) -> torch.Tensor:
         """The Dia data as the kernels take it: contiguous (nd, n), float32
@@ -415,14 +447,22 @@ class CgKernels:
         `variant` (LOOP_JACOBI | LOOP_GDIA bits) on this plan's card
         (occupancy × SMs), queried once per variant; raises on a card
         without cooperative launch."""
-        if variant not in self._loop_blocks:
+        return self._coop_blocks("cg_loop", self._loop_blocks, variant)
+
+    def pipe_loop_blocks(self, variant: int = 0) -> int:
+        """loop_blocks for the pipelined loop kernel (variant 0 or
+        LOOP_JACOBI)."""
+        return self._coop_blocks("cg_pipe_loop", self._pipe_loop_blocks, variant)
+
+    def _coop_blocks(self, kernel: str, cache: dict, variant: int) -> int:
+        if variant not in cache:
             blocks = ctypes.c_int64()
+            query = getattr(_build.library(), f"ogl_{kernel}_grid")
             with torch.cuda.device(self.device):
-                _build.check(_build.library().ogl_cg_loop_grid(variant, LOOP_THREADS,
-                                                               ctypes.byref(blocks)),
-                             "cg_loop (occupancy query)")
-            self._loop_blocks[variant] = blocks.value
-        return self._loop_blocks[variant]
+                _build.check(query(variant, LOOP_THREADS, ctypes.byref(blocks)),
+                             f"{kernel} (occupancy query)")
+            cache[variant] = blocks.value
+        return cache[variant]
 
     def _loop_apply(self, data, vectors):
         """The loop kernel's apply for this plan, after checking `data` and
@@ -465,10 +505,9 @@ class CgKernels:
             record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter,
             cfg.max_iter, cfg.frequency, vec, LOOP_THREADS, blocks, stream_of(x)), "cg_loop")
         kernels.launches["cg_loop"] += 1
-        host = record.cpu()
-        return int(host.view(torch.int32)[0]), host[1], host[2], host[3] != 0
+        return _read_record(record)
 
-    # ---- pipelined CG: KA (CUDA C++), KB_pipe (Triton) ------------------
+    # ---- pipelined CG: KA, KB_pipe and the whole loop (CUDA C++) --------
     def ka(self, data, r, invd=None):
         """(w, γ, δ, ‖r‖₁): u = invd ⊙ r (r when invd is None), w = A u in a
         new buffer, γ = Σ r·u, δ = Σ w·u and ‖r‖₁ as 0-d tensors."""
@@ -492,9 +531,50 @@ class CgKernels:
         r −= α·s, with u = invd ⊙ r (r when invd is None)."""
         if on_cpu(w, p, s, x, r, alpha, beta, invd):
             return kb_pipe_plain(w, p, s, x, r, alpha, beta, invd)
+        require_cuda("kb_pipe", w)
+        vectors = (w, p, s, x, r) if invd is None else (w, p, s, x, r, invd)
+        check_operands(self.plan, None, *vectors)
+        check_scalar("alpha", alpha, self.device)
+        check_scalar("beta", beta, self.device)
+        vec, blocks = persistent_launch(self.n, [t.data_ptr() for t in vectors],
+                                        sm_count(self.device.index),
+                                        blocks_per_sm=K2_BLOCKS_PER_SM, tail=True)
+        _build.check(_build.library().ogl_cg_kb_pipe(
+            alpha.data_ptr(), beta.data_ptr(), *(t.data_ptr() for t in vectors[:5]),
+            None if invd is None else invd.data_ptr(), self.n, vec, blocks, stream_of(w)),
+            "cg_kb_pipe")
+        kernels.launches["cg_kb_pipe"] += 1
+
+    def cg_pipe_loop(self, data, x, r, nf, cfg, invd=None):
+        """The merged pipelined CG loop from the set-up's state
+        (solve/cg_pipe_fused.py): x and r = b − A x, updated in place; the
+        norm factor as a 0-d tensor; invd the Jacobi inverse diagonal (None:
+        identity); cfg the StoppingParams.  One cooperative launch on the
+        card, then one host read of its record; returns (iterations, final
+        and initial normalised residual, converged) — an int and three 0-d
+        CPU tensors."""
+        if on_cpu(data, x, r, nf, invd):
+            return cg_pipe_loop_plain(functools.partial(self.ka, data), self.kb_pipe, x, r, nf,
+                                      cfg, invd)
+        require_cuda("cg_pipe_loop", x)
         jacobi = invd is not None
-        self._launch_stream("kb_pipe", "cg_kb_pipe", {"alpha": alpha, "beta": beta},
-                            (w, p, s, x, r, invd if jacobi else r), JACOBI=jacobi)
+        vectors = (x, r, invd) if jacobi else (x, r)
+        check_operands(self.plan, data, *vectors)
+        check_scalar("nf", nf, self.device)
+        variant = LOOP_JACOBI if jacobi else 0
+        blocks = min(self.pipe_loop_blocks(variant), -(-self.n // LOOP_THREADS))
+        p, s, w = torch.zeros_like(x), torch.zeros_like(x), torch.empty_like(x)
+        partials = torch.empty(3 * blocks, dtype=torch.float32, device=self.device)
+        record = torch.empty(4, dtype=torch.float32, device=self.device)
+        vec = int(all(t.data_ptr() % 16 == 0 for t in (*vectors, p, s, w)))
+        _build.check(_build.library().ogl_cg_pipe_loop(
+            variant, data.data_ptr(), self.plan.offsets_dev.data_ptr(), len(self.offsets),
+            invd.data_ptr() if jacobi else None, x.data_ptr(), r.data_ptr(), p.data_ptr(),
+            s.data_ptr(), w.data_ptr(), nf.data_ptr(), partials.data_ptr(), record.data_ptr(),
+            self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter, cfg.max_iter, cfg.frequency, vec,
+            LOOP_THREADS, blocks, stream_of(x)), "cg_pipe_loop")
+        kernels.launches["cg_pipe_loop"] += 1
+        return _read_record(record)
 
     # ---- merged BiCGStab: K1B (CUDA C++), KB_update (Triton) ------------
     def k1b(self, data, a, b, c, rhat, ca, cb, out=None):
@@ -536,12 +616,11 @@ class CgKernels:
                                    {"alpha": alpha, "omega": omega}, (x, p, s, t, rhat, r),
                                    sums=2)
 
-    def _launch_stream(self, name, counter, scalars: dict, vectors, sums: int = 0,
-                       **constexprs):
-        """Launch the Triton stream `name` (K2n, KB_pipe, KB_update)
-        over (n,) vectors, its 0-d `scalars` read through pointers.  With
-        `sums`, each sum's per-program partials fill one row of a (sums,
-        grid) array, and one torch.sum finishes them all."""
+    def _launch_stream(self, name, counter, scalars: dict, vectors, sums: int):
+        """Launch the Triton stream `name` (K2n, KB_update) over (n,)
+        vectors, its 0-d `scalars` read through pointers.  Each sum's
+        per-program partials fill one row of a (sums, grid) array, and one
+        torch.sum finishes them all."""
         require_cuda(name, vectors[0])
         check_operands(self.plan, None, *vectors)
         for what, sc in scalars.items():
@@ -549,9 +628,9 @@ class CgKernels:
         grid = -(-self.n // K2_BLOCK)
         partials = torch.empty((sums, grid), dtype=torch.float32, device=self.device)
         _triton_kernels()[name][(grid,)](*scalars.values(), *vectors, *partials, self.n,
-                                         BLOCK=K2_BLOCK, num_warps=K2_WARPS, **constexprs)
+                                         BLOCK=K2_BLOCK, num_warps=K2_WARPS)
         kernels.launches[counter] += 1
-        return torch.sum(partials, dim=1).unbind() if sums else ()
+        return torch.sum(partials, dim=1).unbind()
 
     # ---- AMG smoother passes (CUDA C++) --------------------------------
     def ksweep(self, data, x, b, invd, relax: float, out=None):

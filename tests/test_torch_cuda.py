@@ -22,11 +22,11 @@ from ogl_tpu_torch import bench, foam, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels import device_time, gdia, roofline, xell
-from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, cg_loop_plain, k1_plain,
-                                         k1b_plain, k2_plain, k2i_plain, k2n_plain, ka_plain,
-                                         kb_pipe_plain, kb_update_plain, kresid_plain,
-                                         ksweep_plain)
-from ogl_tpu_torch.solve import stopping
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, cg_loop_plain,
+                                         cg_pipe_loop_plain, k1_plain, k1b_plain, k2_plain,
+                                         k2i_plain, k2n_plain, ka_plain, kb_pipe_plain,
+                                         kb_update_plain, kresid_plain, ksweep_plain)
+from ogl_tpu_torch.solve import cg_pipelined_fused, stopping
 from ogl_tpu_torch.solve.cg_fused import cg_fused, merged_norm_factor
 
 pytestmark = pytest.mark.cuda
@@ -702,6 +702,133 @@ def test_kb_pipe_kernel_matches_plain(dev, n, jacobi):
         _close(g, want_t)
 
 
+@pytest.mark.parametrize("jacobi", [False, True], ids=["none", "BJ"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [4096, 4097, 4099])
+def test_kb_pipe_kernel_branches_match_plain(dev, n, offset, jacobi):
+    """Each branch of the CUDA KB_pipe: float4 (every stream 16-byte
+    aligned; n % 4 != 0 takes its last quad row by row) and rows (every
+    stream one float off an aligned base)."""
+    kern = CgKernels(n, (0,), dev)
+    alpha, beta = torch.tensor(0.41, device=dev), torch.tensor(-0.37, device=dev)
+
+    def vec(seed, lo=None):
+        return _vec(n + offset, seed, dev, lo)[offset:]
+
+    w, invd = vec(5), vec(6, lo=0.1) if jacobi else None
+    got = [vec(seed) for seed in (7, 8, 9, 10)]  # p, s, x, r
+    want = [t.clone() for t in got]
+    kernels.reset_launches()
+    kern.kb_pipe(w, *got, alpha, beta, invd)
+    kb_pipe_plain(w, *want, alpha, beta, invd)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_kb_pipe"] == 1 and sum(kernels.launches.values()) == 1
+    for g, want_t in zip(got, want):
+        _close(g, want_t)
+
+
+# ---- the persistent pipelined-CG loop --------------------------------------
+
+
+def _pipe_state(kern, data, b):
+    """The set-up of solve/cg_pipe_fused.py from a zero guess: (x, r, nf)."""
+    x = torch.zeros_like(b)
+    r = b - kern.apply(data, x)
+    return x, r, merged_norm_factor(kern, data, r, x, b)
+
+
+def _check_pipe_loop(kern, data, b, invd):
+    """The pipelined loop kernel against its plain twin (over the plain KA
+    and KB_pipe) pinned at 30 iterations and free-running to LOOP_TOL: three
+    launches repeat their count and iterate exactly; each launches the loop
+    once and K1 twice (the set-up's r0 and norm factor), nothing else."""
+    free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                   max_iter=2000, frequency=1)
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=30, max_iter=30,
+                                     frequency=1)
+    plain_ka = functools.partial(ka_plain, data, kern.offsets)
+    for cfg in (pinned, free):
+        x_p, r_p, nf_p = _pipe_state(kern, data, b)
+        it_p, rn_p, _, conv_p = cg_pipe_loop_plain(plain_ka, kb_pipe_plain, x_p, r_p, nf_p, cfg,
+                                                   invd)
+        runs = []
+        for _ in range(3):  # the kernel repeats its own count and iterate exactly
+            kernels.reset_launches()
+            x, r, nf = _pipe_state(kern, data, b)
+            runs.append((x, *kern.cg_pipe_loop(data, x, r, nf, cfg, invd)))
+            torch.cuda.synchronize()
+            assert kernels.launches["cg_pipe_loop"] == 1 and kernels.launches["cg_k1"] == 2
+            assert sum(kernels.launches.values()) == 3
+        x, it, rn, _, conv = runs[0]
+        assert all(run[1] == it and torch.equal(run[0], x) for run in runs[1:])
+        if cfg is pinned:
+            assert it == it_p == 30 and not conv
+            _close(x, x_p)
+        else:
+            assert bool(conv) and bool(conv_p) and abs(it - it_p) <= 1
+            assert float(rn) < LOOP_TOL
+            r64 = b.double() - dia_spmv_plain(data.double(), kern.offsets, x.double())
+            assert float(r64.abs().sum() / nf.double()) <= 10 * LOOP_TOL
+            torch.testing.assert_close(x, x_p, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("dims", LOOP_GRIDS, ids=str)
+def test_cg_pipe_loop_matches_plain(dev, dims, pc):
+    kern, data, b = _loop_setup(dims, dev)
+    invd = 1.0 / data[kern.offsets.index(0)] if pc == "BJ" else None
+    _check_pipe_loop(kern, data, b, invd)
+
+
+def test_cg_pipelined_fused_takes_the_loop_on_the_card(dev):
+    """cg_pipelined_fused runs identity and Jacobi on the Dia plan as the one
+    launch, with no KA or KB_pipe; a plan that is not CgKernels itself keeps
+    the host loop over KA and KB_pipe."""
+    kern, data, b = _loop_setup((32, 16, 8), dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=1000, frequency=1)
+    results = {}
+    for pc, invd in (("none", None), ("BJ", 1.0 / data[kern.offsets.index(0)])):
+        kernels.reset_launches()
+        res = cg_pipelined_fused(kern, data, b, torch.zeros_like(b), cfg, invd=invd)
+        assert kernels.launches["cg_pipe_loop"] == 1 and kernels.launches["cg_k1"] == 2
+        assert kernels.launches["cg_ka"] == kernels.launches["cg_kb_pipe"] == 0
+        assert res.iters > 0 and bool(res.converged)
+        assert res.final_res_norm.device.type == "cpu"
+        results[pc] = res
+
+    class HostLoop(CgKernels):
+        pass
+
+    host = HostLoop(kern.n, kern.offsets, dev)
+    kernels.reset_launches()
+    res_h = cg_pipelined_fused(host, data, b, torch.zeros_like(b), cfg)
+    assert kernels.launches["cg_pipe_loop"] == 0
+    assert kernels.launches["cg_kb_pipe"] == res_h.iters
+    assert kernels.launches["cg_ka"] == res_h.iters + 1  # the last one's check stops
+    assert abs(res_h.iters - results["none"].iters) <= 1
+    torch.testing.assert_close(res_h.x, results["none"].x, rtol=0, atol=1e-3)
+
+
+def test_cg_pipe_loop_refused_cooperative_launch_raises(dev):
+    """A grid above the co-resident blocks is refused by the cooperative
+    launch; the wrapper raises, falls back to nothing, and the next launch
+    is unaffected."""
+    kern, data, b = _loop_setup((128, 128, 64), dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=5, frequency=1)
+    kern.cg_pipe_loop(data, *_pipe_state(kern, data, b), cfg)
+    co_resident = kern._pipe_loop_blocks[0]
+    assert 0 < co_resident < -(-kern.n // 512)
+    kern._pipe_loop_blocks[0] = 4 * co_resident
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="cg_pipe_loop: CUDA error"):
+        kern.cg_pipe_loop(data, *_pipe_state(kern, data, b), cfg)
+    assert kernels.launches["cg_pipe_loop"] == 0
+    kern._pipe_loop_blocks[0] = co_resident
+    assert kern.cg_pipe_loop(data, *_pipe_state(kern, data, b), cfg)[0] == 5
+
+
 @pytest.mark.parametrize("b_is_c", [False, True], ids=["b,c", "b is c"])
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_k1b_kernel_matches_plain(dev, case, b_is_c):
@@ -764,13 +891,16 @@ def test_slice4_wrappers_raise_on_bad_operands(dev):
         kern.kb_update(a, b, rhat, a, b, ca, 0.5, torch.empty_like(a))
 
 
+# name -> (solver, controls, preconditioner, kernels launched, kernels never
+# launched): the pipelined CG runs its whole loop as one launch
 SLICE4_SOLVES = {
-    "pipelined-none": ("GKOCG", {"pipelinedCG": True}, "none", ("cg_ka", "cg_kb_pipe")),
+    "pipelined-none": ("GKOCG", {"pipelinedCG": True}, "none", ("cg_pipe_loop",),
+                       ("cg_ka", "cg_kb_pipe")),
     "pipelined-BJ": ("GKOCG", {"pipelinedCG": True}, {"preconditioner": "BJ"},
-                     ("cg_ka", "cg_kb_pipe")),
-    "bicgstab-BJ": ("GKOBiCGStab", {}, {"preconditioner": "BJ"}, ("dia_spmv",)),
+                     ("cg_pipe_loop",), ("cg_ka", "cg_kb_pipe")),
+    "bicgstab-BJ": ("GKOBiCGStab", {}, {"preconditioner": "BJ"}, ("dia_spmv",), ()),
     "bicgstab-fused": ("GKOBiCGStab", {"fusedBiCGStab": True}, "none",
-                       ("bicgstab_k1b", "bicgstab_kb_update")),
+                       ("bicgstab_k1b", "bicgstab_kb_update"), ()),
 }
 
 
@@ -779,7 +909,7 @@ def test_foam_slice4_on_card_matches_cpu(dev, name):
     """The pipelined CG on the Poisson system and BiCGStab on the asymmetric
     convection-diffusion system (on which float32 BiCGStab converges
     smoothly), on the card against the same solve on the CPU."""
-    solver, extra, pc, launched = SLICE4_SOLVES[name]
+    solver, extra, pc, launched, never = SLICE4_SOLVES[name]
     m = (testing.poisson_ldu((32, 32, 16)) if solver == "GKOCG"
          else testing.convection_diffusion_ldu((32, 32, 16)))
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
@@ -790,6 +920,7 @@ def test_foam_slice4_on_card_matches_cpu(dev, name):
     x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
     assert x.device.type == "cuda"
     assert all(kernels.launches[k] > 0 for k in launched)
+    assert all(kernels.launches[k] == 0 for k in never)
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
 
