@@ -13,7 +13,9 @@ then the unstructured-mesh solve (slice 3) on a kNN-6 FV graph (auto-routed
 to Xell) and on the Poisson grid renumbered inside each x-line (auto-routed
 to Gdia); then (slice 4) the pipelined GKOCG and GKOBiCGStab, on the
 Poisson grid, on an asymmetric convection-diffusion system and on the
-shuffled grid — each followed by steady-state steps; then (slice 5) the
+shuffled grid — each followed by steady-state steps; the pipelined CG with
+`none` or `BJ` and GKOBiCGStab `fusedBiCGStab true` each run their whole
+loop as one launch of a persistent kernel; then (slice 5) the
 headline lanes of the bench, `ogl_tpu_torch.bench.run`, on the read-peak
 kernel, the SpMV roofline at 8,388,608 rows and the merged CG — after
 building the port's kernels from the sources in this checkout and holding
@@ -25,8 +27,9 @@ Phases (any failure raises, and the script exits non-zero):
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
      and, for each of the persistent CG loop kernel's four variants (Dia or
-     Gdia, identity or Jacobi) and the pipelined loop kernel's two (identity
-     or Jacobi), its grid (co-resident blocks) and registers;
+     Gdia, identity or Jacobi), the pipelined loop kernel's two (identity
+     or Jacobi) and the merged-BiCGStab loop kernel, its grid (co-resident
+     blocks) and registers;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
      with float32 and bfloat16 coefficients, KA and KB_pipe with identity
      and Jacobi, K1B with distinct b and c and with b = c): max error
@@ -39,7 +42,12 @@ Phases (any failure raises, and the script exits non-zero):
      iterations, the criterion checked at each), also at 64x64x48, about
      one row per thread of its grid (its fixed cost per iteration); the
      pipelined loop kernel's two variants the same way, against its plain
-     twin and the host loop over the KA and KB_pipe kernels; then on
+     twin and the host loop over the KA and KB_pipe kernels; the
+     merged-BiCGStab loop kernel the same way against its plain twin (x and
+     the normalised residual after 10 pinned iterations: float32 BiCGStab
+     on the Poisson grid parts from another summation order later) and the
+     host loop over the K1B and KB_update kernels, with its bytes per
+     iteration (124 B per row at 7 diagonals); then on
      the shuffled grid built on the device at both sizes the Gdia SpMV and
      the row-quad Gdia K1 against their plain versions and the loop's two
      Gdia variants as the Dia ones;
@@ -74,8 +82,11 @@ Phases (any failure raises, and the script exits non-zero):
      `none` at 275 iterations) and GKOBiCGStab as
      the reference bench ran it (`BJ`, `none`, `none` + `fusedBiCGStab`)
      on the Poisson grid; GKOBiCGStab `BJ` on convection-diffusion with a
-     diag-only step and a step that changes every block; GKOBiCGStab `none`
-     on the shuffled grid (Gdia).  Each solve: the true float64 residual,
+     diag-only step and a step that changes every block, and `none` +
+     `fusedBiCGStab` there; GKOBiCGStab `none` on the shuffled grid (Gdia).
+     Each fused BiCGStab solve: the merged-BiCGStab loop kernel once, K1
+     twice for its set-up, no K1B or KB_update; the general route's time
+     per iteration beside the fused one's.  Each solve: the true float64 residual,
      the same route over the plain twins on the card, free-running and
      pinned to the first iterations, and the kernel route again (the same
      count) and with b nudged by one ulp; a profile of one steady step
@@ -102,10 +113,10 @@ under "cases" every variant and size it was checked on; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits with an error and
 prints no result.  `--turns` runs phase 3's kernel checks (and the Gdia
 kernels on the device-built shuffled grid, and 200 pinned iterations of
-cg_pipelined_fused on the Dia plan at 1M and 8.4M rows) from each given
-checkout in order, one process each, and prints their kernel lines: an
-earlier commit unpacked with `git archive` against this one on the same
-card.
+cg_pipelined_fused and of bicgstab_fused on the Dia plan at 1M and 8.4M
+rows) from each given checkout in order, one process each, and prints
+their kernel lines: an earlier commit unpacked with `git archive` against
+this one on the same card.
 """
 
 from __future__ import annotations
@@ -131,8 +142,8 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS, cg_loop_plain,
-                                         cg_pipe_loop_plain)
+from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS,
+                                         bicgstab_loop_plain, cg_loop_plain, cg_pipe_loop_plain)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
                                  krylov, stopping)
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
@@ -188,7 +199,7 @@ KERNELS = {
                    "ogl_tpu/kernels/fused.py:477", "cg_kb_pipe[none]", None),
     "bicgstab_k1b": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab.cu",
                      "ogl_tpu/kernels/fused.py:283", "bicgstab_k1b", None),
-    "bicgstab_kb_update": ("triton", "ogl_tpu_torch/kernels/fused.py",
+    "bicgstab_kb_update": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_kb_update.cu",
                            "ogl_tpu/kernels/fused.py:363", "bicgstab_kb_update", None),
     # "big": at the bench's shape, 7 planes of the 8.4M grid's rows
     "read_peak": ("cuda", "ogl_tpu_torch/kernels/csrc/read_peak.cu",
@@ -204,14 +215,18 @@ KERNELS = {
     "cg_pipe_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_pipe_loop.cu",
                      "ogl_tpu/kernels/fused.py:415, ogl_tpu/kernels/fused.py:477",
                      "cg_pipe_loop[none]", None),
+    # the whole merged BiCGStab loop: K1B twice and KB_update as its phases;
+    # its row's times are per iteration
+    "bicgstab_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_loop.cu",
+                      "ogl_tpu/kernels/fused.py:283, ogl_tpu/kernels/fused.py:363",
+                      "bicgstab_loop", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
 # cg_k2 and cg_k2i: the Xell solves' host loops (BJ, none)
 UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i",
                         "cg_loop")
-SLICE4_KERNELS = ("cg_pipe_loop", "bicgstab_k1b", "bicgstab_kb_update", "dia_spmv",
-                  "gdia_spmv")
+SLICE4_KERNELS = ("cg_pipe_loop", "bicgstab_loop", "dia_spmv", "gdia_spmv")
 BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_loop")
 # a GKOCG `none` or `BJ` solve on Dia (Gdia): the loop kernel once, its K1
 # twice (the set-up's r0 and norm factor), no K2 and no K2i
@@ -220,12 +235,21 @@ GDIA_LOOP_SOLVE_LAUNCHES = {"cg_loop": 1, "gdia_k1": 2, "cg_k2": 0, "cg_k2i": 0}
 # a GKOCG `pipelinedCG` solve (`none` or `BJ`) on Dia: the pipelined loop
 # kernel once, K1 twice (the set-up's r0 and norm factor), no KA or KB_pipe
 PIPE_LOOP_SOLVE_LAUNCHES = {"cg_pipe_loop": 1, "cg_k1": 2, "cg_ka": 0, "cg_kb_pipe": 0}
+# a GKOBiCGStab `fusedBiCGStab` solve (`none`) on Dia: the merged-BiCGStab
+# loop kernel once, K1 twice (the set-up's r0 and norm factor), no K1B or
+# KB_update
+BICGSTAB_LOOP_SOLVE_LAUNCHES = {"bicgstab_loop": 1, "cg_k1": 2, "bicgstab_k1b": 0,
+                                "bicgstab_kb_update": 0}
 # the loop kernel's four variants (bits of csrc/cg_loop.cu), as phase 2 names them
 LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
                  LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
 PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
 LOOP_ITERS = (30, 200)  # the loop's check (x against the plain twin), its timing
+# the BiCGStab loop's check: float32 BiCGStab on the Poisson grid from a
+# random b parts from another summation order within 30 iterations (phase 3
+# prints the gap there), so x is held to the twin after 10, as phase 9 pins
+BICGSTAB_LOOP_CHECK = 10
 # about one row per thread of the loop kernel's grid (3 x 132 blocks of 512 on
 # an H100): its time per iteration is the loop's fixed cost (two grid
 # barriers, the partial sums, the phases' ramps)
@@ -275,8 +299,9 @@ class PlainCgKernels(PlainSteps, CgKernels):
 
 
 class HostLoopCgKernels(CgKernels):
-    """CgKernels that cg_fused does not recognise as the Dia plan itself, so
-    its solves keep the host loop over the K1 and K2 (K2i) kernels."""
+    """CgKernels that cg_fused (cg_pipelined_fused, bicgstab_fused) does not
+    recognise as the Dia plan itself, so its solves keep the host loop over
+    the K1 and K2 (K2i; KA and KB_pipe; K1B and KB_update) kernels."""
 
 
 class HostLoopGdiaCgKernels(GdiaCgKernels):
@@ -371,10 +396,12 @@ def check_loop_solve_launches(what, before, want=LOOP_SOLVE_LAUNCHES):
 
 def loop_ptxas(log, variant, kernel="cg_loop_kernel"):
     """nvcc's -Xptxas -v lines (registers, spills) of kernel<variant>, whose
-    mangled name holds <kernel>ILi<variant>E."""
+    mangled name holds <kernel>ILi<variant>E (variant None: the kernel is
+    not a template)."""
     lines = log.splitlines()
+    tag = kernel if variant is None else f"{kernel}ILi{variant}E"
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and f"{kernel}ILi{variant}E" in line:
+        if "Compiling entry" in line and tag in line:
             return [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
                     if "registers" in ln or "spill" in ln]
     return ["not in the build log"]
@@ -542,23 +569,27 @@ def checked_iterations(k):
                                    frequency=1)
 
 
-def loop_row(case, label, run, host_solve, host_what, nbytes, n, report):
+def loop_row(case, label, run, host_solve, host_what, nbytes, n, report,
+             check=LOOP_ITERS[0]):
     """A loop kernel against its plain twin from one set-up: `run(k, plain)`
     runs k checked iterations of the kernel (plain=False) or of the twin and
-    returns (x, iterations); after LOOP_ITERS[0] iterations x is held to the
-    vector tolerance; then both are timed in turns over LOOP_ITERS[1] with
-    `host_solve(k)`, the host loop over the standalone kernels (whose time
-    also holds the set-up's two applies): ms per iteration, and the bound
-    per iteration (`nbytes` over the memory rate)."""
-    (xk, ik), (xp, ip) = run(LOOP_ITERS[0], False), run(LOOP_ITERS[0], True)
+    returns (x, iterations, normalised residual); after `check` iterations x
+    is held to the vector tolerance and the residual to PINNED_RTOL; then
+    both are timed in turns over LOOP_ITERS[1] with `host_solve(k)`, the
+    host loop over the standalone kernels (whose time also holds the
+    set-up's two applies): ms per iteration, and the bound per iteration
+    (`nbytes` over the memory rate)."""
+    (xk, ik, rk), (xp, ip, rp) = run(check, False), run(check, True)
     err, tol = vec_err(xk, xp)
+    rel = sum_err(rk, rp)
     k = LOOP_ITERS[1]
     t = time_turns({"plain": lambda: run(k, True), "kernel": lambda: run(k, False),
                     "host loop": lambda: host_solve(k)}, reps=5)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
     ms = {tag: v / k for tag, v in t.items()}
-    ok = err <= tol and ik == ip == LOOP_ITERS[0]
-    print(f"  {case:22s} {label:20s} max_abs_err {err:.3e} (tol {tol:.1e}) after "
+    ok = err <= tol and rel <= PINNED_RTOL and ik == ip == check
+    print(f"  {case:22s} {label:20s} max_abs_err {err:.3e} (tol {tol:.1e}), residual rel err "
+          f"{rel:.1e} (tol {PINNED_RTOL:.0e}) after "
           f"{ik} / {ip} iterations; per iteration (over {k}, checked at each): kernel "
           f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s, plain "
           f"{ms['plain']:.4f} ms, host loop over {host_what} {ms['host loop']:.4f} ms, bound "
@@ -591,7 +622,7 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop"):
         z = None if z0 is None else z0.clone()
         rec = (cg_loop_plain(plain_k1, x, r, *state, checked_iterations(k), invd, z) if plain
                else kern.cg_loop(data, x, r, *state, checked_iterations(k), invd=invd, z=z))
-        return x, rec[0]
+        return x, rec[0], rec[1]
 
     loop_row(case, label, run,
              lambda k: cg_fused(host, data, b, x0, checked_iterations(k), invd=invd),
@@ -618,7 +649,7 @@ def check_pipe_loop(kern, data, label, report, invd=None):
         x, r = x0.clone(), r0.clone()
         rec = (cg_pipe_loop_plain(plain_ka, kb_pipe_plain, x, r, nf, checked_iterations(k), invd)
                if plain else kern.cg_pipe_loop(data, x, r, nf, checked_iterations(k), invd))
-        return x, rec[0]
+        return x, rec[0], rec[1]
 
     jacobi = invd is not None
     loop_row(f"cg_pipe_loop[{'BJ' if jacobi else 'none'}]", label, run,
@@ -626,9 +657,46 @@ def check_pipe_loop(kern, data, label, report, invd=None):
              "KA + KB_pipe", ((data.shape[0] + 2) * 4 + 36 + 8 * jacobi) * n, n, report)
 
 
+def check_bicgstab_loop(kern, data, label, report):
+    """The merged-BiCGStab loop kernel against its plain twin (over
+    k1b_plain and kb_update_plain) from the same set-up (b random, x0 = 0),
+    timed in turns with the host loop over the K1B and KB_update kernels
+    (bicgstab_fused with a plan that keeps the host loop): loop_row, x held
+    to the twin after BICGSTAB_LOOP_CHECK iterations; the gap after
+    LOOP_ITERS[0] is printed, not gated.  Minimum bytes per iteration and
+    row: the first K1B the coefficients, r, p, v and r̂ in, p' and v' out;
+    the second the coefficients, r and v' in, s and t out; KB_update x, p',
+    s, t and r̂ in, x and r out — 8·nd + 68 (124 at 7 diagonals)."""
+    n, dev = kern.n, kern.device
+    b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    x0 = torch.zeros_like(b)
+    r0 = b - kern.apply(data, x0)  # also r̂, never written
+    state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
+             merged_norm_factor(kern, data, r0, x0, b))
+    host = HostLoopCgKernels(n, kern.offsets, dev)
+    plain_k1b = functools.partial(k1b_plain, data, kern.offsets)
+
+    def run(k, plain):
+        x, r = x0.clone(), r0.clone()
+        rec = (bicgstab_loop_plain(plain_k1b, kb_update_plain, x, r, r0, *state,
+                                   checked_iterations(k)) if plain
+               else kern.bicgstab_loop(data, x, r, r0, *state, checked_iterations(k)))
+        return x, rec[0], rec[1]
+
+    (xk, _, rk), (xp, _, rp) = run(LOOP_ITERS[0], False), run(LOOP_ITERS[0], True)
+    err, tol = vec_err(xk, xp)
+    print(f"  bicgstab_loop          {label:20s} after {LOOP_ITERS[0]} iterations (not gated): "
+          f"max_abs_err {err:.3e} (vector tol {tol:.1e}), residual {float(rk):.4e} against the "
+          f"twin's {float(rp):.4e}")
+    loop_row("bicgstab_loop", label, run,
+             lambda k: bicgstab_fused(host, data, b, x0, checked_iterations(k)),
+             "K1B + K1B + KB_update", (8 * data.shape[0] + 68) * n, n, report,
+             check=BICGSTAB_LOOP_CHECK)
+
+
 def check_dia_loops(data, offsets, label, report):
     """check_loop for the two Dia variants (identity and Jacobi), then
-    check_pipe_loop for the pipelined loop's two."""
+    check_pipe_loop for the pipelined loop's two, then check_bicgstab_loop."""
     kern = CgKernels(data.shape[1], offsets, data.device)
     plain_k1 = functools.partial(k1_plain, data, offsets)
     invd = 1.0 / data[offsets.index(0)]
@@ -636,6 +704,7 @@ def check_dia_loops(data, offsets, label, report):
     check_loop(kern, data, plain_k1, label, report, invd=invd, case="cg_loop[Dia BJ]")
     check_pipe_loop(kern, data, label, report)
     check_pipe_loop(kern, data, label, report, invd=invd)
+    check_bicgstab_loop(kern, data, label, report)
 
 
 def check_gdia(grids, device, report):
@@ -1285,6 +1354,8 @@ SLICE4_SOLVES = {
            "poisson", False),
     "uCD": ({"solver": "GKOBiCGStab", "preconditioner": {"preconditioner": "BJ"}},
             "convection-diffusion", True),
+    "uCDF": ({"solver": "GKOBiCGStab", "preconditioner": "none", "fusedBiCGStab": True},
+             "convection-diffusion", True),
     "uS": ({"solver": "GKOBiCGStab", "preconditioner": "none"}, "shuffled", False),
 }
 PINNED_ITERS = (10, 25)  # gated at the first: normalised residuals within PINNED_RTOL
@@ -1342,6 +1413,8 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
         slv = registry.global_registry.get(f"{field}_solver")
         if field in ("pP", "pPBJ"):  # the whole loop is one launch
             check_loop_solve_launches(field, before, PIPE_LOOP_SOLVE_LAUNCHES)
+        if field in ("uF", "uCDF"):
+            check_loop_solve_launches(field, before, BICGSTAB_LOOP_SOLVE_LAUNCHES)
         it = max(perf.n_iterations, 1)
         used = {k: round((v - before[k]) / it, 2) for k, v in kernels.launches.items()
                 if v > before[k]}
@@ -1354,6 +1427,17 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
           f"{solves['pPBJ'][1].n_iterations} (BJ) beside the classical merged CG's "
           f"{cg_iters['p']} and {cg_iters['pBJ']} (phase 4); GKOBiCGStab none unfused "
           f"{solves['u'][1].n_iterations}, fused {solves['uF'][1].n_iterations}")
+    # GKOBiCGStab `none` on the Poisson grid: the general route and the fused
+    # loop, each re-run on its resident state (no upload, no host set-up;
+    # best of three)
+    line = []
+    for field in ("u", "uF"):
+        slv = registry.global_registry.get(f"{field}_solver")
+        sec = slv.time_device_solve()
+        it = max(solves[field][1].n_iterations, 1)
+        line.append(f"{field} (route {slv.route}) {sec * 1e3:.3f} ms = "
+                    f"{sec / it * 1e6:.2f} us per iteration over {it}")
+    print("GKOBiCGStab none, device solve: " + " against ".join(line))
 
     # the asymmetric system's steady steps: diag only, then every block
     m_cd = systems["convection-diffusion"][0]
@@ -1517,10 +1601,10 @@ def bench_path(device, grid_main, grid_big, report) -> tuple:
 
 # one turn of `--turns`: phase 3's Dia kernels at 1M and 8.4M rows, then the
 # Gdia SpMV and K1 on the shuffled grid built on the device at both sizes,
-# then 200 checked iterations of the merged pipelined CG on the Dia plan at
-# both sizes (one launch of the loop kernel where a tree has it, else the
-# host loop over KA and KB_pipe) — only functions that this script's earlier
-# versions have too
+# then 200 checked iterations of the merged pipelined CG and of the merged
+# BiCGStab on the Dia plan at both sizes (one launch of the loop kernel
+# where a tree has it, else the host loop over KA and KB_pipe, over K1B and
+# KB_update) — only functions that this script's earlier versions have too
 TURN_CODE = (
     "import torch, chip_smoke as s; d = torch.device('cuda'); r = {}\n"
     "for g in (s.GRID_1M, s.GRID_8M): s.check_kernels(g, d, r)\n"
@@ -1536,9 +1620,13 @@ TURN_CODE = (
     "        ms = s.time_turns({0: lambda: s.cg_pipelined_fused(k, data, b, torch.zeros_like(b), "
     "pin, invd=iv)}, reps=3)[0] / 200\n"
     "        print(f'  cg_pipelined_fused[{tag}] {n} rows: {ms:.4f} ms per iteration over 200, "
-    "checked at each (its set-up included)')\n")
+    "checked at each (its set-up included)')\n"
+    "    ms = s.time_turns({0: lambda: s.bicgstab_fused(k, data, b, torch.zeros_like(b), pin)}, "
+    "reps=3)[0] / 200\n"
+    "    print(f'  bicgstab_fused {n} rows: {ms:.4f} ms per iteration over 200, checked at each "
+    "(its set-up included)')\n")
 TURN_LINES = ("cg_k2 ", "cg_k2i ", "gdia_k1 ", "gdia_spmv ", "cg_loop", "cg_ka", "cg_kb_pipe",
-              "cg_pipe")
+              "cg_pipe", "bicgstab")
 
 
 def turns(trees) -> int:
@@ -1606,6 +1694,10 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         print(f"cg_pipe_loop grid, {what} (cg_pipe_loop_kernel<{variant}>): {blocks} co-resident "
               f"blocks of {LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
               + "; ".join(loop_ptxas(info["log"], variant, "cg_pipe_loop_kernel")))
+    blocks = probe.bicgstab_loop_blocks()
+    print(f"bicgstab_loop grid (bicgstab_loop_kernel): {blocks} co-resident blocks of "
+          f"{LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
+          + "; ".join(loop_ptxas(info["log"], None, "bicgstab_loop_kernel")))
 
     t_ph = phase_done("phase 2", t_ph)
     print("== phase 3: kernels vs plain versions "

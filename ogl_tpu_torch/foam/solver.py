@@ -26,13 +26,15 @@ Routing follows the reference's `_make_solve_fn`:
                        kernel); `fusedCG
                        false` → the general CG (solve/cg.py)
   GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
-                       (KA + KB_pipe, solve/cg_pipe_fused.py); Gdia, Xell,
+                       (KA + KB_pipe, solve/cg_pipe_fused.py; on the card
+                       one launch of its loop kernel); Gdia, Xell,
                        Multigrid or `fusedCG false` → the general
                        pipelined CG (solve/cg_pipe.py)
   GKOBiCGStab          the general BiCGStab over the format's SpMV kernel
                        (solve/bicgstab.py); `fusedBiCGStab true` with
                        `none` on Dia → the merged BiCGStab (K1B, K1B,
-                       KB_update; solve/bicgstab_fused.py)
+                       KB_update; solve/bicgstab_fused.py; on the card one
+                       launch of its loop kernel)
 The reference's TPU-only route gates (Pallas usability, the 32k-row floor
 of the merged kernels, the f32-frame test, the working-set gate of the
 z-free variant, the frame geometry its framed AMG must share) are not

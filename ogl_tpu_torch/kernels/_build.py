@@ -69,7 +69,7 @@ _SIGNATURES = {
                     _I64, _INT, _I64, _P),
     # data, offsets, nd, r, invd (NULL = identity), w, partials, n, threads, grid, stream
     "ogl_cg_ka": (_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _I64, _P),
-    # data, offsets, nd, a, b, c, rhat, ca, cb, w, q, partials, n, threads, grid, stream
+    # data, offsets, nd, a, b, c, rhat, ca, cb, w, q, partials, n, vec, blocks, stream
     "ogl_bicgstab_k1b": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
                          _I64, _P),
     # c, d, nd, y, n, vec, blocks, stream
@@ -93,6 +93,14 @@ _SIGNATURES = {
     # rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
     "ogl_cg_pipe_loop": (_INT, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32,
                          _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # alpha, omega, x, p, s, t, rhat, r, partials, n, vec, blocks, stream
+    "ogl_bicgstab_kb_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # variant (0), threads, blocks (out)
+    "ogl_bicgstab_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # data, offsets, nd, rhat, x, r, p, pn, v, vn, s, t, rho, absr, nf, partials, record, n,
+    # tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_bicgstab_loop": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

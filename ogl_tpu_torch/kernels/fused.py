@@ -1,10 +1,11 @@
 """Merged-Krylov and AMG-smoother kernels for the Dia (stencil) path: K1,
-K2, K2i, KA, KB_pipe, K1B, the smoother passes and the whole merged CG and
-merged pipelined-CG loops in CUDA C++ (`csrc/cg_k1.cu`, `csrc/cg_k2.cu`,
-`csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`, `csrc/cg_kb_pipe.cu`,
-`csrc/bicgstab.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`,
-`csrc/cg_pipe_loop.cu`), K2n and KB_update in Triton (bodies below), each
-beside its plain PyTorch twin.
+K2, K2i, KA, KB_pipe, K1B, KB_update, the smoother passes and the whole
+merged CG, merged pipelined-CG and merged BiCGStab loops in CUDA C++
+(`csrc/cg_k1.cu`, `csrc/cg_k2.cu`, `csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`,
+`csrc/cg_kb_pipe.cu`, `csrc/bicgstab.cu`, `csrc/bicgstab_kb_update.cu`,
+`csrc/amg_smooth.cu`, `csrc/cg_loop.cu`, `csrc/cg_pipe_loop.cu`,
+`csrc/bicgstab_loop.cu`), K2n in Triton (body below), each beside its
+plain PyTorch twin.
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
 `ka`/`kb_pipe`/`k1b`/`kb_update`/`ksweep`/`kresid`/`apply`/`pack_values`,
@@ -40,6 +41,13 @@ one `jax.lax.while_loop`):
   each iteration KA (row body `csrc/cg_ka.cuh`), a grid barrier, the
   criterion on ‖r‖₁, α and β, KB_pipe (body `csrc/cg_kb_pipe.cuh`), a
   grid barrier
+the whole merged BiCGStab loop on a Dia matrix (identity) as a third
+(`bicgstab_loop`; the reference runs K1B twice, KB_update and the
+criterion inside one `jax.lax.while_loop`):
+  each iteration the criterion on ‖r‖₁, β, K1B (row body
+  `csrc/bicgstab_k1b.cuh`), a grid barrier, α, K1B with b = c, a grid
+  barrier, ω, KB_update (body `csrc/bicgstab_kb_update.cuh`), a grid
+  barrier
 and the AMG smoother's two passes, each one stencil apply:
   sweep  out = x + relax·invd ⊙ (b − A x)
   resid  out = b − A x
@@ -78,18 +86,14 @@ tables — the case where Triton writes the same kernel as CUDA C++ with
 less code.  Bound: device-memory bandwidth, 6 float32 streams per row (x,
 r, p, q in; x, r out) at a handful of flops.  Design: one program per
 BLOCK rows, masked coalesced loads/stores, tl.sum per program into a
-partials array.  K2 (`_k2_kernel`, 8 streams: invd in and z out besides)
-and K2i (`_k2i_kernel`) are CUDA C++ (`csrc/cg_k2.cu`, `csrc/cg_k2i.cu`):
-their bodies are also the K2 phases of the loop kernel, which a Triton
-kernel could not be.
-
-KB_update (Triton) replaces `_kb_update_kernel`, the same kind of
-stream.  Bound: device-memory bandwidth — 7 float32 streams per row (x, p,
-s, t, r̂ in; x, r out; 28 B).  Design as K2n, with its two sums as the rows
-of one (2, grid) partials array, so one torch.sum finishes both (KA and
-K1B do the same with three).  KB_pipe (`_kb_pipe_kernel`: 9 streams, 36 B,
-10 with Jacobi) is CUDA C++ (`csrc/cg_kb_pipe.cu`): its body is also the
-KB_pipe phase of the pipelined loop kernel.
+partials array.  K2 (`_k2_kernel`, 8 streams: invd in and z out besides),
+K2i (`_k2i_kernel`), KB_pipe (`_kb_pipe_kernel`: 9 streams, 36 B, 10 with
+Jacobi) and KB_update (`_kb_update_kernel`: 7 streams, 28 B) are CUDA C++
+(`csrc/cg_k2.cu`, `csrc/cg_k2i.cu`, `csrc/cg_kb_pipe.cu`,
+`csrc/bicgstab_kb_update.cu`): their bodies are also phases of the loop
+kernels, which a Triton kernel could not be.  Each runs on a grid-stride
+grid of row quads (float4, the last quad of n % 4 ≠ 0 row by row where the
+kernel takes it) with one partial per block and sum.
 """
 
 from __future__ import annotations
@@ -108,16 +112,18 @@ from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
 
 __all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "k1_plain", "k2_plain",
            "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
-           "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "ksweep_plain",
-           "kresid_plain", "SMOOTHER_DTYPES"]
+           "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "bicgstab_loop_plain",
+           "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
 K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
 K2_WARPS = 4
-# the K2/K2i grid cap, blocks of 256 per SM: one row quad per thread up to 8.4M
-# rows (timed on the H100 in turns against 4, 8 and 16 per SM, which give each
+# the grid cap of the standalone grid-stride kernels (K2, K2i, KB_pipe, K1B,
+# KB_update), blocks of 256 per SM: one row quad per thread up to 8.4M rows
+# (timed on the H100 in turns against 4, 8 and 16 per SM, which give each
 # thread a loop of quads: level or faster)
 K2_BLOCKS_PER_SM = 64
-# threads per block of the loop kernels (csrc/cg_loop.cu, cg_pipe_loop.cu kMaxThreads)
+# threads per block of the loop kernels (csrc/cg_loop.cu, cg_pipe_loop.cu,
+# bicgstab_loop.cu kMaxThreads)
 LOOP_THREADS = 512
 # the loop kernels' variant bits (csrc/cg_loop.cu; cg_pipe_loop.cu takes the
 # first): scalar Jacobi, the Gdia apply
@@ -254,6 +260,42 @@ def kb_update_plain(x, p, s, t, rhat, alpha, omega, r):
     return torch.sum(rhat * r), torch.sum(torch.abs(r))
 
 
+def bicgstab_loop_plain(k1b, kb_update, x, r, rhat, rho, absr, nf, cfg):
+    """The BiCGStab loop kernel's function, and the host loop of
+    solve/bicgstab_fused.py: the merged BiCGStab over the plan's K1B —
+    `k1b(a, b, c, r̂, ca, cb) -> (w, q, Σ r̂·q, Σ q·w, Σ q·q)` — and KB_update
+    — `kb_update(x, p, s, t, r̂, α, ω, r) -> (Σ r̂·r', ‖r'‖₁)`, x in place and
+    r' into r — from the set-up's x, r = b − A x, the shadow residual r̂ (a
+    copy of r0), ρ = Σ r̂·r, ‖r‖₁ and norm factor nf, with the criterion of
+    solve/stopping.py (cfg: StoppingParams) read on the host at each check.
+    The check is at the top of the iteration on the carried ‖r‖₁; when it
+    says converged the loop breaks before any phase and does not count the
+    pass — the reference's α = ω = 0 freeze.  ρ, α, ω, β and the K1B
+    coefficients stay 0-d tensors on x's device.  x and r are updated in
+    place; returns (iterations, final and initial normalised residual,
+    converged) — an int and three 0-d tensors."""
+    from ogl_tpu_torch.solve import stopping  # not at the top: solve imports this module
+    from ogl_tpu_torch.solve.bicgstab import _safe_div
+
+    st = stopping.init_state(x.dtype, x.device).replace(norm_factor=nf)
+    p, v = torch.zeros_like(x), torch.zeros_like(x)
+    zero = torch.zeros_like(nf)
+    rho_old = alpha = omega = torch.ones_like(nf)
+    while st.iter < cfg.max_iter + cfg.frequency:
+        st = stopping.check_from_norm(cfg, st, absr)
+        if st.converged:
+            break
+        beta = _safe_div(rho, rho_old) * _safe_div(alpha, omega)
+        p, v, d_rv, _, _ = k1b(r, p, v, rhat, beta, -beta * omega)
+        alpha = _safe_div(rho, d_rv)
+        s, t, _, d_ts, d_tt = k1b(r, v, v, rhat, -alpha, zero)
+        omega = _safe_div(d_ts, d_tt)
+        rho_old = rho
+        rho, absr = kb_update(x, p, s, t, rhat, alpha, omega, r)
+        st = st.replace(iter=st.iter + 1)
+    return st.iter, st.res_norm, st.init_res_norm, stopping.satisfied(cfg, st)
+
+
 def kresid_plain(data, offsets, x, b):
     """b − A x; bfloat16 data is widened to float32 (x's type) before the
     products, as the kernel does."""
@@ -265,14 +307,14 @@ def ksweep_plain(data, offsets, x, b, invd, relax):
     return x + relax * invd * kresid_plain(data, offsets, x, b)
 
 
-# ---- Triton bodies (compiled on the first CUDA launch) ------------------
-# `tl` is bound to triton.language by _triton_kernels(), which imports
+# ---- the Triton body (compiled on the first CUDA launch) ----------------
+# `tl` is bound to triton.language by _k2n_triton(), which imports
 # triton only when a CUDA tensor reaches a wrapper: this module must import
 # on hosts without triton.  The string annotations keep BLOCK a constexpr
 # without evaluating `tl` at import.
 
 tl = None
-_TRITON: dict = {}
+_TRITON: dict = {}  # "k2n": the jitted body
 
 
 def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
@@ -291,34 +333,15 @@ def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
     tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
 
 
-def _kb_update_body(alpha_ptr, omega_ptr, x_ptr, p_ptr, s_ptr, t_ptr, rhat_ptr, r_ptr,
-                    rr_ptr, absr_ptr, n, BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    alpha = tl.load(alpha_ptr)
-    omega = tl.load(omega_ptr)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
-    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
-    s = tl.load(s_ptr + offs, mask=mask, other=0.0)
-    t = tl.load(t_ptr + offs, mask=mask, other=0.0)
-    rhat = tl.load(rhat_ptr + offs, mask=mask, other=0.0)
-    ro = s - omega * t
-    tl.store(x_ptr + offs, x + alpha * p + omega * s, mask=mask)
-    tl.store(r_ptr + offs, ro, mask=mask)
-    tl.store(rr_ptr + pid, tl.sum(rhat * ro, axis=0))
-    tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
-
-
-def _triton_kernels() -> dict:
+def _k2n_triton():
     global tl
     if not _TRITON:
         import triton
         import triton.language
 
         tl = triton.language
-        _TRITON.update(k2n=triton.jit(_k2n_body), kb_update=triton.jit(_kb_update_body))
-    return _TRITON
+        _TRITON["k2n"] = triton.jit(_k2n_body)
+    return _TRITON["k2n"]
 
 
 def _span(t: torch.Tensor) -> tuple[int, int]:
@@ -361,9 +384,11 @@ class CgKernels:
         self.device = self.plan.device
         self.dtype = torch.float32
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        # variant -> co-resident blocks of the loop kernel, of the pipelined one
+        # variant -> co-resident blocks of the loop kernel, of the pipelined
+        # one, of the BiCGStab one
         self._loop_blocks: dict = {}
         self._pipe_loop_blocks: dict = {}
+        self._bicgstab_loop_blocks: dict = {}
 
     def pack_values(self, mat, dtype: torch.dtype | None = None) -> torch.Tensor:
         """The Dia data as the kernels take it: contiguous (nd, n), float32
@@ -438,8 +463,15 @@ class CgKernels:
         x and r; returns ‖r‖₁ as a 0-d tensor."""
         if on_cpu(alpha, x, r, p, q):
             return k2n_plain(alpha, x, r, p, q)
-        (absr,) = self._launch_stream("k2n", "cg_k2n", {"alpha": alpha}, (x, r, p, q), sums=1)
-        return absr
+        require_cuda("k2n", x)
+        check_operands(self.plan, None, x, r, p, q)
+        check_scalar("alpha", alpha, self.device)
+        grid = -(-self.n // K2_BLOCK)
+        partials = torch.empty(grid, dtype=torch.float32, device=self.device)
+        _k2n_triton()[(grid,)](alpha, x, r, p, q, partials, self.n, BLOCK=K2_BLOCK,
+                               num_warps=K2_WARPS)
+        kernels.launches["cg_k2n"] += 1
+        return torch.sum(partials)
 
     # ---- the whole merged CG loop (CUDA C++) -----------------------------
     def loop_blocks(self, variant: int = 0) -> int:
@@ -453,6 +485,10 @@ class CgKernels:
         """loop_blocks for the pipelined loop kernel (variant 0 or
         LOOP_JACOBI)."""
         return self._coop_blocks("cg_pipe_loop", self._pipe_loop_blocks, variant)
+
+    def bicgstab_loop_blocks(self) -> int:
+        """loop_blocks for the merged-BiCGStab loop kernel (one variant)."""
+        return self._coop_blocks("bicgstab_loop", self._bicgstab_loop_blocks, 0)
 
     def _coop_blocks(self, kernel: str, cache: dict, variant: int) -> int:
         if variant not in cache:
@@ -576,12 +612,12 @@ class CgKernels:
         kernels.launches["cg_pipe_loop"] += 1
         return _read_record(record)
 
-    # ---- merged BiCGStab: K1B (CUDA C++), KB_update (Triton) ------------
+    # ---- merged BiCGStab: K1B, KB_update and the whole loop (CUDA C++) --
     def k1b(self, data, a, b, c, rhat, ca, cb, out=None):
         """(w, q, Σ r̂·q, Σ q·w, Σ q·q) with w = a + ca·b + cb·c, q = A w.
         w and q go into new buffers, or into `out` = (w, q), which must not
         overlap an operand: other blocks read a, b and c at the neighbours.
-        b and c may be one tensor."""
+        b and c may be one tensor (the kernel then reads it once)."""
         if out is not None:
             _check_no_overlap("k1b", out[0], data, a, b, c, rhat, out[1])
             _check_no_overlap("k1b", out[1], data, a, b, c, rhat)
@@ -595,14 +631,15 @@ class CgKernels:
         check_operands(self.plan, data, a, b, c, rhat, w, q)
         check_scalar("ca", ca, self.device)
         check_scalar("cb", cb, self.device)
-        lib = _build.library()
-        grid = -(-self.n // THREADS)
-        partials = torch.empty((3, grid), dtype=torch.float32, device=self.device)
-        _build.check(lib.ogl_bicgstab_k1b(
+        vec, blocks = persistent_launch(self.n, [t.data_ptr() for t in (data, a, b, c, rhat, w, q)],
+                                        sm_count(self.device.index),
+                                        blocks_per_sm=K2_BLOCKS_PER_SM)
+        partials = torch.empty((3, blocks), dtype=torch.float32, device=self.device)
+        _build.check(_build.library().ogl_bicgstab_k1b(
             data.data_ptr(), self.plan.offsets_dev.data_ptr(), len(self.offsets),
             a.data_ptr(), b.data_ptr(), c.data_ptr(), rhat.data_ptr(), ca.data_ptr(),
-            cb.data_ptr(), w.data_ptr(), q.data_ptr(), partials.data_ptr(), self.n,
-            THREADS, grid, stream_of(a)), "bicgstab_k1b")
+            cb.data_ptr(), w.data_ptr(), q.data_ptr(), partials.data_ptr(), self.n, vec,
+            blocks, stream_of(a)), "bicgstab_k1b")
         kernels.launches["bicgstab_k1b"] += 1
         return (w, q, *torch.sum(partials, dim=1).unbind())
 
@@ -612,25 +649,52 @@ class CgKernels:
         tensors."""
         if on_cpu(x, p, s, t, rhat, alpha, omega, r):
             return kb_update_plain(x, p, s, t, rhat, alpha, omega, r)
-        return self._launch_stream("kb_update", "bicgstab_kb_update",
-                                   {"alpha": alpha, "omega": omega}, (x, p, s, t, rhat, r),
-                                   sums=2)
-
-    def _launch_stream(self, name, counter, scalars: dict, vectors, sums: int):
-        """Launch the Triton stream `name` (K2n, KB_update) over (n,)
-        vectors, its 0-d `scalars` read through pointers.  Each sum's
-        per-program partials fill one row of a (sums, grid) array, and one
-        torch.sum finishes them all."""
-        require_cuda(name, vectors[0])
+        require_cuda("kb_update", x)
+        vectors = (x, p, s, t, rhat, r)
         check_operands(self.plan, None, *vectors)
-        for what, sc in scalars.items():
-            check_scalar(what, sc, self.device)
-        grid = -(-self.n // K2_BLOCK)
-        partials = torch.empty((sums, grid), dtype=torch.float32, device=self.device)
-        _triton_kernels()[name][(grid,)](*scalars.values(), *vectors, *partials, self.n,
-                                         BLOCK=K2_BLOCK, num_warps=K2_WARPS)
-        kernels.launches[counter] += 1
+        check_scalar("alpha", alpha, self.device)
+        check_scalar("omega", omega, self.device)
+        vec, blocks = persistent_launch(self.n, [v.data_ptr() for v in vectors],
+                                        sm_count(self.device.index),
+                                        blocks_per_sm=K2_BLOCKS_PER_SM, tail=True)
+        partials = torch.empty((2, blocks), dtype=torch.float32, device=self.device)
+        _build.check(_build.library().ogl_bicgstab_kb_update(
+            alpha.data_ptr(), omega.data_ptr(), *(v.data_ptr() for v in vectors),
+            partials.data_ptr(), self.n, vec, blocks, stream_of(x)), "bicgstab_kb_update")
+        kernels.launches["bicgstab_kb_update"] += 1
         return torch.sum(partials, dim=1).unbind()
+
+    def bicgstab_loop(self, data, x, r, rhat, rho, absr, nf, cfg):
+        """The merged BiCGStab loop from the set-up's state
+        (solve/bicgstab_fused.py): x and r = b − A x, updated in place; the
+        shadow residual r̂; ρ = Σ r̂·r, ‖r‖₁ and the norm factor as 0-d
+        tensors; cfg the StoppingParams.  One cooperative launch on the
+        card, then one host read of its record; returns (iterations, final
+        and initial normalised residual, converged) — an int and three 0-d
+        CPU tensors."""
+        if on_cpu(data, x, r, rhat, rho, absr, nf):
+            return bicgstab_loop_plain(functools.partial(self.k1b, data), self.kb_update, x, r,
+                                       rhat, rho, absr, nf, cfg)
+        require_cuda("bicgstab_loop", x)
+        check_operands(self.plan, data, x, r, rhat)
+        for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
+            check_scalar(what, sc, self.device)
+        blocks = min(self.bicgstab_loop_blocks(), -(-self.n // LOOP_THREADS))
+        p, v = torch.zeros_like(x), torch.zeros_like(x)
+        pn, vn, s, t = (torch.empty_like(x) for _ in range(4))
+        partials = torch.empty(5 * blocks, dtype=torch.float32, device=self.device)
+        record = torch.empty(4, dtype=torch.float32, device=self.device)
+        vec = int(self.n % 4 == 0 and all(u.data_ptr() % 16 == 0
+                                          for u in (data, rhat, x, r, p, pn, v, vn, s, t)))
+        _build.check(_build.library().ogl_bicgstab_loop(
+            data.data_ptr(), self.plan.offsets_dev.data_ptr(), len(self.offsets),
+            rhat.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(), pn.data_ptr(),
+            v.data_ptr(), vn.data_ptr(), s.data_ptr(), t.data_ptr(), rho.data_ptr(),
+            absr.data_ptr(), nf.data_ptr(), partials.data_ptr(), record.data_ptr(), self.n,
+            cfg.tolerance, cfg.rel_tol, cfg.min_iter, cfg.max_iter, cfg.frequency, vec,
+            LOOP_THREADS, blocks, stream_of(x)), "bicgstab_loop")
+        kernels.launches["bicgstab_loop"] += 1
+        return _read_record(record)
 
     # ---- AMG smoother passes (CUDA C++) --------------------------------
     def ksweep(self, data, x, b, invd, relax: float, out=None):

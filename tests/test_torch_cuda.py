@@ -22,11 +22,11 @@ from ogl_tpu_torch import bench, foam, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels import device_time, gdia, roofline, xell
-from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, cg_loop_plain,
-                                         cg_pipe_loop_plain, k1_plain, k1b_plain, k2_plain,
-                                         k2i_plain, k2n_plain, ka_plain, kb_pipe_plain,
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_loop_plain,
+                                         cg_loop_plain, cg_pipe_loop_plain, k1_plain, k1b_plain,
+                                         k2_plain, k2i_plain, k2n_plain, ka_plain, kb_pipe_plain,
                                          kb_update_plain, kresid_plain, ksweep_plain)
-from ogl_tpu_torch.solve import cg_pipelined_fused, stopping
+from ogl_tpu_torch.solve import bicgstab_fused, cg_pipelined_fused, stopping
 from ogl_tpu_torch.solve.cg_fused import cg_fused, merged_norm_factor
 
 pytestmark = pytest.mark.cuda
@@ -871,6 +871,199 @@ def test_kb_update_kernel_matches_plain(dev, n):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
 
 
+# offsets of every residue mod 4, so the row-quad K1B takes each shift of its
+# source quads, and sources beyond both ends of the rows
+K1B_OFFSETS = (-300, -7, -6, -1, 0, 1, 2, 5, 301)
+
+
+def _offset_data(n, offset, dev):
+    """Banded Dia data (K1B_OFFSETS), contiguous, starting `offset` floats
+    past an aligned base."""
+    data = _banded(n, K1B_OFFSETS, 2, dev)
+    flat = torch.empty(data.numel() + offset, device=dev)
+    view = flat[offset:].view(data.shape)
+    return view.copy_(data)
+
+
+@pytest.mark.parametrize("b_is_c", [False, True], ids=["b,c", "b is c"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [4096, 4097, 4099])
+def test_k1b_kernel_branches_match_plain(dev, n, offset, b_is_c):
+    """Each branch of the K1B kernel: row quads (n % 4 == 0, every stream
+    16-byte aligned; the sources of each diagonal from one or two aligned
+    quads) and rows (n % 4 != 0, or every stream one float off an aligned
+    base), each with b and c distinct and one tensor, into new buffers and
+    into `out`."""
+    kern = CgKernels(n, K1B_OFFSETS, dev)
+    data = _offset_data(n, offset, dev)
+
+    def vec(seed):
+        return _vec(n + offset, seed, dev)[offset:]
+
+    a, b, rhat = vec(3), vec(4), vec(5)
+    c = b if b_is_c else vec(6)
+    ca, cb = torch.tensor(-0.43, device=dev), torch.tensor(0.29, device=dev)
+    kernels.reset_launches()
+    w, q, *sums = kern.k1b(data, a, b, c, rhat, ca, cb)
+    out = (vec(7), vec(8))
+    w3, q3, *sums3 = kern.k1b(data, a, b, c, rhat, ca, cb, out=out)
+    torch.cuda.synchronize()
+    assert kernels.launches["bicgstab_k1b"] == 2 and sum(kernels.launches.values()) == 2
+    w2, q2, *sums2 = k1b_plain(data, K1B_OFFSETS, a, b, c, rhat, ca, cb)
+    assert w3 is out[0] and q3 is out[1]
+    for got_w, got_q, got_sums in ((w, q, sums), (w3, q3, sums3)):
+        _close(got_w, w2)
+        _close(got_q, q2)
+        for g, want in zip(got_sums, sums2):
+            torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4 * float(want.abs()))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [4096, 4097, 4099])
+def test_kb_update_kernel_branches_match_plain(dev, n, offset):
+    """Each branch of the CUDA KB_update: float4 (every stream 16-byte
+    aligned; n % 4 != 0 takes its last quad row by row) and rows (every
+    stream one float off an aligned base)."""
+    kern = CgKernels(n, (0,), dev)
+    alpha, omega = torch.tensor(-0.23, device=dev), torch.tensor(0.71, device=dev)
+
+    def vec(seed):
+        return _vec(n + offset, seed, dev)[offset:]
+
+    p, s, t, rhat = (vec(seed) for seed in (5, 6, 7, 8))
+    xs, rs = [vec(9) for _ in range(2)], [vec(10) for _ in range(2)]
+    kernels.reset_launches()
+    got = kern.kb_update(xs[0], p, s, t, rhat, alpha, omega, rs[0])
+    want = kb_update_plain(xs[1], p, s, t, rhat, alpha, omega, rs[1])
+    torch.cuda.synchronize()
+    assert kernels.launches["bicgstab_kb_update"] == 1 and sum(kernels.launches.values()) == 1
+    _close(xs[0], xs[1])
+    _close(rs[0], rs[1])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs()))
+
+
+# ---- the persistent merged-BiCGStab loop -------------------------------------
+
+# Poisson: n below one block (343, rows), 1,000 (row quads), 4,097 (rows), 1M;
+# convection-diffusion: 2,048, 1,105 (n = 1 mod 4: rows) and 1M
+BICGSTAB_LOOP_CASES = [("poisson", (7, 7, 7)), ("poisson", (10, 10, 10)),
+                       ("poisson", (17, 241, 1)), ("poisson", (128, 128, 64)),
+                       ("convection_diffusion", (16, 16, 8)),
+                       ("convection_diffusion", (17, 13, 5)),
+                       ("convection_diffusion", (128, 128, 64))]
+
+
+def _bicgstab_setup(system, dims, dev):
+    m = (testing.poisson_ldu(dims) if system == "poisson"
+         else testing.convection_diffusion_ldu(dims))
+    mat = formats.coo_to_dia(ldu.ldu_to_coo_host(m, dtype=np.float32), dev)
+    kern = CgKernels(mat.shape[0], mat.offsets, dev)
+    return kern, kern.pack_values(mat), _vec(mat.shape[0], 11, dev)
+
+
+def _bicgstab_state(kern, data, b):
+    """The set-up of solve/bicgstab_fused.py from a zero guess: x and (r,
+    r̂, ρ, ‖r‖₁, nf)."""
+    x = torch.zeros_like(b)
+    r = b - kern.apply(data, x)
+    return x, (r, r.clone(), torch.sum(r * r), torch.sum(torch.abs(r)),
+               merged_norm_factor(kern, data, r, x, b))
+
+
+@pytest.mark.parametrize("system,dims", BICGSTAB_LOOP_CASES, ids=str)
+def test_bicgstab_loop_matches_plain(dev, system, dims):
+    """The loop kernel against its plain twin (over the plain K1B and
+    KB_update) pinned at 10 iterations (x rtol 1e-4: float32 BiCGStab
+    amplifies another summation order; the normalised residual rtol 1e-4
+    and atol 1e-6 x the initial one, since the rounding of the float32
+    recurrence residual scales with r0, not with the current r) and, on
+    convection-diffusion, free-running to LOOP_TOL (±1 iteration, x atol
+    1e-3, the float64 residual within 10 x LOOP_TOL): three launches repeat
+    their count and iterate exactly; each launches the loop once and K1
+    twice (the set-up's r0 and norm factor), nothing else."""
+    kern, data, b = _bicgstab_setup(system, dims, dev)
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=10, max_iter=10,
+                                     frequency=1)
+    free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0, max_iter=2000,
+                                   frequency=1)
+    plain_k1b = functools.partial(k1b_plain, data, kern.offsets)
+    for cfg in (pinned, free) if system == "convection_diffusion" else (pinned,):
+        x_p, state_p = _bicgstab_state(kern, data, b)
+        it_p, rn_p, _, conv_p = bicgstab_loop_plain(plain_k1b, kb_update_plain, x_p, *state_p,
+                                                    cfg)
+        runs = []
+        for _ in range(3):  # the kernel repeats its own count and iterate exactly
+            kernels.reset_launches()
+            x, state = _bicgstab_state(kern, data, b)
+            runs.append((x, *kern.bicgstab_loop(data, x, *state, cfg)))
+            torch.cuda.synchronize()
+            assert kernels.launches["bicgstab_loop"] == 1 and kernels.launches["cg_k1"] == 2
+            assert sum(kernels.launches.values()) == 3
+        x, it, rn, init_rn, conv = runs[0]
+        assert all(run[1] == it and torch.equal(run[0], x) for run in runs[1:])
+        if cfg is pinned:
+            assert it == it_p == 10 and not conv
+            _close(x, x_p, rtol=1e-4)
+            torch.testing.assert_close(rn, rn_p.cpu(), rtol=1e-4, atol=1e-6 * float(init_rn))
+        else:
+            assert bool(conv) and bool(conv_p) and abs(it - it_p) <= 1
+            assert float(rn) < LOOP_TOL
+            r64 = b.double() - dia_spmv_plain(data.double(), kern.offsets, x.double())
+            assert float(r64.abs().sum() / state[-1].double()) <= 10 * LOOP_TOL
+            torch.testing.assert_close(x, x_p, rtol=0, atol=1e-3)
+
+
+def test_bicgstab_fused_takes_the_loop_on_the_card(dev):
+    """bicgstab_fused on the Dia plan runs its whole loop as the one launch,
+    with no K1B or KB_update; a plan that is not CgKernels itself keeps the
+    host loop over K1B and KB_update."""
+    kern, data, b = _bicgstab_setup("convection_diffusion", (32, 32, 16), dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=1000, frequency=1)
+    kernels.reset_launches()
+    res = bicgstab_fused(kern, data, b, torch.zeros_like(b), cfg)
+    assert kernels.launches["bicgstab_loop"] == 1 and kernels.launches["cg_k1"] == 2
+    assert kernels.launches["bicgstab_k1b"] == kernels.launches["bicgstab_kb_update"] == 0
+    assert res.iters > 0 and bool(res.converged)
+    assert res.final_res_norm.device.type == "cpu"
+
+    class HostLoop(CgKernels):
+        pass
+
+    host = HostLoop(kern.n, kern.offsets, dev)
+    kernels.reset_launches()
+    res_h = bicgstab_fused(host, data, b, torch.zeros_like(b), cfg)
+    assert kernels.launches["bicgstab_loop"] == 0
+    assert kernels.launches["bicgstab_kb_update"] == res_h.iters
+    assert kernels.launches["bicgstab_k1b"] == 2 * res_h.iters
+    assert abs(res_h.iters - res.iters) <= 1
+    torch.testing.assert_close(res_h.x, res.x, rtol=0, atol=1e-3)
+
+
+def test_bicgstab_loop_refused_cooperative_launch_raises(dev):
+    """A grid above the co-resident blocks is refused by the cooperative
+    launch; the wrapper raises, falls back to nothing, leaves no error
+    behind, and the next launch is unaffected."""
+    kern, data, b = _bicgstab_setup("poisson", (128, 128, 64), dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=5,
+                                  frequency=1)
+    x, state = _bicgstab_state(kern, data, b)
+    kern.bicgstab_loop(data, x, *state, cfg)
+    co_resident = kern._bicgstab_loop_blocks[0]
+    assert 0 < co_resident < -(-kern.n // 512)
+    kern._bicgstab_loop_blocks[0] = 4 * co_resident
+    kernels.reset_launches()
+    x, state = _bicgstab_state(kern, data, b)
+    with pytest.raises(RuntimeError, match="bicgstab_loop: CUDA error"):
+        kern.bicgstab_loop(data, x, *state, cfg)
+    assert kernels.launches["bicgstab_loop"] == 0
+    torch.cuda.synchronize()  # no error left behind for the next call to find
+    kern._bicgstab_loop_blocks[0] = co_resident
+    assert kern.bicgstab_loop(data, x, *state, cfg)[0] == 5
+    torch.cuda.synchronize()
+
+
 def test_slice4_wrappers_raise_on_bad_operands(dev):
     n = 513
     kern = CgKernels(n, (-1, 0, 1), dev)
@@ -892,15 +1085,16 @@ def test_slice4_wrappers_raise_on_bad_operands(dev):
 
 
 # name -> (solver, controls, preconditioner, kernels launched, kernels never
-# launched): the pipelined CG runs its whole loop as one launch
+# launched): the pipelined CG and the merged BiCGStab run their whole loop
+# as one launch
 SLICE4_SOLVES = {
     "pipelined-none": ("GKOCG", {"pipelinedCG": True}, "none", ("cg_pipe_loop",),
                        ("cg_ka", "cg_kb_pipe")),
     "pipelined-BJ": ("GKOCG", {"pipelinedCG": True}, {"preconditioner": "BJ"},
                      ("cg_pipe_loop",), ("cg_ka", "cg_kb_pipe")),
     "bicgstab-BJ": ("GKOBiCGStab", {}, {"preconditioner": "BJ"}, ("dia_spmv",), ()),
-    "bicgstab-fused": ("GKOBiCGStab", {"fusedBiCGStab": True}, "none",
-                       ("bicgstab_k1b", "bicgstab_kb_update"), ()),
+    "bicgstab-fused": ("GKOBiCGStab", {"fusedBiCGStab": True}, "none", ("bicgstab_loop",),
+                       ("bicgstab_k1b", "bicgstab_kb_update")),
 }
 
 
