@@ -8,7 +8,8 @@ Drives the port's five main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
 system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1; each
 solve's whole loop one launch of the persistent CG kernel) and the
-AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2);
+AMG-preconditioned solve, GKOCG + Multigrid and GKOMultigrid (slice 2;
+each solve one launch of the AMG loop kernel, the V-cycle on the device);
 then the unstructured-mesh solve (slice 3) on a kNN-6 FV graph (auto-routed
 to Xell) and on the Poisson grid renumbered inside each x-line (auto-routed
 to Gdia); then (slice 4) the pipelined GKOCG and GKOBiCGStab, on the
@@ -23,13 +24,14 @@ each against its plain PyTorch version on the card, at the slices' size
 and at 8,388,608 rows.
 
 Phases (any failure raises, and the script exits non-zero):
-  1. device: nvidia-smi name and power limit, torch/CUDA/triton versions,
+  1. device: nvidia-smi name and power limit, torch/CUDA versions,
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
      and, for each of the persistent CG loop kernel's four variants (Dia or
      Gdia, identity or Jacobi), the pipelined loop kernel's two (identity
-     or Jacobi) and the merged-BiCGStab loop kernel, its grid (co-resident
-     blocks) and registers;
+     or Jacobi), the merged-BiCGStab loop kernel and the AMG loop kernel's
+     four (CG or IR, float32 or bfloat16 smoother coefficients), its grid
+     (co-resident blocks) and registers;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
      with float32 and bfloat16 coefficients, KA and KB_pipe with identity
      and Jacobi, K1B with distinct b and c and with b = c): max error
@@ -47,7 +49,12 @@ Phases (any failure raises, and the script exits non-zero):
      the normalised residual after 10 pinned iterations: float32 BiCGStab
      on the Poisson grid parts from another summation order later) and the
      host loop over the K1B and KB_update kernels, with its bytes per
-     iteration (124 B per row at 7 diagonals); then on
+     iteration (124 B per row at 7 diagonals); the AMG loop kernel's CG and
+     IR variants on the 1M hierarchy with bfloat16 and float32 smoother
+     coefficients (and bfloat16 at 64x64x48, its fixed cost) against their
+     plain twins (x after 10 iterations), timed per iteration over 50 in
+     turns with the twin and the host-launched cycle, with their bytes per
+     iteration; then on
      the shuffled grid built on the device at both sizes the Gdia SpMV and
      the row-quad Gdia K1 against their plain versions and the loop's two
      Gdia variants as the Dia ones;
@@ -59,11 +66,17 @@ Phases (any failure raises, and the script exits non-zero):
   5. slice 1's steady-state steps (diag scaled by 1.01, new b): only the
      diag block and the RHS may cross to the device, one loop launch each;
   6. torch.profiler over one more slice-1 step (kernels per solve);
-  7. the AMG path: GKOCG + Multigrid and GKOMultigrid, the hierarchy, the
-     preconditioner build time, launch counts, the true float64 residual
-     and the iteration count against the same solve over the plain twins
-     (merged CG and smoothers) on the card; two steady steps that rebuild
-     the hierarchy; torch.profiler over one more step;
+  7. the AMG path: GKOCG + Multigrid and GKOMultigrid (each solve the AMG
+     loop kernel once, K1 twice for its set-up, no standalone sweep,
+     residual or K2n; 16 and 54 iterations +- 1), GKOCG + Multigrid with
+     cycle w on the host-launched cycle (the standalone sweep, residual and
+     K2n), the hierarchy, the preconditioner build time, the true float64
+     residual and the iteration count against the loop's plain twin (the
+     host cycle over the plain kernels for cycle w) on the card; two steady
+     steps that rebuild the hierarchy and its level table (one loop launch
+     each, against their twins at the same adapted parameters); the host
+     cost per call of the host cycle's launches; each loop solve on
+     resident state; torch.profiler over one more step;
   8. the unstructured path: the two meshes built on the host (timed),
      GKOCG `none` and `BJ` on each with no matrixFormat (routed format,
      launch counts — each Gdia solve one loop launch, the Gdia K1 twice for
@@ -112,9 +125,10 @@ phase 10, torch's own call for the same function where there is one, and
 under "cases" every variant and size it was checked on; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits with an error and
 prints no result.  `--turns` runs phase 3's kernel checks (and the Gdia
-kernels on the device-built shuffled grid, and 200 pinned iterations of
+kernels on the device-built shuffled grid, 200 pinned iterations of
 cg_pipelined_fused and of bicgstab_fused on the Dia plan at 1M and 8.4M
-rows) from each given checkout in order, one process each, and prints
+rows, and the pMG and pGMG solves at 1M cells on resident state) from
+each given checkout in order, one process each, and prints
 their kernel lines: an earlier commit unpacked with `git archive` against
 this one on the same card.
 """
@@ -133,9 +147,9 @@ import numpy as np
 import torch
 
 from ogl_tpu_torch import bench, foam, kernels, registry, testing
-from ogl_tpu_torch.config import PrecondConfig
-from ogl_tpu_torch.core import formats
-from ogl_tpu_torch.kernels import _build, device_time, gdia, roofline, spmv, xell
+from ogl_tpu_torch.config import parse_controls
+from ogl_tpu_torch.core import formats, ldu
+from ogl_tpu_torch.kernels import _build, amg_loop, device_time, gdia, roofline, spmv, xell
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
                                          k2_plain, k2i_plain, k2n_plain, ka_plain,
@@ -146,6 +160,7 @@ from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS,
                                          bicgstab_loop_plain, cg_loop_plain, cg_pipe_loop_plain)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
                                  krylov, stopping)
+from ogl_tpu_torch.solve.ir import ir_fused
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
 
 GRID_1M = (128, 128, 64)
@@ -175,7 +190,7 @@ KERNELS = {
               "ogl_tpu/kernels/fused.py:396", "cg_k2", None),
     "cg_k2i": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k2i.cu",
                "ogl_tpu/kernels/fused.py:492", "cg_k2i", None),
-    "cg_k2n": ("triton", "ogl_tpu_torch/kernels/fused.py",
+    "cg_k2n": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_k2n.cu",
                "ogl_tpu/kernels/fused.py:382", "cg_k2n", None),
     # the AMG path packs its smoother coefficients in bfloat16
     "amg_sweep": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_smooth.cu",
@@ -220,9 +235,23 @@ KERNELS = {
     "bicgstab_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_loop.cu",
                       "ogl_tpu/kernels/fused.py:283, ogl_tpu/kernels/fused.py:363",
                       "bicgstab_loop", None),
+    # the AMG solves with the V-cycle on the device: GKOCG + Multigrid (K1,
+    # K2n, the sweep and the residual as phases) and GKOMultigrid (the
+    # sweep and the residual, the SpMV's residual r - A z); their rows'
+    # times are per iteration, their cases [bf16] and [f32]
+    "amg_cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_loop.cu",
+                    "ogl_tpu/kernels/fused.py:36, ogl_tpu/kernels/fused.py:382, "
+                    "ogl_tpu/kernels/fused.py:195, ogl_tpu/kernels/fused.py:242",
+                    "amg_cg_loop[bf16]", None),
+    "amg_ir_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_loop.cu",
+                    "ogl_tpu/kernels/pallas_spmv.py:38, ogl_tpu/kernels/fused.py:195, "
+                    "ogl_tpu/kernels/fused.py:242", "amg_ir_loop[bf16]", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
-AMG_KERNELS = ("dia_spmv", "cg_k1", "cg_k2n", "amg_sweep", "amg_resid")
+# the loops (pMG, pGMG, the steps); the standalone smoother kernels and
+# K2n: the host-launched cycle of the cycle-w solve (pMGw)
+AMG_KERNELS = ("dia_spmv", "cg_k1", "amg_cg_loop", "amg_ir_loop", "cg_k2n", "amg_sweep",
+               "amg_resid")
 # cg_k2 and cg_k2i: the Xell solves' host loops (BJ, none)
 UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i",
                         "cg_loop")
@@ -257,6 +286,25 @@ LOOP_FIXED_GRID = (64, 64, 48)
 READ_PLANES = 7  # the read peak's planes (roofline.measure_read_peak's default)
 AMG_SOLVES = {"pMG": {"solver": "GKOCG", "preconditioner": "Multigrid"},
               "pGMG": {"solver": "GKOMultigrid"}}
+# each AMG solve on a qualifying hierarchy: its loop kernel once, K1 twice
+# (the set-up's r0 and norm factor), no standalone smoother pass or K2n
+AMG_LOOP_SOLVE_LAUNCHES = {
+    "pMG": {"amg_cg_loop": 1, "amg_ir_loop": 0, "cg_k1": 2, "cg_k2n": 0, "amg_sweep": 0,
+            "amg_resid": 0},
+    "pGMG": {"amg_ir_loop": 1, "amg_cg_loop": 0, "cg_k1": 2, "cg_k2n": 0, "amg_sweep": 0,
+             "amg_resid": 0}}
+# GKOCG + Multigrid with cycle w keeps the host-launched cycle (kernels/
+# amg_loop.py why_not): it drives the standalone sweep, residual and K2n
+AMG_HOST_SOLVE = ("pMGw", {"solver": "GKOCG",
+                           "preconditioner": {"preconditioner": "Multigrid", "cycle": "w"}})
+AMG_ITERS = {"pMG": 16, "pGMG": 54}  # at 1M cells, as their plain twins take them
+AMG_LOOP_CHECK, AMG_LOOP_TIMED = 10, 50  # the AMG loops' check and timing iterations
+# x after AMG_LOOP_CHECK iterations against the twin: the restricting sums,
+# the coarse product and the partial sums add in another order
+AMG_LOOP_RTOL = 1e-4
+AMG_LOOP_VARIANTS = {0: "CG f32", amg_loop.VARIANT_BF16: "CG bf16",
+                     amg_loop.VARIANT_IR: "IR f32",
+                     amg_loop.VARIANT_IR | amg_loop.VARIANT_BF16: "IR bf16"}
 
 
 class PlainSteps:
@@ -392,6 +440,15 @@ def check_loop_solve_launches(what, before, want=LOOP_SOLVE_LAUNCHES):
     print(f"  {what}: launches in this solve {got}")
     if got != want:
         raise RuntimeError(f"{what}: launched {got} in one solve, not {want}")
+
+
+def check_host_cycle_launches(what, before):
+    """A solve on the host-launched AMG cycle (cycle w): the standalone
+    sweep, residual and K2n between `before` and now, no loop launch."""
+    got = {k: kernels.launches[k] - before[k] for k in AMG_KERNELS}
+    print(f"  {what}: launches in this solve {got}")
+    if got["amg_cg_loop"] or not (got["amg_sweep"] and got["amg_resid"] and got["cg_k2n"]):
+        raise RuntimeError(f"{what}: did not run the host-launched cycle: {got}")
 
 
 def loop_ptxas(log, variant, kernel="cg_loop_kernel"):
@@ -570,19 +627,20 @@ def checked_iterations(k):
 
 
 def loop_row(case, label, run, host_solve, host_what, nbytes, n, report,
-             check=LOOP_ITERS[0]):
+             check=LOOP_ITERS[0], iters=LOOP_ITERS[1], vec_rtol=VEC_RTOL):
     """A loop kernel against its plain twin from one set-up: `run(k, plain)`
     runs k checked iterations of the kernel (plain=False) or of the twin and
     returns (x, iterations, normalised residual); after `check` iterations x
-    is held to the vector tolerance and the residual to PINNED_RTOL; then
-    both are timed in turns over LOOP_ITERS[1] with `host_solve(k)`, the
-    host loop over the standalone kernels (whose time also holds the
-    set-up's two applies): ms per iteration, and the bound per iteration
-    (`nbytes` over the memory rate)."""
+    is held to the vector tolerance (`vec_rtol`) and the residual to
+    PINNED_RTOL; then both are timed in turns over `iters` with
+    `host_solve(k)`, the host loop over the standalone kernels (whose time
+    also holds the set-up's two applies): ms per iteration, and the bound
+    per iteration (`nbytes` over the memory rate)."""
     (xk, ik, rk), (xp, ip, rp) = run(check, False), run(check, True)
-    err, tol = vec_err(xk, xp)
+    err = float((xk - xp).abs().max())
+    tol = vec_rtol * max(1.0, float(xp.abs().max()))
     rel = sum_err(rk, rp)
-    k = LOOP_ITERS[1]
+    k = iters
     t = time_turns({"plain": lambda: run(k, True), "kernel": lambda: run(k, False),
                     "host loop": lambda: host_solve(k)}, reps=5)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -692,6 +750,89 @@ def check_bicgstab_loop(kern, data, label, report):
              lambda k: bicgstab_fused(host, data, b, x0, checked_iterations(k)),
              "K1B + K1B + KB_update", (8 * data.shape[0] + 68) * n, n, report,
              check=BICGSTAB_LOOP_CHECK)
+
+
+def amg_loop_bytes(op, data, ir_loop):
+    """Minimum bytes per iteration of the AMG loop kernel, phase by phase
+    (csrc/amg_loop.cu): on each smoothing level of n rows, nd coefficients
+    of c bytes and s sweeps, down the zero-guess sweep (coefficients, b,
+    invd in; x out: nd·c + 12; with s = 1 folded into the restricting
+    residual), s − 2 more sweeps (nd·c + 16 each), the restricting residual
+    (coefficients, x, b in: nd·c + 8; the coarse b out); up the
+    prolongation (x in and out: 8), s sweeps (nd·c + 16 each; level 0's
+    last writes z and reads r for ρ, or adds z to x: + 8); the coarsest
+    level's dense inverse and b once; the fine operator's K1 + K2n (CG:
+    (nd + 4)·4 + 24) or the residual r − A z (IR: nd·4 + 12)."""
+    s = op.smooth_iters
+    total = 0
+    for i, lv in enumerate(op.state[:-1]):
+        row = len(lv.mat.offsets) * lv.data_s.element_size()
+        down = (row + 12) * (s == 1) + ((row + 12) + (s - 2) * (row + 16) + (row + 8)) * (s > 1)
+        total += lv.n * (down + 8 + s * (row + 16)) + 4 * op.state[i + 1].n
+    nc = op.state[-1].n
+    total += 4 * nc * nc + 4 * nc
+    n, nd = data.shape[1], data.shape[0]
+    total += n * (8 * ir_loop + (nd * 4 + 12 if ir_loop else (nd + 4) * 4 + 24))
+    return total
+
+
+def check_amg_loops(grid, device, report, dtypes=(torch.bfloat16, torch.float32)):
+    """The AMG loop kernel's CG and IR variants against their plain twins
+    (amg_cg_loop_plain, amg_ir_loop_plain over the plain K1 or SpMV and
+    vcycle_plain) from the same set-up (b random, x0 = 0), on the
+    hierarchy of testing.poisson_ldu(grid) (auto aggregation, dense coarse
+    inverse), with `dtypes` smoother coefficients: x after AMG_LOOP_CHECK
+    iterations, then per iteration over AMG_LOOP_TIMED checked ones in turns
+    with the twin and the host-launched cycle over the standalone kernels
+    (cg_fused / ir_fused with a plan that keeps the host loop): loop_row."""
+    label = "x".join(map(str, grid))
+    coo = ldu.ldu_to_coo_host(testing.poisson_ldu(grid), dtype=np.float32)
+    mat = formats.coo_to_dia(coo, device)
+    n, offs = mat.shape[0], mat.offsets
+    kern = CgKernels(n, offs, device)
+    host = HostLoopCgKernels(n, offs, device)
+    data = kern.pack_values(mat)
+    b = torch.randn(n, device=device, generator=torch.Generator(device=device).manual_seed(1))
+    x0 = torch.zeros_like(b)
+    r0 = b - kern.apply(data, x0)
+    state = (torch.sum(torch.abs(r0)), merged_norm_factor(kern, data, r0, x0, b))
+    for dtype in dtypes:
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        t0 = time.perf_counter()
+        op = amg.amg(coo, device, aggregation="auto", smoother_dtype=dtype)
+        print(f"  [{label}: hierarchy {[lv.n for lv in op.state]} built in "
+              f"{time.perf_counter() - t0:.2f} s; {tag} smoother coefficients]")
+        cycle = functools.partial(amg_loop.vcycle_plain, op.state, relax=op.relax,
+                                  sweeps=op.smooth_iters)
+        for name in ("cg", "ir"):
+            ir_loop = name == "ir"
+
+            def run(k, plain, ir_loop=ir_loop, op=op, cycle=cycle):
+                x, r = x0.clone(), r0.clone()
+                cfg = checked_iterations(k)
+                if not plain:
+                    loop = amg_loop.amg_ir_loop if ir_loop else amg_loop.amg_cg_loop
+                    rec = loop(kern, data, op, x, r, *state, cfg)
+                elif ir_loop:
+                    rec = amg_loop.amg_ir_loop_plain(
+                        functools.partial(dia_spmv_plain, data, offs), x, r, *state, cfg, cycle)
+                else:
+                    rec = amg_loop.amg_cg_loop_plain(functools.partial(k1_plain, data, offs), x,
+                                                     r, *state, cfg, cycle)
+                return x, rec[0], rec[1]
+
+            def host_solve(k, ir_loop=ir_loop, op=op):
+                if ir_loop:
+                    return ir_fused(host, data, b, x0, checked_iterations(k), op)
+                return cg_fused(host, data, b, x0, checked_iterations(k), precond=op)
+
+            loop_row(f"amg_{name}_loop[{tag}]", label, run, host_solve,
+                     "the host cycle" + ("" if ir_loop else " + K1 + K2n"),
+                     amg_loop_bytes(op, data, ir_loop), n, report, check=AMG_LOOP_CHECK,
+                     iters=AMG_LOOP_TIMED, vec_rtol=AMG_LOOP_RTOL)
+        del op, cycle
+    del mat, data, kern, host
+    torch.cuda.empty_cache()
 
 
 def check_dia_loops(data, offsets, label, report):
@@ -887,9 +1028,10 @@ def profile_step(solve_fn):
 
 
 def host_costs(op, device) -> None:
-    """Host µs per call of each kind of launch on the AMG path, on its
-    16,384-row level (device work far below the host's), and of one whole
-    cycle at the fine level: 200 calls (50 cycles) between two syncs."""
+    """Host µs per call of each kind of launch of the host-launched AMG
+    cycle, on its 16,384-row level (device work far below the host's), and
+    of one whole host cycle at the fine level: 200 calls (50 cycles)
+    between two syncs."""
     lv = next(lv for lv in op.state if lv.n <= 16384)
     print(f"host cost per call (host clock; kernels on the {lv.n}-row level):")
     g = torch.Generator(device=device).manual_seed(1)
@@ -900,7 +1042,7 @@ def host_costs(op, device) -> None:
     calls = {
         "amg_sweep (ctypes)": lambda: lv.kern.ksweep(lv.data_s, x, b, lv.inv_diag, RELAX),
         "cg_k1 (ctypes)": lambda: lv.kern.k1(lv.mat.data, x, b, alpha),
-        "cg_k2n (triton)": lambda: lv.kern.k2n(alpha, x2, r2, x, b),
+        "cg_k2n (ctypes)": lambda: lv.kern.k2n(alpha, x2, r2, x, b),
         "x + b (torch eager)": lambda: x + b,
         "torch.sum(x) (torch eager)": lambda: torch.sum(x),
         "V-cycle at the fine level": lambda: op(r_fine),
@@ -927,23 +1069,54 @@ def describe_hierarchy(levels) -> None:
 
 
 def plain_cycle(op):
-    """The same hierarchy and V-cycle with every kernel call replaced by its
-    plain twin: the independent reference of the AMG path on the card."""
-    cfg = PrecondConfig()
+    """The same hierarchy and host-launched cycle, at the op's settings, with
+    every kernel call replaced by its plain twin: the independent reference
+    of the host cycle on the card."""
     levels = [dataclasses.replace(lv, kern=PlainCgKernels(lv.n, lv.mat.offsets,
                                                           lv.mat.data.device))
               for lv in op.state]
-    return amg.cycle_op(levels, cfg.cycle, RELAX, cfg.smoother_sweeps, cfg.coarse_solver_iters)
+    return amg.cycle_op(levels, op.cycle, op.relax, op.smooth_iters, op.coarse_solver_iters)
+
+
+def next_params(field, ctl):
+    """The stopping parameters of `field`'s next foam.solve under `ctl`, as
+    FoamSolver.solve takes them (adaptMinIter from the field's last solve)."""
+    cfg = parse_controls(ctl)
+    props = registry.global_registry.properties(field)
+    return stopping.StoppingParams.of(cfg.stopping.adapted(
+        props.prev_solve_iters, props.prev_rel_res_cost, cfg.export))
+
+
+def amg_twin_iterations(kind, op, data, offsets, b, params):
+    """The iterations of the AMG loop's plain twin (amg_cg_loop_plain for
+    GKOCG + Multigrid, amg_ir_loop_plain for GKOMultigrid) over the plain
+    K1 or SpMV and vcycle_plain on `op`'s hierarchy, on the card, from a
+    zero guess under `params`."""
+    n = data.shape[1]
+    x = torch.zeros_like(b)
+    r = b - dia_spmv_plain(data, offsets, x)
+    nf = merged_norm_factor(PlainCgKernels(n, offsets, b.device), data, r, x, b)
+    cycle = functools.partial(amg_loop.vcycle_plain, op.state, relax=op.relax,
+                              sweeps=op.smooth_iters)
+    state = (x, r, torch.sum(torch.abs(r)), nf, params, cycle)
+    if kind == "pGMG":
+        return amg_loop.amg_ir_loop_plain(functools.partial(dia_spmv_plain, data, offsets),
+                                          *state)[0]
+    return amg_loop.amg_cg_loop_plain(functools.partial(k1_plain, data, offsets), *state)[0]
 
 
 def amg_path(m, b, device, ctl) -> dict:
-    """Phase 7: GKOCG + Multigrid and GKOMultigrid through foam.solve, two
-    steady steps that rebuild the hierarchy, the checks, and a profiled
-    step.  Returns the launch counts of the path."""
+    """Phase 7: GKOCG + Multigrid and GKOMultigrid through foam.solve, each
+    one launch of the AMG loop kernel; GKOCG + Multigrid with cycle w on the
+    host-launched cycle; two steady steps that rebuild the hierarchy; the
+    checks, and a profiled step.  Returns the launch counts of the path."""
     print(f"== phase 7: the AMG path, foam.solve at {m.n} cells")
     kernels.reset_launches()
     solves = {}
-    for field, extra in AMG_SOLVES.items():
+    host_field, host_extra = AMG_HOST_SOLVE
+    for field, extra in (*AMG_SOLVES.items(), (host_field, host_extra)):
+        params = next_params(field, {**ctl, **extra})
+        before = dict(kernels.launches)
         t0 = time.perf_counter()
         x, perf = foam.solve(field, m, b, {**ctl, **extra})
         torch.cuda.synchronize()
@@ -955,7 +1128,11 @@ def amg_path(m, b, device, ctl) -> dict:
               f"{lt['generate_preconditioner'] * 1e3:.1f} ms; solve {lt['solve'] * 1e3:.3f} ms "
               f"= {lt['solve'] / max(perf.n_iterations, 1) * 1e6:.1f} us per iteration")
         describe_hierarchy(slv._precond_op.state)
-        solves[field] = (x, perf, slv._precond_op, slv.matrix.data.clone())
+        if field in AMG_LOOP_SOLVE_LAUNCHES:
+            check_loop_solve_launches(field, before, AMG_LOOP_SOLVE_LAUNCHES[field])
+        else:
+            check_host_cycle_launches(field, before)
+        solves[field] = (x, perf, slv._precond_op, slv.matrix.data.clone(), params)
 
     ctl_mg = {**ctl, **AMG_SOLVES["pMG"]}
     steps = []
@@ -964,11 +1141,14 @@ def amg_path(m, b, device, ctl) -> dict:
         m_k = dataclasses.replace(m_k, diag=np.asarray(m_k.diag) * 1.01)
         b_k = (b_k * 1.01 + 0.1).astype(np.float32)
         op_before = registry.global_registry.get("pMG_solver")._precond_op
+        params = next_params("pMG", ctl_mg)
+        before = dict(kernels.launches)
         t0 = time.perf_counter()
         x_k, perf_k = foam.solve("pMG", m_k, b_k, ctl_mg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         perf_k.print()
+        check_loop_solve_launches(f"pMG step {k}", before, AMG_LOOP_SOLVE_LAUNCHES["pMG"])
         slv = registry.global_registry.get("pMG_solver")
         lt = slv.last_timings
         print(f"pMG step {k}: wall {wall * 1e3:.3f} ms, of which update "
@@ -980,8 +1160,11 @@ def amg_path(m, b, device, ctl) -> dict:
         if slv._precond_op is op_before or not torch.allclose(fine.inv_diag, want, rtol=1e-6):
             raise RuntimeError(f"pMG step {k}: the hierarchy was not rebuilt from the "
                                "current coefficients")
+        if device.type == "cuda" and (slv._precond_op.loop_table is None
+                                      or slv._precond_op.loop_table is op_before.loop_table):
+            raise RuntimeError(f"pMG step {k}: the loop did not build the new hierarchy's table")
         steps.append((f"pMG step {k}", x_k, perf_k, torch.tensor(b_k, device=device),
-                      slv.matrix.data.clone()))
+                      slv.matrix.data.clone(), slv._precond_op, params))
     launches = {k: kernels.launches[k] for k in AMG_KERNELS}
     print(f"launch counts over the AMG path: {dict(kernels.launches)}")
     missing = [k for k, v in launches.items() if v == 0]
@@ -990,11 +1173,10 @@ def amg_path(m, b, device, ctl) -> dict:
 
     b_dev = torch.tensor(b, device=device)
     offsets = slv.matrix.offsets
-    params = stopping.StoppingParams(tolerance=TOL, rel_tol=0.0, min_iter=0,
-                                     max_iter=1000, frequency=1)
-    checks = [(f, x, perf, b_dev, data, op) for f, (x, perf, op, data) in solves.items()]
-    checks += [(name, x, perf, bb, dd, None) for name, x, perf, bb, dd in steps]
-    for name, x, perf, bb, dd, op in checks:
+    checks = [(f, x, perf, b_dev, data, op, params)
+              for f, (x, perf, op, data, params) in solves.items()]
+    checks += steps
+    for name, x, perf, bb, dd, op, params in checks:
         if not (perf.converged and perf.final_residual < TOL):
             raise RuntimeError(f"{name}: did not converge: {perf}")
         if x.shape != (m.n,) or not bool(torch.isfinite(x).all()):
@@ -1003,24 +1185,30 @@ def amg_path(m, b, device, ctl) -> dict:
         line = (f"{name}: iterations {perf.n_iterations}, final residual "
                 f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} "
                 f"(limit {TRUE_RESIDUAL_MARGIN:g} x {TOL:g})")
-        if op is not None:  # first solves: against the plain twins on the card
-            cyc, x0 = plain_cycle(op), torch.zeros_like(bb)
-            if name == "pMG":
-                plain = cg_fused(PlainCgKernels(m.n, offsets, device), dd, bb, x0, params,
-                                 precond=cyc)
-            else:
-                ops = krylov.single_device_ops(
-                    lambda v, dd=dd: dia_spmv_plain(dd, offsets, v), m.n, precond=cyc)
-                plain = ir(ops, bb, x0, params)
-            line += f"; over the plain twins on the card: {plain.iters} iterations"
-            if abs(plain.iters - perf.n_iterations) > 1:
-                raise RuntimeError(f"{name}: {perf.n_iterations} iterations vs "
-                                   f"{plain.iters} over the plain twins")
+        if name == host_field:  # the host cycle over the plain kernels
+            plain = cg_fused(PlainCgKernels(m.n, offsets, device), dd, bb, torch.zeros_like(bb),
+                             params, precond=plain_cycle(op)).iters
+            line += f"; the host cycle over the plain twins on the card: {plain} iterations"
+        else:
+            plain = amg_twin_iterations(name.split()[0], op, dd, offsets, bb, params)
+            line += f"; the loop's plain twin on the card: {plain} iterations"
+        if abs(plain - perf.n_iterations) > 1:
+            raise RuntimeError(f"{name}: {perf.n_iterations} iterations vs {plain} over the "
+                               "plain twins")
+        if name in AMG_ITERS and abs(perf.n_iterations - AMG_ITERS[name]) > 1:
+            raise RuntimeError(f"{name}: {perf.n_iterations} iterations, not "
+                               f"{AMG_ITERS[name]} +- 1")
         print(line)
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")
 
     host_costs(solves["pMG"][2], device)
+    for field in AMG_SOLVES:  # on resident state: no upload, no host set-up
+        slv = registry.global_registry.get(f"{field}_solver")
+        sec = slv.time_device_solve()
+        it = solves[field][1].n_iterations
+        print(f"{field} on resident state (time_device_solve, best of 3): {sec * 1e3:.3f} ms "
+              f"for {it} iterations = {sec / it * 1e6:.1f} us per iteration")
     # a new b on the same operator: the hierarchy stays, the step is the solve
     print("torch.profiler over one more pMG step (new b, same operator):")
     b_k = (b_k * 1.01 + 0.1).astype(np.float32)
@@ -1604,7 +1792,10 @@ def bench_path(device, grid_main, grid_big, report) -> tuple:
 # then 200 checked iterations of the merged pipelined CG and of the merged
 # BiCGStab on the Dia plan at both sizes (one launch of the loop kernel
 # where a tree has it, else the host loop over KA and KB_pipe, over K1B and
-# KB_update) — only functions that this script's earlier versions have too
+# KB_update), then the pMG and pGMG solves through foam.solve at 1M cells,
+# timed on resident state (one launch of the AMG loop kernel where a tree
+# has it, else the host-launched cycle) — only functions that this
+# script's earlier versions have too
 TURN_CODE = (
     "import torch, chip_smoke as s; d = torch.device('cuda'); r = {}\n"
     "for g in (s.GRID_1M, s.GRID_8M): s.check_kernels(g, d, r)\n"
@@ -1624,9 +1815,18 @@ TURN_CODE = (
     "    ms = s.time_turns({0: lambda: s.bicgstab_fused(k, data, b, torch.zeros_like(b), pin)}, "
     "reps=3)[0] / 200\n"
     "    print(f'  bicgstab_fused {n} rows: {ms:.4f} ms per iteration over 200, checked at each "
-    "(its set-up included)')\n")
-TURN_LINES = ("cg_k2 ", "cg_k2i ", "gdia_k1 ", "gdia_spmv ", "cg_loop", "cg_ka", "cg_kb_pipe",
-              "cg_pipe", "bicgstab")
+    "(its set-up included)')\n"
+    "import numpy as np\n"
+    "m = s.testing.poisson_ldu(s.GRID_1M)\n"
+    "rhs = np.random.default_rng(0).normal(size=m.n).astype(np.float32)\n"
+    "for f, ex in s.AMG_SOLVES.items():\n"
+    "    _, perf = s.foam.solve(f, m, rhs, {'executor': 'cuda', 'tolerance': s.TOL, 'relTol': 0, "
+    "**ex})\n"
+    "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
+    "    print(f'  amg_solve {f} {m.n} cells: {perf.n_iterations} iterations, {sec * 1e3:.3f} ms "
+    "on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.1f} us per iteration')\n")
+TURN_LINES = ("cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop", "cg_ka",
+              "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_")
 
 
 def turns(trees) -> int:
@@ -1666,10 +1866,8 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     t_ph = time.perf_counter()
     print("== phase 1: device")
     print(card_line())
-    import triton
-
     cc = torch.cuda.get_device_capability(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__} "
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
           f"sm_{cc[0]}{cc[1]} count {torch.cuda.device_count()}")
     if cc != (9, 0):
@@ -1698,6 +1896,11 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     print(f"bicgstab_loop grid (bicgstab_loop_kernel): {blocks} co-resident blocks of "
           f"{LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
           + "; ".join(loop_ptxas(info["log"], None, "bicgstab_loop_kernel")))
+    for variant, what in AMG_LOOP_VARIANTS.items():
+        blocks = amg_loop.loop_blocks(variant, device)
+        print(f"amg_loop grid, {what} (amg_loop_kernel<{variant}>): {blocks} co-resident blocks "
+              f"of {LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
+              + "; ".join(loop_ptxas(info["log"], variant, "amg_loop_kernel")))
 
     t_ph = phase_done("phase 2", t_ph)
     print("== phase 3: kernels vs plain versions "
@@ -1708,6 +1911,10 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     data, offsets = poisson_dia(LOOP_FIXED_GRID, device)
     check_dia_loops(data, offsets, "x".join(map(str, LOOP_FIXED_GRID)), report)
     del data
+    print("the AMG loop kernel vs its plain twins (x after "
+          f"{AMG_LOOP_CHECK} iterations within {AMG_LOOP_RTOL:.0e}*max(1,max|plain|)):")
+    check_amg_loops(grid_main, device, report)
+    check_amg_loops(LOOP_FIXED_GRID, device, report, dtypes=(torch.bfloat16,))
     check_gdia((grid_main, grid_big), device, report)
 
     t_ph = phase_done("phase 3", t_ph)

@@ -2,9 +2,8 @@
 
 Counterpart: ogl_tpu/__init__.py.  The JAX package `ogl_tpu` stays the
 reference; this package runs the same solver front end on torch tensors,
-with every kernel of its path written by hand for NVIDIA Hopper (CUDA C++
-for sm_90a, or Triton for fused elementwise passes).  It imports torch and
-numpy and never jax or ogl_tpu.
+with every kernel of its path written by hand for NVIDIA Hopper in CUDA
+C++ for sm_90a.  It imports torch and numpy and never jax or ogl_tpu.
 
 Slices covered so far: the GKOCG pressure solve — OpenFOAM LDU ingest,
 the Dia, Gdia and Xell formats with the reference's auto-routing between

@@ -35,6 +35,12 @@ Routing follows the reference's `_make_solve_fn`:
                        `none` on Dia → the merged BiCGStab (K1B, K1B,
                        KB_update; solve/bicgstab_fused.py; on the card one
                        launch of its loop kernel)
+  GKOMultigrid         Richardson around one AMG cycle (solve/ir.py
+                       `ir_fused` on the Dia plan)
+GKOCG + Multigrid (merged) and GKOMultigrid run their whole solve, V-cycle
+included, as one launch of the AMG loop kernel on the card when the
+hierarchy qualifies (kernels/amg_loop.py: cycle v, grid or natural
+transfers, a dense coarse inverse); otherwise the host launches the cycle.
 The reference's TPU-only route gates (Pallas usability, the 32k-row floor
 of the merged kernels, the f32-frame test, the working-set gate of the
 z-free variant, the frame geometry its framed AMG must share) are not
@@ -66,7 +72,7 @@ from ogl_tpu_torch.solve.cg import cg
 from ogl_tpu_torch.solve.cg_fused import cg_fused
 from ogl_tpu_torch.solve.cg_pipe import cg_pipelined
 from ogl_tpu_torch.solve.cg_pipe_fused import cg_pipelined_fused
-from ogl_tpu_torch.solve.ir import ir
+from ogl_tpu_torch.solve.ir import ir_fused
 from ogl_tpu_torch.solve.krylov import single_device_ops
 
 __all__ = ["SolverPerformance", "FoamSolver", "solve", "unsupported"]
@@ -303,7 +309,8 @@ class FoamSolver:
                     "(AMG levels in the Gdia/Xell formats) is not ported to "
                     "ogl_tpu_torch yet (ROADMAP.md A11)")
             self.route = _route(cfg, self.matrix)
-            merged = self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused")
+            # "ir" (GKOMultigrid, Dia only) keeps the plan for its device loop
+            merged = self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir")
             self.kern = self._kernel_plan() if merged else None
             return
         # steady state: upload the changed raw blocks, then one gather +
@@ -430,7 +437,7 @@ class FoamSolver:
         preconditioner, b and x0, as a closure: no upload, no host set-up."""
         route, mat, kern = self.route, self.matrix, self.kern
         invd = self._precond_op.state if self.cfg.precond.name == "BJ" else None
-        general = {"ir": ir, "cg": cg, "cg_pipe": cg_pipelined, "bicgstab": bicgstab}
+        general = {"cg": cg, "cg_pipe": cg_pipelined, "bicgstab": bicgstab}
 
         def run():
             if route in general:
@@ -442,6 +449,8 @@ class FoamSolver:
                                 precond=apply_pc if invd is None else None)
             if route == "cg_pipe_fused":
                 return cg_pipelined_fused(kern, data, b_dev, x0, params, invd=invd)
+            if route == "ir":
+                return ir_fused(kern, data, b_dev, x0, params, apply_pc)
             return bicgstab_fused(kern, data, b_dev, x0, params)
         return run
 
@@ -502,8 +511,9 @@ class FoamSolver:
                        f"stopping criterion minIter {stopping_cfg.min_iter} "
                        f"frequency {stopping_cfg.frequency}")
         params = stopping.StoppingParams.of(stopping_cfg)
-        pc_op = self._precond_op
-        apply_pc = pc_op.bind(pc_op.state) if pc_op is not None else None
+        # the op itself (callable as r -> z): the AMG routes read its
+        # hierarchy and settings for the device V-cycle
+        apply_pc = self._precond_op
 
         self._redispatch = self._route_call(m.n, b_dev, x0, params, apply_pc)
         with self._timed("solve"):

@@ -67,9 +67,12 @@ def amg_levels_from_reference(levels, device: torch.device | str = "cpu",
     out = []
     for lv in levels:
         mat = lv.mat
-        if type(mat).__name__ != "Dia":
-            raise TypeError(f"level operator {type(mat).__name__}: only Dia levels "
-                            "have a port counterpart (ROADMAP.md A13, A2)")
+        kind = type(mat).__name__
+        if kind != "Dia":
+            # AMG on Gdia/Xell levels is A11; an Ell level needs the format, A2
+            item = "A2" if kind == "Ell" else "A11"
+            raise TypeError(f"level operator {kind}: only Dia levels have a port "
+                            f"counterpart (ROADMAP.md {item})")
         out.append(make_level(
             dia_from_arrays(mat.data, mat.offsets, mat.shape, device),
             np.asarray(lv.inv_diag), int(lv.nc),

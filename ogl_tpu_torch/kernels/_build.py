@@ -78,6 +78,8 @@ _SIGNATURES = {
     "ogl_cg_k2": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # alpha, x, r, p, q, partials, n, vec, blocks, stream
     "ogl_cg_k2i": (_P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # alpha, x, r, p, q, partials, n, vec, blocks, stream
+    "ogl_cg_k2n": (_P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # variant, threads, blocks (out)
     "ogl_cg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
     # variant, coef, lidx, offsets, nd, rows, x, r, z, invd, p, pn, q, rho, absr, nf,
@@ -101,6 +103,13 @@ _SIGNATURES = {
     # tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
     "ogl_bicgstab_loop": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, threads, blocks (out)
+    "ogl_amg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # variant, table, levels, data, offsets, nd, x, r, z, p, pn, q, absr, nf, partials, record,
+    # n, vec, relax, sweeps, tol, rel_tol, min_iter, max_iter, frequency, threads, blocks,
+    # stream
+    "ogl_amg_loop": (_INT, _P, _INT, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                     _INT, _F32, _INT, _F32, _F32, _INT, _INT, _INT, _INT, _I64, _P),
 }
 
 _lock = threading.Lock()

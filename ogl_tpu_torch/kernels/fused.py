@@ -3,9 +3,10 @@ K2, K2i, KA, KB_pipe, K1B, KB_update, the smoother passes and the whole
 merged CG, merged pipelined-CG and merged BiCGStab loops in CUDA C++
 (`csrc/cg_k1.cu`, `csrc/cg_k2.cu`, `csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`,
 `csrc/cg_kb_pipe.cu`, `csrc/bicgstab.cu`, `csrc/bicgstab_kb_update.cu`,
-`csrc/amg_smooth.cu`, `csrc/cg_loop.cu`, `csrc/cg_pipe_loop.cu`,
-`csrc/bicgstab_loop.cu`), K2n in Triton (body below), each beside its
-plain PyTorch twin.
+`csrc/cg_k2n.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`,
+`csrc/cg_pipe_loop.cu`, `csrc/bicgstab_loop.cu`), each beside its plain
+PyTorch twin (the AMG solves' own loop kernel, `csrc/amg_loop.cu`, is
+wrapped by kernels/amg_loop.py).
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
 `ka`/`kb_pipe`/`k1b`/`kb_update`/`ksweep`/`kresid`/`apply`/`pack_values`,
@@ -53,7 +54,9 @@ and the AMG smoother's two passes, each one stencil apply:
   resid  out = b − A x
 whose coefficients may be packed in bfloat16 (`pack_values(mat, dtype)`;
 the reference's choice for its smoother operators): they are widened to
-float32 in the kernel and sums accumulate in float32.  `GdiaCgKernels`
+float32 in the kernel and sums accumulate in float32.  Their row body
+(`csrc/amg_smooth.cuh`: row quads with 16- or 8-byte coefficient loads,
+else rows) is also the smoothing phases of the device V-cycle.  `GdiaCgKernels`
 (counterpart of the reference's class of that name, `_k1_gdia_kernel`) is
 the same plan for a Gdia matrix: its K1 is the Gdia kernel of
 kernels/gdia.py (`csrc/gdia.cu`, row body `csrc/gdia_k1.cuh`), K2/K2i/K2n
@@ -80,20 +83,16 @@ version; CUDA tensors launch the kernel or raise (wrong device, dtype,
 shape, contiguity, or a refused launch) — there is no fallback.  Each
 launch counts in `ogl_tpu_torch.kernels.launches`.
 
-K2n (Triton) replaces ogl_tpu/kernels/fused.py `_k2n_kernel`: a pure
-elementwise stream with one block sum, no neighbour reads and no index
-tables — the case where Triton writes the same kernel as CUDA C++ with
-less code.  Bound: device-memory bandwidth, 6 float32 streams per row (x,
-r, p, q in; x, r out) at a handful of flops.  Design: one program per
-BLOCK rows, masked coalesced loads/stores, tl.sum per program into a
-partials array.  K2 (`_k2_kernel`, 8 streams: invd in and z out besides),
-K2i (`_k2i_kernel`), KB_pipe (`_kb_pipe_kernel`: 9 streams, 36 B, 10 with
-Jacobi) and KB_update (`_kb_update_kernel`: 7 streams, 28 B) are CUDA C++
-(`csrc/cg_k2.cu`, `csrc/cg_k2i.cu`, `csrc/cg_kb_pipe.cu`,
+K2 (`_k2_kernel`, 8 streams: x, r, p, q, invd in; x, r, z out), K2i
+(`_k2i_kernel`, 6), K2n (`_k2n_kernel`, 6: x, r, p, q in; x, r out),
+KB_pipe (`_kb_pipe_kernel`: 9 streams, 36 B, 10 with Jacobi) and KB_update
+(`_kb_update_kernel`: 7 streams, 28 B) are CUDA C++ (`csrc/cg_k2.cu`,
+`csrc/cg_k2i.cu`, `csrc/cg_k2n.cu`, `csrc/cg_kb_pipe.cu`,
 `csrc/bicgstab_kb_update.cu`): their bodies are also phases of the loop
-kernels, which a Triton kernel could not be.  Each runs on a grid-stride
-grid of row quads (float4, the last quad of n % 4 ≠ 0 row by row where the
-kernel takes it) with one partial per block and sum.
+kernels.  Each runs on a grid-stride grid of row quads (float4, the last
+quad of n % 4 ≠ 0 row by row where the kernel takes it) with one partial
+per block and sum; bound: device-memory bandwidth at a handful of flops
+per row.
 """
 
 from __future__ import annotations
@@ -115,10 +114,8 @@ __all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "k1_plain",
            "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "bicgstab_loop_plain",
            "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
-K2_BLOCK = 1024  # rows per Triton program (power of two, tl.constexpr)
-K2_WARPS = 4
-# the grid cap of the standalone grid-stride kernels (K2, K2i, KB_pipe, K1B,
-# KB_update), blocks of 256 per SM: one row quad per thread up to 8.4M rows
+# the grid cap of the standalone grid-stride kernels (K2, K2i, K2n, KB_pipe,
+# K1B, KB_update), blocks of 256 per SM: one row quad per thread up to 8.4M rows
 # (timed on the H100 in turns against 4, 8 and 16 per SM, which give each
 # thread a loop of quads: level or faster)
 K2_BLOCKS_PER_SM = 64
@@ -307,43 +304,6 @@ def ksweep_plain(data, offsets, x, b, invd, relax):
     return x + relax * invd * kresid_plain(data, offsets, x, b)
 
 
-# ---- the Triton body (compiled on the first CUDA launch) ----------------
-# `tl` is bound to triton.language by _k2n_triton(), which imports
-# triton only when a CUDA tensor reaches a wrapper: this module must import
-# on hosts without triton.  The string annotations keep BLOCK a constexpr
-# without evaluating `tl` at import.
-
-tl = None
-_TRITON: dict = {}  # "k2n": the jitted body
-
-
-def _k2n_body(alpha_ptr, x_ptr, r_ptr, p_ptr, q_ptr, absr_ptr, n,
-              BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    alpha = tl.load(alpha_ptr)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
-    r = tl.load(r_ptr + offs, mask=mask, other=0.0)
-    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
-    q = tl.load(q_ptr + offs, mask=mask, other=0.0)
-    ro = r - alpha * q
-    tl.store(x_ptr + offs, x + alpha * p, mask=mask)
-    tl.store(r_ptr + offs, ro, mask=mask)
-    tl.store(absr_ptr + pid, tl.sum(tl.abs(ro), axis=0))
-
-
-def _k2n_triton():
-    global tl
-    if not _TRITON:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _TRITON["k2n"] = triton.jit(_k2n_body)
-    return _TRITON["k2n"]
-
-
 def _span(t: torch.Tensor) -> tuple[int, int]:
     start = t.data_ptr()
     return start, start + t.numel() * t.element_size()
@@ -425,7 +385,7 @@ class CgKernels:
         _, q, _ = self.k1(data, x, x, self._zero)
         return q
 
-    # ---- K2, K2i (CUDA C++) ----------------------------------------------
+    # ---- K2, K2i, K2n (CUDA C++) -----------------------------------------
     def k2(self, alpha, x, r, p, q, invd, z):
         """In place on x, r, z; returns (ρ, ‖r‖₁) as 0-d tensors."""
         if on_cpu(alpha, x, r, p, q, invd, z):
@@ -439,18 +399,19 @@ class CgKernels:
             return k2i_plain(alpha, x, r, p, q)
         return self._launch_k2("k2i", alpha, (x, r, p, q))
 
-    def _launch_k2(self, what, alpha, vectors):
-        """Launch `ogl_cg_<what>` (csrc/cg_k2.cu, cg_k2i.cu) over `vectors`
-        in its C argument order, on a grid of at most K2_BLOCKS_PER_SM
-        blocks per SM, with the float4 branch where every vector allows it;
-        returns (ρ, ‖r‖₁)."""
+    def _launch_k2(self, what, alpha, vectors, sums=2):
+        """Launch `ogl_cg_<what>` (csrc/cg_k2.cu, cg_k2i.cu, cg_k2n.cu) over
+        `vectors` in its C argument order, on a grid of at most
+        K2_BLOCKS_PER_SM blocks per SM, with the float4 branch where every
+        vector allows it; returns its `sums` block sums ((ρ, ‖r‖₁), or
+        (‖r‖₁,) for K2n)."""
         require_cuda(what, vectors[0])
         check_operands(self.plan, None, *vectors)
         check_scalar("alpha", alpha, self.device)
         vec, blocks = persistent_launch(self.n, [t.data_ptr() for t in vectors],
                                         sm_count(self.device.index),
                                         blocks_per_sm=K2_BLOCKS_PER_SM)
-        partials = torch.empty((2, blocks), dtype=torch.float32, device=self.device)
+        partials = torch.empty((sums, blocks), dtype=torch.float32, device=self.device)
         entry = getattr(_build.library(), f"ogl_cg_{what}")
         _build.check(entry(alpha.data_ptr(), *(t.data_ptr() for t in vectors),
                            partials.data_ptr(), self.n, vec, blocks, stream_of(vectors[0])),
@@ -463,15 +424,7 @@ class CgKernels:
         x and r; returns ‖r‖₁ as a 0-d tensor."""
         if on_cpu(alpha, x, r, p, q):
             return k2n_plain(alpha, x, r, p, q)
-        require_cuda("k2n", x)
-        check_operands(self.plan, None, x, r, p, q)
-        check_scalar("alpha", alpha, self.device)
-        grid = -(-self.n // K2_BLOCK)
-        partials = torch.empty(grid, dtype=torch.float32, device=self.device)
-        _k2n_triton()[(grid,)](alpha, x, r, p, q, partials, self.n, BLOCK=K2_BLOCK,
-                               num_warps=K2_WARPS)
-        kernels.launches["cg_k2n"] += 1
-        return torch.sum(partials)
+        return self._launch_k2("k2n", alpha, (x, r, p, q), sums=1)[0]
 
     # ---- the whole merged CG loop (CUDA C++) -----------------------------
     def loop_blocks(self, variant: int = 0) -> int:

@@ -47,6 +47,7 @@ _HBM_PEAK = (
 )
 _CPU_PEAK = 50.0  # nominal, for relative numbers in CPU runs (as the reference's)
 GRAPH_LEN = 8  # applies per captured CUDA graph of measure_chained
+HOST_REPEATS = 3  # timings of each chain length on the host clock (measure_chained)
 PLANE_SUM_THREADS = 256  # csrc/read_peak.cu kThreads
 PLANE_SUM_BLOCKS_PER_SM = 4
 
@@ -278,7 +279,8 @@ def measure_chained(vec_fn, x0, iters: int | None = None, warmup: int = 2,
     between them is the time per apply — the host's launch cost and any
     fixed cost cancel.  `iters` applies (None: as many as make the longer
     chain take about `target_seconds`, from a probe) set r.  On CPU tensors
-    the chain runs eagerly on the host clock, with the same slope.  The rate derived from
+    the chain runs eagerly on the host clock, with the same slope between
+    the least of HOST_REPEATS timings of each length.  The rate derived from
     a working set that fits in the 50 MB L2 is an L2 rate.  The wrappers
     count their launches while the graph is captured, not at its replays."""
     for _ in range(max(warmup, 1)):
@@ -297,9 +299,17 @@ def measure_chained(vec_fn, x0, iters: int | None = None, warmup: int = 2,
         if iters is None:
             per_est = max(_host_seconds(vec_fn, x0, 16, operands) / 16, 1e-9)
             iters = int(min(max(target_seconds / (2 * per_est), 32), 200_000))
-        t1 = _host_seconds(vec_fn, x0, iters, operands)
-        t2 = _host_seconds(vec_fn, x0, 2 * iters, operands)
-        per_iter = max((t2 - t1) / iters, 1e-12)
+        # the host clock: a preempted chain inflates one timing, and a single
+        # slope t2 - t1 can then come out near zero or negative, so each
+        # length takes the least of HOST_REPEATS timings, in turns; a slope
+        # that still is not positive falls back to the longer chain's time
+        # per apply (fixed cost included)
+        t1 = t2 = float("inf")
+        for _ in range(HOST_REPEATS):
+            t1 = min(t1, _host_seconds(vec_fn, x0, iters, operands))
+            t2 = min(t2, _host_seconds(vec_fn, x0, 2 * iters, operands))
+        per_iter = (t2 - t1) / iters if t2 > t1 else t2 / (2 * iters)
+        per_iter = max(per_iter, 1e-12)
     return Roofline(seconds=per_iter, bytes=bytes_moved, flops=flops,
                     peak_gbps=hbm_peak_gbps(x0.device))
 

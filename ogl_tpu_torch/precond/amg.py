@@ -22,7 +22,11 @@ CPU), the transfers as plain reshapes and sums (`grid`/`natural`) or
 `index_add_`/`index_select` (`pgm`) — XLA ops in the reference, not
 Pallas kernels —, and the coarsest solve as one `torch.mv` against the
 dense inverse (or, for `coarseSolver cg`, fixed-iteration CG on the Dia
-SpMV kernel).
+SpMV kernel).  `cycle_op` returns an `AmgOp`, which records the settings
+the cycle runs at: a hierarchy that kernels/amg_loop.py `qualifies` (cycle
+v, grid or natural transfers, a dense coarse inverse) runs its whole solve
+with the cycle on the device on the card instead (kernels/csrc/amg_loop.cu),
+over a level table built once per hierarchy and kept on the op.
 
 Deliberate differences from the reference:
   * smoother coefficients are packed in `smoother_dtype` (bfloat16 by
@@ -50,8 +54,9 @@ import torch
 from ogl_tpu_torch.core.formats import Coo, Dia, coo_to_dia
 from ogl_tpu_torch.kernels.dia_spmv import MAX_DIAGS, dia_spmv
 from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.precond import PrecondOp
 
-__all__ = ["Level", "make_level", "amg", "cycle_op", "build_hierarchy",
+__all__ = ["Level", "AmgOp", "make_level", "amg", "cycle_op", "build_hierarchy",
            "pgm_aggregate", "natural_aggregate", "grid_dims_of", "grid_aggregate",
            "grid_restrict", "grid_prolong", "cg_fixed_iters"]
 
@@ -370,11 +375,27 @@ def _coarse_solve(lv: Level, b: torch.Tensor, iters: int) -> torch.Tensor:
     return cg_fixed_iters(lambda v: dia_spmv(lv.kern.plan, lv.mat.data, v), b, iters)
 
 
-def cycle_op(levels, cycle: str = "v", relax: float = 0.9, smooth_iters: int = 2,
-             coarse_solver_iters: int = 4):
-    """The preconditioner: one `cycle` from a zero guess over `levels`."""
-    from ogl_tpu_torch.precond import PrecondOp
+class AmgOp(PrecondOp):
+    """The AMG cycle as a PrecondOp (state: the levels), with the settings
+    it runs at — `cycle`, `relax`, `smooth_iters`, `coarse_solver_iters` —
+    so that the device V-cycle reads the values the host cycle uses, and
+    `loop_table`, the device loop's level table (kernels/amg_loop.py
+    `table_of`), built at its first use: it belongs to this hierarchy and
+    goes with it when a changed operator rebuilds the hierarchy."""
 
+    def __init__(self, apply_fn, levels, cycle: str, relax: float, smooth_iters: int,
+                 coarse_solver_iters: int):
+        super().__init__(apply_fn, tuple(levels))
+        self.cycle = cycle
+        self.relax = float(relax)
+        self.smooth_iters = int(smooth_iters)
+        self.coarse_solver_iters = int(coarse_solver_iters)
+        self.loop_table = None
+
+
+def cycle_op(levels, cycle: str = "v", relax: float = 0.9, smooth_iters: int = 2,
+             coarse_solver_iters: int = 4) -> AmgOp:
+    """The preconditioner: one `cycle` from a zero guess over `levels`."""
     n_levels = len(levels)
 
     def sweeps(lv: Level, x, b, k: int):
@@ -402,7 +423,7 @@ def cycle_op(levels, cycle: str = "v", relax: float = 0.9, smooth_iters: int = 2
     def apply(lvls, r):
         return run_level(lvls, 0, r, cycle == "w")
 
-    return PrecondOp(apply, tuple(levels))
+    return AmgOp(apply, levels, cycle, relax, smooth_iters, coarse_solver_iters)
 
 
 def amg(coo: Coo, device: torch.device | str = "cpu", max_levels: int = 9,
@@ -410,8 +431,8 @@ def amg(coo: Coo, device: torch.device | str = "cpu", max_levels: int = 9,
         relax: float = 0.9, smooth_iters: int = 2, aggregation: str = "natural",
         width: int = 8, coarse_solver: str = "direct",
         smoother_dtype: torch.dtype = torch.bfloat16):
-    """Build the hierarchy of `coo` on `device` and return its cycle as a
-    PrecondOp (state: the levels)."""
+    """Build the hierarchy of `coo` on `device` and return its cycle as an
+    AmgOp (state: the levels)."""
     levels = build_hierarchy(coo, max_levels, min_coarse_rows, aggregation,
                              width=width, coarse_solver=coarse_solver, device=device,
                              smoother_dtype=smoother_dtype)

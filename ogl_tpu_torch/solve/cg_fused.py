@@ -13,8 +13,12 @@ With identity or scalar Jacobi preconditioning on a Dia or a Gdia matrix
 on the card the whole loop, criterion included, is one persistent kernel
 (`CgKernels.cg_loop`, csrc/cg_loop.cu): one launch per solve and one host
 read of its record, as the reference runs the loop as one device program.
-Every other case — the CPU, a rich preconditioner, the Xell plan — loops
-on the host.  The iteration counter and the minIter/frequency gating are then
+So is the AMG-preconditioned loop on a Dia matrix on the card when the
+hierarchy qualifies (kernels/amg_loop.py `takes_loop`: cycle v, grid or
+natural transfers, a dense coarse inverse): K1, K2n and the V-cycle are
+the phases of `amg_cg_loop` (csrc/amg_loop.cu), whose set-up's z = M r₀
+runs inside the launch too.  Every other case — the CPU, a hierarchy that
+keeps the host cycle, the Xell plan — loops on the host.  The iteration counter and the minIter/frequency gating are then
 host integers; α, β, ρ, δ, ‖r‖₁ and the normalised residual stay 0-d
 device tensors; the host reads one bool per checked iteration.  When that
 bool says converged the loop breaks before K1/K2, which yields exactly the
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ogl_tpu_torch.kernels import amg_loop
 from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import SolveResult
@@ -48,11 +53,19 @@ def merged_norm_factor(kern: CgKernels, data, r, x, b):
 
 def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None, precond=None) -> SolveResult:
     """b, x0, invd: flat (n,) float32 tensors on kern's device; data:
-    kern.pack_values(mat); precond: r -> z (excludes invd)."""
+    kern.pack_values(mat); precond: r -> z (excludes invd), the AmgOp itself
+    for the device V-cycle."""
     dtype = kern.dtype
     identity = invd is None and precond is None
     x = x0.to(dtype).clone()
     r = b - kern.apply(data, x)
+    if amg_loop.takes_loop(kern, precond, b):
+        absr = torch.sum(torch.abs(r))
+        nf = merged_norm_factor(kern, data, r, x, b)
+        iters, rn, init_rn, converged = amg_loop.amg_cg_loop(kern, data, precond, x, r, absr,
+                                                              nf, cfg)
+        return SolveResult(x=x, iters=iters, init_res_norm=init_rn, final_res_norm=rn,
+                           converged=converged)
     if identity:
         z = r  # z ≡ r: K1 reads r, K2i drops the z stream
         rho = torch.sum(r * r)

@@ -26,8 +26,11 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_loop
                                          cg_loop_plain, cg_pipe_loop_plain, k1_plain, k1b_plain,
                                          k2_plain, k2i_plain, k2n_plain, ka_plain, kb_pipe_plain,
                                          kb_update_plain, kresid_plain, ksweep_plain)
+from ogl_tpu_torch.kernels import amg_loop
+from ogl_tpu_torch.precond import amg
 from ogl_tpu_torch.solve import bicgstab_fused, cg_pipelined_fused, stopping
 from ogl_tpu_torch.solve.cg_fused import cg_fused, merged_norm_factor
+from ogl_tpu_torch.solve.ir import ir_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -464,12 +467,236 @@ def test_foam_amg_on_card_matches_cpu(dev, solver):
     kernels.reset_launches()
     x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
     assert x.device.type == "cuda"
-    assert kernels.launches["amg_sweep"] > 0 and kernels.launches["amg_resid"] > 0
+    # the whole solve is one launch of the device V-cycle's loop; K1 twice
+    # for the set-up; the SpMV in the residual-eval timing; no standalone
+    # smoother or K2n launch
+    loop = "amg_cg_loop" if solver == "GKOCG" else "amg_ir_loop"
+    assert kernels.launches[loop] == 1 and kernels.launches["cg_k1"] == 2
     assert kernels.launches["dia_spmv"] > 0
-    if solver == "GKOCG":
-        assert kernels.launches["cg_k1"] > 0 and kernels.launches["cg_k2n"] > 0
+    assert kernels.launches["amg_sweep"] == kernels.launches["amg_resid"] == 0
+    assert kernels.launches["cg_k2n"] == 0
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("solver", ["GKOCG", "GKOMultigrid"])
+def test_foam_amg_host_cycle_on_card_matches_cpu(dev, solver):
+    """cycle w keeps the host-launched cycle on the card: the standalone
+    smoother kernels (and K2n for GKOCG), no loop launch."""
+    m = testing.poisson_ldu((32, 32, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    pc = {"preconditioner": "Multigrid", "cycle": "w"}
+    ctl = {"solver": solver, "matrixFormat": "Dia", "tolerance": 1e-6, "relTol": 0,
+           "adaptMinIter": False, "preconditioner": pc if solver == "GKOCG" else
+           {"preconditioner": "none", "cycle": "w"}}
+    x_cpu, perf_cpu = foam.FoamSolver("p", {**ctl, "executor": "cpu"}).solve(m, b)
+    kernels.reset_launches()
+    x, perf = foam.FoamSolver("p", {**ctl, "executor": "cuda"}).solve(m, b)
+    assert kernels.launches["amg_cg_loop"] == kernels.launches["amg_ir_loop"] == 0
+    assert kernels.launches["amg_sweep"] > 0 and kernels.launches["amg_resid"] > 0
+    if solver == "GKOCG":
+        assert kernels.launches["cg_k2n"] > 0
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+# ---- the device V-cycle (csrc/amg_loop.cu) ----------------------------------
+
+# odd axes (n = 2,431: rows, not quads; grid_restrict's padding), a box
+# grid (quads), a natural hierarchy with a partial last aggregate (8 rows
+# each, and 16: more fine rows than the lanes of a transfer's group), a
+# 2-D grid of one plane, and the slices' 1M cells
+AMG_LOOP_CASES = [((17, 13, 11), "auto"), ((16, 16, 16), "auto"), ((17, 13, 11), "natural"),
+                  ((17, 13, 11), "natural16"), ((37, 29, 1), "auto"), ((128, 128, 64), "auto")]
+AMG_LOOP_PINNED = 10
+# x after AMG_LOOP_PINNED pinned iterations against the twin: the restrict
+# sums, the coarse product and the partial sums add in another order
+AMG_LOOP_RTOL = 1e-4
+
+
+def _amg_setup(dims, aggregation, dtype, dev):
+    coo = ldu.ldu_to_coo_host(testing.poisson_ldu(dims), dtype=np.float32)
+    mat = formats.coo_to_dia(coo, dev)
+    kern = CgKernels(mat.shape[0], mat.offsets, dev)
+    natural = aggregation.startswith("natural")  # "natural16": runs of 16 rows
+    width = int(aggregation[len("natural"):] or 8) if natural else 8
+    op = amg.amg(coo, dev, aggregation="natural" if natural else aggregation,
+                 smoother_dtype=dtype, width=width)
+    assert amg_loop.qualifies(op)
+    return kern, kern.pack_values(mat), _vec(mat.shape[0], 11, dev), op
+
+
+def _amg_state(kern, data, b):
+    x = torch.zeros_like(b)
+    r = b - kern.apply(data, x)
+    return x, r, torch.sum(torch.abs(r)), merged_norm_factor(kern, data, r, x, b)
+
+
+def _amg_twin(name, kern, data, op, state, cfg):
+    cycle = functools.partial(amg_loop.vcycle_plain, op.state, relax=op.relax,
+                              sweeps=op.smooth_iters)
+    if name == "cg":
+        k1 = functools.partial(k1_plain, data, kern.offsets)
+        return amg_loop.amg_cg_loop_plain(k1, *state, cfg, cycle)
+    apply = functools.partial(dia_spmv_plain, data, kern.offsets)
+    return amg_loop.amg_ir_loop_plain(apply, *state, cfg, cycle)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dims,aggregation", AMG_LOOP_CASES, ids=str)
+@pytest.mark.parametrize("name", ["cg", "ir"])
+def test_amg_loop_matches_plain(dev, name, dims, aggregation, dtype):
+    """Each loop variant against its plain twin on the card, pinned and
+    free-running: three launches repeat their count and iterate exactly;
+    each launches the loop once and K1 twice (the set-up's r0 and norm
+    factor), nothing else."""
+    kern, data, b, op = _amg_setup(dims, aggregation, dtype, dev)
+    loop = amg_loop.amg_cg_loop if name == "cg" else amg_loop.amg_ir_loop
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=AMG_LOOP_PINNED,
+                                     max_iter=AMG_LOOP_PINNED, frequency=1)
+    free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0, max_iter=1000,
+                                   frequency=1)
+    for cfg in (pinned, free):
+        state_p = _amg_state(kern, data, b)
+        it_p, rn_p, _, conv_p = _amg_twin(name, kern, data, op, state_p, cfg)
+        runs = []
+        for _ in range(3):
+            kernels.reset_launches()
+            state = _amg_state(kern, data, b)
+            runs.append((state[0], *loop(kern, data, op, *state, cfg)))
+            torch.cuda.synchronize()
+            assert kernels.launches[f"amg_{name}_loop"] == 1 and kernels.launches["cg_k1"] == 2
+            assert sum(kernels.launches.values()) == 3
+        x, it, rn, _, conv = runs[0]
+        assert all(run[1] == it and torch.equal(run[0], x) for run in runs[1:])
+        if cfg is pinned:
+            assert it == it_p == AMG_LOOP_PINNED and not conv
+            _close(x, state_p[0], rtol=AMG_LOOP_RTOL)
+            torch.testing.assert_close(rn, rn_p.cpu(), rtol=AMG_LOOP_RTOL, atol=0)
+        else:
+            assert bool(conv) and bool(conv_p) and abs(it - it_p) <= 1
+            assert float(rn) < LOOP_TOL
+            r64 = b.double() - dia_spmv_plain(data.double(), kern.offsets, x.double())
+            assert float(r64.abs().sum() / state[-1].double()) <= 10 * LOOP_TOL
+            torch.testing.assert_close(x, state_p[0], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["cg", "ir"])
+def test_amg_routes_take_the_loop_on_the_card(dev, name):
+    """cg_fused and ir_fused take the loop for a qualifying hierarchy on the
+    Dia plan itself; a plan that is not CgKernels itself, and a w-cycle,
+    keep the host-launched cycle."""
+    kern, data, b, op = _amg_setup((32, 32, 16), "auto", torch.bfloat16, dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=1000, frequency=1)
+
+    def solve(k, pc):
+        if name == "cg":
+            return cg_fused(k, data, b, torch.zeros_like(b), cfg, precond=pc)
+        return ir_fused(k, data, b, torch.zeros_like(b), cfg, pc)
+
+    kernels.reset_launches()
+    res = solve(kern, op)
+    assert kernels.launches[f"amg_{name}_loop"] == 1 and kernels.launches["amg_sweep"] == 0
+    assert bool(res.converged) and res.final_res_norm.device.type == "cpu"
+
+    class HostLoop(CgKernels):
+        pass
+
+    host = HostLoop(kern.n, kern.offsets, dev)
+    w = amg.cycle_op(op.state, "w", op.relax, op.smooth_iters, op.coarse_solver_iters)
+    for k, pc in ((host, op), (kern, w)):
+        kernels.reset_launches()
+        res_h = solve(k, pc)
+        assert kernels.launches[f"amg_{name}_loop"] == 0 and kernels.launches["amg_sweep"] > 0
+        assert bool(res_h.converged)
+    torch.testing.assert_close(solve(host, op).x, res.x, rtol=0, atol=1e-3)
+
+
+def test_amg_loop_refused_cooperative_launch_raises(dev):
+    """A grid above the co-resident blocks is refused by the cooperative
+    launch; the wrapper raises, falls back to nothing, and the next launch
+    is unaffected."""
+    kern, data, b, op = _amg_setup((128, 128, 64), "auto", torch.bfloat16, dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=3, max_iter=3,
+                                  frequency=1)
+    amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)
+    key = (kern.device.index, amg_loop.VARIANT_BF16)
+    co_resident = amg_loop._grids[key]
+    assert 0 < co_resident < -(-kern.n // 512) // 4
+    amg_loop._grids[key] = 4 * co_resident
+    kernels.reset_launches()
+    try:
+        with pytest.raises(RuntimeError, match="amg_cg_loop: CUDA error"):
+            amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)
+        assert kernels.launches["amg_cg_loop"] == 0
+    finally:
+        amg_loop._grids[key] = co_resident
+    assert amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)[0] == 3
+
+
+def test_amg_loop_wrappers_raise_on_bad_operands(dev):
+    kern, data, b, op = _amg_setup((16, 16, 16), "auto", torch.bfloat16, dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=10, frequency=1)
+    w = amg.cycle_op(op.state, "w", op.relax, op.smooth_iters, op.coarse_solver_iters)
+    x, r, absr, nf = _amg_state(kern, data, b)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="cycle w"):
+        amg_loop.amg_cg_loop(kern, data, w, x, r, absr, nf, cfg)
+    with pytest.raises(TypeError, match="float32"):
+        amg_loop.amg_ir_loop(kern, data, op, x.double(), r, absr, nf, cfg)
+    with pytest.raises(TypeError, match="0-d float32"):
+        amg_loop.amg_cg_loop(kern, data, op, x, r, absr.reshape(1), nf, cfg)
+    assert sum(kernels.launches.values()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [343, 1000, 4097, 1 << 20])
+def test_smoother_kernel_branches_match_plain(dev, n, offset, dtype):
+    """Row quads (n % 4 == 0, every stream aligned) and one thread per row
+    (n % 4 != 0, or x, b, invd and out one float off), against the plain
+    versions, with diagonals whose offsets are not multiples of 4."""
+    offsets = (-300, -5, -1, 0, 1, 5, 300) if n > 600 else (-49, -7, -1, 0, 1, 7, 49)
+    kern = CgKernels(n, offsets, dev)
+    data = _banded(n, offsets, 1, dev).to(dtype)
+
+    def buf(seed, lo=None):
+        return torch.cat([torch.zeros(offset, device=dev), _vec(n, seed, dev, lo)])[offset:]
+
+    x, b, invd, out = buf(2), buf(3), buf(4, lo=0.1), buf(5)
+    kernels.reset_launches()
+    sweep = kern.ksweep(data, x, b, invd, 0.9, out=out)
+    resid = kern.kresid(data, x, b)
+    torch.cuda.synchronize()
+    assert kernels.launches["amg_sweep"] == 1 and kernels.launches["amg_resid"] == 1
+    _close(sweep, ksweep_plain(data, offsets, x, b, invd, 0.9))
+    _close(resid, kresid_plain(data, offsets, x, b))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [4096, 4097])
+def test_k2n_kernel_branches_match_plain(dev, n, offset):
+    """The CUDA K2n's float4 branch and its row branch (n % 4 != 0, or the
+    streams one float off) against k2n_plain."""
+    kern = CgKernels(n, (0,), dev)
+    alpha = torch.tensor(-0.37, device=dev)
+
+    def buf(seed):
+        return torch.cat([torch.zeros(offset, device=dev), _vec(n, seed, dev)])[offset:]
+
+    p, q = buf(5), buf(6)
+    xs = [buf(8) for _ in range(2)]
+    rs = [buf(9) for _ in range(2)]
+    kernels.reset_launches()
+    got = kern.k2n(alpha, xs[0], rs[0], p, q)
+    want = k2n_plain(alpha, xs[1], rs[1], p, q)
+    torch.cuda.synchronize()
+    assert kernels.launches["cg_k2n"] == 1
+    _close(xs[0], xs[1])
+    _close(rs[0], rs[1])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
 
 
 # ---- the unstructured path: Gdia and Xell kernels -------------------------
