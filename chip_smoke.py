@@ -157,7 +157,8 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
 from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS,
-                                         bicgstab_loop_plain, cg_loop_plain, cg_pipe_loop_plain)
+                                         bicgstab_gen_loop_plain, bicgstab_loop_plain,
+                                         cg_loop_plain, cg_pipe_loop_plain)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
                                  krylov, stopping)
 from ogl_tpu_torch.solve.ir import ir_fused
@@ -246,6 +247,12 @@ KERNELS = {
     "amg_ir_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_loop.cu",
                     "ogl_tpu/kernels/pallas_spmv.py:38, ogl_tpu/kernels/fused.py:195, "
                     "ogl_tpu/kernels/fused.py:242", "amg_ir_loop[bf16]", None),
+    # the whole general BiCGStab loop (GKOBiCGStab, fusedBiCGStab false): the
+    # Dia SpMV's row-quad body (Gdia: the Gdia SpMV's) as its two SpMV phases;
+    # its row's times are per iteration, its cases one per variant
+    "bicgstab_gen_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_gen_loop.cu",
+                          "ogl_tpu/kernels/pallas_spmv.py:38, ogl_tpu/kernels/gdia.py:183",
+                          "bicgstab_gen_loop[Dia none]", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -255,7 +262,8 @@ AMG_KERNELS = ("dia_spmv", "cg_k1", "amg_cg_loop", "amg_ir_loop", "cg_k2n", "amg
 # cg_k2 and cg_k2i: the Xell solves' host loops (BJ, none)
 UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i",
                         "cg_loop")
-SLICE4_KERNELS = ("cg_pipe_loop", "bicgstab_loop", "dia_spmv", "gdia_spmv")
+SLICE4_KERNELS = ("cg_pipe_loop", "bicgstab_loop", "bicgstab_gen_loop", "dia_spmv",
+                  "gdia_spmv")
 BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_loop")
 # a GKOCG `none` or `BJ` solve on Dia (Gdia): the loop kernel once, its K1
 # twice (the set-up's r0 and norm factor), no K2 and no K2i
@@ -269,6 +277,23 @@ PIPE_LOOP_SOLVE_LAUNCHES = {"cg_pipe_loop": 1, "cg_k1": 2, "cg_ka": 0, "cg_kb_pi
 # KB_update
 BICGSTAB_LOOP_SOLVE_LAUNCHES = {"bicgstab_loop": 1, "cg_k1": 2, "bicgstab_k1b": 0,
                                 "bicgstab_kb_update": 0}
+# a GKOBiCGStab solve (`fusedBiCGStab` false) with `none` or `BJ` on Dia (Gdia):
+# the general-BiCGStab loop kernel once, the format's SpMV eleven times — the
+# set-up's r0 and norm factor, then the criterion's residual-eval timing after
+# the solve (foam/solver.py _res_eval_seconds: one warm-up and 8) — and no
+# SpMV per iteration
+RES_EVAL_SPMVS = 9
+GEN_LOOP_SOLVE_LAUNCHES = {"bicgstab_gen_loop": 1, "dia_spmv": 2 + RES_EVAL_SPMVS,
+                           "bicgstab_loop": 0, "bicgstab_k1b": 0, "bicgstab_kb_update": 0}
+GDIA_GEN_LOOP_SOLVE_LAUNCHES = {"bicgstab_gen_loop": 1, "gdia_spmv": 2 + RES_EVAL_SPMVS,
+                                "dia_spmv": 0}
+# the general-BiCGStab loop kernel's variants (bits of csrc/bicgstab_gen_loop.cu)
+GEN_LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
+                     LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
+# x after BICGSTAB_LOOP_CHECK pinned iterations against the twin: the phases
+# give the twin's bits at every row, the block sums add in another order, and
+# float32 BiCGStab amplifies that (the rtol the phase-9 pin holds residuals to)
+GEN_LOOP_RTOL = 1e-4
 # the loop kernel's four variants (bits of csrc/cg_loop.cu), as phase 2 names them
 LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
                  LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
@@ -752,6 +777,53 @@ def check_bicgstab_loop(kern, data, label, report):
              check=BICGSTAB_LOOP_CHECK)
 
 
+def gen_loop_bytes(data, n, jacobi):
+    """Minimum bytes per iteration of the general-BiCGStab loop kernel:
+    SpMV A (the coefficients — Dia nd x 4 B, Gdia np x 5 B of values and
+    lanes —, r, p, v and r̂ in; p' and v' out), SpMV B (the coefficients, r
+    and v' in; s and t out) and the update (x, p', s, t and r̂ in; x and r
+    out): 2 x the coefficients + 68 B per row (124 at 7 Dia diagonals); with
+    Jacobi invd once in each phase (+ 12)."""
+    coef = data[0].shape[0] * 5 if isinstance(data, tuple) else data.shape[0] * 4
+    return (2 * coef + 68 + 12 * jacobi) * n
+
+
+def check_gen_loop(kern, data, label, report, invd=None):
+    """The general-BiCGStab loop kernel (one variant: the plan's format,
+    identity or Jacobi) against its plain twin (the
+    host loop's operations over the plain SpMV) from the same set-up as
+    solve/bicgstab.py (b random, x0 = 0; r0 and the norm factor through the
+    format's SpMV kernel), timed in turns with the host loop over the
+    standalone SpMV kernel (solve/bicgstab.py without the loop): loop_row,
+    x held to the twin within GEN_LOOP_RTOL after BICGSTAB_LOOP_CHECK pinned
+    iterations."""
+    n, dev = kern.n, kern.device
+    gdia_v = isinstance(kern, GdiaCgKernels)
+    b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    x0 = torch.zeros_like(b)
+    pc = None if invd is None else (lambda r: invd * r)
+    ops = krylov.single_device_ops(functools.partial(kern.spmv, data), n, precond=pc)
+    r0 = b - ops.matvec(x0)  # also r̂, never written
+    state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
+             stopping.initial_norm_factor(ops, r0, x0, b))
+    plain_mv = (functools.partial(gdia.gdia_spmv_plain, *data, kern.plane_offsets) if gdia_v
+                else functools.partial(dia_spmv_plain, data, kern.offsets))
+    plain_ops = krylov.single_device_ops(plain_mv, n, precond=pc)
+
+    def run(k, plain):
+        x, r = x0.clone(), r0.clone()
+        cfg = checked_iterations(k)
+        rec = (bicgstab_gen_loop_plain(plain_ops, x, r, r0, *state, cfg) if plain
+               else kern.bicgstab_gen_loop(data, x, r, r0, *state, cfg, invd))
+        return x, rec[0], rec[1]
+
+    tag = f"{'Gdia' if gdia_v else 'Dia'} {'none' if invd is None else 'BJ'}"
+    loop_row(f"bicgstab_gen_loop[{tag}]", label, run,
+             lambda k: bicgstab(ops, b, x0, checked_iterations(k)),
+             "the SpMV kernel + torch ops", gen_loop_bytes(data, n, invd is not None), n, report,
+             check=BICGSTAB_LOOP_CHECK, vec_rtol=GEN_LOOP_RTOL)
+
+
 def amg_loop_bytes(op, data, ir_loop):
     """Minimum bytes per iteration of the AMG loop kernel, phase by phase
     (csrc/amg_loop.cu): on each smoothing level of n rows, nd coefficients
@@ -837,7 +909,8 @@ def check_amg_loops(grid, device, report, dtypes=(torch.bfloat16, torch.float32)
 
 def check_dia_loops(data, offsets, label, report):
     """check_loop for the two Dia variants (identity and Jacobi), then
-    check_pipe_loop for the pipelined loop's two, then check_bicgstab_loop."""
+    check_pipe_loop for the pipelined loop's two, then check_bicgstab_loop,
+    then check_gen_loop for the general-BiCGStab loop's two Dia variants."""
     kern = CgKernels(data.shape[1], offsets, data.device)
     plain_k1 = functools.partial(k1_plain, data, offsets)
     invd = 1.0 / data[offsets.index(0)]
@@ -846,12 +919,15 @@ def check_dia_loops(data, offsets, label, report):
     check_pipe_loop(kern, data, label, report)
     check_pipe_loop(kern, data, label, report, invd=invd)
     check_bicgstab_loop(kern, data, label, report)
+    check_gen_loop(kern, data, label, report)
+    check_gen_loop(kern, data, label, report, invd=invd)
 
 
 def check_gdia(grids, device, report):
     """Phase 3's Gdia checks on the shuffled grid built on the device at
     each size: the SpMV and the row-quad K1 against their plain versions
-    (check_unstructured_kernels), then the loop's two Gdia variants."""
+    (check_unstructured_kernels), then the two Gdia variants of the CG loop
+    and of the general-BiCGStab loop."""
     for dims in grids:
         mat = gdia_on_device(*shuffled_poisson_coo_on_device(dims, 0, device))
         label = "shuffled " + "x".join(map(str, dims))
@@ -862,6 +938,8 @@ def check_gdia(grids, device, report):
         check_loop(kern, data, plain_k1, label, report, case="cg_loop[Gdia none]")
         invd = torch.full((mat.shape[0],), 1.0 / 6.0, device=device)  # the stencil's diagonal
         check_loop(kern, data, plain_k1, label, report, invd=invd, case="cg_loop[Gdia BJ]")
+        check_gen_loop(kern, data, label, report)
+        check_gen_loop(kern, data, label, report, invd=invd)
         del mat, kern, data
         torch.cuda.empty_cache()
 
@@ -1566,7 +1644,10 @@ def route_solve(snap, b, params, plain):
         raise RuntimeError(f"phase 9 has no check for route {route}")
     mv = (lambda v: spmv.spmv(mat, v)) if plain else spmv.matvec(mat)
     pc = (lambda r: invd * r) if invd is not None else None
-    return bicgstab(krylov.single_device_ops(mv, n, precond=pc), b, x0, params)
+    # the kernel route: the general-BiCGStab loop kernel where the solve took it
+    kern = None if plain else kern
+    return bicgstab(krylov.single_device_ops(mv, n, precond=pc), b, x0, params, kern,
+                    None if kern is None else kern.pack_values(mat), invd)
 
 
 def snapshot(slv):
@@ -1603,6 +1684,9 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
             check_loop_solve_launches(field, before, PIPE_LOOP_SOLVE_LAUNCHES)
         if field in ("uF", "uCDF"):
             check_loop_solve_launches(field, before, BICGSTAB_LOOP_SOLVE_LAUNCHES)
+        if field in ("u", "uBJ", "uCD", "uS"):  # the general BiCGStab: one loop launch
+            check_loop_solve_launches(field, before, GDIA_GEN_LOOP_SOLVE_LAUNCHES
+                                      if system == "shuffled" else GEN_LOOP_SOLVE_LAUNCHES)
         it = max(perf.n_iterations, 1)
         used = {k: round((v - before[k]) / it, 2) for k, v in kernels.launches.items()
                 if v > before[k]}
@@ -1619,13 +1703,14 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
     # loop, each re-run on its resident state (no upload, no host set-up;
     # best of three)
     line = []
-    for field in ("u", "uF"):
+    for field in ("u", "uF", "uBJ", "uCD"):
         slv = registry.global_registry.get(f"{field}_solver")
         sec = slv.time_device_solve()
         it = max(solves[field][1].n_iterations, 1)
         line.append(f"{field} (route {slv.route}) {sec * 1e3:.3f} ms = "
                     f"{sec / it * 1e6:.2f} us per iteration over {it}")
-    print("GKOBiCGStab none, device solve: " + " against ".join(line))
+    print("GKOBiCGStab none, BJ and convection-diffusion BJ, device solve: "
+          + " against ".join(line))
 
     # the asymmetric system's steady steps: diag only, then every block
     m_cd = systems["convection-diffusion"][0]
@@ -1637,6 +1722,7 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
                 m_cd, diag=np.asarray(m_cd.diag) * 1.02, upper=np.asarray(m_cd.upper) * 0.98,
                 lower=np.asarray(m_cd.lower) * 0.97), b * 0.9 - 0.1, (3, 3))):
         bk = bk.astype(np.float32)
+        before = dict(kernels.launches)
         t0 = time.perf_counter()
         x, perf = foam.solve("uCD", mk, bk, {**ctl, **SLICE4_SOLVES["uCD"][0]})
         torch.cuda.synchronize()
@@ -1651,6 +1737,7 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
         if slv.last_blocks_uploaded != want or not slv.last_rhs_uploaded:
             raise RuntimeError(f"uCD {tag} step uploaded {slv.last_blocks_uploaded} blocks, "
                                f"not {want}, and the RHS")
+        check_loop_solve_launches(f"uCD {tag} step", before, GEN_LOOP_SOLVE_LAUNCHES)
         steps.append((f"uCD {tag} step", x, perf, slv.matrix.data.clone(), slv.matrix.offsets,
                       torch.tensor(bk, device=device)))
     launches = {k: kernels.launches[k] for k in SLICE4_KERNELS}
@@ -1824,9 +1911,19 @@ TURN_CODE = (
     "**ex})\n"
     "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
     "    print(f'  amg_solve {f} {m.n} cells: {perf.n_iterations} iterations, {sec * 1e3:.3f} ms "
-    "on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.1f} us per iteration')\n")
-TURN_LINES = ("cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop", "cg_ka",
-              "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_")
+    "on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.1f} us per iteration')\n"
+    "systems = {'poisson': m, 'convection-diffusion': s.testing.convection_diffusion_ldu("
+    "s.GRID_1M), 'shuffled': s.testing.shuffled_poisson_ldu(s.GRID_1M)}\n"
+    "for f in ('u', 'uBJ', 'uCD', 'uS'):\n"
+    "    ex, system, _ = s.SLICE4_SOLVES[f]\n"
+    "    _, perf = s.foam.solve(f, systems[system], rhs, {'executor': 'cuda', 'tolerance': s.TOL, "
+    "'relTol': 0, **ex})\n"
+    "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
+    "    print(f'  gen_solve {f} ({system}) {m.n} cells: {perf.n_iterations} iterations, "
+    "{sec * 1e3:.3f} ms on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.2f} us "
+    "per iteration')\n")
+TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
+              "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve")
 
 
 def turns(trees) -> int:
@@ -1896,6 +1993,12 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     print(f"bicgstab_loop grid (bicgstab_loop_kernel): {blocks} co-resident blocks of "
           f"{LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
           + "; ".join(loop_ptxas(info["log"], None, "bicgstab_loop_kernel")))
+    for variant, what in GEN_LOOP_VARIANTS.items():
+        blocks = probe.gen_loop_blocks(variant)
+        print(f"bicgstab_gen_loop grid, {what} (bicgstab_gen_loop_kernel<{variant}>): {blocks} "
+              f"co-resident blocks of {LOOP_THREADS} threads ({blocks // sms} per SM on {sms} "
+              "SMs); ptxas: " + "; ".join(loop_ptxas(info["log"], variant,
+                                                     "bicgstab_gen_loop_kernel")))
     for variant, what in AMG_LOOP_VARIANTS.items():
         blocks = amg_loop.loop_blocks(variant, device)
         print(f"amg_loop grid, {what} (amg_loop_kernel<{variant}>): {blocks} co-resident blocks "

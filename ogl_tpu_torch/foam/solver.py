@@ -30,8 +30,10 @@ Routing follows the reference's `_make_solve_fn`:
                        one launch of its loop kernel); Gdia, Xell,
                        Multigrid or `fusedCG false` → the general
                        pipelined CG (solve/cg_pipe.py)
-  GKOBiCGStab          the general BiCGStab over the format's SpMV kernel
-                       (solve/bicgstab.py); `fusedBiCGStab true` with
+  GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): on Dia
+                       or Gdia with `none` or `BJ` one launch of its loop
+                       kernel on the card, else the host loop over the
+                       format's SpMV kernel; `fusedBiCGStab true` with
                        `none` on Dia → the merged BiCGStab (K1B, K1B,
                        KB_update; solve/bicgstab_fused.py; on the card one
                        launch of its loop kernel)
@@ -67,6 +69,7 @@ from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
 from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels, xell_from_coo
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.bicgstab import bicgstab
+from ogl_tpu_torch.solve.bicgstab import why_not as bicgstab_why_not
 from ogl_tpu_torch.solve.bicgstab_fused import bicgstab_fused
 from ogl_tpu_torch.solve.cg import cg
 from ogl_tpu_torch.solve.cg_fused import cg_fused
@@ -309,8 +312,11 @@ class FoamSolver:
                     "(AMG levels in the Gdia/Xell formats) is not ported to "
                     "ogl_tpu_torch yet (ROADMAP.md A11)")
             self.route = _route(cfg, self.matrix)
-            # "ir" (GKOMultigrid, Dia only) keeps the plan for its device loop
-            merged = self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir")
+            # "ir" (GKOMultigrid, Dia only) keeps the plan for its device loop,
+            # "bicgstab" where its loop kernel takes the solve (why_not None)
+            merged = self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir") or (
+                self.route == "bicgstab"
+                and bicgstab_why_not(self.matrix, cfg.precond.name) is None)
             self.kern = self._kernel_plan() if merged else None
             return
         # steady state: upload the changed raw blocks, then one gather +
@@ -442,6 +448,8 @@ class FoamSolver:
         def run():
             if route in general:
                 ops = single_device_ops(spmv.matvec(mat), n, precond=apply_pc)
+                if kern is not None:  # "bicgstab" with its loop kernel's plan
+                    return bicgstab(ops, b_dev, x0, params, kern, kern.pack_values(mat), invd)
                 return general[route](ops, b_dev, x0, params)
             data = kern.pack_values(mat)
             if route == "cg_fused":

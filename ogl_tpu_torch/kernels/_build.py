@@ -48,8 +48,8 @@ _F32 = ctypes.c_float
 
 # name -> argtypes; every entry point returns int (a cudaError_t)
 _SIGNATURES = {
-    # data, offsets, nd, x, y, n, threads, stream
-    "ogl_dia_spmv": (_P, _P, _INT, _P, _P, _I64, _INT, _P),
+    # data, offsets, nd, x, y, n, vec, blocks, stream
+    "ogl_dia_spmv": (_P, _P, _INT, _P, _P, _I64, _INT, _I64, _P),
     # data, offsets, nd, z, p, beta, pout, q, partials, n, threads, grid, stream
     "ogl_cg_k1": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # data, data_bf16, offsets, nd, x, b, invd, relax, out, n, threads, stream
@@ -103,6 +103,14 @@ _SIGNATURES = {
     # tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
     "ogl_bicgstab_loop": (_P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, threads, blocks (out)
+    "ogl_bicgstab_gen_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # variant, coef, lidx, offsets, nd, rows, invd, rhat, x, r, p, pn, v, vn, s, t, rho, absr,
+    # nf, partials, record, n, tol, rel_tol, min_iter, max_iter, frequency, vec, threads,
+    # blocks, stream
+    "ogl_bicgstab_gen_loop": (_INT, _P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT,
+                              _INT, _I64, _P),
     # variant, threads, blocks (out)
     "ogl_amg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
     # variant, table, levels, data, offsets, nd, x, r, z, p, pn, q, absr, nf, partials, record,

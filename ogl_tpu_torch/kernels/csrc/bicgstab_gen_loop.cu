@@ -1,0 +1,479 @@
+// The whole general (unfused) BiCGStab loop as ONE persistent cooperative
+// kernel for Hopper, in four variants: the SpMV of a Dia or a Gdia matrix,
+// with identity or scalar Jacobi preconditioning (M^-1 = 1 or invd ⊙ ·).
+// Each iteration, in the order of the host loop
+// (ogl_tpu_torch/solve/bicgstab.py, the reference's ogl_tpu/solve/
+// bicgstab.py:52-111; plain twin `bicgstab_gen_loop_plain` in
+// ogl_tpu_torch/kernels/fused.py):
+//   1. check   the OpenFOAM criterion from the carried ||r||_1 (gated by
+//              minIter and frequency); when it says stop the loop leaves
+//              before any phase and does not count the pass (the
+//              reference's alpha = omega = 0 freeze); it leaves at maxIter +
+//              frequency without a check;
+//   2. beta    sdiv(rho, rho_old) * sdiv(alpha, omega), sdiv(n, d) = n / d
+//              when |d| > small_of(float32)^2, else 0 (the breakdown guard);
+//   3. SpMV A  at each source j: p'(j) = r[j] + beta * (p[j] - omega * v[j]),
+//              y(j) = M^-1 p'(j); v'[i] = sum_k a_k[i] * y(i + off_k); p' and
+//              v' into the other buffers of their pairs, one partial of
+//              rhat.v' per block; grid barrier; alpha = sdiv(rho, rhat.v');
+//   4. SpMV B  at each source s(j) = r[j] - alpha * v'[j], z(j) = M^-1 s(j);
+//              t = A z; s and t written, partials of t.s and t.t; grid
+//              barrier; omega = sdiv(t.s, t.t);
+//   5. update  y(i), z(i) again from p', s (and invd); x = (x + alpha y) +
+//              omega z, r = s - omega t; partials of ||r||_1 and rhat.r (the
+//              next check's group); grid barrier; the pairs swap, rho_old =
+//              rho.
+// On exit block 0 writes the record {iterations (int32), final normalised
+// residual, initial normalised residual, converged (tolerances met)}.
+//
+// Replaces: the two Dia SpMV launches of an iteration of the reference's
+// general BiCGStab (ogl_tpu/kernels/pallas_spmv.py `_kernel`; Gdia:
+// ogl_tpu/kernels/gdia.py `_gdia_kernel`) and the elementwise passes,
+// reductions and `jax.lax.while_loop` around them.  The SpMV phases are the
+// standalone kernels' row bodies over source functors: dia_rows.cuh (row
+// quads; dia_spmv.cu) and gdia_k1.cuh `gdia_quad_sums` (row quads; gdia.cu);
+// the criterion, the block-order sums and the cooperative launch are
+// loop.cuh's.  The fused loop (bicgstab_loop.cu) runs another recurrence
+// (its K1B folds the direction update differently) and is not reused.
+//
+// Arithmetic: every elementwise operation of the recurrence is rounded on
+// its own (__fmul_rn, __fadd_rn, __fsub_rn: no fused multiply-add), as the
+// host loop's torch ops round, and the SpMV phases accumulate as their row
+// bodies do (dia_rows.cuh, gdia_k1.cuh: in the plain versions' order, each
+// product and sum rounded on its own), so the phases give the plain twins'
+// bits at every row in both formats; only the block sums add in another
+// order than torch.sum.  Float32
+// BiCGStab on a Poisson system amplifies a one-ulp difference into tens of
+// iterations, so the closer the better.
+//
+// Bound: device-memory bandwidth.  Per iteration and row, Dia: A reads nd
+// coefficients, r, p, v and rhat and writes p' and v' ((nd + 6) * 4 bytes);
+// B reads nd coefficients, r and v' and writes s and t ((nd + 4) * 4); the
+// update reads x, p', s, t and rhat and writes x and r (28): 8 * nd + 68
+// bytes, 124 at 7 diagonals; Jacobi reads invd once in each phase (+ 12).
+// Gdia: np * 5 bytes of values and lanes per SpMV phase instead of nd * 4.
+// Besides, three grid barriers and the redundant partial sums (each block
+// reads every block's partials).
+//
+// Design, as cg_loop.cu and bicgstab_loop.cu: the host launches once per
+// solve and reads once.  The grid is exactly the co-resident blocks of the
+// variant (occupancy x SMs, queried once per plan and variant; fewer when
+// the rows run out), each block walking its rows or row quads with a
+// grid-stride loop in a fixed order, so grid.sync() is legal and the
+// reduction order is fixed for a given grid: every block computes the same
+// bits for the sums and scalars and takes the same branch at the check.
+// Phase A reads r, p and v at the neighbours and phase B reads r and v', so
+// none is written in place: p' and v' go into the other buffer of their
+// pair, s and t into buffers of their own, and the sources are recomputed
+// at each neighbour rather than read back (other blocks own those rows).  r
+// is rewritten only in the update, after the barrier that ends B.  Every
+// vector rewritten inside the launch goes through plain loads: only the
+// coefficients, lanes, offsets, invd and rhat are __restrict__.  The
+// partials buffer holds 5 x blocks floats (rhat.v'; t.s, t.t; ||r||_1,
+// rhat.r): a row is read by every block after the barrier that ends its
+// phase and rewritten only in the next iteration.  Gdia: each gather
+// recomputes its source from the three or four streams at the gathered row;
+// a form that first wrote y (z) to a buffer and gathered it alone, behind one
+// more barrier per SpMV phase, ran slower at 1M and 8.4M rows on the H100
+// (PERF.md, §6) and was dropped.
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "block_sum.cuh"
+#include "dia_rows.cuh"
+#include "gdia_k1.cuh"
+#include "loop.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kMaxThreads = 512;
+constexpr int kJacobi = 1;  // variant bits: scalar Jacobi preconditioning,
+constexpr int kGdia = 2;    // the Gdia SpMV (else Dia)
+// Blocks of 512 per SM every variant is compiled for: two, at most 64
+// registers, as the fused loop (the row-quad phases keep four rows' sums and
+// two source quads in registers).
+constexpr int kBlocksPerSm = 2;
+// small_of(float32)^2: the breakdown guard of solve/bicgstab.py _safe_div
+constexpr float kTiny = 1e-12f;
+
+__device__ __forceinline__ float sdiv(float num, float den) {
+  return fabsf(den) > kTiny ? num / den : 0.0f;
+}
+
+__device__ __forceinline__ float4 ld4(const float* a, int64_t u) {
+  return reinterpret_cast<const float4*>(a)[u];
+}
+
+__device__ __forceinline__ void st4(float* a, int64_t u, const float4& v) {
+  reinterpret_cast<float4*>(a)[u] = v;
+}
+
+__device__ __forceinline__ float4 mul4(const float4& a, const float4& b) {
+  return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
+                     __fmul_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// p' = r + beta * (p - omega * v), rounded op by op as the host loop's torch ops
+__device__ __forceinline__ float pdir(float r, float p, float v, float beta, float omega) {
+  return __fadd_rn(r, __fmul_rn(beta, __fsub_rn(p, __fmul_rn(omega, v))));
+}
+
+// s = r - alpha * v'
+__device__ __forceinline__ float sdir(float r, float vn, float alpha) {
+  return __fsub_rn(r, __fmul_rn(alpha, vn));
+}
+
+// M^-1 w: invd[j] * w (Jacobi) or w
+template <bool kJ>
+__device__ __forceinline__ float prec(const float* __restrict__ invd, int64_t j, float w) {
+  return kJ ? __fmul_rn(__ldg(invd + j), w) : w;
+}
+
+template <bool kJ>
+__device__ __forceinline__ float4 prec4(const float* __restrict__ invd, int64_t u, float4 w) {
+  return kJ ? mul4(__ldg(reinterpret_cast<const float4*>(invd) + u), w) : w;
+}
+
+// Phase A's source: y(j) = M^-1 p'(j), p' recomputed from r, p and v.
+template <bool kJ>
+struct SourceA {
+  const float* r;
+  const float* p;
+  const float* v;
+  const float* invd;
+  float beta;
+  float omega;
+  __device__ __forceinline__ float dir(int64_t j) const {
+    return pdir(r[j], p[j], v[j], beta, omega);
+  }
+  __device__ __forceinline__ float4 dir4(int64_t u) const {
+    const float4 rv = ld4(r, u), pv = ld4(p, u), vv = ld4(v, u);
+    return make_float4(pdir(rv.x, pv.x, vv.x, beta, omega), pdir(rv.y, pv.y, vv.y, beta, omega),
+                       pdir(rv.z, pv.z, vv.z, beta, omega), pdir(rv.w, pv.w, vv.w, beta, omega));
+  }
+  __device__ __forceinline__ float at(int64_t j) const { return prec<kJ>(invd, j, dir(j)); }
+  __device__ __forceinline__ float4 quad(int64_t u) const {
+    return prec4<kJ>(invd, u, dir4(u));
+  }
+};
+
+// Phase B's source: z(j) = M^-1 s(j), s recomputed from r and v'.
+template <bool kJ>
+struct SourceB {
+  const float* r;
+  const float* vn;
+  const float* invd;
+  float alpha;
+  __device__ __forceinline__ float dir(int64_t j) const { return sdir(r[j], vn[j], alpha); }
+  __device__ __forceinline__ float4 dir4(int64_t u) const {
+    const float4 rv = ld4(r, u), vv = ld4(vn, u);
+    return make_float4(sdir(rv.x, vv.x, alpha), sdir(rv.y, vv.y, alpha),
+                       sdir(rv.z, vv.z, alpha), sdir(rv.w, vv.w, alpha));
+  }
+  __device__ __forceinline__ float at(int64_t j) const { return prec<kJ>(invd, j, dir(j)); }
+  __device__ __forceinline__ float4 quad(int64_t u) const {
+    return prec4<kJ>(invd, u, dir4(u));
+  }
+};
+
+// The matrix of the loop: Dia (coef = data (nd, n), offsets) or Gdia (coef =
+// vals, lidx, plane offsets, rows = R).
+struct Matrix {
+  const float* coef;
+  const int8_t* lidx;
+  int nd;
+  int64_t rows;
+};
+
+// The vectors of the loop, all rewritten inside the launch (plain pointers).
+struct Vectors {
+  float* x;
+  float* r;
+  float* p;
+  float* pn;
+  float* v;
+  float* vn;
+  float* s;
+  float* t;
+};
+
+struct Scalars {
+  const float* rho;
+  const float* absr;
+  const float* nf;
+  float* partials;
+  float* record;
+};
+
+// An SpMV phase over this thread's rows (Dia, vec = 0), row quads (Dia, vec
+// = 1) or row quads of ceil(n / 4) (Gdia; vec = 1: the vectors are 16-byte
+// aligned, so a whole quad below n moves as float4): out = A src, with the
+// centre dir (p' or s) written to `dirout`; adds this thread's share of
+// rhat.out (kA) to sums[0], or of t.s and t.t to sums[0] and sums[1].
+template <bool kGdiaV, bool kA, bool kJ, class Src>
+__device__ __forceinline__ void spmv_phase(const float* __restrict__ coef,
+                                           const int8_t* __restrict__ lidx, const int* s_off,
+                                           int nd, int64_t plane, const float* __restrict__ invd,
+                                           const float* __restrict__ rhat, const Src& src,
+                                           float* dirout, float* out, int64_t n, int vec,
+                                           int64_t first, int64_t step, float (&sums)[2]) {
+  if constexpr (!kGdiaV) {
+    if (vec) {
+      for (int64_t t = first; t < (n >> 2); t += step) {
+        const float4 dc = src.dir4(t);
+        const float4 q = ogl::dia_quad(coef, s_off, nd, src, prec4<kJ>(invd, t, dc), t, n);
+        st4(dirout, t, dc);
+        st4(out, t, q);
+        if (kA) {
+          sums[0] += dot4(__ldg(reinterpret_cast<const float4*>(rhat) + t), q);
+        } else {
+          sums[0] += dot4(q, dc);
+          sums[1] += dot4(q, q);
+        }
+      }
+    } else {
+      for (int64_t i = first; i < n; i += step) {
+        const float dc = src.dir(i);
+        const float q = ogl::dia_row(coef, s_off, nd, src, prec<kJ>(invd, i, dc), i, n);
+        dirout[i] = dc;
+        out[i] = q;
+        if (kA) {
+          sums[0] += __ldg(rhat + i) * q;
+        } else {
+          sums[0] += q * dc;
+          sums[1] += q * q;
+        }
+      }
+    }
+  } else {
+    const int64_t quads = (n + 3) >> 2;
+    for (int64_t t = first; t < quads; t += step) {
+      float acc[4];
+      ogl::gdia_quad_sums(coef, lidx, s_off, nd, plane, src, t, n, acc);
+      const int64_t i0 = t << 2;
+      if (vec && i0 + 3 < n) {
+        const float4 q = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        const float4 dc = src.dir4(t);
+        st4(dirout, t, dc);
+        st4(out, t, q);
+        if (kA) {
+          sums[0] += dot4(__ldg(reinterpret_cast<const float4*>(rhat) + t), q);
+        } else {
+          sums[0] += dot4(q, dc);
+          sums[1] += dot4(q, q);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t i = i0 + e;
+          if (i >= n) break;
+          const float dc = src.dir(i);
+          dirout[i] = dc;
+          out[i] = acc[e];
+          if (kA) {
+            sums[0] += __ldg(rhat + i) * acc[e];
+          } else {
+            sums[0] += acc[e] * dc;
+            sums[1] += acc[e] * acc[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The update over this thread's rows (quads when vec, the rows past the last
+// whole quad one by one): x = (x + alpha y) + omega z, r = s - omega t with
+// y = M^-1 p', z = M^-1 s; adds ||r||_1 and rhat.r to sums.
+template <bool kJ>
+__device__ __forceinline__ void update_phase(const float* __restrict__ invd,
+                                             const float* __restrict__ rhat, float alpha,
+                                             float omega, float* x, float* r, const float* pn,
+                                             const float* s, const float* t, int64_t n, int vec,
+                                             int64_t first, int64_t step, float (&sums)[2]) {
+  if (vec) {
+    for (int64_t u = first; u < (n >> 2); u += step) {
+      const float4 y = prec4<kJ>(invd, u, ld4(pn, u));
+      const float4 sv = ld4(s, u);
+      const float4 z = prec4<kJ>(invd, u, sv);
+      const float4 xv = ld4(x, u), tv = ld4(t, u);
+      const float4 xn = make_float4(
+          __fadd_rn(__fadd_rn(xv.x, __fmul_rn(alpha, y.x)), __fmul_rn(omega, z.x)),
+          __fadd_rn(__fadd_rn(xv.y, __fmul_rn(alpha, y.y)), __fmul_rn(omega, z.y)),
+          __fadd_rn(__fadd_rn(xv.z, __fmul_rn(alpha, y.z)), __fmul_rn(omega, z.z)),
+          __fadd_rn(__fadd_rn(xv.w, __fmul_rn(alpha, y.w)), __fmul_rn(omega, z.w)));
+      const float4 rn = make_float4(sdir(sv.x, tv.x, omega), sdir(sv.y, tv.y, omega),
+                                    sdir(sv.z, tv.z, omega), sdir(sv.w, tv.w, omega));
+      st4(x, u, xn);
+      st4(r, u, rn);
+      sums[0] += fabsf(rn.x) + fabsf(rn.y) + fabsf(rn.z) + fabsf(rn.w);
+      sums[1] += dot4(__ldg(reinterpret_cast<const float4*>(rhat) + u), rn);
+    }
+  }
+  for (int64_t i = (vec ? n & ~int64_t{3} : 0) + first; i < n; i += step) {
+    const float y = prec<kJ>(invd, i, pn[i]);
+    const float sv = s[i];
+    const float z = prec<kJ>(invd, i, sv);
+    x[i] = __fadd_rn(__fadd_rn(x[i], __fmul_rn(alpha, y)), __fmul_rn(omega, z));
+    const float rn = sdir(sv, t[i], omega);
+    r[i] = rn;
+    sums[0] += fabsf(rn);
+    sums[1] += __ldg(rhat + i) * rn;
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
+    bicgstab_gen_loop_kernel(Matrix m, const int* __restrict__ offsets,
+                             const float* __restrict__ invd, const float* __restrict__ rhat,
+                             Vectors v, Scalars sc, int64_t n, int vec, ogl::Criterion c) {
+  constexpr bool jacobi = (V & kJacobi) != 0;
+  constexpr bool gdia = (V & kGdia) != 0;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : ogl::kMaxDiags];
+  for (int k = threadIdx.x; k < m.nd; k += blockDim.x) s_off[k] = offsets[k];
+  __syncthreads();
+
+  const int blocks = gridDim.x;
+  const int64_t step = static_cast<int64_t>(blocks) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t plane = m.rows * ogl::kGdiaLanes;
+  float* rv_parts = sc.partials;               // (blocks,): rhat.v'
+  float* ts_parts = sc.partials + blocks;      // (2, blocks): t.s, t.t
+  float* rr_parts = sc.partials + 3 * blocks;  // (2, blocks): ||r||_1, rhat.r
+  float* p = v.p;
+  float* pn = v.pn;
+  float* vv = v.v;
+  float* vn = v.vn;
+  const float nf = *sc.nf;
+  float rho = *sc.rho, absr = *sc.absr;
+  float rho_old = 1.0f, alpha = 1.0f, omega = 1.0f;
+  float rn = 0.0f, init_rn = 0.0f;
+  const int hard_cap = c.max_iter + c.frequency;
+  int it = 0;
+  while (it < hard_cap) {
+    // 1. the criterion (stopping.check_from_norm), the same in every block
+    if (ogl::stop_at(c, it, absr, nf, rn, init_rn)) break;
+    // 2-3. beta, then SpMV A: v' = A M^-1 p', p' = r + beta (p - omega v)
+    const float beta = sdiv(rho, rho_old) * sdiv(alpha, omega);
+    const SourceA<jacobi> srca{v.r, p, vv, invd, beta, omega};
+    float sums[2] = {0.0f, 0.0f};
+    spmv_phase<gdia, true, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srca, pn, vn,
+                                   n, vec, first, step, sums);
+    ogl::block_sum_to(sums[0], rv_parts);
+    grid.sync();
+    // 4. alpha, then SpMV B: t = A M^-1 s, s = r - alpha v'
+    float rv[1];
+    ogl::block_totals<1>(rv_parts, blocks, rv);
+    alpha = sdiv(rho, rv[0]);
+    const SourceB<jacobi> srcb{v.r, vn, invd, alpha};
+    sums[0] = sums[1] = 0.0f;
+    spmv_phase<gdia, false, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srcb, v.s,
+                                    v.t, n, vec, first, step, sums);
+    ogl::block_sums_to<2>(sums, ts_parts);
+    grid.sync();
+    // 5. omega, then the update: x = (x + alpha y) + omega z, r = s - omega t
+    float ts[2];
+    ogl::block_totals<2>(ts_parts, blocks, ts);
+    omega = sdiv(ts[0], ts[1]);
+    sums[0] = sums[1] = 0.0f;
+    update_phase<jacobi>(invd, rhat, alpha, omega, v.x, v.r, pn, v.s, v.t, n, vec, first, step,
+                         sums);
+    ogl::block_sums_to<2>(sums, rr_parts);
+    grid.sync();
+    // the next check's group: ||r||_1 and rho = rhat.r; p' and v' become p and v
+    ogl::block_totals<2>(rr_parts, blocks, sums);
+    absr = sums[0];
+    rho_old = rho;
+    rho = sums[1];
+    float* tmp = p;
+    p = pn;
+    pn = tmp;
+    tmp = vv;
+    vv = vn;
+    vn = tmp;
+    ++it;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) ogl::write_record(sc.record, it, rn, init_rn, c);
+}
+
+const void* loop_kernel(int variant) {
+  switch (variant) {
+    case 0: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<0>);
+    case 1: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<2>);
+    case 3: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<3>);
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia) with
+// `threads` per block on the current device: the blocks that fit on it at
+// once (occupancy x SMs).  Fails with
+// cudaErrorNotSupported on a device without cooperative launch.
+extern "C" int ogl_bicgstab_gen_loop_grid(int variant, int threads, int64_t* blocks) {
+  const void* kernel = loop_kernel(variant);
+  if (kernel == nullptr || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ogl::coop_grid(kernel, threads, blocks);
+}
+
+// One cooperative launch of `blocks` blocks of `threads` on `stream`: the
+// whole general BiCGStab loop of `variant`.  Dia: coef = data (nd, n), lidx
+// null, offsets the nd diagonal offsets, rows ignored.  Gdia: coef = vals
+// (nd, rows, 128), 16-byte aligned, lidx the int8 lanes of the same shape,
+// 4-byte aligned, offsets the nd plane block-row offsets.  invd the Jacobi
+// inverse diagonal (variants with bit 0; else ignored); rhat the shadow
+// residual; x and r (r = b - A x0) are updated in place; p and v are scratch
+// vectors of zeros, pn, vn, s and t scratch vectors; rho (= rhat.r), absr
+// (||r||_1) and nf are 0-d device scalars; partials holds 5 * blocks floats; record receives 4
+// words.  vec != 0 takes the row-quad branches: every vector (and, for Dia,
+// data, with n % 4 == 0) 16-byte aligned.  A grid larger than the
+// co-resident blocks is refused by the launch
+// (cudaErrorCooperativeLaunchTooLarge).  Returns the launch's error code (0
+// = launched).
+extern "C" int ogl_bicgstab_gen_loop(int variant, const float* coef, const int8_t* lidx,
+                                     const int* offsets, int nd, int64_t rows,
+                                     const float* invd, const float* rhat, float* x, float* r,
+                                     float* p, float* pn, float* v, float* vn, float* s,
+                                     float* t, const float* rho, const float* absr,
+                                     const float* nf, float* partials, float* record, int64_t n,
+                                     float tol, float rel_tol, int min_iter, int max_iter,
+                                     int frequency, int vec, int threads, int64_t blocks,
+                                     void* stream) {
+  const void* kernel = loop_kernel(variant);
+  const bool jacobi = (variant & kJacobi) != 0;
+  const bool gdia = (variant & kGdia) != 0;
+  if (kernel == nullptr || n < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || blocks < 1 || blocks > INT32_MAX || min_iter < 0 || max_iter < 0 ||
+      frequency < 1 || max_iter > INT32_MAX - frequency || (jacobi && invd == nullptr) ||
+      rhat == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (gdia ? (nd < 1 || nd > ogl::kGdiaMaxPlanes || lidx == nullptr || rows * 128 < n)
+           : (nd < 0 || nd > ogl::kMaxDiags))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (gdia && (ogl::misaligned(coef, 16) || ogl::misaligned(lidx, 4)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const void* vectors[] = {x, r, p, pn, v, vn, s, t, rhat};
+  bool bad = false;
+  for (const void* a : vectors) bad = bad || ogl::misaligned(a, 16);
+  bad = bad || (jacobi && ogl::misaligned(invd, 16));
+  if (vec && (bad || (!gdia && ((n & 3) != 0 || ogl::misaligned(coef, 16)))))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  Matrix m{coef, lidx, nd, rows};
+  Vectors vs{x, r, p, pn, v, vn, s, t};
+  Scalars sc{rho, absr, nf, partials, record};
+  ogl::Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
+  const float* inv = jacobi ? invd : nullptr;
+  void* args[] = {&m, &offsets, &inv, &rhat, &vs, &sc, &n, &vec, &c};
+  return ogl::coop_launch(kernel, blocks, threads, args, stream);
+}

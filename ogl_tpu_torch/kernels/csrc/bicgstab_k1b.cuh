@@ -33,7 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cg_k1.cuh"  // kMaxDiags, the offsets table each block stages
+#include "cg_k1.cuh"     // kMaxDiags, the offsets table each block stages
+#include "dia_rows.cuh"  // elem
 
 namespace ogl {
 
@@ -53,10 +54,6 @@ __device__ __forceinline__ float4 k1b_w4(const float* a, const float* b, const f
   const float4 cv = kBisC ? bv : reinterpret_cast<const float4*>(c)[u];
   return make_float4(av.x + ca * bv.x + cb * cv.x, av.y + ca * bv.y + cb * cv.y,
                      av.z + ca * bv.z + cb * cv.z, av.w + ca * bv.w + cb * cv.w);
-}
-
-__device__ __forceinline__ float elem(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
 // Row i (vec = 0): writes w[i] and q[i], adds its terms to sums.

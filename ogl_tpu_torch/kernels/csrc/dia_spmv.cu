@@ -4,43 +4,50 @@
 // Replaces: ogl_tpu/kernels/pallas_spmv.py `_kernel` (called through
 // `_dia_spmv_padded`, `dia_matvec`, `dia_spmv`).  The TPU kernel streams
 // (nd, T, 128) coefficient blocks and builds the shifted x from a DMA'd
-// halo window with lane rolls; on the GPU a shift is just an address
-// offset, so none of that carries over.
+// halo window with lane rolls; on the GPU a shift is an address offset.
+// Its row body (dia_rows.cuh) is also the two SpMV phases of the persistent
+// general-BiCGStab loop (bicgstab_gen_loop.cu), with recomputed sources.
 //
 // Bound: device-memory bandwidth.  Per row it reads nd coefficients and
 // writes one y, and reads x at nd shifted positions that neighbouring rows
 // share, so the minimum traffic is (nd + 2) * n * 4 bytes for about
 // 2 * nd flops — far below the compute roofline.
 //
-// Design: one thread per row, rows contiguous across a warp, so every
-// data[k*n + i] load and the y store are fully coalesced and the shifted
-// x[i + off] loads are coalesced too (the same 32 consecutive words, moved
-// by off); the x re-reads across the nd offsets hit L1/L2.  The offsets
-// (nd <= 64) are staged once per block in shared memory.  Accumulation is
-// float32 in offset order — the order of the plain version.  Row and
+// Design: dia_rows.cuh over the source x[j] — row quads (float4 loads of the
+// coefficients and of the one or two aligned x quads that hold a diagonal's
+// sources, a float4 store of y) when n % 4 == 0 and data, x and y are
+// 16-byte aligned, else one thread per row — on a grid-stride grid sized by
+// the caller from the SM count (kernels/dia_spmv.py `persistent_launch`: one
+// quad per thread up to 8.4M rows).  The offsets (nd <= 64) are staged once
+// per block in shared memory.  Accumulation is float32 in offset order, each
+// product and sum rounded as the plain version rounds them.  Row and
 // coefficient indices are int64 (k*n + i must not rely on n*nd < 2^31).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dia_rows.cuh"
+#include "loop.cuh"  // misaligned
+
 namespace {
 
-constexpr int kMaxDiags = 64;
+constexpr int kThreads = 256;
 
-__global__ void dia_spmv_kernel(const float* __restrict__ data,
-                                const int* __restrict__ offsets, int nd,
-                                const float* __restrict__ x,
-                                float* __restrict__ y, int64_t n) {
-  __shared__ int s_off[kMaxDiags];
+__global__ void __launch_bounds__(kThreads)
+    dia_spmv_kernel(const float* __restrict__ data, const int* __restrict__ offsets, int nd,
+                    const float* __restrict__ x, float* __restrict__ y, int64_t n, int vec) {
+  __shared__ int s_off[ogl::kMaxDiags];
   for (int k = threadIdx.x; k < nd; k += blockDim.x) s_off[k] = offsets[k];
   __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = 0.0f;
-  for (int k = 0; k < nd; ++k) {
-    const int64_t j = i + s_off[k];
-    if (j >= 0 && j < n) acc += data[(int64_t)k * n + i] * x[j];
+  const ogl::XSource src{x};
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if (vec) {
+    for (int64_t t = first; t < (n >> 2); t += step)
+      reinterpret_cast<float4*>(y)[t] = ogl::dia_quad(data, s_off, nd, src, src.quad(t), t, n);
+  } else {
+    for (int64_t i = first; i < n; i += step)
+      y[i] = ogl::dia_row(data, s_off, nd, src, src.at(i), i, n);
   }
-  y[i] = acc;
 }
 
 }  // namespace
@@ -49,16 +56,18 @@ extern "C" const char* ogl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
-extern "C" int ogl_dia_spmv(const float* data, const int* offsets, int nd,
-                            const float* x, float* y, int64_t n, int threads,
-                            void* stream) {
-  if (nd < 0 || nd > kMaxDiags || threads <= 0 || threads > 1024 || n < 0)
+// Launches `blocks` blocks of 256 threads on `stream`; vec != 0 takes the
+// row-quad branch (n % 4 == 0, data, x and y 16-byte aligned).  Returns
+// cudaGetLastError() (0 = launched).
+extern "C" int ogl_dia_spmv(const float* data, const int* offsets, int nd, const float* x,
+                            float* y, int64_t n, int vec, int64_t blocks, void* stream) {
+  if (nd < 0 || nd > ogl::kMaxDiags || n < 0 || blocks < 1 || blocks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && ((n & 3) != 0 || ogl::misaligned(data, 16) || ogl::misaligned(x, 16) ||
+              ogl::misaligned(y, 16)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (n == 0) return 0;
-  const int64_t blocks = (n + threads - 1) / threads;
-  dia_spmv_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(data, offsets, nd, x,
-                                                          y, n);
+  dia_spmv_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(data, offsets, nd, x, y, n, vec);
   return static_cast<int>(cudaGetLastError());
 }

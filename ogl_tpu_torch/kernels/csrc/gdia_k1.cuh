@@ -1,7 +1,9 @@
 // The Gdia row body, shared by the standalone K1 and SpMV (gdia.cu
-// `ogl_gdia_k1`, `ogl_gdia_spmv`: the same body without p and beta) and
-// the K1 phase of the persistent CG loop's Gdia variants (cg_loop.cu), as
-// cg_k1.cuh serves the Dia K1.  Row i = r*128 + l of the (R, 128) view;
+// `ogl_gdia_k1`, `ogl_gdia_spmv`: the same body without p and beta), the K1
+// phase of the persistent CG loop's Gdia variants (cg_loop.cu), as
+// cg_k1.cuh serves the Dia K1, and the two SpMV phases of the
+// general-BiCGStab loop's Gdia variants (bicgstab_gen_loop.cu), each over its
+// own source functor (`gdia_quad_sums`).  Row i = r*128 + l of the (R, 128) view;
 // plane k has block-row offset q_k and per-entry source lanes:
 //   src_k(i) = (r + q_k) * 128 + lidx[k, r, l]
 //   p'[i] = z[i] + beta * p[i] ;  q[i] = sum_k vals[k, r, l] * p'[src_k(i)]
@@ -21,7 +23,10 @@
 // through plain pointers (inside the loop kernel other blocks rewrite them
 // between grid barriers); vals and lidx are read-only for a whole launch
 // and take the non-coherent path.  Each row accumulates in float32 in plane
-// order (the plain version's order); int64 indices.
+// order (the plain version's order), every product and sum rounded on its
+// own (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain version's
+// separate ops round, so a row's sum and p' are the plain version's bits;
+// int64 indices.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,12 +36,56 @@ namespace ogl {
 constexpr int kGdiaLanes = 128;
 constexpr int kGdiaMaxPlanes = 1024;  // the plane-offset table each block stages in shared memory
 
-// One plane's term of a K1 row (kK1: the source is p'(j) = z[j] + beta * p[j])
-// or of an SpMV row (the source is z[j], the x of y = A x).
-template <bool kK1>
+// The sources of the Gdia row body: a struct with `float at(int64_t j) const`,
+// the source at row j (0 <= j < n).  K1's is p'(j) = z[j] + beta * p[j]; the
+// SpMV's is x[j]; the general-BiCGStab loop's Gdia phases
+// (bicgstab_gen_loop.cu) pass their own, recomputed at each gathered row.
+struct K1Source {
+  const float* z;
+  const float* p;
+  float beta;
+  __device__ __forceinline__ float at(int64_t j) const {
+    return __fadd_rn(z[j], __fmul_rn(beta, p[j]));
+  }
+};
+
+struct VecSource {
+  const float* x;
+  __device__ __forceinline__ float at(int64_t j) const { return x[j]; }
+};
+
+// One plane's term: the source at row j, dropped outside [0, n).
+template <class Src>
 __device__ __forceinline__ void gdia_gather(float& acc, float v, int64_t j, int64_t n,
-                                            const float* z, const float* p, float beta) {
-  if (j >= 0 && j < n) acc += v * (kK1 ? z[j] + beta * p[j] : z[j]);
+                                            const Src& src) {
+  if (j >= 0 && j < n) acc = __fadd_rn(acc, __fmul_rn(v, src.at(j)));
+}
+
+// The sums of the rows 4t .. 4t+3 of row quad t (rows at or past n read
+// padding: value 0, lane 0, and their sums go unused).  plane = R * 128 (the
+// stride between planes); s_q: the np block-row offsets in shared memory.
+template <class Src>
+__device__ __forceinline__ void gdia_quad_sums(const float* __restrict__ vals,
+                                               const int8_t* __restrict__ lidx, const int* s_q,
+                                               int np, int64_t plane, const Src& src, int64_t t,
+                                               int64_t n, float (&acc)[4]) {
+  const int64_t i0 = t << 2;
+  const int64_t row = i0 / kGdiaLanes;
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  for (int k = 0; k < np; ++k) {
+    const int64_t at = static_cast<int64_t>(k) * plane + i0;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(vals + at));
+    const char4 l = __ldg(reinterpret_cast<const char4*>(lidx + at));
+    const int64_t base = (row + s_q[k]) * kGdiaLanes;
+    gdia_gather(a0, v.x, base + l.x, n, src);
+    gdia_gather(a1, v.y, base + l.y, n, src);
+    gdia_gather(a2, v.z, base + l.z, n, src);
+    gdia_gather(a3, v.w, base + l.w, n, src);
+  }
+  acc[0] = a0;
+  acc[1] = a1;
+  acc[2] = a2;
+  acc[3] = a3;
 }
 
 // Row quad t.  kK1: q and p' of its rows below n; returns their sum of
@@ -51,29 +100,23 @@ __device__ __forceinline__ float gdia_quad(const float* __restrict__ vals,
                                            float beta, float* pout, float* q, int64_t t,
                                            int64_t n, int vec) {
   const int64_t i0 = t << 2;
-  const int64_t row = i0 / kGdiaLanes;
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-  for (int k = 0; k < np; ++k) {
-    const int64_t at = static_cast<int64_t>(k) * plane + i0;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(vals + at));
-    const char4 l = __ldg(reinterpret_cast<const char4*>(lidx + at));
-    const int64_t base = (row + s_q[k]) * kGdiaLanes;
-    gdia_gather<kK1>(a0, v.x, base + l.x, n, z, p, beta);
-    gdia_gather<kK1>(a1, v.y, base + l.y, n, z, p, beta);
-    gdia_gather<kK1>(a2, v.z, base + l.z, n, z, p, beta);
-    gdia_gather<kK1>(a3, v.w, base + l.w, n, z, p, beta);
-  }
+  float acc[4];
+  if (kK1)
+    gdia_quad_sums(vals, lidx, s_q, np, plane, K1Source{z, p, beta}, t, n, acc);
+  else
+    gdia_quad_sums(vals, lidx, s_q, np, plane, VecSource{z}, t, n, acc);
+  const float a0 = acc[0], a1 = acc[1], a2 = acc[2], a3 = acc[3];
   if (vec && i0 + 3 < n) {
     *reinterpret_cast<float4*>(q + i0) = make_float4(a0, a1, a2, a3);
     if (!kK1) return 0.0f;
     const float4 zv = *reinterpret_cast<const float4*>(z + i0);
     const float4 pv = *reinterpret_cast<const float4*>(p + i0);
-    const float4 pw = make_float4(zv.x + beta * pv.x, zv.y + beta * pv.y, zv.z + beta * pv.z,
-                                  zv.w + beta * pv.w);
+    const float4 pw = make_float4(
+        __fadd_rn(zv.x, __fmul_rn(beta, pv.x)), __fadd_rn(zv.y, __fmul_rn(beta, pv.y)),
+        __fadd_rn(zv.z, __fmul_rn(beta, pv.z)), __fadd_rn(zv.w, __fmul_rn(beta, pv.w)));
     *reinterpret_cast<float4*>(pout + i0) = pw;
     return pw.x * a0 + pw.y * a1 + pw.z * a2 + pw.w * a3;
   }
-  const float acc[4] = {a0, a1, a2, a3};
   float dot = 0.0f;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -81,7 +124,7 @@ __device__ __forceinline__ float gdia_quad(const float* __restrict__ vals,
     if (i < n) {
       q[i] = acc[e];
       if (kK1) {
-        const float pc = z[i] + beta * p[i];
+        const float pc = __fadd_rn(z[i], __fmul_rn(beta, p[i]));
         pout[i] = pc;
         dot += pc * acc[e];
       }

@@ -1,5 +1,5 @@
-"""Dia (stencil) SpMV: the CUDA C++ kernel `csrc/dia_spmv.cu` and its
-plain PyTorch twin.
+"""Dia (stencil) SpMV: the CUDA C++ kernel `csrc/dia_spmv.cu` (row body
+`csrc/dia_rows.cuh`, in row quads) and its plain PyTorch twin.
 
 Counterpart: ogl_tpu/kernels/pallas_spmv.py (`_kernel`, `dia_matvec`,
 `dia_spmv`).  The port keeps vectors flat — (n,) float32 — and the Dia
@@ -22,11 +22,14 @@ from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build
 
 __all__ = ["DiaPlan", "dia_spmv", "dia_spmv_plain", "THREADS", "MAX_DIAGS",
-           "check_operands", "stream_of", "on_cpu", "require_cuda", "check_scalar",
-           "sm_count", "persistent_launch"]
+           "SPMV_BLOCKS_PER_SM", "check_operands", "stream_of", "on_cpu", "require_cuda",
+           "check_scalar", "sm_count", "persistent_launch"]
 
-THREADS = 256  # rows per block (one thread per row)
+THREADS = 256  # threads per block of the standalone kernels
 MAX_DIAGS = 64  # the kernels stage the offsets in a 64-entry shared array
+# the SpMV's grid cap, blocks of THREADS per SM: one row quad per thread up to
+# 8.4M rows (as K1B's and K2's, kernels/fused.py K2_BLOCKS_PER_SM)
+SPMV_BLOCKS_PER_SM = 64
 
 
 class DiaPlan:
@@ -128,7 +131,8 @@ def check_scalar(name: str, s, device: torch.device) -> None:
 
 
 def dia_spmv(plan: DiaPlan, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for the Dia matrix (plan, data)."""
+    """y = A x for the Dia matrix (plan, data): row quads when n % 4 == 0
+    and data, x and y are 16-byte aligned, else rows (csrc/dia_rows.cuh)."""
     if x.device.type == "cpu" and data.device.type == "cpu":
         return dia_spmv_plain(data, plan.offsets, x)
     if x.device.type != "cuda":
@@ -136,8 +140,11 @@ def dia_spmv(plan: DiaPlan, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     check_operands(plan, data, x)
     lib = _build.library()
     y = torch.empty_like(x)
+    vec, blocks = persistent_launch(plan.n, [t.data_ptr() for t in (data, x, y)],
+                                    sm_count(plan.device.index), THREADS,
+                                    SPMV_BLOCKS_PER_SM)
     _build.check(lib.ogl_dia_spmv(
         data.data_ptr(), plan.offsets_dev.data_ptr(), len(plan.offsets),
-        x.data_ptr(), y.data_ptr(), plan.n, THREADS, stream_of(x)), "dia_spmv")
+        x.data_ptr(), y.data_ptr(), plan.n, vec, blocks, stream_of(x)), "dia_spmv")
     kernels.launches["dia_spmv"] += 1
     return y

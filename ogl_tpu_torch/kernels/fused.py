@@ -1,12 +1,13 @@
 """Merged-Krylov and AMG-smoother kernels for the Dia (stencil) path: K1,
 K2, K2i, KA, KB_pipe, K1B, KB_update, the smoother passes and the whole
-merged CG, merged pipelined-CG and merged BiCGStab loops in CUDA C++
-(`csrc/cg_k1.cu`, `csrc/cg_k2.cu`, `csrc/cg_k2i.cu`, `csrc/cg_pipe.cu`,
-`csrc/cg_kb_pipe.cu`, `csrc/bicgstab.cu`, `csrc/bicgstab_kb_update.cu`,
-`csrc/cg_k2n.cu`, `csrc/amg_smooth.cu`, `csrc/cg_loop.cu`,
-`csrc/cg_pipe_loop.cu`, `csrc/bicgstab_loop.cu`), each beside its plain
-PyTorch twin (the AMG solves' own loop kernel, `csrc/amg_loop.cu`, is
-wrapped by kernels/amg_loop.py).
+merged CG, merged pipelined-CG, merged BiCGStab and general BiCGStab loops
+in CUDA C++ (`csrc/cg_k1.cu`, `csrc/cg_k2.cu`, `csrc/cg_k2i.cu`,
+`csrc/cg_pipe.cu`, `csrc/cg_kb_pipe.cu`, `csrc/bicgstab.cu`,
+`csrc/bicgstab_kb_update.cu`, `csrc/cg_k2n.cu`, `csrc/amg_smooth.cu`,
+`csrc/cg_loop.cu`, `csrc/cg_pipe_loop.cu`, `csrc/bicgstab_loop.cu`,
+`csrc/bicgstab_gen_loop.cu`), each beside its plain PyTorch twin (the AMG
+solves' own loop kernel, `csrc/amg_loop.cu`, is wrapped by
+kernels/amg_loop.py).
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/
 `ka`/`kb_pipe`/`k1b`/`kb_update`/`ksweep`/`kresid`/`apply`/`pack_values`,
@@ -49,6 +50,16 @@ criterion inside one `jax.lax.while_loop`):
   `csrc/bicgstab_k1b.cuh`), a grid barrier, α, K1B with b = c, a grid
   barrier, ω, KB_update (body `csrc/bicgstab_kb_update.cuh`), a grid
   barrier
+the whole general BiCGStab loop (solve/bicgstab.py, `fusedBiCGStab` false)
+on a Dia or a Gdia matrix with identity or scalar Jacobi preconditioning as
+a fourth (`bicgstab_gen_loop`; the reference runs two SpMVs, the
+elementwise passes, the reductions and the criterion inside one
+`jax.lax.while_loop`):
+  each iteration the criterion on ‖r‖₁, β, SpMV A (v' = A M⁻¹p' with p' =
+  r + β·(p − ω·v) recomputed at each source; the Dia SpMV's row-quad body
+  `csrc/dia_rows.cuh`, or the Gdia one, `csrc/gdia_k1.cuh`), a grid
+  barrier, α, SpMV B (t = A M⁻¹s, s = r − α·v'), a grid barrier, ω, the
+  update of x and r, a grid barrier
 and the AMG smoother's two passes, each one stencil apply:
   sweep  out = x + relax·invd ⊙ (b − A x)
   resid  out = b − A x
@@ -105,14 +116,15 @@ import torch
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build, gdia
 from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
-                                            check_scalar, dia_spmv_plain, on_cpu,
+                                            check_scalar, dia_spmv, dia_spmv_plain, on_cpu,
                                             persistent_launch, require_cuda, sm_count,
                                             stream_of)
 
 __all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "k1_plain", "k2_plain",
            "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
            "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "bicgstab_loop_plain",
-           "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
+           "gen_check_sums", "gen_phase_a_plain", "gen_phase_b_plain", "gen_update_plain",
+           "bicgstab_gen_loop_plain", "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
 
 # the grid cap of the standalone grid-stride kernels (K2, K2i, K2n, KB_pipe,
 # K1B, KB_update), blocks of 256 per SM: one row quad per thread up to 8.4M rows
@@ -122,8 +134,8 @@ K2_BLOCKS_PER_SM = 64
 # threads per block of the loop kernels (csrc/cg_loop.cu, cg_pipe_loop.cu,
 # bicgstab_loop.cu kMaxThreads)
 LOOP_THREADS = 512
-# the loop kernels' variant bits (csrc/cg_loop.cu; cg_pipe_loop.cu takes the
-# first): scalar Jacobi, the Gdia apply
+# the loop kernels' variant bits (csrc/cg_loop.cu, bicgstab_gen_loop.cu;
+# cg_pipe_loop.cu takes the first): scalar Jacobi, the Gdia apply
 LOOP_JACOBI, LOOP_GDIA = 1, 2
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
@@ -293,6 +305,74 @@ def bicgstab_loop_plain(k1b, kb_update, x, r, rhat, rho, absr, nf, cfg):
     return st.iter, st.res_norm, st.init_res_norm, stopping.satisfied(cfg, st)
 
 
+def gen_check_sums(ops, r, rhat):
+    """(‖r‖₁, Σ r̂·r): the general BiCGStab's check group, one stacked
+    reduction (ops.allreduce)."""
+    return ops.allreduce(torch.stack([torch.sum(torch.abs(r)), torch.sum(rhat * r)])).unbind()
+
+
+def gen_phase_a_plain(ops, r, p, v, rhat, beta, omega):
+    """Phase A of the general BiCGStab: (p', y, v', Σ r̂·v') with p' = r +
+    β·(p − ω·v), y = M⁻¹p' (ops.precond) and v' = A y (ops.matvec)."""
+    pn = r + beta * (p - omega * v)
+    y = ops.precond(pn)
+    vn = ops.matvec(y)
+    return pn, y, vn, ops.dot(rhat, vn)
+
+
+def gen_phase_b_plain(ops, r, v, alpha):
+    """Phase B: (s, z, t, Σ t·s, Σ t·t) with s = r − α·v', z = M⁻¹s and t =
+    A z; the two sums one stacked reduction."""
+    s = r - alpha * v
+    z = ops.precond(s)
+    t = ops.matvec(z)
+    ts, tt = ops.allreduce(torch.stack([torch.sum(t * s), torch.sum(t * t)])).unbind()
+    return s, z, t, ts, tt
+
+
+def gen_update_plain(ops, x, r, y, z, s, t, rhat, alpha, omega):
+    """The update, in place: x = (x + α·y) + ω·z and r = s − ω·t into r's
+    buffer; returns the next check's group (gen_check_sums)."""
+    torch.add(x + alpha * y, omega * z, out=x)
+    torch.sub(s, omega * t, out=r)
+    return gen_check_sums(ops, r, rhat)
+
+
+def bicgstab_gen_loop_plain(ops, x, r, rhat, rho, absr, nf, cfg):
+    """The general-BiCGStab loop kernel's function (csrc/bicgstab_gen_loop.cu)
+    and the host loop of solve/bicgstab.py: the recurrence over the phase
+    twins above on an Ops bundle (solve/krylov.py: the format's SpMV, any
+    preconditioner; the kernel's are identity and invd ⊙ ·), from the
+    set-up's x, r = b − A x, the shadow residual r̂ (a copy of r0), ρ = Σ r̂·r,
+    ‖r‖₁ and norm factor nf, with the criterion of solve/stopping.py (cfg:
+    StoppingParams) read on the host at each check.  The check is at the top
+    of the iteration on the carried ‖r‖₁; when it says converged the loop
+    breaks before any phase and does not count the pass — the reference's
+    α = ω = 0 freeze.  It leaves at maxIter + frequency (maxIter already
+    doubled by config).  ρ, α, ω and β stay 0-d tensors on x's device.  x
+    and r are updated in place; returns (iterations, final and initial
+    normalised residual, converged) — an int and three 0-d tensors."""
+    from ogl_tpu_torch.solve import stopping  # not at the top: solve imports this module
+    from ogl_tpu_torch.solve.bicgstab import _safe_div
+
+    st = stopping.init_state(x.dtype, x.device).replace(norm_factor=nf)
+    p, v = torch.zeros_like(x), torch.zeros_like(x)
+    rho_old = alpha = omega = torch.ones_like(nf)
+    while st.iter < cfg.max_iter + cfg.frequency:
+        st = stopping.check_from_norm(cfg, st, absr)
+        if st.converged:
+            break
+        beta = _safe_div(rho, rho_old) * _safe_div(alpha, omega)
+        p, y, v, d_rv = gen_phase_a_plain(ops, r, p, v, rhat, beta, omega)
+        alpha = _safe_div(rho, d_rv)
+        s, z, t, d_ts, d_tt = gen_phase_b_plain(ops, r, v, alpha)
+        omega = _safe_div(d_ts, d_tt)
+        rho_old = rho
+        absr, rho = gen_update_plain(ops, x, r, y, z, s, t, rhat, alpha, omega)
+        st = st.replace(iter=st.iter + 1)
+    return st.iter, st.res_norm, st.init_res_norm, stopping.satisfied(cfg, st)
+
+
 def kresid_plain(data, offsets, x, b):
     """b − A x; bfloat16 data is widened to float32 (x's type) before the
     products, as the kernel does."""
@@ -349,6 +429,7 @@ class CgKernels:
         self._loop_blocks: dict = {}
         self._pipe_loop_blocks: dict = {}
         self._bicgstab_loop_blocks: dict = {}
+        self._gen_loop_blocks: dict = {}
 
     def pack_values(self, mat, dtype: torch.dtype | None = None) -> torch.Tensor:
         """The Dia data as the kernels take it: contiguous (nd, n), float32
@@ -384,6 +465,10 @@ class CgKernels:
         """Plain y = A x through K1 (z = p = x, β = 0)."""
         _, q, _ = self.k1(data, x, x, self._zero)
         return q
+
+    def spmv(self, data, x):
+        """y = A x through the format's SpMV kernel (plain for CPU tensors)."""
+        return dia_spmv(self.plan, data, x)
 
     # ---- K2, K2i, K2n (CUDA C++) -----------------------------------------
     def k2(self, alpha, x, r, p, q, invd, z):
@@ -442,6 +527,11 @@ class CgKernels:
     def bicgstab_loop_blocks(self) -> int:
         """loop_blocks for the merged-BiCGStab loop kernel (one variant)."""
         return self._coop_blocks("bicgstab_loop", self._bicgstab_loop_blocks, 0)
+
+    def gen_loop_blocks(self, variant: int = 0) -> int:
+        """loop_blocks for the general-BiCGStab loop kernel (LOOP_JACOBI |
+        LOOP_GDIA bits)."""
+        return self._coop_blocks("bicgstab_gen_loop", self._gen_loop_blocks, variant)
 
     def _coop_blocks(self, kernel: str, cache: dict, variant: int) -> int:
         if variant not in cache:
@@ -649,6 +739,46 @@ class CgKernels:
         kernels.launches["bicgstab_loop"] += 1
         return _read_record(record)
 
+    # ---- the general BiCGStab: the whole loop (CUDA C++) ------------------
+    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None):
+        """The general BiCGStab loop of solve/bicgstab.py from its set-up: x
+        and r = b − A x, updated in place; the shadow residual r̂ (a copy of
+        r0); ρ = Σ r̂·r, ‖r‖₁ and the norm factor as 0-d tensors; cfg the
+        StoppingParams; invd the Jacobi inverse diagonal (None: identity).
+        One cooperative launch on the card (csrc/bicgstab_gen_loop.cu, its two
+        SpMV phases the format's row body), then one host read of its record;
+        returns (iterations, final and initial normalised residual,
+        converged) — an int and three 0-d CPU tensors."""
+        coef = data if isinstance(data, tuple) else (data,)
+        if on_cpu(*coef, x, r, rhat, rho, absr, nf, invd):
+            from ogl_tpu_torch.solve.krylov import single_device_ops  # solve imports this module
+            ops = single_device_ops(functools.partial(self.spmv, data), self.n,
+                                    precond=None if invd is None else (lambda w: invd * w))
+            return bicgstab_gen_loop_plain(ops, x, r, rhat, rho, absr, nf, cfg)
+        require_cuda("bicgstab_gen_loop", x)
+        jacobi = invd is not None
+        vectors = (x, r, rhat, invd) if jacobi else (x, r, rhat)
+        variant, apply = self._loop_apply(data, vectors)
+        gdia_v = bool(variant & LOOP_GDIA)
+        variant |= LOOP_JACOBI if jacobi else 0
+        for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
+            check_scalar(what, sc, self.device)
+        blocks = min(self.gen_loop_blocks(variant), -(-self.n // LOOP_THREADS))
+        p, v = torch.zeros_like(x), torch.zeros_like(x)
+        pn, vn, s, t = (torch.empty_like(x) for _ in range(4))
+        partials = torch.empty(5 * blocks, dtype=torch.float32, device=self.device)
+        record = torch.empty(4, dtype=torch.float32, device=self.device)
+        streams = (*vectors, p, pn, v, vn, s, t, *(() if gdia_v else coef))
+        vec = int((gdia_v or self.n % 4 == 0) and all(u.data_ptr() % 16 == 0 for u in streams))
+        _build.check(_build.library().ogl_bicgstab_gen_loop(
+            variant, *apply, invd.data_ptr() if jacobi else None, rhat.data_ptr(), x.data_ptr(),
+            r.data_ptr(), p.data_ptr(), pn.data_ptr(), v.data_ptr(), vn.data_ptr(), s.data_ptr(),
+            t.data_ptr(), rho.data_ptr(), absr.data_ptr(), nf.data_ptr(), partials.data_ptr(),
+            record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter, cfg.max_iter,
+            cfg.frequency, vec, LOOP_THREADS, blocks, stream_of(x)), "bicgstab_gen_loop")
+        kernels.launches["bicgstab_gen_loop"] += 1
+        return _read_record(record)
+
     # ---- AMG smoother passes (CUDA C++) --------------------------------
     def ksweep(self, data, x, b, invd, relax: float, out=None):
         """One damped Jacobi sweep x + relax·invd ⊙ (b − A x), into `out`
@@ -710,6 +840,9 @@ class GdiaCgKernels(CgKernels):
     def k1(self, data, z, p, beta):
         """(p', q, δ) — p' and q in new buffers, δ a 0-d tensor."""
         return gdia.gdia_k1(self.gplan, *data, z, p, beta)
+
+    def spmv(self, data, x):
+        return gdia.gdia_spmv(self.gplan, *data, x)
 
     def _loop_apply(self, data, vectors):
         vals, lidx = data

@@ -13,23 +13,46 @@ r, then [<r̂,v>] after the first SpMV, then [<t,s>, <t,t>] after the second.
 The norm factor is computed once before the loop, so the criterion rides
 the grouped ‖r‖₁ (stopping.check_from_norm).
 
-The loop runs on the host, as solve/cg.py: host integers for the count and
-the gating, 0-d device tensors for ρ, α, ω and the sums, one bool read per
-checked iteration.  The check is at the top of the iteration, on the
-carried r; when it says converged the loop breaks, which gives the
-reference's iterate and count exactly (its α = ω = 0 freeze leaves x and r
-unchanged, and that pass is not counted).
+Where the matrix is Dia or Gdia and the preconditioner `none` or scalar
+`BJ` (`why_not` None), the solver passes the format's plan: with the plan
+itself (CgKernels or GdiaCgKernels, not a subclass that overrides a step)
+on CUDA tensors the whole loop, criterion included, is one launch of the
+plan's `bicgstab_gen_loop` (csrc/bicgstab_gen_loop.cu, whose two SpMV phases
+are the format's SpMV row body).  A refused launch raises; there is no
+fallback to the host loop.  Everything else (the CPU, Xell, Multigrid, a
+subclassed plan) runs the host loop, `bicgstab_gen_loop_plain`
+(kernels/fused.py), which is also the loop kernel's plain twin: host
+integers for the count and the gating, 0-d device tensors for ρ, α, ω and
+the sums, one bool read per checked iteration.  The check is at the top of
+the iteration, on the carried r; when it says converged the loop breaks,
+which gives the reference's iterate and count exactly (its α = ω = 0
+freeze leaves x and r unchanged, and that pass is not counted).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ogl_tpu_torch.core.formats import Dia
+from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_gen_loop_plain,
+                                         gen_check_sums)
+from ogl_tpu_torch.kernels.gdia import Gdia
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import SolveResult
 from ogl_tpu_torch.solve.krylov import Ops
 
-__all__ = ["bicgstab"]
+__all__ = ["bicgstab", "why_not"]
+
+
+def why_not(mat, precond_name: str) -> str | None:
+    """Why the general BiCGStab keeps the host loop on the matrix `mat` with
+    the preconditioner named `precond_name`, or None when the loop kernel
+    takes the solve (the caller then passes the format's plan)."""
+    if not isinstance(mat, (Dia, Gdia)):
+        return f"the {type(mat).__name__} format (no loop kernel)"
+    if precond_name not in ("none", "BJ"):
+        return f"preconditioner {precond_name}"
+    return None
 
 
 def _safe_div(num, den):
@@ -38,43 +61,20 @@ def _safe_div(num, den):
     return torch.where(den.abs() > tiny, num / torch.where(den == 0, 1.0, den), 0.0)
 
 
-def bicgstab(ops: Ops, b, x0, cfg) -> SolveResult:
-    dtype = b.dtype
-    x = x0.to(dtype).clone()
+def bicgstab(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None) -> SolveResult:
+    """kern, data: the matrix's plan and kern.pack_values(mat), where
+    why_not is None (else None: the host loop); invd: the scalar Jacobi
+    inverse diagonal when ops.precond is invd ⊙ ·, None with identity."""
+    x = x0.to(b.dtype).clone()
     r = b - ops.matvec(x)
-    r_hat = r  # shadow residual, fixed (r is rebound, never written in place)
+    r_hat = r.clone()  # fixed shadow residual (r's buffer takes every r')
     nf = stopping.initial_norm_factor(ops, r, x, b)
-    st = stopping.init_state(dtype, b.device).replace(norm_factor=nf)
-    p = torch.zeros_like(b)
-    v = torch.zeros_like(b)
-    rho_old = alpha = omega = torch.ones((), dtype=dtype, device=b.device)
-    hard_cap = cfg.max_iter + cfg.frequency
-    while st.iter < hard_cap:
-        # group 1: ‖r‖₁ (criterion) and ρ = <r̂, r>
-        absr, rho = ops.allreduce(torch.stack(
-            [torch.sum(torch.abs(r)), torch.sum(r_hat * r)])).unbind()
-        st = stopping.check_from_norm(cfg, st, absr)
-        if st.converged:
-            break
-        beta = _safe_div(rho, rho_old) * _safe_div(alpha, omega)
-        p = r + beta * (p - omega * v)
-        y = ops.precond(p)
-        v = ops.matvec(y)
-        alpha = _safe_div(rho, ops.dot(r_hat, v))  # group 2
-        s = r - alpha * v
-        z = ops.precond(s)
-        t = ops.matvec(z)
-        # group 3: <t, s> and <t, t>
-        ts, tt = ops.allreduce(torch.stack([torch.sum(t * s), torch.sum(t * t)])).unbind()
-        omega = _safe_div(ts, tt)
-        x = x + alpha * y + omega * z
-        r = s - omega * t
-        rho_old = rho
-        st = st.replace(iter=st.iter + 1)
-    return SolveResult(
-        x=x,
-        iters=st.iter,
-        init_res_norm=st.init_res_norm,
-        final_res_norm=st.res_norm,
-        converged=stopping.satisfied(cfg, st),
-    )
+    absr, rho = gen_check_sums(ops, r, r_hat)
+    # the exact types: subclasses that override a step keep the host loop
+    if type(kern) in (CgKernels, GdiaCgKernels) and b.device.type == "cuda":
+        rec = kern.bicgstab_gen_loop(data, x, r, r_hat, rho, absr, nf, cfg, invd)
+    else:
+        rec = bicgstab_gen_loop_plain(ops, x, r, r_hat, rho, absr, nf, cfg)
+    iters, rn, init_rn, converged = rec
+    return SolveResult(x=x, iters=iters, init_res_norm=init_rn, final_res_norm=rn,
+                       converged=converged)

@@ -28,7 +28,9 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_loop
                                          kb_update_plain, kresid_plain, ksweep_plain)
 from ogl_tpu_torch.kernels import amg_loop
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.solve import bicgstab_fused, cg_pipelined_fused, stopping
+from ogl_tpu_torch.kernels import spmv
+from ogl_tpu_torch.solve import bicgstab, bicgstab_fused, cg_pipelined_fused, stopping
+from ogl_tpu_torch.solve.krylov import single_device_ops
 from ogl_tpu_torch.solve.cg_fused import cg_fused, merged_norm_factor
 from ogl_tpu_torch.solve.ir import ir_fused
 
@@ -741,11 +743,13 @@ def test_gdia_kernels_match_plain(dev, case):
 
 
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
-@pytest.mark.parametrize("n", [100, 1001, 5003])
+@pytest.mark.parametrize("n", [100, 1001, 5003, 1 << 20])
 def test_gdia_k1_edges_match_plain(dev, n, offset):
     """The row-quad K1: n below one block of 1,024 rows, n not a multiple of
     128 nor of 4 (a ragged last quad), z and p aligned (float4 path) or one
-    float off (scalar path)."""
+    float off (scalar path).  The row body rounds each product and sum as
+    the plain version does, in plane order, so p', q and the SpMV's rows
+    are the plain versions' bits."""
     mat = gdia.gdia_from_coo(_sym_graph(n, 200), max_planes=gdia.MAX_PLANES, device=dev)
     plan = gdia.GdiaPlan.of(mat)
     z, p = (_vec(n + offset, seed, dev)[offset:] for seed in (3, 4))
@@ -755,11 +759,11 @@ def test_gdia_k1_edges_match_plain(dev, n, offset):
     torch.cuda.synchronize()
     assert kernels.launches["gdia_k1"] == 1 and sum(kernels.launches.values()) == 1
     pw2, q2, d2 = gdia.gdia_k1_plain(mat.vals, mat.lidx, mat.plane_offsets, z, p, beta)
-    _close(pw, pw2)
-    _close(q, q2)
+    assert torch.equal(pw, pw2) and torch.equal(q, q2)
     torch.testing.assert_close(delta, d2, rtol=1e-4, atol=1e-4 * float(d2.abs()))
-    _close(GdiaCgKernels(n, mat.plane_offsets, dev).apply((mat.vals, mat.lidx), z),
-           gdia.gdia_spmv(plan, mat.vals, mat.lidx, z))
+    y = gdia.gdia_spmv(plan, mat.vals, mat.lidx, z)
+    assert torch.equal(y, gdia.gdia_spmv_plain(mat.vals, mat.lidx, mat.plane_offsets, z))
+    _close(GdiaCgKernels(n, mat.plane_offsets, dev).apply((mat.vals, mat.lidx), z), y)
 
 
 @pytest.mark.parametrize("spill_frac", [0.002, 0.08])
@@ -1319,7 +1323,8 @@ SLICE4_SOLVES = {
                        ("cg_ka", "cg_kb_pipe")),
     "pipelined-BJ": ("GKOCG", {"pipelinedCG": True}, {"preconditioner": "BJ"},
                      ("cg_pipe_loop",), ("cg_ka", "cg_kb_pipe")),
-    "bicgstab-BJ": ("GKOBiCGStab", {}, {"preconditioner": "BJ"}, ("dia_spmv",), ()),
+    "bicgstab-BJ": ("GKOBiCGStab", {}, {"preconditioner": "BJ"},
+                    ("dia_spmv", "bicgstab_gen_loop"), ("bicgstab_loop",)),
     "bicgstab-fused": ("GKOBiCGStab", {"fusedBiCGStab": True}, "none", ("bicgstab_loop",),
                        ("bicgstab_k1b", "bicgstab_kb_update")),
 }
@@ -1344,6 +1349,226 @@ def test_foam_slice4_on_card_matches_cpu(dev, name):
     assert all(kernels.launches[k] == 0 for k in never)
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+# ---- the Dia SpMV in row quads and the general-BiCGStab loop ---------------
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n", [4096, 4097, 4099, 1 << 20])
+def test_dia_spmv_branches_are_exact(dev, n, offset):
+    """Each branch of the Dia SpMV: row quads (n % 4 == 0, data, x and y
+    16-byte aligned; a diagonal's sources from one or two aligned quads,
+    every residue of the offsets mod 4) and rows (n % 4 != 0, or every
+    stream one float off an aligned base).  Each product and sum is rounded
+    as the plain version rounds it, so the two are equal."""
+    plan = DiaPlan(n, K1B_OFFSETS, dev)
+    data = _offset_data(n, offset, dev)
+    x = _vec(n + offset, 3, dev)[offset:]
+    kernels.reset_launches()
+    y = dia_spmv(plan, data, x)
+    torch.cuda.synchronize()
+    assert kernels.launches["dia_spmv"] == 1 and sum(kernels.launches.values()) == 1
+    assert torch.equal(y, dia_spmv_plain(data, K1B_OFFSETS, x))
+
+
+def _shuffled(n, seed=0):
+    """A permutation of 0..n-1 inside each run of 128 (the last run may be
+    shorter)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([lo + rng.permutation(min(128, n - lo)) for lo in range(0, n, 128)])
+
+
+def _gen_system(system, dims, fmt, dev):
+    """(plan, data, matrix, b, invd): the Poisson or convection-diffusion
+    system of `dims` as Dia, or renumbered inside each run of 128 rows as
+    Gdia."""
+    m = (testing.poisson_ldu(dims) if system == "poisson"
+         else testing.convection_diffusion_ldu(dims))
+    coo = ldu.ldu_to_coo_host(m, dtype=np.float32)
+    if fmt == "Gdia":
+        inv = np.empty(m.n, np.int64)
+        inv[_shuffled(m.n)] = np.arange(m.n)
+        rows, cols = inv[np.asarray(coo.rows)], inv[np.asarray(coo.cols)]
+        order = np.lexsort((cols, rows))
+        coo = formats.Coo(rows=rows[order].astype(np.int32), cols=cols[order].astype(np.int32),
+                          vals=np.asarray(coo.vals)[order], shape=coo.shape)
+        mat = gdia.gdia_from_coo(coo, device=dev)
+        kern = GdiaCgKernels(m.n, mat.plane_offsets, dev)
+    else:
+        mat = formats.coo_to_dia(coo, dev)
+        kern = CgKernels(m.n, mat.offsets, dev)
+    diag = np.zeros(m.n, np.float32)
+    on = np.asarray(coo.rows) == np.asarray(coo.cols)
+    diag[np.asarray(coo.rows)[on]] = np.asarray(coo.vals)[on]
+    invd = torch.tensor(1.0 / diag, device=dev)
+    return kern, kern.pack_values(mat), mat, _vec(m.n, 11, dev), invd
+
+
+def _gen_solve(kern, data, mat, b, invd, cfg, loop=True):
+    """solve/bicgstab.py from a zero guess: with the plan's loop kernel, or
+    (loop=False) the host loop over the plain SpMV on the card — the twin's
+    operations in the twin's order."""
+    mv = spmv.matvec(mat) if loop else (lambda v: spmv.spmv(mat, v))
+    ops = single_device_ops(mv, kern.n, precond=None if invd is None else (lambda r: invd * r))
+    return bicgstab(ops, b, torch.zeros_like(b), cfg, *((kern, data, invd) if loop else ()))
+
+
+# Dia: n below one block (343, rows), 1,000 (row quads), 4,097 (rows), 1M;
+# convection-diffusion 2,048, 1,105 (rows) and 1M.  Gdia: the same systems
+# renumbered (1,105: a last partial quad)
+GEN_LOOP_CASES = [("Dia", "poisson", (7, 7, 7)), ("Dia", "poisson", (10, 10, 10)),
+                  ("Dia", "poisson", (17, 241, 1)), ("Dia", "poisson", (128, 128, 64)),
+                  ("Dia", "convection_diffusion", (16, 16, 8)),
+                  ("Dia", "convection_diffusion", (17, 13, 5)),
+                  ("Dia", "convection_diffusion", (128, 128, 64)),
+                  ("Gdia", "poisson", (16, 16, 8)), ("Gdia", "convection_diffusion", (16, 16, 8)),
+                  ("Gdia", "convection_diffusion", (17, 13, 5)),
+                  ("Gdia", "convection_diffusion", (128, 128, 64))]
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("fmt,system,dims", GEN_LOOP_CASES, ids=str)
+def test_bicgstab_gen_loop_matches_plain(dev, fmt, system, dims, pc):
+    """The loop kernel against its plain twin on the card (the host loop of
+    solve/bicgstab.py over the plain SpMV) pinned at 10 iterations (x rtol
+    1e-4; the normalised residual rtol 1e-4, atol 1e-6 x the initial one)
+    and, on convection-diffusion, free-running to LOOP_TOL (±1 iteration, x
+    atol 1e-3, the float64 residual within 10 x LOOP_TOL).  Three launches
+    repeat their count and iterate exactly; each solve launches the loop
+    once and the format's SpMV twice (the set-up's r0 and norm factor),
+    nothing else."""
+    kern, data, mat, b, invd = _gen_system(system, dims, fmt, dev)
+    invd = invd if pc == "BJ" else None
+    spmv_name = "gdia_spmv" if fmt == "Gdia" else "dia_spmv"
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=10, max_iter=10,
+                                     frequency=1)
+    free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0, max_iter=2000,
+                                   frequency=1)
+    for cfg in (pinned, free) if system == "convection_diffusion" else (pinned,):
+        twin = _gen_solve(kern, data, mat, b, invd, cfg, loop=False)
+        runs = []
+        for _ in range(3):
+            kernels.reset_launches()
+            runs.append(_gen_solve(kern, data, mat, b, invd, cfg))
+            torch.cuda.synchronize()
+            assert kernels.launches["bicgstab_gen_loop"] == 1
+            assert kernels.launches[spmv_name] == 2 and sum(kernels.launches.values()) == 3
+        res = runs[0]
+        assert all(r.iters == res.iters and torch.equal(r.x, res.x) for r in runs[1:])
+        if cfg is pinned:
+            assert res.iters == twin.iters == 10 and not bool(res.converged)
+            _close(res.x, twin.x, rtol=1e-4)
+            torch.testing.assert_close(res.final_res_norm, twin.final_res_norm.cpu(),
+                                       rtol=1e-4, atol=1e-6 * float(res.init_res_norm))
+        else:
+            assert bool(res.converged) and bool(twin.converged)
+            assert abs(res.iters - twin.iters) <= 1 and float(res.final_res_norm) < LOOP_TOL
+            x64 = res.x.double()
+            ax = (dia_spmv_plain(mat.data.double(), mat.offsets, x64) if fmt == "Dia" else
+                  gdia.gdia_spmv_plain(mat.vals.double(), mat.lidx, mat.plane_offsets, x64))
+            # the norm factor of a zero guess is ||b||_1 (+ SMALL)
+            assert float((b.double() - ax).abs().sum() / b.double().abs().sum()) <= (
+                10 * LOOP_TOL)
+            torch.testing.assert_close(res.x, twin.x, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("fmt", ["Dia", "Gdia"])
+@pytest.mark.parametrize("pc", ["none", {"preconditioner": "BJ"}], ids=["none", "BJ"])
+def test_gkobicgstab_takes_the_gen_loop_on_the_card(dev, pc, fmt):
+    """GKOBiCGStab (`fusedBiCGStab` false, route "bicgstab") on a Dia or a
+    Gdia matrix with `none` or `BJ`: each solve on its resident state is one
+    loop launch and the set-up's two SpMVs — no SpMV inside the loop — and
+    equals the same solve on the CPU ±1 iteration."""
+    m = testing.convection_diffusion_ldu((32, 32, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": "GKOBiCGStab", "matrixFormat": fmt, "tolerance": 1e-6, "relTol": 0,
+           "adaptMinIter": False, "preconditioner": pc}
+    x_cpu, perf_cpu = foam.FoamSolver("u", {**ctl, "executor": "cpu"}).solve(m, b)
+    slv = foam.FoamSolver("u", {**ctl, "executor": "cuda"})
+    x, perf = slv.solve(m, b)
+    assert slv.route == "bicgstab" and type(slv.kern) is (
+        GdiaCgKernels if fmt == "Gdia" else CgKernels)
+    spmv_name = "gdia_spmv" if fmt == "Gdia" else "dia_spmv"
+    kernels.reset_launches()
+    again = slv._redispatch()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.launches.items() if v} == {"bicgstab_gen_loop": 1,
+                                                                spmv_name: 2}
+    assert again.iters == perf.n_iterations and torch.equal(again.x, x)
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
+
+
+def test_gkobicgstab_host_loop_cases_on_the_card(dev):
+    """Multigrid and the Xell format keep the host loop (why_not names them,
+    the solver keeps no plan), and so does a subclassed plan handed to
+    solve/bicgstab.py: two SpMV launches per iteration, no loop launch."""
+    m = testing.convection_diffusion_ldu((32, 32, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    for extra in ({"preconditioner": "Multigrid"}, {"matrixFormat": "Xell"}):
+        slv = foam.FoamSolver("u", {"solver": "GKOBiCGStab", "executor": "cuda",
+                                    "tolerance": 1e-6, "relTol": 0, "adaptMinIter": False,
+                                    **extra})
+        _, perf = slv.solve(m, b)
+        assert slv.kern is None and perf.converged
+        kernels.reset_launches()
+        slv._redispatch()
+        torch.cuda.synchronize()
+        assert kernels.launches["bicgstab_gen_loop"] == 0
+        spmvs = kernels.launches["dia_spmv"] + kernels.launches["xell_spmv"]
+        assert spmvs >= 2 * perf.n_iterations
+
+    class Sub(CgKernels):
+        pass
+
+    kern, data, mat, bd, _ = _gen_system("convection_diffusion", (16, 16, 8), "Dia", dev)
+    sub = Sub(kern.n, mat.offsets, dev)
+    ops = single_device_ops(spmv.matvec(mat), kern.n)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=5,
+                                  frequency=1)
+    kernels.reset_launches()
+    res = bicgstab(ops, bd, torch.zeros_like(bd), cfg, sub, data)
+    torch.cuda.synchronize()
+    assert res.iters == 5 and kernels.launches["bicgstab_gen_loop"] == 0
+    assert kernels.launches["dia_spmv"] == 2 + 2 * 5  # r0 and the norm factor, 2 per iteration
+
+
+def test_bicgstab_gen_loop_refused_cooperative_launch_raises(dev):
+    """A grid above the co-resident blocks is refused by the cooperative
+    launch; the wrapper raises, falls back to nothing, leaves no error
+    behind, and the next launch is unaffected."""
+    kern, data, mat, b, _ = _gen_system("poisson", (128, 128, 64), "Dia", dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=5,
+                                  frequency=1)
+    assert _gen_solve(kern, data, mat, b, None, cfg).iters == 5
+    co_resident = kern._gen_loop_blocks[0]
+    assert 0 < co_resident < -(-kern.n // 512)
+    kern._gen_loop_blocks[0] = 4 * co_resident
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="bicgstab_gen_loop: CUDA error"):
+        _gen_solve(kern, data, mat, b, None, cfg)
+    assert kernels.launches["bicgstab_gen_loop"] == 0
+    torch.cuda.synchronize()  # no error left behind for the next call to find
+    kern._gen_loop_blocks[0] = co_resident
+    assert _gen_solve(kern, data, mat, b, None, cfg).iters == 5
+    torch.cuda.synchronize()
+
+
+def test_bicgstab_gen_loop_raises_on_bad_operands(dev):
+    kern, data, mat, b, invd = _gen_system("poisson", (10, 10, 10), "Dia", dev)
+    x, r = torch.zeros_like(b), b.clone()
+    one = torch.ones((), device=dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=2,
+                                  frequency=1)
+    with pytest.raises(TypeError, match="float32"):
+        kern.bicgstab_gen_loop(data, x, r, r.clone(), one, one, one, cfg, invd=invd.double())
+    with pytest.raises(ValueError, match="shape"):
+        kern.bicgstab_gen_loop(data, x, r, r[:-1].clone(), one, one, one, cfg)
+    with pytest.raises(TypeError, match="0-d float32"):
+        kern.bicgstab_gen_loop(data, x, r, r.clone(), 1.0, one, one, cfg)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kern.bicgstab_gen_loop(data.cpu(), x.cpu(), r, r.clone(), one, one, one, cfg)
 
 
 # ---- slice 5: the read-peak plane sum and the measurement path -------------
