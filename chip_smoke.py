@@ -28,10 +28,12 @@ Phases (any failure raises, and the script exits non-zero):
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
      and, for each of the persistent CG loop kernel's four variants (Dia or
-     Gdia, identity or Jacobi), the pipelined loop kernel's two (identity
-     or Jacobi), the merged-BiCGStab loop kernel and the AMG loop kernel's
-     four (CG or IR, float32 or bfloat16 smoother coefficients), its grid
-     (co-resident blocks) and registers;
+     Gdia, identity or Jacobi), the Xell CG loop kernel's two (identity or
+     Jacobi, with its shared-memory ring), the pipelined loop kernel's two
+     (identity or Jacobi), the merged-BiCGStab loop kernel, the general
+     BiCGStab loop kernel's four and the AMG loop kernel's four (CG or IR,
+     float32 or bfloat16 smoother coefficients), its grid (co-resident
+     blocks) and registers;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
      with float32 and bfloat16 coefficients, KA and KB_pipe with identity
      and Jacobi, K1B with distinct b and c and with b = c): max error
@@ -79,17 +81,25 @@ Phases (any failure raises, and the script exits non-zero):
      resident state; torch.profiler over one more step;
   8. the unstructured path: the two meshes built on the host (timed),
      GKOCG `none` and `BJ` on each with no matrixFormat (routed format,
-     launch counts — each Gdia solve one loop launch, the Gdia K1 twice for
-     its set-up —, true float64 residual, iterations against the merged
-     CG over the plain twins on the card), one steady step per mesh, the
-     kNN mesh once more in its points' numbering with `reorder rcm`; then
-     the Gdia and Xell kernels against their plain versions (also on the
-     shuffled grid at 8,388,608 rows: Gdia built on the device, Xell packed
-     on the host), torch's CSR SpMV beside the Gdia and Xell SpMVs at both
-     sizes, with the Xell SpMV's earlier design (one thread per row: K1
-     with beta 0) in the same turns, the profiler's device time per launch
-     of the Xell SpMV and of torch's CSR SpMV, and a profile of one steady
-     step per format;
+     launch counts — each solve one loop launch, its format's K1 twice for
+     its set-up, no K2 or K2i —, true float64 residual, iterations against
+     the merged CG over the plain twins on the card), one steady step per
+     mesh, the kNN mesh once more in its points' numbering with `reorder
+     rcm` (one Xell loop launch); then the Gdia and Xell kernels against
+     their plain versions (also on the shuffled grid at 8,388,608 rows:
+     Gdia built on the device, Xell packed on the host; the Xell SpMV and K1
+     also against their twins run on CPU copies, bit-equal), the Xell loop
+     kernel's two variants on the kNN mesh, without spill, and on the
+     shuffled grid as Xell at 1M and 8.4M rows (x against the twin after 30
+     iterations; per iteration over 30 in turns with the twin and the host
+     loop over the band K1 and K2i or K2), the general-BiCGStab loop's two
+     Xell variants the same way on the kNN mesh and at 8.4M rows (x after
+     10 pinned iterations), GKOBiCGStab `none` and `BJ` on the kNN mesh
+     (uK, uKBJ: one loop launch each, held to the route over the plain twins
+     at 10 pinned iterations and to an exact repeat), torch's CSR SpMV beside the Gdia
+     and Xell SpMVs at both sizes, the profiler's device time per launch of
+     the Xell SpMV and of torch's CSR SpMV, and a profile of one steady step
+     per format;
   9. slice 4: GKOCG `pipelinedCG true` (`none`, `BJ`; each solve the
      pipelined loop kernel once, K1 twice for its set-up, no KA or KB_pipe;
      `none` at 275 iterations) and GKOBiCGStab as
@@ -127,7 +137,9 @@ under "cases" every variant and size it was checked on; the last line is
 prints no result.  `--turns` runs phase 3's kernel checks (and the Gdia
 kernels on the device-built shuffled grid, 200 pinned iterations of
 cg_pipelined_fused and of bicgstab_fused on the Dia plan at 1M and 8.4M
-rows, and the pMG and pGMG solves at 1M cells on resident state) from
+rows, the pMG, pGMG and GKOBiCGStab solves at 1M cells on resident
+state, the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M and
+8.4M rows, and pK and pKBJ on the kNN-6 mesh on resident state) from
 each given checkout in order, one process each, and prints
 their kernel lines: an earlier commit unpacked with `git archive` against
 this one on the same card.
@@ -156,7 +168,7 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS,
+from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS, LOOP_XELL,
                                          bicgstab_gen_loop_plain, bicgstab_loop_plain,
                                          cg_loop_plain, cg_pipe_loop_plain)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
@@ -209,6 +221,13 @@ KERNELS = {
     "xell_k1": ("cuda", "ogl_tpu_torch/kernels/csrc/xell.cu",
                 "ogl_tpu/kernels/xell.py:525, ogl_tpu/kernels/xell.py:430",
                 "xell_k1", "knn"),
+    # the whole merged CG loop on Xell: the band K1 (csrc/xell_band.cuh) and
+    # K2 (Jacobi) or K2i (identity) as its phases; its row's times are per
+    # iteration, its cases xell_cg_loop[none] and [BJ]
+    "xell_cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/xell_cg_loop.cu",
+                     "ogl_tpu/kernels/xell.py:525, ogl_tpu/kernels/xell.py:430, "
+                     "ogl_tpu/kernels/fused.py:396, ogl_tpu/kernels/fused.py:492",
+                     "xell_cg_loop[none]", "knn"),
     "cg_ka": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_pipe.cu",
               "ogl_tpu/kernels/fused.py:415", "cg_ka[none]", None),
     "cg_kb_pipe": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_kb_pipe.cu",
@@ -259,9 +278,10 @@ SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # K2n: the host-launched cycle of the cycle-w solve (pMGw)
 AMG_KERNELS = ("dia_spmv", "cg_k1", "amg_cg_loop", "amg_ir_loop", "cg_k2n", "amg_sweep",
                "amg_resid")
-# cg_k2 and cg_k2i: the Xell solves' host loops (BJ, none)
-UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "cg_k2", "cg_k2i",
-                        "cg_loop")
+# xell_spmv: the residual-eval timing after each Xell solve; bicgstab_gen_loop:
+# GKOBiCGStab on the kNN mesh (uK, uKBJ)
+UNSTRUCTURED_KERNELS = ("gdia_spmv", "gdia_k1", "xell_spmv", "xell_k1", "xell_cg_loop",
+                        "cg_loop", "bicgstab_gen_loop")
 SLICE4_KERNELS = ("cg_pipe_loop", "bicgstab_loop", "bicgstab_gen_loop", "dia_spmv",
                   "gdia_spmv")
 BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_loop")
@@ -269,6 +289,8 @@ BENCH_KERNELS = ("read_peak", "dia_spmv", "cg_k1", "cg_loop")
 # twice (the set-up's r0 and norm factor), no K2 and no K2i
 LOOP_SOLVE_LAUNCHES = {"cg_loop": 1, "cg_k1": 2, "cg_k2": 0, "cg_k2i": 0}
 GDIA_LOOP_SOLVE_LAUNCHES = {"cg_loop": 1, "gdia_k1": 2, "cg_k2": 0, "cg_k2i": 0}
+# the same on Xell: the Xell loop kernel once, the band K1 twice
+XELL_LOOP_SOLVE_LAUNCHES = {"xell_cg_loop": 1, "xell_k1": 2, "cg_k2": 0, "cg_k2i": 0}
 # a GKOCG `pipelinedCG` solve (`none` or `BJ`) on Dia: the pipelined loop
 # kernel once, K1 twice (the set-up's r0 and norm factor), no KA or KB_pipe
 PIPE_LOOP_SOLVE_LAUNCHES = {"cg_pipe_loop": 1, "cg_k1": 2, "cg_ka": 0, "cg_kb_pipe": 0}
@@ -287,9 +309,15 @@ GEN_LOOP_SOLVE_LAUNCHES = {"bicgstab_gen_loop": 1, "dia_spmv": 2 + RES_EVAL_SPMV
                            "bicgstab_loop": 0, "bicgstab_k1b": 0, "bicgstab_kb_update": 0}
 GDIA_GEN_LOOP_SOLVE_LAUNCHES = {"bicgstab_gen_loop": 1, "gdia_spmv": 2 + RES_EVAL_SPMVS,
                                 "dia_spmv": 0}
+XELL_GEN_LOOP_SOLVE_LAUNCHES = {"bicgstab_gen_loop": 1, "xell_spmv": 2 + RES_EVAL_SPMVS,
+                                "xell_k1": 0, "xell_cg_loop": 0}
+# GKOBiCGStab `none` and `BJ` on the kNN mesh (phase 8): the general loop's
+# Xell variants, held as the Poisson-grid solves of phase 9 are
+XELL_GEN_SOLVES = {"uK": "none", "uKBJ": {"preconditioner": "BJ"}}
 # the general-BiCGStab loop kernel's variants (bits of csrc/bicgstab_gen_loop.cu)
 GEN_LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
-                     LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
+                     LOOP_GDIA | LOOP_JACOBI: "Gdia BJ", LOOP_XELL: "Xell none",
+                     LOOP_XELL | LOOP_JACOBI: "Xell BJ"}
 # x after BICGSTAB_LOOP_CHECK pinned iterations against the twin: the phases
 # give the twin's bits at every row, the block sums add in another order, and
 # float32 BiCGStab amplifies that (the rtol the phase-9 pin holds residuals to)
@@ -298,8 +326,12 @@ GEN_LOOP_RTOL = 1e-4
 LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
                  LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
 PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
+XELL_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/xell_cg_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
 LOOP_ITERS = (30, 200)  # the loop's check (x against the plain twin), its timing
+# the Xell loops': their plain twins' SpMV takes 3-9 ms per iteration at
+# 1M-8.4M rows (the general BiCGStab's check stays BICGSTAB_LOOP_CHECK)
+XELL_LOOP_ITERS = (30, 30)
 # the BiCGStab loop's check: float32 BiCGStab on the Poisson grid from a
 # random b parts from another summation order within 30 iterations (phase 3
 # prints the gap there), so x is held to the twin after 10, as phase 9 pins
@@ -379,6 +411,11 @@ class HostLoopCgKernels(CgKernels):
 
 class HostLoopGdiaCgKernels(GdiaCgKernels):
     """The same for a Gdia plan: the host loop over the Gdia K1 and K2
+    (K2i) kernels."""
+
+
+class HostLoopXellCgKernels(xell.XellCgKernels):
+    """The same for an Xell plan: the host loop over the band K1 and K2
     (K2i) kernels."""
 
 
@@ -635,7 +672,10 @@ def loop_bytes(data, n, jacobi):
     """Minimum bytes per iteration of the loop kernel: K1 (the coefficients,
     z (r) and p in, p' and q out) and K2i (x, r, p', q in; x, r out), with
     Jacobi also invd in and z out."""
-    if isinstance(data, tuple):  # Gdia: np values (4 B) and lanes (1 B) per row
+    if isinstance(data, tuple) and len(data) == 4:  # Xell: K slots of 7 B, the spill
+        vals, spill = data[0], data[3].numel()
+        k1 = (vals.shape[1] * 7 + 16 + (4 if spill else 0)) * n + 12 * spill
+    elif isinstance(data, tuple):  # Gdia: np values (4 B) and lanes (1 B) per row
         k1 = (data[0].shape[0] * 5 + 16) * n
     else:
         k1 = (data.shape[0] + 4) * 4 * n
@@ -685,11 +725,13 @@ def loop_row(case, label, run, host_solve, host_what, nbytes, n, report,
         "bound_ms": bound, "bound_by": "bytes", "per": "iteration", "iterations": k}
 
 
-def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop"):
+def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop",
+               iters=LOOP_ITERS):
     """The loop kernel against its plain twin (over `plain_k1`) from the same
     set-up (b random, x0 = 0), timed in turns with the host loop over the
     standalone kernels (cg_fused with a plan that keeps the host loop):
-    loop_row.  invd: the Jacobi variant (the K2 phase)."""
+    loop_row over `iters` (check, timing).  invd: the Jacobi variant (the K2
+    phase).  kern: a Dia, Gdia or Xell plan (the Xell loop kernel)."""
     n, dev = kern.n, kern.device
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
@@ -697,8 +739,12 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop"):
     z0 = None if invd is None else invd * r0
     state = (torch.sum(r0 * (r0 if z0 is None else z0)), torch.sum(torch.abs(r0)),
              merged_norm_factor(kern, data, r0, x0, b))
-    host = (HostLoopGdiaCgKernels(n, kern.plane_offsets, dev) if isinstance(kern, GdiaCgKernels)
-            else HostLoopCgKernels(n, kern.offsets, dev))
+    if isinstance(kern, xell.XellCgKernels):
+        host = HostLoopXellCgKernels(kern.plan)
+    elif isinstance(kern, GdiaCgKernels):
+        host = HostLoopGdiaCgKernels(n, kern.plane_offsets, dev)
+    else:
+        host = HostLoopCgKernels(n, kern.offsets, dev)
 
     def run(k, plain):
         x, r = x0.clone(), r0.clone()
@@ -710,7 +756,7 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop"):
     loop_row(case, label, run,
              lambda k: cg_fused(host, data, b, x0, checked_iterations(k), invd=invd),
              "K1 + " + ("K2" if invd is not None else "K2i"),
-             loop_bytes(data, n, invd is not None), n, report)
+             loop_bytes(data, n, invd is not None), n, report, check=iters[0], iters=iters[1])
 
 
 def check_pipe_loop(kern, data, label, report, invd=None):
@@ -780,15 +826,20 @@ def check_bicgstab_loop(kern, data, label, report):
 def gen_loop_bytes(data, n, jacobi):
     """Minimum bytes per iteration of the general-BiCGStab loop kernel:
     SpMV A (the coefficients — Dia nd x 4 B, Gdia np x 5 B of values and
-    lanes —, r, p, v and r̂ in; p' and v' out), SpMV B (the coefficients, r
-    and v' in; s and t out) and the update (x, p', s, t and r̂ in; x and r
-    out): 2 x the coefficients + 68 B per row (124 at 7 Dia diagonals); with
-    Jacobi invd once in each phase (+ 12)."""
+    lanes, Xell K x 7 B of slots and the spill —, r, p, v and r̂ in; p' and
+    v' out), SpMV B (the coefficients, r and v' in; s and t out) and the
+    update (x, p', s, t and r̂ in; x and r out): 2 x the coefficients + 68 B
+    per row (124 at 7 Dia diagonals); with Jacobi invd once in each phase
+    (+ 12)."""
+    if isinstance(data, tuple) and len(data) == 4:  # Xell
+        spill = data[3].numel()
+        coef_bytes = (data[0].shape[1] * 7 + (4 if spill else 0)) * n + 12 * spill
+        return 2 * coef_bytes + (68 + 12 * jacobi) * n
     coef = data[0].shape[0] * 5 if isinstance(data, tuple) else data.shape[0] * 4
     return (2 * coef + 68 + 12 * jacobi) * n
 
 
-def check_gen_loop(kern, data, label, report, invd=None):
+def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
     """The general-BiCGStab loop kernel (one variant: the plan's format,
     identity or Jacobi) against its plain twin (the
     host loop's operations over the plain SpMV) from the same set-up as
@@ -796,9 +847,10 @@ def check_gen_loop(kern, data, label, report, invd=None):
     format's SpMV kernel), timed in turns with the host loop over the
     standalone SpMV kernel (solve/bicgstab.py without the loop): loop_row,
     x held to the twin within GEN_LOOP_RTOL after BICGSTAB_LOOP_CHECK pinned
-    iterations."""
+    iterations, timed over `iters`."""
     n, dev = kern.n, kern.device
     gdia_v = isinstance(kern, GdiaCgKernels)
+    xell_v = isinstance(kern, xell.XellCgKernels)
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
     pc = None if invd is None else (lambda r: invd * r)
@@ -806,8 +858,12 @@ def check_gen_loop(kern, data, label, report, invd=None):
     r0 = b - ops.matvec(x0)  # also r̂, never written
     state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
              stopping.initial_norm_factor(ops, r0, x0, b))
-    plain_mv = (functools.partial(gdia.gdia_spmv_plain, *data, kern.plane_offsets) if gdia_v
-                else functools.partial(dia_spmv_plain, data, kern.offsets))
+    if xell_v:
+        plain_mv = functools.partial(xell.xell_spmv_plain, kern.plan, *data)
+    elif gdia_v:
+        plain_mv = functools.partial(gdia.gdia_spmv_plain, *data, kern.plane_offsets)
+    else:
+        plain_mv = functools.partial(dia_spmv_plain, data, kern.offsets)
     plain_ops = krylov.single_device_ops(plain_mv, n, precond=pc)
 
     def run(k, plain):
@@ -817,11 +873,12 @@ def check_gen_loop(kern, data, label, report, invd=None):
                else kern.bicgstab_gen_loop(data, x, r, r0, *state, cfg, invd))
         return x, rec[0], rec[1]
 
-    tag = f"{'Gdia' if gdia_v else 'Dia'} {'none' if invd is None else 'BJ'}"
+    fmt = "Xell" if xell_v else "Gdia" if gdia_v else "Dia"
+    tag = f"{fmt} {'none' if invd is None else 'BJ'}"
     loop_row(f"bicgstab_gen_loop[{tag}]", label, run,
              lambda k: bicgstab(ops, b, x0, checked_iterations(k)),
              "the SpMV kernel + torch ops", gen_loop_bytes(data, n, invd is not None), n, report,
-             check=BICGSTAB_LOOP_CHECK, vec_rtol=GEN_LOOP_RTOL)
+             check=BICGSTAB_LOOP_CHECK, iters=iters, vec_rtol=GEN_LOOP_RTOL)
 
 
 def amg_loop_bytes(op, data, ir_loop):
@@ -1386,17 +1443,58 @@ def check_unstructured_kernels(cases, report):
             compare("xell_k1", label, lambda: k1_out(xell.xell_k1(plan, *data, z, p, beta)),
                     lambda: k1_out(xell.xell_k1_plain(plan, *data, z, p, beta)),
                     (mat.n_slots * 7 + 16) * n + spill, flops + 4 * n, report)
+            xell_exact_on_cpu(label, plan, data, x, z, p, beta)
+
+
+def xell_exact_on_cpu(label, plan, data, x, z, p, beta):
+    """The Xell SpMV and K1 against their plain twins run on CPU copies of
+    the same tensors: y, p' and q bit-equal (the band body rounds every
+    product and sum as the twins' ops do, and the CPU's index_add adds the
+    spill in row order; on the card it adds with atomics)."""
+    sp = plan.spill
+    cpu = xell.XellPlan(plan.n, plan.n_tiles, plan.n_slots, plan.c_left,
+                        xell.SpillCsr(*(t.cpu() for t in (sp.row_ptr, sp.rows, sp.cols,
+                                                          sp.gidx))))
+    host = tuple(t.cpu() for t in data)
+    y = xell.xell_spmv(plan, *data, x).cpu()
+    pw, q, _ = xell.xell_k1(plan, *data, z, p, beta)
+    pw2, q2, _ = xell.xell_k1_plain(cpu, *host, z.cpu(), p.cpu(), beta.cpu())
+    diff = {"y": int((y != xell.xell_spmv_plain(cpu, *host, x.cpu())).sum()),
+            "p'": int((pw.cpu() != pw2).sum()), "q": int((q.cpu() != q2).sum())}
+    print(f"  xell_spmv, xell_k1 {label:12s} against their twins on CPU copies: rows that "
+          f"differ {diff} (bit-equal required)")
+    if any(diff.values()):
+        raise RuntimeError(f"the Xell kernels at {label} are not bit-equal to their CPU twins")
+
+
+def check_xell_loops(mat, coo, label, report, gen=False):
+    """Both variants of the Xell loop kernel on `mat` (check_loop), Jacobi
+    with 1/diag of its host COO `coo` (None: the 7-point stencil's 6); with
+    `gen` also the general-BiCGStab loop's two Xell variants
+    (check_gen_loop)."""
+    kern = xell.XellCgKernels.for_matrix(mat)
+    data = kern.pack_values(mat)
+    dev = mat.vals.device
+    if coo is None:
+        invd = torch.full((kern.n,), 1.0 / 6.0, device=dev)
+    else:
+        on = coo.rows == coo.cols
+        diag = np.zeros(kern.n, np.float32)
+        diag[coo.rows[on]] = coo.vals[on]
+        invd = torch.tensor(1.0 / diag, device=dev)
+    plain_k1 = functools.partial(xell.xell_k1_plain, kern.plan, *data)
+    for variant, what in XELL_LOOP_VARIANTS.items():
+        check_loop(kern, data, plain_k1, label, report, invd=invd if variant else None,
+                   case=f"xell_cg_loop[{what}]", iters=XELL_LOOP_ITERS)
+        if gen:
+            check_gen_loop(kern, data, label, report, invd=invd if variant else None,
+                           iters=XELL_LOOP_ITERS[1])
 
 
 def xell_beside(label, csr, mat, x, report):
-    """library_beside for the Xell SpMV, with its earlier design in the
-    same turns — still the K1 kernel's one thread per row:
-    `XellCgKernels.apply`, K1 with beta = 0 — and device_beside."""
-    kern = xell.XellCgKernels.for_matrix(mat)
-    data = kern.pack_values(mat)
+    """library_beside and device_beside for the Xell SpMV."""
     mv = spmv.matvec(mat)
-    library_beside("xell_spmv", label, csr, mv, x, report,
-                   earlier=("one thread per row: K1 with beta 0", lambda v: kern.apply(data, v)))
+    library_beside("xell_spmv", label, csr, mv, x, report)
     device_beside("xell_spmv", label, lambda: mv(x), lambda: csr @ x, report)
 
 
@@ -1446,14 +1544,16 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             perf.print()
-            if fmt == "Gdia":
-                check_loop_solve_launches(field, before, GDIA_LOOP_SOLVE_LAUNCHES)
+            check_loop_solve_launches(field, before, GDIA_LOOP_SOLVE_LAUNCHES
+                                      if fmt == "Gdia" else XELL_LOOP_SOLVE_LAUNCHES)
             slv = registry.global_registry.get(f"{field}_solver")
             lt = slv.last_timings
             print(f"{field}: first solve wall {wall:.3f} s; init_host_sparsity "
                   f"{lt['init_host_sparsity'] * 1e3:.1f} ms, convert_format "
                   f"{lt['convert_format'] * 1e3:.1f} ms, solve {lt['solve'] * 1e3:.3f} ms = "
-                  f"{lt['solve'] / max(perf.n_iterations, 1) * 1e6:.1f} us per iteration")
+                  f"{lt['solve'] / max(perf.n_iterations, 1) * 1e6:.1f} us per iteration; on "
+                  f"resident state {slv.time_device_solve() / max(perf.n_iterations, 1) * 1e6:.2f}"
+                  " us per iteration")
             if perf.solver_name != f"GKOCG_{fmt}":
                 raise RuntimeError(f"{field} routed to {perf.solver_name}, not GKOCG_{fmt}")
             invd = torch.tensor(1.0 / np.asarray(m.diag, np.float32), device=device) \
@@ -1470,8 +1570,8 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         perf2.print()
-        if fmt == "Gdia":
-            check_loop_solve_launches(f"{mesh} steady step", before, GDIA_LOOP_SOLVE_LAUNCHES)
+        check_loop_solve_launches(f"{mesh} steady step", before, GDIA_LOOP_SOLVE_LAUNCHES
+                                  if fmt == "Gdia" else XELL_LOOP_SOLVE_LAUNCHES)
         slv = registry.global_registry.get(f"{mesh}_solver")
         lt = slv.last_timings
         print(f"{mesh} steady step: wall {wall * 1e3:.3f} ms, of which update "
@@ -1483,14 +1583,33 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
         steps[mesh] = (x2, perf2, slv.matrix, torch.tensor(b2, device=device), m2, b2)
 
     t0 = time.perf_counter()
+    before = dict(kernels.launches)
     x_r, perf_r = foam.solve("pKrcm", m_orig, b_orig,
                              {**ctl, "preconditioner": "none", "reorder": "rcm"})
     torch.cuda.synchronize()
     perf_r.print()
+    check_loop_solve_launches("pKrcm", before, XELL_LOOP_SOLVE_LAUNCHES)
     lt = registry.global_registry.get("pKrcm_solver").last_timings
     print(f"pKrcm (points' numbering, reorder rcm): first solve wall "
           f"{time.perf_counter() - t0:.3f} s; reorder {lt['reorder'] * 1e3:.1f} ms, "
           f"convert_format {lt['convert_format'] * 1e3:.1f} ms")
+    gen_solves = {}
+    for field, pc in XELL_GEN_SOLVES.items():
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        x, perf = foam.solve(field, m_knn, b_knn,
+                             {**ctl, "solver": "GKOBiCGStab", "preconditioner": pc})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        check_loop_solve_launches(field, before, XELL_GEN_LOOP_SOLVE_LAUNCHES)
+        slv = registry.global_registry.get(f"{field}_solver")
+        it = max(perf.n_iterations, 1)
+        print(f"{field} (kNN-6, route {slv.route}): first solve wall {wall:.3f} s; solve "
+              f"{slv.last_timings['solve'] * 1e3:.3f} ms = "
+              f"{slv.last_timings['solve'] / it * 1e6:.1f} us per iteration; on resident state "
+              f"{slv.time_device_solve() / it * 1e6:.2f} us per iteration")
+        gen_solves[field] = (x, perf, snapshot(slv), torch.tensor(b_knn, device=device))
     launches = {k: kernels.launches[k] for k in UNSTRUCTURED_KERNELS}
     print(f"launch counts over the unstructured path: {dict(kernels.launches)}")
     missing = [k for k, v in launches.items() if v == 0]
@@ -1510,6 +1629,8 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
                for mesh, (x, perf, mat, bb, _, _) in steps.items()]
     perm_dev = torch.tensor(perm, device=device)
     checks.append(("pKrcm", x_r[perm_dev], perf_r, solves["pK"][2], solves["pK"][3], None))
+    for field, (x, perf, snap, bb) in gen_solves.items():
+        check_route_solve(field, x, perf, snap, bb, False)
     for name, x, perf, mat, bb, invd in checks:
         if not (perf.converged and perf.final_residual < TOL):
             raise RuntimeError(f"{name}: did not converge: {perf}")
@@ -1579,6 +1700,11 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
     check_unstructured_kernels([("knn", knn_mat), extra[0], ("shuffled", shuf_mat),
                                 extra[1], ("shuffled big", big), ("shuffled big", big_xell)],
                                report)
+    print("the Xell loop kernel vs its plain twin (x after "
+          f"{XELL_LOOP_ITERS[0]} iterations; per iteration over {XELL_LOOP_ITERS[1]}):")
+    for label, mat, coo in (("knn", knn_mat, coo_knn), (*extra[0], coo_knn),
+                            (*extra[1], coo_shuf), ("shuffled big", big_xell, None)):
+        check_xell_loops(mat, coo, label, report, gen=label in ("knn", "shuffled big"))
     del extra
     torch.cuda.empty_cache()
     library_of(coo_knn, knn_mat, "knn", report)
@@ -1648,6 +1774,55 @@ def route_solve(snap, b, params, plain):
     kern = None if plain else kern
     return bicgstab(krylov.single_device_ops(mv, n, precond=pc), b, x0, params, kern,
                     None if kern is None else kern.pack_values(mat), invd)
+
+
+def check_route_solve(field, x, perf, snap, bb, gated):
+    """A phase-9 (or phase-8 BiCGStab) solve of `field` on the route it took
+    (`snap`, from `snapshot`): converged, finite, the true float64 residual
+    within its limit, the same route over the plain twins on the card held
+    to it pinned at PINNED_ITERS[0] (and, when `gated`, free-running at ±1),
+    and the kernel route repeating its own count (printed beside the count
+    with b nudged by one ulp)."""
+    mat = snap[1]
+    n = mat.shape[0]
+    if not (perf.converged and perf.final_residual < TOL):
+        raise RuntimeError(f"{field}: did not converge: {perf}")
+    if x.shape != (n,) or not bool(torch.isfinite(x).all()):
+        raise RuntimeError(f"{field}: solution not finite of shape ({n},)")
+    tr = true_residual_mv(lambda v: spmv.spmv(mat, v), x, bb)
+    params = stopping.StoppingParams.of(
+        registry.global_registry.get(f"{field}_solver").cfg.stopping)
+    plain = route_solve(snap, bb, params, plain=True)
+    line = (f"{field}: iterations {perf.n_iterations}, final residual "
+            f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
+            f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
+            f"card: {plain.iters} iterations ({'gated at ±1' if gated else 'not gated'})")
+    for k in PINNED_ITERS:
+        pin = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=k, max_iter=k,
+                                      frequency=1)
+        rk, rp = (float(route_solve(snap, bb, pin, twins).final_res_norm)
+                  for twins in (False, True))
+        rel = abs(rk - rp) / rp
+        line += f"; pinned {k}: residual {rk:.4e} vs {rp:.4e} (rel {rel:.1e})"
+        if k == PINNED_ITERS[0] and rel > PINNED_RTOL:
+            raise RuntimeError(f"{field}: after {k} iterations the kernels' residual "
+                               f"{rk:.4e} differs from the plain twins' {rp:.4e}")
+    # the kernels are deterministic (no float atomics): the same inputs give
+    # the same count; b nudged by one ulp shows how far rounding alone moves
+    # the stop
+    again = route_solve(snap, bb, params, plain=False).iters
+    nudged = route_solve(snap, bb * (1 + 2.0 ** -23), params, plain=False).iters
+    line += (f"; the kernel route again: {again} iterations, with b x (1 + 2^-23): "
+             f"{nudged}")
+    print(line)
+    if again != perf.n_iterations:
+        raise RuntimeError(f"{field}: the kernel route took {again} iterations from the "
+                           f"inputs that took {perf.n_iterations}")
+    if gated and abs(plain.iters - perf.n_iterations) > 1:
+        raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain.iters} "
+                           "over the plain twins")
+    if tr > TRUE_RESIDUAL_MARGIN * TOL:
+        raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
 
 
 def snapshot(slv):
@@ -1755,48 +1930,9 @@ def slice4_path(m, b, grid, device, ctl, cg_iters) -> dict:
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{name}: true residual {tr:.3e} above the limit")
     for field, (x, perf, snap, mk, bb) in solves.items():
-        gated = SLICE4_SOLVES[field][2]
-        mat = snap[1]
-        if not (perf.converged and perf.final_residual < TOL):
-            raise RuntimeError(f"{field}: did not converge: {perf}")
-        if x.shape != (n,) or not bool(torch.isfinite(x).all()):
-            raise RuntimeError(f"{field}: solution not finite of shape ({n},)")
-        tr = true_residual_mv(lambda v, mat=mat: spmv.spmv(mat, v), x, bb)
-        params = stopping.StoppingParams.of(
-            registry.global_registry.get(f"{field}_solver").cfg.stopping)
-        plain = route_solve(snap, bb, params, plain=True)
-        line = (f"{field}: iterations {perf.n_iterations}, final residual "
-                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
-                f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
-                f"card: {plain.iters} iterations ({'gated at ±1' if gated else 'not gated'})")
-        for k in PINNED_ITERS:
-            pin = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=k, max_iter=k,
-                                          frequency=1)
-            rk, rp = (float(route_solve(snap, bb, pin, twins).final_res_norm)
-                      for twins in (False, True))
-            rel = abs(rk - rp) / rp
-            line += f"; pinned {k}: residual {rk:.4e} vs {rp:.4e} (rel {rel:.1e})"
-            if k == PINNED_ITERS[0] and rel > PINNED_RTOL:
-                raise RuntimeError(f"{field}: after {k} iterations the kernels' residual "
-                                   f"{rk:.4e} differs from the plain twins' {rp:.4e}")
-        # the kernels are deterministic (no float atomics): the same inputs
-        # give the same count; b nudged by one ulp shows how far rounding
-        # alone moves the stop
-        again = route_solve(snap, bb, params, plain=False).iters
-        nudged = route_solve(snap, bb * (1 + 2.0 ** -23), params, plain=False).iters
-        line += (f"; the kernel route again: {again} iterations, with b x (1 + 2^-23): "
-                 f"{nudged}")
-        print(line)
-        if again != perf.n_iterations:
-            raise RuntimeError(f"{field}: the kernel route took {again} iterations from the "
-                               f"inputs that took {perf.n_iterations}")
-        if gated and abs(plain.iters - perf.n_iterations) > 1:
-            raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain.iters} "
-                               "over the plain twins")
+        check_route_solve(field, x, perf, snap, bb, SLICE4_SOLVES[field][2])
         if field == "pP" and abs(perf.n_iterations - P_ITERS) > 1:
             raise RuntimeError(f"pP: {perf.n_iterations} iterations, not {P_ITERS} +- 1")
-        if tr > TRUE_RESIDUAL_MARGIN * TOL:
-            raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
 
     for field in ("uF", "pP"):
         spec = SLICE4_SOLVES[field][0]
@@ -1881,8 +2017,12 @@ def bench_path(device, grid_main, grid_big, report) -> tuple:
 # where a tree has it, else the host loop over KA and KB_pipe, over K1B and
 # KB_update), then the pMG and pGMG solves through foam.solve at 1M cells,
 # timed on resident state (one launch of the AMG loop kernel where a tree
-# has it, else the host-launched cycle) — only functions that this
-# script's earlier versions have too
+# has it, else the host-launched cycle), the GKOBiCGStab solves the same
+# way, then the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M
+# and 8.4M rows and GKOCG `none` and `BJ` on the kNN-6 mesh at 1M cells
+# (pK, pKBJ; one launch of the Xell loop kernel where a tree has it, else
+# the host loop over the K1 and K2i or K2 kernels) on resident state — only
+# functions that this script's earlier versions have too
 TURN_CODE = (
     "import torch, chip_smoke as s; d = torch.device('cuda'); r = {}\n"
     "for g in (s.GRID_1M, s.GRID_8M): s.check_kernels(g, d, r)\n"
@@ -1921,9 +2061,25 @@ TURN_CODE = (
     "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
     "    print(f'  gen_solve {f} ({system}) {m.n} cells: {perf.n_iterations} iterations, "
     "{sec * 1e3:.3f} ms on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.2f} us "
+    "per iteration')\n"
+    "c = s.ldu.ldu_to_coo_host(s.testing.shuffled_poisson_ldu(s.GRID_1M), dtype=np.float32)\n"
+    "rows, cols, vals, nb = s.shuffled_poisson_coo_on_device(s.GRID_8M, 0, d)\n"
+    "big = s.formats.Coo(rows=rows.cpu().numpy().astype(np.int32), cols=cols.cpu().numpy()"
+    ".astype(np.int32), vals=vals.cpu().numpy(), shape=(nb, nb))\n"
+    "s.check_unstructured_kernels([('xell 128x128x64', s.xell.xell_from_coo(c, device=d)), "
+    "('xell 256x256x128', s.xell.xell_from_coo(big, c_max=9, device=d))], r)\n"
+    "mo, perm = s.testing.knn_ldu(s.KNN_1M)\n"
+    "mk = s.testing.renumber_ldu(mo, np.argsort(perm))\n"
+    "bk = np.random.default_rng(0).normal(size=mk.n).astype(np.float32)\n"
+    "for f, pc in (('pK', 'none'), ('pKBJ', {'preconditioner': 'BJ'})):\n"
+    "    _, perf = s.foam.solve(f, mk, bk, {'solver': 'GKOCG', 'executor': 'cuda', "
+    "'tolerance': s.TOL, 'relTol': 0, 'preconditioner': pc})\n"
+    "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
+    "    print(f'  xell_solve {f} (kNN-6) {mk.n} cells: {perf.n_iterations} iterations, "
+    "{sec * 1e3:.3f} ms on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.2f} us "
     "per iteration')\n")
 TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
-              "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve")
+              "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_")
 
 
 def turns(trees) -> int:
@@ -1937,7 +2093,7 @@ def turns(trees) -> int:
     summary, rc = [], 0
     for i, tree in enumerate(trees, 1):
         res = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=tree, capture_output=True,
-                             text=True, timeout=600)
+                             text=True, timeout=900)
         print(f"== turn {i} ({tree}) rc={res.returncode}\n{res.stdout}{res.stderr}")
         summary.append(f"turn {i} ({tree}) rc={res.returncode}")
         summary += [line[:240] for line in res.stdout.splitlines()
@@ -1984,6 +2140,13 @@ def run(device, grid_main, grid_big, knn_n) -> int:
         print(f"cg_loop grid, {what} (cg_loop_kernel<{variant}>): {blocks} co-resident blocks "
               f"of {LOOP_THREADS} threads ({blocks // sms} per SM on {sms} SMs); ptxas: "
               + "; ".join(loop_ptxas(info["log"], variant)))
+    probe_x = xell.XellCgKernels(xell.XellPlan(1, 1, 1, 0, xell.spill_csr([], [], 1, device)))
+    for variant, what in XELL_LOOP_VARIANTS.items():
+        blocks = probe_x.loop_blocks(variant)
+        print(f"xell_cg_loop grid, {what} (xell_cg_loop_kernel<{variant}>): {blocks} co-resident "
+              f"blocks of {LOOP_THREADS} threads with the 59,392-byte ring ({blocks // sms} per "
+              f"SM on {sms} SMs); ptxas: "
+              + "; ".join(loop_ptxas(info["log"], variant, "xell_cg_loop_kernel")))
     for variant, what in PIPE_LOOP_VARIANTS.items():
         blocks = probe.pipe_loop_blocks(variant)
         print(f"cg_pipe_loop grid, {what} (cg_pipe_loop_kernel<{variant}>): {blocks} co-resident "

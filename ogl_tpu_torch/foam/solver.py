@@ -22,18 +22,17 @@ NotImplementedError naming its ROADMAP.md item; none is silently ignored.
 Routing follows the reference's `_make_solve_fn`:
   GKOCG                merged two-kernel CG on each format (CgKernels,
                        GdiaCgKernels, XellCgKernels; `none` or `BJ` on
-                       Dia or Gdia on the card: one launch of the loop
-                       kernel); `fusedCG
-                       false` → the general CG (solve/cg.py)
+                       the card: one launch of the format's loop kernel);
+                       `fusedCG false` → the general CG (solve/cg.py)
   GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
                        (KA + KB_pipe, solve/cg_pipe_fused.py; on the card
                        one launch of its loop kernel); Gdia, Xell,
                        Multigrid or `fusedCG false` → the general
                        pipelined CG (solve/cg_pipe.py)
-  GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): on Dia
-                       or Gdia with `none` or `BJ` one launch of its loop
-                       kernel on the card, else the host loop over the
-                       format's SpMV kernel; `fusedBiCGStab true` with
+  GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): with
+                       `none` or `BJ` one launch of its loop kernel on the
+                       card (on Dia, Gdia or Xell), else the host loop over
+                       the format's SpMV kernel; `fusedBiCGStab true` with
                        `none` on Dia → the merged BiCGStab (K1B, K1B,
                        KB_update; solve/bicgstab_fused.py; on the card one
                        launch of its loop kernel)

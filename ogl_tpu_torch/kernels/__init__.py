@@ -15,7 +15,8 @@ launches: dict[str, int] = {"dia_spmv": 0, "cg_k1": 0, "cg_k2": 0, "cg_k2i": 0,
                             "cg_ka": 0, "cg_kb_pipe": 0, "bicgstab_k1b": 0,
                             "bicgstab_kb_update": 0, "read_peak": 0, "cg_loop": 0,
                             "cg_pipe_loop": 0, "bicgstab_loop": 0, "amg_cg_loop": 0,
-                            "amg_ir_loop": 0, "bicgstab_gen_loop": 0}
+                            "amg_ir_loop": 0, "bicgstab_gen_loop": 0,
+                            "xell_cg_loop": 0}
 
 
 def reset_launches() -> None:

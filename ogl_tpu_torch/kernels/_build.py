@@ -64,9 +64,17 @@ _SIGNATURES = {
     # bands, stream
     "ogl_xell_spmv": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     # vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, z, p, beta,
-    # pout, q, partials, n, threads, grid, stream
+    # pout, q, partials, n, vec, bands, stream
     "ogl_xell_k1": (_P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I64, _INT, _I64, _P),
+    # variant, threads, blocks (out)
+    "ogl_xell_cg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # variant, vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, x, r, z,
+    # invd, p, pn, q, rho, absr, nf, partials, record, n, tol, rel_tol, min_iter, max_iter,
+    # frequency, vec, threads, blocks, stream
+    "ogl_xell_cg_loop": (_INT, _P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT,
+                         _I64, _P),
     # data, offsets, nd, r, invd (NULL = identity), w, partials, n, threads, grid, stream
     "ogl_cg_ka": (_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # data, offsets, nd, a, b, c, rhat, ca, cb, w, q, partials, n, vec, blocks, stream
@@ -111,6 +119,12 @@ _SIGNATURES = {
     "ogl_bicgstab_gen_loop": (_INT, _P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT,
                               _INT, _I64, _P),
+    # variant, vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, invd, rhat,
+    # x, r, p, pn, v, vn, s, t, rho, absr, nf, partials, record, n, tol, rel_tol, min_iter,
+    # max_iter, frequency, vec, threads, blocks, stream
+    "ogl_bicgstab_gen_loop_xell": (_INT, _P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32,
+                                   _INT, _INT, _INT, _INT, _INT, _I64, _P),
     # variant, threads, blocks (out)
     "ogl_amg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
     # variant, table, levels, data, offsets, nd, x, r, z, p, pn, q, absr, nf, partials, record,

@@ -1,6 +1,7 @@
 // The whole general (unfused) BiCGStab loop as ONE persistent cooperative
-// kernel for Hopper, in four variants: the SpMV of a Dia or a Gdia matrix,
-// with identity or scalar Jacobi preconditioning (M^-1 = 1 or invd ⊙ ·).
+// kernel for Hopper, in six variants: the SpMV of a Dia, a Gdia or an Xell
+// matrix, with identity or scalar Jacobi preconditioning (M^-1 = 1 or
+// invd ⊙ ·).
 // Each iteration, in the order of the host loop
 // (ogl_tpu_torch/solve/bicgstab.py, the reference's ogl_tpu/solve/
 // bicgstab.py:52-111; plain twin `bicgstab_gen_loop_plain` in
@@ -28,11 +29,15 @@
 //
 // Replaces: the two Dia SpMV launches of an iteration of the reference's
 // general BiCGStab (ogl_tpu/kernels/pallas_spmv.py `_kernel`; Gdia:
-// ogl_tpu/kernels/gdia.py `_gdia_kernel`) and the elementwise passes,
+// ogl_tpu/kernels/gdia.py `_gdia_kernel`; Xell: ogl_tpu/kernels/xell.py
+// `_xell_kernel` with `_spill_corr`) and the elementwise passes,
 // reductions and `jax.lax.while_loop` around them.  The SpMV phases are the
-// standalone kernels' row bodies over source functors: dia_rows.cuh (row
-// quads; dia_spmv.cu) and gdia_k1.cuh `gdia_quad_sums` (row quads; gdia.cu);
-// the criterion, the block-order sums and the cooperative launch are
+// standalone kernels' bodies over source functors: dia_rows.cuh (row
+// quads; dia_spmv.cu), gdia_k1.cuh `gdia_quad_sums` (row quads; gdia.cu)
+// and xell_band.cuh `band_apply` (bands of 2,048 rows walked by the blocks
+// in turn, with the 59,392-byte cp.async ring as dynamic shared memory and
+// a block barrier before each band but a block's first; xell.cu); the
+// criterion, the block-order sums and the cooperative launch are
 // loop.cuh's.  The fused loop (bicgstab_loop.cu) runs another recurrence
 // (its K1B folds the direction update differently) and is not reused.
 //
@@ -51,7 +56,8 @@
 // B reads nd coefficients, r and v' and writes s and t ((nd + 4) * 4); the
 // update reads x, p', s, t and rhat and writes x and r (28): 8 * nd + 68
 // bytes, 124 at 7 diagonals; Jacobi reads invd once in each phase (+ 12).
-// Gdia: np * 5 bytes of values and lanes per SpMV phase instead of nd * 4.
+// Gdia: np * 5 bytes of values and lanes per SpMV phase instead of nd * 4;
+// Xell: K * 7 bytes of slots, and sp_ptr and 12 bytes per spill entry.
 // Besides, three grid barriers and the redundant partial sums (each block
 // reads every block's partials).
 //
@@ -84,6 +90,7 @@
 #include "dia_rows.cuh"
 #include "gdia_k1.cuh"
 #include "loop.cuh"
+#include "xell_band.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -91,7 +98,8 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kJacobi = 1;  // variant bits: scalar Jacobi preconditioning,
-constexpr int kGdia = 2;    // the Gdia SpMV (else Dia)
+constexpr int kGdia = 2;    // the Gdia SpMV,
+constexpr int kXell = 4;    // the Xell SpMV (else Dia)
 // Blocks of 512 per SM every variant is compiled for: two, at most 64
 // registers, as the fused loop (the row-quad phases keep four rows' sums and
 // two source quads in registers).
@@ -289,6 +297,54 @@ __device__ __forceinline__ void spmv_phase(const float* __restrict__ coef,
   }
 }
 
+// An SpMV phase over the Xell bands of this block (the band body of
+// xell_band.cuh; every thread of the block calls it): out = A src, with the
+// centre dir (p' or s) written to `dirout` for the band's rows below n (as
+// float4 when vec: every vector 16-byte aligned, and the quad below n); adds
+// this thread's share of rhat.out (kA) to sums[0], or of t.s and t.t to
+// sums[0] and sums[1].
+template <bool kA, class Src>
+__device__ __forceinline__ void xell_phase(const ogl::XellOperands& xm, unsigned char* ring,
+                                           const float* __restrict__ rhat, const Src& src,
+                                           float* dirout, float* out, int64_t n, int vec,
+                                           float (&sums)[2]) {
+  const int64_t bands = (n + ogl::kBandRows - 1) / ogl::kBandRows;
+  for (int64_t band = blockIdx.x; band < bands; band += gridDim.x) {
+    if (band != blockIdx.x) __syncthreads();  // the last band's ring stages are free
+    float acc[4];
+    ogl::band_apply(xm, src, n, ring, band, acc);
+    const int64_t i0 = ogl::band_row0(band);
+    if (vec && i0 + 3 < n) {
+      const int64_t u = i0 >> 2;
+      const float4 q = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      const float4 dc = src.dir4(u);
+      st4(dirout, u, dc);
+      st4(out, u, q);
+      if (kA) {
+        sums[0] += dot4(__ldg(reinterpret_cast<const float4*>(rhat) + u), q);
+      } else {
+        sums[0] += dot4(q, dc);
+        sums[1] += dot4(q, q);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t i = i0 + e;
+        if (i >= n) break;
+        const float dc = src.dir(i);
+        dirout[i] = dc;
+        out[i] = acc[e];
+        if (kA) {
+          sums[0] += __ldg(rhat + i) * acc[e];
+        } else {
+          sums[0] += acc[e] * dc;
+          sums[1] += acc[e] * acc[e];
+        }
+      }
+    }
+  }
+}
+
 // The update over this thread's rows (quads when vec, the rows past the last
 // whole quad one by one): x = (x + alpha y) + omega z, r = s - omega t with
 // y = M^-1 p', z = M^-1 s; adds ||r||_1 and rhat.r to sums.
@@ -329,15 +385,19 @@ __device__ __forceinline__ void update_phase(const float* __restrict__ invd,
   }
 }
 
+// m: the Dia or Gdia matrix (nd = 0 for Xell); xm: the Xell matrix (Xell
+// variants only; the others launch without the ring).
 template <int V>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
-    bicgstab_gen_loop_kernel(Matrix m, const int* __restrict__ offsets,
+    bicgstab_gen_loop_kernel(Matrix m, ogl::XellOperands xm, const int* __restrict__ offsets,
                              const float* __restrict__ invd, const float* __restrict__ rhat,
                              Vectors v, Scalars sc, int64_t n, int vec, ogl::Criterion c) {
   constexpr bool jacobi = (V & kJacobi) != 0;
   constexpr bool gdia = (V & kGdia) != 0;
+  constexpr bool xell = (V & kXell) != 0;
+  extern __shared__ __align__(16) unsigned char ring[];
   cg::grid_group grid = cg::this_grid();
-  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : ogl::kMaxDiags];
+  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : xell ? 1 : ogl::kMaxDiags];
   for (int k = threadIdx.x; k < m.nd; k += blockDim.x) s_off[k] = offsets[k];
   __syncthreads();
 
@@ -365,8 +425,12 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
     const float beta = sdiv(rho, rho_old) * sdiv(alpha, omega);
     const SourceA<jacobi> srca{v.r, p, vv, invd, beta, omega};
     float sums[2] = {0.0f, 0.0f};
-    spmv_phase<gdia, true, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srca, pn, vn,
-                                   n, vec, first, step, sums);
+    if constexpr (xell) {
+      xell_phase<true>(xm, ring, rhat, srca, pn, vn, n, vec, sums);
+    } else {
+      spmv_phase<gdia, true, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srca, pn,
+                                     vn, n, vec, first, step, sums);
+    }
     ogl::block_sum_to(sums[0], rv_parts);
     grid.sync();
     // 4. alpha, then SpMV B: t = A M^-1 s, s = r - alpha v'
@@ -375,8 +439,12 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
     alpha = sdiv(rho, rv[0]);
     const SourceB<jacobi> srcb{v.r, vn, invd, alpha};
     sums[0] = sums[1] = 0.0f;
-    spmv_phase<gdia, false, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srcb, v.s,
-                                    v.t, n, vec, first, step, sums);
+    if constexpr (xell) {
+      xell_phase<false>(xm, ring, rhat, srcb, v.s, v.t, n, vec, sums);
+    } else {
+      spmv_phase<gdia, false, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srcb, v.s,
+                                      v.t, n, vec, first, step, sums);
+    }
     ogl::block_sums_to<2>(sums, ts_parts);
     grid.sync();
     // 5. omega, then the update: x = (x + alpha y) + omega z, r = s - omega t
@@ -410,21 +478,71 @@ const void* loop_kernel(int variant) {
     case 1: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<1>);
     case 2: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<2>);
     case 3: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<3>);
+    case 4: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<4>);
+    case 5: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<5>);
     default: return nullptr;
   }
 }
 
+// The dynamic shared memory of `variant`'s launch: the Xell ring, set on the
+// kernel once (before its first occupancy query or launch), or none.
+int ring_of(int variant, size_t* smem) {
+  *smem = 0;
+  if ((variant & kXell) == 0) return 0;
+  static const cudaError_t err[2] = {ogl::allow_ring(loop_kernel(kXell)),
+                                     ogl::allow_ring(loop_kernel(kXell | kJacobi))};
+  *smem = ogl::kRingBytes;
+  return static_cast<int>(err[variant & kJacobi]);
+}
+
+// The checks and the launch both entry points share.
+int launch(int variant, const Matrix& m, const ogl::XellOperands& xm, const int* offsets,
+           const float* invd, const float* rhat, const Vectors& vs, const Scalars& sc,
+           int64_t n, float tol, float rel_tol, int min_iter, int max_iter, int frequency,
+           int vec, int threads, int64_t blocks, void* stream) {
+  const void* kernel = loop_kernel(variant);
+  const bool jacobi = (variant & kJacobi) != 0;
+  const bool dia = (variant & (kGdia | kXell)) == 0;
+  if (kernel == nullptr || n < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || blocks < 1 || blocks > INT32_MAX || min_iter < 0 || max_iter < 0 ||
+      frequency < 1 || max_iter > INT32_MAX - frequency || (jacobi && invd == nullptr) ||
+      rhat == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* vectors[] = {vs.x, vs.r, vs.p, vs.pn, vs.v, vs.vn, vs.s, vs.t, rhat};
+  bool bad = false;
+  for (const void* a : vectors) bad = bad || ogl::misaligned(a, 16);
+  bad = bad || (jacobi && ogl::misaligned(invd, 16));
+  if (vec && (bad || (dia && ((n & 3) != 0 || ogl::misaligned(m.coef, 16)))))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  size_t smem = 0;
+  const int ring = ring_of(variant, &smem);
+  if (ring != 0) return ring;
+  ogl::Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
+  const float* inv = jacobi ? invd : nullptr;
+  Matrix mm = m;
+  ogl::XellOperands xx = xm;
+  Vectors vv = vs;
+  Scalars ss = sc;
+  void* args[] = {&mm, &xx, &offsets, &inv, &rhat, &vv, &ss, &n, &vec, &c};
+  return ogl::coop_launch(kernel, blocks, threads, args, stream, smem);
+}
+
 }  // namespace
 
-// The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia) with
-// `threads` per block on the current device: the blocks that fit on it at
-// once (occupancy x SMs).  Fails with
-// cudaErrorNotSupported on a device without cooperative launch.
+// The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia, bit
+// 2: Xell) with `threads` per block (512 for Xell, the band body's) on the
+// current device: the blocks that fit on it at once (occupancy x SMs, with
+// the Xell ring).  Fails with cudaErrorNotSupported on a device without
+// cooperative launch.
 extern "C" int ogl_bicgstab_gen_loop_grid(int variant, int threads, int64_t* blocks) {
   const void* kernel = loop_kernel(variant);
-  if (kernel == nullptr || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+  if (kernel == nullptr || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      ((variant & kXell) && threads != ogl::kBandThreads))
     return static_cast<int>(cudaErrorInvalidValue);
-  return ogl::coop_grid(kernel, threads, blocks);
+  size_t smem = 0;
+  const int ring = ring_of(variant, &smem);
+  if (ring != 0) return ring;
+  return ogl::coop_grid(kernel, threads, blocks, smem);
 }
 
 // One cooperative launch of `blocks` blocks of `threads` on `stream`: the
@@ -450,30 +568,41 @@ extern "C" int ogl_bicgstab_gen_loop(int variant, const float* coef, const int8_
                                      float tol, float rel_tol, int min_iter, int max_iter,
                                      int frequency, int vec, int threads, int64_t blocks,
                                      void* stream) {
-  const void* kernel = loop_kernel(variant);
-  const bool jacobi = (variant & kJacobi) != 0;
   const bool gdia = (variant & kGdia) != 0;
-  if (kernel == nullptr || n < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || blocks < 1 || blocks > INT32_MAX || min_iter < 0 || max_iter < 0 ||
-      frequency < 1 || max_iter > INT32_MAX - frequency || (jacobi && invd == nullptr) ||
-      rhat == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if ((variant & kXell) != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (gdia ? (nd < 1 || nd > ogl::kGdiaMaxPlanes || lidx == nullptr || rows * 128 < n)
            : (nd < 0 || nd > ogl::kMaxDiags))
     return static_cast<int>(cudaErrorInvalidValue);
   if (gdia && (ogl::misaligned(coef, 16) || ogl::misaligned(lidx, 4)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const void* vectors[] = {x, r, p, pn, v, vn, s, t, rhat};
-  bool bad = false;
-  for (const void* a : vectors) bad = bad || ogl::misaligned(a, 16);
-  bad = bad || (jacobi && ogl::misaligned(invd, 16));
-  if (vec && (bad || (!gdia && ((n & 3) != 0 || ogl::misaligned(coef, 16)))))
+  const ogl::XellOperands none{};
+  return launch(variant, Matrix{coef, lidx, nd, rows}, none, offsets, invd, rhat,
+                Vectors{x, r, p, pn, v, vn, s, t}, Scalars{rho, absr, nf, partials, record}, n,
+                tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
+}
+
+// The same on an Xell matrix (`variant` with bit 2; threads = 512): vals,
+// ll, bbT (nt, K, 128, 128), vals and ll 16-byte aligned, bbT 4-byte
+// aligned, and the spill's row CSR (sp_ptr NULL without spill) in place of
+// the Dia or Gdia operands; vec != 0 needs every vector 16-byte aligned
+// (not n % 4 == 0).
+extern "C" int ogl_bicgstab_gen_loop_xell(int variant, const float* vals, const int8_t* ll,
+                                          const int16_t* bbT, int n_slots, int c_left,
+                                          const int* sp_ptr, const int* sp_cols,
+                                          const int* sp_gidx, const float* sp_vals,
+                                          const float* invd, const float* rhat, float* x,
+                                          float* r, float* p, float* pn, float* v, float* vn,
+                                          float* s, float* t, const float* rho,
+                                          const float* absr, const float* nf, float* partials,
+                                          float* record, int64_t n, float tol, float rel_tol,
+                                          int min_iter, int max_iter, int frequency, int vec,
+                                          int threads, int64_t blocks, void* stream) {
+  if ((variant & kXell) == 0 || threads != ogl::kBandThreads || n_slots < 1 || c_left < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ogl::misaligned(vals, 16) || ogl::misaligned(ll, 16) || ogl::misaligned(bbT, 4))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  Matrix m{coef, lidx, nd, rows};
-  Vectors vs{x, r, p, pn, v, vn, s, t};
-  Scalars sc{rho, absr, nf, partials, record};
-  ogl::Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
-  const float* inv = jacobi ? invd : nullptr;
-  void* args[] = {&m, &offsets, &inv, &rhat, &vs, &sc, &n, &vec, &c};
-  return ogl::coop_launch(kernel, blocks, threads, args, stream);
+  const ogl::XellOperands xm{vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals};
+  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, xm, nullptr, invd, rhat,
+                Vectors{x, r, p, pn, v, vn, s, t}, Scalars{rho, absr, nf, partials, record}, n,
+                tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
 }

@@ -1,5 +1,6 @@
-// What the persistent cooperative loop kernels share: the merged CG
-// (cg_loop.cu) and the merged pipelined CG (cg_pipe_loop.cu).
+// What the persistent cooperative loop kernels share (cg_loop.cu,
+// xell_cg_loop.cu, cg_pipe_loop.cu, bicgstab_loop.cu, bicgstab_gen_loop.cu,
+// amg_loop.cu).
 //   * the OpenFOAM criterion as it runs on the device (stopping.py
 //     `check_from_norm`): the minIter/frequency gating on the iteration
 //     index, the normalised residual in float32, tol and relTol as float;
@@ -85,17 +86,17 @@ inline bool misaligned(const void* a, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(a) & (bytes - 1)) != 0;
 }
 
-// The co-resident blocks of `threads` of `kernel` on the current device
-// (occupancy x SMs).  Fails with cudaErrorNotSupported on a device without
-// cooperative launch.
-inline int coop_grid(const void* kernel, int threads, int64_t* blocks) {
+// The co-resident blocks of `threads` of `kernel` with `smem` bytes of
+// dynamic shared memory on the current device (occupancy x SMs).  Fails with
+// cudaErrorNotSupported on a device without cooperative launch.
+inline int coop_grid(const void* kernel, int threads, int64_t* blocks, size_t smem = 0) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   cudaGetLastError();  // a failed query must not surface at the next launch check
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -103,14 +104,15 @@ inline int coop_grid(const void* kernel, int threads, int64_t* blocks) {
   return 0;
 }
 
-// One cooperative launch; a grid larger than the co-resident blocks is
-// refused (cudaErrorCooperativeLaunchTooLarge).  Returns the launch's error
-// code (0 = launched) and clears a refused launch's error, which would else
-// surface at the next kernel's cudaGetLastError().
+// One cooperative launch with `smem` bytes of dynamic shared memory; a grid
+// larger than the co-resident blocks is refused
+// (cudaErrorCooperativeLaunchTooLarge).  Returns the launch's error code (0 =
+// launched) and clears a refused launch's error, which would else surface at
+// the next kernel's cudaGetLastError().
 inline int coop_launch(const void* kernel, int64_t blocks, int threads, void** args,
-                       void* stream) {
+                       void* stream, size_t smem = 0) {
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel, dim3(static_cast<unsigned int>(blocks)), dim3(threads), args, 0,
+      kernel, dim3(static_cast<unsigned int>(blocks)), dim3(threads), args, smem,
       static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);

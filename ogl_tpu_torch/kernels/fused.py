@@ -51,13 +51,14 @@ criterion inside one `jax.lax.while_loop`):
   barrier, ω, KB_update (body `csrc/bicgstab_kb_update.cuh`), a grid
   barrier
 the whole general BiCGStab loop (solve/bicgstab.py, `fusedBiCGStab` false)
-on a Dia or a Gdia matrix with identity or scalar Jacobi preconditioning as
-a fourth (`bicgstab_gen_loop`; the reference runs two SpMVs, the
-elementwise passes, the reductions and the criterion inside one
-`jax.lax.while_loop`):
+on a Dia, a Gdia or (through kernels/xell.py `XellCgKernels`) an Xell
+matrix with identity or scalar Jacobi preconditioning as a fourth
+(`bicgstab_gen_loop`; the reference runs two SpMVs, the elementwise passes,
+the reductions and the criterion inside one `jax.lax.while_loop`):
   each iteration the criterion on ‖r‖₁, β, SpMV A (v' = A M⁻¹p' with p' =
   r + β·(p − ω·v) recomputed at each source; the Dia SpMV's row-quad body
-  `csrc/dia_rows.cuh`, or the Gdia one, `csrc/gdia_k1.cuh`), a grid
+  `csrc/dia_rows.cuh`, the Gdia one, `csrc/gdia_k1.cuh`, or the Xell band
+  body, `csrc/xell_band.cuh`), a grid
   barrier, α, SpMV B (t = A M⁻¹s, s = r − α·v'), a grid barrier, ω, the
   update of x and r, a grid barrier
 and the AMG smoother's two passes, each one stencil apply:
@@ -120,8 +121,8 @@ from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             persistent_launch, require_cuda, sm_count,
                                             stream_of)
 
-__all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "k1_plain", "k2_plain",
-           "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
+__all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "LOOP_XELL", "k1_plain",
+           "k2_plain", "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
            "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "bicgstab_loop_plain",
            "gen_check_sums", "gen_phase_a_plain", "gen_phase_b_plain", "gen_update_plain",
            "bicgstab_gen_loop_plain", "ksweep_plain", "kresid_plain", "SMOOTHER_DTYPES"]
@@ -135,8 +136,9 @@ K2_BLOCKS_PER_SM = 64
 # bicgstab_loop.cu kMaxThreads)
 LOOP_THREADS = 512
 # the loop kernels' variant bits (csrc/cg_loop.cu, bicgstab_gen_loop.cu;
-# cg_pipe_loop.cu takes the first): scalar Jacobi, the Gdia apply
-LOOP_JACOBI, LOOP_GDIA = 1, 2
+# cg_pipe_loop.cu and xell_cg_loop.cu take the first): scalar Jacobi, the
+# Gdia apply, the Xell apply (bicgstab_gen_loop.cu)
+LOOP_JACOBI, LOOP_GDIA, LOOP_XELL = 1, 2, 4
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
 

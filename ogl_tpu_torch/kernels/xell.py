@@ -1,7 +1,11 @@
 """Xell — crossed-gather ELL for fully unstructured sparsity: the
 container, its host packing, the CUDA C++ kernels `csrc/xell.cu` (SpMV and
-merged-CG K1, both with the spill tail in-kernel) and their plain PyTorch
-twins, and the merged-CG plan `XellCgKernels`.
+merged-CG K1, both with the spill tail in-kernel, over the band body
+`csrc/xell_band.cuh`) and their plain PyTorch twins, and the merged-CG plan
+`XellCgKernels`, whose whole CG loop with identity or scalar Jacobi
+preconditioning is one launch of `csrc/xell_cg_loop.cu` on the card, and
+whose general-BiCGStab loop one launch of `csrc/bicgstab_gen_loop.cu`'s Xell
+variants.
 
 Counterpart: ogl_tpu/kernels/xell.py (`Xell`, `XellLayout`,
 `xell_layout`, `xell_from_coo`, `xell_to_coo`, `spmv_xell`, `xell_matvec`,
@@ -32,14 +36,21 @@ reference's per-tile `SpillTables` and one-hot MXU matmuls, which are TPU
 mechanics; the MXU transposes of the crossed gather are too: the GPU
 gathers x[col] directly.
 
+Both kernels, and the loop's K1 phase, walk bands of BAND_ROWS destination
+rows (16 consecutive block rows t of one tile): the standalone kernels one
+block per band (`band_grid`), the loop kernel bands block, block + blocks,
+... on its co-resident grid (`band_walk`).
+
 Dispatch, as for every wrapper of the port: CPU tensors run the plain
 version; CUDA tensors launch the kernel or raise.  Each launch counts in
-`ogl_tpu_torch.kernels.launches` (`xell_spmv`, `xell_k1`).
+`ogl_tpu_torch.kernels.launches` (`xell_spmv`, `xell_k1`, `xell_cg_loop`,
+`bicgstab_gen_loop`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -48,18 +59,18 @@ import torch
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.core.formats import Coo
 from ogl_tpu_torch.kernels import _build
-from ogl_tpu_torch.kernels.dia_spmv import (THREADS, check_scalar, on_cpu, require_cuda,
-                                            stream_of)
-from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.kernels.dia_spmv import check_scalar, on_cpu, require_cuda, stream_of
+from ogl_tpu_torch.kernels.fused import (LOOP_JACOBI, LOOP_THREADS, LOOP_XELL, CgKernels,
+                                         _read_record, bicgstab_gen_loop_plain, cg_loop_plain)
 
 LANES = 128
 TB = 128  # block rows per destination tile
-BAND_ROWS = 16 * LANES  # destination rows per block of the SpMV kernel
+BAND_ROWS = 16 * LANES  # destination rows of a band (csrc/xell_band.cuh kBandRows)
 
 __all__ = ["Xell", "XellLayout", "SpillCsr", "XellPlan", "XellCgKernels",
            "xell_layout", "xell_from_coo", "xell_to_coo", "spill_csr",
            "xell_spmv_plain", "xell_k1_plain", "xell_spmv", "xell_k1",
-           "xell_matvec", "spmv_xell", "band_grid"]
+           "xell_matvec", "spmv_xell", "band_grid", "band_origin", "band_walk"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,9 +404,23 @@ def _spill_args(plan: XellPlan, spill_vals) -> tuple:
 
 
 def band_grid(n: int) -> int:
-    """Blocks of the SpMV kernel: one per band of BAND_ROWS destination rows
-    (16 consecutive block rows t of one tile), the last one ragged."""
+    """Bands of an n-row matrix, and blocks of the standalone SpMV and K1:
+    one per band of BAND_ROWS destination rows (16 consecutive block rows t
+    of one tile), the last one ragged."""
     return -(-n // BAND_ROWS)
+
+
+def band_origin(band: int) -> tuple[int, int]:
+    """(tile, first block row t0 within it) of `band`, as the band body
+    decodes it (csrc/xell_band.cuh `band_apply`); its rows are
+    (tile·TB + t0)·LANES + [0, BAND_ROWS) = band·BAND_ROWS + [0, BAND_ROWS)."""
+    return band >> 3, (band & 7) * (BAND_ROWS // LANES)
+
+
+def band_walk(block: int, blocks: int, n: int) -> range:
+    """The bands block `block` of a grid of `blocks` walks in the loop
+    kernel's K1 phase (csrc/xell_cg_loop.cu), in order."""
+    return range(block, band_grid(n), blocks)
 
 
 def xell_spmv(plan: XellPlan, vals, ll, bbT, spill_vals, x):
@@ -425,12 +450,13 @@ def xell_k1(plan: XellPlan, vals, ll, bbT, spill_vals, z, p, beta):
     lib = _build.library()
     pout = torch.empty_like(p)
     q = torch.empty_like(p)
-    grid = -(-plan.n // THREADS)
-    partials = torch.empty(grid, dtype=torch.float32, device=plan.device)
+    bands = band_grid(plan.n)
+    partials = torch.empty(bands, dtype=torch.float32, device=plan.device)
+    vec = int(all(t.data_ptr() % 16 == 0 for t in (z, p, pout, q)))
     _build.check(lib.ogl_xell_k1(
         vals.data_ptr(), ll.data_ptr(), bbT.data_ptr(), plan.n_slots, plan.c_left,
         *_spill_args(plan, spill_vals), z.data_ptr(), p.data_ptr(), beta.data_ptr(),
-        pout.data_ptr(), q.data_ptr(), partials.data_ptr(), plan.n, THREADS, grid,
+        pout.data_ptr(), q.data_ptr(), partials.data_ptr(), plan.n, vec, bands,
         stream_of(z)), "xell_k1")
     kernels.launches["xell_k1"] += 1
     return pout, q, torch.sum(partials)
@@ -448,8 +474,11 @@ class XellCgKernels:
     """Merged-CG steps for one Xell sparsity on one device: K1 is the Xell
     kernel with the spill in-kernel (so q and δ include it); K2, K2i and
     K2n are the structure-free kernels of a CgKernels delegate, as
-    the reference delegates them.  Vectors are flat (n,): the reference's
-    `frame`/`unframe` are dropped."""
+    the reference delegates them; the whole CG loop with identity or
+    scalar Jacobi preconditioning is one launch of `csrc/xell_cg_loop.cu`
+    (`cg_loop`), the general BiCGStab's one launch of
+    `csrc/bicgstab_gen_loop.cu` (`bicgstab_gen_loop`).  Vectors are flat
+    (n,): the reference's `frame`/`unframe` are dropped."""
 
     def __init__(self, plan: XellPlan):
         self.plan = plan
@@ -459,6 +488,8 @@ class XellCgKernels:
         self.offsets = ()  # no stencil
         self._d = CgKernels(plan.n, (), plan.device)
         self._zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        self._loop_blocks: dict = {}
+        self._gen_loop_blocks: dict = {}
 
     @classmethod
     def for_matrix(cls, mat: Xell) -> "XellCgKernels":
@@ -474,6 +505,9 @@ class XellCgKernels:
     def k1(self, data, z, p, beta):
         return xell_k1(self.plan, *data, z, p, beta)
 
+    def spmv(self, data, x):
+        return xell_spmv(self.plan, *data, x)
+
     def apply(self, data, x):
         """Plain y = A x through K1 (z = p = x, β = 0)."""
         _, q, _ = self.k1(data, x, x, self._zero)
@@ -487,3 +521,93 @@ class XellCgKernels:
 
     def k2n(self, alpha, x, r, p, q):
         return self._d.k2n(alpha, x, r, p, q)
+
+    # ---- the whole merged CG loop (CUDA C++) -----------------------------
+    def loop_blocks(self, variant: int = 0) -> int:
+        """The co-resident blocks of LOOP_THREADS of the Xell loop kernel's
+        `variant` (0 or LOOP_JACOBI) with its shared-memory ring on this
+        plan's card (occupancy × SMs), queried once per variant; raises on
+        a card without cooperative launch."""
+        return self._d._coop_blocks("xell_cg_loop", self._loop_blocks, variant)
+
+    def cg_loop(self, data, x, r, rho, absr, nf, cfg, invd=None, z=None):
+        """The merged CG loop from the set-up's state (solve/cg_fused.py), as
+        CgKernels.cg_loop: x and r (and, with Jacobi, z = invd ⊙ r), updated
+        in place; ρ = Σ r·z (Σ r·r with identity: invd and z None), ‖r‖₁ and
+        the norm factor as 0-d tensors; cfg the StoppingParams.  One
+        cooperative launch on the card (csrc/xell_cg_loop.cu), then one host
+        read of its record; CPU tensors run the twin `cg_loop_plain` over
+        this plan's K1.  Returns (iterations, final and initial normalised
+        residual, converged) — an int and three 0-d tensors (CPU tensors
+        from the card's record)."""
+        if (invd is None) != (z is None):
+            raise ValueError("cg_loop: invd and z come together (Jacobi) or not at all")
+        if on_cpu(*data, x, r, rho, absr, nf, invd, z):
+            return cg_loop_plain(functools.partial(self.k1, data), x, r, rho, absr, nf, cfg,
+                                 invd, z)
+        require_cuda("xell_cg_loop", x)
+        jacobi = invd is not None
+        vectors = (x, r, z, invd) if jacobi else (x, r)
+        vals, ll, bbT, spill_vals = data
+        _check(self.plan, vals, ll, bbT, spill_vals, *vectors)
+        for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
+            check_scalar(what, sc, self.device)
+        variant = LOOP_JACOBI if jacobi else 0
+        blocks = min(self.loop_blocks(variant), -(-self.n // LOOP_THREADS))
+        p, pn, q = torch.zeros_like(x), torch.empty_like(x), torch.empty_like(x)
+        partials = torch.empty(3 * blocks, dtype=torch.float32, device=self.device)
+        record = torch.empty(4, dtype=torch.float32, device=self.device)
+        vec = int(self.n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                          for t in (*vectors, p, pn, q)))
+        _build.check(_build.library().ogl_xell_cg_loop(
+            variant, vals.data_ptr(), ll.data_ptr(), bbT.data_ptr(), self.plan.n_slots,
+            self.plan.c_left, *_spill_args(self.plan, spill_vals), x.data_ptr(), r.data_ptr(),
+            z.data_ptr() if jacobi else None, invd.data_ptr() if jacobi else None,
+            p.data_ptr(), pn.data_ptr(), q.data_ptr(), rho.data_ptr(), absr.data_ptr(),
+            nf.data_ptr(), partials.data_ptr(), record.data_ptr(), self.n, cfg.tolerance,
+            cfg.rel_tol, cfg.min_iter, cfg.max_iter, cfg.frequency, vec, LOOP_THREADS, blocks,
+            stream_of(x)), "xell_cg_loop")
+        kernels.launches["xell_cg_loop"] += 1
+        return _read_record(record)
+
+    # ---- the general BiCGStab: the whole loop (CUDA C++) ------------------
+    def gen_loop_blocks(self, variant: int = LOOP_XELL) -> int:
+        """loop_blocks for the general-BiCGStab loop kernel's Xell variants
+        (LOOP_XELL, with LOOP_JACOBI or not)."""
+        return self._d._coop_blocks("bicgstab_gen_loop", self._gen_loop_blocks, variant)
+
+    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None):
+        """The general BiCGStab loop of solve/bicgstab.py, as
+        CgKernels.bicgstab_gen_loop: one cooperative launch of the loop
+        kernel's Xell variant on the card (its two SpMV phases the band body
+        over this plan), then one host read of its record; CPU tensors run
+        the twin `bicgstab_gen_loop_plain` over this plan's SpMV."""
+        if on_cpu(*data, x, r, rhat, rho, absr, nf, invd):
+            from ogl_tpu_torch.solve.krylov import single_device_ops  # solve imports this module
+            ops = single_device_ops(functools.partial(self.spmv, data), self.n,
+                                    precond=None if invd is None else (lambda w: invd * w))
+            return bicgstab_gen_loop_plain(ops, x, r, rhat, rho, absr, nf, cfg)
+        require_cuda("bicgstab_gen_loop", x)
+        jacobi = invd is not None
+        vectors = (x, r, rhat, invd) if jacobi else (x, r, rhat)
+        vals, ll, bbT, spill_vals = data
+        _check(self.plan, vals, ll, bbT, spill_vals, *vectors)
+        for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
+            check_scalar(what, sc, self.device)
+        variant = LOOP_XELL | (LOOP_JACOBI if jacobi else 0)
+        blocks = min(self.gen_loop_blocks(variant), -(-self.n // LOOP_THREADS))
+        p, v = torch.zeros_like(x), torch.zeros_like(x)
+        pn, vn, s, t = (torch.empty_like(x) for _ in range(4))
+        partials = torch.empty(5 * blocks, dtype=torch.float32, device=self.device)
+        record = torch.empty(4, dtype=torch.float32, device=self.device)
+        vec = int(all(u.data_ptr() % 16 == 0 for u in (*vectors, p, pn, v, vn, s, t)))
+        _build.check(_build.library().ogl_bicgstab_gen_loop_xell(
+            variant, vals.data_ptr(), ll.data_ptr(), bbT.data_ptr(), self.plan.n_slots,
+            self.plan.c_left, *_spill_args(self.plan, spill_vals),
+            invd.data_ptr() if jacobi else None, rhat.data_ptr(), x.data_ptr(), r.data_ptr(),
+            p.data_ptr(), pn.data_ptr(), v.data_ptr(), vn.data_ptr(), s.data_ptr(), t.data_ptr(),
+            rho.data_ptr(), absr.data_ptr(), nf.data_ptr(), partials.data_ptr(),
+            record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter, cfg.max_iter,
+            cfg.frequency, vec, LOOP_THREADS, blocks, stream_of(x)), "bicgstab_gen_loop")
+        kernels.launches["bicgstab_gen_loop"] += 1
+        return _read_record(record)

@@ -13,14 +13,14 @@ r, then [<r̂,v>] after the first SpMV, then [<t,s>, <t,t>] after the second.
 The norm factor is computed once before the loop, so the criterion rides
 the grouped ‖r‖₁ (stopping.check_from_norm).
 
-Where the matrix is Dia or Gdia and the preconditioner `none` or scalar
-`BJ` (`why_not` None), the solver passes the format's plan: with the plan
-itself (CgKernels or GdiaCgKernels, not a subclass that overrides a step)
-on CUDA tensors the whole loop, criterion included, is one launch of the
-plan's `bicgstab_gen_loop` (csrc/bicgstab_gen_loop.cu, whose two SpMV phases
-are the format's SpMV row body).  A refused launch raises; there is no
-fallback to the host loop.  Everything else (the CPU, Xell, Multigrid, a
-subclassed plan) runs the host loop, `bicgstab_gen_loop_plain`
+Where the matrix is Dia, Gdia or Xell and the preconditioner `none` or
+scalar `BJ` (`why_not` None), the solver passes the format's plan: with the
+plan itself (CgKernels, GdiaCgKernels or XellCgKernels, not a subclass that
+overrides a step) on CUDA tensors the whole loop, criterion included, is
+one launch of the plan's `bicgstab_gen_loop` (csrc/bicgstab_gen_loop.cu,
+whose two SpMV phases are the format's SpMV body).  A refused launch
+raises; there is no fallback to the host loop.  Everything else (the CPU,
+Multigrid, a subclassed plan) runs the host loop, `bicgstab_gen_loop_plain`
 (kernels/fused.py), which is also the loop kernel's plain twin: host
 integers for the count and the gating, 0-d device tensors for ρ, α, ω and
 the sums, one bool read per checked iteration.  The check is at the top of
@@ -37,6 +37,7 @@ from ogl_tpu_torch.core.formats import Dia
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_gen_loop_plain,
                                          gen_check_sums)
 from ogl_tpu_torch.kernels.gdia import Gdia
+from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import SolveResult
 from ogl_tpu_torch.solve.krylov import Ops
@@ -48,7 +49,7 @@ def why_not(mat, precond_name: str) -> str | None:
     """Why the general BiCGStab keeps the host loop on the matrix `mat` with
     the preconditioner named `precond_name`, or None when the loop kernel
     takes the solve (the caller then passes the format's plan)."""
-    if not isinstance(mat, (Dia, Gdia)):
+    if not isinstance(mat, (Dia, Gdia, Xell)):
         return f"the {type(mat).__name__} format (no loop kernel)"
     if precond_name not in ("none", "BJ"):
         return f"preconditioner {precond_name}"
@@ -71,7 +72,7 @@ def bicgstab(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None) -> SolveResu
     nf = stopping.initial_norm_factor(ops, r, x, b)
     absr, rho = gen_check_sums(ops, r, r_hat)
     # the exact types: subclasses that override a step keep the host loop
-    if type(kern) in (CgKernels, GdiaCgKernels) and b.device.type == "cuda":
+    if type(kern) in (CgKernels, GdiaCgKernels, XellCgKernels) and b.device.type == "cuda":
         rec = kern.bicgstab_gen_loop(data, x, r, r_hat, rho, absr, nf, cfg, invd)
     else:
         rec = bicgstab_gen_loop_plain(ops, x, r, r_hat, rho, absr, nf, cfg)

@@ -9,17 +9,20 @@ cycle) maps r to z, and each iteration runs K1, then K2n (x, r and ‖r‖₁
 only), then z = precond(r) and ρ = Σ r·z (the reference's
 `precond_framed` route, which the port runs on flat vectors).
 
-With identity or scalar Jacobi preconditioning on a Dia or a Gdia matrix
-on the card the whole loop, criterion included, is one persistent kernel
-(`CgKernels.cg_loop`, csrc/cg_loop.cu): one launch per solve and one host
-read of its record, as the reference runs the loop as one device program.
-So is the AMG-preconditioned loop on a Dia matrix on the card when the
-hierarchy qualifies (kernels/amg_loop.py `takes_loop`: cycle v, grid or
-natural transfers, a dense coarse inverse): K1, K2n and the V-cycle are
-the phases of `amg_cg_loop` (csrc/amg_loop.cu), whose set-up's z = M r₀
-runs inside the launch too.  Every other case — the CPU, a hierarchy that
-keeps the host cycle, the Xell plan — loops on the host.  The iteration counter and the minIter/frequency gating are then
-host integers; α, β, ρ, δ, ‖r‖₁ and the normalised residual stay 0-d
+With identity or scalar Jacobi preconditioning on a Dia, a Gdia or an
+Xell matrix on the card the whole loop, criterion included, is one
+persistent kernel (`CgKernels.cg_loop`, csrc/cg_loop.cu; Xell:
+`XellCgKernels.cg_loop`, csrc/xell_cg_loop.cu, its K1 phase the Xell band
+body): one launch per solve and one host read of its record, as the
+reference runs the loop as one device program.  So is the
+AMG-preconditioned loop on a Dia matrix on the card when the hierarchy
+qualifies (kernels/amg_loop.py `takes_loop`: cycle v, grid or natural
+transfers, a dense coarse inverse): K1, K2n and the V-cycle are the phases
+of `amg_cg_loop` (csrc/amg_loop.cu), whose set-up's z = M r₀ runs inside
+the launch too.  Every other case — the CPU, a hierarchy that keeps the
+host cycle, a plan that subclasses one of these to override a step —
+loops on the host.  The iteration counter and the minIter/frequency gating
+are then host integers; α, β, ρ, δ, ‖r‖₁ and the normalised residual stay 0-d
 device tensors; the host reads one bool per checked iteration.  When that
 bool says converged the loop breaks before K1/K2, which yields exactly the
 iterate and count of the reference's branchless α = 0 freeze (its x and r
@@ -36,6 +39,7 @@ import torch
 
 from ogl_tpu_torch.kernels import amg_loop
 from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
+from ogl_tpu_torch.kernels.xell import XellCgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import SolveResult
 
@@ -75,7 +79,8 @@ def cg_fused(kern: CgKernels, data, b, x0, cfg, invd=None, precond=None) -> Solv
     absr = torch.sum(torch.abs(r))
     nf = merged_norm_factor(kern, data, r, x, b)
     # the exact type: subclasses that override a step keep the host loop
-    if precond is None and type(kern) in (CgKernels, GdiaCgKernels) and b.device.type == "cuda":
+    if (precond is None and type(kern) in (CgKernels, GdiaCgKernels, XellCgKernels)
+            and b.device.type == "cuda"):
         iters, rn, init_rn, converged = kern.cg_loop(data, x, r, rho, absr, nf, cfg, invd=invd,
                                                      z=None if identity else z)
         return SolveResult(x=x, iters=iters, init_res_norm=init_rn, final_res_norm=rn,

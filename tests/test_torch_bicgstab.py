@@ -246,8 +246,8 @@ def _controls(pc, **extra):
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_foam_bicgstab_matches_reference(mesh, pc):
     """The general BiCGStab over each format's SpMV (the reference runs the
-    same loop on the CPU); on Dia and Gdia the solver keeps the plan of the
-    loop kernel, whose CPU twin is that loop."""
+    same loop on the CPU); the solver keeps the plan of the loop kernel,
+    whose CPU twin is that loop."""
     fmt = mesh.split("-")[0]
     m = MESHES[mesh]()
     b = _rhs(m.n)
@@ -258,8 +258,9 @@ def test_foam_bicgstab_matches_reference(mesh, pc):
     slv = registry.global_registry.get("p_solver")
     assert sum(kernels.launches.values()) == 0  # CPU: plain versions only
     assert slv.route == "bicgstab"
-    # Dia and Gdia keep a plan for the loop kernel; Xell keeps the host loop
-    assert (slv.kern is None) == (fmt == "Xell")
+    # every format keeps a plan for the loop kernel (on the CPU: its twin)
+    assert type(slv.kern).__name__ == {"Dia": "CgKernels", "Gdia": "GdiaCgKernels",
+                                       "Xell": "XellCgKernels"}[fmt]
     assert perf.solver_name == perf_ref.solver_name == f"GKOBiCGStab_{fmt}"
     assert perf.converged and perf_ref.converged and perf.final_residual < 1e-6
     assert abs(perf.n_iterations - perf_ref.n_iterations) <= 1

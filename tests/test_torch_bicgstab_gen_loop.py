@@ -280,7 +280,8 @@ def test_foam_dispatch_runs_the_twin(mesh, pc, monkeypatch):
 
 
 def test_why_not_names_the_cases_that_keep_the_host_loop():
-    """Xell and Multigrid keep the host loop: why_not names them, and
+    """Multigrid and a format without a loop kernel keep the host loop:
+    why_not names them (Dia, Gdia and Xell take the loop kernel), and
     foam.solve keeps no plan and still solves."""
     m = testing.poisson_ldu(DIMS)
     _, dia, _, _, _ = _system("poisson", "Dia")
@@ -288,7 +289,8 @@ def test_why_not_names_the_cases_that_keep_the_host_loop():
     assert why_not(dia, "none") is None and why_not(gd, "BJ") is None
     c = formats.Coo(rows=np.array([0, 1]), cols=np.array([0, 1]),
                     vals=np.ones(2, np.float32), shape=(2, 2))
-    assert "Xell" in why_not(xell_from_coo(c), "none")
+    assert why_not(xell_from_coo(c), "none") is None
+    assert "Coo" in why_not(c, "none")
     assert "Multigrid" in why_not(dia, "Multigrid")
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
     slv = foam.FoamSolver("u", {"solver": "GKOBiCGStab", "executor": "cpu", "tolerance": 1e-6,

@@ -256,11 +256,11 @@ def _loop_state(kern, data, b, invd=None):
             merged_norm_factor(kern, data, r, x, b)), z
 
 
-def _check_loop(kern, data, b, invd, plain_k1, k1_counter, mv64):
+def _check_loop(kern, data, b, invd, plain_k1, k1_counter, mv64, loop_counter="cg_loop"):
     """The loop kernel against its plain twin (over `plain_k1`) pinned at 30
     iterations and free-running to LOOP_TOL: three launches repeat their
-    count and iterate exactly; each launches the loop once and `k1_counter`
-    twice (the set-up's r0 and norm factor), nothing else."""
+    count and iterate exactly; each launches the loop (`loop_counter`) once
+    and `k1_counter` twice (the set-up's r0 and norm factor), nothing else."""
     free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
                                    max_iter=2000, frequency=1)
     pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=30, max_iter=30,
@@ -275,7 +275,7 @@ def _check_loop(kern, data, b, invd, plain_k1, k1_counter, mv64):
             runs.append((x, *kern.cg_loop(data, x, *state, cfg, invd=invd, z=z)))
             torch.cuda.synchronize()
             # one loop launch; K1 only for the set-up's two applies
-            assert kernels.launches["cg_loop"] == 1 and kernels.launches[k1_counter] == 2
+            assert kernels.launches[loop_counter] == 1 and kernels.launches[k1_counter] == 2
             assert sum(kernels.launches.values()) == 3
         x, it, rn, _, conv = runs[0]
         assert all(run[1] == it and torch.equal(run[0], x) for run in runs[1:])
@@ -841,8 +841,177 @@ def test_xell_spmv_edges_match_plain(dev, name):
     torch.cuda.synchronize()
     assert kernels.launches["xell_spmv"] == 1 and y.shape == (n,)
     _close(y, xell.xell_spmv_plain(plan, *data, x))
-    # the K1 kernel (one thread per row) computes the same product at beta 0
+    # the band K1 computes the same product at beta 0
     _close(xell.XellCgKernels(plan).apply(data, x), y)
+
+
+# ---- the Xell K1 in bands and the Xell CG loop ----------------------------
+
+
+# the band K1's matrices: the kNN mesh over two tiles (c_left > 0, the last
+# band ragged; spill 0.2% and 8%), XELL_EDGE_CASES' graphs (below one band
+# with n % 4 = 1; four tiles with spill rows at band edges; no spill, K
+# above the ring), and the shuffled grid at 655,360 rows (320 bands)
+XELL_BAND_CASES = {
+    "knn": lambda: (_knn_coo(20000), {}),
+    "knn_spill_high": lambda: (_knn_coo(20000), {"spill_frac": 0.08}),
+    "short": lambda: (_xell_graph(*XELL_EDGE_CASES["short"][:2]), {}),
+    "tiles": lambda: (_xell_graph(*XELL_EDGE_CASES["tiles"][:2]), {}),
+    "tiles_nospill": lambda: (_xell_graph(*XELL_EDGE_CASES["tiles_nospill"][:2]),
+                              XELL_EDGE_CASES["tiles_nospill"][2]),
+    "shuffled": lambda: (ldu.ldu_to_coo_host(testing.shuffled_poisson_ldu((128, 128, 40)),
+                                             dtype=np.float32), {}),
+}
+# the Xell loops' matrices: the kNN mesh (SPD) over two tiles with spill 0.2%
+# and 8% and without spill, over four tiles (n = 1 mod 128, n % 4 = 1) and
+# below one band (n % 4 = 1), and the shuffled grid (more bands than the
+# loops' co-resident blocks).  XELL_EDGE_CASES' graphs made SPD are unfit:
+# their hub rows make the twins alone move x by 2e-4 (CG, 30 iterations) and
+# 2e-2 (BiCGStab `none`, 10 iterations) when b moves by one ulp
+XELL_LOOP_CASES = {
+    "knn": XELL_BAND_CASES["knn"],
+    "knn_spill_high": XELL_BAND_CASES["knn_spill_high"],
+    "knn_nospill": lambda: (_knn_coo(20000), {"spill_frac": 0.0}),
+    "knn_tiles": lambda: (_knn_coo(3 * 16384 + 129), {}),
+    "knn_short": lambda: (_knn_coo(1921), {}),
+    "shuffled": XELL_BAND_CASES["shuffled"],
+}
+
+
+def _xell_band_case(name, dev, cases=XELL_BAND_CASES):
+    """(matrix on `dev`, its diagonal on `dev`) of cases[name]."""
+    coo, pack = cases[name]()
+    mat = xell.xell_from_coo(coo, device=dev, **pack)
+    on = np.asarray(coo.rows) == np.asarray(coo.cols)
+    diag = np.zeros(coo.shape[0], np.float32)
+    diag[np.asarray(coo.rows)[on]] = np.asarray(coo.vals)[on]
+    return mat, torch.tensor(diag, device=dev)
+
+
+def _cpu_plan(plan):
+    """The same XellPlan with its spill CSR on the CPU (the twins' CPU run)."""
+    sp = plan.spill
+    return xell.XellPlan(plan.n, plan.n_tiles, plan.n_slots, plan.c_left,
+                         xell.SpillCsr(*(t.cpu() for t in (sp.row_ptr, sp.rows, sp.cols,
+                                                           sp.gidx))))
+
+
+@pytest.mark.parametrize("alias", [False, True], ids=["z,p", "z is p"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("name", list(XELL_BAND_CASES))
+def test_xell_k1_bands_match_plain_on_cpu_copies(dev, name, offset, alias):
+    """The band K1 (and the SpMV over the same band body) against their plain
+    twins run on CPU copies of the same tensors: p', q and y bit-equal (every
+    product and sum rounded as the twins' ops round, the spill added in row
+    order as the CPU's index_add adds it), δ within the block sums' rtol.
+    offset 1: z and p 4 bytes off 16-byte alignment (the row-by-row store);
+    z is p: the two sources alias (XellCgKernels.apply)."""
+    mat, _ = _xell_band_case(name, dev)
+    plan, n = xell.XellPlan.of(mat), mat.shape[0]
+    if name.startswith("knn"):
+        assert mat.c_left > 0 and n % xell.BAND_ROWS and mat.spill.vals.shape[0] > 0
+    data = (mat.vals, mat.ll, mat.bbT, mat.spill.vals)
+    z = _vec(n + 1, 3, dev)[offset:offset + n]
+    p = z if alias else _vec(n + 1, 4, dev)[offset:offset + n]
+    beta = torch.tensor(0.37, device=dev)
+    kernels.reset_launches()
+    pw, q, delta = xell.xell_k1(plan, *data, z, p, beta)
+    y = xell.xell_spmv(plan, *data, z.contiguous())
+    torch.cuda.synchronize()
+    assert kernels.launches["xell_k1"] == 1 and kernels.launches["xell_spmv"] == 1
+    cpu = _cpu_plan(plan)
+    host = tuple(t.cpu() for t in data)
+    pw2, q2, d2 = xell.xell_k1_plain(cpu, *host, z.cpu(), p.cpu(), beta.cpu())
+    assert torch.equal(pw.cpu(), pw2) and torch.equal(q.cpu(), q2)
+    torch.testing.assert_close(delta.cpu(), d2, rtol=1e-4, atol=1e-4 * float(d2.abs()))
+    assert torch.equal(y.cpu(), xell.xell_spmv_plain(cpu, *host, z.cpu()))
+
+
+def _xell_loop_setup(name, pc, dev):
+    mat, diag = _xell_band_case(name, dev, XELL_LOOP_CASES)
+    kern = xell.XellCgKernels.for_matrix(mat)
+    data = kern.pack_values(mat)
+    return kern, data, _vec(kern.n, 11, dev), (1.0 / diag if pc == "BJ" else None)
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("name", list(XELL_LOOP_CASES))
+def test_xell_cg_loop_matches_plain(dev, name, pc):
+    """The Xell loop kernel against cg_loop_plain over the plain K1, pinned
+    and free-running (_check_loop): one xell_cg_loop launch per solve, the
+    band K1 twice for the set-up."""
+    kern, data, b, invd = _xell_loop_setup(name, pc, dev)
+    plain_k1 = functools.partial(xell.xell_k1_plain, kern.plan, *data)
+    _check_loop(kern, data, b, invd, plain_k1, "xell_k1",
+                lambda v: xell.xell_spmv_plain(kern.plan, *data, v), loop_counter="xell_cg_loop")
+
+
+def test_cg_fused_takes_the_xell_loop_on_the_card(dev):
+    """cg_fused routes identity and Jacobi on an Xell plan to the one launch;
+    a plan that is not XellCgKernels itself keeps the host loop over the
+    band K1 and K2i."""
+    kern, data, b, invd = _xell_loop_setup("knn", "BJ", dev)
+    cfg = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0,
+                                  max_iter=1000, frequency=1)
+    runs = {}
+    for pc, iv in (("none", None), ("BJ", invd)):
+        kernels.reset_launches()
+        runs[pc] = cg_fused(kern, data, b, torch.zeros_like(b), cfg, invd=iv)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.launches.items() if v} == {"xell_cg_loop": 1,
+                                                                    "xell_k1": 2}
+        assert runs[pc].iters > 0 and bool(runs[pc].converged)
+        assert runs[pc].final_res_norm.device.type == "cpu"
+
+    class HostLoop(xell.XellCgKernels):
+        pass
+
+    kernels.reset_launches()
+    res_h = cg_fused(HostLoop(kern.plan), data, b, torch.zeros_like(b), cfg)
+    assert kernels.launches["xell_cg_loop"] == 0 and kernels.launches["cg_k2i"] == res_h.iters
+    assert abs(res_h.iters - runs["none"].iters) <= 1
+    torch.testing.assert_close(res_h.x, runs["none"].x, rtol=0, atol=1e-3)
+
+
+def test_xell_cg_loop_grid_and_refused_launch(dev):
+    """The occupancy query (with the ring) gives a grid the cooperative launch
+    accepts, here walking 320 bands on fewer blocks; four times that grid is
+    refused: the wrapper raises, counts nothing, leaves no error behind, and
+    the next launch is unaffected."""
+    kern, data, b, _ = _xell_loop_setup("shuffled", "none", dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=5,
+                                  frequency=1)
+    co_resident = kern.loop_blocks(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert co_resident % sms == 0 and 0 < co_resident < xell.band_grid(kern.n)
+    (x, *state), _ = _loop_state(kern, data, b)
+    assert kern.cg_loop(data, x, *state, cfg)[0] == 5
+    kern._loop_blocks[0] = 4 * co_resident
+    kernels.reset_launches()
+    (x, *state), _ = _loop_state(kern, data, b)
+    with pytest.raises(RuntimeError, match="xell_cg_loop: CUDA error"):
+        kern.cg_loop(data, x, *state, cfg)
+    assert kernels.launches["xell_cg_loop"] == 0
+    torch.cuda.synchronize()
+    kern._loop_blocks[0] = co_resident
+    assert kern.cg_loop(data, x, *state, cfg)[0] == 5
+
+
+def test_xell_cg_loop_raises_on_bad_operands(dev):
+    kern, data, b, invd = _xell_loop_setup("knn_short", "BJ", dev)
+    (x, *state), z = _loop_state(kern, data, b, invd)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=2,
+                                  frequency=1)
+    with pytest.raises(TypeError, match="float32"):
+        kern.cg_loop(data, x, *state, cfg, invd=invd.double(), z=z)
+    with pytest.raises(ValueError, match="shape"):
+        kern.cg_loop(data, x, *state, cfg, invd=invd, z=z[:-1].clone())
+    with pytest.raises(TypeError, match="0-d float32"):
+        kern.cg_loop(data, x, state[0], 1.0, state[2], state[3], cfg)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kern.cg_loop(data, x.cpu(), *state, cfg)
+    with pytest.raises(ValueError, match="invd and z"):
+        kern.cg_loop(data, x, *state, cfg, invd=invd)
 
 
 def test_unstructured_wrappers_raise_on_bad_operands(dev):
@@ -872,7 +1041,7 @@ def test_unstructured_wrappers_raise_on_bad_operands(dev):
 def test_foam_unstructured_on_card_matches_cpu(dev, fmt):
     """Auto-routing on the card: the shuffled grid takes Gdia (with BJ), the
     kNN graph at 32,768 cells Xell (with none); each launches its format's
-    kernels."""
+    kernels and runs its loop as one launch."""
     if fmt == "Gdia":
         m, pc = testing.shuffled_poisson_ldu((32, 32, 16)), {"preconditioner": "BJ"}
     else:
@@ -890,8 +1059,9 @@ def test_foam_unstructured_on_card_matches_cpu(dev, fmt):
     if fmt == "Gdia":  # BJ on Gdia: one loop launch, K1 only in the set-up
         assert kernels.launches["cg_loop"] == 1 and kernels.launches["gdia_k1"] == 2
         assert kernels.launches["cg_k2"] == 0
-    else:
-        assert kernels.launches["cg_k2i"] > 0
+    else:  # none on Xell: one launch of the Xell loop, K1 only in the set-up
+        assert kernels.launches["xell_cg_loop"] == 1 and kernels.launches["xell_k1"] == 2
+        assert kernels.launches["cg_k2i"] == 0
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
 
@@ -1473,13 +1643,13 @@ def test_bicgstab_gen_loop_matches_plain(dev, fmt, system, dims, pc):
             torch.testing.assert_close(res.x, twin.x, rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("fmt", ["Dia", "Gdia"])
+@pytest.mark.parametrize("fmt", ["Dia", "Gdia", "Xell"])
 @pytest.mark.parametrize("pc", ["none", {"preconditioner": "BJ"}], ids=["none", "BJ"])
 def test_gkobicgstab_takes_the_gen_loop_on_the_card(dev, pc, fmt):
-    """GKOBiCGStab (`fusedBiCGStab` false, route "bicgstab") on a Dia or a
-    Gdia matrix with `none` or `BJ`: each solve on its resident state is one
-    loop launch and the set-up's two SpMVs — no SpMV inside the loop — and
-    equals the same solve on the CPU ±1 iteration."""
+    """GKOBiCGStab (`fusedBiCGStab` false, route "bicgstab") on a Dia, a
+    Gdia or an Xell matrix with `none` or `BJ`: each solve on its resident
+    state is one loop launch and the set-up's two SpMVs — no SpMV inside the
+    loop — and equals the same solve on the CPU ±1 iteration."""
     m = testing.convection_diffusion_ldu((32, 32, 16))
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
     ctl = {"solver": "GKOBiCGStab", "matrixFormat": fmt, "tolerance": 1e-6, "relTol": 0,
@@ -1487,9 +1657,9 @@ def test_gkobicgstab_takes_the_gen_loop_on_the_card(dev, pc, fmt):
     x_cpu, perf_cpu = foam.FoamSolver("u", {**ctl, "executor": "cpu"}).solve(m, b)
     slv = foam.FoamSolver("u", {**ctl, "executor": "cuda"})
     x, perf = slv.solve(m, b)
-    assert slv.route == "bicgstab" and type(slv.kern) is (
-        GdiaCgKernels if fmt == "Gdia" else CgKernels)
-    spmv_name = "gdia_spmv" if fmt == "Gdia" else "dia_spmv"
+    assert slv.route == "bicgstab" and type(slv.kern) is {
+        "Dia": CgKernels, "Gdia": GdiaCgKernels, "Xell": xell.XellCgKernels}[fmt]
+    spmv_name = f"{fmt.lower()}_spmv"
     kernels.reset_launches()
     again = slv._redispatch()
     torch.cuda.synchronize()
@@ -1501,12 +1671,12 @@ def test_gkobicgstab_takes_the_gen_loop_on_the_card(dev, pc, fmt):
 
 
 def test_gkobicgstab_host_loop_cases_on_the_card(dev):
-    """Multigrid and the Xell format keep the host loop (why_not names them,
-    the solver keeps no plan), and so does a subclassed plan handed to
-    solve/bicgstab.py: two SpMV launches per iteration, no loop launch."""
+    """Multigrid keeps the host loop (why_not names it, the solver keeps no
+    plan), and so does a subclassed plan handed to solve/bicgstab.py: two
+    SpMV launches per iteration, no loop launch."""
     m = testing.convection_diffusion_ldu((32, 32, 16))
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
-    for extra in ({"preconditioner": "Multigrid"}, {"matrixFormat": "Xell"}):
+    for extra in ({"preconditioner": "Multigrid"},):
         slv = foam.FoamSolver("u", {"solver": "GKOBiCGStab", "executor": "cuda",
                                     "tolerance": 1e-6, "relTol": 0, "adaptMinIter": False,
                                     **extra})
@@ -1532,6 +1702,38 @@ def test_gkobicgstab_host_loop_cases_on_the_card(dev):
     torch.cuda.synchronize()
     assert res.iters == 5 and kernels.launches["bicgstab_gen_loop"] == 0
     assert kernels.launches["dia_spmv"] == 2 + 2 * 5  # r0 and the norm factor, 2 per iteration
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("name", list(XELL_LOOP_CASES))
+def test_bicgstab_gen_loop_xell_matches_plain(dev, name, pc):
+    """The loop kernel's Xell variants against the twin on the card (the host
+    loop of solve/bicgstab.py over the plain Xell SpMV) pinned at 10
+    iterations (x rtol 1e-4, the normalised residual rtol 1e-4): three
+    launches repeat their count and iterate exactly; each solve launches
+    the loop once and the Xell SpMV twice (the set-up's r0 and norm
+    factor), nothing else."""
+    kern, data, b, invd = _xell_loop_setup(name, pc, dev)
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=10, max_iter=10,
+                                     frequency=1)
+    pcf = None if invd is None else (lambda r: invd * r)
+    plain = single_device_ops(lambda v: xell.xell_spmv_plain(kern.plan, *data, v), kern.n,
+                              precond=pcf)
+    twin = bicgstab(plain, b, torch.zeros_like(b), pinned)
+    ops = single_device_ops(functools.partial(kern.spmv, data), kern.n, precond=pcf)
+    runs = []
+    for _ in range(3):
+        kernels.reset_launches()
+        runs.append(bicgstab(ops, b, torch.zeros_like(b), pinned, kern, data, invd))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.launches.items() if v} == {"bicgstab_gen_loop": 1,
+                                                                    "xell_spmv": 2}
+    res = runs[0]
+    assert all(r.iters == res.iters and torch.equal(r.x, res.x) for r in runs[1:])
+    assert res.iters == twin.iters == 10 and not bool(res.converged)
+    _close(res.x, twin.x, rtol=1e-4)
+    torch.testing.assert_close(res.final_res_norm, twin.final_res_norm.cpu(), rtol=1e-4,
+                               atol=1e-6 * float(res.init_res_norm))
 
 
 def test_bicgstab_gen_loop_refused_cooperative_launch_raises(dev):
