@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT . . PARENT   (phase 3's kernels in turns)
 
-Drives the port's five main paths at 1,048,576 cells in OpenFOAM LDU form,
+Drives the port's six main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
 system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1; each
 solve's whole loop one launch of the persistent CG kernel) and the
@@ -18,7 +18,10 @@ shuffled grid — each followed by steady-state steps; the pipelined CG with
 `none` or `BJ` and GKOBiCGStab `fusedBiCGStab true` each run their whole
 loop as one launch of a persistent kernel; then (slice 5) the
 headline lanes of the bench, `ogl_tpu_torch.bench.run`, on the read-peak
-kernel, the SpMV roofline at 8,388,608 rows and the merged CG — after
+kernel, the SpMV roofline at 8,388,608 rows and the merged CG; then
+(slice 14) the reference-parity formats Coo, Csr, Ell, Sell and Hybrid on
+the kNN-6 mesh, the Poisson grid and convection-diffusion, and the
+ladder's Ell landing on a small unstructured mesh — after
 building the port's kernels from the sources in this checkout and holding
 each against its plain PyTorch version on the card, at the slices' size
 and at 8,388,608 rows.
@@ -125,7 +128,25 @@ Phases (any failure raises, and the script exits non-zero):
      8.4M (time/iter/DOF, the reference's JSON line, implied bandwidth,
      device busy; µs per iteration and idle share printed after the run),
      the foam per-step, device-only and diag-only lanes.  Any fraction of
-     a peak above 1.05 fails the run.
+     a peak above 1.05 fails the run;
+ 11. slice 14, the reference-parity formats: GKOCG `none` and `BJ` on the
+     1M kNN-6 mesh with an explicit matrixFormat Coo, Csr, Ell, Sell and
+     Hybrid (28 and 23 iterations ± 1), `pipelinedCG` on Csr, the Poisson
+     grid as Csr (275 ± 1), GKOBiCGStab `BJ` on convection-diffusion as Csr
+     (24 ± 1), the 20,000-cell kNN-6 mesh in its points' numbering
+     auto-routed to Ell, and a steady step on the Csr and Ell solvers (diag
+     block and b uploaded); each solve on the general loop with one launch
+     of its format's gather kernel per SpMV, no loop kernel, no plain twin
+     called, its count equal ±1 to the same route over the plain twins on
+     the card, its true float64 residual within the limit; then the four
+     gather kernels on the kNN mesh and on the 8.4M Poisson grid (formats
+     built by core/formats.py's converters) against their twins on the card
+     (bit-equal), timed in turns with torch's CSR SpMV beside them, each
+     bound from the function's least bytes and the format's stored bytes
+     beside it, the CSR kernel at every number of lanes per row (also on
+     random graphs of 16, 64 and 256 entries per row), and the profiler's
+     device time per launch on the kNN mesh.  The loop rows of
+     phase 3 are timed over 100 iterations (200 before phase 11 joined).
 Each phase prints its wall time.  Each path's launch counts are set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  The line before the last is one JSON object
@@ -147,6 +168,7 @@ this one on the same card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -161,7 +183,8 @@ import torch
 from ogl_tpu_torch import bench, foam, kernels, registry, testing
 from ogl_tpu_torch.config import parse_controls
 from ogl_tpu_torch.core import formats, ldu
-from ogl_tpu_torch.kernels import _build, amg_loop, device_time, gdia, roofline, spmv, xell
+from ogl_tpu_torch.kernels import (_build, amg_loop, device_time, gather_spmv, gdia, roofline,
+                                   spmv, xell)
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
                                          k2_plain, k2i_plain, k2n_plain, ka_plain,
@@ -171,8 +194,8 @@ from ogl_tpu_torch.precond import amg
 from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS, LOOP_XELL,
                                          bicgstab_gen_loop_plain, bicgstab_loop_plain,
                                          cg_loop_plain, cg_pipe_loop_plain)
-from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg_fused, cg_pipelined_fused, ir,
-                                 krylov, stopping)
+from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg, cg_fused, cg_pipelined,
+                                 cg_pipelined_fused, ir, krylov, stopping)
 from ogl_tpu_torch.solve.ir import ir_fused
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
 
@@ -272,6 +295,20 @@ KERNELS = {
     "bicgstab_gen_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_gen_loop.cu",
                           "ogl_tpu/kernels/pallas_spmv.py:38, ogl_tpu/kernels/gdia.py:183",
                           "bicgstab_gen_loop[Dia none]", None),
+    # the gather SpMVs of the reference-parity formats (phase 11): XLA ops in
+    # the reference, no TPU kernel; their rows report the 1M kNN-6 mesh
+    "csr_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/csr_spmv.cu",
+                 "XLA op in the reference: ogl_tpu/kernels/spmv.py:38 (spmv_csr), "
+                 "ogl_tpu/kernels/spmv.py:33 (spmv_coo)", "csr_spmv", "knn"),
+    "ell_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/ell_spmv.cu",
+                 "XLA op in the reference: ogl_tpu/kernels/spmv.py:50 (spmv_ell)", "ell_spmv",
+                 "knn"),
+    "sell_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/sell_spmv.cu",
+                  "XLA op in the reference: ogl_tpu/kernels/spmv.py:55 (spmv_sell)",
+                  "sell_spmv", "knn"),
+    "hybrid_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/hybrid_spmv.cu",
+                    "XLA op in the reference: ogl_tpu/kernels/spmv.py:92 (spmv_hybrid)",
+                    "hybrid_spmv", "knn"),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -328,7 +365,9 @@ LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
 PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
 XELL_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/xell_cg_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
-LOOP_ITERS = (30, 200)  # the loop's check (x against the plain twin), its timing
+# the loop's check (x against the plain twin), its timing (200 until the
+# formats' phase 11 joined the script; 100 keeps the script within its time)
+LOOP_ITERS = (30, 100)
 # the Xell loops': their plain twins' SpMV takes 3-9 ms per iteration at
 # 1M-8.4M rows (the general BiCGStab's check stays BICGSTAB_LOOP_CHECK)
 XELL_LOOP_ITERS = (30, 30)
@@ -1513,8 +1552,9 @@ def library_of(coo, mat, label, report):
         xell_beside(label, csr, mat, x, report)
 
 
-def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
-    """Phase 8.  Returns the launch counts of the path."""
+def unstructured_path(device, knn_n, grid, grid_big, ctl) -> tuple:
+    """Phase 8.  Returns the launch counts of the path, its kernel report and
+    the kNN-6 system (RCM-numbered) and its b, which phase 11 solves again."""
     print(f"== phase 8: the unstructured path, foam.solve at {knn_n} (kNN-6) and "
           f"{int(np.prod(grid))} (shuffled grid) cells")
     t0 = time.perf_counter()
@@ -1721,7 +1761,7 @@ def unstructured_path(device, knn_n, grid, grid_big, ctl) -> dict:
         b3 = (b2 * 1.01 + 0.1).astype(np.float32)
         profile_step(lambda m2=m2, b3=b3, mesh=mesh: foam.solve(
             mesh, m2, b3, {**ctl, "preconditioner": "none"}))
-    return launches, report
+    return launches, report, (m_knn, b_knn)
 
 
 # ---- phase 9: slice 4, the pipelined CG and GKOBiCGStab ----------------------
@@ -2010,6 +2050,311 @@ def bench_path(device, grid_main, grid_big, report) -> tuple:
     return launches, res["peaks"]
 
 
+# ---- phase 11: slice 14, the reference-parity formats ------------------------
+
+# matrixFormat -> the kernel its SpMV launches (a device Coo runs the CSR
+# kernel over its row_ptr)
+GATHER_FORMATS = {"Coo": "csr_spmv", "Csr": "csr_spmv", "Ell": "ell_spmv",
+                  "Sell": "sell_spmv", "Hybrid": "hybrid_spmv"}
+GATHER_KERNELS = ("csr_spmv", "ell_spmv", "sell_spmv", "hybrid_spmv")
+# the SpMVs of a general route's solve, (set-up, per iteration); the
+# criterion's residual-eval timing adds RES_EVAL_SPMVS
+GENERAL_ROUTE_SPMVS = {"cg": (2, 1), "cg_pipe": (3, 1), "bicgstab": (2, 2)}
+# the loop kernels, none of which may run on these formats
+LOOP_KERNELS = ("cg_loop", "cg_pipe_loop", "bicgstab_loop", "bicgstab_gen_loop",
+                "xell_cg_loop", "amg_cg_loop", "amg_ir_loop")
+# iterations gated at ±1 at the slices' size: GKOCG `none` and `BJ` on the 1M
+# kNN-6 mesh in every format (the Xell route's counts on the same system),
+# GKOCG on the Poisson grid as Csr (P_ITERS), GKOBiCGStab `BJ` on
+# convection-diffusion as Csr (phase 9's uCD)
+GATHER_ITERS = {"none": 28, "BJ": 23, "gP": 275, "gCD": 24}
+ELL_LANDING_CELLS = 20000  # the kNN-6 mesh in its points' numbering: lands on Ell
+CSR_GROUPS = (1, 2, 4, 8, 16, 32)  # the CSR kernel's lanes per row, timed in phase 11
+# the converters of the formats whose kernels phase 11 times (the solver's own)
+GATHER_CONVERTERS = {"Csr": formats.coo_to_csr, "Ell": formats.coo_to_ell,
+                     "Sell": formats.coo_to_sell, "Hybrid": formats.coo_to_hybrid}
+
+
+def gather_bytes_flops(m, nnz):
+    """The least bytes and the flops of y = A x for a matrix of `nnz`
+    entries in the format of `m`, whatever its padding: each value and
+    column index once (nnz * 8), x once, y once, and the index arrays the
+    format cannot do without — Csr its row offsets, Sell its row
+    permutation, Hybrid its tail's rows (its row offsets or one row per
+    tail entry, whichever is less); Ell needs none.  Beside them, the
+    bytes the kernel moves over the format's storage, padding included:
+    roofline.spmv_bytes (the reference's model) for Csr and Ell, plus the
+    slot rows for Sell; for Hybrid, which has no model there, its Ell part,
+    its tail and the tail's row offsets, x and y."""
+    n = m.shape[0]
+    least = nnz * 8 + 2 * n * 4
+    if isinstance(m, formats.Csr):
+        least += (n + 1) * 4
+    elif isinstance(m, formats.Sell):
+        least += n * 4
+    elif isinstance(m, formats.Hybrid):
+        least += min(m.tail.nnz, n + 1) * 4
+    if isinstance(m, formats.Hybrid):
+        stored = n * m.ell.row_width * 8 + m.tail.nnz * 8 + (n + 1) * 4 + 2 * n * 4
+    elif isinstance(m, formats.Sell):
+        stored = roofline.spmv_bytes(m) + m.slot_rows.numel() * 4
+    else:
+        stored = roofline.spmv_bytes(m)
+    return least, 2 * nnz, stored
+
+
+def check_gather_kernels(mats, label, x, csr, report):
+    """Each gather kernel against its twin on the card (bit-equal: the twin
+    repeats the kernel's order), timed in turns, with its bound from the
+    function's least bytes and the bytes its format stores beside it, and
+    torch's CSR SpMV on the same matrix beside it (library_ms)."""
+    nnz = csr.values().numel()
+    for fmt, m in mats.items():
+        name = GATHER_FORMATS[fmt]
+        mv = spmv.matvec(m)
+        nbytes, flops, stored = gather_bytes_flops(m, nnz)
+        compare(name, label, lambda: ((mv(x),), ()), lambda: ((spmv.spmv(m, x),), ()),
+                nbytes, flops, report)
+        y, want = mv(x), spmv.spmv(m, x)
+        differ = int((y != want).sum())
+        n = m.shape[0]
+        print(f"  {name:22s} {label:12s} rows that differ from the twin on the card: {differ} "
+              f"(bit-equal required); least {nbytes / n:.1f} bytes per row (the bound's), "
+              f"the format's {stored / n:.1f} ({stored / nbytes:.2f}x)")
+        if differ:
+            raise RuntimeError(f"{name} at {label} is not bit-equal to its twin")
+        library_beside(name, label, csr, mv, x, report)
+        report[name][label].update(bytes_per_row=nbytes / n, stored_bytes_per_row=stored / n)
+        if fmt == "Csr":  # the CSR kernel at every group size, in turns
+            t = time_turns({g: functools.partial(gather_spmv.csr_spmv, m, x, g)
+                            for g in CSR_GROUPS})
+            print(f"  csr_spmv {label}: ms at each number of lanes per row (csr_group picks "
+                  f"{gather_spmv.csr_group(m.shape[0], m.nnz)}): "
+                  + ", ".join(f"{g}: {v:.4f}" for g, v in t.items()))
+            report[name][label]["ms_by_lanes_per_row"] = t
+
+
+def csr_lanes_on_random_graphs(device, report, entries=1 << 24):
+    """The CSR kernel at every number of lanes per row, in turns, on random
+    graphs of 16, 64 and 256 entries per row (`entries` each, columns
+    uniform and sorted within a row): the rows longer than the meshes', on
+    which csr_group takes G > 1."""
+    g = torch.Generator(device=device).manual_seed(1)
+    for width in (16, 64, 256):
+        n = entries // width
+        cols = torch.sort(torch.randint(0, n, (n, width), device=device, generator=g),
+                          dim=1).values
+        m = formats.Csr(row_ptr=(torch.arange(n + 1, device=device) * width).to(torch.int32),
+                        cols=cols.reshape(-1).to(torch.int32),
+                        vals=torch.randn(n * width, device=device, generator=g),
+                        shape=(n, n))
+        x = torch.randn(n, device=device, generator=g)
+        t = time_turns({lanes: functools.partial(gather_spmv.csr_spmv, m, x, lanes)
+                        for lanes in CSR_GROUPS})
+        pick = gather_spmv.csr_group(n, m.nnz)
+        label = f"random {width} per row"
+        print(f"  csr_spmv {label} ({n} rows): ms at each number of lanes per row (csr_group "
+              f"picks {pick}): " + ", ".join(f"{lanes}: {v:.4f}" for lanes, v in t.items()))
+        report.setdefault("csr_spmv", {})[label] = {"ms_by_lanes_per_row": t,
+                                                    "csr_group": pick}
+        del m, cols, x
+    torch.cuda.empty_cache()
+
+
+def general_route_solve(route, mat, b, params, invd, plain):
+    """A general route's solve from a zero guess over the format's kernel
+    (plain=False) or its plain twin (plain=True), on the card."""
+    mv = (lambda v: spmv.spmv(mat, v)) if plain else spmv.matvec(mat)
+    pc = (lambda r: invd * r) if invd is not None else None
+    solver = {"cg": cg, "cg_pipe": cg_pipelined, "bicgstab": bicgstab}[route]
+    return solver(krylov.single_device_ops(mv, mat.shape[0], precond=pc), b,
+                  torch.zeros_like(b), params)
+
+
+@contextlib.contextmanager
+def twins_refused():
+    """While the path's solves run, a plain twin of a gather kernel called on
+    anything raises: on the card the solves must go through the kernels."""
+    saved = {name: getattr(gather_spmv, name) for name in ("spmv_csr", "spmv_ell", "spmv_sell",
+                                                          "spmv_hybrid")}
+
+    def refuse(*args, **kw):
+        raise RuntimeError("a plain twin of a gather kernel ran inside a solve")
+
+    for name in saved:
+        setattr(gather_spmv, name, refuse)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(gather_spmv, name, fn)
+
+
+def check_gather_launches(field, route, kernel, iters, before):
+    """One launch of the format's kernel per SpMV of the route, and no loop
+    kernel: between `before` and now."""
+    setup, per_iter = GENERAL_ROUTE_SPMVS[route]
+    want = {kernel: setup + per_iter * iters + RES_EVAL_SPMVS, **{k: 0 for k in LOOP_KERNELS}}
+    got = {k: kernels.launches[k] - before[k] for k in want}
+    print(f"  {field}: launches in this solve {got}")
+    if got != want:
+        raise RuntimeError(f"{field}: launched {got} in one solve, not {want}")
+
+
+def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tuple:
+    """Phase 11.  Returns the launch counts of the path and its kernel
+    report."""
+    print(f"== phase 11: slice 14, the reference-parity formats, foam.solve at {m_knn.n} "
+          f"(kNN-6) and {m_grid.n} (Poisson, convection-diffusion) cells")
+    ctl = {**ctl, "verbose": 0}
+    t0 = time.perf_counter()
+    m_cd = testing.convection_diffusion_ldu(grid)
+    m_land, _ = testing.knn_ldu(ELL_LANDING_CELLS)
+    b_land = np.random.default_rng(0).normal(size=m_land.n).astype(np.float32)
+    print(f"host set-up: convection-diffusion system and the {ELL_LANDING_CELLS}-cell kNN-6 "
+          f"mesh {time.perf_counter() - t0:.2f} s")
+    pcs = {"": "none", "BJ": {"preconditioner": "BJ"}}
+    # field -> (system, b, controls, iterations gate key or None)
+    solves = {f"g{fmt}{tag}": (m_knn, b_knn, {"matrixFormat": fmt, "preconditioner": pc},
+                               "BJ" if tag else "none")
+              for fmt in GATHER_FORMATS for tag, pc in pcs.items()}
+    solves.update({
+        "gPipe": (m_knn, b_knn, {"matrixFormat": "Csr", "pipelinedCG": True,
+                                 "preconditioner": "none"}, None),
+        "gP": (m_grid, b_grid, {"matrixFormat": "Csr", "preconditioner": "none"}, "gP"),
+        "gCD": (m_cd, b_grid, {"solver": "GKOBiCGStab", "matrixFormat": "Csr",
+                               "preconditioner": {"preconditioner": "BJ"}}, "gCD"),
+        "gL": (m_land, b_land, {"preconditioner": "none"}, None),
+    })
+    records = {}
+    kernels.reset_launches()
+    with twins_refused():
+        for field, (mk, bk, spec, gate) in solves.items():
+            before = dict(kernels.launches)
+            t0 = time.perf_counter()
+            x, perf = foam.solve(field, mk, bk, {**ctl, **spec})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            perf.print()
+            slv = registry.global_registry.get(f"{field}_solver")
+            fmt = formats.format_name(slv.matrix)
+            check_gather_launches(field, slv.route, GATHER_FORMATS[fmt], perf.n_iterations,
+                                  before)
+            it = max(perf.n_iterations, 1)
+            lt = slv.last_timings
+            print(f"{field} ({fmt}, route {slv.route}): first solve wall {wall:.3f} s; "
+                  f"init_host_sparsity {lt['init_host_sparsity'] * 1e3:.1f} ms, convert_format "
+                  f"{lt['convert_format'] * 1e3:.1f} ms, solve {lt['solve'] * 1e3:.3f} ms = "
+                  f"{lt['solve'] / it * 1e6:.1f} us per iteration; on resident state "
+                  f"{slv.time_device_solve() / it * 1e6:.2f} us per iteration")
+            invd = slv._precond_op.state if slv.cfg.precond.name == "BJ" else None
+            records[field] = (x, perf, slv.route, slv.matrix, torch.tensor(bk, device=device),
+                              invd, stopping.StoppingParams.of(slv.cfg.stopping), gate)
+        for field in ("gCsr", "gEll"):
+            mk, bk = m_knn, b_knn
+            m2 = dataclasses.replace(mk, diag=np.asarray(mk.diag) * 1.01)
+            b2 = (bk * 1.01 + 0.1).astype(np.float32)
+            step_ctl = {**ctl, **solves[field][2]}
+            params = next_params(field, step_ctl)
+            before = dict(kernels.launches)
+            x2, perf2 = foam.solve(field, m2, b2, step_ctl)
+            torch.cuda.synchronize()
+            perf2.print()
+            slv = registry.global_registry.get(f"{field}_solver")
+            check_gather_launches(f"{field} steady step", slv.route,
+                                  GATHER_FORMATS[formats.format_name(slv.matrix)],
+                                  perf2.n_iterations, before)
+            lt = slv.last_timings
+            print(f"{field} steady step: update {lt.get('update_device_values', 0.0) * 1e3:.3f} "
+                  f"ms, solve {lt.get('solve', 0.0) * 1e3:.3f} ms; blocks uploaded "
+                  f"{slv.last_blocks_uploaded}, rhs uploaded {slv.last_rhs_uploaded}; adapted "
+                  f"minIter {params.min_iter} frequency {params.frequency}")
+            if slv.last_blocks_uploaded != (1, 2) or not slv.last_rhs_uploaded:
+                raise RuntimeError(f"{field} steady step uploaded more than the diag block + RHS")
+            records[f"{field} step"] = (x2, perf2, slv.route, slv.matrix,
+                                        torch.tensor(b2, device=device), None, params, None)
+    launches = {k: kernels.launches[k] for k in GATHER_KERNELS}
+    print(f"launch counts over the path: {dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"the reference-parity formats' path never launched {missing}")
+    if records["gL"][1].solver_name != "GKOCG_Ell":
+        raise RuntimeError(f"gL routed to {records['gL'][1].solver_name}, not GKOCG_Ell")
+
+    # ---- checks of the path ------------------------------------------------
+    for field, (x, perf, route, mat, bb, invd, params, gate) in records.items():
+        n = mat.shape[0]
+        if not (perf.converged and perf.final_residual < TOL):
+            raise RuntimeError(f"{field}: did not converge: {perf}")
+        if x.shape != (n,) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{field}: solution not finite of shape ({n},)")
+        mat64 = formats.cast_values(mat, torch.float64)
+        tr = true_residual_mv(lambda v, mat64=mat64: spmv.spmv(mat64, v), x, bb)
+        plain = general_route_solve(route, mat, bb, params, invd, plain=True)
+        line = (f"{field}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
+                f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
+                f"card: {plain.iters} iterations")
+        want = GATHER_ITERS.get(gate)
+        if want is not None:
+            line += f" (gated at {want} ± 1)"
+        print(line)
+        if abs(plain.iters - perf.n_iterations) > 1:
+            raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain.iters} over "
+                               "the plain twins")
+        if want is not None and abs(perf.n_iterations - want) > 1:
+            raise RuntimeError(f"{field}: {perf.n_iterations} iterations, not {want} ± 1")
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
+
+    # ---- the kernels against their twins (launches not counted) ------------
+    print("gather kernels vs their twins (vector tol "
+          f"{VEC_RTOL:.0e}*max(1,max|plain|), and bit-equal):")
+    report: dict = {}
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def kernels_on(label, coo, rows, cols, vals):
+        """The four formats of the host Coo `coo` (its device triplets rows,
+        cols, vals give torch's CSR), each kernel against its twin."""
+        t0 = time.perf_counter()
+        mats = {fmt: conv(coo, device=device) for fmt, conv in GATHER_CONVERTERS.items()}
+        csr = csr_of_coo(rows, cols, vals, coo.shape[0])
+        torch.cuda.synchronize()
+        print(f"  [{label}: {coo.shape[0]} rows, nnz {len(coo.vals)}; the four formats built "
+              f"by core/formats.py in {time.perf_counter() - t0:.2f} s; Ell K "
+              f"{mats['Ell'].row_width}, Sell widths {mats['Sell'].widths} stored "
+              f"{mats['Sell'].stored}, Hybrid width {mats['Hybrid'].ell.row_width} tail "
+              f"{mats['Hybrid'].tail.nnz}; the CSR kernel's lanes per row "
+              f"{gather_spmv.csr_group(coo.shape[0], len(coo.vals))}]")
+        x = torch.randn(coo.shape[0], device=device, generator=g)
+        check_gather_kernels(mats, label, x, csr, report)
+        return mats, csr, x
+
+    coo = registry.global_registry.get("gCsr_solver").coo_host()
+    mats, csr, x = kernels_on("knn", coo, *(torch.tensor(a, device=device) for a in (
+        coo.rows.astype(np.int64), coo.cols.astype(np.int64), coo.vals)))
+    for fmt, m in mats.items():
+        device_beside(GATHER_FORMATS[fmt], "knn", lambda mv=spmv.matvec(m): mv(x),
+                      lambda: csr @ x, report)
+    del mats, csr, x
+    torch.cuda.empty_cache()
+    data, offsets = poisson_dia(grid_big, device)
+    rows, cols, vals = dia_coo(data, offsets)
+    n_big = data.shape[1]
+    del data
+    order = torch.argsort(rows * n_big + cols)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    del order
+    big = formats.Coo(rows=rows.cpu().numpy().astype(np.int32),
+                      cols=cols.cpu().numpy().astype(np.int32), vals=vals.cpu().numpy(),
+                      shape=(n_big, n_big))
+    kernels_on("x".join(map(str, grid_big)), big, rows, cols, vals)
+    del rows, cols, vals, big
+    torch.cuda.empty_cache()
+    csr_lanes_on_random_graphs(device, report)
+    return launches, report
+
+
 # one turn of `--turns`: phase 3's Dia kernels at 1M and 8.4M rows, then the
 # Gdia SpMV and K1 on the shuffled grid built on the device at both sizes,
 # then 200 checked iterations of the merged pipelined CG and of the merged
@@ -2282,17 +2627,21 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     t_ph = phase_done("phase 6", t_ph)
     launches_amg = amg_path(m, b, device, {**ctl, "verbose": 0})
     t_ph = phase_done("phase 7", t_ph)
-    launches_un, report_un = unstructured_path(device, knn_n, grid_main, grid_big, ctl)
+    launches_un, report_un, knn_system = unstructured_path(device, knn_n, grid_main, grid_big,
+                                                           ctl)
     report.update(report_un)
     t_ph = phase_done("phase 8", t_ph)
     launches_4 = slice4_path(m, b, grid_main, device, ctl,
                              {k: v[1].n_iterations for k, v in solves.items()})
     t_ph = phase_done("phase 9", t_ph)
     launches_5, peaks = bench_path(device, grid_main, grid_big, report)
-    phase_done("phase 10", t_ph)
+    t_ph = phase_done("phase 10", t_ph)
+    launches_14, report_14 = gather_path(device, *knn_system, m, b, grid_main, grid_big, ctl)
+    report.update(report_14)
+    phase_done("phase 11", t_ph)
 
     rows = []
-    paths = (launches, launches_amg, launches_un, launches_4, launches_5)
+    paths = (launches, launches_amg, launches_un, launches_4, launches_5, launches_14)
     labels = {None: "x".join(map(str, grid_main)), "big": "x".join(map(str, grid_big))}
     for name, (route, source, replaces, case, label) in KERNELS.items():
         r = report[case][labels.get(label, label)]
@@ -2302,6 +2651,8 @@ def run(device, grid_main, grid_big, knn_n) -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                      "read_peak_share": r["gbps"] / peaks["read_gbps"],
+                     **({"stored_bytes_per_row": r["stored_bytes_per_row"]}
+                        if "stored_bytes_per_row" in r else {}),
                      "cases": {k: v for k, v in report.items()
                                if k == name or k.startswith(name + "[")}})
     print(json.dumps({"kernels": rows, "read_peak_gbps": {

@@ -4,8 +4,9 @@ per field, orchestrated like the reference's lduLduBase.
 Counterpart: ogl_tpu/foam/solver.py.
 
   first solve:   LDU sparsity (→ RCM renumbering under `reorder rcm`) →
-                 Dia, Gdia or Xell on the device (raw LDU blocks left
-                 resident) → preconditioner → merged-kernel CG
+                 the matrix format on the device (raw LDU blocks left
+                 resident) → preconditioner → merged-kernel CG (Dia, Gdia,
+                 Xell) or the general loop over the format's SpMV
   steady state:  per-block delta upload (unchanged blocks never cross to
                  the device) → one on-device gather + scatter into the
                  container's values → preconditioner regeneration gated on
@@ -15,24 +16,30 @@ Slices implemented: GKOCG and GKOBiCGStab with preconditioner `none`,
 scalar `BJ` or `Multigrid` (AMG), and GKOMultigrid (Richardson around one
 AMG cycle); float32, one device.  Without an explicit matrixFormat the
 matrix takes the reference's format ladder (kernels/spmv.py `pack_fast`):
-Dia, else Gdia, else Xell; `matrixFormat Dia/Gdia/Xell` is honoured.  AMG
-runs on Dia only.  Every control outside the slices raises
-NotImplementedError naming its ROADMAP.md item; none is silently ignored.
+Dia, else Gdia, else Xell, else Ell (under 32,768 rows; above, the
+reference's error); an explicit matrixFormat (Coo, Csr, Ell, Sell, Dia,
+Gdia, Hybrid, Xell) is honoured.  AMG runs on Dia only.  Every control
+outside the slices raises NotImplementedError naming its ROADMAP.md item;
+none is silently ignored.
 
 Routing follows the reference's `_make_solve_fn`:
-  GKOCG                merged two-kernel CG on each format (CgKernels,
-                       GdiaCgKernels, XellCgKernels; `none` or `BJ` on
-                       the card: one launch of the format's loop kernel);
-                       `fusedCG false` → the general CG (solve/cg.py)
+  GKOCG                merged two-kernel CG on Dia, Gdia and Xell
+                       (CgKernels, GdiaCgKernels, XellCgKernels; `none` or
+                       `BJ` on the card: one launch of the format's loop
+                       kernel); every other format, or `fusedCG false` →
+                       the general CG (solve/cg.py) over the format's SpMV
+                       kernel
   GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
                        (KA + KB_pipe, solve/cg_pipe_fused.py; on the card
                        one launch of its loop kernel); Gdia, Xell,
                        Multigrid or `fusedCG false` → the general
-                       pipelined CG (solve/cg_pipe.py)
+                       pipelined CG (solve/cg_pipe.py); so do Coo, Csr,
+                       Ell, Sell and Hybrid
   GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): with
                        `none` or `BJ` one launch of its loop kernel on the
-                       card (on Dia, Gdia or Xell), else the host loop over
-                       the format's SpMV kernel; `fusedBiCGStab true` with
+                       card (on Dia, Gdia or Xell), else (Coo, Csr, Ell, Sell,
+                       Hybrid, Multigrid) the host loop over the format's
+                       SpMV kernel; `fusedBiCGStab true` with
                        `none` on Dia → the merged BiCGStab (K1B, K1B,
                        KB_update; solve/bicgstab_fused.py; on the card one
                        launch of its loop kernel)
@@ -79,9 +86,13 @@ from ogl_tpu_torch.solve.krylov import single_device_ops
 
 __all__ = ["SolverPerformance", "FoamSolver", "solve", "unsupported"]
 
-# the explicit matrixFormat converters of the port (the reference's
-# _FORMAT_CONVERTERS for the formats ported so far)
-_CONVERTERS = {"Dia": formats.coo_to_dia, "Gdia": gdia_from_coo, "Xell": xell_from_coo}
+# the explicit matrixFormat converters (the reference's _FORMAT_CONVERTERS)
+_CONVERTERS = {"Coo": formats.coo_to_device, "Csr": formats.coo_to_csr,
+               "Ell": formats.coo_to_ell, "Dia": formats.coo_to_dia,
+               "Sell": formats.coo_to_sell, "Gdia": gdia_from_coo,
+               "Hybrid": formats.coo_to_hybrid, "Xell": xell_from_coo}
+# the formats of the merged routes, each with its merged-CG plan
+_MERGED_FORMATS = (formats.Dia, Gdia, Xell)
 
 
 class SolverPerformance(NamedTuple):
@@ -115,8 +126,6 @@ def unsupported(cfg: SolverConfig) -> str | None:
         return f"BJ maxBlockSize {pc.max_block_size} (ROADMAP.md A10)"
     if pc.name != "none" and pc.value_precision == "bfloat16":
         return "preconditioner precision bfloat16 (ROADMAP.md A10)"
-    if cfg.matrix_format_explicit and cfg.matrix_format not in _CONVERTERS:
-        return f"matrixFormat {cfg.matrix_format} (ROADMAP.md A2)"
     if (cfg.matrix_format_explicit and cfg.matrix_format != "Dia"
             and _uses_amg(cfg)):
         return f"Multigrid on a {cfg.matrix_format} matrix (ROADMAP.md A11)"
@@ -137,7 +146,8 @@ def _route(cfg: SolverConfig, matrix) -> str:
     """The solve route of `cfg` on `matrix` (the reference's
     `_make_solve_fn`, foam/solver.py:624-748, without its TPU-only gates):
     "cg_fused", "cg", "cg_pipe_fused", "cg_pipe", "bicgstab_fused",
-    "bicgstab" or "ir"."""
+    "bicgstab" or "ir".  Only Dia, Gdia and Xell take a merged route
+    (foam/solver.py:651-678 there)."""
     diag_pc = cfg.precond.name in ("none", "BJ")
     dia = isinstance(matrix, formats.Dia)
     if cfg.solver == "GKOMultigrid":
@@ -147,7 +157,8 @@ def _route(cfg: SolverConfig, matrix) -> str:
         return "bicgstab_fused" if fused else "bicgstab"
     if cfg.pipelined_cg:
         return "cg_pipe_fused" if cfg.fused_cg and diag_pc and dia else "cg_pipe"
-    return "cg_fused" if cfg.fused_cg else "cg"
+    merged = isinstance(matrix, _MERGED_FORMATS)
+    return "cg_fused" if cfg.fused_cg and merged else "cg"
 
 
 def _res_eval_seconds(mv, x, b, device: torch.device, k: int = 8) -> float:
@@ -188,7 +199,7 @@ class FoamSolver:
         self.dtype = torch.float32
         self.np_dtype = np.float32
         self.sparsity: ldu.LduSparsity | None = None
-        self.matrix: formats.Dia | Gdia | Xell | None = None
+        self.matrix = None  # the container of the format the first solve took
         self.kern: CgKernels | XellCgKernels | None = None  # the merged routes' plan
         self.route = ""  # _route() of the matrix the first solve converted
         self._n = 0
@@ -224,24 +235,21 @@ class FoamSolver:
     def _convert(self, coo: formats.Coo):
         """First-solve conversion.  An explicit matrixFormat is honoured;
         otherwise the reference's ladder picks the format (Dia → Gdia →
-        Xell).  A matrix of at least 32,768 rows that no ported format
-        takes raises the reference's error for its Ell landing."""
+        Xell → Ell).  A matrix of at least 32,768 rows that lands on Ell
+        raises the reference's error; under that it solves on Ell."""
         fmt = self.cfg.matrix_format
         n = coo.shape[0]
         if self.cfg.matrix_format_explicit:
             return _CONVERTERS[fmt](coo, device=self.device)
-        try:
-            mat = spmv.pack_fast(coo.rows, coo.cols, coo.vals, n, presorted=True,
-                                 device=self.device)
-        except NotImplementedError:
-            if n < spmv.XELL_MIN_ROWS:
-                raise
+        mat = spmv.pack_fast(coo.rows, coo.cols, coo.vals, n, presorted=True,
+                             device=self.device)
+        eff = formats.format_name(mat)
+        if eff == "Ell" and n >= spmv.XELL_MIN_ROWS:
             raise RuntimeError(
                 f"{self.field}: no fast-path format covers this {n}-row matrix "
-                "(Dia/Gdia/Xell all rejected it).  Renumber the mesh (reorder: "
-                "rcm) to reduce bandwidth; the Ell format, which takes any "
-                "sparsity, is not ported yet (ROADMAP.md A2).") from None
-        eff = type(mat).__name__
+                "(Dia/Gdia/Xell all rejected it); the reference refuses its gather "
+                "Ell tier at this size.  Renumber the mesh (reorder: rcm) to reduce "
+                "bandwidth, or set matrixFormat Ell explicitly to solve on Ell.")
         if eff != fmt:
             common.log(self.cfg.verbose, 0,
                        f"{self.field}: matrixFormat auto-routed {fmt} -> {eff} "
@@ -249,13 +257,16 @@ class FoamSolver:
         return mat
 
     def _kernel_plan(self):
-        """The merged-CG plan of the format the matrix took."""
+        """The merged-CG plan of the format the matrix took (Dia, Gdia or
+        Xell; no other format has one)."""
         m = self.matrix
         if isinstance(m, Gdia):
             return GdiaCgKernels(self._n, m.plane_offsets, self.device)
         if isinstance(m, Xell):
             return XellCgKernels.for_matrix(m)
-        return CgKernels(self._n, m.offsets, self.device)
+        if isinstance(m, formats.Dia):
+            return CgKernels(self._n, m.offsets, self.device)
+        raise TypeError(f"no merged-CG plan for the {formats.format_name(m)} format")
 
     def _init_reorder(self) -> None:
         """`reorder rcm`: the RCM permutation of the sparsity and the
@@ -307,8 +318,8 @@ class FoamSolver:
                     self._stage_blocks()
             if _uses_amg(cfg) and not isinstance(self.matrix, formats.Dia):
                 raise NotImplementedError(
-                    f"{self.field}: Multigrid on a {type(self.matrix).__name__} matrix "
-                    "(AMG levels in the Gdia/Xell formats) is not ported to "
+                    f"{self.field}: Multigrid on a {formats.format_name(self.matrix)} matrix "
+                    "(AMG on a non-Dia operator) is not ported to "
                     "ogl_tpu_torch yet (ROADMAP.md A11)")
             self.route = _route(cfg, self.matrix)
             # "ir" (GKOMultigrid, Dia only) keeps the plan for its device loop,
@@ -498,7 +509,7 @@ class FoamSolver:
             print(f"OGL-TPU (PyTorch port {_version})\n"
                   f"  torch:         {torch.__version__}\n"
                   f"  device:        {self._device_name()}\n"
-                  f"  matrix format: {type(self.matrix).__name__}\n"
+                  f"  matrix format: {formats.format_name(self.matrix)}\n"
                   f"  dtype:         {cfg.dtype}\n"
                   f"  executor:      {cfg.executor}")
         self._update_precond()
@@ -558,7 +569,7 @@ class FoamSolver:
             )
 
         perf = SolverPerformance(
-            solver_name=f"{cfg.solver}_{type(self.matrix).__name__}",
+            solver_name=f"{cfg.solver}_{formats.format_name(self.matrix)}",
             field_name=self.field,
             initial_residual=init_rn,
             final_residual=final_rn,

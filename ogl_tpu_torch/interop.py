@@ -11,14 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ogl_tpu_torch.core.formats import Coo, Dia
+from ogl_tpu_torch.core.formats import (Coo, Csr, DeviceCoo, Dia, Ell, Hybrid, Sell,
+                                        coo_to_csr, coo_to_device, sell_table)
 from ogl_tpu_torch.core.ldu import LduMatrix, LocalInterface
 from ogl_tpu_torch.kernels.gdia import Gdia
 from ogl_tpu_torch.kernels.xell import Xell, spill_csr
 from ogl_tpu_torch.precond.amg import Level, make_level
 
 __all__ = ["dia_from_arrays", "ldu_from_arrays", "unframe_reference",
-           "amg_levels_from_reference", "gdia_from_reference", "xell_from_reference"]
+           "amg_levels_from_reference", "gdia_from_reference", "xell_from_reference",
+           "coo_from_reference", "csr_from_reference", "ell_from_reference",
+           "sell_from_reference", "hybrid_from_reference"]
 
 
 def dia_from_arrays(data, offsets, shape, device: torch.device | str = "cpu") -> Dia:
@@ -69,10 +72,9 @@ def amg_levels_from_reference(levels, device: torch.device | str = "cpu",
         mat = lv.mat
         kind = type(mat).__name__
         if kind != "Dia":
-            # AMG on Gdia/Xell levels is A11; an Ell level needs the format, A2
-            item = "A2" if kind == "Ell" else "A11"
+            # AMG on Gdia, Xell or Ell levels is A11
             raise TypeError(f"level operator {kind}: only Dia levels have a port "
-                            f"counterpart (ROADMAP.md {item})")
+                            "counterpart (ROADMAP.md A11)")
         out.append(make_level(
             dia_from_arrays(mat.data, mat.offsets, mat.shape, device),
             np.asarray(lv.inv_diag), int(lv.nc),
@@ -107,3 +109,60 @@ def xell_from_reference(m, device: torch.device | str = "cpu") -> Xell:
     return Xell(vals=up(m.vals), ll=up(m.ll), bbT=up(m.bbT), spill=spill,
                 spill_csr=spill_csr(rows, cols, shape[0], device),
                 c_left=int(m.c_left), c_chunks=int(m.c_chunks), shape=shape)
+
+
+def _shape(m) -> tuple[int, int]:
+    return tuple(int(s) for s in m.shape)
+
+
+def coo_from_reference(m, device: torch.device | str = "cpu") -> DeviceCoo:
+    """The port's device Coo from a reference Coo (`rows`, `cols`, `vals`,
+    `shape`, read with np.asarray)."""
+    return coo_to_device(Coo(rows=np.asarray(m.rows), cols=np.asarray(m.cols),
+                             vals=np.asarray(m.vals), shape=_shape(m)), device)
+
+
+def csr_from_reference(m, device: torch.device | str = "cpu") -> Csr:
+    """The port's Csr from a reference Csr (`row_ptr`, `cols`, `vals`,
+    `shape`)."""
+    def up(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    return Csr(row_ptr=up(m.row_ptr), cols=up(m.cols), vals=up(m.vals), shape=_shape(m))
+
+
+def ell_from_reference(m, device: torch.device | str = "cpu") -> Ell:
+    """The port's slot-major Ell from a reference Ell, whose cols/vals are
+    row-major (n, K)."""
+    def up(a):
+        return torch.tensor(np.ascontiguousarray(np.asarray(a).T), device=device)
+
+    return Ell(cols=up(m.cols), vals=up(m.vals), shape=_shape(m))
+
+
+def sell_from_reference(m, device: torch.device | str = "cpu") -> Sell:
+    """The port's Sell from a reference Sell: each bucket's (ns, C, w)
+    block stored as (w, ns · C), concatenated."""
+    def flat(blocks):
+        return np.concatenate([np.asarray(b).reshape(-1, np.asarray(b).shape[2]).T.reshape(-1)
+                               for b in blocks])
+
+    widths = tuple(int(np.asarray(v).shape[2]) for v in m.vals)
+    ns_of = tuple(int(np.asarray(v).shape[0]) for v in m.vals)
+    C = int(m.slice_height)
+    return Sell(cols=torch.tensor(flat(m.cols), device=device),
+                vals=torch.tensor(flat(m.vals), device=device),
+                slot_rows=torch.tensor(np.concatenate([np.asarray(r) for r in m.slot_rows]),
+                                       device=device),
+                table=torch.tensor(sell_table(widths, ns_of, C), device=device),
+                widths=widths, n_slices=ns_of, shape=_shape(m), slice_height=C,
+                sigma=int(m.sigma))
+
+
+def hybrid_from_reference(m, device: torch.device | str = "cpu") -> Hybrid:
+    """The port's Hybrid from a reference Hybrid (its `ell` and its COO
+    tail `coo`, which the port stores as a Csr)."""
+    tail = Coo(rows=np.asarray(m.coo.rows), cols=np.asarray(m.coo.cols),
+               vals=np.asarray(m.coo.vals), shape=_shape(m))
+    return Hybrid(ell=ell_from_reference(m.ell, device), tail=coo_to_csr(tail, device),
+                  shape=_shape(m))

@@ -125,6 +125,14 @@ _SIGNATURES = {
     "ogl_bicgstab_gen_loop_xell": (_INT, _P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32,
                                    _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # row_ptr, cols, vals, x, y, n, group, blocks, stream
+    "ogl_csr_spmv": (_P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
+    # cols, vals, k, x, y, n, blocks, stream
+    "ogl_ell_spmv": (_P, _P, _INT, _P, _P, _I64, _I64, _P),
+    # table, n_buckets, slot_rows, cols, vals, x, y, n, slots, blocks, stream
+    "ogl_sell_spmv": (_P, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # ell cols, ell vals, k, tail row_ptr, tail cols, tail vals, x, y, n, blocks, stream
+    "ogl_hybrid_spmv": (_P, _P, _INT, _P, _P, _P, _P, _P, _I64, _I64, _P),
     # variant, threads, blocks (out)
     "ogl_amg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
     # variant, table, levels, data, offsets, nd, x, r, z, p, pn, q, absr, nf, partials, record,

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ogl_tpu_torch import kernels
-from ogl_tpu_torch.core.formats import Coo, Dia
+from ogl_tpu_torch.core.formats import Coo, Csr, Dia, Ell, Hybrid, Sell
 from ogl_tpu_torch.kernels import _build, device_time
 from ogl_tpu_torch.kernels.dia_spmv import (check_scalar, on_cpu, persistent_launch,
                                             require_cuda, sm_count, stream_of)
@@ -83,7 +83,7 @@ def hbm_peak_gbps(device=None) -> float:
 
 
 def _itemsize(m) -> int:
-    vals = m.data if isinstance(m, Dia) else m.vals
+    vals = m.data if isinstance(m, Dia) else m.ell.vals if isinstance(m, Hybrid) else m.vals
     if isinstance(vals, torch.Tensor):
         return vals.element_size()
     return np.dtype(vals.dtype).itemsize
@@ -91,21 +91,37 @@ def _itemsize(m) -> int:
 
 def spmv_bytes(m) -> int:
     """Minimal device traffic for one y = A@x: values (and indices) read
-    once, x read once, y written once; int32 indices."""
+    once, x read once, y written once; int32 indices.  Hybrid (like Gdia
+    and Xell) has no model, as in the reference: it raises TypeError."""
     n, nc = m.shape
     vs = _itemsize(m)
     if isinstance(m, Coo):
         return len(m.vals) * (vs + 2 * 4) + nc * vs + n * vs
+    if isinstance(m, Csr):
+        return m.nnz * (vs + 4) + (n + 1) * 4 + nc * vs + n * vs
+    if isinstance(m, Ell):
+        return n * m.row_width * (vs + 4) + nc * vs + n * vs
+    if isinstance(m, Sell):
+        return m.stored * (vs + 4) + nc * vs + n * vs
     if isinstance(m, Dia):
         return len(m.offsets) * n * vs + nc * vs + n * vs
     raise TypeError(type(m))
 
 
 def spmv_flops(m) -> int:
+    """2 flops per stored entry (padding included for Ell and Sell); for
+    Hybrid, per nonzero of its Ell part and per tail entry, as the
+    reference counts them."""
     if isinstance(m, Dia):
         return 2 * len(m.offsets) * m.shape[0]
+    if isinstance(m, Ell):
+        return 2 * m.shape[0] * m.row_width
+    if isinstance(m, Sell):
+        return 2 * m.stored
     if isinstance(m, Coo):
         return 2 * len(m.vals)
+    if isinstance(m, (Csr, Hybrid)):
+        return 2 * m.nnz
     raise TypeError(type(m))
 
 

@@ -1,33 +1,39 @@
 """Sparse matrix-vector products and the format ladder of auto-routing.
 
-Counterpart: ogl_tpu/kernels/spmv.py (`spmv_coo`, `spmv_dia`, `spmv`,
-`matvec`, `pack_fast`).  Coo, Dia, Gdia and Xell exist in the port.
-`matvec(m)` returns the format's kernel wrapper (Dia, Gdia or Xell SpMV),
-which launches the CUDA kernel for CUDA tensors (the reference's route to
-its Pallas kernels, spmv.py:226-247) and runs the plain version on the
-CPU.  `pack_fast` is the reference's ladder Dia → Gdia → Xell → Ell; the
-port has no Ell, so the last rung raises.  The reference's TPU-only gates
-(`pallas_usable`, the x64/Mosaic checks) have no counterpart here.
+Counterpart: ogl_tpu/kernels/spmv.py (`spmv_coo`, `spmv_csr`, `spmv_ell`,
+`spmv_sell`, `spmv_dia`, `spmv_hybrid`, `spmv`, `matvec`, `pack_fast`).
+`matvec(m)` returns the format's kernel wrapper — the Dia, Gdia or Xell
+SpMV (the reference's route to its Pallas kernels, spmv.py:226-247), or
+the CSR (also for a DeviceCoo), Ell, Sell or Hybrid SpMV of
+kernels/gather_spmv.py, where the reference runs XLA ops — which launches
+the CUDA kernel for CUDA tensors and runs the plain version on the CPU.
+`pack_fast` is the reference's ladder Dia → Gdia → Xell → Ell.  The
+reference's TPU-only gates (`pallas_usable`, the x64/Mosaic checks) have
+no counterpart here.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
-from ogl_tpu_torch.core.formats import Coo, Dia, coo_to_dia
+from ogl_tpu_torch.core.formats import (Coo, Csr, DeviceCoo, Dia, Ell, Hybrid, Sell, coo_to_dia,
+                                        coo_to_ell)
+from ogl_tpu_torch.kernels import gather_spmv
 from ogl_tpu_torch.kernels.dia_spmv import MAX_DIAGS, DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo, gdia_matvec, spmv_gdia
 from ogl_tpu_torch.kernels.xell import Xell, spmv_xell, xell_from_coo, xell_matvec
 
-__all__ = ["spmv", "matvec", "spmv_coo", "spmv_dia", "fits_dia", "pack_fast",
-           "XELL_MIN_ROWS"]
+__all__ = ["spmv", "matvec", "spmv_coo", "spmv_csr", "spmv_ell", "spmv_sell", "spmv_dia",
+           "spmv_hybrid", "fits_dia", "pack_fast", "XELL_MIN_ROWS"]
 
 XELL_MIN_ROWS = 1 << 15  # the reference's gate of the Xell rung (spmv.py:159)
 
 
 def spmv_coo(m: Coo, x: torch.Tensor) -> torch.Tensor:
-    """Plain y = A x for a Coo matrix (gather + index_add)."""
+    """Plain y = A x for a host Coo matrix (gather + index_add)."""
     rows = torch.as_tensor(np.asarray(m.rows, np.int64), device=x.device)
     cols = torch.as_tensor(np.asarray(m.cols, np.int64), device=x.device)
     vals = torch.as_tensor(np.asarray(m.vals), device=x.device).to(x.dtype)
@@ -40,7 +46,16 @@ def spmv_dia(m: Dia, x: torch.Tensor) -> torch.Tensor:
     return dia_spmv_plain(m.data, m.offsets, x)
 
 
-_PLAIN = {Dia: spmv_dia, Coo: spmv_coo, Gdia: spmv_gdia, Xell: spmv_xell}
+spmv_csr = gather_spmv.spmv_csr
+spmv_ell = gather_spmv.spmv_ell
+spmv_sell = gather_spmv.spmv_sell
+spmv_hybrid = gather_spmv.spmv_hybrid
+
+_PLAIN = {Dia: spmv_dia, Coo: spmv_coo, Csr: spmv_csr, DeviceCoo: spmv_csr, Ell: spmv_ell,
+          Sell: spmv_sell, Hybrid: spmv_hybrid, Gdia: spmv_gdia, Xell: spmv_xell}
+_KERNEL = {Csr: gather_spmv.csr_spmv, DeviceCoo: gather_spmv.csr_spmv,
+           Ell: gather_spmv.ell_spmv, Sell: gather_spmv.sell_spmv,
+           Hybrid: gather_spmv.hybrid_spmv}
 
 
 def spmv(m, x):
@@ -52,9 +67,12 @@ def spmv(m, x):
 
 
 def matvec(m):
-    """`x -> A @ x` for matrix `m`: the format's SpMV kernel wrapper for
-    Dia, Gdia and Xell (plain version when the data lies on the CPU),
-    plain otherwise."""
+    """`x -> A @ x` for matrix `m`: the format's SpMV kernel wrapper (the
+    plain version when the data lies on the CPU); a host Coo takes the
+    plain gather + index_add."""
+    if type(m) in _KERNEL:
+        f = _KERNEL[type(m)]
+        return lambda x: f(m, x)
     if isinstance(m, Dia):
         plan = DiaPlan.of(m)
         data = m.data
@@ -84,10 +102,10 @@ def pack_fast(rows, cols, vals, n: int, max_planes: int = 48,
     """Pack host COO triplets into the first format of the reference's
     ladder that takes them, uploaded to `device`: Dia (at most 64 distinct
     offsets) → Gdia (at most `max_planes` block-row planes) → Xell (n ≥
-    XELL_MIN_ROWS, window within its chunk budget) → Ell.  The port has no
-    Ell: that landing raises NotImplementedError (ROADMAP.md A2), with why
-    Xell refused the matrix when it was tried.  presorted=True skips the
-    row-major sort (the LDU sparsity emits row-major order already)."""
+    XELL_MIN_ROWS, window within its chunk budget) → Ell, which takes any
+    sparsity.  When Xell was tried and failed, the reference's
+    RuntimeWarning names why.  presorted=True skips the row-major sort
+    (the LDU sparsity emits row-major order already)."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     vals = np.asarray(vals)
@@ -102,12 +120,12 @@ def pack_fast(rows, cols, vals, n: int, max_planes: int = 48,
         return gdia_from_coo(coo, max_planes=max_planes, device=device)
     except ValueError:
         pass
-    why = f"{n} rows < {XELL_MIN_ROWS}, so Xell is not tried"
     if n >= XELL_MIN_ROWS:
         try:
             return xell_from_coo(coo, device=device)
         except ValueError as e:
-            why = f"Xell packing failed: {e}"
-    raise NotImplementedError(
-        f"pack_fast: the {n}-row matrix lands on the Ell format ({why}), which "
-        "is not ported to ogl_tpu_torch yet (ROADMAP.md A2)")
+            warnings.warn(
+                f"pack_fast: {n}-row matrix fell to the gather Ell tier (Xell packing "
+                f"failed: {e}); renumber the matrix (reorder='rcm') or raise the Xell "
+                "window budget", RuntimeWarning, stacklevel=2)
+    return coo_to_ell(coo, device=device)

@@ -41,7 +41,7 @@ Deliberate differences from the reference:
     `apply_fn` itself.
   * a level operator with more than 64 distinct offsets raises
     NotImplementedError (the reference falls back to Gdia, then Ell:
-    ROADMAP.md A11, A2).
+    AMG on those levels is ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -216,11 +216,11 @@ def _ell_of(a_csr, dtype, device) -> Dia:
     if n_offs <= MAX_DIAGS:
         return coo_to_dia(coo, device)
     planes = _gdia_planes(coo.rows.astype(np.int64), coo.cols.astype(np.int64))
-    fmt = ("Gdia (ROADMAP.md A11)" if planes <= GDIA_MAX_PLANES
-           else "Ell (ROADMAP.md A2)")
+    fmt = "Gdia" if planes <= GDIA_MAX_PLANES else "Ell"
     raise NotImplementedError(
         f"AMG level of {n} rows has {n_offs} distinct diagonals (> {MAX_DIAGS}): "
-        f"it needs the {fmt} level format, not ported to ogl_tpu_torch yet")
+        f"it needs the {fmt} level format (AMG on non-Dia levels, ROADMAP.md A11), "
+        "not ported to ogl_tpu_torch yet")
 
 
 def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,

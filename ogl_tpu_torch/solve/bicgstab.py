@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from ogl_tpu_torch.core.formats import Dia
+from ogl_tpu_torch.core.formats import Dia, format_name
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_gen_loop_plain,
                                          gen_check_sums)
 from ogl_tpu_torch.kernels.gdia import Gdia
@@ -50,7 +50,7 @@ def why_not(mat, precond_name: str) -> str | None:
     the preconditioner named `precond_name`, or None when the loop kernel
     takes the solve (the caller then passes the format's plan)."""
     if not isinstance(mat, (Dia, Gdia, Xell)):
-        return f"the {type(mat).__name__} format (no loop kernel)"
+        return f"the {format_name(mat)} format (no loop kernel)"
     if precond_name not in ("none", "BJ"):
         return f"preconditioner {precond_name}"
     return None

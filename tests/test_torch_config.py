@@ -93,8 +93,8 @@ UNSUPPORTED = [
     ({"preconditioner": "ILU"}, "A10"),
     ({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}}, "A10"),
     ({"preconditioner": {"preconditioner": "BJ", "maxBlockSize": 4}}, "A10"),
-    ({"matrixFormat": "Csr"}, "A2"),
-    ({"matrixFormat": "Ell"}, "A2"),
+    ({"matrixFormat": "Csr", "preconditioner": "Multigrid"}, "A11"),
+    ({"matrixFormat": "Ell", "solver": "GKOMultigrid"}, "A11"),
     ({"dtype": "float64"}, "A14"),
     ({"solver": "GKOBiCGStab", "dtype": "float64"}, "A14"),
     ({"matrixFormat": "Gdia", "preconditioner": "Multigrid"}, "A11"),
@@ -102,7 +102,7 @@ UNSUPPORTED = [
     ({"export": True}, "A15"),
     ({"debug": True}, "A15"),
     ({"matrixFormat": "Xell", "solver": "GKOMultigrid"}, "A11"),
-    ({"matrixFormat": "Sell"}, "A2"),
+    ({"matrixFormat": "Sell", "preconditioner": "Multigrid"}, "A11"),
 ]
 
 

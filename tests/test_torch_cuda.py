@@ -1876,3 +1876,193 @@ def test_time_device_solve_on_the_card(dev):
     assert slv.time_device_solve() > 0
     again = slv._redispatch()
     assert again.iters == perf.n_iterations and torch.equal(again.x, x)
+
+
+# ---- the gather SpMVs of Coo, Csr, Ell, Sell and Hybrid (slice 14) ----------
+
+GATHER_PORT = {"Coo": formats.coo_to_device, "Csr": formats.coo_to_csr,
+               "Ell": formats.coo_to_ell, "Sell": formats.coo_to_sell,
+               "Hybrid": formats.coo_to_hybrid}
+GATHER_LAUNCH = {"Coo": "csr_spmv", "Csr": "csr_spmv", "Ell": "ell_spmv",
+                 "Sell": "sell_spmv", "Hybrid": "hybrid_spmv"}
+
+
+def _gather_dense(kind):
+    """Seeded float32 test matrices: 'random' (empty rows, a dense row, n
+    not a multiple of 8 or 64), 'long' (rows of 33..200 entries), 'widths'
+    (slices of more than 8 distinct widths, so Sell rounds them to powers of
+    two), 'buckets' (rows of 0..255 entries), 'one' (n = 1)."""
+    rng = np.random.default_rng(0)
+    if kind == "one":
+        return np.array([[2.5]], np.float32)
+    if kind == "long":
+        n = 301
+        a = np.zeros((n, n), np.float32)
+        for i in range(n):
+            k = 33 + (i * 7) % 168
+            a[i, rng.choice(n, size=k, replace=False)] = rng.normal(size=k)
+        return a
+    if kind == "widths":
+        n = 300
+        a = np.zeros((n, n), np.float32)
+        for i in range(n):
+            k = (i // 4) % 25
+            a[i, rng.choice(n, size=k, replace=False)] = rng.normal(size=k)
+        return a
+    if kind == "buckets":  # rows of 0..255 entries: nine Sell buckets at (1, 1)
+        n = 600
+        a = np.zeros((n, n), np.float32)
+        for i in range(n):
+            k = (i * 37) % 256
+            a[i, rng.choice(n, size=k, replace=False)] = rng.normal(size=k)
+        return a
+    n = 517
+    a = (rng.random((n, n)) < 0.04) * rng.normal(size=(n, n))
+    a[n // 2] = rng.normal(size=n)
+    a[2] = a[7] = 0.0
+    return a.astype(np.float32)
+
+
+def _gather_mat(fmt, coo, dev, **kw):
+    return GATHER_PORT[fmt](coo, device=dev, **kw)
+
+
+def _gather_check(fmt, m, dev):
+    """The kernel on the card against its twin on CPU copies: the same
+    bits; one launch counted."""
+    x = _vec(m.shape[0], 3, dev)
+    before = kernels.launches[GATHER_LAUNCH[fmt]]
+    y = spmv.matvec(m)(x)
+    torch.cuda.synchronize()
+    assert kernels.launches[GATHER_LAUNCH[fmt]] == before + 1
+    m_cpu = _to_cpu(m)
+    assert torch.equal(y.cpu(), spmv.spmv(m_cpu, x.cpu()))
+
+
+def _to_cpu(m):
+    def cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        if hasattr(v, "__dataclass_fields__"):
+            return _to_cpu(v)
+        return v
+
+    import dataclasses as dc
+    return dc.replace(m, **{f.name: cpu(getattr(m, f.name)) for f in dc.fields(m)})
+
+
+@pytest.mark.parametrize("kind", ["random", "long", "widths", "one"])
+@pytest.mark.parametrize("fmt", list(GATHER_PORT))
+def test_gather_spmv_matches_its_twin_bit_for_bit(dev, fmt, kind):
+    coo = formats.coo_from_dense(_gather_dense(kind))
+    m = _gather_mat(fmt, coo, dev)
+    if fmt == "Sell" and kind == "widths":
+        assert len(m.widths) <= 8 and all(w & (w - 1) == 0 for w in m.widths)
+    _gather_check(fmt, m, dev)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "long"])
+def test_csr_spmv_at_every_group_size(dev, group, kind):
+    from ogl_tpu_torch.kernels import gather_spmv
+
+    m = formats.coo_to_csr(formats.coo_from_dense(_gather_dense(kind)), device=dev)
+    x = _vec(m.shape[0], 3, dev)
+    y = gather_spmv.csr_spmv(m, x, group)
+    assert torch.equal(y.cpu(), gather_spmv.csr_spmv(_to_cpu(m), x.cpu(), group))
+
+
+@pytest.mark.parametrize("kind, c, sigma", [("widths", 8, 64), ("widths", 4, 1),
+                                           ("buckets", 1, 1)])
+def test_sell_spmv_over_its_bucket_table(dev, kind, c, sigma):
+    """Slice heights 8, 4 and 1; at (1, 1) the rows of 0..255 entries take
+    nine power-of-two buckets, all in one launch."""
+    coo = formats.coo_from_dense(_gather_dense(kind))
+    m = formats.coo_to_sell(coo, c, sigma, device=dev)
+    if kind == "buckets":
+        assert len(m.widths) == 9
+    _gather_check("Sell", m, dev)
+
+
+@pytest.mark.parametrize("width", [1, 10000, None])
+def test_hybrid_spmv_all_tail_empty_tail_and_default(dev, width):
+    coo = formats.coo_from_dense(_gather_dense("random"))
+    m = formats.coo_to_hybrid(coo, width, device=dev)
+    assert (m.tail.nnz == 0) == (width == 10000)
+    _gather_check("Hybrid", m, dev)
+
+
+@pytest.mark.parametrize("fmt", list(GATHER_PORT))
+def test_gather_spmv_on_zero_rows(dev, fmt):
+    """n = 0: the wrapper launches nothing on the card and returns an empty
+    y (the C entry point returns at once), and still counts its call."""
+    e_i = torch.zeros(0, dtype=torch.int32, device=dev)
+    e_f = torch.zeros(0, dtype=torch.float32, device=dev)
+    ptr = torch.zeros(1, dtype=torch.int32, device=dev)
+    csr = formats.Csr(row_ptr=ptr, cols=e_i, vals=e_f, shape=(0, 0))
+    ell = formats.Ell(cols=e_i.view(1, 0), vals=e_f.view(1, 0), shape=(0, 0))
+    m = {"Coo": formats.DeviceCoo(row_ptr=ptr, cols=e_i, vals=e_f, shape=(0, 0)), "Csr": csr,
+         "Ell": ell, "Hybrid": formats.Hybrid(ell=ell, tail=csr, shape=(0, 0)),
+         "Sell": formats.Sell(cols=e_i, vals=e_f, slot_rows=e_i,
+                              table=torch.zeros((0, 3), dtype=torch.int64, device=dev),
+                              widths=(), n_slices=(), shape=(0, 0), slice_height=8)}[fmt]
+    y = spmv.matvec(m)(e_f)
+    torch.cuda.synchronize()
+    assert y.shape == (0,)
+
+
+def test_gather_spmv_on_the_knn_mesh(dev):
+    """The kNN-6 mesh (RCM-numbered) in every format, and the same mesh in
+    its points' numbering, which the ladder lands on Ell."""
+    m_orig, perm = testing.knn_ldu(20000)
+    m_rcm = testing.renumber_ldu(m_orig, np.argsort(perm))
+    coo = ldu.ldu_to_coo_host(m_rcm, dtype=np.float32)
+    for fmt in GATHER_PORT:
+        _gather_check(fmt, _gather_mat(fmt, coo, dev), dev)
+    c = ldu.ldu_to_coo_host(m_orig, dtype=np.float32)
+    landed = spmv.pack_fast(c.rows, c.cols, c.vals, m_orig.n, presorted=True, device=dev)
+    assert isinstance(landed, formats.Ell)
+    _gather_check("Ell", landed, dev)
+
+
+@pytest.mark.parametrize("fmt", list(GATHER_PORT))
+def test_gather_spmv_never_reaches_its_twin_on_the_card(dev, fmt, monkeypatch):
+    """A CUDA tensor never reaches a twin, and a malformed operand raises
+    instead of launching."""
+    from ogl_tpu_torch.kernels import gather_spmv
+
+    def refuse(*args, **kw):
+        raise AssertionError("a twin ran on the card")
+
+    for name in ("spmv_csr", "spmv_ell", "spmv_sell", "spmv_hybrid"):
+        monkeypatch.setattr(gather_spmv, name, refuse)
+    coo = formats.coo_from_dense(_gather_dense("random"))
+    m = _gather_mat(fmt, coo, dev)
+    y = spmv.matvec(m)(_vec(m.shape[0], 1, dev))
+    assert bool(torch.isfinite(y).all())
+    with pytest.raises(ValueError, match="shape"):
+        spmv.matvec(m)(_vec(m.shape[0] + 1, 1, dev))
+    with pytest.raises(TypeError, match="dtype"):
+        spmv.matvec(m)(_vec(m.shape[0], 1, dev).double())
+
+
+@pytest.mark.parametrize("fmt", list(GATHER_PORT))
+def test_foam_solve_on_each_gather_format(dev, fmt):
+    """GKOCG `BJ` on the kNN-6 mesh with an explicit matrixFormat: the
+    general CG over the format's kernel, no loop kernel, its launches one
+    per SpMV of the route (2 set-up, 1 per iteration, 9 for the residual-eval
+    timing), and the count of the same solve on the CPU ±1."""
+    m, perm = testing.knn_ldu(20000)
+    m = testing.renumber_ldu(m, np.argsort(perm))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": "GKOCG", "tolerance": 1e-6, "relTol": 0, "matrixFormat": fmt,
+           "preconditioner": {"preconditioner": "BJ"}}
+    kernels.reset_launches()
+    x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
+    torch.cuda.synchronize()
+    name = GATHER_LAUNCH[fmt]
+    assert kernels.launches[name] == perf.n_iterations + 2 + 9
+    assert kernels.launches["cg_loop"] == kernels.launches["xell_cg_loop"] == 0
+    assert registry.global_registry.get("p_solver").route == "cg"
+    _, perf_cpu = foam.solve("q", m, b, {**ctl, "executor": "cpu"})
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1

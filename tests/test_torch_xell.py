@@ -12,6 +12,7 @@ kernels cross their gathers through float32 MXU transposes and add the
 spill in another order), the block sum δ rtol 2e-5."""
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -264,8 +265,9 @@ def test_pack_fast_picks_the_reference_format(kind):
 
 @pytest.mark.parametrize("n", [20000, 1 << 17])
 def test_pack_fast_raises_on_the_ell_landing(n):
-    """Beyond every ported format the reference lands on Ell (with a
-    warning at n ≥ 32,768); the port raises, naming ROADMAP.md A2."""
+    """Past Dia, Gdia and Xell both ladders land on Ell, the same Ell, with
+    the reference's RuntimeWarning at n ≥ 32,768 (Xell tried and failed);
+    under that Xell is not tried and nothing warns."""
     r = np.arange(n, dtype=np.int64)
     c = (r * 48271 + 11) % n
     r, c = np.concatenate([r, r, np.arange(n)]), np.concatenate([c, (c + 1) % n, np.arange(n)])
@@ -279,9 +281,16 @@ def test_pack_fast_raises_on_the_ell_landing(n):
     else:
         ref = ref_spmv.pack_fast(r, c, v, n)
     assert isinstance(ref, ref_formats.Ell)
-    why = "Xell packing failed" if n >= 1 << 15 else "Xell is not tried"
-    with pytest.raises(NotImplementedError, match=f"{why}.*ROADMAP.md A2"):
-        spmv.pack_fast(r, c, v, n)
+    if n >= 1 << 15:
+        with pytest.warns(RuntimeWarning, match="Xell packing failed"):
+            got = spmv.pack_fast(r, c, v, n)
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = spmv.pack_fast(r, c, v, n)
+    assert isinstance(got, formats.Ell)
+    want = interop.ell_from_reference(ref)
+    assert torch.equal(got.cols, want.cols) and torch.equal(got.vals, want.vals)
 
 
 @pytest.mark.parametrize("n, bands", [(0, 0), (1, 1), (1921, 1), (2048, 1), (2049, 2),
