@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT . . PARENT   (phase 3's kernels in turns)
+    python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the Ell, Hybrid part alone)
 
 Drives the port's six main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
@@ -19,9 +20,10 @@ shuffled grid — each followed by steady-state steps; the pipelined CG with
 loop as one launch of a persistent kernel; then (slice 5) the
 headline lanes of the bench, `ogl_tpu_torch.bench.run`, on the read-peak
 kernel, the SpMV roofline at 8,388,608 rows and the merged CG; then
-(slice 14) the reference-parity formats Coo, Csr, Ell, Sell and Hybrid on
-the kNN-6 mesh, the Poisson grid and convection-diffusion, and the
-ladder's Ell landing on a small unstructured mesh — after
+(slices 14–15) the reference-parity formats Coo, Csr, Ell, Sell and Hybrid
+on the kNN-6 mesh, the Poisson grid and convection-diffusion, and the
+ladder's Ell landing on a small unstructured mesh (GKOCG and GKOBiCGStab
+`none`/`BJ` on Ell and Hybrid each one launch of a loop kernel) — after
 building the port's kernels from the sources in this checkout and holding
 each against its plain PyTorch version on the card, at the slices' size
 and at 8,388,608 rows.
@@ -30,11 +32,12 @@ Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA versions,
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
-     and, for each of the persistent CG loop kernel's four variants (Dia or
-     Gdia, identity or Jacobi), the Xell CG loop kernel's two (identity or
-     Jacobi, with its shared-memory ring), the pipelined loop kernel's two
-     (identity or Jacobi), the merged-BiCGStab loop kernel, the general
-     BiCGStab loop kernel's four and the AMG loop kernel's four (CG or IR,
+     and, for each of the persistent CG loop kernel's six variants (Dia,
+     Gdia or Ell, identity or Jacobi), the Xell CG loop kernel's two
+     (identity or Jacobi, with its shared-memory ring), the pipelined loop
+     kernel's two (identity or Jacobi), the merged-BiCGStab loop kernel, the
+     general BiCGStab loop kernel's eight (Dia, Gdia, Xell or Ell) and the
+     AMG loop kernel's four (CG or IR,
      float32 or bfloat16 smoother coefficients), its grid (co-resident
      blocks) and registers;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
@@ -129,16 +132,23 @@ Phases (any failure raises, and the script exits non-zero):
      device busy; µs per iteration and idle share printed after the run),
      the foam per-step, device-only and diag-only lanes.  Any fraction of
      a peak above 1.05 fails the run;
- 11. slice 14, the reference-parity formats: GKOCG `none` and `BJ` on the
-     1M kNN-6 mesh with an explicit matrixFormat Coo, Csr, Ell, Sell and
-     Hybrid (28 and 23 iterations ± 1), `pipelinedCG` on Csr, the Poisson
+ 11. slices 14–15, the reference-parity formats: GKOCG `none` and `BJ` on
+     the 1M kNN-6 mesh with an explicit matrixFormat Coo, Csr, Ell, Sell
+     and Hybrid (28 and 23 iterations ± 1), GKOBiCGStab `none` and `BJ` there
+     on Ell and Hybrid (21 and 17 ± 1), `pipelinedCG` on Csr, the Poisson
      grid as Csr (275 ± 1), GKOBiCGStab `BJ` on convection-diffusion as Csr
      (24 ± 1), the 20,000-cell kNN-6 mesh in its points' numbering
      auto-routed to Ell, and a steady step on the Csr and Ell solvers (diag
-     block and b uploaded); each solve on the general loop with one launch
-     of its format's gather kernel per SpMV, no loop kernel, no plain twin
-     called, its count equal ±1 to the same route over the plain twins on
-     the card, its true float64 residual within the limit; then the four
+     block and b uploaded); each solve on Coo, Csr and Sell on the general
+     loop with one launch of its format's gather kernel per SpMV and no
+     loop kernel, each on Ell and Hybrid one launch of the loop kernel's Ell
+     variant (the SpMV for the set-up and the residual-eval timing only);
+     no plain twin called, each count equal ±1 to the same route over the
+     plain twins on the card, each true float64 residual within the limit;
+     then the Ell variants of the CG and general-BiCGStab loop kernels
+     against their twins on Ell and Hybrid at kNN 1M and on Ell at
+     64x64x48 (its fixed cost), timed per iteration in turns with the twin
+     and the host loop over the SpMV kernel; then the four
      gather kernels on the kNN mesh and on the 8.4M Poisson grid (formats
      built by core/formats.py's converters) against their twins on the card
      (bit-equal), timed in turns with torch's CSR SpMV beside them, each
@@ -163,7 +173,9 @@ state, the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M and
 8.4M rows, and pK and pKBJ on the kNN-6 mesh on resident state) from
 each given checkout in order, one process each, and prints
 their kernel lines: an earlier commit unpacked with `git archive` against
-this one on the same card.
+this one on the same card; `--turns-gather` runs only its Ell and Hybrid
+part (GKOCG and GKOBiCGStab on the kNN-6 mesh as Ell and Hybrid on resident
+state, the two SpMVs at kNN 1M and 8.4M beside torch's CSR SpMV).
 """
 
 from __future__ import annotations
@@ -191,9 +203,10 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.kernels.fused import (LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS, LOOP_XELL,
-                                         bicgstab_gen_loop_plain, bicgstab_loop_plain,
-                                         cg_loop_plain, cg_pipe_loop_plain)
+from ogl_tpu_torch.kernels.ell import EllCgKernels, ell_k1_plain
+from ogl_tpu_torch.kernels.fused import (LOOP_ELL, LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS,
+                                         LOOP_XELL, bicgstab_gen_loop_plain,
+                                         bicgstab_loop_plain, cg_loop_plain, cg_pipe_loop_plain)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg, cg_fused, cg_pipelined,
                                  cg_pipelined_fused, ir, krylov, stopping)
 from ogl_tpu_torch.solve.ir import ir_fused
@@ -306,9 +319,22 @@ KERNELS = {
     "sell_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/sell_spmv.cu",
                   "XLA op in the reference: ogl_tpu/kernels/spmv.py:55 (spmv_sell)",
                   "sell_spmv", "knn"),
-    "hybrid_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/hybrid_spmv.cu",
+    "hybrid_spmv": ("cuda", "ogl_tpu_torch/kernels/csrc/ell_spmv.cu",
                     "XLA op in the reference: ogl_tpu/kernels/spmv.py:92 (spmv_hybrid)",
                     "hybrid_spmv", "knn"),
+    # the loops on Ell and Hybrid (phase 11): the Ell variants of the CG and
+    # general-BiCGStab loop kernels, the Ell row body (ell_rows.cuh) as their
+    # SpMV phases; the reference runs its general loops over XLA SpMVs.  Their
+    # rows' times are per iteration, their cases [Ell|Hybrid none|BJ]
+    "ell_cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_loop.cu",
+                    "no TPU kernel: the reference's CG loop, ogl_tpu/solve/cg.py:47, over the "
+                    "XLA op ogl_tpu/kernels/spmv.py:50 (spmv_ell)", "ell_cg_loop[Ell none]",
+                    "knn"),
+    "ell_bicgstab_gen_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_gen_loop.cu",
+                              "no TPU kernel: the reference's BiCGStab loop, "
+                              "ogl_tpu/solve/bicgstab.py:52, over the XLA op "
+                              "ogl_tpu/kernels/spmv.py:50 (spmv_ell)",
+                              "ell_bicgstab_gen_loop[Ell none]", "knn"),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -354,14 +380,16 @@ XELL_GEN_SOLVES = {"uK": "none", "uKBJ": {"preconditioner": "BJ"}}
 # the general-BiCGStab loop kernel's variants (bits of csrc/bicgstab_gen_loop.cu)
 GEN_LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
                      LOOP_GDIA | LOOP_JACOBI: "Gdia BJ", LOOP_XELL: "Xell none",
-                     LOOP_XELL | LOOP_JACOBI: "Xell BJ"}
+                     LOOP_XELL | LOOP_JACOBI: "Xell BJ", LOOP_ELL: "Ell none",
+                     LOOP_ELL | LOOP_JACOBI: "Ell BJ"}
 # x after BICGSTAB_LOOP_CHECK pinned iterations against the twin: the phases
 # give the twin's bits at every row, the block sums add in another order, and
 # float32 BiCGStab amplifies that (the rtol the phase-9 pin holds residuals to)
 GEN_LOOP_RTOL = 1e-4
-# the loop kernel's four variants (bits of csrc/cg_loop.cu), as phase 2 names them
+# the loop kernel's six variants (bits of csrc/cg_loop.cu), as phase 2 names them
 LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
-                 LOOP_GDIA | LOOP_JACOBI: "Gdia BJ"}
+                 LOOP_GDIA | LOOP_JACOBI: "Gdia BJ", LOOP_ELL: "Ell none",
+                 LOOP_ELL | LOOP_JACOBI: "Ell BJ"}
 PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
 XELL_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/xell_cg_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
@@ -707,11 +735,22 @@ def check_kernels(dims, device, report):
     torch.cuda.empty_cache()
 
 
-def loop_bytes(data, n, jacobi):
+def ell_spmv_bytes(kern, data):
+    """The least bytes of one SpMV over an Ell or Hybrid plan's matrix, bar
+    x and y: each entry's value and column once (8 B; the padding is the
+    format's cost, not the function's), and a Hybrid tail's row offsets."""
+    rows = torch.arange(kern.n, device=kern.device)
+    nnz = int(((kern.cols != rows) | (data[0] != 0)).sum()) + kern.n_tail
+    return nnz * 8 + (4 * (kern.n + 1) if kern.n_tail else 0)
+
+
+def loop_bytes(data, n, jacobi, kern=None):
     """Minimum bytes per iteration of the loop kernel: K1 (the coefficients,
     z (r) and p in, p' and q out) and K2i (x, r, p', q in; x, r out), with
     Jacobi also invd in and z out."""
-    if isinstance(data, tuple) and len(data) == 4:  # Xell: K slots of 7 B, the spill
+    if isinstance(kern, EllCgKernels):
+        k1 = ell_spmv_bytes(kern, data) + 16 * n
+    elif isinstance(data, tuple) and len(data) == 4:  # Xell: K slots of 7 B, the spill
         vals, spill = data[0], data[3].numel()
         k1 = (vals.shape[1] * 7 + 16 + (4 if spill else 0)) * n + 12 * spill
     elif isinstance(data, tuple):  # Gdia: np values (4 B) and lanes (1 B) per row
@@ -770,7 +809,9 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop",
     set-up (b random, x0 = 0), timed in turns with the host loop over the
     standalone kernels (cg_fused with a plan that keeps the host loop):
     loop_row over `iters` (check, timing).  invd: the Jacobi variant (the K2
-    phase).  kern: a Dia, Gdia or Xell plan (the Xell loop kernel)."""
+    phase).  kern: a Dia, Gdia, Xell (the Xell loop kernel) or Ell plan (an
+    Ell variant, against the host loop of solve/cg.py over the SpMV
+    kernel)."""
     n, dev = kern.n, kern.device
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
@@ -778,12 +819,20 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop",
     z0 = None if invd is None else invd * r0
     state = (torch.sum(r0 * (r0 if z0 is None else z0)), torch.sum(torch.abs(r0)),
              merged_norm_factor(kern, data, r0, x0, b))
-    if isinstance(kern, xell.XellCgKernels):
-        host = HostLoopXellCgKernels(kern.plan)
-    elif isinstance(kern, GdiaCgKernels):
-        host = HostLoopGdiaCgKernels(n, kern.plane_offsets, dev)
+    host_what = "K1 + " + ("K2" if invd is not None else "K2i")
+    if isinstance(kern, EllCgKernels):
+        ops = krylov.single_device_ops(functools.partial(kern.spmv, data), n,
+                                       precond=None if invd is None else (lambda r: invd * r))
+        host_solve, host_what = (lambda k: cg(ops, b, x0, checked_iterations(k)),
+                                 "the SpMV kernel + torch ops")
     else:
-        host = HostLoopCgKernels(n, kern.offsets, dev)
+        if isinstance(kern, xell.XellCgKernels):
+            host = HostLoopXellCgKernels(kern.plan)
+        elif isinstance(kern, GdiaCgKernels):
+            host = HostLoopGdiaCgKernels(n, kern.plane_offsets, dev)
+        else:
+            host = HostLoopCgKernels(n, kern.offsets, dev)
+        host_solve = lambda k: cg_fused(host, data, b, x0, checked_iterations(k), invd=invd)
 
     def run(k, plain):
         x, r = x0.clone(), r0.clone()
@@ -792,10 +841,8 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop",
                else kern.cg_loop(data, x, r, *state, checked_iterations(k), invd=invd, z=z))
         return x, rec[0], rec[1]
 
-    loop_row(case, label, run,
-             lambda k: cg_fused(host, data, b, x0, checked_iterations(k), invd=invd),
-             "K1 + " + ("K2" if invd is not None else "K2i"),
-             loop_bytes(data, n, invd is not None), n, report, check=iters[0], iters=iters[1])
+    loop_row(case, label, run, host_solve, host_what, loop_bytes(data, n, invd is not None, kern),
+             n, report, check=iters[0], iters=iters[1])
 
 
 def check_pipe_loop(kern, data, label, report, invd=None):
@@ -862,14 +909,16 @@ def check_bicgstab_loop(kern, data, label, report):
              check=BICGSTAB_LOOP_CHECK)
 
 
-def gen_loop_bytes(data, n, jacobi):
+def gen_loop_bytes(data, n, jacobi, kern=None):
     """Minimum bytes per iteration of the general-BiCGStab loop kernel:
     SpMV A (the coefficients — Dia nd x 4 B, Gdia np x 5 B of values and
     lanes, Xell K x 7 B of slots and the spill —, r, p, v and r̂ in; p' and
     v' out), SpMV B (the coefficients, r and v' in; s and t out) and the
     update (x, p', s, t and r̂ in; x and r out): 2 x the coefficients + 68 B
     per row (124 at 7 Dia diagonals); with Jacobi invd once in each phase
-    (+ 12)."""
+    (+ 12).  Ell: the least bytes of its SpMV (ell_spmv_bytes)."""
+    if isinstance(kern, EllCgKernels):
+        return 2 * ell_spmv_bytes(kern, data) + (68 + 12 * jacobi) * n
     if isinstance(data, tuple) and len(data) == 4:  # Xell
         spill = data[3].numel()
         coef_bytes = (data[0].shape[1] * 7 + (4 if spill else 0)) * n + 12 * spill
@@ -890,6 +939,7 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
     n, dev = kern.n, kern.device
     gdia_v = isinstance(kern, GdiaCgKernels)
     xell_v = isinstance(kern, xell.XellCgKernels)
+    ell_v = isinstance(kern, EllCgKernels)
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
     pc = None if invd is None else (lambda r: invd * r)
@@ -897,7 +947,9 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
     r0 = b - ops.matvec(x0)  # also r̂, never written
     state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
              stopping.initial_norm_factor(ops, r0, x0, b))
-    if xell_v:
+    if ell_v:
+        plain_mv = functools.partial(spmv.spmv, kern.container(data))
+    elif xell_v:
         plain_mv = functools.partial(xell.xell_spmv_plain, kern.plan, *data)
     elif gdia_v:
         plain_mv = functools.partial(gdia.gdia_spmv_plain, *data, kern.plane_offsets)
@@ -912,12 +964,14 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
                else kern.bicgstab_gen_loop(data, x, r, r0, *state, cfg, invd))
         return x, rec[0], rec[1]
 
-    fmt = "Xell" if xell_v else "Gdia" if gdia_v else "Dia"
-    tag = f"{fmt} {'none' if invd is None else 'BJ'}"
-    loop_row(f"bicgstab_gen_loop[{tag}]", label, run,
+    if ell_v:
+        case = f"ell_bicgstab_gen_loop[{'Hybrid' if kern.hybrid else 'Ell'}"
+    else:
+        case = f"bicgstab_gen_loop[{'Xell' if xell_v else 'Gdia' if gdia_v else 'Dia'}"
+    loop_row(f"{case} {'none' if invd is None else 'BJ'}]", label, run,
              lambda k: bicgstab(ops, b, x0, checked_iterations(k)),
-             "the SpMV kernel + torch ops", gen_loop_bytes(data, n, invd is not None), n, report,
-             check=BICGSTAB_LOOP_CHECK, iters=iters, vec_rtol=GEN_LOOP_RTOL)
+             "the SpMV kernel + torch ops", gen_loop_bytes(data, n, invd is not None, kern), n,
+             report, check=BICGSTAB_LOOP_CHECK, iters=iters, vec_rtol=GEN_LOOP_RTOL)
 
 
 def amg_loop_bytes(op, data, ir_loop):
@@ -2060,14 +2114,22 @@ GATHER_KERNELS = ("csr_spmv", "ell_spmv", "sell_spmv", "hybrid_spmv")
 # the SpMVs of a general route's solve, (set-up, per iteration); the
 # criterion's residual-eval timing adds RES_EVAL_SPMVS
 GENERAL_ROUTE_SPMVS = {"cg": (2, 1), "cg_pipe": (3, 1), "bicgstab": (2, 2)}
-# the loop kernels, none of which may run on these formats
+# the loop kernels: none may run on Coo, Csr and Sell; a GKOCG (GKOBiCGStab)
+# `none` or `BJ` solve on Ell or Hybrid runs the Ell variant of the CG
+# (general-BiCGStab) loop kernel once, named by its route in ELL_LOOPS
 LOOP_KERNELS = ("cg_loop", "cg_pipe_loop", "bicgstab_loop", "bicgstab_gen_loop",
-                "xell_cg_loop", "amg_cg_loop", "amg_ir_loop")
+                "xell_cg_loop", "amg_cg_loop", "amg_ir_loop", "ell_cg_loop",
+                "ell_bicgstab_gen_loop")
+ELL_LOOPS = {"cg": "ell_cg_loop", "bicgstab": "ell_bicgstab_gen_loop"}
 # iterations gated at ±1 at the slices' size: GKOCG `none` and `BJ` on the 1M
 # kNN-6 mesh in every format (the Xell route's counts on the same system),
-# GKOCG on the Poisson grid as Csr (P_ITERS), GKOBiCGStab `BJ` on
+# GKOBiCGStab `none` and `BJ` there on Ell and Hybrid (phase 8's uK, uKBJ on
+# Xell), GKOCG on the Poisson grid as Csr (P_ITERS), GKOBiCGStab `BJ` on
 # convection-diffusion as Csr (phase 9's uCD)
-GATHER_ITERS = {"none": 28, "BJ": 23, "gP": 275, "gCD": 24}
+GATHER_ITERS = {"none": 28, "BJ": 23, "uK": 21, "uKBJ": 17, "gP": 275, "gCD": 24}
+# the Ell loop rows' check and timing iterations (their plain twins take
+# three torch ops per slot of an SpMV, 1.6 ms per CG iteration at kNN 1M)
+ELL_LOOP_ITERS = (30, 50)
 ELL_LANDING_CELLS = 20000  # the kNN-6 mesh in its points' numbering: lands on Ell
 CSR_GROUPS = (1, 2, 4, 8, 16, 32)  # the CSR kernel's lanes per row, timed in phase 11
 # the converters of the formats whose kernels phase 11 times (the solver's own)
@@ -2123,6 +2185,10 @@ def check_gather_kernels(mats, label, x, csr, report):
               f"the format's {stored / n:.1f} ({stored / nbytes:.2f}x)")
         if differ:
             raise RuntimeError(f"{name} at {label} is not bit-equal to its twin")
+        if fmt in ("Ell", "Hybrid"):  # the slots its warps read (csrc/ell_rows.cuh)
+            ell = m.ell if fmt == "Hybrid" else m
+            print(f"  {name:22s} {label:12s} its warps stop at "
+                  f"{float(ell.warp_slots.float().mean()):.2f} of {ell.row_width} slots on mean")
         library_beside(name, label, csr, mv, x, report)
         report[name][label].update(bytes_per_row=nbytes / n, stored_bytes_per_row=stored / n)
         if fmt == "Csr":  # the CSR kernel at every group size, in turns
@@ -2190,21 +2256,40 @@ def twins_refused():
             setattr(gather_spmv, name, fn)
 
 
-def check_gather_launches(field, route, kernel, iters, before):
-    """One launch of the format's kernel per SpMV of the route, and no loop
-    kernel: between `before` and now."""
+def check_gather_launches(field, route, kernel, iters, before, loop=None):
+    """Between `before` and now: one launch of the format's kernel per SpMV
+    of the route and no loop kernel; or, where the solve ran the loop kernel
+    `loop`, that kernel once, no other loop kernel, and the format's kernel
+    for the set-up and the residual-eval timing only."""
     setup, per_iter = GENERAL_ROUTE_SPMVS[route]
-    want = {kernel: setup + per_iter * iters + RES_EVAL_SPMVS, **{k: 0 for k in LOOP_KERNELS}}
+    want = {kernel: setup + (0 if loop else per_iter * iters) + RES_EVAL_SPMVS,
+            **{k: int(k == loop) for k in LOOP_KERNELS}}
     got = {k: kernels.launches[k] - before[k] for k in want}
     print(f"  {field}: launches in this solve {got}")
     if got != want:
         raise RuntimeError(f"{field}: launched {got} in one solve, not {want}")
 
 
+def check_ell_loops(mat, invd, label, report, iters):
+    """The Ell variants of the CG loop kernel (check_loop) and of the
+    general-BiCGStab loop kernel (check_gen_loop), `none` and `BJ` with the
+    inverse diagonal `invd` (None: the 7-point stencil's 1/6), on the Ell or
+    Hybrid matrix `mat`."""
+    kern = EllCgKernels.for_matrix(mat)
+    data = kern.pack_values(mat)
+    if invd is None:
+        invd = torch.full((kern.n,), 1.0 / 6.0, device=kern.device)
+    fmt = "Hybrid" if kern.hybrid else "Ell"
+    for pc, iv in (("none", None), ("BJ", invd)):
+        check_loop(kern, data, functools.partial(ell_k1_plain, mat), label, report, invd=iv,
+                   case=f"ell_cg_loop[{fmt} {pc}]", iters=iters)
+        check_gen_loop(kern, data, label, report, invd=iv, iters=iters[1])
+
+
 def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tuple:
     """Phase 11.  Returns the launch counts of the path and its kernel
     report."""
-    print(f"== phase 11: slice 14, the reference-parity formats, foam.solve at {m_knn.n} "
+    print(f"== phase 11: slices 14-15, the reference-parity formats, foam.solve at {m_knn.n} "
           f"(kNN-6) and {m_grid.n} (Poisson, convection-diffusion) cells")
     ctl = {**ctl, "verbose": 0}
     t0 = time.perf_counter()
@@ -2218,6 +2303,9 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
     solves = {f"g{fmt}{tag}": (m_knn, b_knn, {"matrixFormat": fmt, "preconditioner": pc},
                                "BJ" if tag else "none")
               for fmt in GATHER_FORMATS for tag, pc in pcs.items()}
+    solves.update({f"u{fmt}{tag}": (m_knn, b_knn, {"solver": "GKOBiCGStab", "matrixFormat": fmt,
+                                                  "preconditioner": pc}, f"uK{tag}")
+                   for fmt in ("Ell", "Hybrid") for tag, pc in pcs.items()})
     solves.update({
         "gPipe": (m_knn, b_knn, {"matrixFormat": "Csr", "pipelinedCG": True,
                                  "preconditioner": "none"}, None),
@@ -2239,7 +2327,7 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
             slv = registry.global_registry.get(f"{field}_solver")
             fmt = formats.format_name(slv.matrix)
             check_gather_launches(field, slv.route, GATHER_FORMATS[fmt], perf.n_iterations,
-                                  before)
+                                  before, slv.kern and ELL_LOOPS[slv.route])
             it = max(perf.n_iterations, 1)
             lt = slv.last_timings
             print(f"{field} ({fmt}, route {slv.route}): first solve wall {wall:.3f} s; "
@@ -2263,7 +2351,7 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
             slv = registry.global_registry.get(f"{field}_solver")
             check_gather_launches(f"{field} steady step", slv.route,
                                   GATHER_FORMATS[formats.format_name(slv.matrix)],
-                                  perf2.n_iterations, before)
+                                  perf2.n_iterations, before, slv.kern and ELL_LOOPS[slv.route])
             lt = slv.last_timings
             print(f"{field} steady step: update {lt.get('update_device_values', 0.0) * 1e3:.3f} "
                   f"ms, solve {lt.get('solve', 0.0) * 1e3:.3f} ms; blocks uploaded "
@@ -2273,7 +2361,7 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
                 raise RuntimeError(f"{field} steady step uploaded more than the diag block + RHS")
             records[f"{field} step"] = (x2, perf2, slv.route, slv.matrix,
                                         torch.tensor(b2, device=device), None, params, None)
-    launches = {k: kernels.launches[k] for k in GATHER_KERNELS}
+    launches = {k: kernels.launches[k] for k in (*GATHER_KERNELS, *ELL_LOOPS.values())}
     print(f"launch counts over the path: {dict(kernels.launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -2307,10 +2395,22 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
 
+    # ---- the loops on Ell and Hybrid against their twins ----------------------
+    report: dict = {}
+    print("the loop kernels' Ell variants vs their twins (x after the check's "
+          f"iterations within {VEC_RTOL:.0e}*max(1,max|plain|), BiCGStab after "
+          f"{BICGSTAB_LOOP_CHECK} pinned within {GEN_LOOP_RTOL:.0e}):")
+    for fmt in ("Ell", "Hybrid"):
+        mat = records[f"g{fmt}"][3]
+        invd = records[f"g{fmt}BJ"][5]
+        check_ell_loops(mat, invd, "knn", report, ELL_LOOP_ITERS)
+    coo = ldu.ldu_to_coo_host(testing.poisson_ldu(LOOP_FIXED_GRID), dtype=np.float32)
+    check_ell_loops(formats.coo_to_ell(coo, device=device), None,
+                    "x".join(map(str, LOOP_FIXED_GRID)), report, ELL_LOOP_ITERS)
+
     # ---- the kernels against their twins (launches not counted) ------------
     print("gather kernels vs their twins (vector tol "
           f"{VEC_RTOL:.0e}*max(1,max|plain|), and bit-equal):")
-    report: dict = {}
     g = torch.Generator(device=device).manual_seed(0)
 
     def kernels_on(label, coo, rows, cols, vals):
@@ -2366,10 +2466,56 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
 # way, then the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M
 # and 8.4M rows and GKOCG `none` and `BJ` on the kNN-6 mesh at 1M cells
 # (pK, pKBJ; one launch of the Xell loop kernel where a tree has it, else
-# the host loop over the K1 and K2i or K2 kernels) on resident state — only
-# functions that this script's earlier versions have too
-TURN_CODE = (
-    "import torch, chip_smoke as s; d = torch.device('cuda'); r = {}\n"
+# the host loop over the K1 and K2i or K2 kernels) on resident state, then
+# TURN_GATHER — only functions that this script's earlier versions have too
+TURN_HEAD = "import numpy as np, torch, chip_smoke as s; d = torch.device('cuda'); r = {}\n"
+# the kNN-6 mesh at 1M cells, RCM-numbered, and its b (as phase 8 makes them)
+TURN_KNN = ("mo, perm = s.testing.knn_ldu(s.KNN_1M)\n"
+            "mk = s.testing.renumber_ldu(mo, np.argsort(perm))\n"
+            "bk = np.random.default_rng(0).normal(size=mk.n).astype(np.float32)\n")
+# GKOCG and GKOBiCGStab `none` and `BJ` on the kNN-6 mesh as Ell and as
+# Hybrid on resident state (one launch of a loop kernel's Ell variant where
+# a tree has them, else the host loops over the SpMV kernel), and the Ell
+# and Hybrid SpMVs on the kNN-6 mesh and on the 256x256x128 Poisson grid
+# against their twins, torch's CSR SpMV beside them, with the profiler's
+# device time per launch (also alone: `--turns-gather`)
+TURN_GATHER = (
+    "bj = {'preconditioner': 'BJ'}\n"
+    "for f, ex in (('gEll', {}), ('gEllBJ', {'preconditioner': bj}), ('gHybrid', {}), "
+    "('gHybridBJ', {'preconditioner': bj}), ('uEll', {'solver': 'GKOBiCGStab'}), "
+    "('uEllBJ', {'solver': 'GKOBiCGStab', 'preconditioner': bj}), ('uHybrid', "
+    "{'solver': 'GKOBiCGStab'}), ('uHybridBJ', {'solver': 'GKOBiCGStab', 'preconditioner': bj})):\n"
+    "    ctl = {'solver': 'GKOCG', 'executor': 'cuda', 'tolerance': s.TOL, 'relTol': 0, "
+    "'matrixFormat': 'Hybrid' if 'Hybrid' in f else 'Ell', **ex}\n"
+    "    _, perf = s.foam.solve(f, mk, bk, ctl)\n"
+    "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
+    "    print(f'  gather_solve {f} (kNN-6) {mk.n} cells: {perf.n_iterations} iterations, "
+    "{sec * 1e3:.3f} ms on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.2f} us "
+    "per iteration')\n"
+    "def gather_turn(label, coo, rows, cols, vals):\n"
+    "    x = torch.randn(coo.shape[0], device=d, generator=torch.Generator(device=d)"
+    ".manual_seed(0))\n"
+    "    csr = s.csr_of_coo(rows, cols, vals, coo.shape[0])\n"
+    "    mats = {'Ell': s.formats.coo_to_ell(coo, device=d), 'Hybrid': s.formats.coo_to_hybrid("
+    "coo, device=d)}\n"
+    "    s.check_gather_kernels(mats, label, x, csr, r)\n"
+    "    for fmt, mm in mats.items():\n"
+    "        s.device_beside(s.GATHER_FORMATS[fmt], label, lambda mv=s.spmv.matvec(mm): mv(x), "
+    "lambda: csr @ x, r)\n"
+    "c = s.registry.global_registry.get('gEll_solver').coo_host()\n"
+    "gather_turn('knn', c, *(torch.tensor(a, device=d) for a in (c.rows.astype(np.int64), "
+    "c.cols.astype(np.int64), c.vals)))\n"
+    "s.registry.global_registry.clear()\n"
+    "data, offs = s.poisson_dia(s.GRID_8M, d)\n"
+    "rows, cols, vals = s.dia_coo(data, offs)\n"
+    "nb = data.shape[1]\n"
+    "del data\n"
+    "o = torch.argsort(rows * nb + cols)\n"
+    "rows, cols, vals = rows[o], cols[o], vals[o]\n"
+    "gather_turn('256x256x128', s.formats.Coo(rows=rows.cpu().numpy().astype(np.int32), "
+    "cols=cols.cpu().numpy().astype(np.int32), vals=vals.cpu().numpy(), shape=(nb, nb)), rows, "
+    "cols, vals)\n")
+TURN_CODE = TURN_HEAD + (
     "for g in (s.GRID_1M, s.GRID_8M): s.check_kernels(g, d, r)\n"
     "for g in (s.GRID_1M, s.GRID_8M): s.check_unstructured_kernels([("
     "'shuffled ' + 'x'.join(map(str, g)), s.gdia_on_device(*s.shuffled_poisson_coo_on_device("
@@ -2388,7 +2534,6 @@ TURN_CODE = (
     "reps=3)[0] / 200\n"
     "    print(f'  bicgstab_fused {n} rows: {ms:.4f} ms per iteration over 200, checked at each "
     "(its set-up included)')\n"
-    "import numpy as np\n"
     "m = s.testing.poisson_ldu(s.GRID_1M)\n"
     "rhs = np.random.default_rng(0).normal(size=m.n).astype(np.float32)\n"
     "for f, ex in s.AMG_SOLVES.items():\n"
@@ -2412,32 +2557,33 @@ TURN_CODE = (
     "big = s.formats.Coo(rows=rows.cpu().numpy().astype(np.int32), cols=cols.cpu().numpy()"
     ".astype(np.int32), vals=vals.cpu().numpy(), shape=(nb, nb))\n"
     "s.check_unstructured_kernels([('xell 128x128x64', s.xell.xell_from_coo(c, device=d)), "
-    "('xell 256x256x128', s.xell.xell_from_coo(big, c_max=9, device=d))], r)\n"
-    "mo, perm = s.testing.knn_ldu(s.KNN_1M)\n"
-    "mk = s.testing.renumber_ldu(mo, np.argsort(perm))\n"
-    "bk = np.random.default_rng(0).normal(size=mk.n).astype(np.float32)\n"
+    "('xell 256x256x128', s.xell.xell_from_coo(big, c_max=9, device=d))], r)\n") + TURN_KNN + (
     "for f, pc in (('pK', 'none'), ('pKBJ', {'preconditioner': 'BJ'})):\n"
     "    _, perf = s.foam.solve(f, mk, bk, {'solver': 'GKOCG', 'executor': 'cuda', "
     "'tolerance': s.TOL, 'relTol': 0, 'preconditioner': pc})\n"
     "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
     "    print(f'  xell_solve {f} (kNN-6) {mk.n} cells: {perf.n_iterations} iterations, "
     "{sec * 1e3:.3f} ms on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.2f} us "
-    "per iteration')\n")
+    "per iteration')\n") + TURN_GATHER
+TURN_GATHER_CODE = TURN_HEAD + TURN_KNN + TURN_GATHER  # one turn of `--turns-gather`
+
 TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
-              "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_")
+              "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_",
+              "gather_solve", "ell_spmv", "hybrid_spmv", "torch CSR")
 
 
-def turns(trees) -> int:
-    """Phase 3's kernel checks from each checkout of `trees` in order, one
-    process each, run from that checkout (so with its own kernels): give
-    an earlier commit unpacked with `git archive` and this one, as
-    `--turns PARENT . . PARENT`, to time both on one card in turns.  Each
-    turn's whole output is printed, then every turn's kernel lines again
-    as a summary."""
+def turns(trees, code=TURN_CODE) -> int:
+    """Phase 3's kernel checks and the rest of `code` (TURN_CODE, or
+    TURN_GATHER_CODE for `--turns-gather`) from each checkout of `trees` in
+    order, one process each, run from that checkout (so with its own
+    kernels): give an earlier commit unpacked with `git archive` and this
+    one, as `--turns PARENT . . PARENT`, to time both on one card in turns.
+    Each turn's whole output is printed, then every turn's kernel lines
+    again as a summary."""
     print(card_line())
     summary, rc = [], 0
     for i, tree in enumerate(trees, 1):
-        res = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=tree, capture_output=True,
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
                              text=True, timeout=900)
         print(f"== turn {i} ({tree}) rc={res.returncode}\n{res.stdout}{res.stderr}")
         summary.append(f"turn {i} ({tree}) rc={res.returncode}")
@@ -2457,6 +2603,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--turns"]:
         return turns(sys.argv[2:])
+    if sys.argv[1:2] == ["--turns-gather"]:
+        return turns(sys.argv[2:], TURN_GATHER_CODE)
     return run(torch.device("cuda"), GRID_1M, GRID_8M, KNN_1M)
 
 

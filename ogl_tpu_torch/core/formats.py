@@ -21,7 +21,8 @@ instead of JAX pytrees.  `BlockUpdatePlan` is not ported (ROADMAP.md A7).
   Ell    — slot-major: cols/vals of shape (K, n), entry k of row i at
            [k, i] (the reference stores (n, K); the kernel's threads read
            one slot of neighbouring rows at neighbouring addresses).
-           Padding: col = the row itself, val 0.
+           Padding: col = the row itself, val 0.  `warp_slots` holds the
+           longest row of each 32-row group: the kernels' warps stop there.
   Sell   — SELL-C-σ width buckets stored flat, bucket after bucket, each
            bucket slot-major: (w_b, ns_b · C), lane k of slot s at [k, s],
            where the reference stores (ns_b, C, w_b).  Padding: col 0,
@@ -48,8 +49,8 @@ import torch
 
 __all__ = ["Coo", "Csr", "DeviceCoo", "Ell", "Sell", "Hybrid", "Dia", "format_name",
            "coo_from_dense", "to_dense", "coo_to_device", "coo_to_csr", "ell_layout",
-           "coo_to_ell", "coo_to_hybrid", "dia_layout", "coo_to_dia", "sell_layout",
-           "sell_device_index", "sell_table", "coo_to_sell",
+           "ELL_GROUP", "ell_warp_slots", "coo_to_ell", "coo_to_hybrid", "dia_layout",
+           "coo_to_dia", "sell_layout", "sell_device_index", "sell_table", "coo_to_sell",
            "with_values", "values_flat", "cast_values", "ValueMap", "value_map"]
 
 
@@ -105,11 +106,16 @@ def format_name(m) -> str:
 @dataclasses.dataclass(frozen=True)
 class Ell:
     """Slot-major ELLPACK: cols/vals of shape (K, n_rows).  Padding has
-    col == the row's own index and val == 0, so the SpMV needs no mask."""
+    col == the row's own index and val == 0, so the SpMV needs no mask.
+    warp_slots[g] is the longest row among rows 32g .. 32g + 31
+    (`ell_warp_slots`): the slots past it hold padding only, and the
+    kernels' warps stop there.  It belongs to the sparsity, so a value
+    update carries it."""
 
     cols: torch.Tensor  # (K, n) int32
     vals: torch.Tensor  # (K, n)
     shape: tuple[int, int]
+    warp_slots: torch.Tensor  # (ceil(n / 32),) int32
 
     @property
     def row_width(self) -> int:
@@ -263,6 +269,17 @@ def ell_layout(rows: np.ndarray, n: int, width: int | None = None):
     return k, slot.astype(np.int64)
 
 
+ELL_GROUP = 32  # rows of one warp of the Ell kernels (csrc/ell_rows.cuh), one slot count each
+
+
+def ell_warp_slots(counts: np.ndarray, width: int) -> np.ndarray:
+    """The slot count of each ELL_GROUP-row group: its longest row, with
+    rows cut at the Ell width (a Hybrid's longer rows go on in the tail)."""
+    c = np.minimum(np.asarray(counts, np.int64), width)
+    c = np.pad(c, (0, -len(c) % ELL_GROUP)).reshape(-1, ELL_GROUP)
+    return c.max(axis=1, initial=0).astype(np.int32)
+
+
 def coo_to_ell(m: Coo, width: int | None = None,
                device: torch.device | str = "cpu") -> Ell:
     """The reference's `coo_to_ell`, stored slot-major (K, n)."""
@@ -274,7 +291,8 @@ def coo_to_ell(m: Coo, width: int | None = None,
     evals = np.zeros((k, n), dtype=vals.dtype)
     ecols[slot, rows] = cols
     evals[slot, rows] = vals
-    return Ell(cols=_up(ecols, device), vals=_up(evals, device), shape=tuple(m.shape))
+    return Ell(cols=_up(ecols, device), vals=_up(evals, device), shape=tuple(m.shape),
+               warp_slots=_up(ell_warp_slots(np.bincount(rows, minlength=n), k), device))
 
 
 def coo_to_hybrid(m: Coo, width: int | None = None,
@@ -297,7 +315,8 @@ def coo_to_hybrid(m: Coo, width: int | None = None,
     evals[slot[in_ell], rows[in_ell]] = vals[in_ell]
     tail = ~in_ell
     return Hybrid(
-        ell=Ell(cols=_up(ecols, device), vals=_up(evals, device), shape=tuple(m.shape)),
+        ell=Ell(cols=_up(ecols, device), vals=_up(evals, device), shape=tuple(m.shape),
+                warp_slots=_up(ell_warp_slots(counts, width), device)),
         tail=coo_to_csr(Coo(rows=rows[tail], cols=cols[tail], vals=vals[tail],
                             shape=tuple(m.shape)), device),
         shape=tuple(m.shape))

@@ -28,7 +28,9 @@ Routing follows the reference's `_make_solve_fn`:
                        `BJ` on the card: one launch of the format's loop
                        kernel); every other format, or `fusedCG false` →
                        the general CG (solve/cg.py) over the format's SpMV
-                       kernel
+                       kernel, which on Ell and Hybrid with `none` or `BJ`
+                       on the card is one launch of the CG loop kernel's
+                       Ell variant (EllCgKernels)
   GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
                        (KA + KB_pipe, solve/cg_pipe_fused.py; on the card
                        one launch of its loop kernel); Gdia, Xell,
@@ -37,8 +39,8 @@ Routing follows the reference's `_make_solve_fn`:
                        Ell, Sell and Hybrid
   GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): with
                        `none` or `BJ` one launch of its loop kernel on the
-                       card (on Dia, Gdia or Xell), else (Coo, Csr, Ell, Sell,
-                       Hybrid, Multigrid) the host loop over the format's
+                       card (on Dia, Gdia, Xell, Ell or Hybrid), else (Coo,
+                       Csr, Sell, Multigrid) the host loop over the format's
                        SpMV kernel; `fusedBiCGStab true` with
                        `none` on Dia → the merged BiCGStab (K1B, K1B,
                        KB_update; solve/bicgstab_fused.py; on the card one
@@ -70,6 +72,7 @@ from ogl_tpu_torch.config import SolverConfig, parse_controls
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.core.reorder import rcm_permutation
 from ogl_tpu_torch.kernels import spmv
+from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
 from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
 from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels, xell_from_coo
@@ -78,6 +81,7 @@ from ogl_tpu_torch.solve.bicgstab import bicgstab
 from ogl_tpu_torch.solve.bicgstab import why_not as bicgstab_why_not
 from ogl_tpu_torch.solve.bicgstab_fused import bicgstab_fused
 from ogl_tpu_torch.solve.cg import cg
+from ogl_tpu_torch.solve.cg import why_not as cg_why_not
 from ogl_tpu_torch.solve.cg_fused import cg_fused
 from ogl_tpu_torch.solve.cg_pipe import cg_pipelined
 from ogl_tpu_torch.solve.cg_pipe_fused import cg_pipelined_fused
@@ -323,11 +327,18 @@ class FoamSolver:
                     "ogl_tpu_torch yet (ROADMAP.md A11)")
             self.route = _route(cfg, self.matrix)
             # "ir" (GKOMultigrid, Dia only) keeps the plan for its device loop,
-            # "bicgstab" where its loop kernel takes the solve (why_not None)
-            merged = self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir") or (
-                self.route == "bicgstab"
-                and bicgstab_why_not(self.matrix, cfg.precond.name) is None)
-            self.kern = self._kernel_plan() if merged else None
+            # "bicgstab" and "cg" where their loop kernel takes the solve
+            # (why_not None)
+            why_not = {"bicgstab": bicgstab_why_not, "cg": cg_why_not}.get(self.route)
+            if self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir"):
+                self.kern = self._kernel_plan()
+            elif why_not is not None and why_not(self.matrix, cfg.precond.name) is None:
+                # the general loops' plan: Ell's (and Hybrid's) own, else the merged one
+                self.kern = (EllCgKernels.for_matrix(self.matrix)
+                             if isinstance(self.matrix, (formats.Ell, formats.Hybrid))
+                             else self._kernel_plan())
+            else:
+                self.kern = None
             return
         # steady state: upload the changed raw blocks, then one gather +
         # scatter on the device (the reference's in-place device value
@@ -458,8 +469,9 @@ class FoamSolver:
         def run():
             if route in general:
                 ops = single_device_ops(spmv.matvec(mat), n, precond=apply_pc)
-                if kern is not None:  # "bicgstab" with its loop kernel's plan
-                    return bicgstab(ops, b_dev, x0, params, kern, kern.pack_values(mat), invd)
+                if kern is not None:  # "bicgstab" or "cg" with its loop kernel's plan
+                    return general[route](ops, b_dev, x0, params, kern, kern.pack_values(mat),
+                                          invd)
                 return general[route](ops, b_dev, x0, params)
             data = kern.pack_values(mat)
             if route == "cg_fused":

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from ogl_tpu_torch.core.formats import (Coo, Csr, DeviceCoo, Dia, Ell, Hybrid, Sell,
-                                        coo_to_csr, coo_to_device, sell_table)
+                                        coo_to_csr, coo_to_device, ell_warp_slots,
+                                        sell_table)
 from ogl_tpu_torch.core.ldu import LduMatrix, LocalInterface
 from ogl_tpu_torch.kernels.gdia import Gdia
 from ogl_tpu_torch.kernels.xell import Xell, spill_csr
@@ -133,11 +134,19 @@ def csr_from_reference(m, device: torch.device | str = "cpu") -> Csr:
 
 def ell_from_reference(m, device: torch.device | str = "cpu") -> Ell:
     """The port's slot-major Ell from a reference Ell, whose cols/vals are
-    row-major (n, K)."""
-    def up(a):
-        return torch.tensor(np.ascontiguousarray(np.asarray(a).T), device=device)
+    row-major (n, K).  The reference keeps no row lengths, so each row's is
+    read from its padding: the slots after its last one that is not (its own
+    column, value 0)."""
+    cols, vals = np.asarray(m.cols), np.asarray(m.vals)
+    n, k = cols.shape
+    live = (cols != np.arange(n)[:, None]) | (vals != 0)
+    counts = np.where(live.any(axis=1), k - np.argmax(live[:, ::-1], axis=1), 0)
 
-    return Ell(cols=up(m.cols), vals=up(m.vals), shape=_shape(m))
+    def up(a):
+        return torch.tensor(np.ascontiguousarray(a.T), device=device)
+
+    return Ell(cols=up(cols), vals=up(vals), shape=_shape(m),
+               warp_slots=torch.tensor(ell_warp_slots(counts, k), device=device))
 
 
 def sell_from_reference(m, device: torch.device | str = "cpu") -> Sell:

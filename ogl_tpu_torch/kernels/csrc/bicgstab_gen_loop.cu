@@ -1,7 +1,7 @@
 // The whole general (unfused) BiCGStab loop as ONE persistent cooperative
-// kernel for Hopper, in six variants: the SpMV of a Dia, a Gdia or an Xell
-// matrix, with identity or scalar Jacobi preconditioning (M^-1 = 1 or
-// invd ⊙ ·).
+// kernel for Hopper, in eight variants: the SpMV of a Dia, a Gdia, an Xell
+// or an Ell matrix (Ell also serves Hybrid, whose tail its row body adds),
+// with identity or scalar Jacobi preconditioning (M^-1 = 1 or invd ⊙ ·).
 // Each iteration, in the order of the host loop
 // (ogl_tpu_torch/solve/bicgstab.py, the reference's ogl_tpu/solve/
 // bicgstab.py:52-111; plain twin `bicgstab_gen_loop_plain` in
@@ -30,13 +30,15 @@
 // Replaces: the two Dia SpMV launches of an iteration of the reference's
 // general BiCGStab (ogl_tpu/kernels/pallas_spmv.py `_kernel`; Gdia:
 // ogl_tpu/kernels/gdia.py `_gdia_kernel`; Xell: ogl_tpu/kernels/xell.py
-// `_xell_kernel` with `_spill_corr`) and the elementwise passes,
+// `_xell_kernel` with `_spill_corr`; Ell and Hybrid: the XLA ops of
+// ogl_tpu/kernels/spmv.py `spmv_ell`, `spmv_hybrid`) and the elementwise passes,
 // reductions and `jax.lax.while_loop` around them.  The SpMV phases are the
 // standalone kernels' bodies over source functors: dia_rows.cuh (row
 // quads; dia_spmv.cu), gdia_k1.cuh `gdia_quad_sums` (row quads; gdia.cu)
 // and xell_band.cuh `band_apply` (bands of 2,048 rows walked by the blocks
 // in turn, with the 59,392-byte cp.async ring as dynamic shared memory and
-// a block barrier before each band but a block's first; xell.cu); the
+// a block barrier before each band but a block's first; xell.cu) and
+// ell_rows.cuh `ell_row` (rows, whole warps per 32-row group; ell_spmv.cu); the
 // criterion, the block-order sums and the cooperative launch are
 // loop.cuh's.  The fused loop (bicgstab_loop.cu) runs another recurrence
 // (its K1B folds the direction update differently) and is not reused.
@@ -57,7 +59,8 @@
 // update reads x, p', s, t and rhat and writes x and r (28): 8 * nd + 68
 // bytes, 124 at 7 diagonals; Jacobi reads invd once in each phase (+ 12).
 // Gdia: np * 5 bytes of values and lanes per SpMV phase instead of nd * 4;
-// Xell: K * 7 bytes of slots, and sp_ptr and 12 bytes per spill entry.
+// Xell: K * 7 bytes of slots, and sp_ptr and 12 bytes per spill entry; Ell:
+// 8 bytes per entry, and a Hybrid tail's offsets.
 // Besides, three grid barriers and the redundant partial sums (each block
 // reads every block's partials).
 //
@@ -88,6 +91,7 @@
 
 #include "block_sum.cuh"
 #include "dia_rows.cuh"
+#include "ell_rows.cuh"
 #include "gdia_k1.cuh"
 #include "loop.cuh"
 #include "xell_band.cuh"
@@ -99,10 +103,13 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kJacobi = 1;  // variant bits: scalar Jacobi preconditioning,
 constexpr int kGdia = 2;    // the Gdia SpMV,
-constexpr int kXell = 4;    // the Xell SpMV (else Dia)
+constexpr int kXell = 4;    // the Xell SpMV,
+constexpr int kEll = 8;     // the Ell (and Hybrid) SpMV (else Dia)
 // Blocks of 512 per SM every variant is compiled for: two, at most 64
 // registers, as the fused loop (the row-quad phases keep four rows' sums and
-// two source quads in registers).
+// two source quads in registers; the Ell phases a chunk of slots' columns,
+// values and sources: three blocks at 40 registers, with spills, ran level
+// within the spread).
 constexpr int kBlocksPerSm = 2;
 // small_of(float32)^2: the breakdown guard of solve/bicgstab.py _safe_div
 constexpr float kTiny = 1e-12f;
@@ -345,6 +352,29 @@ __device__ __forceinline__ void xell_phase(const ogl::XellOperands& xm, unsigned
   }
 }
 
+// An SpMV phase over this thread's rows of an Ell matrix (the row body of
+// ell_rows.cuh; rows first, first + step, ..., whole warps): out = A src,
+// with the centre dir (p' or s) written to `dirout`; adds this thread's share
+// of rhat.out (kA) to sums[0], or of t.s and t.t to sums[0] and sums[1].
+template <bool kA, class Src>
+__device__ __forceinline__ void ell_phase(const ogl::EllOperands& em,
+                                          const float* __restrict__ rhat, const Src& src,
+                                          float* dirout, float* out, int64_t n, int64_t first,
+                                          int64_t step, float (&sums)[2]) {
+  for (int64_t i = first; i < n; i += step) {
+    const float q = ogl::ell_row(em, src, i, n);
+    const float dc = src.dir(i);
+    dirout[i] = dc;
+    out[i] = q;
+    if (kA) {
+      sums[0] += __ldg(rhat + i) * q;
+    } else {
+      sums[0] += q * dc;
+      sums[1] += q * q;
+    }
+  }
+}
+
 // The update over this thread's rows (quads when vec, the rows past the last
 // whole quad one by one): x = (x + alpha y) + omega z, r = s - omega t with
 // y = M^-1 p', z = M^-1 s; adds ||r||_1 and rhat.r to sums.
@@ -385,19 +415,22 @@ __device__ __forceinline__ void update_phase(const float* __restrict__ invd,
   }
 }
 
-// m: the Dia or Gdia matrix (nd = 0 for Xell); xm: the Xell matrix (Xell
-// variants only; the others launch without the ring).
+// m: the Dia or Gdia matrix (nd = 0 for Xell and Ell); xm: the Xell matrix
+// (Xell variants only; the others launch without the ring); em: the Ell
+// matrix (Ell variants only).
 template <int V>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
-    bicgstab_gen_loop_kernel(Matrix m, ogl::XellOperands xm, const int* __restrict__ offsets,
-                             const float* __restrict__ invd, const float* __restrict__ rhat,
-                             Vectors v, Scalars sc, int64_t n, int vec, ogl::Criterion c) {
+    bicgstab_gen_loop_kernel(Matrix m, ogl::XellOperands xm, ogl::EllOperands em,
+                             const int* __restrict__ offsets, const float* __restrict__ invd,
+                             const float* __restrict__ rhat, Vectors v, Scalars sc, int64_t n,
+                             int vec, ogl::Criterion c) {
   constexpr bool jacobi = (V & kJacobi) != 0;
   constexpr bool gdia = (V & kGdia) != 0;
   constexpr bool xell = (V & kXell) != 0;
+  constexpr bool ell = (V & kEll) != 0;
   extern __shared__ __align__(16) unsigned char ring[];
   cg::grid_group grid = cg::this_grid();
-  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : xell ? 1 : ogl::kMaxDiags];
+  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : xell || ell ? 1 : ogl::kMaxDiags];
   for (int k = threadIdx.x; k < m.nd; k += blockDim.x) s_off[k] = offsets[k];
   __syncthreads();
 
@@ -427,6 +460,8 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
     float sums[2] = {0.0f, 0.0f};
     if constexpr (xell) {
       xell_phase<true>(xm, ring, rhat, srca, pn, vn, n, vec, sums);
+    } else if constexpr (ell) {
+      ell_phase<true>(em, rhat, srca, pn, vn, n, first, step, sums);
     } else {
       spmv_phase<gdia, true, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srca, pn,
                                      vn, n, vec, first, step, sums);
@@ -441,6 +476,8 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
     sums[0] = sums[1] = 0.0f;
     if constexpr (xell) {
       xell_phase<false>(xm, ring, rhat, srcb, v.s, v.t, n, vec, sums);
+    } else if constexpr (ell) {
+      ell_phase<false>(em, rhat, srcb, v.s, v.t, n, first, step, sums);
     } else {
       spmv_phase<gdia, false, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srcb, v.s,
                                       v.t, n, vec, first, step, sums);
@@ -480,6 +517,8 @@ const void* loop_kernel(int variant) {
     case 3: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<3>);
     case 4: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<4>);
     case 5: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<5>);
+    case 8: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<8>);
+    case 9: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<9>);
     default: return nullptr;
   }
 }
@@ -496,13 +535,14 @@ int ring_of(int variant, size_t* smem) {
 }
 
 // The checks and the launch both entry points share.
-int launch(int variant, const Matrix& m, const ogl::XellOperands& xm, const int* offsets,
-           const float* invd, const float* rhat, const Vectors& vs, const Scalars& sc,
-           int64_t n, float tol, float rel_tol, int min_iter, int max_iter, int frequency,
-           int vec, int threads, int64_t blocks, void* stream) {
+int launch(int variant, const Matrix& m, const ogl::XellOperands& xm,
+           const ogl::EllOperands& em, const int* offsets, const float* invd,
+           const float* rhat, const Vectors& vs, const Scalars& sc, int64_t n, float tol,
+           float rel_tol, int min_iter, int max_iter, int frequency, int vec, int threads,
+           int64_t blocks, void* stream) {
   const void* kernel = loop_kernel(variant);
   const bool jacobi = (variant & kJacobi) != 0;
-  const bool dia = (variant & (kGdia | kXell)) == 0;
+  const bool dia = (variant & (kGdia | kXell | kEll)) == 0;
   if (kernel == nullptr || n < 1 || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || blocks < 1 || blocks > INT32_MAX || min_iter < 0 || max_iter < 0 ||
       frequency < 1 || max_iter > INT32_MAX - frequency || (jacobi && invd == nullptr) ||
@@ -521,16 +561,17 @@ int launch(int variant, const Matrix& m, const ogl::XellOperands& xm, const int*
   const float* inv = jacobi ? invd : nullptr;
   Matrix mm = m;
   ogl::XellOperands xx = xm;
+  ogl::EllOperands ee = em;
   Vectors vv = vs;
   Scalars ss = sc;
-  void* args[] = {&mm, &xx, &offsets, &inv, &rhat, &vv, &ss, &n, &vec, &c};
+  void* args[] = {&mm, &xx, &ee, &offsets, &inv, &rhat, &vv, &ss, &n, &vec, &c};
   return ogl::coop_launch(kernel, blocks, threads, args, stream, smem);
 }
 
 }  // namespace
 
 // The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia, bit
-// 2: Xell) with `threads` per block (512 for Xell, the band body's) on the
+// 2: Xell, bit 3: Ell) with `threads` per block (512 for Xell, the band body's) on the
 // current device: the blocks that fit on it at once (occupancy x SMs, with
 // the Xell ring).  Fails with cudaErrorNotSupported on a device without
 // cooperative launch.
@@ -569,14 +610,14 @@ extern "C" int ogl_bicgstab_gen_loop(int variant, const float* coef, const int8_
                                      int frequency, int vec, int threads, int64_t blocks,
                                      void* stream) {
   const bool gdia = (variant & kGdia) != 0;
-  if ((variant & kXell) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((variant & (kXell | kEll)) != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (gdia ? (nd < 1 || nd > ogl::kGdiaMaxPlanes || lidx == nullptr || rows * 128 < n)
            : (nd < 0 || nd > ogl::kMaxDiags))
     return static_cast<int>(cudaErrorInvalidValue);
   if (gdia && (ogl::misaligned(coef, 16) || ogl::misaligned(lidx, 4)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const ogl::XellOperands none{};
-  return launch(variant, Matrix{coef, lidx, nd, rows}, none, offsets, invd, rhat,
+  return launch(variant, Matrix{coef, lidx, nd, rows}, ogl::XellOperands{},
+                ogl::EllOperands{}, offsets, invd, rhat,
                 Vectors{x, r, p, pn, v, vn, s, t}, Scalars{rho, absr, nf, partials, record}, n,
                 tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
 }
@@ -602,7 +643,35 @@ extern "C" int ogl_bicgstab_gen_loop_xell(int variant, const float* vals, const 
   if (ogl::misaligned(vals, 16) || ogl::misaligned(ll, 16) || ogl::misaligned(bbT, 4))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const ogl::XellOperands xm{vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals};
-  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, xm, nullptr, invd, rhat,
-                Vectors{x, r, p, pn, v, vn, s, t}, Scalars{rho, absr, nf, partials, record}, n,
-                tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
+  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, xm, ogl::EllOperands{}, nullptr,
+                invd, rhat, Vectors{x, r, p, pn, v, vn, s, t},
+                Scalars{rho, absr, nf, partials, record}, n, tol, rel_tol, min_iter, max_iter,
+                frequency, vec, threads, blocks, stream);
+}
+
+// The same on an Ell matrix (`variant` with bit 3): cols and vals (K, n),
+// warp_slots (ceil(n / 32),), each at most K, and, for a Hybrid matrix with
+// a tail, tail_ptr (n + 1,), tail_cols and tail_vals (tail_ptr null: no
+// tail) in place of the Dia or Gdia operands; vec != 0 needs every vector
+// 16-byte aligned (not n % 4 == 0: the update takes the last rows one by
+// one).
+extern "C" int ogl_bicgstab_gen_loop_ell(int variant, const int* cols, const float* vals,
+                                         const int* warp_slots, const int* tail_ptr,
+                                         const int* tail_cols, const float* tail_vals,
+                                         const float* invd, const float* rhat, float* x,
+                                         float* r, float* p, float* pn, float* v, float* vn,
+                                         float* s, float* t, const float* rho,
+                                         const float* absr, const float* nf, float* partials,
+                                         float* record, int64_t n, float tol, float rel_tol,
+                                         int min_iter, int max_iter, int frequency, int vec,
+                                         int threads, int64_t blocks, void* stream) {
+  if ((variant & kEll) == 0 || (variant & (kGdia | kXell)) != 0 || cols == nullptr ||
+      vals == nullptr || warp_slots == nullptr ||
+      (tail_ptr != nullptr && (tail_cols == nullptr || tail_vals == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ogl::EllOperands em{cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals};
+  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, ogl::XellOperands{}, em, nullptr,
+                invd, rhat, Vectors{x, r, p, pn, v, vn, s, t},
+                Scalars{rho, absr, nf, partials, record}, n, tol, rel_tol, min_iter, max_iter,
+                frequency, vec, threads, blocks, stream);
 }

@@ -1,5 +1,6 @@
 // The whole merged CG loop as ONE persistent cooperative kernel for Hopper,
-// in four variants: the apply of a Dia or a Gdia matrix, with identity or
+// in six variants: the apply of a Dia, a Gdia or an Ell matrix (Ell also
+// serves Hybrid: its tail is added in the same row body), with identity or
 // scalar Jacobi preconditioning.  Each iteration, in the order of
 // ogl_tpu_torch/solve/cg_fused.py:
 //   1. check   the OpenFOAM criterion from the summed ||r||_1 (gated by
@@ -8,7 +9,9 @@
 //              frequency without a check);
 //   2. beta    0 at iteration 0, else rho / rho_old;
 //   3. K1      p' = z + beta * p, q = A p', one partial of p'.q per block
-//              (z is r with identity: no z stream);
+//              (z is r with identity: no z stream); on Ell the host route
+//              (solve/cg.py) has no K1 kernel: this phase is its z, p and
+//              q = A p in the merged order;
 //   4. grid barrier; every block sums the partials into delta;
 //   5. K2      alpha = rho / delta, x += alpha * p', r -= alpha * q, and
 //              with Jacobi z = invd * r'; the partials of r'.z' (r'.r'
@@ -22,16 +25,23 @@
 // `_k1_gdia_kernel`, Gdia), K2 (`_k2_kernel`, Jacobi) and K2i (`_k2i_kernel`,
 // identity) launches of the reference's merged CG and the
 // `jax.lax.while_loop` around them with the criterion as loop state
-// (ogl_tpu/solve/cg_fused.py:82-123, ogl_tpu/solve/stopping.py).  Plain twin:
-// `cg_loop_plain` in ogl_tpu_torch/kernels/fused.py.  The phases are the
-// standalone kernels' bodies: cg_k1.cuh, gdia_k1.cuh, cg_k2.cuh, cg_k2i.cuh;
+// (ogl_tpu/solve/cg_fused.py:82-123, ogl_tpu/solve/stopping.py); on Ell and
+// Hybrid, the reference's general CG loop (ogl_tpu/solve/cg.py) over its XLA
+// Ell SpMV.  Plain twin: `cg_loop_plain` in ogl_tpu_torch/kernels/fused.py
+// (on Ell over kernels/ell.py `ell_k1_plain`).  The phases are the
+// standalone kernels' bodies: cg_k1.cuh, gdia_k1.cuh, ell_rows.cuh (over the
+// source p'(j) = z[j] + beta * p[j], rounded as its twin rounds it, so q is
+// the twin's bits at every row), cg_k2.cuh, cg_k2i.cuh;
 // the criterion, the block-order sums and the cooperative launch are
 // loop.cuh's, shared with the pipelined loop (cg_pipe_loop.cu).
 //
 // Bound: device-memory bandwidth.  Per iteration and row, Dia: K1 reads nd
 // coefficients, z (r) and p and writes p' and q; K2i reads x, r, p' and q
 // and writes x and r: (nd + 4) * 4 + 24 bytes; Jacobi adds invd in and z
-// out (+ 8).  Gdia: np * 5 + 16 bytes for K1 instead.  Besides, two grid
+// out (+ 8).  Gdia: np * 5 + 16 bytes for K1 instead; Ell: 8 bytes per entry
+// and z (r), p, p' and q, 16 bytes per row (ideal; the warps read the slots
+// below their group's longest row), plus a Hybrid tail's offsets.  Besides,
+// two grid
 // barriers and the redundant partial sums (each block reads every block's
 // partials).
 //
@@ -40,7 +50,8 @@
 // once.  The grid is exactly the co-resident blocks of the variant
 // (occupancy x SMs, queried once per plan and variant; fewer when the rows
 // run out), each block walking its rows (Dia, K2) or row quads (Gdia K1)
-// with a grid-stride loop in a fixed order, so cooperative groups'
+// with a grid-stride loop in a fixed order (whole warps: an Ell warp holds one
+// 32-row group and stops at its longest row), so cooperative groups'
 // grid.sync() is legal and the reduction order is fixed for a given grid:
 // every block sums all partials in block order and so computes the same
 // bits for delta, rho and ||r||_1, and all blocks take the same branch at
@@ -53,7 +64,8 @@
 // phase are read after the barrier that ends it and rewritten only after
 // the next one, so one buffer per sum suffices.  Each variant has its own
 // register budget (min_blocks_per_sm): the Gdia K1 phase keeps four rows'
-// sums and lanes in registers.
+// sums and lanes in registers, the Ell one a chunk of slots' columns, values
+// and sources.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +74,7 @@
 #include "cg_k1.cuh"
 #include "cg_k2.cuh"
 #include "cg_k2i.cuh"
+#include "ell_rows.cuh"
 #include "gdia_k1.cuh"
 #include "loop.cuh"
 
@@ -71,13 +84,15 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kJacobi = 1;  // variant bits: scalar Jacobi preconditioning,
-constexpr int kGdia = 2;    // the Gdia apply (else Dia)
+constexpr int kGdia = 2;    // the Gdia apply,
+constexpr int kEll = 8;     // the Ell (and Hybrid) apply (else Dia)
 
 // Blocks of 512 per SM each variant is compiled for.  Dia: at most 40
 // registers, three blocks (identity spills about 100 bytes): two blocks at
 // the 62 registers it takes unbounded, or four at 32, streamed slower at
 // 8.4M rows.  Gdia: two blocks at 64 registers; three or four, at 40 or 32
-// with spills, ran slower.
+// with spills, ran slower.  Ell: two blocks (56 registers); three, at 40
+// with 4-68 bytes of spills, ran level within the spread on the kNN mesh.
 constexpr int min_blocks_per_sm(int variant) {
   return variant == 0 ? 3 : variant == kJacobi ? 3 : 2;
 }
@@ -103,17 +118,19 @@ struct Scalars {
 
 // coef: the Dia data (nd, n) or the Gdia values (nd planes, R, 128); lidx
 // the Gdia lanes (null for Dia); offsets: the nd diagonal offsets or plane
-// block-row offsets; invd: the Jacobi inverse diagonal (null with identity).
+// block-row offsets; em: the Ell matrix (Ell variants; nd = 0); invd: the
+// Jacobi inverse diagonal (null with identity).
 template <int V>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
     cg_loop_kernel(const float* __restrict__ coef, const int8_t* __restrict__ lidx,
-                   const int* __restrict__ offsets, int nd, int64_t rows,
+                   const int* __restrict__ offsets, int nd, int64_t rows, ogl::EllOperands em,
                    const float* __restrict__ invd, Vectors v, Scalars s, int64_t n, int vec,
                    ogl::Criterion c) {
   constexpr bool jacobi = (V & kJacobi) != 0;
   constexpr bool gdia = (V & kGdia) != 0;
+  constexpr bool ell = (V & kEll) != 0;
   cg::grid_group grid = cg::this_grid();
-  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : ogl::kMaxDiags];
+  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : ell ? 1 : ogl::kMaxDiags];
   for (int k = threadIdx.x; k < nd; k += blockDim.x) s_off[k] = offsets[k];
   __syncthreads();
 
@@ -133,12 +150,21 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
   while (it < hard_cap) {
     // 1. the criterion (stopping.check_from_norm), the same in every block
     if (ogl::stop_at(c, it, absr, nf, rn, init_rn)) break;
-    // 2-3. beta, then K1 over this thread's rows (Dia) or row quads (Gdia)
+    // 2-3. beta, then K1 over this thread's rows (Dia, Ell) or row quads (Gdia)
     const float beta = it == 0 ? 0.0f : rho / rho_old;
     float dot = 0.0f;
     if constexpr (gdia) {
       dot = ogl::gdia_span<true>(coef, lidx, s_off, nd, rows * ogl::kGdiaLanes, zk, p, beta,
                                  pn, v.q, n, vec, first, step);
+    } else if constexpr (ell) {
+      const ogl::K1Source<false> src{zk, p, beta};
+      for (int64_t i = first; i < n; i += step) {
+        const float qi = ogl::ell_row(em, src, i, n);
+        const float pc = src.at(i);
+        pn[i] = pc;
+        v.q[i] = qi;
+        dot += pc * qi;
+      }
     } else {
       for (int64_t i = first; i < n; i += step) {
         float pc;
@@ -181,13 +207,41 @@ const void* loop_kernel(int variant) {
     case 1: return reinterpret_cast<const void*>(cg_loop_kernel<1>);
     case 2: return reinterpret_cast<const void*>(cg_loop_kernel<2>);
     case 3: return reinterpret_cast<const void*>(cg_loop_kernel<3>);
+    case 8: return reinterpret_cast<const void*>(cg_loop_kernel<8>);
+    case 9: return reinterpret_cast<const void*>(cg_loop_kernel<9>);
     default: return nullptr;
   }
 }
 
+// The checks and the launch both entry points share.
+int launch(int variant, const float* coef, const int8_t* lidx, const int* offsets, int nd,
+           int64_t rows, const ogl::EllOperands& em, const float* invd, const Vectors& vs,
+           const Scalars& ss, int64_t n, float tol, float rel_tol, int min_iter, int max_iter,
+           int frequency, int vec, int threads, int64_t blocks, void* stream) {
+  const void* kernel = loop_kernel(variant);
+  const bool jacobi = (variant & kJacobi) != 0;
+  if (kernel == nullptr || n < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || blocks < 1 || blocks > INT32_MAX || min_iter < 0 ||
+      max_iter < 0 || frequency < 1 || max_iter > INT32_MAX - frequency ||
+      (jacobi && (vs.z == nullptr || invd == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && ((n & 3) != 0 || ogl::misaligned(vs.x, 16) || ogl::misaligned(vs.r, 16) ||
+              ogl::misaligned(vs.p, 16) || ogl::misaligned(vs.pn, 16) ||
+              ogl::misaligned(vs.q, 16) ||
+              (jacobi && (ogl::misaligned(vs.z, 16) || ogl::misaligned(invd, 16)))))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  Vectors v = vs;
+  if (!jacobi) v.z = nullptr;
+  Scalars s = ss;
+  ogl::EllOperands e = em;
+  ogl::Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
+  void* args[] = {&coef, &lidx, &offsets, &nd, &rows, &e, &invd, &v, &s, &n, &vec, &c};
+  return ogl::coop_launch(kernel, blocks, threads, args, stream);
+}
+
 }  // namespace
 
-// The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia) with
+// The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia, bit 3: Ell) with
 // `threads` per block on the current device: the blocks that fit on it at
 // once (occupancy x SMs).  Fails with cudaErrorNotSupported on a device
 // without cooperative launch.
@@ -217,26 +271,35 @@ extern "C" int ogl_cg_loop(int variant, const float* coef, const int8_t* lidx,
                            float* partials, float* record, int64_t n, float tol,
                            float rel_tol, int min_iter, int max_iter, int frequency, int vec,
                            int threads, int64_t blocks, void* stream) {
-  const void* kernel = loop_kernel(variant);
-  const bool jacobi = (variant & kJacobi) != 0;
   const bool gdia = (variant & kGdia) != 0;
-  if (kernel == nullptr || n < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || blocks < 1 || blocks > INT32_MAX || min_iter < 0 ||
-      max_iter < 0 || frequency < 1 || max_iter > INT32_MAX - frequency ||
-      (jacobi && (z == nullptr || invd == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if ((variant & kEll) != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (gdia ? (nd < 1 || nd > ogl::kGdiaMaxPlanes || lidx == nullptr || rows * 128 < n)
            : (nd < 0 || nd > ogl::kMaxDiags))
     return static_cast<int>(cudaErrorInvalidValue);
   if (gdia && (ogl::misaligned(coef, 16) || ogl::misaligned(lidx, 4)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  if (vec && ((n & 3) != 0 || ogl::misaligned(x, 16) || ogl::misaligned(r, 16) ||
-              ogl::misaligned(p, 16) || ogl::misaligned(pn, 16) || ogl::misaligned(q, 16) ||
-              (jacobi && (ogl::misaligned(z, 16) || ogl::misaligned(invd, 16)))))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  Vectors v{x, r, jacobi ? z : nullptr, p, pn, q};
-  Scalars s{rho, absr, nf, partials, record};
-  ogl::Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
-  void* args[] = {&coef, &lidx, &offsets, &nd, &rows, &invd, &v, &s, &n, &vec, &c};
-  return ogl::coop_launch(kernel, blocks, threads, args, stream);
+  return launch(variant, coef, lidx, offsets, nd, rows, ogl::EllOperands{}, invd,
+                Vectors{x, r, z, p, pn, q}, Scalars{rho, absr, nf, partials, record}, n, tol,
+                rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
+}
+
+// The same on an Ell matrix (`variant` with bit 3): cols and vals (K, n),
+// warp_slots (ceil(n / 32),), each at most K, and, for a Hybrid matrix
+// with a tail, tail_ptr (n + 1,), tail_cols and tail_vals (tail_ptr null:
+// no tail) in place of the Dia or Gdia operands.
+extern "C" int ogl_cg_loop_ell(int variant, const int* cols, const float* vals,
+                               const int* warp_slots, const int* tail_ptr, const int* tail_cols,
+                               const float* tail_vals, float* x, float* r, float* z,
+                               const float* invd, float* p, float* pn, float* q,
+                               const float* rho, const float* absr, const float* nf,
+                               float* partials, float* record, int64_t n, float tol,
+                               float rel_tol, int min_iter, int max_iter, int frequency,
+                               int vec, int threads, int64_t blocks, void* stream) {
+  if ((variant & kEll) == 0 || cols == nullptr || vals == nullptr || warp_slots == nullptr ||
+      (tail_ptr != nullptr && (tail_cols == nullptr || tail_vals == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ogl::EllOperands em{cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals};
+  return launch(variant, nullptr, nullptr, nullptr, 0, 0, em, invd,
+                Vectors{x, r, z, p, pn, q}, Scalars{rho, absr, nf, partials, record}, n, tol,
+                rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
 }

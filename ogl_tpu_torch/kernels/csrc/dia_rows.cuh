@@ -103,4 +103,25 @@ struct XSource {
   }
 };
 
+// K1's: p'(j) = z[j] + beta * p[j], rounded as `z + beta * p` rounds it.  The
+// standalone K1 reads z and p through the read-only path (kLdg); a loop
+// kernel rewrites them between grid barriers, so it takes plain loads (the
+// non-coherent path could return values from before a barrier).
+template <bool kLdg>
+struct K1Source {
+  const float* z;
+  const float* p;
+  float beta;
+  __device__ __forceinline__ float load(const float* a, int64_t j) const {
+    if constexpr (kLdg) {
+      return __ldg(a + j);
+    } else {
+      return a[j];
+    }
+  }
+  __device__ __forceinline__ float at(int64_t j) const {
+    return __fadd_rn(load(z, j), __fmul_rn(beta, load(p, j)));
+  }
+};
+
 }  // namespace ogl

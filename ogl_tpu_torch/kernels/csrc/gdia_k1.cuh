@@ -31,23 +31,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dia_rows.cuh"  // K1Source
+
 namespace ogl {
 
 constexpr int kGdiaLanes = 128;
 constexpr int kGdiaMaxPlanes = 1024;  // the plane-offset table each block stages in shared memory
 
 // The sources of the Gdia row body: a struct with `float at(int64_t j) const`,
-// the source at row j (0 <= j < n).  K1's is p'(j) = z[j] + beta * p[j]; the
-// SpMV's is x[j]; the general-BiCGStab loop's Gdia phases
-// (bicgstab_gen_loop.cu) pass their own, recomputed at each gathered row.
-struct K1Source {
-  const float* z;
-  const float* p;
-  float beta;
-  __device__ __forceinline__ float at(int64_t j) const {
-    return __fadd_rn(z[j], __fmul_rn(beta, p[j]));
-  }
-};
+// the source at row j (0 <= j < n).  K1's is p'(j) = z[j] + beta * p[j]
+// (dia_rows.cuh K1Source, plain loads); the SpMV's is x[j]; the
+// general-BiCGStab loop's Gdia phases (bicgstab_gen_loop.cu) pass their own,
+// recomputed at each gathered row.
 
 struct VecSource {
   const float* x;
@@ -102,7 +97,7 @@ __device__ __forceinline__ float gdia_quad(const float* __restrict__ vals,
   const int64_t i0 = t << 2;
   float acc[4];
   if (kK1)
-    gdia_quad_sums(vals, lidx, s_q, np, plane, K1Source{z, p, beta}, t, n, acc);
+    gdia_quad_sums(vals, lidx, s_q, np, plane, K1Source<false>{z, p, beta}, t, n, acc);
   else
     gdia_quad_sums(vals, lidx, s_q, np, plane, VecSource{z}, t, n, acc);
   const float a0 = acc[0], a1 = acc[1], a2 = acc[2], a3 = acc[3];

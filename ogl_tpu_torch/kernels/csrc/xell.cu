@@ -61,7 +61,7 @@ __global__ void __launch_bounds__(ogl::kBandThreads, 2)
                    float* __restrict__ partials, int64_t n, int vec) {
   extern __shared__ __align__(16) unsigned char ring[];
   const int64_t band = blockIdx.x;
-  const ogl::XellK1Source<true> src{z, p, *beta_ptr};
+  const ogl::K1Source<true> src{z, p, *beta_ptr};
   float acc[4];
   ogl::band_apply(m, src, n, ring, band, acc);
   const float dot = ogl::band_k1_store(src, acc, pout, q, ogl::band_row0(band), n, vec);

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dia_rows.cuh"  // K1Source
+
 namespace ogl {
 
 constexpr int kBandT = 16;                       // t values per band
@@ -132,27 +134,6 @@ struct XellLdgSource {
   __device__ __forceinline__ float at(int64_t j) const { return __ldg(x + j); }
 };
 
-// K1's: p'(j) = z[j] + beta * p[j], rounded as `z + beta * p` rounds it.  The
-// standalone K1 reads z and p through the read-only path (kLdg); the loop
-// kernel rewrites them between grid barriers, so it takes plain loads (the
-// non-coherent path could return values from before a barrier).
-template <bool kLdg>
-struct XellK1Source {
-  const float* z;
-  const float* p;
-  float beta;
-  __device__ __forceinline__ float load(const float* a, int64_t j) const {
-    if constexpr (kLdg) {
-      return __ldg(a + j);
-    } else {
-      return a[j];
-    }
-  }
-  __device__ __forceinline__ float at(int64_t j) const {
-    return __fadd_rn(load(z, j), __fmul_rn(beta, load(p, j)));
-  }
-};
-
 // The band's sums for the thread's 4 rows i0..i0+3 (i0 = band_row0(band):
 // slots, then the spill of the rows < n): acc[e] for row i0 + e.  Every
 // thread of the block must call it (it holds block barriers); no copy is
@@ -225,7 +206,7 @@ __device__ __forceinline__ void band_apply(const XellOperands& m, const Src& src
 // float4 each when `vec` (z, p, pout and q 16-byte aligned) and the quad
 // lies below n; returns the quad's sum of p' * q.
 template <bool kLdg>
-__device__ __forceinline__ float band_k1_store(const XellK1Source<kLdg>& src,
+__device__ __forceinline__ float band_k1_store(const K1Source<kLdg>& src,
                                                const float (&acc)[4], float* pout, float* q,
                                                int64_t i0, int64_t n, int vec) {
   if (vec && i0 + 3 < n) {

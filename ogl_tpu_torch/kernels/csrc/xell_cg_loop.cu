@@ -113,7 +113,7 @@ __global__ void __launch_bounds__(ogl::kBandThreads, 2)
     if (ogl::stop_at(c, it, absr, nf, rn, init_rn)) break;
     // 2-3. beta, then K1 over this block's bands
     const float beta = it == 0 ? 0.0f : rho / rho_old;
-    const ogl::XellK1Source<false> src{zk, p, beta};
+    const ogl::K1Source<false> src{zk, p, beta};
     float dot = 0.0f;
     for (int64_t band = blockIdx.x; band < bands; band += blocks) {
       if (band != blockIdx.x) __syncthreads();  // the last band's ring stages are free

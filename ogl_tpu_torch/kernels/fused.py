@@ -121,7 +121,8 @@ from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             persistent_launch, require_cuda, sm_count,
                                             stream_of)
 
-__all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "LOOP_XELL", "k1_plain",
+__all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "LOOP_XELL", "LOOP_ELL",
+           "k1_plain",
            "k2_plain", "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
            "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "bicgstab_loop_plain",
            "gen_check_sums", "gen_phase_a_plain", "gen_phase_b_plain", "gen_update_plain",
@@ -137,8 +138,9 @@ K2_BLOCKS_PER_SM = 64
 LOOP_THREADS = 512
 # the loop kernels' variant bits (csrc/cg_loop.cu, bicgstab_gen_loop.cu;
 # cg_pipe_loop.cu and xell_cg_loop.cu take the first): scalar Jacobi, the
-# Gdia apply, the Xell apply (bicgstab_gen_loop.cu)
-LOOP_JACOBI, LOOP_GDIA, LOOP_XELL = 1, 2, 4
+# Gdia apply, the Xell apply (bicgstab_gen_loop.cu), the Ell (and Hybrid)
+# apply (kernels/ell.py)
+LOOP_JACOBI, LOOP_GDIA, LOOP_XELL, LOOP_ELL = 1, 2, 4, 8
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
 

@@ -1,7 +1,8 @@
 """The gather SpMVs of the reference-parity formats: Csr (and the device
 Coo, a Csr by its storage), Ell, Sell and Hybrid — each a CUDA C++ kernel (`csrc/csr_spmv.cu`
 over `csrc/csr_rows.cuh`, `csrc/ell_spmv.cu` over `csrc/ell_rows.cuh`,
-`csrc/sell_spmv.cu`, `csrc/hybrid_spmv.cu`) and its plain PyTorch twin.
+`csrc/sell_spmv.cu`; Hybrid through the Ell kernel, which adds each row's
+tail) and its plain PyTorch twin.
 
 Counterpart: ogl_tpu/kernels/spmv.py `spmv_coo`, `spmv_csr`, `spmv_ell`,
 `spmv_sell`, `spmv_hybrid` (:33-99).  There they are XLA ops, not Pallas
@@ -15,16 +16,19 @@ inputs the two give the same bits:
            in order; the G partial sums combine in a butterfly (d = G/2,
            ..., 1).  G (`csr_group`) is fixed per matrix from its mean row
            length (G = 1: one thread per row, no butterfly).
-  Ell      one row's slots in order (padding included).
+  Ell      one row's slots in order, up to its 32-row group's longest row
+           (`Ell.warp_slots`; the padding below it included).
   Sell     one slot's lanes in order (padding included).
-  Hybrid   the Ell slots in order, then the row's tail entries in order.
+  Hybrid   the Ell slots as Ell, then the row's tail entries in order.
 The twins add a step's terms with `index_add_`, one term per target per
 call, so no sum depends on the order of the call's terms.
 
 Dispatch, as for every wrapper of the port: CPU tensors run the plain
 version; CUDA tensors launch the kernel or raise.  Each launch counts in
 `ogl_tpu_torch.kernels.launches` (`csr_spmv`, `ell_spmv`, `sell_spmv`,
-`hybrid_spmv`).
+`hybrid_spmv`).  An `EllSpmv` checks an Ell or Hybrid container's operands
+once, when it is made (`spmv.matvec` makes one per solve); each call then
+checks x and launches.
 """
 
 from __future__ import annotations
@@ -34,13 +38,13 @@ import math
 import torch
 
 from ogl_tpu_torch import kernels
-from ogl_tpu_torch.core.formats import Csr, Ell, Hybrid, Sell, sell_table
+from ogl_tpu_torch.core.formats import ELL_GROUP, Csr, Ell, Hybrid, Sell, sell_table
 from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import on_cpu, require_cuda, sm_count, stream_of
 
 __all__ = ["CSR_GROUP_FROM", "csr_group", "spmv_csr", "spmv_ell", "spmv_sell", "spmv_hybrid",
-           "csr_spmv", "ell_spmv", "sell_spmv", "hybrid_spmv", "THREADS", "BLOCKS_PER_SM",
-           "SELL_MAX_BUCKETS"]
+           "csr_spmv", "ell_spmv", "sell_spmv", "hybrid_spmv", "EllSpmv", "THREADS",
+           "BLOCKS_PER_SM", "SELL_MAX_BUCKETS"]
 
 THREADS = 256  # threads per block of the four kernels
 BLOCKS_PER_SM = 64  # grid cap of the grid-stride loops (as the Dia SpMV's)
@@ -97,10 +101,16 @@ def spmv_csr(m: Csr, x, group: int | None = None):
 
 
 def spmv_ell(m: Ell, x):
-    """Plain y = Σ_k vals[k] ⊙ x[cols[k]] over the slot-major (K, n) storage."""
-    y = torch.zeros(m.shape[0], dtype=x.dtype, device=x.device)
+    """Plain y = Σ_k vals[k] ⊙ x[cols[k]] over the slot-major (K, n) storage,
+    each row stopping at its 32-row group's longest row (`warp_slots`), as
+    the kernel's warps do.  The slots past it hold padding only (0 · x[i]):
+    for finite x the reference's sum over all K slots differs from this one
+    at most in the sign of a zero sum."""
+    n = m.shape[0]
+    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    slots = m.warp_slots.repeat_interleave(ELL_GROUP)[:n]
     for k in range(m.row_width):
-        y = y + m.vals[k].to(x.dtype) * x[m.cols[k].long()]
+        y = torch.where(slots > k, y + m.vals[k].to(x.dtype) * x[m.cols[k].long()], y)
     return y
 
 
@@ -133,12 +143,12 @@ def spmv_hybrid(m: Hybrid, x):
 # ---- wrappers -------------------------------------------------------------
 
 
-def _check(what: str, x: torch.Tensor, n: int, tensors) -> None:
-    """Raise unless x is a contiguous (n,) float32 tensor and every (name,
-    tensor, shape, dtype) of `tensors` matches, all on x's device."""
-    for name, t, shape, dtype in (("x", x, (n,), torch.float32), *tensors):
-        if t.device != x.device:
-            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
+def _check(what: str, device: torch.device, tensors) -> None:
+    """Raise unless every (name, tensor, shape, dtype) of `tensors` matches,
+    contiguous and on `device`."""
+    for name, t, shape, dtype in tensors:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
         if t.dtype != dtype:
             raise TypeError(f"{what}: {name} has dtype {t.dtype}; the kernel takes {dtype}")
         if tuple(t.shape) != tuple(shape):
@@ -147,8 +157,8 @@ def _check(what: str, x: torch.Tensor, n: int, tensors) -> None:
             raise ValueError(f"{what}: {name} is not contiguous")
 
 
-def _blocks(items: int, x: torch.Tensor) -> int:
-    return max(min(-(-items // THREADS), BLOCKS_PER_SM * sm_count(x.device.index)), 1)
+def _blocks(items: int, device: torch.device) -> int:
+    return max(min(-(-items // THREADS), BLOCKS_PER_SM * sm_count(device.index)), 1)
 
 
 def csr_spmv(m: Csr, x, group: int | None = None):
@@ -159,38 +169,77 @@ def csr_spmv(m: Csr, x, group: int | None = None):
     require_cuda("csr_spmv", x)
     n, nnz = m.shape[0], m.nnz
     group = csr_group(n, nnz) if group is None else group
-    _check("csr_spmv", x, n, (("row_ptr", m.row_ptr, (n + 1,), torch.int32),
-                              ("cols", m.cols, (nnz,), torch.int32),
-                              ("vals", m.vals, (nnz,), torch.float32)))
+    _check("csr_spmv", x.device, (("x", x, (n,), torch.float32),
+                                  ("row_ptr", m.row_ptr, (n + 1,), torch.int32),
+                                  ("cols", m.cols, (nnz,), torch.int32),
+                                  ("vals", m.vals, (nnz,), torch.float32)))
     lib = _build.library()
     y = torch.empty_like(x)
     _build.check(lib.ogl_csr_spmv(m.row_ptr.data_ptr(), m.cols.data_ptr(), m.vals.data_ptr(),
                                   x.data_ptr(), y.data_ptr(), n, group,
-                                  _blocks(n * group, x), stream_of(x)), "csr_spmv")
+                                  _blocks(n * group, x.device), stream_of(x)), "csr_spmv")
     kernels.launches["csr_spmv"] += 1
     return y
 
 
-def _ell_operands(ell: Ell, n: int) -> tuple:
-    k = ell.row_width
-    return (("ell cols", ell.cols, (k, n), torch.int32),
-            ("ell vals", ell.vals, (k, n), torch.float32))
+class EllSpmv:
+    """y = A x for one Ell or Hybrid container: `csrc/ell_spmv.cu`, one
+    thread per row, a Hybrid's tail in the same pass (none read when the tail
+    is empty).  The container's operands are checked once, here; each call
+    checks x and launches (one ctypes call and torch.empty_like), counting
+    `ell_spmv` or `hybrid_spmv`.  A container on the CPU runs the twin."""
+
+    def __init__(self, m: Ell | Hybrid):
+        self.m = m
+        hybrid = isinstance(m, Hybrid)
+        ell, tail = (m.ell, m.tail) if hybrid else (m, None)
+        self.name = "hybrid_spmv" if hybrid else "ell_spmv"
+        self.n = n = m.shape[0]
+        self.device = ell.vals.device
+        if self.device.type == "cpu":
+            return
+        require_cuda(self.name, ell.vals)
+        k, groups = ell.row_width, -(-n // ELL_GROUP)
+        operands = [("ell cols", ell.cols, (k, n), torch.int32),
+                    ("ell vals", ell.vals, (k, n), torch.float32),
+                    ("ell warp_slots", ell.warp_slots, (groups,), torch.int32)]
+        if hybrid:
+            t = tail.nnz
+            operands += [("tail row_ptr", tail.row_ptr, (n + 1,), torch.int32),
+                         ("tail cols", tail.cols, (t,), torch.int32),
+                         ("tail vals", tail.vals, (t,), torch.float32)]
+        _check(self.name, self.device, operands)
+        if groups and int(ell.warp_slots.max()) > k:
+            raise ValueError(f"{self.name}: a warp slot count exceeds the Ell width {k}")
+        no_tail = not hybrid or tail.nnz == 0
+        self._head = (ell.cols.data_ptr(), ell.vals.data_ptr(), ell.warp_slots.data_ptr(),
+                      *((None,) * 3 if no_tail else
+                        (tail.row_ptr.data_ptr(), tail.cols.data_ptr(), tail.vals.data_ptr())))
+        self._grid = _blocks(n, self.device)
+        self._launch = _build.library().ogl_ell_spmv
+
+    def __call__(self, x):
+        if self.device.type == "cpu" and x.device.type == "cpu":
+            return (spmv_hybrid if self.name == "hybrid_spmv" else spmv_ell)(self.m, x)
+        require_cuda(self.name, x)
+        if x.device != self.device:
+            raise ValueError(f"{self.name}: x is on {x.device}, the matrix on {self.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{self.name}: x has dtype {x.dtype}; the kernel takes "
+                            "torch.float32")
+        if x.shape != (self.n,) or not x.is_contiguous():
+            raise ValueError(f"{self.name}: x has shape {tuple(x.shape)} (contiguous "
+                             f"{x.is_contiguous()}), expected a contiguous ({self.n},)")
+        y = torch.empty_like(x)
+        _build.check(self._launch(*self._head, x.data_ptr(), y.data_ptr(), self.n, self._grid,
+                                  stream_of(x)), self.name)
+        kernels.launches[self.name] += 1
+        return y
 
 
 def ell_spmv(m: Ell, x):
-    """y = A x for an Ell matrix: `csrc/ell_spmv.cu`, one thread per row."""
-    if on_cpu(m.cols, m.vals, x):
-        return spmv_ell(m, x)
-    require_cuda("ell_spmv", x)
-    n = m.shape[0]
-    _check("ell_spmv", x, n, _ell_operands(m, n))
-    lib = _build.library()
-    y = torch.empty_like(x)
-    _build.check(lib.ogl_ell_spmv(m.cols.data_ptr(), m.vals.data_ptr(), m.row_width,
-                                  x.data_ptr(), y.data_ptr(), n, _blocks(n, x), stream_of(x)),
-                 "ell_spmv")
-    kernels.launches["ell_spmv"] += 1
-    return y
+    """y = A x for an Ell matrix (EllSpmv)."""
+    return EllSpmv(m)(x)
 
 
 def sell_spmv(m: Sell, x):
@@ -203,38 +252,22 @@ def sell_spmv(m: Sell, x):
     if nb > SELL_MAX_BUCKETS:
         raise ValueError(f"sell_spmv: {nb} buckets; the kernel stages at most "
                          f"{SELL_MAX_BUCKETS}")
-    _check("sell_spmv", x, n, (("table", m.table, (nb, 3), torch.int64),
-                               ("slot_rows", m.slot_rows, (slots,), torch.int32),
-                               ("cols", m.cols, (m.stored,), torch.int32),
-                               ("vals", m.vals, (m.stored,), torch.float32)))
+    _check("sell_spmv", x.device, (("x", x, (n,), torch.float32),
+                                   ("table", m.table, (nb, 3), torch.int64),
+                                   ("slot_rows", m.slot_rows, (slots,), torch.int32),
+                                   ("cols", m.cols, (m.stored,), torch.int32),
+                                   ("vals", m.vals, (m.stored,), torch.float32)))
     lib = _build.library()
     y = torch.empty_like(x)
     _build.check(lib.ogl_sell_spmv(m.table.data_ptr(), nb, m.slot_rows.data_ptr(),
                                    m.cols.data_ptr(), m.vals.data_ptr(), x.data_ptr(),
-                                   y.data_ptr(), n, slots, _blocks(slots, x), stream_of(x)),
+                                   y.data_ptr(), n, slots, _blocks(slots, x.device), stream_of(x)),
                  "sell_spmv")
     kernels.launches["sell_spmv"] += 1
     return y
 
 
 def hybrid_spmv(m: Hybrid, x):
-    """y = A x for a Hybrid matrix: `csrc/hybrid_spmv.cu`, the Ell bulk and
-    the row's tail in one pass, one thread per row."""
-    tail = m.tail
-    if on_cpu(m.ell.cols, m.ell.vals, tail.row_ptr, tail.cols, tail.vals, x):
-        return spmv_hybrid(m, x)
-    require_cuda("hybrid_spmv", x)
-    n, t = m.shape[0], tail.nnz
-    _check("hybrid_spmv", x, n, (*_ell_operands(m.ell, n),
-                                 ("tail row_ptr", tail.row_ptr, (n + 1,), torch.int32),
-                                 ("tail cols", tail.cols, (t,), torch.int32),
-                                 ("tail vals", tail.vals, (t,), torch.float32)))
-    lib = _build.library()
-    y = torch.empty_like(x)
-    _build.check(lib.ogl_hybrid_spmv(m.ell.cols.data_ptr(), m.ell.vals.data_ptr(),
-                                     m.ell.row_width, tail.row_ptr.data_ptr(),
-                                     tail.cols.data_ptr(), tail.vals.data_ptr(), x.data_ptr(),
-                                     y.data_ptr(), n, _blocks(n, x), stream_of(x)),
-                 "hybrid_spmv")
-    kernels.launches["hybrid_spmv"] += 1
-    return y
+    """y = A x for a Hybrid matrix (EllSpmv): the Ell bulk and the row's
+    tail in one pass."""
+    return EllSpmv(m)(x)

@@ -54,8 +54,7 @@ spmv_hybrid = gather_spmv.spmv_hybrid
 _PLAIN = {Dia: spmv_dia, Coo: spmv_coo, Csr: spmv_csr, DeviceCoo: spmv_csr, Ell: spmv_ell,
           Sell: spmv_sell, Hybrid: spmv_hybrid, Gdia: spmv_gdia, Xell: spmv_xell}
 _KERNEL = {Csr: gather_spmv.csr_spmv, DeviceCoo: gather_spmv.csr_spmv,
-           Ell: gather_spmv.ell_spmv, Sell: gather_spmv.sell_spmv,
-           Hybrid: gather_spmv.hybrid_spmv}
+           Sell: gather_spmv.sell_spmv}
 
 
 def spmv(m, x):
@@ -69,7 +68,10 @@ def spmv(m, x):
 def matvec(m):
     """`x -> A @ x` for matrix `m`: the format's SpMV kernel wrapper (the
     plain version when the data lies on the CPU); a host Coo takes the
-    plain gather + index_add."""
+    plain gather + index_add.  An Ell or Hybrid matrix's operands are
+    checked once, here (gather_spmv.EllSpmv)."""
+    if type(m) in (Ell, Hybrid):
+        return gather_spmv.EllSpmv(m)
     if type(m) in _KERNEL:
         f = _KERNEL[type(m)]
         return lambda x: f(m, x)

@@ -13,12 +13,13 @@ r, then [<r̂,v>] after the first SpMV, then [<t,s>, <t,t>] after the second.
 The norm factor is computed once before the loop, so the criterion rides
 the grouped ‖r‖₁ (stopping.check_from_norm).
 
-Where the matrix is Dia, Gdia or Xell and the preconditioner `none` or
-scalar `BJ` (`why_not` None), the solver passes the format's plan: with the
-plan itself (CgKernels, GdiaCgKernels or XellCgKernels, not a subclass that
-overrides a step) on CUDA tensors the whole loop, criterion included, is
-one launch of the plan's `bicgstab_gen_loop` (csrc/bicgstab_gen_loop.cu,
-whose two SpMV phases are the format's SpMV body).  A refused launch
+Where the matrix is Dia, Gdia, Xell, Ell or Hybrid and the preconditioner
+`none` or scalar `BJ` (`why_not` None), the solver passes the format's
+plan: with the plan itself (CgKernels, GdiaCgKernels, XellCgKernels or
+EllCgKernels, not a subclass that overrides a step) on CUDA tensors the
+whole loop, criterion included, is one launch of the plan's
+`bicgstab_gen_loop` (csrc/bicgstab_gen_loop.cu, whose two SpMV phases are
+the format's SpMV body).  A refused launch
 raises; there is no fallback to the host loop.  Everything else (the CPU,
 Multigrid, a subclassed plan) runs the host loop, `bicgstab_gen_loop_plain`
 (kernels/fused.py), which is also the loop kernel's plain twin: host
@@ -33,7 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from ogl_tpu_torch.core.formats import Dia, format_name
+from ogl_tpu_torch.core.formats import Dia, Ell, Hybrid, format_name
+from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_gen_loop_plain,
                                          gen_check_sums)
 from ogl_tpu_torch.kernels.gdia import Gdia
@@ -49,7 +51,7 @@ def why_not(mat, precond_name: str) -> str | None:
     """Why the general BiCGStab keeps the host loop on the matrix `mat` with
     the preconditioner named `precond_name`, or None when the loop kernel
     takes the solve (the caller then passes the format's plan)."""
-    if not isinstance(mat, (Dia, Gdia, Xell)):
+    if not isinstance(mat, (Dia, Gdia, Xell, Ell, Hybrid)):
         return f"the {format_name(mat)} format (no loop kernel)"
     if precond_name not in ("none", "BJ"):
         return f"preconditioner {precond_name}"
@@ -72,7 +74,8 @@ def bicgstab(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None) -> SolveResu
     nf = stopping.initial_norm_factor(ops, r, x, b)
     absr, rho = gen_check_sums(ops, r, r_hat)
     # the exact types: subclasses that override a step keep the host loop
-    if type(kern) in (CgKernels, GdiaCgKernels, XellCgKernels) and b.device.type == "cuda":
+    if (type(kern) in (CgKernels, GdiaCgKernels, XellCgKernels, EllCgKernels)
+            and b.device.type == "cuda"):
         rec = kern.bicgstab_gen_loop(data, x, r, r_hat, rho, absr, nf, cfg, invd)
     else:
         rec = bicgstab_gen_loop_plain(ops, x, r, r_hat, rho, absr, nf, cfg)

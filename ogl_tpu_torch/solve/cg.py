@@ -7,6 +7,16 @@ device per checked iteration.  It is the `fusedCG false` route of the foam
 layer and the independent solver the merged-kernel path is checked
 against.  Its SpMV is whatever `ops.matvec` is — the Dia SpMV kernel on
 the foam path.
+
+Where the matrix is Ell or Hybrid and the preconditioner `none` or scalar
+`BJ` (`why_not` None), the solver passes the format's plan: with the plan
+itself (kernels/ell.py `EllCgKernels`, not a subclass) on CUDA tensors,
+the set-up below runs as ever and the whole loop, criterion included, is
+then one launch of its `cg_loop` (csrc/cg_loop.cu's Ell variants).  That
+loop computes this one's values in the merged order of solve/cg_fused.py:
+ρ and ‖r‖₁ come from the update of r (K2), z, p and q = A p from one phase
+(K1), so only the order of the reductions differs.  A refused launch
+raises.  Everything else runs the host loop below.
 """
 
 from __future__ import annotations
@@ -15,10 +25,12 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ogl_tpu_torch.core.formats import Ell, Hybrid, format_name
+from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.krylov import Ops
 
-__all__ = ["cg", "SolveResult"]
+__all__ = ["cg", "SolveResult", "why_not"]
 
 
 class SolveResult(NamedTuple):
@@ -29,11 +41,34 @@ class SolveResult(NamedTuple):
     converged: Any  # 0-d bool tensor: tolerance criteria met
 
 
-def cg(ops: Ops, b, x0, cfg) -> SolveResult:
+def why_not(mat, precond_name: str) -> str | None:
+    """Why the general CG keeps the host loop on the matrix `mat` with the
+    preconditioner named `precond_name`, or None when the loop kernel takes
+    the solve (the caller then passes the format's plan).  Dia, Gdia and
+    Xell take the merged route (solve/cg_fused.py) instead."""
+    if not isinstance(mat, (Ell, Hybrid)):
+        return f"the {format_name(mat)} format (no loop kernel on this route)"
+    if precond_name not in ("none", "BJ"):
+        return f"preconditioner {precond_name}"
+    return None
+
+
+def cg(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None) -> SolveResult:
+    """kern, data: the matrix's plan and kern.pack_values(mat), where
+    why_not is None (else None: the host loop); invd: the scalar Jacobi
+    inverse diagonal when ops.precond is invd ⊙ ·, None with identity."""
     dtype = b.dtype
     x = x0.to(dtype).clone()
     r = b - ops.matvec(x)
     nf = stopping.initial_norm_factor(ops, r, x, b)
+    # the exact type: a subclass that overrides a step keeps the host loop
+    if type(kern) is EllCgKernels and b.device.type == "cuda":
+        z = r if invd is None else invd * r
+        iters, rn, init_rn, converged = kern.cg_loop(
+            data, x, r, torch.sum(r * z), torch.sum(torch.abs(r)), nf, cfg, invd=invd,
+            z=None if invd is None else z)
+        return SolveResult(x=x, iters=iters, init_res_norm=init_rn, final_res_norm=rn,
+                           converged=converged)
     st = stopping.init_state(dtype, b.device).replace(norm_factor=nf)
     p = torch.zeros_like(b)
     rho_old = torch.ones((), dtype=dtype, device=b.device)

@@ -2000,7 +2000,7 @@ def test_gather_spmv_on_zero_rows(dev, fmt):
     e_f = torch.zeros(0, dtype=torch.float32, device=dev)
     ptr = torch.zeros(1, dtype=torch.int32, device=dev)
     csr = formats.Csr(row_ptr=ptr, cols=e_i, vals=e_f, shape=(0, 0))
-    ell = formats.Ell(cols=e_i.view(1, 0), vals=e_f.view(1, 0), shape=(0, 0))
+    ell = formats.Ell(cols=e_i.view(1, 0), vals=e_f.view(1, 0), shape=(0, 0), warp_slots=e_i)
     m = {"Coo": formats.DeviceCoo(row_ptr=ptr, cols=e_i, vals=e_f, shape=(0, 0)), "Csr": csr,
          "Ell": ell, "Hybrid": formats.Hybrid(ell=ell, tail=csr, shape=(0, 0)),
          "Sell": formats.Sell(cols=e_i, vals=e_f, slot_rows=e_i,
@@ -2049,9 +2049,11 @@ def test_gather_spmv_never_reaches_its_twin_on_the_card(dev, fmt, monkeypatch):
 @pytest.mark.parametrize("fmt", list(GATHER_PORT))
 def test_foam_solve_on_each_gather_format(dev, fmt):
     """GKOCG `BJ` on the kNN-6 mesh with an explicit matrixFormat: the
-    general CG over the format's kernel, no loop kernel, its launches one
-    per SpMV of the route (2 set-up, 1 per iteration, 9 for the residual-eval
-    timing), and the count of the same solve on the CPU ±1."""
+    general CG over the format's kernel, its launches one per SpMV of the
+    route (2 set-up, 1 per iteration, 9 for the residual-eval timing), and
+    the count of the same solve on the CPU ±1.  On Ell and Hybrid the loop
+    is one launch of the CG loop kernel's Ell variant, the SpMV only the
+    set-up's and the timing's."""
     m, perm = testing.knn_ldu(20000)
     m = testing.renumber_ldu(m, np.argsort(perm))
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
@@ -2061,8 +2063,183 @@ def test_foam_solve_on_each_gather_format(dev, fmt):
     x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
     torch.cuda.synchronize()
     name = GATHER_LAUNCH[fmt]
-    assert kernels.launches[name] == perf.n_iterations + 2 + 9
+    loop = fmt in ("Ell", "Hybrid")
+    assert kernels.launches[name] == (0 if loop else perf.n_iterations) + 2 + 9
+    assert kernels.launches["ell_cg_loop"] == int(loop)
     assert kernels.launches["cg_loop"] == kernels.launches["xell_cg_loop"] == 0
     assert registry.global_registry.get("p_solver").route == "cg"
     _, perf_cpu = foam.solve("q", m, b, {**ctl, "executor": "cpu"})
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+
+
+# ---- slice 15: the Ell row body and the loops on Ell and Hybrid -------------
+
+# the kNN-6 mesh at 20,000 cells (a whole number of warps and of row quads)
+# and 20,003 (a last warp of 3 rows, no row quads); Hybrid at its
+# 80th-percentile width (a tail) and at a width above every row (no tail)
+ELL_LOOP_CASES = {"Ell": ("Ell", 20000, None), "Ell n%32=3": ("Ell", 20003, None),
+                  "Hybrid": ("Hybrid", 20000, None),
+                  "Hybrid no tail n%32=3": ("Hybrid", 20003, 64)}
+
+
+def _ell_loop_setup(case, pc, dev):
+    """(plan, data, matrix, b, invd) of an ELL_LOOP_CASES case."""
+    from ogl_tpu_torch.kernels.ell import EllCgKernels
+
+    fmt, n, width = ELL_LOOP_CASES[case]
+    coo = _knn_coo(n)
+    mat = (formats.coo_to_ell(coo, device=dev) if fmt == "Ell"
+           else formats.coo_to_hybrid(coo, width, device=dev))
+    if fmt == "Hybrid":
+        assert (mat.tail.nnz == 0) == (width is not None)
+    kern = EllCgKernels.for_matrix(mat)
+    diag = np.zeros(n, np.float32)
+    on = coo.rows == coo.cols
+    diag[coo.rows[on]] = coo.vals[on]
+    invd = torch.tensor(1.0 / diag, device=dev) if pc == "BJ" else None
+    return kern, kern.pack_values(mat), mat, _vec(n, 11, dev), invd
+
+
+def test_ell_spmv_stops_each_warp_at_its_group(dev):
+    """Slot counts that differ from one 32-row group to the next and a
+    partial last warp (_gather_dense 'random': 517 rows, an empty and a
+    dense row): Ell and Hybrid bit-equal to their twins on CPU copies, and
+    to the sum over every slot."""
+    coo = formats.coo_from_dense(_gather_dense("random"))
+    for fmt in ("Ell", "Hybrid"):
+        m = _gather_mat(fmt, coo, dev)
+        ell = m.ell if fmt == "Hybrid" else m
+        assert len(set(ell.warp_slots.tolist())) > 1 or fmt == "Hybrid"
+        _gather_check(fmt, m, dev)
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("case", list(ELL_LOOP_CASES))
+def test_ell_cg_loop_matches_plain(dev, case, pc):
+    """The CG loop kernel's Ell variants against cg_loop_plain over the Ell
+    (Hybrid) twin's K1, pinned and free-running (_check_loop): one
+    ell_cg_loop launch per solve, the SpMV twice for the set-up."""
+    from ogl_tpu_torch.kernels.ell import ell_k1_plain
+
+    kern, data, mat, b, invd = _ell_loop_setup(case, pc, dev)
+    mat64 = formats.cast_values(mat, torch.float64)
+    _check_loop(kern, data, b, invd, functools.partial(ell_k1_plain, mat),
+                GATHER_LAUNCH[ELL_LOOP_CASES[case][0]], lambda v: spmv.spmv(mat64, v),
+                loop_counter="ell_cg_loop")
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("case", list(ELL_LOOP_CASES))
+def test_ell_bicgstab_gen_loop_matches_plain(dev, case, pc):
+    """The general-BiCGStab loop kernel's Ell variants against the twin on
+    the card (solve/bicgstab.py's host loop over the Ell twin) pinned at 10
+    iterations (x and the normalised residual rtol 1e-4): three launches
+    repeat their count and iterate exactly, each one loop launch and two
+    SpMVs (the set-up's)."""
+    kern, data, mat, b, invd = _ell_loop_setup(case, pc, dev)
+    name = GATHER_LAUNCH[ELL_LOOP_CASES[case][0]]
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=10, max_iter=10,
+                                     frequency=1)
+    twin = _gen_solve(kern, data, mat, b, invd, pinned, loop=False)
+    runs = []
+    for _ in range(3):
+        kernels.reset_launches()
+        runs.append(_gen_solve(kern, data, mat, b, invd, pinned))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.launches.items() if v} == {
+            "ell_bicgstab_gen_loop": 1, name: 2}
+    res = runs[0]
+    assert all(r.iters == res.iters and torch.equal(r.x, res.x) for r in runs[1:])
+    assert res.iters == twin.iters == 10 and not bool(res.converged)
+    _close(res.x, twin.x, rtol=1e-4)
+    torch.testing.assert_close(res.final_res_norm, twin.final_res_norm.cpu(), rtol=1e-4,
+                               atol=1e-6 * float(res.init_res_norm))
+
+
+def test_ell_loops_refuse_a_grid_too_large_and_bad_operands(dev):
+    """On the 64×64×48 Poisson grid as Ell (196,608 rows: more blocks of
+    512 than fit on the card), four times the co-resident grid is refused by
+    the cooperative launch: the wrappers raise, count nothing and leave no
+    error behind, and the next launch is unaffected.  A wrong operand raises
+    before any launch."""
+    from ogl_tpu_torch.kernels.ell import EllCgKernels
+    from ogl_tpu_torch.kernels.fused import LOOP_ELL, LOOP_JACOBI
+
+    coo = ldu.ldu_to_coo_host(testing.poisson_ldu((64, 64, 48)), dtype=np.float32)
+    mat = formats.coo_to_ell(coo, device=dev)
+    kern = EllCgKernels.for_matrix(mat)
+    data = kern.pack_values(mat)
+    b, invd = _vec(kern.n, 11, dev), torch.full((kern.n,), 1.0 / 6.0, device=dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=5,
+                                  frequency=1)
+
+    def run_cg():
+        (x, *state), z = _loop_state(kern, data, b, invd)
+        return kern.cg_loop(data, x, *state, cfg, invd=invd, z=z)[0]
+
+    def run_gen():
+        return _gen_solve(kern, data, mat, b, invd, cfg).iters
+
+    v = LOOP_ELL | LOOP_JACOBI
+    for cache, what, run in ((kern._loop_blocks, "ell_cg_loop", run_cg),
+                             (kern._gen_loop_blocks, "ell_bicgstab_gen_loop", run_gen)):
+        assert run() == 5
+        co_resident = cache[v]
+        assert 0 < co_resident < -(-kern.n // 512)
+        cache[v] = 4 * co_resident
+        kernels.reset_launches()
+        with pytest.raises(RuntimeError, match=f"{what}: CUDA error"):
+            run()
+        assert kernels.launches[what] == 0
+        torch.cuda.synchronize()  # no error left behind for the next call to find
+        cache[v] = co_resident
+        assert run() == 5
+    (x, *state), z = _loop_state(kern, data, b, invd)
+    with pytest.raises(TypeError, match="float32"):
+        kern.cg_loop(data, x, *state, cfg, invd=invd.double(), z=z)
+    with pytest.raises(ValueError, match="shape"):
+        kern.cg_loop((data[0][:, :-1], None), x, *state, cfg, invd=invd, z=z)
+    with pytest.raises(TypeError, match="0-d float32"):
+        kern.cg_loop(data, x, state[0], 1.0, state[2], state[3], cfg, invd=invd, z=z)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kern.cg_loop(data, x.cpu(), *state, cfg, invd=invd, z=z)
+    with pytest.raises(ValueError, match="is on"):
+        kern.bicgstab_gen_loop(data, x, state[0], state[0].cpu(), *state[1:], cfg, invd)
+
+
+@pytest.mark.parametrize("solver", ["GKOCG", "GKOBiCGStab"])
+@pytest.mark.parametrize("fmt", ["Ell", "Hybrid"])
+def test_foam_solve_on_ell_and_hybrid_is_one_loop_launch(dev, fmt, solver):
+    """GKOCG and GKOBiCGStab `none`/`BJ` on an explicit Ell or Hybrid: one
+    launch of the loop kernel's Ell variant per solve, the SpMV 11 times
+    (set-up 2, residual-eval timing 9), no twin; iterations ±1 of the same
+    solve over the plain twins on the card, the true residual within 10 ×
+    the tolerance."""
+    from ogl_tpu_torch.solve.cg import cg
+
+    m, perm = testing.knn_ldu(20000)
+    m = testing.renumber_ldu(m, np.argsort(perm))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    loop = {"GKOCG": "ell_cg_loop", "GKOBiCGStab": "ell_bicgstab_gen_loop"}[solver]
+    for pc in ("none", {"preconditioner": "BJ"}):
+        registry.global_registry.clear()
+        ctl = {"solver": solver, "tolerance": 1e-6, "relTol": 0, "matrixFormat": fmt,
+               "preconditioner": pc, "executor": "cuda"}
+        kernels.reset_launches()
+        x, perf = foam.solve("p", m, b, ctl)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.launches.items() if v} == {loop: 1,
+                                                                    GATHER_LAUNCH[fmt]: 11}
+        slv = registry.global_registry.get("p_solver")
+        mat, bb = slv.matrix, torch.tensor(b, device=dev)
+        invd = slv._precond_op.state if pc != "none" else None
+        twin = {"GKOCG": cg, "GKOBiCGStab": bicgstab}[solver](
+            single_device_ops(lambda v: spmv.spmv(mat, v), m.n,
+                              precond=None if invd is None else (lambda r: invd * r)),
+            bb, torch.zeros_like(bb), stopping.StoppingParams.of(slv.cfg.stopping))
+        assert perf.converged and abs(perf.n_iterations - twin.iters) <= 1
+        ops64 = single_device_ops(lambda v: spmv.spmv(formats.cast_values(mat, torch.float64),
+                                                      v), m.n)
+        b64 = bb.double()
+        nf = stopping.initial_norm_factor(ops64, b64, torch.zeros_like(b64), b64)
+        assert float((b64 - ops64.matvec(x.double())).abs().sum() / nf) <= 10 * 1e-6

@@ -90,7 +90,8 @@ def _f32_sum(terms):
 def _replay(fmt, m, x, group=None):
     """y of the CUDA kernel's arithmetic, replayed row by row in float32:
     the documented order of csrc/csr_rows.cuh (at `group` lanes per row,
-    None: csr_group), ell_rows.cuh, sell_spmv.cu and hybrid_spmv.cu."""
+    None: csr_group), ell_rows.cuh (Ell, and Hybrid's bulk before its tail:
+    each row up to its 32-row group's longest row) and sell_spmv.cu."""
     n = m.shape[0]
     y = np.zeros(n, np.float32)
     if fmt in ("Coo", "Csr"):
@@ -106,9 +107,9 @@ def _replay(fmt, m, x, group=None):
             y[i] = part[0]
     elif fmt in ("Ell", "Hybrid"):
         ell = m if fmt == "Ell" else m.ell
-        c, v = ell.cols.numpy(), ell.vals.numpy()
+        c, v, w = ell.cols.numpy(), ell.vals.numpy(), ell.warp_slots.numpy()
         for i in range(n):
-            terms = [np.float32(v[k, i]) * x[c[k, i]] for k in range(c.shape[0])]
+            terms = [np.float32(v[k, i]) * x[c[k, i]] for k in range(w[i // 32])]
             if fmt == "Hybrid":
                 tp, tc, tv = (t.numpy() for t in (m.tail.row_ptr, m.tail.cols, m.tail.vals))
                 terms += [np.float32(tv[j]) * x[tc[j]] for j in range(tp[i], tp[i + 1])]
@@ -232,7 +233,9 @@ CASES = [("GKOCG", "none", {}), ("GKOCG", "BJ", {}), ("GKOCG", "none", {"pipelin
 def test_explicit_format_solves_as_the_reference(fmt, solver, pc, extra):
     """±1 iteration and x within 1e-4 of the reference's foam.solve with the
     same controls: CG on the kNN-6 mesh, BiCGStab on convection–diffusion.
-    Every format takes the general loop over its SpMV."""
+    Every format takes the general loop over its SpMV; Ell and Hybrid keep
+    the plan of their loop kernels for CG and BiCGStab (on the CPU the host
+    loop runs, the kernels' twin)."""
     if solver == "GKOBiCGStab":
         m = testing.convection_diffusion_ldu((16, 16, 8))
     else:
@@ -242,7 +245,8 @@ def test_explicit_format_solves_as_the_reference(fmt, solver, pc, extra):
     x, perf, x_ref, perf_ref = _solve_both(m, b, ctl)
     slv = registry.global_registry.get("p_solver")
     assert perf.solver_name == perf_ref.solver_name == f"{solver}_{fmt}"
-    assert formats.format_name(slv.matrix) == fmt and slv.kern is None
+    assert formats.format_name(slv.matrix) == fmt
+    assert (slv.kern is not None) == (fmt in ("Ell", "Hybrid") and not extra)
     assert slv.route == {"GKOBiCGStab": "bicgstab"}.get(
         solver, "cg_pipe" if extra else "cg")
     assert perf.converged and perf_ref.converged
@@ -326,10 +330,13 @@ def test_spmv_launches_per_solve_follow_the_route(fmt, monkeypatch):
     launch counts): CG 2 set-up + 1 per iteration, pipelined CG 3 + 1,
     BiCGStab 2 + 2, plus the criterion's residual-eval timing (9)."""
     calls = []
-    for name in ("csr_spmv", "ell_spmv", "sell_spmv", "hybrid_spmv"):
+    for name in ("csr_spmv", "sell_spmv"):
         f = getattr(gather_spmv, name)
         monkeypatch.setattr(gather_spmv, name,
                             lambda m, x, f=f: calls.append(1) or f(m, x))
+    call = gather_spmv.EllSpmv.__call__  # Ell and Hybrid: one plan per solve
+    monkeypatch.setattr(gather_spmv.EllSpmv, "__call__",
+                        lambda self, x: calls.append(1) or call(self, x))
     monkeypatch.setattr(spmv, "_KERNEL", {k: getattr(gather_spmv, v.__name__)
                                           for k, v in spmv._KERNEL.items()})
     m = _knn()
