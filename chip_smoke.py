@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT . . PARENT   (phase 3's kernels in turns)
-    python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the Ell, Hybrid part alone)
+    python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the gather formats' part alone)
 
 Drives the port's six main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
@@ -20,10 +20,10 @@ shuffled grid — each followed by steady-state steps; the pipelined CG with
 loop as one launch of a persistent kernel; then (slice 5) the
 headline lanes of the bench, `ogl_tpu_torch.bench.run`, on the read-peak
 kernel, the SpMV roofline at 8,388,608 rows and the merged CG; then
-(slices 14–15) the reference-parity formats Coo, Csr, Ell, Sell and Hybrid
+(slices 14–16) the reference-parity formats Coo, Csr, Ell, Sell and Hybrid
 on the kNN-6 mesh, the Poisson grid and convection-diffusion, and the
 ladder's Ell landing on a small unstructured mesh (GKOCG and GKOBiCGStab
-`none`/`BJ` on Ell and Hybrid each one launch of a loop kernel) — after
+`none`/`BJ` on every one of them one launch of a loop kernel) — after
 building the port's kernels from the sources in this checkout and holding
 each against its plain PyTorch version on the card, at the slices' size
 and at 8,388,608 rows.
@@ -32,12 +32,12 @@ Phases (any failure raises, and the script exits non-zero):
   1. device: nvidia-smi name and power limit, torch/CUDA versions,
      compute capability 9.0 required;
   2. build: the CUDA C++ kernels (nvcc, sm_90a), nvcc's register report
-     and, for each of the persistent CG loop kernel's six variants (Dia,
-     Gdia or Ell, identity or Jacobi), the Xell CG loop kernel's two
-     (identity or Jacobi, with its shared-memory ring), the pipelined loop
-     kernel's two (identity or Jacobi), the merged-BiCGStab loop kernel, the
-     general BiCGStab loop kernel's eight (Dia, Gdia, Xell or Ell) and the
-     AMG loop kernel's four (CG or IR,
+     and, for each of the persistent CG loop kernel's ten variants (Dia,
+     Gdia, Ell, Csr or Sell, identity or Jacobi), the Xell CG loop kernel's
+     two (identity or Jacobi, with its shared-memory ring), the pipelined
+     loop kernel's two (identity or Jacobi), the merged-BiCGStab loop
+     kernel, the general BiCGStab loop kernel's twelve (Dia, Gdia, Xell,
+     Ell, Csr or Sell) and the AMG loop kernel's four (CG or IR,
      float32 or bfloat16 smoother coefficients), its grid (co-resident
      blocks) and registers;
   3. kernels vs plain versions at 1M and 8.4M rows (the smoother kernels
@@ -132,31 +132,33 @@ Phases (any failure raises, and the script exits non-zero):
      device busy; µs per iteration and idle share printed after the run),
      the foam per-step, device-only and diag-only lanes.  Any fraction of
      a peak above 1.05 fails the run;
- 11. slices 14–15, the reference-parity formats: GKOCG `none` and `BJ` on
-     the 1M kNN-6 mesh with an explicit matrixFormat Coo, Csr, Ell, Sell
-     and Hybrid (28 and 23 iterations ± 1), GKOBiCGStab `none` and `BJ` there
-     on Ell and Hybrid (21 and 17 ± 1), `pipelinedCG` on Csr, the Poisson
-     grid as Csr (275 ± 1), GKOBiCGStab `BJ` on convection-diffusion as Csr
-     (24 ± 1), the 20,000-cell kNN-6 mesh in its points' numbering
-     auto-routed to Ell, and a steady step on the Csr and Ell solvers (diag
-     block and b uploaded); each solve on Coo, Csr and Sell on the general
-     loop with one launch of its format's gather kernel per SpMV and no
-     loop kernel, each on Ell and Hybrid one launch of the loop kernel's Ell
-     variant (the SpMV for the set-up and the residual-eval timing only);
-     no plain twin called, each count equal ±1 to the same route over the
-     plain twins on the card, each true float64 residual within the limit;
-     then the Ell variants of the CG and general-BiCGStab loop kernels
-     against their twins on Ell and Hybrid at kNN 1M and on Ell at
-     64x64x48 (its fixed cost), timed per iteration in turns with the twin
-     and the host loop over the SpMV kernel; then the four
-     gather kernels on the kNN mesh and on the 8.4M Poisson grid (formats
-     built by core/formats.py's converters) against their twins on the card
-     (bit-equal), timed in turns with torch's CSR SpMV beside them, each
-     bound from the function's least bytes and the format's stored bytes
-     beside it, the CSR kernel at every number of lanes per row (also on
-     random graphs of 16, 64 and 256 entries per row), and the profiler's
-     device time per launch on the kNN mesh.  The loop rows of
-     phase 3 are timed over 100 iterations (200 before phase 11 joined).
+ 11. slices 14–16, the reference-parity formats: GKOCG and GKOBiCGStab
+     `none` and `BJ` on the 1M kNN-6 mesh with an explicit matrixFormat
+     Coo, Csr, Ell, Sell and Hybrid (CG 28 and 23 iterations ± 1,
+     BiCGStab 21 and 17 ± 1), `pipelinedCG` on Csr, the Poisson grid as
+     Csr (275 ± 1), GKOBiCGStab `BJ` on convection-diffusion as Csr (24 ±
+     1), the 20,000-cell kNN-6 mesh in its points' numbering auto-routed to
+     Ell, and a steady step on the Csr and Ell solvers (diag block and b
+     uploaded); each GKOCG and GKOBiCGStab solve one launch of the loop
+     kernel's variant of its format (Ell and Hybrid: Ell; Coo and Csr:
+     Csr; Sell) with the format's gather kernel for the set-up and the
+     residual-eval timing only, the pipelined CG one gather launch per
+     SpMV and no loop kernel; no plain twin called, each count equal ±1 to
+     the same route over the plain twins on the card, each true float64
+     residual within the limit; then the Ell, Csr and Sell variants of the
+     CG and general-BiCGStab loop kernels against their twins on Ell,
+     Hybrid, Csr and Sell at kNN 1M and on Ell at 64x64x48 (its fixed
+     cost), timed per iteration in turns with the twin and the host loop
+     over the SpMV kernel; then the four gather kernels on the kNN mesh and
+     on the 8.4M Poisson grid (formats built by core/formats.py's
+     converters) against their twins on the card (bit-equal), timed in
+     turns with torch's CSR SpMV beside them, each bound from the
+     function's least bytes and the format's stored bytes beside it (Sell:
+     the bytes its slices read), the CSR kernel at its number of lanes per
+     row and the next (also on random graphs of 16, 64 and 256 entries per
+     row), and the profiler's device time per launch on the kNN mesh.  The
+     loop rows of phase 3 are timed over 100 iterations (200 before phase
+     11 joined), phase 11's over 20.
 Each phase prints its wall time.  Each path's launch counts are set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  The line before the last is one JSON object
@@ -173,9 +175,10 @@ state, the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M and
 8.4M rows, and pK and pKBJ on the kNN-6 mesh on resident state) from
 each given checkout in order, one process each, and prints
 their kernel lines: an earlier commit unpacked with `git archive` against
-this one on the same card; `--turns-gather` runs only its Ell and Hybrid
-part (GKOCG and GKOBiCGStab on the kNN-6 mesh as Ell and Hybrid on resident
-state, the two SpMVs at kNN 1M and 8.4M beside torch's CSR SpMV).
+this one on the same card; `--turns-gather` runs only its gather part
+(GKOCG and GKOBiCGStab `none` and `BJ` on the kNN-6 mesh as Ell, Hybrid,
+Csr and Sell on resident state, the four SpMVs at kNN 1M and 8.4M beside
+torch's CSR SpMV).
 """
 
 from __future__ import annotations
@@ -203,10 +206,12 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
-from ogl_tpu_torch.kernels.ell import EllCgKernels, ell_k1_plain
-from ogl_tpu_torch.kernels.fused import (LOOP_ELL, LOOP_GDIA, LOOP_JACOBI, LOOP_THREADS,
-                                         LOOP_XELL, bicgstab_gen_loop_plain,
+from ogl_tpu_torch.kernels.ell import EllCgKernels
+from ogl_tpu_torch.kernels.fused import (LOOP_CSR, LOOP_ELL, LOOP_GDIA, LOOP_JACOBI, LOOP_SELL,
+                                         LOOP_THREADS, LOOP_XELL, bicgstab_gen_loop_plain,
                                          bicgstab_loop_plain, cg_loop_plain, cg_pipe_loop_plain)
+from ogl_tpu_torch.kernels.gather_loop import (CsrCgKernels, GatherCgKernels, SellCgKernels,
+                                               gather_k1_plain)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg, cg_fused, cg_pipelined,
                                  cg_pipelined_fused, ir, krylov, stopping)
 from ogl_tpu_torch.solve.ir import ir_fused
@@ -335,6 +340,28 @@ KERNELS = {
                               "ogl_tpu/solve/bicgstab.py:52, over the XLA op "
                               "ogl_tpu/kernels/spmv.py:50 (spmv_ell)",
                               "ell_bicgstab_gen_loop[Ell none]", "knn"),
+    # the loops on Coo, Csr and Sell (phase 11): their variants of the CG and
+    # general-BiCGStab loop kernels, the Csr row body (csr_rows.cuh csr_row)
+    # or the Sell slot body (sell_rows.cuh) as their SpMV phases; times per
+    # iteration, cases [Csr|Sell none|BJ]
+    "csr_cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_loop.cu",
+                    "no TPU kernel: the reference's CG loop, ogl_tpu/solve/cg.py:47, over the "
+                    "XLA op ogl_tpu/kernels/spmv.py:38 (spmv_csr)", "csr_cg_loop[Csr none]",
+                    "knn"),
+    "csr_bicgstab_gen_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_gen_loop.cu",
+                              "no TPU kernel: the reference's BiCGStab loop, "
+                              "ogl_tpu/solve/bicgstab.py:52, over the XLA op "
+                              "ogl_tpu/kernels/spmv.py:38 (spmv_csr)",
+                              "csr_bicgstab_gen_loop[Csr none]", "knn"),
+    "sell_cg_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/cg_loop.cu",
+                     "no TPU kernel: the reference's CG loop, ogl_tpu/solve/cg.py:47, over the "
+                     "XLA op ogl_tpu/kernels/spmv.py:55 (spmv_sell)", "sell_cg_loop[Sell none]",
+                     "knn"),
+    "sell_bicgstab_gen_loop": ("cuda", "ogl_tpu_torch/kernels/csrc/bicgstab_gen_loop.cu",
+                               "no TPU kernel: the reference's BiCGStab loop, "
+                               "ogl_tpu/solve/bicgstab.py:52, over the XLA op "
+                               "ogl_tpu/kernels/spmv.py:55 (spmv_sell)",
+                               "sell_bicgstab_gen_loop[Sell none]", "knn"),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -381,15 +408,19 @@ XELL_GEN_SOLVES = {"uK": "none", "uKBJ": {"preconditioner": "BJ"}}
 GEN_LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
                      LOOP_GDIA | LOOP_JACOBI: "Gdia BJ", LOOP_XELL: "Xell none",
                      LOOP_XELL | LOOP_JACOBI: "Xell BJ", LOOP_ELL: "Ell none",
-                     LOOP_ELL | LOOP_JACOBI: "Ell BJ"}
+                     LOOP_ELL | LOOP_JACOBI: "Ell BJ", LOOP_CSR: "Csr none",
+                     LOOP_CSR | LOOP_JACOBI: "Csr BJ", LOOP_SELL: "Sell none",
+                     LOOP_SELL | LOOP_JACOBI: "Sell BJ"}
 # x after BICGSTAB_LOOP_CHECK pinned iterations against the twin: the phases
 # give the twin's bits at every row, the block sums add in another order, and
 # float32 BiCGStab amplifies that (the rtol the phase-9 pin holds residuals to)
 GEN_LOOP_RTOL = 1e-4
-# the loop kernel's six variants (bits of csrc/cg_loop.cu), as phase 2 names them
+# the loop kernel's ten variants (bits of csrc/cg_loop.cu), as phase 2 names them
 LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none",
                  LOOP_GDIA | LOOP_JACOBI: "Gdia BJ", LOOP_ELL: "Ell none",
-                 LOOP_ELL | LOOP_JACOBI: "Ell BJ"}
+                 LOOP_ELL | LOOP_JACOBI: "Ell BJ", LOOP_CSR: "Csr none",
+                 LOOP_CSR | LOOP_JACOBI: "Csr BJ", LOOP_SELL: "Sell none",
+                 LOOP_SELL | LOOP_JACOBI: "Sell BJ"}
 PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
 XELL_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/xell_cg_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
@@ -735,10 +766,17 @@ def check_kernels(dims, device, report):
     torch.cuda.empty_cache()
 
 
-def ell_spmv_bytes(kern, data):
-    """The least bytes of one SpMV over an Ell or Hybrid plan's matrix, bar
-    x and y: each entry's value and column once (8 B; the padding is the
-    format's cost, not the function's), and a Hybrid tail's row offsets."""
+def gather_spmv_bytes(kern, data):
+    """The least bytes of one SpMV over a gather plan's matrix, bar x and y:
+    each entry's value and column once (8 B; the padding is the format's
+    cost, not the function's), and the index arrays the format cannot do
+    without — a Hybrid tail's row offsets, Csr's row offsets, Sell's row
+    permutation (gather_bytes_flops)."""
+    if isinstance(kern, CsrCgKernels):
+        return kern.mat.nnz * 8 + 4 * (kern.n + 1)
+    if isinstance(kern, SellCgKernels):
+        m = kern.mat  # a real entry is not (column 0, value 0), bar a stored zero there
+        return int(((m.cols != 0) | (data[0] != 0)).sum()) * 8 + 4 * kern.n
     rows = torch.arange(kern.n, device=kern.device)
     nnz = int(((kern.cols != rows) | (data[0] != 0)).sum()) + kern.n_tail
     return nnz * 8 + (4 * (kern.n + 1) if kern.n_tail else 0)
@@ -748,8 +786,8 @@ def loop_bytes(data, n, jacobi, kern=None):
     """Minimum bytes per iteration of the loop kernel: K1 (the coefficients,
     z (r) and p in, p' and q out) and K2i (x, r, p', q in; x, r out), with
     Jacobi also invd in and z out."""
-    if isinstance(kern, EllCgKernels):
-        k1 = ell_spmv_bytes(kern, data) + 16 * n
+    if isinstance(kern, GatherCgKernels):
+        k1 = gather_spmv_bytes(kern, data) + 16 * n
     elif isinstance(data, tuple) and len(data) == 4:  # Xell: K slots of 7 B, the spill
         vals, spill = data[0], data[3].numel()
         k1 = (vals.shape[1] * 7 + 16 + (4 if spill else 0)) * n + 12 * spill
@@ -809,9 +847,9 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop",
     set-up (b random, x0 = 0), timed in turns with the host loop over the
     standalone kernels (cg_fused with a plan that keeps the host loop):
     loop_row over `iters` (check, timing).  invd: the Jacobi variant (the K2
-    phase).  kern: a Dia, Gdia, Xell (the Xell loop kernel) or Ell plan (an
-    Ell variant, against the host loop of solve/cg.py over the SpMV
-    kernel)."""
+    phase).  kern: a Dia, Gdia, Xell (the Xell loop kernel) or gather plan
+    (Ell, Csr, Sell: the format's variant, against the host loop of
+    solve/cg.py over the SpMV kernel)."""
     n, dev = kern.n, kern.device
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
@@ -820,7 +858,7 @@ def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop",
     state = (torch.sum(r0 * (r0 if z0 is None else z0)), torch.sum(torch.abs(r0)),
              merged_norm_factor(kern, data, r0, x0, b))
     host_what = "K1 + " + ("K2" if invd is not None else "K2i")
-    if isinstance(kern, EllCgKernels):
+    if isinstance(kern, GatherCgKernels):
         ops = krylov.single_device_ops(functools.partial(kern.spmv, data), n,
                                        precond=None if invd is None else (lambda r: invd * r))
         host_solve, host_what = (lambda k: cg(ops, b, x0, checked_iterations(k)),
@@ -916,9 +954,10 @@ def gen_loop_bytes(data, n, jacobi, kern=None):
     v' out), SpMV B (the coefficients, r and v' in; s and t out) and the
     update (x, p', s, t and r̂ in; x and r out): 2 x the coefficients + 68 B
     per row (124 at 7 Dia diagonals); with Jacobi invd once in each phase
-    (+ 12).  Ell: the least bytes of its SpMV (ell_spmv_bytes)."""
-    if isinstance(kern, EllCgKernels):
-        return 2 * ell_spmv_bytes(kern, data) + (68 + 12 * jacobi) * n
+    (+ 12).  Ell, Csr, Sell: the least bytes of their SpMV
+    (gather_spmv_bytes)."""
+    if isinstance(kern, GatherCgKernels):
+        return 2 * gather_spmv_bytes(kern, data) + (68 + 12 * jacobi) * n
     if isinstance(data, tuple) and len(data) == 4:  # Xell
         spill = data[3].numel()
         coef_bytes = (data[0].shape[1] * 7 + (4 if spill else 0)) * n + 12 * spill
@@ -939,7 +978,7 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
     n, dev = kern.n, kern.device
     gdia_v = isinstance(kern, GdiaCgKernels)
     xell_v = isinstance(kern, xell.XellCgKernels)
-    ell_v = isinstance(kern, EllCgKernels)
+    gather_v = isinstance(kern, GatherCgKernels)
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
     pc = None if invd is None else (lambda r: invd * r)
@@ -947,7 +986,7 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
     r0 = b - ops.matvec(x0)  # also r̂, never written
     state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
              stopping.initial_norm_factor(ops, r0, x0, b))
-    if ell_v:
+    if gather_v:
         plain_mv = functools.partial(spmv.spmv, kern.container(data))
     elif xell_v:
         plain_mv = functools.partial(xell.xell_spmv_plain, kern.plan, *data)
@@ -964,8 +1003,8 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
                else kern.bicgstab_gen_loop(data, x, r, r0, *state, cfg, invd))
         return x, rec[0], rec[1]
 
-    if ell_v:
-        case = f"ell_bicgstab_gen_loop[{'Hybrid' if kern.hybrid else 'Ell'}"
+    if gather_v:
+        case = f"{kern.NAME}_bicgstab_gen_loop[{formats.format_name(kern.container(data))}"
     else:
         case = f"bicgstab_gen_loop[{'Xell' if xell_v else 'Gdia' if gdia_v else 'Dia'}"
     loop_row(f"{case} {'none' if invd is None else 'BJ'}]", label, run,
@@ -2114,24 +2153,37 @@ GATHER_KERNELS = ("csr_spmv", "ell_spmv", "sell_spmv", "hybrid_spmv")
 # the SpMVs of a general route's solve, (set-up, per iteration); the
 # criterion's residual-eval timing adds RES_EVAL_SPMVS
 GENERAL_ROUTE_SPMVS = {"cg": (2, 1), "cg_pipe": (3, 1), "bicgstab": (2, 2)}
-# the loop kernels: none may run on Coo, Csr and Sell; a GKOCG (GKOBiCGStab)
-# `none` or `BJ` solve on Ell or Hybrid runs the Ell variant of the CG
-# (general-BiCGStab) loop kernel once, named by its route in ELL_LOOPS
+# the loop kernels: a GKOCG (GKOBiCGStab) `none` or `BJ` solve on a gather
+# format runs its format's variant of the CG (general-BiCGStab) loop kernel
+# once (Ell and Hybrid the Ell one, Coo and Csr the Csr one), counted as
+# <plan NAME>_<ROUTE_LOOPS[route]>; the pipelined CG none
+ROUTE_LOOPS = {"cg": "cg_loop", "bicgstab": "bicgstab_gen_loop"}
+GATHER_LOOPS = tuple(f"{fmt}_{loop}" for fmt in ("ell", "csr", "sell")
+                     for loop in ROUTE_LOOPS.values())
 LOOP_KERNELS = ("cg_loop", "cg_pipe_loop", "bicgstab_loop", "bicgstab_gen_loop",
-                "xell_cg_loop", "amg_cg_loop", "amg_ir_loop", "ell_cg_loop",
-                "ell_bicgstab_gen_loop")
-ELL_LOOPS = {"cg": "ell_cg_loop", "bicgstab": "ell_bicgstab_gen_loop"}
+                "xell_cg_loop", "amg_cg_loop", "amg_ir_loop", *GATHER_LOOPS)
+# the plan of each gather format's loops (foam/solver.py picks the same)
+GATHER_PLANS = {formats.Ell: EllCgKernels, formats.Hybrid: EllCgKernels,
+                formats.Csr: CsrCgKernels, formats.DeviceCoo: CsrCgKernels,
+                formats.Sell: SellCgKernels}
 # iterations gated at ±1 at the slices' size: GKOCG `none` and `BJ` on the 1M
 # kNN-6 mesh in every format (the Xell route's counts on the same system),
-# GKOBiCGStab `none` and `BJ` there on Ell and Hybrid (phase 8's uK, uKBJ on
+# GKOBiCGStab `none` and `BJ` there in every format (phase 8's uK, uKBJ on
 # Xell), GKOCG on the Poisson grid as Csr (P_ITERS), GKOBiCGStab `BJ` on
 # convection-diffusion as Csr (phase 9's uCD)
 GATHER_ITERS = {"none": 28, "BJ": 23, "uK": 21, "uKBJ": 17, "gP": 275, "gCD": 24}
-# the Ell loop rows' check and timing iterations (their plain twins take
-# three torch ops per slot of an SpMV, 1.6 ms per CG iteration at kNN 1M)
-ELL_LOOP_ITERS = (30, 50)
+# the gather loop rows' check and timing iterations (their plain twins take
+# 2-12 ms per iteration at kNN 1M: three torch ops per slot or entry step of
+# an SpMV; 20 timed iterations keep phase 11 within the script's time)
+GATHER_LOOP_ITERS = (30, 20)
 ELL_LANDING_CELLS = 20000  # the kNN-6 mesh in its points' numbering: lands on Ell
-CSR_GROUPS = (1, 2, 4, 8, 16, 32)  # the CSR kernel's lanes per row, timed in phase 11
+CSR_GROUPS = (1, 2, 4, 8, 16, 32)  # the CSR kernel's lanes per row
+
+
+def csr_groups_beside(pick):
+    """The lanes per row phase 11 times on a graph: csr_group's pick and the
+    next one up (every size is in PERF.md §6, row 18)."""
+    return tuple(g for g in CSR_GROUPS if g in (pick, 2 * pick))
 # the converters of the formats whose kernels phase 11 times (the solver's own)
 GATHER_CONVERTERS = {"Csr": formats.coo_to_csr, "Ell": formats.coo_to_ell,
                      "Sell": formats.coo_to_sell, "Hybrid": formats.coo_to_hybrid}
@@ -2169,7 +2221,8 @@ def check_gather_kernels(mats, label, x, csr, report):
     """Each gather kernel against its twin on the card (bit-equal: the twin
     repeats the kernel's order), timed in turns, with its bound from the
     function's least bytes and the bytes its format stores beside it, and
-    torch's CSR SpMV on the same matrix beside it (library_ms)."""
+    torch's CSR SpMV on the same matrix beside it (library_ms); the lanes
+    the Sell slices read."""
     nnz = csr.values().numel()
     for fmt, m in mats.items():
         name = GATHER_FORMATS[fmt]
@@ -2189,11 +2242,20 @@ def check_gather_kernels(mats, label, x, csr, report):
             ell = m.ell if fmt == "Hybrid" else m
             print(f"  {name:22s} {label:12s} its warps stop at "
                   f"{float(ell.warp_slots.float().mean()):.2f} of {ell.row_width} slots on mean")
+        if fmt == "Sell":  # the lanes its slices read (csrc/sell_rows.cuh)
+            bucket_w = torch.tensor(m.widths, device=x.device)[m.slice_buckets.long()]
+            read = float(m.slice_widths.double().sum()) * m.slice_height * 8 / n
+            print(f"  {name:22s} {label:12s} its slices stop at "
+                  f"{float(m.slice_widths.float().mean()):.2f} lanes of their buckets' "
+                  f"{float(bucket_w.float().mean()):.2f} on mean: {read:.1f} bytes of values "
+                  f"and columns read per row of the {m.stored * 8 / n:.1f} stored")
+            report[name][label]["read_bytes_per_row"] = read
         library_beside(name, label, csr, mv, x, report)
         report[name][label].update(bytes_per_row=nbytes / n, stored_bytes_per_row=stored / n)
-        if fmt == "Csr":  # the CSR kernel at every group size, in turns
+        if fmt == "Csr":  # the CSR kernel at its group size and the next, in turns
+            pick = gather_spmv.csr_group(m.shape[0], m.nnz)
             t = time_turns({g: functools.partial(gather_spmv.csr_spmv, m, x, g)
-                            for g in CSR_GROUPS})
+                            for g in csr_groups_beside(pick)})
             print(f"  csr_spmv {label}: ms at each number of lanes per row (csr_group picks "
                   f"{gather_spmv.csr_group(m.shape[0], m.nnz)}): "
                   + ", ".join(f"{g}: {v:.4f}" for g, v in t.items()))
@@ -2201,8 +2263,8 @@ def check_gather_kernels(mats, label, x, csr, report):
 
 
 def csr_lanes_on_random_graphs(device, report, entries=1 << 24):
-    """The CSR kernel at every number of lanes per row, in turns, on random
-    graphs of 16, 64 and 256 entries per row (`entries` each, columns
+    """The CSR kernel at its number of lanes per row and the next, in turns,
+    on random graphs of 16, 64 and 256 entries per row (`entries` each, columns
     uniform and sorted within a row): the rows longer than the meshes', on
     which csr_group takes G > 1."""
     g = torch.Generator(device=device).manual_seed(1)
@@ -2215,9 +2277,9 @@ def csr_lanes_on_random_graphs(device, report, entries=1 << 24):
                         vals=torch.randn(n * width, device=device, generator=g),
                         shape=(n, n))
         x = torch.randn(n, device=device, generator=g)
-        t = time_turns({lanes: functools.partial(gather_spmv.csr_spmv, m, x, lanes)
-                        for lanes in CSR_GROUPS})
         pick = gather_spmv.csr_group(n, m.nnz)
+        t = time_turns({lanes: functools.partial(gather_spmv.csr_spmv, m, x, lanes)
+                        for lanes in csr_groups_beside(pick)})
         label = f"random {width} per row"
         print(f"  csr_spmv {label} ({n} rows): ms at each number of lanes per row (csr_group "
               f"picks {pick}): " + ", ".join(f"{lanes}: {v:.4f}" for lanes, v in t.items()))
@@ -2256,6 +2318,12 @@ def twins_refused():
             setattr(gather_spmv, name, fn)
 
 
+def loop_of(slv):
+    """The loop kernel a solver's solve launches on the card (None: its
+    route's host loop)."""
+    return None if slv.kern is None else f"{slv.kern.NAME}_{ROUTE_LOOPS[slv.route]}"
+
+
 def check_gather_launches(field, route, kernel, iters, before, loop=None):
     """Between `before` and now: one launch of the format's kernel per SpMV
     of the route and no loop kernel; or, where the solve ran the loop kernel
@@ -2270,26 +2338,26 @@ def check_gather_launches(field, route, kernel, iters, before, loop=None):
         raise RuntimeError(f"{field}: launched {got} in one solve, not {want}")
 
 
-def check_ell_loops(mat, invd, label, report, iters):
-    """The Ell variants of the CG loop kernel (check_loop) and of the
+def check_gather_loops(mat, invd, label, report, iters):
+    """The format's variants of the CG loop kernel (check_loop) and of the
     general-BiCGStab loop kernel (check_gen_loop), `none` and `BJ` with the
-    inverse diagonal `invd` (None: the 7-point stencil's 1/6), on the Ell or
-    Hybrid matrix `mat`."""
-    kern = EllCgKernels.for_matrix(mat)
+    inverse diagonal `invd` (None: the 7-point stencil's 1/6), on the Ell,
+    Hybrid, Csr or Sell matrix `mat`."""
+    kern = GATHER_PLANS[type(mat)].for_matrix(mat)
     data = kern.pack_values(mat)
     if invd is None:
         invd = torch.full((kern.n,), 1.0 / 6.0, device=kern.device)
-    fmt = "Hybrid" if kern.hybrid else "Ell"
+    fmt = formats.format_name(mat)
     for pc, iv in (("none", None), ("BJ", invd)):
-        check_loop(kern, data, functools.partial(ell_k1_plain, mat), label, report, invd=iv,
-                   case=f"ell_cg_loop[{fmt} {pc}]", iters=iters)
+        check_loop(kern, data, functools.partial(gather_k1_plain, mat), label, report, invd=iv,
+                   case=f"{kern.NAME}_cg_loop[{fmt} {pc}]", iters=iters)
         check_gen_loop(kern, data, label, report, invd=iv, iters=iters[1])
 
 
 def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tuple:
     """Phase 11.  Returns the launch counts of the path and its kernel
     report."""
-    print(f"== phase 11: slices 14-15, the reference-parity formats, foam.solve at {m_knn.n} "
+    print(f"== phase 11: slices 14-16, the reference-parity formats, foam.solve at {m_knn.n} "
           f"(kNN-6) and {m_grid.n} (Poisson, convection-diffusion) cells")
     ctl = {**ctl, "verbose": 0}
     t0 = time.perf_counter()
@@ -2305,7 +2373,7 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
               for fmt in GATHER_FORMATS for tag, pc in pcs.items()}
     solves.update({f"u{fmt}{tag}": (m_knn, b_knn, {"solver": "GKOBiCGStab", "matrixFormat": fmt,
                                                   "preconditioner": pc}, f"uK{tag}")
-                   for fmt in ("Ell", "Hybrid") for tag, pc in pcs.items()})
+                   for fmt in GATHER_FORMATS for tag, pc in pcs.items()})
     solves.update({
         "gPipe": (m_knn, b_knn, {"matrixFormat": "Csr", "pipelinedCG": True,
                                  "preconditioner": "none"}, None),
@@ -2327,7 +2395,7 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
             slv = registry.global_registry.get(f"{field}_solver")
             fmt = formats.format_name(slv.matrix)
             check_gather_launches(field, slv.route, GATHER_FORMATS[fmt], perf.n_iterations,
-                                  before, slv.kern and ELL_LOOPS[slv.route])
+                                  before, loop_of(slv))
             it = max(perf.n_iterations, 1)
             lt = slv.last_timings
             print(f"{field} ({fmt}, route {slv.route}): first solve wall {wall:.3f} s; "
@@ -2351,7 +2419,7 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
             slv = registry.global_registry.get(f"{field}_solver")
             check_gather_launches(f"{field} steady step", slv.route,
                                   GATHER_FORMATS[formats.format_name(slv.matrix)],
-                                  perf2.n_iterations, before, slv.kern and ELL_LOOPS[slv.route])
+                                  perf2.n_iterations, before, loop_of(slv))
             lt = slv.last_timings
             print(f"{field} steady step: update {lt.get('update_device_values', 0.0) * 1e3:.3f} "
                   f"ms, solve {lt.get('solve', 0.0) * 1e3:.3f} ms; blocks uploaded "
@@ -2361,7 +2429,7 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
                 raise RuntimeError(f"{field} steady step uploaded more than the diag block + RHS")
             records[f"{field} step"] = (x2, perf2, slv.route, slv.matrix,
                                         torch.tensor(b2, device=device), None, params, None)
-    launches = {k: kernels.launches[k] for k in (*GATHER_KERNELS, *ELL_LOOPS.values())}
+    launches = {k: kernels.launches[k] for k in (*GATHER_KERNELS, *GATHER_LOOPS)}
     print(f"launch counts over the path: {dict(kernels.launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -2395,18 +2463,18 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
 
-    # ---- the loops on Ell and Hybrid against their twins ----------------------
+    # ---- the loops on the gather formats against their twins ---------------
     report: dict = {}
-    print("the loop kernels' Ell variants vs their twins (x after the check's "
+    print("the loop kernels' Ell, Csr and Sell variants vs their twins (x after the check's "
           f"iterations within {VEC_RTOL:.0e}*max(1,max|plain|), BiCGStab after "
           f"{BICGSTAB_LOOP_CHECK} pinned within {GEN_LOOP_RTOL:.0e}):")
-    for fmt in ("Ell", "Hybrid"):
+    for fmt in ("Ell", "Hybrid", "Csr", "Sell"):
         mat = records[f"g{fmt}"][3]
         invd = records[f"g{fmt}BJ"][5]
-        check_ell_loops(mat, invd, "knn", report, ELL_LOOP_ITERS)
+        check_gather_loops(mat, invd, "knn", report, GATHER_LOOP_ITERS)
     coo = ldu.ldu_to_coo_host(testing.poisson_ldu(LOOP_FIXED_GRID), dtype=np.float32)
-    check_ell_loops(formats.coo_to_ell(coo, device=device), None,
-                    "x".join(map(str, LOOP_FIXED_GRID)), report, ELL_LOOP_ITERS)
+    check_gather_loops(formats.coo_to_ell(coo, device=device), None,
+                       "x".join(map(str, LOOP_FIXED_GRID)), report, GATHER_LOOP_ITERS)
 
     # ---- the kernels against their twins (launches not counted) ------------
     print("gather kernels vs their twins (vector tol "
@@ -2473,20 +2541,20 @@ TURN_HEAD = "import numpy as np, torch, chip_smoke as s; d = torch.device('cuda'
 TURN_KNN = ("mo, perm = s.testing.knn_ldu(s.KNN_1M)\n"
             "mk = s.testing.renumber_ldu(mo, np.argsort(perm))\n"
             "bk = np.random.default_rng(0).normal(size=mk.n).astype(np.float32)\n")
-# GKOCG and GKOBiCGStab `none` and `BJ` on the kNN-6 mesh as Ell and as
-# Hybrid on resident state (one launch of a loop kernel's Ell variant where
-# a tree has them, else the host loops over the SpMV kernel), and the Ell
-# and Hybrid SpMVs on the kNN-6 mesh and on the 256x256x128 Poisson grid
+# GKOCG and GKOBiCGStab `none` and `BJ` on the kNN-6 mesh as Ell, Hybrid,
+# Csr and Sell on resident state (one launch of a loop kernel's variant of
+# the format where a tree has it, else the host loops over the SpMV kernel),
+# and the four SpMVs on the kNN-6 mesh and on the 256x256x128 Poisson grid
 # against their twins, torch's CSR SpMV beside them, with the profiler's
 # device time per launch (also alone: `--turns-gather`)
 TURN_GATHER = (
     "bj = {'preconditioner': 'BJ'}\n"
-    "for f, ex in (('gEll', {}), ('gEllBJ', {'preconditioner': bj}), ('gHybrid', {}), "
-    "('gHybridBJ', {'preconditioner': bj}), ('uEll', {'solver': 'GKOBiCGStab'}), "
-    "('uEllBJ', {'solver': 'GKOBiCGStab', 'preconditioner': bj}), ('uHybrid', "
-    "{'solver': 'GKOBiCGStab'}), ('uHybridBJ', {'solver': 'GKOBiCGStab', 'preconditioner': bj})):\n"
+    "for fmt in ('Ell', 'Hybrid', 'Csr', 'Sell'):\n"
+    "  for f, ex in (('g', {}), ('gBJ', {'preconditioner': bj}), ('u', {'solver': "
+    "'GKOBiCGStab'}), ('uBJ', {'solver': 'GKOBiCGStab', 'preconditioner': bj})):\n"
+    "    f = f[0] + fmt + f[1:]\n"
     "    ctl = {'solver': 'GKOCG', 'executor': 'cuda', 'tolerance': s.TOL, 'relTol': 0, "
-    "'matrixFormat': 'Hybrid' if 'Hybrid' in f else 'Ell', **ex}\n"
+    "'matrixFormat': fmt, **ex}\n"
     "    _, perf = s.foam.solve(f, mk, bk, ctl)\n"
     "    sec = s.registry.global_registry.get(f + '_solver').time_device_solve()\n"
     "    print(f'  gather_solve {f} (kNN-6) {mk.n} cells: {perf.n_iterations} iterations, "
@@ -2497,6 +2565,7 @@ TURN_GATHER = (
     ".manual_seed(0))\n"
     "    csr = s.csr_of_coo(rows, cols, vals, coo.shape[0])\n"
     "    mats = {'Ell': s.formats.coo_to_ell(coo, device=d), 'Hybrid': s.formats.coo_to_hybrid("
+    "coo, device=d), 'Csr': s.formats.coo_to_csr(coo, device=d), 'Sell': s.formats.coo_to_sell("
     "coo, device=d)}\n"
     "    s.check_gather_kernels(mats, label, x, csr, r)\n"
     "    for fmt, mm in mats.items():\n"
@@ -2569,7 +2638,7 @@ TURN_GATHER_CODE = TURN_HEAD + TURN_KNN + TURN_GATHER  # one turn of `--turns-ga
 
 TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
               "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_",
-              "gather_solve", "ell_spmv", "hybrid_spmv", "torch CSR")
+              "gather_solve", "ell_spmv", "hybrid_spmv", "csr_spmv", "sell_spmv", "torch CSR")
 
 
 def turns(trees, code=TURN_CODE) -> int:

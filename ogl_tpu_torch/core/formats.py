@@ -27,7 +27,10 @@ instead of JAX pytrees.  `BlockUpdatePlan` is not ported (ROADMAP.md A7).
            bucket slot-major: (w_b, ns_b · C), lane k of slot s at [k, s],
            where the reference stores (ns_b, C, w_b).  Padding: col 0,
            val 0; pad slots' rows are n.  `table` is the buckets' device
-           table of (first slot, first value, width).
+           table of (first slot, first value, width); per slice, in slot
+           order, `slice_widths` holds its longest row (the kernels' slices
+           stop there, short of a rounded bucket width) and `slice_buckets`
+           its bucket.
   Hybrid — an Ell bulk plus a tail (the entries past the Ell width,
            row-major) stored as a Csr.
   Dia    — data[d, i] = A[i, i + offsets[d]], 0 where i + offsets[d] falls
@@ -50,7 +53,8 @@ import torch
 __all__ = ["Coo", "Csr", "DeviceCoo", "Ell", "Sell", "Hybrid", "Dia", "format_name",
            "coo_from_dense", "to_dense", "coo_to_device", "coo_to_csr", "ell_layout",
            "ELL_GROUP", "ell_warp_slots", "coo_to_ell", "coo_to_hybrid", "dia_layout",
-           "coo_to_dia", "sell_layout", "sell_device_index", "sell_table", "coo_to_sell",
+           "coo_to_dia", "sell_layout", "sell_device_index", "sell_table", "sell_slices",
+           "coo_to_sell",
            "with_values", "values_flat", "cast_values", "ValueMap", "value_map"]
 
 
@@ -128,12 +132,19 @@ class Sell:
     stored flat: bucket b holds n_slices[b] slices of C = slice_height rows
     padded to widths[b], slot-major, (w_b, ns_b · C).
     slot_rows[g] is the original row of slot g (pad slots: n); table[b] =
-    (first slot, first value, width) of bucket b, int64 on the device."""
+    (first slot, first value, width) of bucket b, int64 on the device.
+    Slice s holds slots s·C .. s·C + C − 1 (buckets hold whole slices):
+    slice_widths[s] is its longest row (at least 1; `sell_layout`'s width
+    before any rounding to a power of two), at most its bucket's width,
+    slice_buckets[s] its bucket.  Both belong to the sparsity, so value
+    updates carry them."""
 
     cols: torch.Tensor  # (stored,) int32
     vals: torch.Tensor  # (stored,)
     slot_rows: torch.Tensor  # (Σ ns_b · C,) int32
     table: torch.Tensor  # (n_buckets, 3) int64
+    slice_widths: torch.Tensor  # (Σ ns_b,) int32
+    slice_buckets: torch.Tensor  # (Σ ns_b,) uint8
     widths: tuple[int, ...]
     n_slices: tuple[int, ...]
     shape: tuple[int, int]
@@ -444,6 +455,15 @@ def sell_table(widths, ns_of, slice_height: int) -> np.ndarray:
     return table
 
 
+def sell_slices(slot_counts: np.ndarray, ns_of, slice_height: int):
+    """(slice_widths, slice_buckets) of a Sell layout from the entry count
+    of each slot's row (0 for pad slots), in slot order: each slice's longest
+    row, at least 1 (sell_layout's width before rounding), and its bucket."""
+    c = np.asarray(slot_counts, np.int64).reshape(-1, slice_height)
+    widths = np.maximum(c.max(axis=1, initial=0), 1).astype(np.int32)
+    return widths, np.repeat(np.arange(len(ns_of)), ns_of).astype(np.uint8)
+
+
 def coo_to_sell(m: Coo, slice_height: int = 8, sigma: int = 64,
                 device: torch.device | str = "cpu") -> Sell:
     """SELL-C-σ (see Sell/sell_layout): per-slice padding buckets, true
@@ -457,9 +477,13 @@ def coo_to_sell(m: Coo, slice_height: int = 8, sigma: int = 64,
     flat_v = np.zeros(total, dtype=vals.dtype)
     flat_c[dest] = cols
     flat_v[dest] = vals
+    slot_rows = np.concatenate(slot_rows)
+    counts = np.append(np.bincount(rows.astype(np.int64), minlength=n), 0)  # row n: pad slots
+    slice_widths, slice_buckets = sell_slices(counts[slot_rows], ns_of, slice_height)
     return Sell(cols=_up(flat_c, device), vals=_up(flat_v, device),
-                slot_rows=_up(np.concatenate(slot_rows), device),
+                slot_rows=_up(slot_rows, device),
                 table=_up(sell_table(widths, ns_of, slice_height), device),
+                slice_widths=_up(slice_widths, device), slice_buckets=_up(slice_buckets, device),
                 widths=tuple(widths), n_slices=tuple(ns_of), shape=tuple(m.shape),
                 slice_height=slice_height, sigma=sigma)
 

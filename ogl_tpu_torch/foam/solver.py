@@ -28,9 +28,11 @@ Routing follows the reference's `_make_solve_fn`:
                        `BJ` on the card: one launch of the format's loop
                        kernel); every other format, or `fusedCG false` →
                        the general CG (solve/cg.py) over the format's SpMV
-                       kernel, which on Ell and Hybrid with `none` or `BJ`
-                       on the card is one launch of the CG loop kernel's
-                       Ell variant (EllCgKernels)
+                       kernel, which on Ell, Hybrid, Coo, Csr and Sell with
+                       `none` or `BJ` on the card is one launch of the CG
+                       loop kernel's variant of the format (EllCgKernels,
+                       CsrCgKernels — Coo too —, SellCgKernels; a Csr of 16
+                       or more entries per row on mean keeps the host loop)
   GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
                        (KA + KB_pipe, solve/cg_pipe_fused.py; on the card
                        one launch of its loop kernel); Gdia, Xell,
@@ -39,9 +41,10 @@ Routing follows the reference's `_make_solve_fn`:
                        Ell, Sell and Hybrid
   GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): with
                        `none` or `BJ` one launch of its loop kernel on the
-                       card (on Dia, Gdia, Xell, Ell or Hybrid), else (Coo,
-                       Csr, Sell, Multigrid) the host loop over the format's
-                       SpMV kernel; `fusedBiCGStab true` with
+                       card (on every format, bar a Csr of 16 or more
+                       entries per row on mean), else (Multigrid) the host
+                       loop over the format's SpMV kernel; `fusedBiCGStab
+                       true` with
                        `none` on Dia → the merged BiCGStab (K1B, K1B,
                        KB_update; solve/bicgstab_fused.py; on the card one
                        launch of its loop kernel)
@@ -73,6 +76,7 @@ from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.core.reorder import rcm_permutation
 from ogl_tpu_torch.kernels import spmv
 from ogl_tpu_torch.kernels.ell import EllCgKernels
+from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
 from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
 from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
 from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels, xell_from_coo
@@ -95,6 +99,10 @@ _CONVERTERS = {"Coo": formats.coo_to_device, "Csr": formats.coo_to_csr,
                "Ell": formats.coo_to_ell, "Dia": formats.coo_to_dia,
                "Sell": formats.coo_to_sell, "Gdia": gdia_from_coo,
                "Hybrid": formats.coo_to_hybrid, "Xell": xell_from_coo}
+# the gather formats' loop plans (a DeviceCoo is a Csr by its storage)
+_GATHER_PLANS = {formats.Ell: EllCgKernels, formats.Hybrid: EllCgKernels,
+                 formats.Csr: CsrCgKernels, formats.DeviceCoo: CsrCgKernels,
+                 formats.Sell: SellCgKernels}
 # the formats of the merged routes, each with its merged-CG plan
 _MERGED_FORMATS = (formats.Dia, Gdia, Xell)
 
@@ -333,9 +341,9 @@ class FoamSolver:
             if self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir"):
                 self.kern = self._kernel_plan()
             elif why_not is not None and why_not(self.matrix, cfg.precond.name) is None:
-                # the general loops' plan: Ell's (and Hybrid's) own, else the merged one
-                self.kern = (EllCgKernels.for_matrix(self.matrix)
-                             if isinstance(self.matrix, (formats.Ell, formats.Hybrid))
+                # the general loops' plan: a gather format's own, else the merged one
+                plan = _GATHER_PLANS.get(type(self.matrix))
+                self.kern = (plan.for_matrix(self.matrix) if plan is not None
                              else self._kernel_plan())
             else:
                 self.kern = None

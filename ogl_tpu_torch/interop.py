@@ -13,7 +13,7 @@ import torch
 
 from ogl_tpu_torch.core.formats import (Coo, Csr, DeviceCoo, Dia, Ell, Hybrid, Sell,
                                         coo_to_csr, coo_to_device, ell_warp_slots,
-                                        sell_table)
+                                        sell_slices, sell_table)
 from ogl_tpu_torch.core.ldu import LduMatrix, LocalInterface
 from ogl_tpu_torch.kernels.gdia import Gdia
 from ogl_tpu_torch.kernels.xell import Xell, spill_csr
@@ -135,12 +135,19 @@ def csr_from_reference(m, device: torch.device | str = "cpu") -> Csr:
 def ell_from_reference(m, device: torch.device | str = "cpu") -> Ell:
     """The port's slot-major Ell from a reference Ell, whose cols/vals are
     row-major (n, K).  The reference keeps no row lengths, so each row's is
-    read from its padding: the slots after its last one that is not (its own
-    column, value 0)."""
+    read from its padding: the slots up to its last one that is not (its own
+    column, value 0), and one more where that slot could be a stored zero on
+    the diagonal — the row holds no column above its own (columns ascend
+    within a row), so its (i, i) entry would come next.  Taking such an entry
+    for padding would drop it once a value update makes it nonzero; reading
+    one padding slot too many adds 0 · x[i]."""
     cols, vals = np.asarray(m.cols), np.asarray(m.vals)
     n, k = cols.shape
-    live = (cols != np.arange(n)[:, None]) | (vals != 0)
+    own = np.arange(n)
+    live = (cols != own[:, None]) | (vals != 0)
     counts = np.where(live.any(axis=1), k - np.argmax(live[:, ::-1], axis=1), 0)
+    last_col = cols[own, np.maximum(counts - 1, 0)] if k else own
+    counts = counts + ((counts < k) & ((counts == 0) | (last_col < own)))
 
     def up(a):
         return torch.tensor(np.ascontiguousarray(a.T), device=device)
@@ -151,19 +158,34 @@ def ell_from_reference(m, device: torch.device | str = "cpu") -> Ell:
 
 def sell_from_reference(m, device: torch.device | str = "cpu") -> Sell:
     """The port's Sell from a reference Sell: each bucket's (ns, C, w)
-    block stored as (w, ns · C), concatenated."""
+    block stored as (w, ns · C), concatenated.  The reference keeps no row
+    lengths, so each slot's is read from its padding, (column 0, value 0):
+    the lanes up to its last other one.  Columns ascend within a row, so a
+    real entry on column 0 is a row's first; the slices' widths are at
+    least 1 (sell_slices), which covers a row whose only entry is a stored
+    zero on column 0."""
     def flat(blocks):
         return np.concatenate([np.asarray(b).reshape(-1, np.asarray(b).shape[2]).T.reshape(-1)
                                for b in blocks])
 
+    def slot_counts(cols, vals):
+        live = (cols != 0) | (vals != 0)  # (slots, w)
+        w = live.shape[1]
+        return np.where(live.any(axis=1), w - np.argmax(live[:, ::-1], axis=1), 0)
+
     widths = tuple(int(np.asarray(v).shape[2]) for v in m.vals)
     ns_of = tuple(int(np.asarray(v).shape[0]) for v in m.vals)
     C = int(m.slice_height)
+    counts = np.concatenate([slot_counts(np.asarray(c).reshape(-1, w), np.asarray(v).reshape(-1, w))
+                             for c, v, w in zip(m.cols, m.vals, widths)])
+    slice_widths, slice_buckets = sell_slices(counts, ns_of, C)
     return Sell(cols=torch.tensor(flat(m.cols), device=device),
                 vals=torch.tensor(flat(m.vals), device=device),
                 slot_rows=torch.tensor(np.concatenate([np.asarray(r) for r in m.slot_rows]),
                                        device=device),
                 table=torch.tensor(sell_table(widths, ns_of, C), device=device),
+                slice_widths=torch.tensor(slice_widths, device=device),
+                slice_buckets=torch.tensor(slice_buckets, device=device),
                 widths=widths, n_slices=ns_of, shape=_shape(m), slice_height=C,
                 sigma=int(m.sigma))
 

@@ -102,6 +102,16 @@ _SIGNATURES = {
     # vec, threads, blocks, stream
     "ogl_cg_loop_ell": (_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, row_ptr, cols, vals, x, r, z, invd, p, pn, q, rho, absr, nf, partials, record,
+    # n, tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_cg_loop_csr": (_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, table, n_buckets, slice_buckets, slice_widths, slot_rows, cols, vals, slots,
+    # slice_height, x, r, z, invd, p, pn, q, rho, absr, nf, partials, record, n, tol,
+    # rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_cg_loop_sell": (_INT, _P, _INT, _P, _P, _P, _P, _P, _I64, _INT, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT,
+                         _INT, _I64, _P),
     # variant, threads, blocks (out)
     "ogl_cg_pipe_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
     # variant, data, offsets, nd, invd, x, r, p, s, w, nf, partials, record, n, tol,
@@ -136,13 +146,26 @@ _SIGNATURES = {
     "ogl_bicgstab_gen_loop_ell": (_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT,
                                   _INT, _INT, _INT, _I64, _P),
+    # variant, row_ptr, cols, vals, invd, rhat, x, r, p, pn, v, vn, s, t, rho, absr, nf,
+    # partials, record, n, tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks,
+    # stream
+    "ogl_bicgstab_gen_loop_csr": (_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT,
+                                  _INT, _I64, _P),
+    # variant, table, n_buckets, slice_buckets, slice_widths, slot_rows, cols, vals, slots,
+    # slice_height, invd, rhat, x, r, p, pn, v, vn, s, t, rho, absr, nf, partials, record, n,
+    # tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_bicgstab_gen_loop_sell": (_INT, _P, _INT, _P, _P, _P, _P, _P, _I64, _INT, _P, _P, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32,
+                                   _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
     # row_ptr, cols, vals, x, y, n, group, blocks, stream
     "ogl_csr_spmv": (_P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # cols, vals, warp_slots, tail_ptr (NULL = no tail), tail_cols, tail_vals, x, y, n,
     # blocks, stream
     "ogl_ell_spmv": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
-    # table, n_buckets, slot_rows, cols, vals, x, y, n, slots, blocks, stream
-    "ogl_sell_spmv": (_P, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # table, n_buckets, slice_buckets, slice_widths, slot_rows, cols, vals, slots,
+    # slice_height, x, y, n, blocks, stream
+    "ogl_sell_spmv": (_P, _INT, _P, _P, _P, _P, _P, _I64, _INT, _P, _P, _I64, _I64, _P),
     # variant, threads, blocks (out)
     "ogl_amg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
     # variant, table, levels, data, offsets, nd, x, r, z, p, pn, q, absr, nf, partials, record,

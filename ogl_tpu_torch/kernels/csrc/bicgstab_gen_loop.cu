@@ -1,7 +1,8 @@
 // The whole general (unfused) BiCGStab loop as ONE persistent cooperative
-// kernel for Hopper, in eight variants: the SpMV of a Dia, a Gdia, an Xell
-// or an Ell matrix (Ell also serves Hybrid, whose tail its row body adds),
-// with identity or scalar Jacobi preconditioning (M^-1 = 1 or invd ⊙ ·).
+// kernel for Hopper, in twelve variants: the SpMV of a Dia, a Gdia, an Xell,
+// an Ell (also Hybrid, whose tail its row body adds), a Csr (also the device
+// Coo) or a Sell matrix, with identity or scalar Jacobi preconditioning (M^-1
+// = 1 or invd ⊙ ·).
 // Each iteration, in the order of the host loop
 // (ogl_tpu_torch/solve/bicgstab.py, the reference's ogl_tpu/solve/
 // bicgstab.py:52-111; plain twin `bicgstab_gen_loop_plain` in
@@ -30,15 +31,19 @@
 // Replaces: the two Dia SpMV launches of an iteration of the reference's
 // general BiCGStab (ogl_tpu/kernels/pallas_spmv.py `_kernel`; Gdia:
 // ogl_tpu/kernels/gdia.py `_gdia_kernel`; Xell: ogl_tpu/kernels/xell.py
-// `_xell_kernel` with `_spill_corr`; Ell and Hybrid: the XLA ops of
-// ogl_tpu/kernels/spmv.py `spmv_ell`, `spmv_hybrid`) and the elementwise passes,
+// `_xell_kernel` with `_spill_corr`; Ell, Hybrid, Csr, Coo and Sell: the XLA
+// ops of ogl_tpu/kernels/spmv.py `spmv_ell`, `spmv_hybrid`, `spmv_csr`,
+// `spmv_coo`, `spmv_sell`) and the elementwise passes,
 // reductions and `jax.lax.while_loop` around them.  The SpMV phases are the
 // standalone kernels' bodies over source functors: dia_rows.cuh (row
 // quads; dia_spmv.cu), gdia_k1.cuh `gdia_quad_sums` (row quads; gdia.cu)
 // and xell_band.cuh `band_apply` (bands of 2,048 rows walked by the blocks
 // in turn, with the 59,392-byte cp.async ring as dynamic shared memory and
 // a block barrier before each band but a block's first; xell.cu) and
-// ell_rows.cuh `ell_row` (rows, whole warps per 32-row group; ell_spmv.cu); the
+// ell_rows.cuh `ell_row` (rows, whole warps per 32-row group; ell_spmv.cu),
+// csr_rows.cuh `csr_row` (rows, one lane each; csr_spmv.cu) and sell_rows.cuh
+// `sell_slot` (slots, written to their rows, a pad slot nothing;
+// sell_spmv.cu); the
 // criterion, the block-order sums and the cooperative launch are
 // loop.cuh's.  The fused loop (bicgstab_loop.cu) runs another recurrence
 // (its K1B folds the direction update differently) and is not reused.
@@ -60,7 +65,8 @@
 // bytes, 124 at 7 diagonals; Jacobi reads invd once in each phase (+ 12).
 // Gdia: np * 5 bytes of values and lanes per SpMV phase instead of nd * 4;
 // Xell: K * 7 bytes of slots, and sp_ptr and 12 bytes per spill entry; Ell:
-// 8 bytes per entry, and a Hybrid tail's offsets.
+// 8 bytes per entry, and a Hybrid tail's offsets; Csr: 8 bytes per entry and
+// the row offsets; Sell: 8 bytes per entry and the row permutation.
 // Besides, three grid barriers and the redundant partial sums (each block
 // reads every block's partials).
 //
@@ -90,10 +96,12 @@
 #include <stdint.h>
 
 #include "block_sum.cuh"
+#include "csr_rows.cuh"
 #include "dia_rows.cuh"
 #include "ell_rows.cuh"
 #include "gdia_k1.cuh"
 #include "loop.cuh"
+#include "sell_rows.cuh"
 #include "xell_band.cuh"
 
 namespace cg = cooperative_groups;
@@ -104,7 +112,9 @@ constexpr int kMaxThreads = 512;
 constexpr int kJacobi = 1;  // variant bits: scalar Jacobi preconditioning,
 constexpr int kGdia = 2;    // the Gdia SpMV,
 constexpr int kXell = 4;    // the Xell SpMV,
-constexpr int kEll = 8;     // the Ell (and Hybrid) SpMV (else Dia)
+constexpr int kEll = 8;     // the Ell (and Hybrid) SpMV,
+constexpr int kCsr = 16;    // the Csr (and device Coo) SpMV,
+constexpr int kSell = 32;   // the Sell SpMV (else Dia)
 // Blocks of 512 per SM every variant is compiled for: two, at most 64
 // registers, as the fused loop (the row-quad phases keep four rows' sums and
 // two source quads in registers; the Ell phases a chunk of slots' columns,
@@ -352,26 +362,57 @@ __device__ __forceinline__ void xell_phase(const ogl::XellOperands& xm, unsigned
   }
 }
 
-// An SpMV phase over this thread's rows of an Ell matrix (the row body of
-// ell_rows.cuh; rows first, first + step, ..., whole warps): out = A src,
-// with the centre dir (p' or s) written to `dirout`; adds this thread's share
-// of rhat.out (kA) to sums[0], or of t.s and t.t to sums[0] and sums[1].
+// Row i of a gather phase: out[i] = q, the centre dir (p' or s) written to
+// `dirout`; adds this row's share of rhat.out (kA) to sums[0], or of t.s and
+// t.t to sums[0] and sums[1].
 template <bool kA, class Src>
-__device__ __forceinline__ void ell_phase(const ogl::EllOperands& em,
+__device__ __forceinline__ void gather_row_done(const float* __restrict__ rhat, const Src& src,
+                                                float* dirout, float* out, int64_t i, float q,
+                                                float (&sums)[2]) {
+  const float dc = src.dir(i);
+  dirout[i] = dc;
+  out[i] = q;
+  if (kA) {
+    sums[0] += __ldg(rhat + i) * q;
+  } else {
+    sums[0] += q * dc;
+    sums[1] += q * q;
+  }
+}
+
+// An SpMV phase over this thread's rows of an Ell matrix (the row body of
+// ell_rows.cuh; rows first, first + step, ..., whole warps) or of a Csr
+// matrix (csr_rows.cuh `csr_row`): out = A src, as gather_row_done.
+template <bool kA, bool kCsrV, class Src>
+__device__ __forceinline__ void row_phase(const ogl::EllOperands& em,
+                                          const ogl::CsrOperands& cm,
                                           const float* __restrict__ rhat, const Src& src,
                                           float* dirout, float* out, int64_t n, int64_t first,
                                           int64_t step, float (&sums)[2]) {
   for (int64_t i = first; i < n; i += step) {
-    const float q = ogl::ell_row(em, src, i, n);
-    const float dc = src.dir(i);
-    dirout[i] = dc;
-    out[i] = q;
-    if (kA) {
-      sums[0] += __ldg(rhat + i) * q;
+    float q;
+    if constexpr (kCsrV) {
+      q = ogl::csr_row(cm.row_ptr, cm.cols, cm.vals, src, i);
     } else {
-      sums[0] += q * dc;
-      sums[1] += q * q;
+      q = ogl::ell_row(em, src, i, n);
     }
+    gather_row_done<kA>(rhat, src, dirout, out, i, q, sums);
+  }
+}
+
+// An SpMV phase over this thread's slots of a Sell matrix (sell_rows.cuh;
+// slots first, first + step, ...), each sum finished at its slot's row as
+// gather_row_done; a pad slot writes and adds nothing.
+template <bool kA, class Src>
+__device__ __forceinline__ void sell_phase(const ogl::SellOperands& sm,
+                                           const ogl::SellBuckets& sb,
+                                           const float* __restrict__ rhat, const Src& src,
+                                           float* dirout, float* out, int64_t n, int64_t first,
+                                           int64_t step, float (&sums)[2]) {
+  for (int64_t g = first; g < sm.slots; g += step) {
+    const float q = ogl::sell_slot(sm, sb, src, g);
+    const int i = __ldg(sm.slot_rows + g);
+    if (i < n) gather_row_done<kA>(rhat, src, dirout, out, i, q, sums);
   }
 }
 
@@ -415,12 +456,28 @@ __device__ __forceinline__ void update_phase(const float* __restrict__ invd,
   }
 }
 
-// m: the Dia or Gdia matrix (nd = 0 for Xell and Ell); xm: the Xell matrix
-// (Xell variants only; the others launch without the ring); em: the Ell
-// matrix (Ell variants only).
+// The gather matrices of the loop: the one of the variant's format is read.
+struct Gather {
+  ogl::EllOperands ell;
+  ogl::CsrOperands csr;
+  ogl::SellOperands sell;
+};
+
+// The ints of shared memory a block stages: the Gdia plane offsets, the Sell
+// bucket table, the Dia offsets, or none.
+__host__ __device__ constexpr int shared_ints(int variant) {
+  return (variant & kGdia) ? ogl::kGdiaMaxPlanes
+         : (variant & kSell) ? static_cast<int>(sizeof(ogl::SellBuckets) / sizeof(int))
+         : (variant & (kXell | kEll | kCsr)) ? 1
+                                             : ogl::kMaxDiags;
+}
+
+// m: the Dia or Gdia matrix (nd = 0 for the others); xm: the Xell matrix
+// (Xell variants only; the others launch without the ring); gm: the Ell,
+// Csr or Sell matrix (their variants only).
 template <int V>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
-    bicgstab_gen_loop_kernel(Matrix m, ogl::XellOperands xm, ogl::EllOperands em,
+    bicgstab_gen_loop_kernel(Matrix m, ogl::XellOperands xm, Gather gm,
                              const int* __restrict__ offsets, const float* __restrict__ invd,
                              const float* __restrict__ rhat, Vectors v, Scalars sc, int64_t n,
                              int vec, ogl::Criterion c) {
@@ -428,10 +485,17 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
   constexpr bool gdia = (V & kGdia) != 0;
   constexpr bool xell = (V & kXell) != 0;
   constexpr bool ell = (V & kEll) != 0;
+  constexpr bool csr = (V & kCsr) != 0;
+  constexpr bool sell = (V & kSell) != 0;
   extern __shared__ __align__(16) unsigned char ring[];
   cg::grid_group grid = cg::this_grid();
-  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : xell || ell ? 1 : ogl::kMaxDiags];
-  for (int k = threadIdx.x; k < m.nd; k += blockDim.x) s_off[k] = offsets[k];
+  __shared__ __align__(16) int s_off[shared_ints(V)];
+  ogl::SellBuckets& s_buckets = *reinterpret_cast<ogl::SellBuckets*>(s_off);
+  if constexpr (sell) {
+    ogl::stage_sell(gm.sell, s_buckets);
+  } else {
+    for (int k = threadIdx.x; k < m.nd; k += blockDim.x) s_off[k] = offsets[k];
+  }
   __syncthreads();
 
   const int blocks = gridDim.x;
@@ -460,8 +524,10 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
     float sums[2] = {0.0f, 0.0f};
     if constexpr (xell) {
       xell_phase<true>(xm, ring, rhat, srca, pn, vn, n, vec, sums);
-    } else if constexpr (ell) {
-      ell_phase<true>(em, rhat, srca, pn, vn, n, first, step, sums);
+    } else if constexpr (ell || csr) {
+      row_phase<true, csr>(gm.ell, gm.csr, rhat, srca, pn, vn, n, first, step, sums);
+    } else if constexpr (sell) {
+      sell_phase<true>(gm.sell, s_buckets, rhat, srca, pn, vn, n, first, step, sums);
     } else {
       spmv_phase<gdia, true, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srca, pn,
                                      vn, n, vec, first, step, sums);
@@ -476,8 +542,10 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
     sums[0] = sums[1] = 0.0f;
     if constexpr (xell) {
       xell_phase<false>(xm, ring, rhat, srcb, v.s, v.t, n, vec, sums);
-    } else if constexpr (ell) {
-      ell_phase<false>(em, rhat, srcb, v.s, v.t, n, first, step, sums);
+    } else if constexpr (ell || csr) {
+      row_phase<false, csr>(gm.ell, gm.csr, rhat, srcb, v.s, v.t, n, first, step, sums);
+    } else if constexpr (sell) {
+      sell_phase<false>(gm.sell, s_buckets, rhat, srcb, v.s, v.t, n, first, step, sums);
     } else {
       spmv_phase<gdia, false, jacobi>(m.coef, m.lidx, s_off, m.nd, plane, invd, rhat, srcb, v.s,
                                       v.t, n, vec, first, step, sums);
@@ -519,6 +587,10 @@ const void* loop_kernel(int variant) {
     case 5: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<5>);
     case 8: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<8>);
     case 9: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<9>);
+    case 16: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<16>);
+    case 17: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<17>);
+    case 32: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<32>);
+    case 33: return reinterpret_cast<const void*>(bicgstab_gen_loop_kernel<33>);
     default: return nullptr;
   }
 }
@@ -534,15 +606,15 @@ int ring_of(int variant, size_t* smem) {
   return static_cast<int>(err[variant & kJacobi]);
 }
 
-// The checks and the launch both entry points share.
-int launch(int variant, const Matrix& m, const ogl::XellOperands& xm,
-           const ogl::EllOperands& em, const int* offsets, const float* invd,
+// The checks and the launch every entry point shares.
+int launch(int variant, const Matrix& m, const ogl::XellOperands& xm, const Gather& gm,
+           const int* offsets, const float* invd,
            const float* rhat, const Vectors& vs, const Scalars& sc, int64_t n, float tol,
            float rel_tol, int min_iter, int max_iter, int frequency, int vec, int threads,
            int64_t blocks, void* stream) {
   const void* kernel = loop_kernel(variant);
   const bool jacobi = (variant & kJacobi) != 0;
-  const bool dia = (variant & (kGdia | kXell | kEll)) == 0;
+  const bool dia = (variant & (kGdia | kXell | kEll | kCsr | kSell)) == 0;
   if (kernel == nullptr || n < 1 || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || blocks < 1 || blocks > INT32_MAX || min_iter < 0 || max_iter < 0 ||
       frequency < 1 || max_iter > INT32_MAX - frequency || (jacobi && invd == nullptr) ||
@@ -561,19 +633,19 @@ int launch(int variant, const Matrix& m, const ogl::XellOperands& xm,
   const float* inv = jacobi ? invd : nullptr;
   Matrix mm = m;
   ogl::XellOperands xx = xm;
-  ogl::EllOperands ee = em;
+  Gather gg = gm;
   Vectors vv = vs;
   Scalars ss = sc;
-  void* args[] = {&mm, &xx, &ee, &offsets, &inv, &rhat, &vv, &ss, &n, &vec, &c};
+  void* args[] = {&mm, &xx, &gg, &offsets, &inv, &rhat, &vv, &ss, &n, &vec, &c};
   return ogl::coop_launch(kernel, blocks, threads, args, stream, smem);
 }
 
 }  // namespace
 
 // The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia, bit
-// 2: Xell, bit 3: Ell) with `threads` per block (512 for Xell, the band body's) on the
-// current device: the blocks that fit on it at once (occupancy x SMs, with
-// the Xell ring).  Fails with cudaErrorNotSupported on a device without
+// 2: Xell, bit 3: Ell, bit 4: Csr, bit 5: Sell) with `threads` per block
+// (512 for Xell, the band body's) on the current device: the blocks that fit
+// on it at once (occupancy x SMs, with the Xell ring).  Fails with cudaErrorNotSupported on a device without
 // cooperative launch.
 extern "C" int ogl_bicgstab_gen_loop_grid(int variant, int threads, int64_t* blocks) {
   const void* kernel = loop_kernel(variant);
@@ -610,14 +682,15 @@ extern "C" int ogl_bicgstab_gen_loop(int variant, const float* coef, const int8_
                                      int frequency, int vec, int threads, int64_t blocks,
                                      void* stream) {
   const bool gdia = (variant & kGdia) != 0;
-  if ((variant & (kXell | kEll)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((variant & (kXell | kEll | kCsr | kSell)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (gdia ? (nd < 1 || nd > ogl::kGdiaMaxPlanes || lidx == nullptr || rows * 128 < n)
            : (nd < 0 || nd > ogl::kMaxDiags))
     return static_cast<int>(cudaErrorInvalidValue);
   if (gdia && (ogl::misaligned(coef, 16) || ogl::misaligned(lidx, 4)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch(variant, Matrix{coef, lidx, nd, rows}, ogl::XellOperands{},
-                ogl::EllOperands{}, offsets, invd, rhat,
+  return launch(variant, Matrix{coef, lidx, nd, rows}, ogl::XellOperands{}, Gather{},
+                offsets, invd, rhat,
                 Vectors{x, r, p, pn, v, vn, s, t}, Scalars{rho, absr, nf, partials, record}, n,
                 tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
 }
@@ -638,15 +711,15 @@ extern "C" int ogl_bicgstab_gen_loop_xell(int variant, const float* vals, const 
                                           float* record, int64_t n, float tol, float rel_tol,
                                           int min_iter, int max_iter, int frequency, int vec,
                                           int threads, int64_t blocks, void* stream) {
-  if ((variant & kXell) == 0 || threads != ogl::kBandThreads || n_slots < 1 || c_left < 0)
+  if ((variant & ~kJacobi) != kXell || threads != ogl::kBandThreads || n_slots < 1 ||
+      c_left < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (ogl::misaligned(vals, 16) || ogl::misaligned(ll, 16) || ogl::misaligned(bbT, 4))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const ogl::XellOperands xm{vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals};
-  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, xm, ogl::EllOperands{}, nullptr,
-                invd, rhat, Vectors{x, r, p, pn, v, vn, s, t},
-                Scalars{rho, absr, nf, partials, record}, n, tol, rel_tol, min_iter, max_iter,
-                frequency, vec, threads, blocks, stream);
+  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, xm, Gather{}, nullptr, invd, rhat,
+                Vectors{x, r, p, pn, v, vn, s, t}, Scalars{rho, absr, nf, partials, record}, n,
+                tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
 }
 
 // The same on an Ell matrix (`variant` with bit 3): cols and vals (K, n),
@@ -665,12 +738,58 @@ extern "C" int ogl_bicgstab_gen_loop_ell(int variant, const int* cols, const flo
                                          float* record, int64_t n, float tol, float rel_tol,
                                          int min_iter, int max_iter, int frequency, int vec,
                                          int threads, int64_t blocks, void* stream) {
-  if ((variant & kEll) == 0 || (variant & (kGdia | kXell)) != 0 || cols == nullptr ||
-      vals == nullptr || warp_slots == nullptr ||
+  if ((variant & ~kJacobi) != kEll || cols == nullptr || vals == nullptr ||
+      warp_slots == nullptr ||
       (tail_ptr != nullptr && (tail_cols == nullptr || tail_vals == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ogl::EllOperands em{cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals};
-  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, ogl::XellOperands{}, em, nullptr,
+  Gather gm{};
+  gm.ell = ogl::EllOperands{cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals};
+  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, ogl::XellOperands{}, gm, nullptr,
+                invd, rhat, Vectors{x, r, p, pn, v, vn, s, t},
+                Scalars{rho, absr, nf, partials, record}, n, tol, rel_tol, min_iter, max_iter,
+                frequency, vec, threads, blocks, stream);
+}
+
+// The same on a Csr matrix, or a device Coo (`variant` with bit 4): row_ptr
+// (n + 1,), cols and vals (nnz,) in place of the Dia or Gdia operands; vec
+// as for Ell.
+extern "C" int ogl_bicgstab_gen_loop_csr(int variant, const int* row_ptr, const int* cols,
+                                         const float* vals, const float* invd,
+                                         const float* rhat, float* x, float* r, float* p,
+                                         float* pn, float* v, float* vn, float* s, float* t,
+                                         const float* rho, const float* absr, const float* nf,
+                                         float* partials, float* record, int64_t n, float tol,
+                                         float rel_tol, int min_iter, int max_iter,
+                                         int frequency, int vec, int threads, int64_t blocks,
+                                         void* stream) {
+  if ((variant & ~kJacobi) != kCsr || row_ptr == nullptr || cols == nullptr || vals == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Gather gm{};
+  gm.csr = ogl::CsrOperands{row_ptr, cols, vals};
+  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, ogl::XellOperands{}, gm, nullptr,
+                invd, rhat, Vectors{x, r, p, pn, v, vn, s, t},
+                Scalars{rho, absr, nf, partials, record}, n, tol, rel_tol, min_iter, max_iter,
+                frequency, vec, threads, blocks, stream);
+}
+
+// The same on a Sell matrix (`variant` with bit 5): the bucket table (nb,
+// 3) int64, slice_buckets and slice_widths (slots / C,), slot_rows (slots,)
+// (every row once, pad slots n), cols and vals (stored,); vec as for Ell.
+extern "C" int ogl_bicgstab_gen_loop_sell(
+    int variant, const long long* table, int nb, const unsigned char* slice_buckets,
+    const int* slice_widths, const int* slot_rows, const int* cols, const float* vals,
+    int64_t slots, int slice_height, const float* invd, const float* rhat, float* x, float* r,
+    float* p, float* pn, float* v, float* vn, float* s, float* t, const float* rho,
+    const float* absr, const float* nf, float* partials, float* record, int64_t n, float tol,
+    float rel_tol, int min_iter, int max_iter, int frequency, int vec, int threads,
+    int64_t blocks, void* stream) {
+  if ((variant & ~kJacobi) != kSell || nb < 1 || nb > ogl::kSellMaxBuckets ||
+      slice_height < 1 || slots < n || slots % slice_height != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Gather gm{};
+  gm.sell = ogl::SellOperands{table, nb, slice_buckets, slice_widths, slot_rows, cols, vals,
+                              slots, slice_height};
+  return launch(variant, Matrix{nullptr, nullptr, 0, 0}, ogl::XellOperands{}, gm, nullptr,
                 invd, rhat, Vectors{x, r, p, pn, v, vn, s, t},
                 Scalars{rho, absr, nf, partials, record}, n, tol, rel_tol, min_iter, max_iter,
                 frequency, vec, threads, blocks, stream);

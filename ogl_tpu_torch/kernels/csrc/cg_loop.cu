@@ -1,17 +1,17 @@
 // The whole merged CG loop as ONE persistent cooperative kernel for Hopper,
-// in six variants: the apply of a Dia, a Gdia or an Ell matrix (Ell also
-// serves Hybrid: its tail is added in the same row body), with identity or
-// scalar Jacobi preconditioning.  Each iteration, in the order of
-// ogl_tpu_torch/solve/cg_fused.py:
+// in ten variants: the apply of a Dia, a Gdia, an Ell (Ell also serves
+// Hybrid: its tail is added in the same row body), a Csr (also the device
+// Coo) or a Sell matrix, with identity or scalar Jacobi preconditioning.
+// Each iteration, in the order of ogl_tpu_torch/solve/cg_fused.py:
 //   1. check   the OpenFOAM criterion from the summed ||r||_1 (gated by
 //              minIter and frequency; stop at maxIter, below tolerance or
 //              below relTol * the initial residual; leave at maxIter +
 //              frequency without a check);
 //   2. beta    0 at iteration 0, else rho / rho_old;
 //   3. K1      p' = z + beta * p, q = A p', one partial of p'.q per block
-//              (z is r with identity: no z stream); on Ell the host route
-//              (solve/cg.py) has no K1 kernel: this phase is its z, p and
-//              q = A p in the merged order;
+//              (z is r with identity: no z stream); on Ell, Csr and Sell
+//              the host route (solve/cg.py) has no K1 kernel: this phase
+//              is its z, p and q = A p in the merged order;
 //   4. grid barrier; every block sums the partials into delta;
 //   5. K2      alpha = rho / delta, x += alpha * p', r -= alpha * q, and
 //              with Jacobi z = invd * r'; the partials of r'.z' (r'.r'
@@ -26,12 +26,15 @@
 // identity) launches of the reference's merged CG and the
 // `jax.lax.while_loop` around them with the criterion as loop state
 // (ogl_tpu/solve/cg_fused.py:82-123, ogl_tpu/solve/stopping.py); on Ell and
-// Hybrid, the reference's general CG loop (ogl_tpu/solve/cg.py) over its XLA
-// Ell SpMV.  Plain twin: `cg_loop_plain` in ogl_tpu_torch/kernels/fused.py
-// (on Ell over kernels/ell.py `ell_k1_plain`).  The phases are the
-// standalone kernels' bodies: cg_k1.cuh, gdia_k1.cuh, ell_rows.cuh (over the
-// source p'(j) = z[j] + beta * p[j], rounded as its twin rounds it, so q is
-// the twin's bits at every row), cg_k2.cuh, cg_k2i.cuh;
+// Hybrid, Csr, Coo and Sell, the reference's general CG loop
+// (ogl_tpu/solve/cg.py) over its XLA SpMV.  Plain twin: `cg_loop_plain` in
+// ogl_tpu_torch/kernels/fused.py (on Ell, Csr and Sell over the plan's K1,
+// kernels/ell.py, kernels/gather_loop.py).  The phases are the standalone
+// kernels' bodies: cg_k1.cuh, gdia_k1.cuh, ell_rows.cuh, csr_rows.cuh
+// `csr_row`, sell_rows.cuh (over the source p'(j) = z[j] + beta * p[j],
+// rounded as its twin rounds it, so q is the twin's bits at every row; a
+// Sell K1 walks slots and writes p' and q at each slot's row, a pad slot
+// nothing), cg_k2.cuh, cg_k2i.cuh;
 // the criterion, the block-order sums and the cooperative launch are
 // loop.cuh's, shared with the pipelined loop (cg_pipe_loop.cu).
 //
@@ -40,10 +43,10 @@
 // and writes x and r: (nd + 4) * 4 + 24 bytes; Jacobi adds invd in and z
 // out (+ 8).  Gdia: np * 5 + 16 bytes for K1 instead; Ell: 8 bytes per entry
 // and z (r), p, p' and q, 16 bytes per row (ideal; the warps read the slots
-// below their group's longest row), plus a Hybrid tail's offsets.  Besides,
-// two grid
-// barriers and the redundant partial sums (each block reads every block's
-// partials).
+// below their group's longest row), plus a Hybrid tail's offsets; Csr the
+// same plus its row offsets; Sell plus its row permutation (the slots read
+// the lanes below their slice's longest row).  Besides, two grid barriers
+// and the redundant partial sums (each block reads every block's partials).
 //
 // Design.  A loop on the host pays a host launch per kernel and a
 // device-to-host read per check; here the host launches once and reads
@@ -74,9 +77,11 @@
 #include "cg_k1.cuh"
 #include "cg_k2.cuh"
 #include "cg_k2i.cuh"
+#include "csr_rows.cuh"
 #include "ell_rows.cuh"
 #include "gdia_k1.cuh"
 #include "loop.cuh"
+#include "sell_rows.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -85,7 +90,9 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kJacobi = 1;  // variant bits: scalar Jacobi preconditioning,
 constexpr int kGdia = 2;    // the Gdia apply,
-constexpr int kEll = 8;     // the Ell (and Hybrid) apply (else Dia)
+constexpr int kEll = 8;     // the Ell (and Hybrid) apply,
+constexpr int kCsr = 16;    // the Csr (and device Coo) apply,
+constexpr int kSell = 32;   // the Sell apply (else Dia)
 
 // Blocks of 512 per SM each variant is compiled for.  Dia: at most 40
 // registers, three blocks (identity spills about 100 bytes): two blocks at
@@ -93,6 +100,7 @@ constexpr int kEll = 8;     // the Ell (and Hybrid) apply (else Dia)
 // 8.4M rows.  Gdia: two blocks at 64 registers; three or four, at 40 or 32
 // with spills, ran slower.  Ell: two blocks (56 registers); three, at 40
 // with 4-68 bytes of spills, ran level within the spread on the kNN mesh.
+// Csr and Sell: two blocks, as Ell, whose phase they mirror.
 constexpr int min_blocks_per_sm(int variant) {
   return variant == 0 ? 3 : variant == kJacobi ? 3 : 2;
 }
@@ -116,22 +124,45 @@ struct Scalars {
   float* record;
 };
 
+// The gather matrices of the loop: the one of the variant's format is read.
+struct Gather {
+  ogl::EllOperands ell;
+  ogl::CsrOperands csr;
+  ogl::SellOperands sell;
+};
+
+// The ints of shared memory a block stages: the Gdia plane offsets, the Sell
+// bucket table, the Dia offsets, or none.
+__host__ __device__ constexpr int shared_ints(int variant) {
+  return (variant & kGdia) ? ogl::kGdiaMaxPlanes
+         : (variant & kSell) ? static_cast<int>(sizeof(ogl::SellBuckets) / sizeof(int))
+         : (variant & (kEll | kCsr)) ? 1
+                                     : ogl::kMaxDiags;
+}
+
 // coef: the Dia data (nd, n) or the Gdia values (nd planes, R, 128); lidx
 // the Gdia lanes (null for Dia); offsets: the nd diagonal offsets or plane
-// block-row offsets; em: the Ell matrix (Ell variants; nd = 0); invd: the
-// Jacobi inverse diagonal (null with identity).
+// block-row offsets; gm: the Ell, Csr or Sell matrix (their variants; nd =
+// 0); invd: the Jacobi inverse diagonal (null with identity).
 template <int V>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
     cg_loop_kernel(const float* __restrict__ coef, const int8_t* __restrict__ lidx,
-                   const int* __restrict__ offsets, int nd, int64_t rows, ogl::EllOperands em,
+                   const int* __restrict__ offsets, int nd, int64_t rows, Gather gm,
                    const float* __restrict__ invd, Vectors v, Scalars s, int64_t n, int vec,
                    ogl::Criterion c) {
   constexpr bool jacobi = (V & kJacobi) != 0;
   constexpr bool gdia = (V & kGdia) != 0;
   constexpr bool ell = (V & kEll) != 0;
+  constexpr bool csr = (V & kCsr) != 0;
+  constexpr bool sell = (V & kSell) != 0;
   cg::grid_group grid = cg::this_grid();
-  __shared__ int s_off[gdia ? ogl::kGdiaMaxPlanes : ell ? 1 : ogl::kMaxDiags];
-  for (int k = threadIdx.x; k < nd; k += blockDim.x) s_off[k] = offsets[k];
+  __shared__ __align__(16) int s_off[shared_ints(V)];
+  ogl::SellBuckets& s_buckets = *reinterpret_cast<ogl::SellBuckets*>(s_off);
+  if constexpr (sell) {
+    ogl::stage_sell(gm.sell, s_buckets);
+  } else {
+    for (int k = threadIdx.x; k < nd; k += blockDim.x) s_off[k] = offsets[k];
+  }
   __syncthreads();
 
   const int blocks = gridDim.x;
@@ -156,14 +187,31 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks_per_sm(V))
     if constexpr (gdia) {
       dot = ogl::gdia_span<true>(coef, lidx, s_off, nd, rows * ogl::kGdiaLanes, zk, p, beta,
                                  pn, v.q, n, vec, first, step);
-    } else if constexpr (ell) {
+    } else if constexpr (ell || csr) {
       const ogl::K1Source<false> src{zk, p, beta};
       for (int64_t i = first; i < n; i += step) {
-        const float qi = ogl::ell_row(em, src, i, n);
+        float qi;
+        if constexpr (ell) {
+          qi = ogl::ell_row(gm.ell, src, i, n);
+        } else {
+          qi = ogl::csr_row(gm.csr.row_ptr, gm.csr.cols, gm.csr.vals, src, i);
+        }
         const float pc = src.at(i);
         pn[i] = pc;
         v.q[i] = qi;
         dot += pc * qi;
+      }
+    } else if constexpr (sell) {
+      const ogl::K1Source<false> src{zk, p, beta};
+      for (int64_t g = first; g < gm.sell.slots; g += step) {
+        const float qi = ogl::sell_slot(gm.sell, s_buckets, src, g);
+        const int i = __ldg(gm.sell.slot_rows + g);
+        if (i < n) {  // a pad slot writes nothing
+          const float pc = src.at(i);
+          pn[i] = pc;
+          v.q[i] = qi;
+          dot += pc * qi;
+        }
       }
     } else {
       for (int64_t i = first; i < n; i += step) {
@@ -209,13 +257,17 @@ const void* loop_kernel(int variant) {
     case 3: return reinterpret_cast<const void*>(cg_loop_kernel<3>);
     case 8: return reinterpret_cast<const void*>(cg_loop_kernel<8>);
     case 9: return reinterpret_cast<const void*>(cg_loop_kernel<9>);
+    case 16: return reinterpret_cast<const void*>(cg_loop_kernel<16>);
+    case 17: return reinterpret_cast<const void*>(cg_loop_kernel<17>);
+    case 32: return reinterpret_cast<const void*>(cg_loop_kernel<32>);
+    case 33: return reinterpret_cast<const void*>(cg_loop_kernel<33>);
     default: return nullptr;
   }
 }
 
-// The checks and the launch both entry points share.
+// The checks and the launch every entry point shares.
 int launch(int variant, const float* coef, const int8_t* lidx, const int* offsets, int nd,
-           int64_t rows, const ogl::EllOperands& em, const float* invd, const Vectors& vs,
+           int64_t rows, const Gather& gm, const float* invd, const Vectors& vs,
            const Scalars& ss, int64_t n, float tol, float rel_tol, int min_iter, int max_iter,
            int frequency, int vec, int threads, int64_t blocks, void* stream) {
   const void* kernel = loop_kernel(variant);
@@ -233,15 +285,16 @@ int launch(int variant, const float* coef, const int8_t* lidx, const int* offset
   Vectors v = vs;
   if (!jacobi) v.z = nullptr;
   Scalars s = ss;
-  ogl::EllOperands e = em;
+  Gather g = gm;
   ogl::Criterion c{tol, rel_tol, min_iter, max_iter, frequency};
-  void* args[] = {&coef, &lidx, &offsets, &nd, &rows, &e, &invd, &v, &s, &n, &vec, &c};
+  void* args[] = {&coef, &lidx, &offsets, &nd, &rows, &g, &invd, &v, &s, &n, &vec, &c};
   return ogl::coop_launch(kernel, blocks, threads, args, stream);
 }
 
 }  // namespace
 
-// The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia, bit 3: Ell) with
+// The grid of a loop launch of `variant` (bit 0: Jacobi, bit 1: Gdia, bit 3:
+// Ell, bit 4: Csr, bit 5: Sell) with
 // `threads` per block on the current device: the blocks that fit on it at
 // once (occupancy x SMs).  Fails with cudaErrorNotSupported on a device
 // without cooperative launch.
@@ -272,13 +325,13 @@ extern "C" int ogl_cg_loop(int variant, const float* coef, const int8_t* lidx,
                            float rel_tol, int min_iter, int max_iter, int frequency, int vec,
                            int threads, int64_t blocks, void* stream) {
   const bool gdia = (variant & kGdia) != 0;
-  if ((variant & kEll) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((variant & (kEll | kCsr | kSell)) != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (gdia ? (nd < 1 || nd > ogl::kGdiaMaxPlanes || lidx == nullptr || rows * 128 < n)
            : (nd < 0 || nd > ogl::kMaxDiags))
     return static_cast<int>(cudaErrorInvalidValue);
   if (gdia && (ogl::misaligned(coef, 16) || ogl::misaligned(lidx, 4)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch(variant, coef, lidx, offsets, nd, rows, ogl::EllOperands{}, invd,
+  return launch(variant, coef, lidx, offsets, nd, rows, Gather{}, invd,
                 Vectors{x, r, z, p, pn, q}, Scalars{rho, absr, nf, partials, record}, n, tol,
                 rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
 }
@@ -295,11 +348,55 @@ extern "C" int ogl_cg_loop_ell(int variant, const int* cols, const float* vals,
                                float* partials, float* record, int64_t n, float tol,
                                float rel_tol, int min_iter, int max_iter, int frequency,
                                int vec, int threads, int64_t blocks, void* stream) {
-  if ((variant & kEll) == 0 || cols == nullptr || vals == nullptr || warp_slots == nullptr ||
+  if ((variant & ~kJacobi) != kEll || cols == nullptr || vals == nullptr ||
+      warp_slots == nullptr ||
       (tail_ptr != nullptr && (tail_cols == nullptr || tail_vals == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ogl::EllOperands em{cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals};
-  return launch(variant, nullptr, nullptr, nullptr, 0, 0, em, invd,
+  Gather gm{};
+  gm.ell = ogl::EllOperands{cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals};
+  return launch(variant, nullptr, nullptr, nullptr, 0, 0, gm, invd,
+                Vectors{x, r, z, p, pn, q}, Scalars{rho, absr, nf, partials, record}, n, tol,
+                rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
+}
+
+// The same on a Csr matrix, or a device Coo (`variant` with bit 4): row_ptr
+// (n + 1,), cols and vals (nnz,) in place of the Dia or Gdia operands.
+extern "C" int ogl_cg_loop_csr(int variant, const int* row_ptr, const int* cols,
+                               const float* vals, float* x, float* r, float* z,
+                               const float* invd, float* p, float* pn, float* q,
+                               const float* rho, const float* absr, const float* nf,
+                               float* partials, float* record, int64_t n, float tol,
+                               float rel_tol, int min_iter, int max_iter, int frequency,
+                               int vec, int threads, int64_t blocks, void* stream) {
+  if ((variant & ~kJacobi) != kCsr || row_ptr == nullptr || cols == nullptr || vals == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Gather gm{};
+  gm.csr = ogl::CsrOperands{row_ptr, cols, vals};
+  return launch(variant, nullptr, nullptr, nullptr, 0, 0, gm, invd,
+                Vectors{x, r, z, p, pn, q}, Scalars{rho, absr, nf, partials, record}, n, tol,
+                rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
+}
+
+// The same on a Sell matrix (`variant` with bit 5): the bucket table (nb,
+// 3) int64, slice_buckets and slice_widths (slots / C,), slot_rows (slots,)
+// (every row once, pad slots n), cols and vals (stored,) in place of the Dia
+// or Gdia operands.
+extern "C" int ogl_cg_loop_sell(int variant, const long long* table, int nb,
+                                const unsigned char* slice_buckets, const int* slice_widths,
+                                const int* slot_rows, const int* cols, const float* vals,
+                                int64_t slots, int slice_height, float* x, float* r, float* z,
+                                const float* invd, float* p, float* pn, float* q,
+                                const float* rho, const float* absr, const float* nf,
+                                float* partials, float* record, int64_t n, float tol,
+                                float rel_tol, int min_iter, int max_iter, int frequency,
+                                int vec, int threads, int64_t blocks, void* stream) {
+  if ((variant & ~kJacobi) != kSell || nb < 1 || nb > ogl::kSellMaxBuckets ||
+      slice_height < 1 || slots < n || slots % slice_height != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Gather gm{};
+  gm.sell = ogl::SellOperands{table, nb, slice_buckets, slice_widths, slot_rows, cols, vals,
+                              slots, slice_height};
+  return launch(variant, nullptr, nullptr, nullptr, 0, 0, gm, invd,
                 Vectors{x, r, z, p, pn, q}, Scalars{rho, absr, nf, partials, record}, n, tol,
                 rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream);
 }

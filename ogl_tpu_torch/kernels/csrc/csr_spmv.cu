@@ -11,14 +11,14 @@
 // from L2) and writes y once: nnz * 8 + (n + 1) * 4 + 2 * n * 4 bytes for
 // 2 * nnz flops.
 //
-// Design: csr_rows.cuh — a group of G lanes per row (G fixed per matrix from
-// its mean row length, kernels/gather_spmv.py csr_group: 1 under 16 entries
-// per row, as on the 7-point stencil and the kNN-6 mesh, 4 to 16 on longer
-// rows), its lanes reading
-// neighbouring entries, the partial sums combined by a shuffle butterfly; a
-// grid-stride loop over row groups on a grid sized by the caller.  Every
-// lane of a warp stays in the loop until its warp's rows are done (the
-// warp's first row decides), so the shuffles see the whole warp.
+// Design: csr_rows.cuh.  At one lane per row (G = 1: under 16 entries per
+// row on mean, as on the 7-point stencil and the kNN-6 mesh) each lane sums
+// its own row, four entries' loads in flight (csr_row); longer rows take G =
+// 4 to 16 lanes per row (kernels/gather_spmv.py csr_group), their lanes
+// reading neighbouring entries, the partial sums combined by a shuffle
+// butterfly.  A grid-stride loop over row groups on a grid sized by the
+// caller; every lane of a warp stays in the loop until its warp's rows are
+// done (the warp's first row decides), so the shuffles see the whole warp.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,7 +41,12 @@ __global__ void __launch_bounds__(kThreads)
   // count is too (groups is a whole number of warps' groups)
   const int64_t warp_row0 = group - (threadIdx.x & 31) / G;
   for (int64_t row = group, first = warp_row0; first < n; row += groups, first += groups) {
-    const float sum = ogl::csr_group_row<G>(row_ptr, cols, vals, src, row, lane, row < n);
+    float sum;
+    if constexpr (G > 1) {
+      sum = ogl::csr_group_row<G>(row_ptr, cols, vals, src, row, lane, row < n);
+    } else {
+      sum = row < n ? ogl::csr_row(row_ptr, cols, vals, src, row) : 0.0f;
+    }
     if (lane == 0 && row < n) y[row] = sum;
   }
 }

@@ -122,6 +122,7 @@ from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             stream_of)
 
 __all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "LOOP_XELL", "LOOP_ELL",
+           "LOOP_CSR", "LOOP_SELL",
            "k1_plain",
            "k2_plain", "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
            "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "bicgstab_loop_plain",
@@ -139,8 +140,9 @@ LOOP_THREADS = 512
 # the loop kernels' variant bits (csrc/cg_loop.cu, bicgstab_gen_loop.cu;
 # cg_pipe_loop.cu and xell_cg_loop.cu take the first): scalar Jacobi, the
 # Gdia apply, the Xell apply (bicgstab_gen_loop.cu), the Ell (and Hybrid)
-# apply (kernels/ell.py)
-LOOP_JACOBI, LOOP_GDIA, LOOP_XELL, LOOP_ELL = 1, 2, 4, 8
+# apply (kernels/ell.py), the Csr (and device Coo) apply and the Sell apply
+# (kernels/gather_loop.py)
+LOOP_JACOBI, LOOP_GDIA, LOOP_XELL, LOOP_ELL, LOOP_CSR, LOOP_SELL = 1, 2, 4, 8, 16, 32
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
 

@@ -53,8 +53,9 @@ spmv_hybrid = gather_spmv.spmv_hybrid
 
 _PLAIN = {Dia: spmv_dia, Coo: spmv_coo, Csr: spmv_csr, DeviceCoo: spmv_csr, Ell: spmv_ell,
           Sell: spmv_sell, Hybrid: spmv_hybrid, Gdia: spmv_gdia, Xell: spmv_xell}
-_KERNEL = {Csr: gather_spmv.csr_spmv, DeviceCoo: gather_spmv.csr_spmv,
-           Sell: gather_spmv.sell_spmv}
+# the gather formats' SpMV wrappers, each made once per container
+_KERNEL = {Csr: gather_spmv.CsrSpmv, DeviceCoo: gather_spmv.CsrSpmv,
+           Sell: gather_spmv.SellSpmv, Ell: gather_spmv.EllSpmv, Hybrid: gather_spmv.EllSpmv}
 
 
 def spmv(m, x):
@@ -68,13 +69,11 @@ def spmv(m, x):
 def matvec(m):
     """`x -> A @ x` for matrix `m`: the format's SpMV kernel wrapper (the
     plain version when the data lies on the CPU); a host Coo takes the
-    plain gather + index_add.  An Ell or Hybrid matrix's operands are
-    checked once, here (gather_spmv.EllSpmv)."""
-    if type(m) in (Ell, Hybrid):
-        return gather_spmv.EllSpmv(m)
+    plain gather + index_add.  A Csr (DeviceCoo), Ell, Hybrid or Sell
+    matrix's operands are checked once, here (gather_spmv.CsrSpmv,
+    EllSpmv, SellSpmv)."""
     if type(m) in _KERNEL:
-        f = _KERNEL[type(m)]
-        return lambda x: f(m, x)
+        return _KERNEL[type(m)](m)
     if isinstance(m, Dia):
         plan = DiaPlan.of(m)
         data = m.data

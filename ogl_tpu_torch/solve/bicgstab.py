@@ -13,10 +13,11 @@ r, then [<r̂,v>] after the first SpMV, then [<t,s>, <t,t>] after the second.
 The norm factor is computed once before the loop, so the criterion rides
 the grouped ‖r‖₁ (stopping.check_from_norm).
 
-Where the matrix is Dia, Gdia, Xell, Ell or Hybrid and the preconditioner
-`none` or scalar `BJ` (`why_not` None), the solver passes the format's
-plan: with the plan itself (CgKernels, GdiaCgKernels, XellCgKernels or
-EllCgKernels, not a subclass that overrides a step) on CUDA tensors the
+Where the matrix is Dia, Gdia, Xell, Ell, Hybrid, Csr (or a device Coo) or
+Sell and the preconditioner `none` or scalar `BJ` (`why_not` None), the
+solver passes the format's plan: with the plan itself (CgKernels,
+GdiaCgKernels, XellCgKernels, EllCgKernels, CsrCgKernels or SellCgKernels,
+not a subclass that overrides a step) on CUDA tensors the
 whole loop, criterion included, is one launch of the plan's
 `bicgstab_gen_loop` (csrc/bicgstab_gen_loop.cu, whose two SpMV phases are
 the format's SpMV body).  A refused launch
@@ -34,14 +35,14 @@ from __future__ import annotations
 
 import torch
 
-from ogl_tpu_torch.core.formats import Dia, Ell, Hybrid, format_name
-from ogl_tpu_torch.kernels.ell import EllCgKernels
+from ogl_tpu_torch.core.formats import Dia
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_gen_loop_plain,
                                          gen_check_sums)
 from ogl_tpu_torch.kernels.gdia import Gdia
 from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels
 from ogl_tpu_torch.solve import stopping
-from ogl_tpu_torch.solve.cg import SolveResult
+from ogl_tpu_torch.solve.cg import LOOP_PLANS, SolveResult
+from ogl_tpu_torch.solve.cg import why_not as cg_why_not
 from ogl_tpu_torch.solve.krylov import Ops
 
 __all__ = ["bicgstab", "why_not"]
@@ -50,12 +51,12 @@ __all__ = ["bicgstab", "why_not"]
 def why_not(mat, precond_name: str) -> str | None:
     """Why the general BiCGStab keeps the host loop on the matrix `mat` with
     the preconditioner named `precond_name`, or None when the loop kernel
-    takes the solve (the caller then passes the format's plan)."""
-    if not isinstance(mat, (Dia, Gdia, Xell, Ell, Hybrid)):
-        return f"the {format_name(mat)} format (no loop kernel)"
-    if precond_name not in ("none", "BJ"):
-        return f"preconditioner {precond_name}"
-    return None
+    takes the solve (the caller then passes the format's plan): as the
+    general CG's on the gather formats (solve/cg.py why_not), and Dia, Gdia
+    and Xell too."""
+    if isinstance(mat, (Dia, Gdia, Xell)):
+        return None if precond_name in ("none", "BJ") else f"preconditioner {precond_name}"
+    return cg_why_not(mat, precond_name)
 
 
 def _safe_div(num, den):
@@ -74,7 +75,7 @@ def bicgstab(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None) -> SolveResu
     nf = stopping.initial_norm_factor(ops, r, x, b)
     absr, rho = gen_check_sums(ops, r, r_hat)
     # the exact types: subclasses that override a step keep the host loop
-    if (type(kern) in (CgKernels, GdiaCgKernels, XellCgKernels, EllCgKernels)
+    if (type(kern) in (CgKernels, GdiaCgKernels, XellCgKernels, *LOOP_PLANS)
             and b.device.type == "cuda"):
         rec = kern.bicgstab_gen_loop(data, x, r, r_hat, rho, absr, nf, cfg, invd)
     else:

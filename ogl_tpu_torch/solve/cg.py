@@ -8,11 +8,13 @@ layer and the independent solver the merged-kernel path is checked
 against.  Its SpMV is whatever `ops.matvec` is — the Dia SpMV kernel on
 the foam path.
 
-Where the matrix is Ell or Hybrid and the preconditioner `none` or scalar
-`BJ` (`why_not` None), the solver passes the format's plan: with the plan
-itself (kernels/ell.py `EllCgKernels`, not a subclass) on CUDA tensors,
-the set-up below runs as ever and the whole loop, criterion included, is
-then one launch of its `cg_loop` (csrc/cg_loop.cu's Ell variants).  That
+Where the matrix is Ell, Hybrid, Csr (or a device Coo) or Sell and the
+preconditioner `none` or scalar `BJ` (`why_not` None), the solver passes
+the format's plan: with the plan itself (kernels/ell.py `EllCgKernels`,
+kernels/gather_loop.py `CsrCgKernels`, `SellCgKernels`, not a subclass) on
+CUDA tensors, the set-up below runs as ever and the whole loop, criterion
+included, is then one launch of its `cg_loop` (csrc/cg_loop.cu's variant of
+the format).  That
 loop computes this one's values in the merged order of solve/cg_fused.py:
 ρ and ‖r‖₁ come from the update of r (K2), z, p and q = A p from one phase
 (K1), so only the order of the reductions differs.  A refused launch
@@ -25,12 +27,18 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ogl_tpu_torch.core.formats import Ell, Hybrid, format_name
+from ogl_tpu_torch.core.formats import Csr, Ell, Hybrid, Sell, format_name
 from ogl_tpu_torch.kernels.ell import EllCgKernels
+from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
+from ogl_tpu_torch.kernels.gather_spmv import CSR_GROUP_FROM, csr_group
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.krylov import Ops
 
-__all__ = ["cg", "SolveResult", "why_not"]
+__all__ = ["cg", "SolveResult", "why_not", "LOOP_PLANS"]
+
+# the plans of the gather formats' loop kernels, by the matrix's exact type
+# (a DeviceCoo is a Csr by its storage)
+LOOP_PLANS = (EllCgKernels, CsrCgKernels, SellCgKernels)
 
 
 class SolveResult(NamedTuple):
@@ -44,12 +52,20 @@ class SolveResult(NamedTuple):
 def why_not(mat, precond_name: str) -> str | None:
     """Why the general CG keeps the host loop on the matrix `mat` with the
     preconditioner named `precond_name`, or None when the loop kernel takes
-    the solve (the caller then passes the format's plan).  Dia, Gdia and
-    Xell take the merged route (solve/cg_fused.py) instead."""
-    if not isinstance(mat, (Ell, Hybrid)):
+    the solve (the caller then passes the format's plan).  The gather
+    formats (Ell, Hybrid, Csr, a device Coo, Sell) have loop kernels; a Csr
+    whose SpMV takes more than one lane per row keeps the host loop, since
+    the loop phases walk one lane per row.  Dia, Gdia and Xell take the
+    merged route (solve/cg_fused.py) instead."""
+    if not isinstance(mat, (Ell, Hybrid, Csr, Sell)):
         return f"the {format_name(mat)} format (no loop kernel on this route)"
     if precond_name not in ("none", "BJ"):
         return f"preconditioner {precond_name}"
+    if isinstance(mat, Csr) and csr_group(mat.shape[0], mat.nnz) > 1:
+        return (f"the {format_name(mat)} format at {mat.nnz / mat.shape[0]:.1f} entries per "
+                f"row on mean: from {CSR_GROUP_FROM} its SpMV takes "
+                f"{csr_group(mat.shape[0], mat.nnz)} lanes per row, and the loop phases walk "
+                "one")
     return None
 
 
@@ -62,7 +78,7 @@ def cg(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None) -> SolveResult:
     r = b - ops.matvec(x)
     nf = stopping.initial_norm_factor(ops, r, x, b)
     # the exact type: a subclass that overrides a step keeps the host loop
-    if type(kern) is EllCgKernels and b.device.type == "cuda":
+    if type(kern) in LOOP_PLANS and b.device.type == "cuda":
         z = r if invd is None else invd * r
         iters, rn, init_rn, converged = kern.cg_loop(
             data, x, r, torch.sum(r * z), torch.sum(torch.abs(r)), nf, cfg, invd=invd,

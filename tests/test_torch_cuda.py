@@ -1885,6 +1885,9 @@ GATHER_PORT = {"Coo": formats.coo_to_device, "Csr": formats.coo_to_csr,
                "Hybrid": formats.coo_to_hybrid}
 GATHER_LAUNCH = {"Coo": "csr_spmv", "Csr": "csr_spmv", "Ell": "ell_spmv",
                  "Sell": "sell_spmv", "Hybrid": "hybrid_spmv"}
+# the CG loop kernel's variant each format's GKOCG `none`/`BJ` solve launches
+GATHER_CG_LOOP = {"Coo": "csr_cg_loop", "Csr": "csr_cg_loop", "Ell": "ell_cg_loop",
+                  "Sell": "sell_cg_loop", "Hybrid": "ell_cg_loop"}
 
 
 def _gather_dense(kind):
@@ -2005,6 +2008,8 @@ def test_gather_spmv_on_zero_rows(dev, fmt):
          "Ell": ell, "Hybrid": formats.Hybrid(ell=ell, tail=csr, shape=(0, 0)),
          "Sell": formats.Sell(cols=e_i, vals=e_f, slot_rows=e_i,
                               table=torch.zeros((0, 3), dtype=torch.int64, device=dev),
+                              slice_widths=e_i,
+                              slice_buckets=torch.zeros(0, dtype=torch.uint8, device=dev),
                               widths=(), n_slices=(), shape=(0, 0), slice_height=8)}[fmt]
     y = spmv.matvec(m)(e_f)
     torch.cuda.synchronize()
@@ -2049,11 +2054,10 @@ def test_gather_spmv_never_reaches_its_twin_on_the_card(dev, fmt, monkeypatch):
 @pytest.mark.parametrize("fmt", list(GATHER_PORT))
 def test_foam_solve_on_each_gather_format(dev, fmt):
     """GKOCG `BJ` on the kNN-6 mesh with an explicit matrixFormat: the
-    general CG over the format's kernel, its launches one per SpMV of the
-    route (2 set-up, 1 per iteration, 9 for the residual-eval timing), and
-    the count of the same solve on the CPU ±1.  On Ell and Hybrid the loop
-    is one launch of the CG loop kernel's Ell variant, the SpMV only the
-    set-up's and the timing's."""
+    general CG, its loop one launch of the CG loop kernel's variant of the
+    format (Coo and Csr: the Csr one), the format's SpMV only the set-up's
+    (2) and the residual-eval timing's (9); the count of the same solve on
+    the CPU ±1."""
     m, perm = testing.knn_ldu(20000)
     m = testing.renumber_ldu(m, np.argsort(perm))
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
@@ -2063,10 +2067,9 @@ def test_foam_solve_on_each_gather_format(dev, fmt):
     x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
     torch.cuda.synchronize()
     name = GATHER_LAUNCH[fmt]
-    loop = fmt in ("Ell", "Hybrid")
-    assert kernels.launches[name] == (0 if loop else perf.n_iterations) + 2 + 9
-    assert kernels.launches["ell_cg_loop"] == int(loop)
-    assert kernels.launches["cg_loop"] == kernels.launches["xell_cg_loop"] == 0
+    assert kernels.launches[name] == 2 + 9
+    assert kernels.launches[GATHER_CG_LOOP[fmt]] == 1
+    assert sum(kernels.launches.values()) == 12
     assert registry.global_registry.get("p_solver").route == "cg"
     _, perf_cpu = foam.solve("q", m, b, {**ctl, "executor": "cpu"})
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
@@ -2243,3 +2246,189 @@ def test_foam_solve_on_ell_and_hybrid_is_one_loop_launch(dev, fmt, solver):
         b64 = bb.double()
         nf = stopping.initial_norm_factor(ops64, b64, torch.zeros_like(b64), b64)
         assert float((b64 - ops64.matvec(x.double())).abs().sum() / nf) <= 10 * 1e-6
+
+
+# ---- slice 16: the CSR and Sell bodies and the loops on Coo, Csr and Sell ---
+
+
+@pytest.mark.parametrize("kind", ["random", "long", "knn", "knn n%32=3"])
+def test_csr_spmv_one_lane_body_matches_the_twin(dev, kind):
+    """At one lane per row (each lane summing its row, four entries' loads
+    in flight: rows shorter than four, long rows, the dense row of 'random')
+    the kernel gives the twin's bits on CPU copies; a G > 1 graph ('long' at
+    its own group) too."""
+    from ogl_tpu_torch.kernels import gather_spmv
+
+    coo = (_knn_coo(20000 if kind == "knn" else 20003) if kind.startswith("knn")
+           else formats.coo_from_dense(_gather_dense(kind)))
+    m = formats.coo_to_csr(coo, device=dev)
+    x = _vec(m.shape[0], 3, dev)
+    want = gather_spmv.spmv_csr(_to_cpu(m), x.cpu(), 1)
+    kernels.reset_launches()
+    y = gather_spmv.CsrSpmv(m, 1)(x)
+    torch.cuda.synchronize()
+    assert kernels.launches["csr_spmv"] == 1 and torch.equal(y.cpu(), want)
+    if kind == "long":
+        g = gather_spmv.csr_group(m.shape[0], m.nnz)
+        assert g > 1
+        y = gather_spmv.CsrSpmv(m)(x)
+        assert torch.equal(y.cpu(), gather_spmv.spmv_csr(_to_cpu(m), x.cpu(), g))
+
+
+@pytest.mark.parametrize("c", [8, 4, 1])
+@pytest.mark.parametrize("kind", ["widths", "knn"])
+def test_sell_spmv_stops_each_slice_at_its_width(dev, kind, c):
+    """Slices of different widths in rounded buckets: the kernel reads each
+    slice up to its longest row, bit-equal to its twin on CPU copies; a
+    slice width above its bucket's is refused."""
+    import dataclasses
+
+    coo = _knn_coo(20003) if kind == "knn" else formats.coo_from_dense(_gather_dense(kind))
+    m = formats.coo_to_sell(coo, c, device=dev)
+    _gather_check("Sell", m, dev)
+    bad = dataclasses.replace(m, slice_widths=m.slice_widths + 64)
+    with pytest.raises(ValueError, match="slice width"):
+        spmv.matvec(bad)
+
+
+# the loops on Coo, Csr and Sell: the kNN-6 mesh at 20,000 cells (row
+# quads) and 20,003 (a last warp of 3 rows, no row quads)
+GATHER_LOOP_CASES = {"Coo": ("Coo", 20000), "Csr n%32=3": ("Csr", 20003),
+                     "Sell": ("Sell", 20000), "Sell n%32=3": ("Sell", 20003)}
+
+
+def _gather_loop_setup(case, pc, dev):
+    """(plan, data, matrix, b, invd) of a GATHER_LOOP_CASES case."""
+    from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
+
+    fmt, n = GATHER_LOOP_CASES[case]
+    coo = _knn_coo(n)
+    mat = _gather_mat(fmt, coo, dev)
+    kern = (SellCgKernels if fmt == "Sell" else CsrCgKernels).for_matrix(mat)
+    diag = np.zeros(n, np.float32)
+    on = coo.rows == coo.cols
+    diag[coo.rows[on]] = coo.vals[on]
+    invd = torch.tensor(1.0 / diag, device=dev) if pc == "BJ" else None
+    return kern, kern.pack_values(mat), mat, _vec(n, 11, dev), invd
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("case", list(GATHER_LOOP_CASES))
+def test_gather_cg_loop_matches_plain(dev, case, pc):
+    """The CG loop kernel's Csr and Sell variants against cg_loop_plain over
+    the format twin's K1, pinned and free-running (_check_loop): one loop
+    launch per solve, the SpMV twice for the set-up."""
+    from ogl_tpu_torch.kernels.gather_loop import gather_k1_plain
+
+    kern, data, mat, b, invd = _gather_loop_setup(case, pc, dev)
+    mat64 = formats.cast_values(mat, torch.float64)
+    _check_loop(kern, data, b, invd, functools.partial(gather_k1_plain, mat),
+                GATHER_LAUNCH[GATHER_LOOP_CASES[case][0]], lambda v: spmv.spmv(mat64, v),
+                loop_counter=f"{kern.NAME}_cg_loop")
+
+
+@pytest.mark.parametrize("pc", ["none", "BJ"])
+@pytest.mark.parametrize("case", list(GATHER_LOOP_CASES))
+def test_gather_bicgstab_gen_loop_matches_plain(dev, case, pc):
+    """The general-BiCGStab loop kernel's Csr and Sell variants against the
+    twin on the card pinned at 10 iterations (x and the normalised residual
+    rtol 1e-4): three launches repeat their count and iterate exactly, each
+    one loop launch and two SpMVs (the set-up's)."""
+    kern, data, mat, b, invd = _gather_loop_setup(case, pc, dev)
+    name = GATHER_LAUNCH[GATHER_LOOP_CASES[case][0]]
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=10, max_iter=10,
+                                     frequency=1)
+    twin = _gen_solve(kern, data, mat, b, invd, pinned, loop=False)
+    runs = []
+    for _ in range(3):
+        kernels.reset_launches()
+        runs.append(_gen_solve(kern, data, mat, b, invd, pinned))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.launches.items() if v} == {
+            f"{kern.NAME}_bicgstab_gen_loop": 1, name: 2}
+    res = runs[0]
+    assert all(r.iters == res.iters and torch.equal(r.x, res.x) for r in runs[1:])
+    assert res.iters == twin.iters == 10 and not bool(res.converged)
+    _close(res.x, twin.x, rtol=1e-4)
+    torch.testing.assert_close(res.final_res_norm, twin.final_res_norm.cpu(), rtol=1e-4,
+                               atol=1e-6 * float(res.init_res_norm))
+
+
+@pytest.mark.parametrize("fmt", ["Csr", "Sell"])
+def test_gather_loops_refuse_a_grid_too_large_and_bad_operands(dev, fmt):
+    """As the Ell loops' test: on the 64×64×48 Poisson grid four times the
+    co-resident grid is refused by the cooperative launch (the wrappers
+    raise, count nothing, leave no error behind); a wrong operand raises
+    before any launch."""
+    from ogl_tpu_torch.kernels.fused import LOOP_JACOBI
+    from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
+
+    coo = ldu.ldu_to_coo_host(testing.poisson_ldu((64, 64, 48)), dtype=np.float32)
+    mat = _gather_mat(fmt, coo, dev)
+    kern = (SellCgKernels if fmt == "Sell" else CsrCgKernels).for_matrix(mat)
+    data = kern.pack_values(mat)
+    b, invd = _vec(kern.n, 11, dev), torch.full((kern.n,), 1.0 / 6.0, device=dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=5,
+                                  frequency=1)
+
+    def run_cg():
+        (x, *state), z = _loop_state(kern, data, b, invd)
+        return kern.cg_loop(data, x, *state, cfg, invd=invd, z=z)[0]
+
+    def run_gen():
+        return _gen_solve(kern, data, mat, b, invd, cfg).iters
+
+    v = kern.LOOP | LOOP_JACOBI
+    for cache, what, run in ((kern._loop_blocks, f"{kern.NAME}_cg_loop", run_cg),
+                             (kern._gen_loop_blocks, f"{kern.NAME}_bicgstab_gen_loop", run_gen)):
+        assert run() == 5
+        co_resident = cache[v]
+        assert 0 < co_resident < -(-kern.n // 512)
+        cache[v] = 4 * co_resident
+        kernels.reset_launches()
+        with pytest.raises(RuntimeError, match=f"{what}: CUDA error"):
+            run()
+        assert kernels.launches[what] == 0
+        torch.cuda.synchronize()
+        cache[v] = co_resident
+        assert run() == 5
+    (x, *state), z = _loop_state(kern, data, b, invd)
+    with pytest.raises(TypeError, match="float32"):
+        kern.cg_loop(data, x, *state, cfg, invd=invd.double(), z=z)
+    with pytest.raises(ValueError, match="shape"):
+        kern.cg_loop((data[0][:-1],), x, *state, cfg, invd=invd, z=z)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kern.cg_loop(data, x.cpu(), *state, cfg, invd=invd, z=z)
+
+
+@pytest.mark.parametrize("solver", ["GKOCG", "GKOBiCGStab"])
+@pytest.mark.parametrize("fmt", ["Coo", "Csr", "Sell"])
+def test_foam_solve_on_coo_csr_and_sell_is_one_loop_launch(dev, fmt, solver):
+    """GKOCG and GKOBiCGStab `none`/`BJ` on an explicit Coo, Csr or Sell: one
+    launch of the loop kernel's variant of the format per solve, the SpMV 11
+    times (set-up 2, residual-eval timing 9), no twin; iterations ±1 of the
+    same solve over the plain twins on the card."""
+    from ogl_tpu_torch.solve.cg import cg
+
+    m, perm = testing.knn_ldu(20000)
+    m = testing.renumber_ldu(m, np.argsort(perm))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    name = "sell" if fmt == "Sell" else "csr"
+    loop = {"GKOCG": f"{name}_cg_loop", "GKOBiCGStab": f"{name}_bicgstab_gen_loop"}[solver]
+    for pc in ("none", {"preconditioner": "BJ"}):
+        registry.global_registry.clear()
+        ctl = {"solver": solver, "tolerance": 1e-6, "relTol": 0, "matrixFormat": fmt,
+               "preconditioner": pc, "executor": "cuda"}
+        kernels.reset_launches()
+        x, perf = foam.solve("p", m, b, ctl)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.launches.items() if v} == {loop: 1,
+                                                                    GATHER_LAUNCH[fmt]: 11}
+        slv = registry.global_registry.get("p_solver")
+        mat, bb = slv.matrix, torch.tensor(b, device=dev)
+        invd = slv._precond_op.state if pc != "none" else None
+        twin = {"GKOCG": cg, "GKOBiCGStab": bicgstab}[solver](
+            single_device_ops(lambda v: spmv.spmv(mat, v), m.n,
+                              precond=None if invd is None else (lambda r: invd * r)),
+            bb, torch.zeros_like(bb), stopping.StoppingParams.of(slv.cfg.stopping))
+        assert perf.converged and abs(perf.n_iterations - twin.iters) <= 1

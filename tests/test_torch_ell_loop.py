@@ -40,6 +40,7 @@ from ogl_tpu_torch import foam, interop, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels import gather_spmv, spmv
 from ogl_tpu_torch.kernels.ell import EllCgKernels, ell_k1_plain
+from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.krylov import single_device_ops
 
@@ -143,22 +144,68 @@ def test_warp_slots_are_each_groups_longest_row(fmt, name):
     assert torch.equal(bridged.warp_slots, ell.warp_slots)
 
 
-def test_interop_reads_rows_from_the_padding_alone():
-    """A row whose stored entries end in a zero on its own column reads as
-    one slot shorter: the bridge cannot tell that entry from padding, and
-    skipping it drops 0 · x[i] only."""
+def _stored_zero_diagonal():
+    """(rows, cols, vals) of a 40 x 40 matrix, row-major: row 0 has an
+    explicit zero inside it (not stored), row 33 the entry (33, 20) and a
+    stored zero on its diagonal, last in its row — which the bridge cannot
+    tell from padding."""
     a = np.zeros((40, 40), np.float32)
-    a[0, :5] = [1.0, 2.0, 0.0, 4.0, 5.0]  # an explicit zero inside the row
+    a[0, :5] = [1.0, 2.0, 0.0, 4.0, 5.0]
     a[33, 20] = 1.0
     rows, cols = np.nonzero(a)
-    rows = np.append(rows, 33)  # and a stored zero on the diagonal, last in its row
+    rows = np.append(rows, 33)
     cols = np.append(cols, 33)
     order = np.lexsort((cols, rows))
-    vals = a[rows, cols]
+    return rows[order], cols[order], a[rows, cols][order]
+
+
+def test_interop_reads_rows_from_the_padding_alone():
+    """Row 0 ends in an entry above its own column: its 4 slots.  Row 33's
+    last entry (column 20) lies below its own, so the slot after it could be
+    a stored zero on the diagonal (here it is one): the bridge counts it, 2
+    slots, where counting 1 would drop that entry once its value changes."""
+    rows, cols, vals = _stored_zero_diagonal()
     ref = ref_formats.coo_to_ell(ref_formats.Coo(
-        rows=jnp.asarray(rows[order]), cols=jnp.asarray(cols[order]),
-        vals=jnp.asarray(vals[order]), shape=(40, 40)))
-    assert interop.ell_from_reference(ref).warp_slots.tolist() == [4, 1]
+        rows=jnp.asarray(rows), cols=jnp.asarray(cols), vals=jnp.asarray(vals),
+        shape=(40, 40)))
+    assert interop.ell_from_reference(ref).warp_slots.tolist() == [4, 2]
+
+
+@pytest.mark.parametrize("fmt", list(PORT))
+def test_bridged_matrix_keeps_a_stored_zero_diagonal_after_a_value_update(fmt):
+    """Bridge a reference Ell (Hybrid, width 2: row 0 goes on in the tail),
+    then make the stored-zero diagonal 5 by `with_values`: the twin, the
+    plan's SpMV and K1 equal to_dense(m) @ x and the reference's SpMV on the
+    same values."""
+    rows, cols, vals = _stored_zero_diagonal()
+    ref_coo = ref_formats.Coo(rows=jnp.asarray(rows), cols=jnp.asarray(cols),
+                              vals=jnp.asarray(vals), shape=(40, 40))
+    ref = ref_formats.coo_to_ell(ref_coo) if fmt == "Ell" else ref_formats.coo_to_hybrid(
+        ref_coo, 2)
+    m = FROM_REF[fmt](ref)
+    flat = formats.values_flat(m).clone()
+    ell = _ell_of(m)
+    slot = int(np.flatnonzero(ell.cols[:, 33].numpy() == 33)[0])  # its first own-column slot
+    flat[slot * 40 + 33] = 5.0
+    m = formats.with_values(m, flat)
+    new_vals = np.where((rows == 33) & (cols == 33), 5.0, vals).astype(np.float32)
+    ref_flat = np.asarray(ref_formats.values_flat(ref)).copy()
+    ref_flat[33 * ell.row_width + slot] = 5.0  # the reference's (n, K) Ell storage
+    ref_new = ref_formats.with_values(
+        ref, jnp.asarray(ref_flat.reshape(ref.vals.shape) if fmt == "Ell" else ref_flat))
+    x = np.linspace(0.5, 2.0, 40).astype(np.float32)
+    dense = formats.to_dense(m).astype(np.float64)
+    want = np.zeros((40, 40))
+    np.add.at(want, (rows, cols), new_vals)
+    np.testing.assert_array_equal(dense, want)
+    y_ref = np.asarray(ref_spmv.spmv(ref_new, jnp.asarray(x)))
+    kern = EllCgKernels.for_matrix(m)
+    data = kern.pack_values(m)
+    xt = torch.tensor(x)
+    for y in (spmv.spmv(m, xt), kern.spmv(data, xt), kern.k1(data, xt, torch.zeros(40), 0.0)[1]):
+        np.testing.assert_allclose(y.numpy(), dense @ x, rtol=1e-6)
+        np.testing.assert_allclose(y.numpy(), y_ref, rtol=1e-6)
+    assert float(y_ref[33]) == 1.0 * x[20] + 5.0 * x[33]
 
 
 @pytest.mark.parametrize("name", list(MATS))
@@ -294,44 +341,50 @@ def test_cg_loop_refuses_half_a_jacobi_set_up():
 
 
 def test_why_not_admits_ell_and_hybrid_with_none_and_bj():
+    """Ell, Hybrid and Sell with `none` and `BJ` take their loop kernels; the
+    ragged rows (20 entries on mean) as Csr or Coo keep the host loop, since
+    their SpMV takes more than one lane per row, and why_not says so."""
     _, coo = MATS["ragged"]
-    for fmt in ("Ell", "Hybrid"):
-        m = PORT[fmt](coo)
+    for fmt in ("Ell", "Hybrid", "Sell"):
+        m = PORT[fmt](coo) if fmt in PORT else formats.coo_to_sell(coo)
         for why_not in (cg_mod.why_not, bicgstab_mod.why_not):
             assert why_not(m, "none") is None and why_not(m, "BJ") is None
             assert "Multigrid" in why_not(m, "Multigrid")
-    for conv, name in ((formats.coo_to_csr, "Csr"), (formats.coo_to_device, "Coo"),
-                       (formats.coo_to_sell, "Sell")):
+    for conv, name in ((formats.coo_to_csr, "Csr"), (formats.coo_to_device, "Coo"),):
         m = conv(coo)
-        assert name in cg_mod.why_not(m, "none") and name in bicgstab_mod.why_not(m, "none")
+        for why_not in (cg_mod.why_not, bicgstab_mod.why_not):
+            assert name in why_not(m, "none") and "lanes per row" in why_not(m, "none")
     dia = formats.coo_to_dia(formats.coo_from_dense(np.eye(4, dtype=np.float32)))
     assert "Dia" in cg_mod.why_not(dia, "none") and bicgstab_mod.why_not(dia, "none") is None
 
 
 CONTROLS = {
-    "cg Ell none": ({"matrixFormat": "Ell"}, True),
+    "cg Ell none": ({"matrixFormat": "Ell"}, EllCgKernels),
     "cg Hybrid BJ": ({"matrixFormat": "Hybrid", "preconditioner": {"preconditioner": "BJ"}},
-                     True),
+                     EllCgKernels),
     "bicgstab Ell BJ": ({"solver": "GKOBiCGStab", "matrixFormat": "Ell",
-                         "preconditioner": {"preconditioner": "BJ"}}, True),
-    "bicgstab Hybrid none": ({"solver": "GKOBiCGStab", "matrixFormat": "Hybrid"}, True),
-    "cg Ell landing": ({}, True),
-    "cg Coo": ({"matrixFormat": "Coo"}, False),
-    "cg Csr BJ": ({"matrixFormat": "Csr", "preconditioner": {"preconditioner": "BJ"}}, False),
-    "bicgstab Sell": ({"solver": "GKOBiCGStab", "matrixFormat": "Sell"}, False),
-    "pipelined Ell": ({"matrixFormat": "Ell", "pipelinedCG": True}, False),
+                         "preconditioner": {"preconditioner": "BJ"}}, EllCgKernels),
+    "bicgstab Hybrid none": ({"solver": "GKOBiCGStab", "matrixFormat": "Hybrid"},
+                             EllCgKernels),
+    "cg Ell landing": ({}, EllCgKernels),
+    "cg Coo": ({"matrixFormat": "Coo"}, CsrCgKernels),
+    "cg Csr BJ": ({"matrixFormat": "Csr", "preconditioner": {"preconditioner": "BJ"}},
+                  CsrCgKernels),
+    "bicgstab Sell": ({"solver": "GKOBiCGStab", "matrixFormat": "Sell"}, SellCgKernels),
+    "pipelined Ell": ({"matrixFormat": "Ell", "pipelinedCG": True}, None),
     "pipelined Hybrid BJ": ({"matrixFormat": "Hybrid", "pipelinedCG": True,
-                             "preconditioner": {"preconditioner": "BJ"}}, False),
+                             "preconditioner": {"preconditioner": "BJ"}}, None),
 }
 
 
 @pytest.mark.parametrize("case", list(CONTROLS))
 def test_foam_solver_takes_the_ell_plan_where_its_loops_run(case):
     """Ell and Hybrid (explicit, or the ladder's Ell landing) with `none` or
-    `BJ` on GKOCG and GKOBiCGStab keep the plan EllCgKernels; Coo, Csr,
-    Sell and the pipelined CG keep none.  The routes and names are the
-    reference's, and the CPU solve (the twins) matches its iterations ±1."""
-    extra, takes = CONTROLS[case]
+    `BJ` on GKOCG and GKOBiCGStab keep the plan EllCgKernels, Coo and Csr
+    CsrCgKernels, Sell SellCgKernels; the pipelined CG keeps none.  The
+    routes and names are the reference's, and the CPU solve (the twins)
+    matches its iterations ±1."""
+    extra, plan = CONTROLS[case]
     m, _ = testing.knn_ldu(3000)
     if "landing" not in case:
         m = testing.renumber_ldu(m, np.argsort(testing.knn_ldu(3000)[1]))
@@ -340,9 +393,7 @@ def test_foam_solver_takes_the_ell_plan_where_its_loops_run(case):
            "preconditioner": "none", **extra}
     x, perf = foam.solve("p", m, b, ctl)
     slv = registry.global_registry.get("p_solver")
-    assert (type(slv.kern) is EllCgKernels) == takes
-    if not takes:
-        assert slv.kern is None
+    assert slv.kern is None if plan is None else type(slv.kern) is plan
     ref_m = ref_ldu.LduMatrix(n=m.n, lower_addr=m.lower_addr, upper_addr=m.upper_addr,
                               diag=m.diag, upper=m.upper, lower=m.lower)
     ref_ctl = {**ctl, "matrixFormat": "Ell"} if "landing" in case else ctl

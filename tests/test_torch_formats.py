@@ -8,6 +8,8 @@ Sell mapped back from the port's slot-major layouts to the reference's;
 uniqueness; `ValueMap.update` the container a fresh conversion of the new
 values gives."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -171,8 +173,24 @@ def test_sell_equals_reference(n, c, sigma):
 
 @pytest.mark.parametrize("fmt", list(PORT))
 def test_from_reference_equals_conversion(fmt):
-    ref, ours = coo_pair(random_dense(203))
+    """Bit-equal containers, but for the Ell bridge's warp slot counts: the
+    bridge reads each row's length from the padding, and counts one slot
+    more where the row's next slot could hold a stored zero on the diagonal
+    (the row empty, or all its columns below its own), which the converter,
+    knowing the entries, does not."""
+    a = random_dense(203)
+    ref, ours = coo_pair(a)
     got, want = FROM_REF[fmt](REF[fmt](ref)), PORT[fmt](ours)
+    if fmt == "Ell":
+        n, k = a.shape[0], want.row_width
+        counts = np.count_nonzero(a, axis=1)
+        last = np.array([np.flatnonzero(r).max(initial=-1) for r in a])
+        maybe_diag = (counts < k) & (last < np.arange(n))
+        assert maybe_diag.any()
+        np.testing.assert_array_equal(got.warp_slots.numpy(),
+                                      formats.ell_warp_slots(counts + maybe_diag, k))
+        assert bool((got.warp_slots >= want.warp_slots).all())
+        got = dataclasses.replace(got, warp_slots=want.warp_slots)
     for a, b in zip(_tensors(got), _tensors(want)):
         assert torch.equal(a, b)
 

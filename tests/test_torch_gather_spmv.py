@@ -91,7 +91,8 @@ def _replay(fmt, m, x, group=None):
     """y of the CUDA kernel's arithmetic, replayed row by row in float32:
     the documented order of csrc/csr_rows.cuh (at `group` lanes per row,
     None: csr_group), ell_rows.cuh (Ell, and Hybrid's bulk before its tail:
-    each row up to its 32-row group's longest row) and sell_spmv.cu."""
+    each row up to its 32-row group's longest row) and sell_rows.cuh (each
+    slot up to its slice's longest row)."""
     n = m.shape[0]
     y = np.zeros(n, np.float32)
     if fmt in ("Coo", "Csr"):
@@ -122,7 +123,7 @@ def _replay(fmt, m, x, group=None):
             for local in range(ns * C):
                 if rows[s0 + local] >= n:
                     continue
-                e = v0 + local + ns * C * np.arange(w)
+                e = v0 + local + ns * C * np.arange(int(m.slice_widths[(s0 + local) // C]))
                 y[rows[s0 + local]] = _f32_sum(np.float32(v[j]) * x[c[j]] for j in e)
     return y
 
@@ -233,9 +234,9 @@ CASES = [("GKOCG", "none", {}), ("GKOCG", "BJ", {}), ("GKOCG", "none", {"pipelin
 def test_explicit_format_solves_as_the_reference(fmt, solver, pc, extra):
     """±1 iteration and x within 1e-4 of the reference's foam.solve with the
     same controls: CG on the kNN-6 mesh, BiCGStab on convection–diffusion.
-    Every format takes the general loop over its SpMV; Ell and Hybrid keep
-    the plan of their loop kernels for CG and BiCGStab (on the CPU the host
-    loop runs, the kernels' twin)."""
+    Every format takes the general loop over its SpMV and keeps the plan of
+    its loop kernels for CG and BiCGStab (on the CPU the host loop runs, the
+    kernels' twin); the pipelined CG keeps none."""
     if solver == "GKOBiCGStab":
         m = testing.convection_diffusion_ldu((16, 16, 8))
     else:
@@ -246,7 +247,7 @@ def test_explicit_format_solves_as_the_reference(fmt, solver, pc, extra):
     slv = registry.global_registry.get("p_solver")
     assert perf.solver_name == perf_ref.solver_name == f"{solver}_{fmt}"
     assert formats.format_name(slv.matrix) == fmt
-    assert (slv.kern is not None) == (fmt in ("Ell", "Hybrid") and not extra)
+    assert (slv.kern is not None) == (not extra)
     assert slv.route == {"GKOBiCGStab": "bicgstab"}.get(
         solver, "cg_pipe" if extra else "cg")
     assert perf.converged and perf_ref.converged
@@ -330,15 +331,9 @@ def test_spmv_launches_per_solve_follow_the_route(fmt, monkeypatch):
     launch counts): CG 2 set-up + 1 per iteration, pipelined CG 3 + 1,
     BiCGStab 2 + 2, plus the criterion's residual-eval timing (9)."""
     calls = []
-    for name in ("csr_spmv", "sell_spmv"):
-        f = getattr(gather_spmv, name)
-        monkeypatch.setattr(gather_spmv, name,
-                            lambda m, x, f=f: calls.append(1) or f(m, x))
-    call = gather_spmv.EllSpmv.__call__  # Ell and Hybrid: one plan per solve
-    monkeypatch.setattr(gather_spmv.EllSpmv, "__call__",
+    call = gather_spmv.GatherSpmv.__call__  # every format: one wrapper per solve
+    monkeypatch.setattr(gather_spmv.GatherSpmv, "__call__",
                         lambda self, x: calls.append(1) or call(self, x))
-    monkeypatch.setattr(spmv, "_KERNEL", {k: getattr(gather_spmv, v.__name__)
-                                          for k, v in spmv._KERNEL.items()})
     m = _knn()
     b = _rhs(m.n)
     for field, (extra, setup, per_iter) in {
