@@ -5,7 +5,7 @@
     python3 chip_smoke.py --turns PARENT . . PARENT   (phase 3's kernels in turns)
     python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the gather formats' part alone)
 
-Drives the port's six main paths at 1,048,576 cells in OpenFOAM LDU form,
+Drives the port's seven main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
 system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1; each
 solve's whole loop one launch of the persistent CG kernel) and the
@@ -23,7 +23,10 @@ kernel, the SpMV roofline at 8,388,608 rows and the merged CG; then
 (slices 14–16) the reference-parity formats Coo, Csr, Ell, Sell and Hybrid
 on the kNN-6 mesh, the Poisson grid and convection-diffusion, and the
 ladder's Ell landing on a small unstructured mesh (GKOCG and GKOBiCGStab
-`none`/`BJ` on every one of them one launch of a loop kernel) — after
+`none`/`BJ` on every one of them one launch of a loop kernel); then
+(slice 17, BASELINE.json configs 2 and 3) GKOBiCGStab + blocked `BJ`
+and GKOGMRES + ISAI/GISAI on the Poisson grid, convection-diffusion and
+the kNN-6 mesh — after
 building the port's kernels from the sources in this checkout and holding
 each against its plain PyTorch version on the card, at the slices' size
 and at 8,388,608 rows.
@@ -60,7 +63,7 @@ Phases (any failure raises, and the script exits non-zero):
      iteration (124 B per row at 7 diagonals); the AMG loop kernel's CG and
      IR variants on the 1M hierarchy with bfloat16 and float32 smoother
      coefficients (and bfloat16 at 64x64x48, its fixed cost) against their
-     plain twins (x after 10 iterations), timed per iteration over 50 in
+     plain twins (x after 10 iterations), timed per iteration over 20 in
      turns with the twin and the host-launched cycle, with their bytes per
      iteration; then on
      the shuffled grid built on the device at both sizes the Gdia SpMV and
@@ -157,8 +160,25 @@ Phases (any failure raises, and the script exits non-zero):
      the bytes its slices read), the CSR kernel at its number of lanes per
      row and the next (also on random graphs of 16, 64 and 256 entries per
      row), and the profiler's device time per launch on the kNN mesh.  The
-     loop rows of phase 3 are timed over 100 iterations (200 before phase
-     11 joined), phase 11's over 20.
+     loop rows of phase 3 are timed over 30 iterations (200 before phase
+     11 joined, 100 before phase 12), phase 8's Xell loops over 15, phase
+     11's over 10 and the AMG loops over 20;
+ 12. slice 17, BASELINE.json configs 2 and 3: the native host runtime
+     built (asserted), the block-Jacobi, Arnoldi and combine kernels'
+     registers, spills and the Arnoldi grid; GKOBiCGStab + BJ maxBlockSize
+     4 on the Poisson grid (held to the route over the plain twins at 10
+     pinned iterations) and 4 and 8 on convection-diffusion as Dia and 4
+     as Csr (±1), GKOGMRES + GISAI on the 1M kNN-6 mesh as Ell (and a
+     steady step at its adapted minIter and frequency) and as Hybrid, +
+     ISAI on the Poisson grid with a float32 and a bfloat16 basis (the
+     latter held to its true residual); each solve: iterations, the true
+     float64 residual, generate_preconditioner ms, µs per iteration on
+     resident state and its launches (two block-Jacobi launches per
+     BiCGStab iteration, one Arnoldi launch per GMRES iteration, no loop
+     kernel); then the three kernels against their twins at 1M and 8.4M
+     rows (block Jacobi at bs 4 and 8 and the combine bit-equal, the
+     Arnoldi step at j = 99 within the vector tolerance; float32 and
+     bfloat16 bases) with torch.bmm and torch.mv beside.
 Each phase prints its wall time.  Each path's launch counts are set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  The line before the last is one JSON object
@@ -191,15 +211,18 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
-from ogl_tpu_torch import bench, foam, kernels, registry, testing
+from ogl_tpu_torch import bench, foam, kernels, native, registry, testing
 from ogl_tpu_torch.config import parse_controls
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels import (_build, amg_loop, device_time, gather_spmv, gdia, roofline,
                                    spmv, xell)
+from ogl_tpu_torch.kernels import gmres as gmres_kernels
+from ogl_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_plain
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
                                          k2_plain, k2i_plain, k2n_plain, ka_plain,
@@ -212,8 +235,11 @@ from ogl_tpu_torch.kernels.fused import (LOOP_CSR, LOOP_ELL, LOOP_GDIA, LOOP_JAC
                                          bicgstab_loop_plain, cg_loop_plain, cg_pipe_loop_plain)
 from ogl_tpu_torch.kernels.gather_loop import (CsrCgKernels, GatherCgKernels, SellCgKernels,
                                                gather_k1_plain)
+from ogl_tpu_torch.kernels.gmres import (gmres_arnoldi, gmres_arnoldi_plain, gmres_combine,
+                                         gmres_combine_plain, new_basis)
 from ogl_tpu_torch.solve import (bicgstab, bicgstab_fused, cg, cg_fused, cg_pipelined,
                                  cg_pipelined_fused, ir, krylov, stopping)
+from ogl_tpu_torch.solve.gmres import gmres as gmres_solve
 from ogl_tpu_torch.solve.ir import ir_fused
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
 
@@ -362,6 +388,19 @@ KERNELS = {
                                "ogl_tpu/solve/bicgstab.py:52, over the XLA op "
                                "ogl_tpu/kernels/spmv.py:55 (spmv_sell)",
                                "sell_bicgstab_gen_loop[Sell none]", "knn"),
+    # slice 17 (phase 12): the block-Jacobi apply (bs 4; case [bs 8] beside),
+    # the GMRES Arnoldi step at j = 99 and the recombination of 100 rows
+    # (float32 basis; cases [bf16] beside); the reference runs all three as
+    # XLA ops, no TPU kernel
+    "block_jacobi": ("cuda", "ogl_tpu_torch/kernels/csrc/block_jacobi.cu",
+                     "no TPU kernel: XLA op in the reference, ogl_tpu/precond/jacobi.py:56-59 "
+                     "(the einsum apply)", "block_jacobi", None),
+    "gmres_arnoldi": ("cuda", "ogl_tpu_torch/kernels/csrc/gmres.cu",
+                      "no TPU kernel: XLA ops in the reference, ogl_tpu/solve/gmres.py:264-301 "
+                      "(blocked MGS)", "gmres_arnoldi", None),
+    "gmres_combine": ("cuda", "ogl_tpu_torch/kernels/csrc/gmres.cu",
+                      "no TPU kernel: XLA ops in the reference, ogl_tpu/solve/gmres.py:108-123 "
+                      "(x_at)", "gmres_combine", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -425,11 +464,13 @@ PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
 XELL_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/xell_cg_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
 # the loop's check (x against the plain twin), its timing (200 until the
-# formats' phase 11 joined the script; 100 keeps the script within its time)
-LOOP_ITERS = (30, 100)
+# formats' phase 11 joined the script, 100 until phase 12 did; 30 keeps the
+# script within its time)
+LOOP_ITERS = (30, 30)
 # the Xell loops': their plain twins' SpMV takes 3-9 ms per iteration at
-# 1M-8.4M rows (the general BiCGStab's check stays BICGSTAB_LOOP_CHECK)
-XELL_LOOP_ITERS = (30, 30)
+# 1M-8.4M rows (the general BiCGStab's check stays BICGSTAB_LOOP_CHECK);
+# timed over 15 since phase 12 joined (30 before)
+XELL_LOOP_ITERS = (30, 15)
 # the BiCGStab loop's check: float32 BiCGStab on the Poisson grid from a
 # random b parts from another summation order within 30 iterations (phase 3
 # prints the gap there), so x is held to the twin after 10, as phase 9 pins
@@ -453,7 +494,8 @@ AMG_LOOP_SOLVE_LAUNCHES = {
 AMG_HOST_SOLVE = ("pMGw", {"solver": "GKOCG",
                            "preconditioner": {"preconditioner": "Multigrid", "cycle": "w"}})
 AMG_ITERS = {"pMG": 16, "pGMG": 54}  # at 1M cells, as their plain twins take them
-AMG_LOOP_CHECK, AMG_LOOP_TIMED = 10, 50  # the AMG loops' check and timing iterations
+# the AMG loops' check and timing iterations (timed over 50 until phase 12 joined)
+AMG_LOOP_CHECK, AMG_LOOP_TIMED = 10, 20
 # x after AMG_LOOP_CHECK iterations against the twin: the restricting sums,
 # the coarse product and the partial sums add in another order
 AMG_LOOP_RTOL = 1e-4
@@ -634,6 +676,13 @@ def vec_err(got, want):
     err = float((got - want).abs().max())
     tol = VEC_RTOL * max(1.0, float(want.abs().max()))
     return err, tol
+
+
+def rel_err(got, want):
+    """vec_err with no floor of 1: the tolerance scales with the compared
+    vector's own largest entry."""
+    err = float((got - want).abs().max())
+    return err, VEC_RTOL * float(want.abs().max())
 
 
 def sum_err(got, want):
@@ -1133,15 +1182,16 @@ def check_gdia(grids, device, report):
         torch.cuda.empty_cache()
 
 
-def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None):
+def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None, err=vec_err):
     """Run kernel and plain version once on the same inputs (each returns
-    (vectors, sums)), hold them to the tolerances, time them (`kt`/`pt`
-    when the timed call differs) and record the row in `report`, with the
-    least time the card could take: the larger of the minimum bytes over
-    the memory rate and the operations over the float32 rate."""
+    (vectors, sums)), hold them to the tolerances (`err` for the vectors),
+    time them (`kt`/`pt` when the timed call differs) and record the row in
+    `report`, with the least time the card could take: the larger of the
+    minimum bytes over the memory rate and the operations over the float32
+    rate."""
     (kv, ks), (pv, ps) = kfn(), pfn()
     torch.cuda.synchronize()
-    errs = [vec_err(a, b) for a, b in zip(kv, pv)]
+    errs = [err(a, b) for a, b in zip(kv, pv)]
     max_err = max(e for e, _ in errs)
     sums = [sum_err(a, b) for a, b in zip(ks, ps)]
     ok = all(e <= t for e, t in errs) and all(s <= SUM_RTOL for s in sums)
@@ -2175,7 +2225,7 @@ GATHER_ITERS = {"none": 28, "BJ": 23, "uK": 21, "uKBJ": 17, "gP": 275, "gCD": 24
 # the gather loop rows' check and timing iterations (their plain twins take
 # 2-12 ms per iteration at kNN 1M: three torch ops per slot or entry step of
 # an SpMV; 20 timed iterations keep phase 11 within the script's time)
-GATHER_LOOP_ITERS = (30, 20)
+GATHER_LOOP_ITERS = (30, 10)
 ELL_LANDING_CELLS = 20000  # the kNN-6 mesh in its points' numbering: lands on Ell
 CSR_GROUPS = (1, 2, 4, 8, 16, 32)  # the CSR kernel's lanes per row
 
@@ -2523,6 +2573,313 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
     return launches, report
 
 
+# ---- phase 12: slice 17, blocked Jacobi, ISAI/GISAI and GKOGMRES ------------
+
+SLICE17_KERNELS = ("block_jacobi", "gmres_arnoldi", "gmres_combine")
+BJ_SIZES = (4, 8)  # the block sizes phase 12 checks the block-Jacobi kernel at
+GMRES_J = 99  # the Arnoldi step checked and timed: the last of a 100-row cycle
+COMBINE_J = 100  # the recombination of a full 100-row cycle
+# the kNN-6 mesh of the Hybrid GKOGMRES solve and its steady step: the
+# GISAI set-up at 1M (13 s, most of it the Xell packing of M) would take
+# the script past its time once more
+HYBRID_CELLS = 1 << 18
+# field -> (system, controls, gate).  BASELINE config 2, GKOBiCGStab + BJ
+# maxBlockSize 4 (and 8) on Dia and Csr: held ±1 to the same route over the
+# plain twins on convection-diffusion ("free"); on the Poisson grid float32
+# BiCGStab parts from another summation order, so there the routes are held
+# to each other pinned at PINNED_ITERS[0] ("pinned").  Config 3, GKOGMRES +
+# GISAI on the kNN-6 mesh as Ell and Hybrid, + ISAI on the Poisson grid
+# (and with a bfloat16 basis, "true": held to its true residual; the
+# twin route printed beside it).  adaptMinIter is on (the default): `wKH`
+# takes a steady step at its adapted minIter and frequency.
+BJ4 = {"preconditioner": "BJ", "maxBlockSize": 4}
+SLICE17_SOLVES = {
+    "uBJ4": ("poisson", {"solver": "GKOBiCGStab", "preconditioner": BJ4}, "pinned"),
+    "uCDBJ4": ("cd", {"solver": "GKOBiCGStab", "preconditioner": BJ4}, "free"),
+    "uCDBJ8": ("cd", {"solver": "GKOBiCGStab",
+                      "preconditioner": {"preconditioner": "BJ", "maxBlockSize": 8}}, "free"),
+    "uCDBJ4Csr": ("cd", {"solver": "GKOBiCGStab", "preconditioner": BJ4,
+                         "matrixFormat": "Csr"}, "free"),
+    "wK": ("knn", {"solver": "GKOGMRES", "preconditioner": "GISAI", "matrixFormat": "Ell"},
+           "free"),
+    "wKH": ("knn hybrid", {"solver": "GKOGMRES", "preconditioner": "GISAI",
+                           "matrixFormat": "Hybrid"}, "free"),
+    "wP": ("poisson", {"solver": "GKOGMRES", "preconditioner": "ISAI"}, "free"),
+    "wPbf": ("poisson", {"solver": "GKOGMRES", "preconditioner": "ISAI",
+                         "basisPrecision": "bfloat16"}, "true"),
+}
+
+
+def plain_precond(slv):
+    """The plain twin of a solver's preconditioner apply: the block-Jacobi
+    twin over its inverses, or the plain SpMV of M (and Mᵀ)."""
+    op = slv._precond_op
+    if slv.cfg.precond.name == "BJ":
+        return lambda r: block_jacobi_plain(op.state, r)
+    mats = op.state
+    if len(mats) == 1:
+        return lambda r: spmv.spmv(mats[0], r)
+    return lambda r: 0.5 * (spmv.spmv(mats[0], r) + spmv.spmv(mats[1], r))
+
+
+def slice17_route(slv, b, params, plain):
+    """A solver's route (GKOBiCGStab's host loop or GKOGMRES) from a zero
+    guess, over its kernels or (plain=True) over their plain twins on the
+    card."""
+    mat = slv.matrix
+    mv = (lambda v: spmv.spmv(mat, v)) if plain else spmv.matvec(mat)
+    pc = plain_precond(slv) if plain else slv._precond_op
+    ops = krylov.single_device_ops(mv, mat.shape[0], precond=pc)
+    x0 = torch.zeros_like(b)
+    if slv.route == "bicgstab":
+        return bicgstab(ops, b, x0, params)
+    basis = torch.bfloat16 if slv.cfg.basis_precision == "bfloat16" else None
+    twins = {"arnoldi": gmres_arnoldi_plain, "combine": gmres_combine_plain} if plain else {}
+    return gmres_solve(ops, b, x0, params, slv.cfg.krylov_dim, basis, **twins)
+
+
+def snapshot17(slv):
+    """What slice17_route and the checks need of a solver, its matrix values
+    copied (a steady step replaces the matrix and the preconditioner)."""
+    mat = formats.cast_values(formats.cast_values(slv.matrix, torch.float64), torch.float32)
+    return types.SimpleNamespace(route=slv.route, matrix=mat, _precond_op=slv._precond_op,
+                                 cfg=slv.cfg)
+
+
+def check_slice17_launches(field, slv, iters, before):
+    """Between `before` and now: no loop kernel; GKOBiCGStab + BJ two
+    block-Jacobi launches per iteration; GKOGMRES one Arnoldi launch per
+    Arnoldi step and the combine kernel at least once."""
+    got = {k: kernels.launches[k] - before[k] for k in kernels.launches
+           if kernels.launches[k] != before[k]}
+    print(f"  {field}: launches in this solve {got}")
+    loops = [k for k in got if k.endswith("loop")]
+    if loops:
+        raise RuntimeError(f"{field}: a loop kernel ran on a host-loop route: {loops}")
+    if slv.route == "bicgstab":
+        want = {"block_jacobi": 2 * iters}
+    else:
+        want = {"gmres_arnoldi": iters}
+        if not got.get("gmres_combine"):
+            raise RuntimeError(f"{field}: the combine kernel never ran")
+    bad = {k: got.get(k, 0) for k, v in want.items() if got.get(k, 0) != v}
+    if bad:
+        raise RuntimeError(f"{field}: launched {bad} in one solve, not {want}")
+
+
+def arnoldi_inputs(j, n, dt, device, g):
+    """A basis of orthonormal rows V[0..j+1] (the QR of seeded normals) in
+    `dt`, and w = V[0..j]ᵀ c + e with c of norm about 3 and e of norm about
+    1: h is of the order of ‖w‖, and leaving out the subtraction of any one
+    block of rows moves v_{j+1} and ‖w‖ far past the tolerance."""
+    q, _ = torch.linalg.qr(torch.randn((n, j + 2), device=device, generator=g))
+    V = new_basis(j + 1, n, dt, device)
+    V[:j + 2, :n] = q.t().to(dt)
+    del q
+    c = 0.3 * torch.randn(j + 1, device=device, generator=g)
+    w = V[:j + 1, :n].float().t() @ c + torch.randn(n, device=device, generator=g) / n ** 0.5
+    return V, w
+
+
+def slice17_kernels(n, label, device, report):
+    """The three kernels against their twins at n rows (launches not
+    counted): bit-equal (block Jacobi, combine) or within the stated
+    tolerance (Arnoldi), timed with their bound and torch's call."""
+    g = torch.Generator(device=device).manual_seed(17)
+    for bs in BJ_SIZES:
+        nb = n // bs
+        inv_t = torch.randn((nb, bs, bs), device=device, generator=g)
+        r = torch.randn(n, device=device, generator=g)
+        name, case = "block_jacobi", "block_jacobi" + ("" if bs == BJ_SIZES[0] else f"[bs {bs}]")
+        compare(case, label, lambda: ([block_jacobi(inv_t, r)], []),
+                lambda: ([block_jacobi_plain(inv_t, r)], []), (nb * bs * bs + 2 * n) * 4,
+                2 * bs * n, report)
+        if not torch.equal(block_jacobi(inv_t, r), block_jacobi_plain(inv_t, r)):
+            raise RuntimeError(f"{case} at {label} is not bit-equal to its twin")
+        inv = inv_t.transpose(1, 2).contiguous()
+        library_call(case, label, "torch.bmm(inv, r.view(nb, bs, 1))",
+                     lambda: torch.bmm(inv, r.view(nb, bs, 1)).view(-1),
+                     lambda: block_jacobi(inv_t, r), f"bs {bs}", report)
+        del inv_t, r, inv
+    j = GMRES_J
+    for dt, tag in ((torch.float32, ""), (torch.bfloat16, "[bf16]")):
+        eb = 2 if dt == torch.bfloat16 else 4
+        V, w = arnoldi_inputs(j, n, dt, device, g)
+        V2 = V.clone()
+        scale = float(torch.linalg.vector_norm(w))
+        hk, hp = (torch.zeros(j + 2, device=device) for _ in range(2))
+        wk, wp = w.clone(), w.clone()
+
+        def kfn():
+            v = gmres_arnoldi(V, w.clone(), j, hk)
+            return [v, hk / scale], []
+
+        def pfn():
+            v = gmres_arnoldi_plain(V2, w.clone(), j, hp)
+            return [v, hp / scale], []
+
+        nbytes = (j + 2) * n * eb + 4 * n + (4 * n if eb == 2 else 0) + 4 * (j + 2)
+        compare("gmres_arnoldi" + tag, label, kfn, pfn, nbytes, 4 * (j + 1) * n + 3 * n,
+                report, kt=lambda: gmres_arnoldi(V, wk, j, hk),
+                pt=lambda: gmres_arnoldi_plain(V2, wp, j, hp), err=rel_err)
+        kfn()
+        pfn()
+        # the stored row: the vector tolerance, and with a bfloat16 basis one
+        # bfloat16 ulp besides (a float32 difference can round either way)
+        rk, rp = V[j + 1, :n].float(), V2[j + 1, :n].float()
+        err, tol = rel_err(rk, rp)
+        over = (rk - rp).abs() - (2.0 ** -7 * rp.abs() if eb == 2 else 0.0) - tol
+        print(f"    the stored row V[{j + 1}] against the twin's: max abs difference {err:.1e} "
+              f"(tol {tol:.1e}{' + one bfloat16 ulp' if eb == 2 else ''})")
+        if float(over.max()) > 0:
+            raise RuntimeError(f"gmres_arnoldi{tag} at {label}: the stored row disagrees")
+        report["gmres_arnoldi" + tag][label]["library_ms"] = None  # no single call
+        y = torch.randn(COMBINE_J, device=device, generator=g)
+        case = "gmres_combine" + tag
+        compare(case, label, lambda: ([gmres_combine(V, y, COMBINE_J, n)], []),
+                lambda: ([gmres_combine_plain(V, y, COMBINE_J, n)], []),
+                COMBINE_J * n * eb + 4 * n + 4 * COMBINE_J, 2 * COMBINE_J * n, report)
+        if not torch.equal(gmres_combine(V, y, COMBINE_J, n),
+                           gmres_combine_plain(V, y, COMBINE_J, n)):
+            raise RuntimeError(f"{case} at {label} is not bit-equal to its twin")
+        if eb == 4:
+            Vt = V[:COMBINE_J, :n].t()
+            library_call(case, label, "torch.mv(V[:j].T, y)", lambda: torch.mv(Vt, y),
+                         lambda: gmres_combine(V, y, COMBINE_J, n), f"j {COMBINE_J}", report)
+        else:
+            report[case][label]["library_ms"] = None  # torch.mv takes no bfloat16 x float32
+        del V, V2, w, wk, wp
+        torch.cuda.empty_cache()
+
+
+def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tuple:
+    """Phase 12.  Returns the launch counts of the path and its kernel
+    report."""
+    print(f"== phase 12: slice 17, blocked Jacobi, ISAI/GISAI and GKOGMRES (BASELINE configs "
+          f"2 and 3), foam.solve at {m_grid.n} (Poisson, convection-diffusion) and {m_knn.n} "
+          "(kNN-6) cells")
+    if not native.available():
+        raise RuntimeError("the native host runtime (ogl_tpu_torch/native) did not build")
+    info = _build.build_info()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kern, what in (("block_jacobi_kernel", "block_jacobi"),
+                       ("gmres_arnoldi_kernelILb0E", "gmres_arnoldi float32"),
+                       ("gmres_arnoldi_kernelILb1E", "gmres_arnoldi bfloat16"),
+                       ("gmres_combine_kernelILb0E", "gmres_combine float32"),
+                       ("gmres_combine_kernelILb1E", "gmres_combine bfloat16")):
+        grid_note = ""
+        if "arnoldi" in what:
+            blocks = gmres_kernels.arnoldi_blocks("bfloat16" in what, device)
+            grid_note = (f" grid {blocks} co-resident blocks of "
+                         f"{gmres_kernels.ARNOLDI_THREADS} threads ({blocks // sms} per SM, at "
+                         f"most {gmres_kernels.ARNOLDI_BLOCKS_PER_SM});")
+        print(f"{what}:{grid_note} ptxas: " + "; ".join(loop_ptxas(info["log"], None, kern)))
+    ctl = {**ctl, "verbose": 0}
+    t0 = time.perf_counter()
+    systems = {"poisson": (m_grid, b_grid), "knn": (m_knn, b_knn),
+               "cd": (testing.convection_diffusion_ldu(grid), b_grid)}
+    if HYBRID_CELLS == m_knn.n:
+        systems["knn hybrid"] = systems["knn"]
+    else:
+        mh, perm = testing.knn_ldu(HYBRID_CELLS)
+        systems["knn hybrid"] = (testing.renumber_ldu(mh, np.argsort(perm)),
+                                 np.random.default_rng(0).normal(size=mh.n).astype(np.float32))
+    hybrid_mesh = "" if HYBRID_CELLS == m_knn.n else f" and the {HYBRID_CELLS}-cell kNN-6 mesh"
+    print(f"host set-up: convection-diffusion system{hybrid_mesh} "
+          f"{time.perf_counter() - t0:.2f} s")
+    records = {}
+    kernels.reset_launches()
+    for field, (system, spec, gate) in SLICE17_SOLVES.items():
+        mk, bk = systems[system]
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        x, perf = foam.solve(field, mk, bk, {**ctl, **spec})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        slv = registry.global_registry.get(f"{field}_solver")
+        check_slice17_launches(field, slv, perf.n_iterations, before)
+        it = max(perf.n_iterations, 1)
+        lt = slv.last_timings
+        apply = ("the block-Jacobi kernel" if slv.cfg.precond.name == "BJ" else "M on " + "/".join(
+            formats.format_name(mm) for mm in slv._precond_op.state))
+        print(f"{field} ({formats.format_name(slv.matrix)}, route {slv.route}, {apply}): "
+              f"first solve wall {wall:.3f} s; convert_format "
+              f"{lt['convert_format'] * 1e3:.1f} ms, generate_preconditioner "
+              f"{lt['generate_preconditioner'] * 1e3:.1f} ms, solve {lt['solve'] * 1e3:.3f} ms = "
+              f"{lt['solve'] / it * 1e6:.1f} us per iteration; on resident state "
+              f"{slv.time_device_solve() / it * 1e6:.2f} us per iteration")
+        records[field] = (x, perf, snapshot17(slv), torch.tensor(bk, device=device),
+                          stopping.StoppingParams.of(slv.cfg.stopping), gate)
+    # a steady step of wKH (diag x1.01, new b) at its adapted minIter and frequency
+    mk, bk = systems["knn hybrid"]
+    m2 = dataclasses.replace(mk, diag=np.asarray(mk.diag) * 1.01)
+    b2 = (bk * 1.01 + 0.1).astype(np.float32)
+    step_ctl = {**ctl, **SLICE17_SOLVES["wKH"][1]}
+    params = next_params("wKH", step_ctl)
+    before = dict(kernels.launches)
+    x2, perf2 = foam.solve("wKH", m2, b2, step_ctl)
+    torch.cuda.synchronize()
+    perf2.print()
+    slv = registry.global_registry.get("wKH_solver")
+    check_slice17_launches("wKH steady step", slv, perf2.n_iterations, before)
+    lt = slv.last_timings
+    print(f"wKH steady step: update {lt.get('update_device_values', 0.0) * 1e3:.3f} ms, "
+          f"generate_preconditioner {lt.get('generate_preconditioner', 0.0) * 1e3:.1f} ms, solve "
+          f"{lt.get('solve', 0.0) * 1e3:.3f} ms; adapted minIter {params.min_iter} frequency "
+          f"{params.frequency}")
+    records["wKH step"] = (x2, perf2, snapshot17(slv), torch.tensor(b2, device=device), params,
+                           "free")
+    launches = {k: kernels.launches[k] for k in SLICE17_KERNELS}
+    print(f"launch counts over the path: {dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"slice 17's path never launched {missing}")
+
+    # ---- checks of the path (launches not counted) --------------------------
+    for field, (x, perf, slv, bb, params, gate) in records.items():
+        mat = slv.matrix
+        n = mat.shape[0]
+        if not perf.converged:
+            raise RuntimeError(f"{field}: did not converge: {perf}")
+        if x.shape != (n,) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{field}: solution not finite of shape ({n},)")
+        mat64 = formats.cast_values(mat, torch.float64)
+        tr = true_residual_mv(lambda v, mat64=mat64: spmv.spmv(mat64, v), x, bb)
+        plain = slice17_route(slv, bb, params, plain=True)
+        line = (f"{field}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
+                f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
+                f"card: {plain.iters} iterations ({gate})")
+        if gate == "pinned":
+            pin = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0,
+                                          min_iter=PINNED_ITERS[0], max_iter=PINNED_ITERS[0],
+                                          frequency=1)
+            rk, rp = (float(slice17_route(slv, bb, pin, twins).final_res_norm)
+                      for twins in (False, True))
+            rel = abs(rk - rp) / rp
+            line += f"; pinned {PINNED_ITERS[0]}: residual {rk:.4e} vs {rp:.4e} (rel {rel:.1e})"
+            if rel > PINNED_RTOL:
+                raise RuntimeError(f"{field}: pinned, the kernels' residual {rk:.4e} differs "
+                                   f"from the plain twins' {rp:.4e}")
+        print(line)
+        if gate == "free" and abs(plain.iters - perf.n_iterations) > 1:
+            raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain.iters} over "
+                               "the plain twins")
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
+
+    # ---- the kernels against their twins ------------------------------------
+    print("slice 17's kernels vs their twins (vector tol "
+          f"{VEC_RTOL:.0e}*max(1,max|plain|); block Jacobi and combine bit-equal; Arnoldi at "
+          f"j = {GMRES_J} on orthonormal rows and w = V^T c + e: v and h/||w|| within "
+          f"{VEC_RTOL:.0e}*max|plain|, no floor):")
+    report: dict = {}
+    for dims in (grid, grid_big):
+        slice17_kernels(int(np.prod(dims)), "x".join(map(str, dims)), device, report)
+    return launches, report
+
+
 # one turn of `--turns`: phase 3's Dia kernels at 1M and 8.4M rows, then the
 # Gdia SpMV and K1 on the shuffled grid built on the device at both sizes,
 # then 200 checked iterations of the merged pipelined CG and of the merged
@@ -2855,10 +3212,14 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     t_ph = phase_done("phase 10", t_ph)
     launches_14, report_14 = gather_path(device, *knn_system, m, b, grid_main, grid_big, ctl)
     report.update(report_14)
-    phase_done("phase 11", t_ph)
+    t_ph = phase_done("phase 11", t_ph)
+    launches_17, report_17 = slice17_path(device, *knn_system, m, b, grid_main, grid_big, ctl)
+    report.update(report_17)
+    phase_done("phase 12", t_ph)
 
     rows = []
-    paths = (launches, launches_amg, launches_un, launches_4, launches_5, launches_14)
+    paths = (launches, launches_amg, launches_un, launches_4, launches_5, launches_14,
+             launches_17)
     labels = {None: "x".join(map(str, grid_main)), "big": "x".join(map(str, grid_big))}
     for name, (route, source, replaces, case, label) in KERNELS.items():
         r = report[case][labels.get(label, label)]

@@ -11,7 +11,8 @@ them (and `reorder rcm`), the delta-gated coefficient upload, and the
 merged two-kernel CG with the OpenFOAM stopping criterion, preconditioner
 `none`, scalar `BJ` or `Multigrid` (AMG, Dia only) — GKOMultigrid, the
 pipelined GKOCG (`pipelinedCG true`) and GKOBiCGStab on symmetric and
-asymmetric matrices (merged with `fusedBiCGStab true`); float32, one
+asymmetric matrices (merged with `fusedBiCGStab true`), GKOGMRES, blocked
+`BJ` and ISAI/GISAI (over the native host runtime, native/); float32, one
 device.  Controls outside those slices raise NotImplementedError (see
 ogl_tpu_torch.foam.solver).  The measurement path of the reference's
 bench: kernels/roofline.py (the read-peak kernel, chained timing over

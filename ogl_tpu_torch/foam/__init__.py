@@ -5,4 +5,5 @@ from ogl_tpu_torch.foam.solver import (
 )
 from ogl_tpu_torch.foam.api import GKOCG as GKOCG
 from ogl_tpu_torch.foam.api import GKOBiCGStab as GKOBiCGStab
+from ogl_tpu_torch.foam.api import GKOGMRES as GKOGMRES
 from ogl_tpu_torch.foam.api import GKOMultigrid as GKOMultigrid

@@ -1,7 +1,7 @@
 """Named solver classes — the reference's registered solver surface.
 
-Counterpart: ogl_tpu/foam/api.py.  GKOCG, GKOBiCGStab and GKOMultigrid
-are ported; GKOCG registers for symmetric matrices only (reference
+Counterpart: ogl_tpu/foam/api.py.  GKOCG, GKOBiCGStab, GKOGMRES and
+GKOMultigrid are ported; GKOCG registers for symmetric matrices only (reference
 GKOCG.C:16), GKOBiCGStab for both (the reference's sym and asym tables),
 checked on LduMatrix.symmetric.
 """
@@ -11,7 +11,7 @@ from __future__ import annotations
 from ogl_tpu_torch.core.ldu import LduMatrix
 from ogl_tpu_torch.foam.solver import FoamSolver
 
-__all__ = ["GKOCG", "GKOBiCGStab", "GKOMultigrid"]
+__all__ = ["GKOCG", "GKOBiCGStab", "GKOGMRES", "GKOMultigrid"]
 
 
 class _NamedSolver(FoamSolver):
@@ -43,6 +43,12 @@ class GKOBiCGStab(_NamedSolver):
     """BiCGStab (symmetric and asymmetric, reference Solver/BiCGStab/)."""
 
     SOLVER = "GKOBiCGStab"
+
+
+class GKOGMRES(_NamedSolver):
+    """Restarted GMRES (reference Solver/GMRES/)."""
+
+    SOLVER = "GKOGMRES"
 
 
 class GKOMultigrid(_NamedSolver):

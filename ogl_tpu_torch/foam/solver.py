@@ -12,9 +12,10 @@ Counterpart: ogl_tpu/foam/solver.py.
                  container's values → preconditioner regeneration gated on
                  a changed operator and the TTL → merged-kernel CG
 
-Slices implemented: GKOCG and GKOBiCGStab with preconditioner `none`,
-scalar `BJ` or `Multigrid` (AMG), and GKOMultigrid (Richardson around one
-AMG cycle); float32, one device.  Without an explicit matrixFormat the
+Slices implemented: GKOCG, GKOBiCGStab and GKOGMRES with preconditioner
+`none`, `BJ` (scalar, or blocked up to maxBlockSize 32), `ISAI`, `GISAI` or
+`Multigrid` (AMG), and GKOMultigrid (Richardson around one AMG cycle);
+float32, one device.  Without an explicit matrixFormat the
 matrix takes the reference's format ladder (kernels/spmv.py `pack_fast`):
 Dia, else Gdia, else Xell, else Ell (under 32,768 rows; above, the
 reference's error); an explicit matrixFormat (Coo, Csr, Ell, Sell, Dia,
@@ -22,32 +23,41 @@ Gdia, Hybrid, Xell) is honoured.  AMG runs on Dia only.  Every control
 outside the slices raises NotImplementedError naming its ROADMAP.md item;
 none is silently ignored.
 
-Routing follows the reference's `_make_solve_fn`:
-  GKOCG                merged two-kernel CG on Dia, Gdia and Xell
-                       (CgKernels, GdiaCgKernels, XellCgKernels; `none` or
-                       `BJ` on the card: one launch of the format's loop
-                       kernel); every other format, or `fusedCG false` →
-                       the general CG (solve/cg.py) over the format's SpMV
-                       kernel, which on Ell, Hybrid, Coo, Csr and Sell with
-                       `none` or `BJ` on the card is one launch of the CG
-                       loop kernel's variant of the format (EllCgKernels,
-                       CsrCgKernels — Coo too —, SellCgKernels; a Csr of 16
-                       or more entries per row on mean keeps the host loop)
-  GKOCG pipelinedCG    Dia with `none`/`BJ` → the merged pipelined CG
+Routing follows the reference's `_make_solve_fn`.  "Scalar BJ" below is
+`BJ` with maxBlockSize 1; a blocked BJ applies through the block-Jacobi
+kernel, ISAI/GISAI through the SpMV kernels of M (and Mᵀ), and both always
+take a host loop:
+  GKOCG                merged two-kernel CG on Dia, Gdia and Xell for
+                       `none`, scalar `BJ` or Multigrid (CgKernels,
+                       GdiaCgKernels, XellCgKernels; `none` or scalar `BJ`
+                       on the card: one launch of the format's loop kernel);
+                       every other format or preconditioner, or `fusedCG
+                       false` → the general CG (solve/cg.py) over the
+                       format's SpMV kernel, which on Ell, Hybrid, Coo, Csr
+                       and Sell with `none` or scalar `BJ` on the card is
+                       one launch of the CG loop kernel's variant of the
+                       format (EllCgKernels, CsrCgKernels — Coo too —,
+                       SellCgKernels; a Csr of 16 or more entries per row
+                       on mean keeps the host loop)
+  GKOCG pipelinedCG    Dia with `none`/scalar `BJ` → the merged pipelined CG
                        (KA + KB_pipe, solve/cg_pipe_fused.py; on the card
-                       one launch of its loop kernel); Gdia, Xell,
-                       Multigrid or `fusedCG false` → the general
+                       one launch of its loop kernel); Gdia, Xell, another
+                       preconditioner or `fusedCG false` → the general
                        pipelined CG (solve/cg_pipe.py); so do Coo, Csr,
                        Ell, Sell and Hybrid
   GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): with
-                       `none` or `BJ` one launch of its loop kernel on the
-                       card (on every format, bar a Csr of 16 or more
-                       entries per row on mean), else (Multigrid) the host
-                       loop over the format's SpMV kernel; `fusedBiCGStab
-                       true` with
-                       `none` on Dia → the merged BiCGStab (K1B, K1B,
-                       KB_update; solve/bicgstab_fused.py; on the card one
-                       launch of its loop kernel)
+                       `none` or scalar `BJ` one launch of its loop kernel
+                       on the card (on every format, bar a Csr of 16 or more
+                       entries per row on mean), else (blocked BJ, ISAI,
+                       GISAI, Multigrid) the host loop over the format's
+                       SpMV kernel; `fusedBiCGStab true` with `none` on Dia
+                       → the merged BiCGStab (K1B, K1B, KB_update;
+                       solve/bicgstab_fused.py; on the card one launch of
+                       its loop kernel)
+  GKOGMRES             restarted GMRES (solve/gmres.py): a host loop, each
+                       Arnoldi step the format's SpMV over M⁻¹ v, one launch
+                       of the Arnoldi kernel and one read of h; `krylovDim`,
+                       `basisPrecision bfloat16`
   GKOMultigrid         Richardson around one AMG cycle (solve/ir.py
                        `ir_fused` on the Dia plan)
 GKOCG + Multigrid (merged) and GKOMultigrid run their whole solve, V-cycle
@@ -75,6 +85,7 @@ from ogl_tpu_torch.config import SolverConfig, parse_controls
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.core.reorder import rcm_permutation
 from ogl_tpu_torch.kernels import spmv
+from ogl_tpu_torch.kernels.block_jacobi import MAX_BLOCK
 from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
 from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
@@ -89,6 +100,7 @@ from ogl_tpu_torch.solve.cg import why_not as cg_why_not
 from ogl_tpu_torch.solve.cg_fused import cg_fused
 from ogl_tpu_torch.solve.cg_pipe import cg_pipelined
 from ogl_tpu_torch.solve.cg_pipe_fused import cg_pipelined_fused
+from ogl_tpu_torch.solve.gmres import gmres
 from ogl_tpu_torch.solve.ir import ir_fused
 from ogl_tpu_torch.solve.krylov import single_device_ops
 
@@ -130,12 +142,13 @@ def unsupported(cfg: SolverConfig) -> str | None:
     """Why the port cannot run `cfg` yet (naming the ROADMAP.md item that
     ports it), or None when the slice covers it."""
     pc = cfg.precond
-    if cfg.solver not in ("GKOCG", "GKOBiCGStab", "GKOMultigrid"):
+    if cfg.solver not in ("GKOCG", "GKOBiCGStab", "GKOGMRES", "GKOMultigrid"):
         return f"solver {cfg.solver} (ROADMAP.md A9)"
     if pc.name not in precond.PORTED:
         return f"preconditioner {pc.name} (ROADMAP.md A10)"
-    if pc.name == "BJ" and pc.max_block_size != 1:
-        return f"BJ maxBlockSize {pc.max_block_size} (ROADMAP.md A10)"
+    if pc.name == "BJ" and pc.max_block_size > MAX_BLOCK:
+        return (f"BJ maxBlockSize {pc.max_block_size} (the block-Jacobi kernel takes at most "
+                f"{MAX_BLOCK}; ROADMAP.md A10)")
     if pc.name != "none" and pc.value_precision == "bfloat16":
         return "preconditioner precision bfloat16 (ROADMAP.md A10)"
     if (cfg.matrix_format_explicit and cfg.matrix_format != "Dia"
@@ -154,22 +167,32 @@ def _uses_amg(cfg: SolverConfig) -> bool:
     return cfg.precond.name == "Multigrid" or cfg.solver == "GKOMultigrid"
 
 
+def _diag_pc(cfg: SolverConfig) -> bool:
+    """`none` or scalar Jacobi: the preconditioners the merged kernels and
+    the loop kernels apply themselves (the reference's `diag_pc`)."""
+    pc = cfg.precond
+    return pc.name == "none" or (pc.name == "BJ" and pc.max_block_size == 1)
+
+
 def _route(cfg: SolverConfig, matrix) -> str:
     """The solve route of `cfg` on `matrix` (the reference's
     `_make_solve_fn`, foam/solver.py:624-748, without its TPU-only gates):
     "cg_fused", "cg", "cg_pipe_fused", "cg_pipe", "bicgstab_fused",
-    "bicgstab" or "ir".  Only Dia, Gdia and Xell take a merged route
-    (foam/solver.py:651-678 there)."""
-    diag_pc = cfg.precond.name in ("none", "BJ")
+    "bicgstab", "gmres" or "ir".  Only Dia, Gdia and Xell take a merged
+    route, and only with `none`, scalar `BJ` or Multigrid (foam/solver.py:
+    651-678 there: `diag_pc or amg_framed`)."""
+    diag_pc = _diag_pc(cfg)
     dia = isinstance(matrix, formats.Dia)
     if cfg.solver == "GKOMultigrid":
         return "ir"
+    if cfg.solver == "GKOGMRES":
+        return "gmres"
     if cfg.solver == "GKOBiCGStab":
         fused = cfg.fused_bicgstab and cfg.precond.name == "none" and dia
         return "bicgstab_fused" if fused else "bicgstab"
     if cfg.pipelined_cg:
         return "cg_pipe_fused" if cfg.fused_cg and diag_pc and dia else "cg_pipe"
-    merged = isinstance(matrix, _MERGED_FORMATS)
+    merged = isinstance(matrix, _MERGED_FORMATS) and (diag_pc or cfg.precond.name == "Multigrid")
     return "cg_fused" if cfg.fused_cg and merged else "cg"
 
 
@@ -340,7 +363,8 @@ class FoamSolver:
             why_not = {"bicgstab": bicgstab_why_not, "cg": cg_why_not}.get(self.route)
             if self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir"):
                 self.kern = self._kernel_plan()
-            elif why_not is not None and why_not(self.matrix, cfg.precond.name) is None:
+            elif why_not is not None and why_not(self.matrix, cfg.precond.name,
+                                                 cfg.precond.max_block_size) is None:
                 # the general loops' plan: a gather format's own, else the merged one
                 plan = _GATHER_PLANS.get(type(self.matrix))
                 self.kern = (plan.for_matrix(self.matrix) if plan is not None
@@ -471,10 +495,16 @@ class FoamSolver:
         """The solve of this solver's route over its resident matrix,
         preconditioner, b and x0, as a closure: no upload, no host set-up."""
         route, mat, kern = self.route, self.matrix, self.kern
-        invd = self._precond_op.state if self.cfg.precond.name == "BJ" else None
+        # invd only for scalar Jacobi: a blocked BJ's state is its inverses
+        scalar_bj = self.cfg.precond.name == "BJ" and _diag_pc(self.cfg)
+        invd = self._precond_op.state if scalar_bj else None
         general = {"cg": cg, "cg_pipe": cg_pipelined, "bicgstab": bicgstab}
+        basis = torch.bfloat16 if self.cfg.basis_precision == "bfloat16" else None
 
         def run():
+            if route == "gmres":
+                ops = single_device_ops(spmv.matvec(mat), n, precond=apply_pc)
+                return gmres(ops, b_dev, x0, params, self.cfg.krylov_dim, basis)
             if route in general:
                 ops = single_device_ops(spmv.matvec(mat), n, precond=apply_pc)
                 if kern is not None:  # "bicgstab" or "cg" with its loop kernel's plan

@@ -20,7 +20,8 @@ launches: dict[str, int] = {"dia_spmv": 0, "cg_k1": 0, "cg_k2": 0, "cg_k2i": 0,
                             "sell_spmv": 0, "hybrid_spmv": 0, "ell_cg_loop": 0,
                             "ell_bicgstab_gen_loop": 0, "csr_cg_loop": 0,
                             "csr_bicgstab_gen_loop": 0, "sell_cg_loop": 0,
-                            "sell_bicgstab_gen_loop": 0}
+                            "sell_bicgstab_gen_loop": 0, "block_jacobi": 0,
+                            "gmres_arnoldi": 0, "gmres_combine": 0}
 
 
 def reset_launches() -> None:

@@ -158,6 +158,14 @@ _SIGNATURES = {
     "ogl_bicgstab_gen_loop_sell": (_INT, _P, _INT, _P, _P, _P, _P, _P, _I64, _INT, _P, _P, _P,
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32,
                                    _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # inv_t, r, y, n, bs, blocks, stream
+    "ogl_block_jacobi": (_P, _P, _P, _I64, _INT, _I64, _P),
+    # bf16, threads, blocks (out)
+    "ogl_gmres_arnoldi_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # bf16, V, ld, w, vnext, h, partials, n, j, tiny, blocks, stream
+    "ogl_gmres_arnoldi": (_INT, _P, _I64, _P, _P, _P, _P, _I64, _INT, _F32, _I64, _P),
+    # bf16, V, ld, y, j, out, n, blocks, stream
+    "ogl_gmres_combine": (_INT, _P, _I64, _P, _INT, _P, _I64, _I64, _P),
     # row_ptr, cols, vals, x, y, n, group, blocks, stream
     "ogl_csr_spmv": (_P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # cols, vals, warp_slots, tail_ptr (NULL = no tail), tail_cols, tail_vals, x, y, n,

@@ -1,9 +1,11 @@
 """Preconditioners of the port.
 
-Counterpart: ogl_tpu/precond/__init__.py.  The slice covers `none`, scalar
-`BJ` (maxBlockSize 1) and `Multigrid` (precond/amg.py); `build` raises
-NotImplementedError for every other name, naming the ROADMAP.md item that
-ports it.
+Counterpart: ogl_tpu/precond/__init__.py.  The port covers `none`, `BJ`
+(scalar, and blocked up to maxBlockSize 32: precond/jacobi.py), `ISAI` and
+`GISAI` (precond/isai.py) and `Multigrid` (precond/amg.py); `build` raises
+NotImplementedError for every other name (ILU, ILUT, IRILU, IC, ICT) and
+for `precision bfloat16`, naming the ROADMAP.md item that ports it.
+`skipSorting false` sorts the COO row-major first, as the reference does.
 """
 
 from __future__ import annotations
@@ -15,10 +17,10 @@ import torch
 from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.core.formats import Coo
 
-__all__ = ["PrecondOp", "build", "amg_of", "block_jacobi", "VALID", "PORTED"]
+__all__ = ["PrecondOp", "build", "amg_of", "block_jacobi", "isai", "VALID", "PORTED"]
 
 VALID = ("none", "BJ", "ILU", "ILUT", "IRILU", "IC", "ICT", "ISAI", "GISAI", "Multigrid")
-PORTED = ("none", "BJ", "Multigrid")
+PORTED = ("none", "BJ", "ISAI", "GISAI", "Multigrid")
 
 
 class PrecondOp:
@@ -38,6 +40,7 @@ class PrecondOp:
 
 
 from ogl_tpu_torch.precond import amg  # noqa: E402  (the module)
+from ogl_tpu_torch.precond.isai import isai  # noqa: E402
 from ogl_tpu_torch.precond.jacobi import block_jacobi  # noqa: E402
 
 
@@ -55,8 +58,18 @@ def build(cfg: PrecondConfig, coo: Coo, device, verbose: int = 0) -> PrecondOp:
               "(zeroGuess log-only, as in the reference)")
     if cfg.name == "none":
         return PrecondOp(lambda s, r: r, ())
+    if not cfg.skip_sorting:
+        import numpy as np
+
+        rows, cols, vals = (np.asarray(a) for a in (coo.rows, coo.cols, coo.vals))
+        order = np.lexsort((cols, rows))
+        coo = Coo(rows=rows[order], cols=cols[order], vals=vals[order], shape=coo.shape)
     if cfg.name == "BJ":
         return block_jacobi(coo, cfg.max_block_size, device)
+    if cfg.name == "ISAI":  # spd variant (Preconditioner.H:226-240)
+        return isai(coo, device, sparsity_power=cfg.sparsity_power, spd=True)
+    if cfg.name == "GISAI":  # general variant (:241-259)
+        return isai(coo, device, sparsity_power=cfg.sparsity_power, spd=False)
     if cfg.name == "Multigrid":
         return amg_of(cfg, coo, device)
     if cfg.name in VALID:

@@ -41,22 +41,23 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, bicgstab_gen_
 from ogl_tpu_torch.kernels.gdia import Gdia
 from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels
 from ogl_tpu_torch.solve import stopping
-from ogl_tpu_torch.solve.cg import LOOP_PLANS, SolveResult
+from ogl_tpu_torch.solve.cg import LOOP_PLANS, SolveResult, precond_why_not
 from ogl_tpu_torch.solve.cg import why_not as cg_why_not
 from ogl_tpu_torch.solve.krylov import Ops
 
 __all__ = ["bicgstab", "why_not"]
 
 
-def why_not(mat, precond_name: str) -> str | None:
+def why_not(mat, precond_name: str, max_block_size: int = 1) -> str | None:
     """Why the general BiCGStab keeps the host loop on the matrix `mat` with
-    the preconditioner named `precond_name`, or None when the loop kernel
-    takes the solve (the caller then passes the format's plan): as the
-    general CG's on the gather formats (solve/cg.py why_not), and Dia, Gdia
-    and Xell too."""
+    the preconditioner named `precond_name` (BJ: of `max_block_size`), or
+    None when the loop kernel takes the solve (the caller then passes the
+    format's plan): as the general CG's on the gather formats (solve/cg.py
+    why_not), and Dia, Gdia and Xell too.  A blocked BJ, ISAI, GISAI or
+    Multigrid keeps the host loop."""
     if isinstance(mat, (Dia, Gdia, Xell)):
-        return None if precond_name in ("none", "BJ") else f"preconditioner {precond_name}"
-    return cg_why_not(mat, precond_name)
+        return precond_why_not(precond_name, max_block_size)
+    return cg_why_not(mat, precond_name, max_block_size)
 
 
 def _safe_div(num, den):

@@ -9,7 +9,8 @@ against.  Its SpMV is whatever `ops.matvec` is — the Dia SpMV kernel on
 the foam path.
 
 Where the matrix is Ell, Hybrid, Csr (or a device Coo) or Sell and the
-preconditioner `none` or scalar `BJ` (`why_not` None), the solver passes
+preconditioner `none` or scalar `BJ` (`why_not` None; a blocked BJ, ISAI,
+GISAI or Multigrid keeps the host loop, ops.precond), the solver passes
 the format's plan: with the plan itself (kernels/ell.py `EllCgKernels`,
 kernels/gather_loop.py `CsrCgKernels`, `SellCgKernels`, not a subclass) on
 CUDA tensors, the set-up below runs as ever and the whole loop, criterion
@@ -34,7 +35,7 @@ from ogl_tpu_torch.kernels.gather_spmv import CSR_GROUP_FROM, csr_group
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.krylov import Ops
 
-__all__ = ["cg", "SolveResult", "why_not", "LOOP_PLANS"]
+__all__ = ["cg", "SolveResult", "why_not", "precond_why_not", "LOOP_PLANS"]
 
 # the plans of the gather formats' loop kernels, by the matrix's exact type
 # (a DeviceCoo is a Csr by its storage)
@@ -49,18 +50,31 @@ class SolveResult(NamedTuple):
     converged: Any  # 0-d bool tensor: tolerance criteria met
 
 
-def why_not(mat, precond_name: str) -> str | None:
-    """Why the general CG keeps the host loop on the matrix `mat` with the
-    preconditioner named `precond_name`, or None when the loop kernel takes
-    the solve (the caller then passes the format's plan).  The gather
-    formats (Ell, Hybrid, Csr, a device Coo, Sell) have loop kernels; a Csr
-    whose SpMV takes more than one lane per row keeps the host loop, since
-    the loop phases walk one lane per row.  Dia, Gdia and Xell take the
-    merged route (solve/cg_fused.py) instead."""
-    if not isinstance(mat, (Ell, Hybrid, Csr, Sell)):
-        return f"the {format_name(mat)} format (no loop kernel on this route)"
+def precond_why_not(precond_name: str, max_block_size: int = 1) -> str | None:
+    """Why a loop kernel cannot take the preconditioner, or None: the loops'
+    phases apply identity or scalar Jacobi (invd ⊙ r) only, so a blocked BJ
+    (its block-Jacobi kernel), ISAI and GISAI (SpMVs of M) and Multigrid keep
+    the host loop."""
     if precond_name not in ("none", "BJ"):
         return f"preconditioner {precond_name}"
+    if precond_name == "BJ" and max_block_size != 1:
+        return f"BJ maxBlockSize {max_block_size} > 1 (the loops' Jacobi phase is scalar)"
+    return None
+
+
+def why_not(mat, precond_name: str, max_block_size: int = 1) -> str | None:
+    """Why the general CG keeps the host loop on the matrix `mat` with the
+    preconditioner named `precond_name` (BJ: of `max_block_size`), or None
+    when the loop kernel takes the solve (the caller then passes the
+    format's plan).  The gather formats (Ell, Hybrid, Csr, a device Coo,
+    Sell) have loop kernels; a Csr whose SpMV takes more than one lane per
+    row keeps the host loop, since the loop phases walk one lane per row.
+    Dia, Gdia and Xell take the merged route (solve/cg_fused.py) instead."""
+    if not isinstance(mat, (Ell, Hybrid, Csr, Sell)):
+        return f"the {format_name(mat)} format (no loop kernel on this route)"
+    pc = precond_why_not(precond_name, max_block_size)
+    if pc is not None:
+        return pc
     if isinstance(mat, Csr) and csr_group(mat.shape[0], mat.nnz) > 1:
         return (f"the {format_name(mat)} format at {mat.nnz / mat.shape[0]:.1f} entries per "
                 f"row on mean: from {CSR_GROUP_FROM} its SpMV takes "

@@ -41,6 +41,9 @@ class Ops:
     def norm1(self, a):
         return self.sum(torch.abs(a))
 
+    def norm2(self, a):
+        return torch.sqrt(self.sum(a * a))
+
     def mean(self, a):
         return self.sum(a) / self.global_size
 

@@ -89,10 +89,10 @@ def test_testing_problems_match_reference(dims):
 
 
 UNSUPPORTED = [
-    ({"solver": "GKOGMRES"}, "A9"),
+    ({"solver": "GKOIR"}, "A9"),
     ({"preconditioner": "ILU"}, "A10"),
     ({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}}, "A10"),
-    ({"preconditioner": {"preconditioner": "BJ", "maxBlockSize": 4}}, "A10"),
+    ({"preconditioner": {"preconditioner": "ISAI", "precision": "bfloat16"}}, "A10"),
     ({"matrixFormat": "Csr", "preconditioner": "Multigrid"}, "A11"),
     ({"matrixFormat": "Ell", "solver": "GKOMultigrid"}, "A11"),
     ({"dtype": "float64"}, "A14"),

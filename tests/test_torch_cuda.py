@@ -2432,3 +2432,151 @@ def test_foam_solve_on_coo_csr_and_sell_is_one_loop_launch(dev, fmt, solver):
                               precond=None if invd is None else (lambda r: invd * r)),
             bb, torch.zeros_like(bb), stopping.StoppingParams.of(slv.cfg.stopping))
         assert perf.converged and abs(perf.n_iterations - twin.iters) <= 1
+
+
+# ---- slice 17: blocked Jacobi, ISAI/GISAI and GKOGMRES ------------------------
+
+
+@pytest.mark.parametrize("n", [1000, 70001])
+@pytest.mark.parametrize("bs", [2, 3, 4, 5, 8, 16, 32])
+def test_block_jacobi_kernel_bit_equal_to_twin(dev, bs, n):
+    from ogl_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_plain
+
+    nb = -(-n // bs)
+    g = torch.Generator(device="cpu").manual_seed(bs)
+    inv_t = torch.randn((nb, bs, bs), generator=g).to(dev)
+    r = _vec(n, bs + 1, dev)
+    kernels.reset_launches()
+    y = block_jacobi(inv_t, r)
+    torch.cuda.synchronize()
+    assert kernels.launches["block_jacobi"] == 1
+    assert torch.equal(y, block_jacobi_plain(inv_t, r))
+
+
+def _gmres_basis(j, n, dtype, dev, seed):
+    from ogl_tpu_torch.kernels.gmres import new_basis
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn((n, j + 1), generator=g, dtype=torch.float64))
+    V = new_basis(j + 1, n, dtype, dev)
+    V[:j + 1, :n] = q.T.to(torch.float32).to(dev).to(dtype)
+    w = (q @ torch.randn(j + 1, generator=g, dtype=torch.float64)
+         + torch.randn(n, generator=g, dtype=torch.float64)).float().to(dev)
+    return V, w
+
+
+@pytest.mark.parametrize("n", [4097, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("j", [0, 7, 8, 50])
+def test_gmres_arnoldi_kernel_matches_twin(dev, j, dtype, n):
+    """h within 1e-4 of ‖w‖, v_{j+1} within 1e-5 in float32 and the stored
+    bfloat16 row within one bfloat16 ulp: the dots are summed per CUDA block,
+    then in block order."""
+    from ogl_tpu_torch.kernels.gmres import gmres_arnoldi, gmres_arnoldi_plain
+
+    V, w = _gmres_basis(j, n, dtype, dev, seed=j)
+    V2 = V.clone()
+    h, h2 = torch.zeros(j + 2, device=dev), torch.zeros(j + 2, device=dev)
+    want = gmres_arnoldi_plain(V2, w.clone(), j, h2)
+    kernels.reset_launches()
+    got = gmres_arnoldi(V, w.clone(), j, h)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmres_arnoldi"] == 1
+    scale = float(torch.linalg.vector_norm(w))
+    torch.testing.assert_close(h, h2, rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    row, row2 = V[j + 1, :n].float(), V2[j + 1, :n].float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(row, row2, rtol=0, atol=1e-5)
+    else:
+        assert bool(((row - row2).abs() <= 2.0 ** -7 * row2.abs() + 1e-30).all())
+    assert torch.equal(V[:j + 1], V2[:j + 1])  # the live rows are read only
+
+
+@pytest.mark.parametrize("n", [4097, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("j", [1, 7, 8, 50])
+def test_gmres_combine_kernel_bit_equal_to_twin(dev, j, dtype, n):
+    from ogl_tpu_torch.kernels.gmres import gmres_combine, gmres_combine_plain
+
+    V, _ = _gmres_basis(j, n, dtype, dev, seed=j + 100)
+    y = _vec(j, j, dev)
+    kernels.reset_launches()
+    got = gmres_combine(V, y, j, n)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmres_combine"] == 1
+    assert torch.equal(got, gmres_combine_plain(V, y, j, n))
+
+
+def test_gmres_kernels_refuse_bad_operands(dev):
+    from ogl_tpu_torch.kernels.gmres import gmres_arnoldi, gmres_combine, new_basis
+
+    V = new_basis(4, 100, torch.float32, dev)
+    with pytest.raises(ValueError, match="rows"):
+        gmres_arnoldi(V, torch.zeros(100, device=dev), 7, torch.zeros(9, device=dev))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gmres_combine(V[:, :98], torch.zeros(2, device=dev), 2, 98)
+    with pytest.raises(ValueError, match="y must be .* on cuda"):  # a CPU y, a card V
+        gmres_combine(V, torch.zeros(2), 2, 100)
+
+
+def _true_residual64(m, b, x):
+    import scipy.sparse as sp
+
+    c = ldu.ldu_to_coo_host(m, dtype=np.float64)
+    a = sp.csr_matrix((c.vals, (c.rows, c.cols)), shape=c.shape)
+    return np.abs(b - a @ x.cpu().numpy().astype(np.float64)).sum() / np.abs(b).sum()
+
+
+@pytest.mark.parametrize("basis", ["default", "bfloat16"])
+@pytest.mark.parametrize("pc,fmt", [("GISAI", "Ell"), ("ISAI", "Dia"),
+                                    ({"preconditioner": "BJ", "maxBlockSize": 4}, "Csr")],
+                         ids=str)
+def test_gkogmres_solve_on_the_card(dev, pc, fmt, basis, monkeypatch):
+    """One Arnoldi launch per Arnoldi step, the combine kernel at the fired
+    checks, no torch GEMV on the path; iterations ±1 of the same solve on
+    the CPU over the twins (the bfloat16 basis: its true residual)."""
+    m = testing.poisson_ldu((32, 32, 16)) if fmt == "Dia" else testing.knn_ldu(20000)[0]
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": "GKOGMRES", "tolerance": 1e-6, "relTol": 0, "matrixFormat": fmt,
+           "preconditioner": pc, "basisPrecision": basis, "adaptMinIter": False}
+
+    def refuse(*a, **kw):
+        raise AssertionError("a torch GEMV ran on the GMRES path")
+
+    kernels.reset_launches()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "mv", refuse)
+        mp.setattr(torch, "addmv", refuse)
+        x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
+        torch.cuda.synchronize()
+    assert kernels.launches["gmres_arnoldi"] == perf.n_iterations
+    assert kernels.launches["gmres_combine"] >= 1
+    if isinstance(pc, dict):  # M⁻¹ once per Arnoldi step and once per recombination
+        assert kernels.launches["block_jacobi"] == (perf.n_iterations
+                                                    + kernels.launches["gmres_combine"])
+    registry.global_registry.clear()
+    _, perf_cpu = foam.solve("p", m, b, {**ctl, "executor": "cpu"})
+    assert perf.converged and perf_cpu.converged
+    assert _true_residual64(m, b, x) < 10 * 1e-6
+    if basis == "default":
+        assert abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+
+
+@pytest.mark.parametrize("fmt", ["Dia", "Csr"])
+def test_blocked_bj_bicgstab_on_the_card(dev, fmt):
+    """GKOBiCGStab + BJ maxBlockSize 4: the host loop, two block-Jacobi
+    launches per iteration, no loop kernel; ±1 of the CPU solve."""
+    m = testing.convection_diffusion_ldu((32, 32, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": "GKOBiCGStab", "tolerance": 1e-6, "relTol": 0, "matrixFormat": fmt,
+           "preconditioner": {"preconditioner": "BJ", "maxBlockSize": 4},
+           "adaptMinIter": False}
+    kernels.reset_launches()
+    x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
+    torch.cuda.synchronize()
+    assert kernels.launches["block_jacobi"] == 2 * perf.n_iterations
+    assert not any(v for k, v in kernels.launches.items() if k.endswith("loop"))
+    registry.global_registry.clear()
+    _, perf_cpu = foam.solve("p", m, b, {**ctl, "executor": "cpu"})
+    assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
