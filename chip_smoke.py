@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT . . PARENT   (phase 3's kernels in turns)
     python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the gather formats' part alone)
+    python3 chip_smoke.py --turns-gmres PARENT . . PARENT   (the GMRES basis kernels and solves)
 
 Drives the port's seven main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
@@ -198,7 +199,11 @@ their kernel lines: an earlier commit unpacked with `git archive` against
 this one on the same card; `--turns-gather` runs only its gather part
 (GKOCG and GKOBiCGStab `none` and `BJ` on the kNN-6 mesh as Ell, Hybrid,
 Csr and Sell on resident state, the four SpMVs at kNN 1M and 8.4M beside
-torch's CSR SpMV).
+torch's CSR SpMV); `--turns-gmres` runs the Arnoldi step at j = 0, 12,
+49 and 99 in float32 and bfloat16 at 262,144 and 1,048,576 rows and at
+j = 99 at 8,388,608, the combine at j = 100 beside torch.mv at 1M in five
+rounds, and wK (GKOGMRES + GISAI on the kNN-6 mesh), wP and wPbf (+ ISAI
+on the Poisson grid) on resident state.
 """
 
 from __future__ import annotations
@@ -2767,13 +2772,16 @@ def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
                        ("gmres_arnoldi_kernelILb1E", "gmres_arnoldi bfloat16"),
                        ("gmres_combine_kernelILb0E", "gmres_combine float32"),
                        ("gmres_combine_kernelILb1E", "gmres_combine bfloat16")):
-        grid_note = ""
+        print(f"{what}: ptxas: " + "; ".join(loop_ptxas(info["log"], None, kern)))
         if "arnoldi" in what:
-            blocks = gmres_kernels.arnoldi_blocks("bfloat16" in what, device)
-            grid_note = (f" grid {blocks} co-resident blocks of "
-                         f"{gmres_kernels.ARNOLDI_THREADS} threads ({blocks // sms} per SM, at "
-                         f"most {gmres_kernels.ARNOLDI_BLOCKS_PER_SM});")
-        print(f"{what}:{grid_note} ptxas: " + "; ".join(loop_ptxas(info["log"], None, kern)))
+            for dims in ((HYBRID_CELLS,), grid, grid_big):
+                nn = int(np.prod(dims))
+                p = gmres_kernels.launch_plan(nn, "bfloat16" in what, device)
+                print(f"  plan at {nn} rows: {p.ctas} CTAs of {gmres_kernels.ARNOLDI_THREADS} "
+                      f"threads on {sms} SMs, slices of {p.slice} rows ({p.chunks} steps of "
+                      f"{p.chunk}), {p.resident} of 8 rows held per block, w held "
+                      f"{p.w_resident}, {p.stages} stages, L2 hint {p.hint}, {p.smem} bytes "
+                      "of shared memory")
     ctl = {**ctl, "verbose": 0}
     t0 = time.perf_counter()
     systems = {"poisson": (m_grid, b_grid), "knn": (m_knn, b_knn),
@@ -2992,15 +3000,64 @@ TURN_CODE = TURN_HEAD + (
     "{sec * 1e3:.3f} ms on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.2f} us "
     "per iteration')\n") + TURN_GATHER
 TURN_GATHER_CODE = TURN_HEAD + TURN_KNN + TURN_GATHER  # one turn of `--turns-gather`
+# one turn of `--turns-gmres`: the Arnoldi step on orthonormal rows and
+# w = Vᵀc + e (arnoldi_inputs), per launch in a chain of 50 after 5 warm
+# ones (the device's time: the host enqueues faster than the kernel runs)
+# and around each call (time_turns); the combine at j = 100 beside torch.mv
+# at 1M in five rounds; wK, wP and wPbf on resident state
+# (time_device_solve, itself the best of three solves, three times: the
+# host loop's spread)
+TURN_GMRES_CODE = TURN_HEAD + (
+    "g = torch.Generator(device=d).manual_seed(18)\n"
+    "def chained(fn, reps=50):\n"
+    "    for _ in range(5): fn()\n"
+    "    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)\n"
+    "    a.record()\n"
+    "    for _ in range(reps): fn()\n"
+    "    b.record(); b.synchronize()\n"
+    "    return a.elapsed_time(b) / reps\n"
+    "for n, js in ((1 << 18, (0, 12, 49, 99)), (1 << 20, (0, 12, 49, 99)), (1 << 23, (99,))):\n"
+    "    for dt in (torch.float32, torch.bfloat16):\n"
+    "        V, w = s.arnoldi_inputs(max(js), n, dt, d, g)\n"
+    "        h = torch.zeros(max(js) + 2, device=d)\n"
+    "        for j in js:\n"
+    "            wk = w.clone()\n"
+    "            fn = lambda: s.gmres_arnoldi(V, wk, j, h)\n"
+    "            ch = chained(fn)\n"
+    "            ev = s.time_turns({0: fn}, reps=50)[0]\n"
+    "            print(f'  arnoldi_step {n} rows {str(dt)[6:]} j {j}: {ch:.4f} ms per launch "
+    "chained, {ev:.4f} ms around each call')\n"
+    "        if n == 1 << 20 and dt == torch.float32:\n"
+    "            y = torch.randn(100, device=d, generator=g)\n"
+    "            vt = V[:100, :n].t()\n"
+    "            for rnd in range(5):\n"
+    "                t = s.time_turns({'k': lambda: s.gmres_combine(V, y, 100, n), "
+    "'mv': lambda: torch.mv(vt, y)})\n"
+    "                print(f'  combine_turn {rnd} {n} rows float32 j 100: gmres_combine "
+    "{t[\"k\"]:.4f} ms, torch.mv {t[\"mv\"]:.4f} ms')\n"
+    "        del V, w, wk, h\n"
+    "        torch.cuda.empty_cache()\n"
+    "m = s.testing.poisson_ldu(s.GRID_1M)\n"
+    "rhs = np.random.default_rng(0).normal(size=m.n).astype(np.float32)\n") + TURN_KNN + (
+    "for f, mm, bb in (('wK', mk, bk), ('wP', m, rhs), ('wPbf', m, rhs)):\n"
+    "    _, spec, _ = s.SLICE17_SOLVES[f]\n"
+    "    _, perf = s.foam.solve(f, mm, bb, {'executor': 'cuda', 'tolerance': s.TOL, "
+    "'relTol': 0, **spec})\n"
+    "    slv = s.registry.global_registry.get(f + '_solver')\n"
+    "    us = sorted(slv.time_device_solve() / perf.n_iterations * 1e6 for _ in range(3))\n"
+    "    print(f'  gmres_solve {f} {mm.n} cells: {perf.n_iterations} iterations; on resident state "
+    "(three times the best of 3) {us[0]:.2f}, {us[1]:.2f}, {us[2]:.2f} us per iteration')\n")
 
 TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
               "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_",
-              "gather_solve", "ell_spmv", "hybrid_spmv", "csr_spmv", "sell_spmv", "torch CSR")
+              "gather_solve", "ell_spmv", "hybrid_spmv", "csr_spmv", "sell_spmv", "torch CSR",
+              "arnoldi_step", "combine_turn", "gmres_solve")
 
 
 def turns(trees, code=TURN_CODE) -> int:
     """Phase 3's kernel checks and the rest of `code` (TURN_CODE, or
-    TURN_GATHER_CODE for `--turns-gather`) from each checkout of `trees` in
+    TURN_GATHER_CODE for `--turns-gather`, TURN_GMRES_CODE for
+    `--turns-gmres`) from each checkout of `trees` in
     order, one process each, run from that checkout (so with its own
     kernels): give an earlier commit unpacked with `git archive` and this
     one, as `--turns PARENT . . PARENT`, to time both on one card in turns.
@@ -3031,6 +3088,8 @@ def main() -> int:
         return turns(sys.argv[2:])
     if sys.argv[1:2] == ["--turns-gather"]:
         return turns(sys.argv[2:], TURN_GATHER_CODE)
+    if sys.argv[1:2] == ["--turns-gmres"]:
+        return turns(sys.argv[2:], TURN_GMRES_CODE)
     return run(torch.device("cuda"), GRID_1M, GRID_8M, KNN_1M)
 
 
@@ -3049,6 +3108,11 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     print("== phase 2: build")
     info = _build.build_info()
     print(f"built={info['built']} in {info['seconds']:.2f} s -> {info['path']}")
+    nvcc_s = sorted(((float(sec), name) for name, sec in (
+        line.split()[2:4] for line in info["log"].splitlines()
+        if line.startswith("nvcc seconds: "))), reverse=True)
+    print("nvcc wall seconds per source (all started together), slowest first: "
+          + ", ".join(f"{name} {sec:.1f}" for sec, name in nvcc_s))
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())

@@ -30,6 +30,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["library", "check", "build_info"]
@@ -160,10 +161,12 @@ _SIGNATURES = {
                                    _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
     # inv_t, r, y, n, bs, blocks, stream
     "ogl_block_jacobi": (_P, _P, _P, _I64, _INT, _I64, _P),
-    # bf16, threads, blocks (out)
-    "ogl_gmres_arnoldi_grid": (_INT, _INT, ctypes.POINTER(_I64)),
-    # bf16, V, ld, w, vnext, h, partials, n, j, tiny, blocks, stream
-    "ogl_gmres_arnoldi": (_INT, _P, _I64, _P, _P, _P, _P, _I64, _INT, _F32, _I64, _P),
+    # bf16, threads, smem, blocks (out)
+    "ogl_gmres_arnoldi_grid": (_INT, _INT, _I64, ctypes.POINTER(_I64)),
+    # bf16, V, ld, w, vnext, h, partials, n, j, tiny, slice, resident, stages, w_resident,
+    # hint, blocks, smem, stream
+    "ogl_gmres_arnoldi": (_INT, _P, _I64, _P, _P, _P, _P, _I64, _INT, _F32, _I64, _INT, _INT,
+                          _INT, _INT, _I64, _I64, _P),
     # bf16, V, ld, y, j, out, n, blocks, stream
     "ogl_gmres_combine": (_INT, _P, _I64, _P, _INT, _P, _I64, _I64, _P),
     # row_ptr, cols, vals, x, y, n, group, blocks, stream
@@ -212,24 +215,27 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _start(cmd: list) -> tuple:
-    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True)
+def _start(cmd: list, name: str) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True), time.perf_counter(), name
 
 
 def _wait(procs: list) -> str:
-    """Wait for every (cmd, Popen) of _start; raise on the first that
-    failed (after stopping the rest); returns their joined output."""
+    """Wait for every (cmd, Popen, start, name) of _start, each in a thread
+    of its own; raise on the first that failed; returns their joined output,
+    each followed by a line `nvcc seconds: <name> <s>` (its wall time)."""
+    def finish(item):
+        _, proc, t0, _ = item
+        return proc.communicate(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+        done = list(pool.map(finish, procs))
     log = []
-    for cmd, proc in procs:
-        stdout, stderr = proc.communicate()
+    for (cmd, proc, _, name), ((stdout, stderr), sec) in zip(procs, done):
         if proc.returncode != 0:
-            for _, other in procs:
-                other.kill()
-                other.wait()
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                                f"{stdout}\n{stderr}")
-        log.append(stdout + stderr)
+        log.append(f"{stdout}{stderr}nvcc seconds: {name} {sec:.1f}\n")
     return "".join(log)
 
 
@@ -241,12 +247,12 @@ def _build(out: Path) -> str:
     nvcc = _nvcc()
     cu = [s for s in _sources() if s.suffix == ".cu"]
     objs = [str(out.parent / f"{s.stem}.o") for s in cu]
-    log = _wait([_start([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)])
+    log = _wait([_start([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)], s.name)
                  for s, o in zip(cu, objs)])
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        log += _wait([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs])])
+        log += _wait([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs], "link")])
     except RuntimeError:
         os.unlink(tmp)
         raise

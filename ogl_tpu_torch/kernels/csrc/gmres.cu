@@ -27,23 +27,11 @@
 // about 0.41 GB in float32 (122 us at 3.35 TB/s), 0.21 GB in bfloat16.  The
 // combine reads j rows and writes one vector.
 //
-// Design (Arnoldi).  Each thread owns a fixed set of row quads of the n
-// entries (grid-stride over the co-resident grid), so each quad of w is only
-// ever touched by one thread and w needs no barrier of its own.  Pass p
-// streams the quads once: it subtracts block p-1's projection h_b V_b from
-// w (rows read again: a block of 8 rows is 32 MB in float32 at 1M, 16 MB in
-// bfloat16, against the 50 MB L2; odd passes walk the quads backwards, so a
-// pass starts on the lines the previous one loaded last), stores w, and
-// forms the 8 partial dots of block p against the updated w; one float32
-// partial per CUDA block and row, then a grid barrier, then every block sums
-// all partials in block order (loop.cuh block_totals), so every block holds the
-// same bits of h.  The pass after the last block subtracts it and forms
-// ||w||^2 the same way; a last pass writes V[j+1].  So j + 1 live rows cost
-// ceil((j + 1) / 8) + 1 barriers, and the dots and the subtraction share
-// one stream of the basis per block.  The partials are double-buffered by
-// pass parity: a block that runs ahead writes the other half.  Holding a
-// block's rows in registers across the barrier instead does not fit: 8 rows
-// of 1M floats are the whole register file of the card.
+// Design (Arnoldi): one cooperative launch of one CTA per SM over the body
+// in gmres_arnoldi.cuh (a slice of the rows per SM, the basis rows by bulk
+// copies, a block's rows held in shared memory across the grid barrier
+// where they fit, w's slice held for the whole step where it fits), with the
+// plan of ogl_tpu_torch/kernels/gmres.py `arnoldi_plan`.
 //
 // Design (combine).  One thread per row quad, grid-stride; for each k in
 // order acc = acc + y_k * V_k, every product and sum rounded, as the twin
@@ -53,7 +41,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block_sum.cuh"
+#include "gmres_arnoldi.cuh"
 #include "loop.cuh"
 
 namespace cg = cooperative_groups;
@@ -61,7 +49,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 8;  // basis rows per block of the blocked MGS
 
 // Row quads of the basis, float32 or bfloat16, read through the read-only
 // path (the basis rows a launch reads are not written by it).
@@ -122,120 +109,16 @@ struct Basis<true> {
   }
 };
 
-// w is written by the launch that reads it: plain loads, not __ldg.
-__device__ __forceinline__ float4 load_w(const float* w, int64_t i, int64_t n) {
-  if (i + 4 <= n) return *reinterpret_cast<const float4*>(w + i);
-  float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int t = 0; t < 4 && i + t < n; ++t) e[t] = w[i + t];
-  return make_float4(e[0], e[1], e[2], e[3]);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads, 4)
-    gmres_arnoldi_kernel(const typename Basis<BF16>::T* __restrict__ V, int64_t ld,
-                         float* __restrict__ w, typename Basis<BF16>::T* __restrict__ vnext,
+__global__ void __launch_bounds__(ogl::arnoldi::kThreads, 1)
+    gmres_arnoldi_kernel(const typename ogl::arnoldi::Elem<BF16>::T* __restrict__ V, int64_t ld,
+                         float* __restrict__ w,
+                         typename ogl::arnoldi::Elem<BF16>::T* __restrict__ vnext,
                          float* __restrict__ h, float* __restrict__ partials, int64_t n, int j,
-                         float tiny) {
-  using B = Basis<BF16>;
+                         float tiny, ogl::arnoldi::Plan plan) {
+  extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  const int64_t nq = (n + 3) / 4;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int live = j + 1;
-  const int nblk = (live + kRows - 1) / kRows;
-  float hp[kRows];  // h of the block the next pass subtracts
-#pragma unroll
-  for (int b = 0; b < kRows; ++b) hp[b] = 0.0f;
-  float wnorm = 0.0f;
-  for (int pass = 0; pass <= nblk; ++pass) {
-    const int old_base = (pass - 1) * kRows;
-    const int old_cnt = pass > 0 ? min(kRows, live - old_base) : 0;
-    const int new_base = pass * kRows;
-    const int new_cnt = pass < nblk ? min(kRows, live - new_base) : 0;
-    float acc[kRows];
-#pragma unroll
-    for (int b = 0; b < kRows; ++b) acc[b] = 0.0f;
-    float nrm = 0.0f;
-    // rows past the live ones read the last live row again (a cache hit)
-    // with h = 0, so the unrolled loads need no branch
-    const typename B::T* old_rows[kRows];
-    const typename B::T* new_rows[kRows];
-#pragma unroll
-    for (int b = 0; b < kRows; ++b) {
-      old_rows[b] = V + static_cast<int64_t>(min(max(old_base + b, 0), j)) * ld;
-      new_rows[b] = V + static_cast<int64_t>(min(new_base + b, j)) * ld;
-    }
-    // odd passes walk the quads backwards: the first quads a pass re-reads
-    // are the last the previous pass loaded, still in L2
-    const bool back = (pass & 1) != 0;
-    const int64_t mine = first < nq ? (nq - 1 - first) / stride + 1 : 0;
-    for (int64_t t = 0; t < mine; ++t) {
-      const int64_t q = first + (back ? mine - 1 - t : t) * stride;
-      const int64_t i = q * 4;
-      float4 wq = load_w(w, i, n);
-      if (old_cnt > 0) {
-        float4 v[kRows];
-#pragma unroll
-        for (int b = 0; b < kRows; ++b) v[b] = B::load(old_rows[b], i, n);
-        float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-        for (int b = 0; b < kRows; ++b) {
-          s.x += hp[b] * v[b].x;
-          s.y += hp[b] * v[b].y;
-          s.z += hp[b] * v[b].z;
-          s.w += hp[b] * v[b].w;
-        }
-        wq.x -= s.x;
-        wq.y -= s.y;
-        wq.z -= s.z;
-        wq.w -= s.w;
-        Basis<false>::store(w, i, wq, n);
-      }
-      if (new_cnt > 0) {
-        float4 v[kRows];
-#pragma unroll
-        for (int b = 0; b < kRows; ++b) v[b] = B::load(new_rows[b], i, n);
-#pragma unroll
-        for (int b = 0; b < kRows; ++b) acc[b] += dot4(v[b], wq);
-      } else {
-        nrm += dot4(wq, wq);
-      }
-    }
-    float* part = partials + (pass & 1) * kRows * static_cast<int64_t>(gridDim.x);
-    if (pass < nblk) {
-      ogl::block_sums_to<kRows>(acc, part);
-      grid.sync();
-      ogl::block_totals<kRows>(part, gridDim.x, hp);
-#pragma unroll
-      for (int b = 0; b < kRows; ++b) {
-        if (b >= new_cnt) hp[b] = 0.0f;
-        if (blockIdx.x == 0 && threadIdx.x == b && b < new_cnt) h[new_base + b] = hp[b];
-      }
-    } else {
-      const float mine[1] = {nrm};
-      ogl::block_sums_to<1>(mine, part);
-      grid.sync();
-      float total[1];
-      ogl::block_totals<1>(part, gridDim.x, total);
-      wnorm = sqrtf(total[0]);
-    }
-  }
-  const float den = fmaxf(wnorm, tiny);
-  for (int64_t q = first; q < nq; q += stride) {
-    const int64_t i = q * 4;
-    float4 v = load_w(w, i, n);
-    v.x = __fdiv_rn(v.x, den);
-    v.y = __fdiv_rn(v.y, den);
-    v.z = __fdiv_rn(v.z, den);
-    v.w = __fdiv_rn(v.w, den);
-    B::store(vnext, i, v, n);
-    if (BF16) Basis<false>::store(w, i, v, n);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) h[live] = wnorm;
+  ogl::arnoldi::step<BF16>(V, ld, w, vnext, h, partials, n, j, tiny, plan, smem, grid);
 }
 
 template <bool BF16>
@@ -266,36 +149,71 @@ const void* arnoldi_kernel(int bf16) {
               : reinterpret_cast<const void*>(&gmres_arnoldi_kernel<false>);
 }
 
-// Row alignment the quad loads need: 16 bytes for float32 rows, 8 for
-// bfloat16; every row starts a multiple of 4 entries after V.
-bool bad_rows(int bf16, const void* V, int64_t ld) {
-  return (ld & 3) != 0 || ogl::misaligned(V, bf16 ? 8 : 16);
+// The rows the bulk copies and the quad loads need: every row starts
+// 16-byte aligned (the row stride a multiple of 4 float32 or 8 bfloat16
+// entries) and holds at least n rounded up to 8 entries (the last slice's
+// copies run into that padding).
+bool bad_rows(int bf16, const void* V, int64_t ld, int64_t n) {
+  return ((ld * (bf16 ? 2 : 4)) & 15) != 0 || ld < ((n + 7) & ~int64_t{7}) ||
+         ogl::misaligned(V, 16);
+}
+
+// Allow the Arnoldi kernel `smem` bytes of dynamic shared memory, above the
+// 48 KB default (before its occupancy query and its launch).
+int allow_smem(int bf16, int64_t smem) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      arnoldi_kernel(bf16), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// The grid of an Arnoldi launch (bf16: the basis type) with `threads` per
-// block: the co-resident blocks on the current device.
-extern "C" int ogl_gmres_arnoldi_grid(int bf16, int threads, int64_t* blocks) {
-  if (threads != kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  return ogl::coop_grid(arnoldi_kernel(bf16), threads, blocks);
+// The co-resident CTAs of an Arnoldi launch (bf16: the basis type) with
+// `threads` per CTA and `smem` bytes of dynamic shared memory on the current
+// device (one per SM where the plan's shared memory leaves room for one).
+extern "C" int ogl_gmres_arnoldi_grid(int bf16, int threads, int64_t smem, int64_t* blocks) {
+  if (threads != ogl::arnoldi::kThreads || smem < ogl::arnoldi::kFixedBytes ||
+      smem > ogl::arnoldi::kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = allow_smem(bf16, smem);
+  if (err != 0) return err;
+  return ogl::coop_grid(arnoldi_kernel(bf16), threads, blocks, static_cast<size_t>(smem));
 }
 
-// One cooperative launch of `blocks` blocks of 256 threads on `stream`: the
-// orthogonalisation of w (n,) against V's rows 0..j (row stride ld, in the
-// basis type), V[j+1] written at `vnext`, h[0..j+1] at `h`; partials holds
-// 2 * 8 * blocks floats.  With bf16, w becomes v_{j+1} in float32.  Returns
-// the launch's error code (0 = launched).
+// One cooperative launch of `blocks` CTAs (at most kMaxCtas) of 544 threads
+// with `smem` bytes of dynamic shared memory on `stream`: the
+// orthogonalisation of w (n,) against V's rows 0..j (row stride ld, at least
+// n rounded up to 8, in the basis type), V[j+1] written at `vnext`, h[0..j+1]
+// at `h`; partials holds 2 * 8 * blocks floats.  The plan
+// (kernels/gmres.py arnoldi_plan): CTA c owns entries [c * slice, (c + 1) *
+// slice), `resident` rows of each block held, `stages` steps of copies in
+// flight, w's slice held (w_resident), L2 policies on the rows not held
+// (hint); smem must be its size.  With bf16, w becomes v_{j+1} in float32.
+// Returns the launch's error code (0 = launched).
 extern "C" int ogl_gmres_arnoldi(int bf16, const void* V, int64_t ld, float* w, void* vnext,
                                  float* h, float* partials, int64_t n, int j, float tiny,
-                                 int64_t blocks, void* stream) {
-  if (n < 1 || j < 0 || ld < n || blocks < 1 || blocks > INT32_MAX || V == nullptr ||
-      w == nullptr || vnext == nullptr || h == nullptr || partials == nullptr)
+                                 int64_t slice, int resident, int stages, int w_resident, int hint,
+                                 int64_t blocks, int64_t smem, void* stream) {
+  using ogl::arnoldi::Plan;
+  const int elem = bf16 ? 2 : 4;
+  const int chunk = ogl::arnoldi::kPieceBytes / elem;
+  if (n < 1 || j < 0 || ld < n || blocks < 1 || blocks > ogl::arnoldi::kMaxCtas || V == nullptr ||
+      w == nullptr || vnext == nullptr || h == nullptr || partials == nullptr || slice < 8 ||
+      (slice & 7) != 0 || slice > INT32_MAX / 2 || blocks * slice < n || resident < 0 ||
+      resident > ogl::arnoldi::kRows || stages < 2 || stages > ogl::arnoldi::kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bad_rows(bf16, V, ld) || ogl::misaligned(w, 16) || ogl::misaligned(vnext, bf16 ? 8 : 16))
+  const Plan plan{slice, chunk, static_cast<int>((slice + chunk - 1) / chunk), resident, stages,
+                  w_resident != 0, hint != 0};
+  if (smem != ogl::arnoldi::smem_bytes(plan, elem) || smem > ogl::arnoldi::kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_rows(bf16, V, ld, n) || ogl::misaligned(w, 16) || ogl::misaligned(vnext, 16))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  void* args[] = {&V, &ld, &w, &vnext, &h, &partials, &n, &j, &tiny};
-  return ogl::coop_launch(arnoldi_kernel(bf16), blocks, kThreads, args, stream);
+  const int err = allow_smem(bf16, smem);
+  if (err != 0) return err;
+  void* args[] = {&V, &ld, &w, &vnext, &h, &partials, &n, &j, &tiny, const_cast<Plan*>(&plan)};
+  return ogl::coop_launch(arnoldi_kernel(bf16), blocks, ogl::arnoldi::kThreads, args, stream,
+                          static_cast<size_t>(smem));
 }
 
 // Launches `blocks` blocks of 256 threads on `stream`: out (n,) = the sum of
@@ -305,7 +223,7 @@ extern "C" int ogl_gmres_combine(int bf16, const void* V, int64_t ld, const floa
                                  float* out, int64_t n, int64_t blocks, void* stream) {
   if (n < 1 || j < 1 || ld < n || blocks < 1 || blocks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bad_rows(bf16, V, ld) || ogl::misaligned(out, 16))
+  if (bad_rows(bf16, V, ld, n) || ogl::misaligned(out, 16))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)

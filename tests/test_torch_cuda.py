@@ -2465,9 +2465,9 @@ def _gmres_basis(j, n, dtype, dev, seed):
     return V, w
 
 
-@pytest.mark.parametrize("n", [4097, 1 << 20])
+@pytest.mark.parametrize("n", [4097, 262_144, 1 << 20, (1 << 20) + 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("j", [0, 7, 8, 50])
+@pytest.mark.parametrize("j", [0, 7, 8, 9, 50, 99])
 def test_gmres_arnoldi_kernel_matches_twin(dev, j, dtype, n):
     """h within 1e-4 of ‖w‖, v_{j+1} within 1e-5 in float32 and the stored
     bfloat16 row within one bfloat16 ulp: the dots are summed per CUDA block,
@@ -2485,12 +2485,52 @@ def test_gmres_arnoldi_kernel_matches_twin(dev, j, dtype, n):
     scale = float(torch.linalg.vector_norm(w))
     torch.testing.assert_close(h, h2, rtol=0, atol=1e-4 * scale)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    row, row2 = V[j + 1, :n].float(), V2[j + 1, :n].float()
-    if dtype == torch.float32:
-        torch.testing.assert_close(row, row2, rtol=0, atol=1e-5)
-    else:
-        assert bool(((row - row2).abs() <= 2.0 ** -7 * row2.abs() + 1e-30).all())
+    _check_stored_row(V[j + 1, :n], V2[j + 1, :n], got, want)
     assert torch.equal(V[:j + 1], V2[:j + 1])  # the live rows are read only
+
+
+def _check_stored_row(row, row2, got, want):
+    """The stored row against the twin's: float32 within 1e-5; bfloat16 the
+    kernel's own v_{j+1} rounded to nearest even, bit for bit, and within one
+    bfloat16 ulp of the twin's row, with a floor of 1e-6 of max |v_{j+1}|:
+    an entry near 0 is the difference of terms of the vector's own scale, so
+    its float32 value carries their rounding (a few 1e-9 at 1M entries) in
+    the kernel and in the twin alike."""
+    if row.dtype == torch.float32:
+        torch.testing.assert_close(row, row2, rtol=0, atol=1e-5)
+        return
+    assert torch.equal(row, got.to(torch.bfloat16))
+    row, row2 = row.float(), row2.float()
+    floor = 1e-6 * float(want.abs().max())
+    assert bool(((row - row2).abs() <= 2.0 ** -7 * row2.abs() + floor).all())
+
+
+@pytest.mark.parametrize("n,dtype", [(1 << 20, torch.float32), (1 << 20, torch.bfloat16),
+                                     ((1 << 20) + 3, torch.float32), (1 << 23, torch.bfloat16)],
+                         ids=str)
+def test_gmres_arnoldi_two_steps_match_twin(dev, n, dtype):
+    """Steps j and j + 1 on the same V and h, as GMRES runs them: the second
+    launch reads the row the first wrote, and no state of the first's shared
+    slots reaches the second."""
+    from ogl_tpu_torch.kernels.gmres import gmres_arnoldi, gmres_arnoldi_plain
+
+    j = 16
+    V, w = _gmres_basis(j, n, dtype, dev, seed=5)
+    V2 = V.clone()
+    h, h2 = torch.zeros(j + 3, device=dev), torch.zeros(j + 3, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    w1 = torch.randn(n, generator=g).to(dev)
+    kernels.reset_launches()
+    for step, ww in ((j, w), (j + 1, w1)):
+        got = gmres_arnoldi(V, ww.clone(), step, h)
+        want = gmres_arnoldi_plain(V2, ww.clone(), step, h2)
+        torch.cuda.synchronize()
+        scale = float(torch.linalg.vector_norm(ww))
+        torch.testing.assert_close(h[:step + 2], h2[:step + 2], rtol=0, atol=1e-4 * scale)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        _check_stored_row(V[step + 1, :n], V2[step + 1, :n], got, want)
+        V2[step + 1] = V[step + 1]  # the next step reads the kernel's row on both sides
+    assert kernels.launches["gmres_arnoldi"] == 2
 
 
 @pytest.mark.parametrize("n", [4097, 1 << 20])
@@ -2506,6 +2546,21 @@ def test_gmres_combine_kernel_bit_equal_to_twin(dev, j, dtype, n):
     torch.cuda.synchronize()
     assert kernels.launches["gmres_combine"] == 1
     assert torch.equal(got, gmres_combine_plain(V, y, j, n))
+
+
+def test_gmres_kernels_refuse_rows_shorter_than_n_rounded_up_to_8(dev):
+    """A float32 basis whose row stride is a multiple of 4 but below n
+    rounded up to 8: the last slice's bulk copies would read into the next
+    row, so both kernels refuse it before any launch."""
+    from ogl_tpu_torch.kernels.gmres import gmres_arnoldi, gmres_combine
+
+    V = torch.zeros((16, 100), device=dev)  # 100 % 4 == 0, 100 < 104
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="at least 104 entries"):
+        gmres_arnoldi(V, torch.zeros(100, device=dev), 0, torch.zeros(2, device=dev))
+    with pytest.raises(ValueError, match="at least 104 entries"):
+        gmres_combine(V, torch.zeros(2, device=dev), 2, 100)
+    assert kernels.launches["gmres_arnoldi"] == kernels.launches["gmres_combine"] == 0
 
 
 def test_gmres_kernels_refuse_bad_operands(dev):

@@ -26,8 +26,9 @@ from ogl_tpu_torch import foam, interop, kernels, registry, testing
 from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels import spmv
-from ogl_tpu_torch.kernels.gmres import (BLOCK, gmres_arnoldi, gmres_arnoldi_plain,
-                                         gmres_combine, gmres_combine_plain, new_basis)
+from ogl_tpu_torch.kernels.gmres import (BLOCK, arnoldi_plan, gmres_arnoldi,
+                                         gmres_arnoldi_plain, gmres_combine, gmres_combine_plain,
+                                         new_basis)
 from ogl_tpu_torch.precond import build
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.krylov import single_device_ops
@@ -115,6 +116,58 @@ def test_combine_twin_rounds_in_k_order(j, dtype):
         want = (want + (y.numpy()[k] * rows[k]).astype(np.float32)).astype(np.float32)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(gmres_combine_plain(V, y, j, n).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [13, 301, 4097, 4104])
+def test_new_basis_rows_start_16_byte_aligned(n, dtype):
+    """Every row of new_basis starts 16-byte aligned in both types (the
+    Arnoldi kernel's bulk copies need it), and the twin's h and v are those
+    of the earlier padding to a multiple of 4 entries, bit for bit."""
+    j = 9
+    V, w = _basis(j, n, dtype, seed=n)
+    ld = V.shape[1]
+    assert ld % 8 == 0 and ld >= n and ld - n < 8
+    assert all((V.data_ptr() + r * ld * V.element_size()) % 16 == 0 for r in range(V.shape[0]))
+    V4 = torch.zeros((V.shape[0], -(-n // 4) * 4), dtype=dtype)
+    V4[:, :n] = V[:, :n]
+    h, h4 = torch.zeros(j + 2), torch.zeros(j + 2)
+    v = gmres_arnoldi_plain(V, torch.tensor(w), j, h)
+    v4 = gmres_arnoldi_plain(V4, torch.tensor(w), j, h4)
+    assert torch.equal(h, h4) and torch.equal(v, v4)
+    assert torch.equal(V[j + 1, :n], V4[j + 1, :n])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [301, 4097, 262_144, 1 << 20, (1 << 20) + 3, 1 << 23])
+def test_arnoldi_plan(n, dtype):
+    """The Arnoldi launch's layout on a 132-SM card: slices that cover [0, n)
+    once, in order, 16-byte aligned; at most 232,448 bytes of shared memory,
+    as gmres_arnoldi.cuh `smem_bytes` counts them; a whole block held where
+    it fits (bfloat16 at 1M, float32 at 262,144), part of it in float32 at
+    1M, nothing at 8.4M."""
+    bf16 = dtype == torch.bfloat16
+    p = arnoldi_plan(n, bf16, 132)
+    elem = 2 if bf16 else 4
+    assert p.ctas == 132 and p.slice % 8 == 0
+    starts = [c * p.slice for c in range(p.ctas)]
+    ends = [min(s + p.slice, n) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(e0 == s1 or s1 >= n for e0, s1 in zip(ends, starts[1:]))  # no gap, no overlap
+    assert sum(max(0, e - s) for s, e in zip(starts, ends)) == n  # each entry once
+    assert all(s * elem % 16 == 0 and s * 4 % 16 == 0 for s in starts)
+    assert p.chunk * elem == 2048 and p.chunks == -(-p.slice // p.chunk)
+    piece = p.chunk * elem
+    smem = (1280 + (4 * p.slice if p.w_resident else 0) + (p.chunks + p.stages) * p.resident * piece
+            + p.stages * 2 * (BLOCK - p.resident) * piece)
+    assert p.smem == smem <= 232_448
+    assert 2 <= p.stages <= 8 and 0 <= p.resident <= BLOCK
+    if n == 1 << 20 and bf16 or n == 262_144:
+        assert p.resident == BLOCK and p.w_resident
+    if n == 1 << 20 and not bf16:
+        assert 0 < p.resident < BLOCK and p.w_resident and p.hint
+    if n == 1 << 23:
+        assert p.resident == 0 and not p.w_resident and not p.hint
 
 
 # ---- the solver against ogl_tpu.solve.gmres ----------------------------------
@@ -239,3 +292,19 @@ def test_gkogmres_class_and_bf16_basis_through_foam():
     x, perf = slv.solve(_port(m), b)
     assert slv.route == "gmres" and perf.solver_name == "GKOGMRES_Dia"
     assert perf.converged and _true_res(m, b, x.numpy()) < 10 * TOL
+
+
+def test_arnoldi_phases_stamps_the_body():
+    """python -m ogl_tpu_torch.arnoldi_phases stamps the step's start and end,
+    every pass's sums, barrier and totals, and the waits: every anchor it
+    needs is in gmres_arnoldi.cuh once."""
+    from pathlib import Path
+
+    from ogl_tpu_torch import arnoldi_phases
+    from ogl_tpu_torch.kernels import gmres as gmres_kernels
+
+    src = (Path(gmres_kernels.__file__).parent / "csrc" / "gmres_arnoldi.cuh").read_text()
+    out = arnoldi_phases.stamped_source(src)
+    assert out.count("ARNOLDI_STAMP(") == 9 and "t_pw +=" in out and "t_wait +=" in out
+    with pytest.raises(RuntimeError, match="update arnoldi_phases.py"):
+        arnoldi_phases.stamped_source(src.replace("grid.sync();", "grid.sync(); "))
