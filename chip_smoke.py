@@ -161,25 +161,35 @@ Phases (any failure raises, and the script exits non-zero):
      the bytes its slices read), the CSR kernel at its number of lanes per
      row and the next (also on random graphs of 16, 64 and 256 entries per
      row), and the profiler's device time per launch on the kNN mesh.  The
-     loop rows of phase 3 are timed over 30 iterations (200 before phase
-     11 joined, 100 before phase 12), phase 8's Xell loops over 15, phase
-     11's over 10 and the AMG loops over 20;
+     loop rows of phase 3 are timed over 20 iterations (200 before phase
+     11 joined, 100 before phase 12, 30 before phase 12 took the blocked
+     loops), phase 8's Xell loops over 10, phase 11's over 10 and the AMG
+     loops over 20;
  12. slice 17, BASELINE.json configs 2 and 3: the native host runtime
-     built (asserted), the block-Jacobi, Arnoldi and combine kernels'
-     registers, spills and the Arnoldi grid; GKOBiCGStab + BJ maxBlockSize
-     4 on the Poisson grid (held to the route over the plain twins at 10
-     pinned iterations) and 4 and 8 on convection-diffusion as Dia and 4
-     as Csr (±1), GKOGMRES + GISAI on the 1M kNN-6 mesh as Ell (and a
-     steady step at its adapted minIter and frequency) and as Hybrid, +
-     ISAI on the Poisson grid with a float32 and a bfloat16 basis (the
-     latter held to its true residual); each solve: iterations, the true
-     float64 residual, generate_preconditioner ms, µs per iteration on
-     resident state and its launches (two block-Jacobi launches per
-     BiCGStab iteration, one Arnoldi launch per GMRES iteration, no loop
-     kernel); then the three kernels against their twins at 1M and 8.4M
-     rows (block Jacobi at bs 4 and 8 and the combine bit-equal, the
-     Arnoldi step at j = 99 within the vector tolerance; float32 and
-     bfloat16 bases) with torch.bmm and torch.mv beside.
+     built (asserted), the block-Jacobi, Arnoldi and combine kernels' and
+     the general-BiCGStab loop's block-Jacobi variants' registers, spills
+     and the Arnoldi grid; GKOBiCGStab + BJ maxBlockSize 4 on the Poisson
+     grid (held to the route over the plain twins at 10 pinned iterations)
+     and 4 and 8 on convection-diffusion as Dia and 4 as Csr and Gdia (±1),
+     8, 32 and 3 on the 262,144-cell kNN-6 mesh as Xell, Ell and Sell (10
+     pinned), GKOCG + BJ 4 on the Poisson grid (±1), GKOGMRES + GISAI on
+     the 1M kNN-6 mesh as Ell (and a steady step at its adapted minIter and
+     frequency) and as Hybrid, + ISAI on the Poisson grid with a float32
+     and a bfloat16 basis (the latter held to its true residual); each
+     solve: iterations, the true float64 residual, generate_preconditioner
+     ms, µs per iteration on resident state and its launches (a GKOBiCGStab
+     + blocked BJ solve one launch of its format's general-BiCGStab loop
+     kernel, no block-Jacobi launch, the SpMV 2 + 9 times; GKOCG + blocked
+     BJ one block-Jacobi launch per iteration; one Arnoldi launch per GMRES
+     iteration, no loop kernel); config 2's blocked loops against their
+     plain twins at 10 pinned iterations, timed per iteration in turns with
+     the twin and the host loop over the SpMV and block-Jacobi kernels, and
+     beside every blocked solve one run of that host loop on its own state
+     and the loop's bound per iteration;
+     then the three kernels against their twins at 1M and 8.4M rows (block
+     Jacobi at bs 4 and 8 and the combine bit-equal, the Arnoldi step at j
+     = 99 within the vector tolerance; float32 and bfloat16 bases) with
+     torch.bmm and torch.mv beside.
 Each phase prints its wall time.  Each path's launch counts are set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  The line before the last is one JSON object
@@ -191,8 +201,8 @@ under "cases" every variant and size it was checked on; the last line is
 prints no result.  `--turns` runs phase 3's kernel checks (and the Gdia
 kernels on the device-built shuffled grid, 200 pinned iterations of
 cg_pipelined_fused and of bicgstab_fused on the Dia plan at 1M and 8.4M
-rows, the pMG, pGMG and GKOBiCGStab solves at 1M cells on resident
-state, the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M and
+rows, the pMG, pGMG and GKOBiCGStab solves (config 2's blocked BJ ones
+too) at 1M cells on resident state, the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M and
 8.4M rows, and pK and pKBJ on the kNN-6 mesh on resident state) from
 each given checkout in order, one process each, and prints
 their kernel lines: an earlier commit unpacked with `git archive` against
@@ -202,7 +212,7 @@ Csr and Sell on resident state, the four SpMVs at kNN 1M and 8.4M beside
 torch's CSR SpMV); `--turns-gmres` runs the Arnoldi step at j = 0, 12,
 49 and 99 in float32 and bfloat16 at 262,144 and 1,048,576 rows and at
 j = 99 at 8,388,608, the combine at j = 100 beside torch.mv at 1M in five
-rounds, and wK (GKOGMRES + GISAI on the kNN-6 mesh), wP and wPbf (+ ISAI
+rounds (three in bfloat16 and at 8.4M), and wK (GKOGMRES + GISAI on the kNN-6 mesh), wP and wPbf (+ ISAI
 on the Poisson grid) on resident state.
 """
 
@@ -235,9 +245,10 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
 from ogl_tpu_torch.kernels.ell import EllCgKernels
-from ogl_tpu_torch.kernels.fused import (LOOP_CSR, LOOP_ELL, LOOP_GDIA, LOOP_JACOBI, LOOP_SELL,
-                                         LOOP_THREADS, LOOP_XELL, bicgstab_gen_loop_plain,
-                                         bicgstab_loop_plain, cg_loop_plain, cg_pipe_loop_plain)
+from ogl_tpu_torch.kernels.fused import (LOOP_BLOCK_JACOBI, LOOP_CSR, LOOP_ELL, LOOP_GDIA,
+                                         LOOP_JACOBI, LOOP_SELL, LOOP_THREADS, LOOP_XELL,
+                                         bicgstab_gen_loop_plain, bicgstab_loop_plain,
+                                         cg_loop_plain, cg_pipe_loop_plain)
 from ogl_tpu_torch.kernels.gather_loop import (CsrCgKernels, GatherCgKernels, SellCgKernels,
                                                gather_k1_plain)
 from ogl_tpu_torch.kernels.gmres import (gmres_arnoldi, gmres_arnoldi_plain, gmres_combine,
@@ -454,7 +465,10 @@ GEN_LOOP_VARIANTS = {0: "Dia none", LOOP_JACOBI: "Dia BJ", LOOP_GDIA: "Gdia none
                      LOOP_XELL | LOOP_JACOBI: "Xell BJ", LOOP_ELL: "Ell none",
                      LOOP_ELL | LOOP_JACOBI: "Ell BJ", LOOP_CSR: "Csr none",
                      LOOP_CSR | LOOP_JACOBI: "Csr BJ", LOOP_SELL: "Sell none",
-                     LOOP_SELL | LOOP_JACOBI: "Sell BJ"}
+                     LOOP_SELL | LOOP_JACOBI: "Sell BJ",
+                     **{LOOP_BLOCK_JACOBI | bit: f"{fmt} blocked BJ" for bit, fmt in (
+                         (0, "Dia"), (LOOP_GDIA, "Gdia"), (LOOP_XELL, "Xell"), (LOOP_ELL, "Ell"),
+                         (LOOP_CSR, "Csr"), (LOOP_SELL, "Sell"))}}
 # x after BICGSTAB_LOOP_CHECK pinned iterations against the twin: the phases
 # give the twin's bits at every row, the block sums add in another order, and
 # float32 BiCGStab amplifies that (the rtol the phase-9 pin holds residuals to)
@@ -469,13 +483,14 @@ PIPE_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/cg_pipe_loop.cu
 XELL_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/xell_cg_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
 # the loop's check (x against the plain twin), its timing (200 until the
-# formats' phase 11 joined the script, 100 until phase 12 did; 30 keeps the
-# script within its time)
-LOOP_ITERS = (30, 30)
+# formats' phase 11 joined the script, 100 until phase 12 did, 30 until
+# phase 12 took the blocked loops; 20 keeps the script within its time)
+LOOP_ITERS = (30, 20)
 # the Xell loops': their plain twins' SpMV takes 3-9 ms per iteration at
 # 1M-8.4M rows (the general BiCGStab's check stays BICGSTAB_LOOP_CHECK);
-# timed over 15 since phase 12 joined (30 before)
-XELL_LOOP_ITERS = (30, 15)
+# timed over 10 since phase 12 took the blocked loops (15 since phase 12
+# joined, 30 before)
+XELL_LOOP_ITERS = (30, 10)
 # the BiCGStab loop's check: float32 BiCGStab on the Poisson grid from a
 # random b parts from another summation order within 30 iterations (phase 3
 # prints the gap there), so x is held to the twin after 10, as phase 9 pins
@@ -862,12 +877,13 @@ def checked_iterations(k):
 
 
 def loop_row(case, label, run, host_solve, host_what, nbytes, n, report,
-             check=LOOP_ITERS[0], iters=LOOP_ITERS[1], vec_rtol=VEC_RTOL):
+             check=LOOP_ITERS[0], iters=LOOP_ITERS[1], vec_rtol=VEC_RTOL, res_atol=0.0):
     """A loop kernel against its plain twin from one set-up: `run(k, plain)`
     runs k checked iterations of the kernel (plain=False) or of the twin and
     returns (x, iterations, normalised residual); after `check` iterations x
     is held to the vector tolerance (`vec_rtol`) and the residual to
-    PINNED_RTOL; then both are timed in turns over `iters` with
+    PINNED_RTOL, or to within `res_atol` of the twin's (0: no such floor);
+    then both are timed in turns over `iters` with
     `host_solve(k)`, the host loop over the standalone kernels (whose time
     also holds the set-up's two applies): ms per iteration, and the bound
     per iteration (`nbytes` over the memory rate)."""
@@ -880,9 +896,11 @@ def loop_row(case, label, run, host_solve, host_what, nbytes, n, report,
                     "host loop": lambda: host_solve(k)}, reps=5)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
     ms = {tag: v / k for tag, v in t.items()}
-    ok = err <= tol and rel <= PINNED_RTOL and ik == ip == check
+    ok = (err <= tol and (rel <= PINNED_RTOL or abs(float(rk) - float(rp)) <= res_atol)
+          and ik == ip == check)
+    floor = f" or {res_atol:.1e} apart: {float(rk):.4e} vs {float(rp):.4e}" if res_atol else ""
     print(f"  {case:22s} {label:20s} max_abs_err {err:.3e} (tol {tol:.1e}), residual rel err "
-          f"{rel:.1e} (tol {PINNED_RTOL:.0e}) after "
+          f"{rel:.1e} (tol {PINNED_RTOL:.0e}{floor}) after "
           f"{ik} / {ip} iterations; per iteration (over {k}, checked at each): kernel "
           f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s, plain "
           f"{ms['plain']:.4f} ms, host loop over {host_what} {ms['host loop']:.4f} ms, bound "
@@ -1001,34 +1019,42 @@ def check_bicgstab_loop(kern, data, label, report):
              check=BICGSTAB_LOOP_CHECK)
 
 
-def gen_loop_bytes(data, n, jacobi, kern=None):
+def gen_loop_bytes(data, n, jacobi, kern=None, bs=0):
     """Minimum bytes per iteration of the general-BiCGStab loop kernel:
     SpMV A (the coefficients — Dia nd x 4 B, Gdia np x 5 B of values and
     lanes, Xell K x 7 B of slots and the spill —, r, p, v and r̂ in; p' and
     v' out), SpMV B (the coefficients, r and v' in; s and t out) and the
     update (x, p', s, t and r̂ in; x and r out): 2 x the coefficients + 68 B
     per row (124 at 7 Dia diagonals); with Jacobi invd once in each phase
-    (+ 12).  Ell, Csr, Sell: the least bytes of their SpMV
-    (gather_spmv_bytes)."""
+    (+ 12).  With block Jacobi of bs rows (bs > 0): P (r, p, v, a row of
+    inverses in; p', y out), A (the coefficients, y, r̂ in; v' out), S (r, v',
+    a row of inverses in; s, z out), B (the coefficients, z, s in; t out),
+    the update (x, y, z, s, t, r̂ in; x, r out): 2 x the coefficients + 8 bs
+    + 92 B per row (180 at 7 diagonals and bs 4).  Ell, Csr, Sell: the least
+    bytes of their SpMV (gather_spmv_bytes)."""
+    per_row = 8 * bs + 92 if bs else 68 + 12 * jacobi
     if isinstance(kern, GatherCgKernels):
-        return 2 * gather_spmv_bytes(kern, data) + (68 + 12 * jacobi) * n
+        return 2 * gather_spmv_bytes(kern, data) + per_row * n
     if isinstance(data, tuple) and len(data) == 4:  # Xell
         spill = data[3].numel()
         coef_bytes = (data[0].shape[1] * 7 + (4 if spill else 0)) * n + 12 * spill
-        return 2 * coef_bytes + (68 + 12 * jacobi) * n
+        return 2 * coef_bytes + per_row * n
     coef = data[0].shape[0] * 5 if isinstance(data, tuple) else data.shape[0] * 4
-    return (2 * coef + 68 + 12 * jacobi) * n
+    return (2 * coef + per_row) * n
 
 
-def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
+def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1], inv_t=None,
+                   res_atol=0.0):
     """The general-BiCGStab loop kernel (one variant: the plan's format,
-    identity or Jacobi) against its plain twin (the
-    host loop's operations over the plain SpMV) from the same set-up as
-    solve/bicgstab.py (b random, x0 = 0; r0 and the norm factor through the
-    format's SpMV kernel), timed in turns with the host loop over the
-    standalone SpMV kernel (solve/bicgstab.py without the loop): loop_row,
-    x held to the twin within GEN_LOOP_RTOL after BICGSTAB_LOOP_CHECK pinned
-    iterations, timed over `iters`."""
+    identity, Jacobi or, with inv_t, block Jacobi) against its plain twin
+    (the host loop's operations over the plain SpMV and block_jacobi_plain)
+    from the same set-up as solve/bicgstab.py (b random, x0 = 0; r0 and the
+    norm factor through the format's SpMV kernel), timed in turns with the
+    host loop over the standalone SpMV kernel (and the block-Jacobi kernel;
+    solve/bicgstab.py without the loop): loop_row, x held to the twin within
+    GEN_LOOP_RTOL after BICGSTAB_LOOP_CHECK pinned iterations (its
+    normalised residual to PINNED_RTOL or within `res_atol` times the initial
+    one), timed over `iters`."""
     n, dev = kern.n, kern.device
     gdia_v = isinstance(kern, GdiaCgKernels)
     xell_v = isinstance(kern, xell.XellCgKernels)
@@ -1036,6 +1062,10 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
     b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     x0 = torch.zeros_like(b)
     pc = None if invd is None else (lambda r: invd * r)
+    plain_pc = pc
+    if inv_t is not None:
+        pc = functools.partial(block_jacobi, inv_t)
+        plain_pc = functools.partial(block_jacobi_plain, inv_t)
     ops = krylov.single_device_ops(functools.partial(kern.spmv, data), n, precond=pc)
     r0 = b - ops.matvec(x0)  # also r̂, never written
     state = (torch.sum(r0 * r0), torch.sum(torch.abs(r0)),
@@ -1048,23 +1078,27 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1]):
         plain_mv = functools.partial(gdia.gdia_spmv_plain, *data, kern.plane_offsets)
     else:
         plain_mv = functools.partial(dia_spmv_plain, data, kern.offsets)
-    plain_ops = krylov.single_device_ops(plain_mv, n, precond=pc)
+    plain_ops = krylov.single_device_ops(plain_mv, n, precond=plain_pc)
 
     def run(k, plain):
         x, r = x0.clone(), r0.clone()
         cfg = checked_iterations(k)
         rec = (bicgstab_gen_loop_plain(plain_ops, x, r, r0, *state, cfg) if plain
-               else kern.bicgstab_gen_loop(data, x, r, r0, *state, cfg, invd))
+               else kern.bicgstab_gen_loop(data, x, r, r0, *state, cfg, invd, inv_t))
         return x, rec[0], rec[1]
 
     if gather_v:
         case = f"{kern.NAME}_bicgstab_gen_loop[{formats.format_name(kern.container(data))}"
     else:
         case = f"bicgstab_gen_loop[{'Xell' if xell_v else 'Gdia' if gdia_v else 'Dia'}"
-    loop_row(f"{case} {'none' if invd is None else 'BJ'}]", label, run,
+    bs = 0 if inv_t is None else inv_t.shape[1]
+    pc_name = f"BJ{bs}" if bs else "none" if invd is None else "BJ"
+    loop_row(f"{case} {pc_name}]", label, run,
              lambda k: bicgstab(ops, b, x0, checked_iterations(k)),
-             "the SpMV kernel + torch ops", gen_loop_bytes(data, n, invd is not None, kern), n,
-             report, check=BICGSTAB_LOOP_CHECK, iters=iters, vec_rtol=GEN_LOOP_RTOL)
+             "the SpMV kernel + " + ("the block-Jacobi kernel + " if bs else "") + "torch ops",
+             gen_loop_bytes(data, n, invd is not None, kern, bs), n,
+             report, check=BICGSTAB_LOOP_CHECK, iters=iters, vec_rtol=GEN_LOOP_RTOL,
+             res_atol=res_atol * float(state[1] / state[2]))
 
 
 def amg_loop_bytes(op, data, ir_loop):
@@ -2580,23 +2614,46 @@ def gather_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tu
 
 # ---- phase 12: slice 17, blocked Jacobi, ISAI/GISAI and GKOGMRES ------------
 
-SLICE17_KERNELS = ("block_jacobi", "gmres_arnoldi", "gmres_combine")
+# the kernels phase 12's path must launch: since slice 19 the
+# general-BiCGStab loop kernel's block-Jacobi variants (Dia, Gdia and Xell
+# count as bicgstab_gen_loop, the gather formats under their plans' names)
+# take the GKOBiCGStab + blocked BJ solves, and the block-Jacobi kernel runs
+# in GKOCG + blocked BJ's host loop
+SLICE17_KERNELS = ("block_jacobi", "gmres_arnoldi", "gmres_combine", "bicgstab_gen_loop",
+                   "csr_bicgstab_gen_loop", "ell_bicgstab_gen_loop", "sell_bicgstab_gen_loop")
 BJ_SIZES = (4, 8)  # the block sizes phase 12 checks the block-Jacobi kernel at
 GMRES_J = 99  # the Arnoldi step checked and timed: the last of a 100-row cycle
+# the blocked loops' rows: timed over 10 checked iterations (their plain
+# twins take 1.6-1.9 ms per iteration at 1M); after BICGSTAB_LOOP_CHECK
+# pinned iterations the normalised residual is held to PINNED_RTOL or to
+# within 1e-6 of the initial one, as tests/test_torch_cuda.py holds the
+# pinned loops: on convection-diffusion it has fallen to about 1e-4 of the
+# initial one there, so its float32 rounding at the initial residual's
+# scale (about 1e-7) is a relative 1e-3 of what is left
+BJ_LOOP_ITERS = 10
+BJ_LOOP_RES_ATOL = 1e-6
+# the fields that take such a row: config 2's (the other formats' blocked
+# loops are held by their solves' gates, and timed on their own solves)
+BJ_LOOP_ROWS = ("uBJ4", "uCDBJ4", "uCDBJ8", "uCDBJ4Csr")
 COMBINE_J = 100  # the recombination of a full 100-row cycle
 # the kNN-6 mesh of the Hybrid GKOGMRES solve and its steady step: the
 # GISAI set-up at 1M (13 s, most of it the Xell packing of M) would take
 # the script past its time once more
 HYBRID_CELLS = 1 << 18
 # field -> (system, controls, gate).  BASELINE config 2, GKOBiCGStab + BJ
-# maxBlockSize 4 (and 8) on Dia and Csr: held ±1 to the same route over the
-# plain twins on convection-diffusion ("free"); on the Poisson grid float32
-# BiCGStab parts from another summation order, so there the routes are held
-# to each other pinned at PINNED_ITERS[0] ("pinned").  Config 3, GKOGMRES +
-# GISAI on the kNN-6 mesh as Ell and Hybrid, + ISAI on the Poisson grid
-# (and with a bfloat16 basis, "true": held to its true residual; the
-# twin route printed beside it).  adaptMinIter is on (the default): `wKH`
-# takes a steady step at its adapted minIter and frequency.
+# maxBlockSize 4 (and 8) on Dia and Csr, and since slice 19 on Gdia (4), and
+# on the 262,144-cell kNN-6 mesh on Xell (8), Ell (32) and Sell (3: n =
+# 262,144 is no multiple of 3): one launch of the general-BiCGStab loop
+# kernel's block-Jacobi variant per solve, held ±1 to the host loop over the
+# plain twins on convection-diffusion ("free"); on the Poisson grid and the
+# kNN-6 mesh float32 BiCGStab parts from another summation order, so there
+# the routes are held to each other pinned at PINNED_ITERS[0] ("pinned").
+# GKOCG + BJ 4 on the Poisson grid keeps the host loop over the block-Jacobi
+# kernel (the CG loop's phases are scalar).  Config 3, GKOGMRES + GISAI on
+# the kNN-6 mesh as Ell and Hybrid, + ISAI on the Poisson grid (and with a
+# bfloat16 basis, "true": held to its true residual; the twin route printed
+# beside it).  adaptMinIter is on (the default): `wKH` takes a steady step at
+# its adapted minIter and frequency.
 BJ4 = {"preconditioner": "BJ", "maxBlockSize": 4}
 SLICE17_SOLVES = {
     "uBJ4": ("poisson", {"solver": "GKOBiCGStab", "preconditioner": BJ4}, "pinned"),
@@ -2605,6 +2662,13 @@ SLICE17_SOLVES = {
                       "preconditioner": {"preconditioner": "BJ", "maxBlockSize": 8}}, "free"),
     "uCDBJ4Csr": ("cd", {"solver": "GKOBiCGStab", "preconditioner": BJ4,
                          "matrixFormat": "Csr"}, "free"),
+    "uCDBJ4Gdia": ("cd", {"solver": "GKOBiCGStab", "preconditioner": BJ4,
+                          "matrixFormat": "Gdia"}, "free"),
+    **{f"uKHBJ{bs}{fmt}": ("knn hybrid", {"solver": "GKOBiCGStab", "matrixFormat": fmt,
+                                          "preconditioner": {"preconditioner": "BJ",
+                                                             "maxBlockSize": bs}}, "pinned")
+       for bs, fmt in ((8, "Xell"), (32, "Ell"), (3, "Sell"))},
+    "pBJ4": ("poisson", {"solver": "GKOCG", "preconditioner": BJ4}, "free"),
     "wK": ("knn", {"solver": "GKOGMRES", "preconditioner": "GISAI", "matrixFormat": "Ell"},
            "free"),
     "wKH": ("knn hybrid", {"solver": "GKOGMRES", "preconditioner": "GISAI",
@@ -2627,17 +2691,23 @@ def plain_precond(slv):
     return lambda r: 0.5 * (spmv.spmv(mats[0], r) + spmv.spmv(mats[1], r))
 
 
-def slice17_route(slv, b, params, plain):
-    """A solver's route (GKOBiCGStab's host loop or GKOGMRES) from a zero
-    guess, over its kernels or (plain=True) over their plain twins on the
-    card."""
+def slice17_route(slv, b, params, plain, host=False):
+    """A solver's route from a zero guess: GKOBiCGStab's loop kernel (with a
+    blocked BJ's inverses), or (host=True) its host loop over the kernels;
+    GKOCG's host loop; GKOGMRES; or (plain=True) the host loop over the
+    plain twins on the card."""
     mat = slv.matrix
     mv = (lambda v: spmv.spmv(mat, v)) if plain else spmv.matvec(mat)
     pc = plain_precond(slv) if plain else slv._precond_op
     ops = krylov.single_device_ops(mv, mat.shape[0], precond=pc)
     x0 = torch.zeros_like(b)
     if slv.route == "bicgstab":
-        return bicgstab(ops, b, x0, params)
+        if plain or host or slv.kern is None:
+            return bicgstab(ops, b, x0, params)
+        return bicgstab(ops, b, x0, params, slv.kern, slv.kern.pack_values(mat), None,
+                        slv._precond_op.state)
+    if slv.route == "cg":
+        return cg(ops, b, x0, params)
     basis = torch.bfloat16 if slv.cfg.basis_precision == "bfloat16" else None
     twins = {"arnoldi": gmres_arnoldi_plain, "combine": gmres_combine_plain} if plain else {}
     return gmres_solve(ops, b, x0, params, slv.cfg.krylov_dim, basis, **twins)
@@ -2648,21 +2718,41 @@ def snapshot17(slv):
     copied (a steady step replaces the matrix and the preconditioner)."""
     mat = formats.cast_values(formats.cast_values(slv.matrix, torch.float64), torch.float32)
     return types.SimpleNamespace(route=slv.route, matrix=mat, _precond_op=slv._precond_op,
-                                 cfg=slv.cfg)
+                                 cfg=slv.cfg, kern=slv.kern)
+
+
+# the SpMV kernel a format's solves launch for the set-up and the
+# residual-eval timing
+FORMAT_SPMV = {"Dia": "dia_spmv", "Gdia": "gdia_spmv", "Xell": "xell_spmv", **GATHER_FORMATS}
+
+
+def gen_loop_of(kern):
+    """The counter of the general-BiCGStab loop kernel's launches on a
+    plan: bicgstab_gen_loop on Dia, Gdia and Xell, <NAME>_bicgstab_gen_loop
+    on a gather format's plan."""
+    return (f"{kern.NAME}_bicgstab_gen_loop" if isinstance(kern, GatherCgKernels)
+            else "bicgstab_gen_loop")
 
 
 def check_slice17_launches(field, slv, iters, before):
-    """Between `before` and now: no loop kernel; GKOBiCGStab + BJ two
-    block-Jacobi launches per iteration; GKOGMRES one Arnoldi launch per
+    """Between `before` and now: GKOBiCGStab + blocked BJ its format's
+    general-BiCGStab loop kernel once, no block-Jacobi launch and no other
+    loop kernel, the format's SpMV 2 + RES_EVAL_SPMVS times (the set-up and
+    the residual-eval timing); otherwise no loop kernel, and GKOCG + blocked
+    BJ one block-Jacobi launch per iteration, GKOGMRES one Arnoldi launch per
     Arnoldi step and the combine kernel at least once."""
     got = {k: kernels.launches[k] - before[k] for k in kernels.launches
            if kernels.launches[k] != before[k]}
     print(f"  {field}: launches in this solve {got}")
-    loops = [k for k in got if k.endswith("loop")]
+    loop = gen_loop_of(slv.kern) if slv.route == "bicgstab" else None
+    loops = [k for k in got if k.endswith("loop") and k != loop]
     if loops:
         raise RuntimeError(f"{field}: a loop kernel ran on a host-loop route: {loops}")
     if slv.route == "bicgstab":
-        want = {"block_jacobi": 2 * iters}
+        want = {loop: 1, "block_jacobi": 0,
+                FORMAT_SPMV[formats.format_name(slv.matrix)]: 2 + RES_EVAL_SPMVS}
+    elif slv.route == "cg":
+        want = {"block_jacobi": iters}
     else:
         want = {"gmres_arnoldi": iters}
         if not got.get("gmres_combine"):
@@ -2768,6 +2858,8 @@ def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
     info = _build.build_info()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for kern, what in (("block_jacobi_kernel", "block_jacobi"),
+                       *((f"bicgstab_gen_loop_kernelILi{v}E", f"bicgstab_gen_loop {name}")
+                         for v, name in GEN_LOOP_VARIANTS.items() if v & LOOP_BLOCK_JACOBI),
                        ("gmres_arnoldi_kernelILb0E", "gmres_arnoldi float32"),
                        ("gmres_arnoldi_kernelILb1E", "gmres_arnoldi bfloat16"),
                        ("gmres_combine_kernelILb0E", "gmres_combine float32"),
@@ -2795,7 +2887,7 @@ def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
     hybrid_mesh = "" if HYBRID_CELLS == m_knn.n else f" and the {HYBRID_CELLS}-cell kNN-6 mesh"
     print(f"host set-up: convection-diffusion system{hybrid_mesh} "
           f"{time.perf_counter() - t0:.2f} s")
-    records = {}
+    records, report = {}, {}
     kernels.reset_launches()
     for field, (system, spec, gate) in SLICE17_SOLVES.items():
         mk, bk = systems[system]
@@ -2876,13 +2968,30 @@ def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
                                "the plain twins")
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
+        if slv.route == "bicgstab":
+            data, inv_t = slv.kern.pack_values(slv.matrix), slv._precond_op.state
+            if field in BJ_LOOP_ROWS:  # the loop kernel against the twins at fixed work
+                check_gen_loop(slv.kern, data, field, report, iters=BJ_LOOP_ITERS, inv_t=inv_t,
+                               res_atol=BJ_LOOP_RES_ATOL)
+            # and on its own solve, beside one run of the host loop over the
+            # kernels (its time on the host's clock and its count)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = slice17_route(slv, bb, params, False, host=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            nbytes = gen_loop_bytes(data, n, False, slv.kern, inv_t.shape[1])
+            print(f"  {field}: the host loop over the SpMV and block-Jacobi kernels on resident "
+                  f"state {ms / max(host.iters, 1) * 1e3:.2f} us per iteration ({host.iters} "
+                  f"iterations), the loop kernel above; its bound "
+                  f"{nbytes / PEAK_BYTES_PER_S * 1e6:.2f} us per iteration "
+                  f"({nbytes / n:.0f} B/row)")
 
     # ---- the kernels against their twins ------------------------------------
     print("slice 17's kernels vs their twins (vector tol "
           f"{VEC_RTOL:.0e}*max(1,max|plain|); block Jacobi and combine bit-equal; Arnoldi at "
           f"j = {GMRES_J} on orthonormal rows and w = V^T c + e: v and h/||w|| within "
           f"{VEC_RTOL:.0e}*max|plain|, no floor):")
-    report: dict = {}
     for dims in (grid, grid_big):
         slice17_kernels(int(np.prod(dims)), "x".join(map(str, dims)), device, report)
     return launches, report
@@ -2896,7 +3005,9 @@ def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
 # KB_update), then the pMG and pGMG solves through foam.solve at 1M cells,
 # timed on resident state (one launch of the AMG loop kernel where a tree
 # has it, else the host-launched cycle), the GKOBiCGStab solves the same
-# way, then the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M
+# way (and BASELINE config 2's GKOBiCGStab + blocked BJ solves of phase 12
+# on the Poisson and convection-diffusion grids, three times the best of
+# 3), then the Xell SpMV and K1 on the shuffled grid packed as Xell at 1M
 # and 8.4M rows and GKOCG `none` and `BJ` on the kNN-6 mesh at 1M cells
 # (pK, pKBJ; one launch of the Xell loop kernel where a tree has it, else
 # the host loop over the K1 and K2i or K2 kernels) on resident state, then
@@ -2986,6 +3097,16 @@ TURN_CODE = TURN_HEAD + (
     "    print(f'  gen_solve {f} ({system}) {m.n} cells: {perf.n_iterations} iterations, "
     "{sec * 1e3:.3f} ms on resident state (best of 3) = {sec / perf.n_iterations * 1e6:.2f} us "
     "per iteration')\n"
+    "systems['cd'] = systems['convection-diffusion']\n"
+    "for f in ('uBJ4', 'uCDBJ4', 'uCDBJ8', 'uCDBJ4Csr'):\n"
+    "    system, spec, _ = s.SLICE17_SOLVES[f]\n"
+    "    _, perf = s.foam.solve(f, systems[system], rhs, {'executor': 'cuda', 'tolerance': s.TOL, "
+    "'relTol': 0, **spec})\n"
+    "    slv = s.registry.global_registry.get(f + '_solver')\n"
+    "    us = sorted(slv.time_device_solve() / perf.n_iterations * 1e6 for _ in range(3))\n"
+    "    print(f'  gen_solve {f} ({system}) {m.n} cells: {perf.n_iterations} iterations; on "
+    "resident state (three times the best of 3) {us[0]:.2f}, {us[1]:.2f}, {us[2]:.2f} us per "
+    "iteration')\n"
     "c = s.ldu.ldu_to_coo_host(s.testing.shuffled_poisson_ldu(s.GRID_1M), dtype=np.float32)\n"
     "rows, cols, vals, nb = s.shuffled_poisson_coo_on_device(s.GRID_8M, 0, d)\n"
     "big = s.formats.Coo(rows=rows.cpu().numpy().astype(np.int32), cols=cols.cpu().numpy()"
@@ -3004,7 +3125,8 @@ TURN_GATHER_CODE = TURN_HEAD + TURN_KNN + TURN_GATHER  # one turn of `--turns-ga
 # w = Vᵀc + e (arnoldi_inputs), per launch in a chain of 50 after 5 warm
 # ones (the device's time: the host enqueues faster than the kernel runs)
 # and around each call (time_turns); the combine at j = 100 beside torch.mv
-# at 1M in five rounds; wK, wP and wPbf on resident state
+# at 1M in five rounds (float32), in three rounds at 1M bfloat16 and at
+# 8.4M (torch.mv beside the float32 basis); wK, wP and wPbf on resident state
 # (time_device_solve, itself the best of three solves, three times: the
 # host loop's spread)
 TURN_GMRES_CODE = TURN_HEAD + (
@@ -3027,14 +3149,17 @@ TURN_GMRES_CODE = TURN_HEAD + (
     "            ev = s.time_turns({0: fn}, reps=50)[0]\n"
     "            print(f'  arnoldi_step {n} rows {str(dt)[6:]} j {j}: {ch:.4f} ms per launch "
     "chained, {ev:.4f} ms around each call')\n"
-    "        if n == 1 << 20 and dt == torch.float32:\n"
+    "        if n >= 1 << 20:\n"
     "            y = torch.randn(100, device=d, generator=g)\n"
     "            vt = V[:100, :n].t()\n"
-    "            for rnd in range(5):\n"
-    "                t = s.time_turns({'k': lambda: s.gmres_combine(V, y, 100, n), "
-    "'mv': lambda: torch.mv(vt, y)})\n"
-    "                print(f'  combine_turn {rnd} {n} rows float32 j 100: gmres_combine "
-    "{t[\"k\"]:.4f} ms, torch.mv {t[\"mv\"]:.4f} ms')\n"
+    "            f32 = dt == torch.float32\n"
+    "            fns = {'k': lambda: s.gmres_combine(V, y, 100, n), **({'mv': lambda: torch.mv(vt, "
+    "y)} if f32 else {})}\n"
+    "            for rnd in range(5 if n == 1 << 20 and f32 else 3):\n"
+    "                t = s.time_turns(fns)\n"
+    "                mv = f', torch.mv {t[\"mv\"]:.4f} ms' if f32 else ''\n"
+    "                print(f'  combine_turn {rnd} {n} rows {str(dt)[6:]} j 100: gmres_combine "
+    "{t[\"k\"]:.4f} ms{mv}')\n"
     "        del V, w, wk, h\n"
     "        torch.cuda.empty_cache()\n"
     "m = s.testing.poisson_ldu(s.GRID_1M)\n"

@@ -25,8 +25,8 @@ none is silently ignored.
 
 Routing follows the reference's `_make_solve_fn`.  "Scalar BJ" below is
 `BJ` with maxBlockSize 1; a blocked BJ applies through the block-Jacobi
-kernel, ISAI/GISAI through the SpMV kernels of M (and Mᵀ), and both always
-take a host loop:
+kernel (in GKOBiCGStab's loop kernel, through its block-Jacobi phases),
+ISAI/GISAI through the SpMV kernels of M (and Mᵀ), on a host loop:
   GKOCG                merged two-kernel CG on Dia, Gdia and Xell for
                        `none`, scalar `BJ` or Multigrid (CgKernels,
                        GdiaCgKernels, XellCgKernels; `none` or scalar `BJ`
@@ -46,11 +46,12 @@ take a host loop:
                        pipelined CG (solve/cg_pipe.py); so do Coo, Csr,
                        Ell, Sell and Hybrid
   GKOBiCGStab          the general BiCGStab (solve/bicgstab.py): with
-                       `none` or scalar `BJ` one launch of its loop kernel
-                       on the card (on every format, bar a Csr of 16 or more
-                       entries per row on mean), else (blocked BJ, ISAI,
-                       GISAI, Multigrid) the host loop over the format's
-                       SpMV kernel; `fusedBiCGStab true` with `none` on Dia
+                       `none`, scalar `BJ` or blocked `BJ` (the state's
+                       inverses passed as inv_t) one launch of its loop
+                       kernel on the card (on every format, bar a Csr of 16
+                       or more entries per row on mean), else (ISAI, GISAI,
+                       Multigrid) the host loop over the format's SpMV
+                       kernel; `fusedBiCGStab true` with `none` on Dia
                        → the merged BiCGStab (K1B, K1B, KB_update;
                        solve/bicgstab_fused.py; on the card one launch of
                        its loop kernel)
@@ -495,9 +496,12 @@ class FoamSolver:
         """The solve of this solver's route over its resident matrix,
         preconditioner, b and x0, as a closure: no upload, no host set-up."""
         route, mat, kern = self.route, self.matrix, self.kern
-        # invd only for scalar Jacobi: a blocked BJ's state is its inverses
-        scalar_bj = self.cfg.precond.name == "BJ" and _diag_pc(self.cfg)
+        # invd for scalar Jacobi; a blocked BJ's state is its transposed
+        # inverses, inv_t, which only the general BiCGStab's loop kernel takes
+        bj = self.cfg.precond.name == "BJ"
+        scalar_bj = bj and _diag_pc(self.cfg)
         invd = self._precond_op.state if scalar_bj else None
+        inv_t = self._precond_op.state if bj and not scalar_bj else None
         general = {"cg": cg, "cg_pipe": cg_pipelined, "bicgstab": bicgstab}
         basis = torch.bfloat16 if self.cfg.basis_precision == "bfloat16" else None
 
@@ -508,8 +512,10 @@ class FoamSolver:
             if route in general:
                 ops = single_device_ops(spmv.matvec(mat), n, precond=apply_pc)
                 if kern is not None:  # "bicgstab" or "cg" with its loop kernel's plan
-                    return general[route](ops, b_dev, x0, params, kern, kern.pack_values(mat),
-                                          invd)
+                    data = kern.pack_values(mat)
+                    if route == "bicgstab":
+                        return bicgstab(ops, b_dev, x0, params, kern, data, invd, inv_t)
+                    return general[route](ops, b_dev, x0, params, kern, data, invd)
                 return general[route](ops, b_dev, x0, params)
             data = kern.pack_values(mat)
             if route == "cg_fused":

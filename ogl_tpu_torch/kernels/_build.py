@@ -129,36 +129,33 @@ _SIGNATURES = {
                           _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
     # variant, threads, blocks (out)
     "ogl_bicgstab_gen_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
-    # variant, coef, lidx, offsets, nd, rows, invd, rhat, x, r, p, pn, v, vn, s, t, rho, absr,
+    # variant, coef, lidx, offsets, nd, rows, invd (block Jacobi: inv_t), bs, rhat, x, r, p,
+    # pn, v, vn, s, t, y, z, rho, absr, nf, partials, record, n, tol, rel_tol, min_iter,
+    # max_iter, frequency, vec, threads, blocks, stream
+    "ogl_bicgstab_gen_loop": (_INT, _P, _P, _P, _INT, _I64, _P, _INT, *(_P,) * 16, _I64, _F32,
+                              _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, invd, bs,
+    # rhat, x, r, p, pn, v, vn, s, t, y, z, rho, absr, nf, partials, record, n, tol, rel_tol,
+    # min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_bicgstab_gen_loop_xell": (_INT, _P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _INT,
+                                   *(_P,) * 16, _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT,
+                                   _I64, _P),
+    # variant, cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals, invd, bs, rhat, x, r, p,
+    # pn, v, vn, s, t, y, z, rho, absr, nf, partials, record, n, tol, rel_tol, min_iter,
+    # max_iter, frequency, vec, threads, blocks, stream
+    "ogl_bicgstab_gen_loop_ell": (_INT, _P, _P, _P, _P, _P, _P, _P, _INT, *(_P,) * 16, _I64,
+                                  _F32, _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, row_ptr, cols, vals, invd, bs, rhat, x, r, p, pn, v, vn, s, t, y, z, rho, absr,
     # nf, partials, record, n, tol, rel_tol, min_iter, max_iter, frequency, vec, threads,
     # blocks, stream
-    "ogl_bicgstab_gen_loop": (_INT, _P, _P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT,
-                              _INT, _I64, _P),
-    # variant, vals, ll, bbT, n_slots, c_left, sp_ptr, sp_cols, sp_gidx, sp_vals, invd, rhat,
-    # x, r, p, pn, v, vn, s, t, rho, absr, nf, partials, record, n, tol, rel_tol, min_iter,
-    # max_iter, frequency, vec, threads, blocks, stream
-    "ogl_bicgstab_gen_loop_xell": (_INT, _P, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32,
-                                   _INT, _INT, _INT, _INT, _INT, _I64, _P),
-    # variant, cols, vals, warp_slots, tail_ptr, tail_cols, tail_vals, invd, rhat, x, r, p,
-    # pn, v, vn, s, t, rho, absr, nf, partials, record, n, tol, rel_tol, min_iter, max_iter,
-    # frequency, vec, threads, blocks, stream
-    "ogl_bicgstab_gen_loop_ell": (_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT,
-                                  _INT, _INT, _INT, _I64, _P),
-    # variant, row_ptr, cols, vals, invd, rhat, x, r, p, pn, v, vn, s, t, rho, absr, nf,
-    # partials, record, n, tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks,
-    # stream
-    "ogl_bicgstab_gen_loop_csr": (_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _INT, _INT, _INT,
-                                  _INT, _I64, _P),
+    "ogl_bicgstab_gen_loop_csr": (_INT, _P, _P, _P, _P, _INT, *(_P,) * 16, _I64, _F32, _F32,
+                                  _INT, _INT, _INT, _INT, _INT, _I64, _P),
     # variant, table, n_buckets, slice_buckets, slice_widths, slot_rows, cols, vals, slots,
-    # slice_height, invd, rhat, x, r, p, pn, v, vn, s, t, rho, absr, nf, partials, record, n,
-    # tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
-    "ogl_bicgstab_gen_loop_sell": (_INT, _P, _INT, _P, _P, _P, _P, _P, _I64, _INT, _P, _P, _P,
-                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _F32,
-                                   _F32, _INT, _INT, _INT, _INT, _INT, _I64, _P),
+    # slice_height, invd, bs, rhat, x, r, p, pn, v, vn, s, t, y, z, rho, absr, nf, partials,
+    # record, n, tol, rel_tol, min_iter, max_iter, frequency, vec, threads, blocks, stream
+    "ogl_bicgstab_gen_loop_sell": (_INT, _P, _INT, _P, _P, _P, _P, _P, _I64, _INT, _P, _INT,
+                                   *(_P,) * 16, _I64, _F32, _F32, _INT, _INT, _INT, _INT, _INT,
+                                   _I64, _P),
     # inv_t, r, y, n, bs, blocks, stream
     "ogl_block_jacobi": (_P, _P, _P, _I64, _INT, _I64, _P),
     # bf16, threads, smem, blocks (out)
@@ -167,6 +164,8 @@ _SIGNATURES = {
     # hint, blocks, smem, stream
     "ogl_gmres_arnoldi": (_INT, _P, _I64, _P, _P, _P, _P, _I64, _INT, _F32, _I64, _INT, _INT,
                           _INT, _INT, _I64, _I64, _P),
+    # bf16, blocks (out)
+    "ogl_gmres_combine_grid": (_INT, ctypes.POINTER(_I64)),
     # bf16, V, ld, y, j, out, n, blocks, stream
     "ogl_gmres_combine": (_INT, _P, _I64, _P, _INT, _P, _I64, _I64, _P),
     # row_ptr, cols, vals, x, y, n, group, blocks, stream

@@ -8,7 +8,10 @@ loads coalesce; `block_jacobi_plain` adds the products in k order from 0,
 each rounded, as the kernel does, so the two give the same bits.
 
 `block_jacobi(inv_t, r)` launches the kernel for CUDA tensors and runs the
-twin only for tensors on the CPU; on a CUDA tensor it never falls back.
+twin only for tensors on the CPU; on a CUDA tensor it never falls back.  The
+kernel's body (`csrc/block_jacobi.cuh`) is also the two preconditioner
+phases of the general-BiCGStab loop's block-Jacobi variants
+(`csrc/bicgstab_gen_loop.cuh`, the plans' `bicgstab_gen_loop(..., inv_t=)`).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import on_cpu, require_cuda, sm_count, stream_of
 
-__all__ = ["block_jacobi", "block_jacobi_plain", "MAX_BLOCK", "THREADS", "BLOCKS_PER_SM"]
+__all__ = ["block_jacobi", "block_jacobi_plain", "check_inverses", "MAX_BLOCK", "THREADS",
+           "BLOCKS_PER_SM"]
 
 MAX_BLOCK = 32  # the kernel stages a CUDA block's r in 256 floats: bs <= 32
 THREADS = 256
@@ -38,7 +42,10 @@ def block_jacobi_plain(inv_t: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)[:n]
 
 
-def _check(inv_t: torch.Tensor, r: torch.Tensor) -> None:
+def check_inverses(inv_t: torch.Tensor, r: torch.Tensor) -> None:
+    """Raise unless inv_t is a contiguous float32 (ceil(n / bs), bs, bs) tensor,
+    bs from 2 to MAX_BLOCK, for the contiguous float32 (n,) vector r on its
+    device."""
     if inv_t.dim() != 3 or inv_t.shape[1] != inv_t.shape[2]:
         raise ValueError(f"inv_t has shape {tuple(inv_t.shape)}, expected (nb, bs, bs)")
     nb, bs = inv_t.shape[0], inv_t.shape[1]
@@ -63,7 +70,7 @@ def block_jacobi(inv_t: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     if on_cpu(inv_t, r):
         return block_jacobi_plain(inv_t, r)
     require_cuda("block_jacobi", r)
-    _check(inv_t, r)
+    check_inverses(inv_t, r)
     n, bs = r.shape[0], inv_t.shape[1]
     y = torch.empty_like(r)
     if n == 0:

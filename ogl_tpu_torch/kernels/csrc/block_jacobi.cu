@@ -11,46 +11,38 @@
 // inverse (bs floats) and r, and writes y: (bs + 2) * 4 bytes, for 2 * bs
 // flops (24 bytes at bs 4: 7.2 us at 1M rows against 3.35 TB/s).
 //
-// Design: one thread per output row.  A CUDA block takes whole Jacobi blocks
-// (floor(256 / bs) of them, R rows) and walks the padded rows grid-stride.
-// The inverses are stored transposed within each block, inv_t[b, k, i] =
-// inv[b, i, k], so for each k the threads of a block read consecutive
-// floats.  Each thread stages its own r in shared memory; after a barrier
-// every thread of a Jacobi block reads that block's bs values from there.
-// Every product and every sum is rounded separately (__fmul_rn, __fadd_rn),
-// in k order from 0.0f, as the plain twin writes them, so kernel and twin
-// give the same bits.
+// Design: the body of block_jacobi.cuh over the source r[g] (one thread per
+// output row, whole Jacobi blocks per CTA tile, the source staged in shared
+// memory, the transposed inverses read coalesced), CTAs of 256 threads
+// walking the tiles grid-stride.  Every product and every sum is rounded
+// separately, in k order from 0.0f, as the plain twin writes them, so
+// kernel and twin give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "block_jacobi.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+// The standalone apply's source and sink: w = r[g], y[g] = the sum.
+struct RSource {
+  const float* r;
+  __device__ __forceinline__ float at(int64_t g) const { return __ldg(r + g); }
+};
+
+struct YSink {
+  float* y;
+  __device__ __forceinline__ void operator()(int64_t g, float, float acc) const { y[g] = acc; }
+};
+
 __global__ void __launch_bounds__(kThreads)
     block_jacobi_kernel(const float* __restrict__ inv_t, const float* __restrict__ r,
                         float* __restrict__ y, int64_t n, int bs) {
-  __shared__ float s_r[kThreads];
-  const int per = (kThreads / bs) * bs;  // rows per tile: whole Jacobi blocks
-  const int local = threadIdx.x;
-  const int i = local % bs;
-  const int64_t padded = (n + bs - 1) / bs * bs;
-  const int64_t tiles = (padded + per - 1) / per;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t g = tile * per + local;
-    const bool row = local < per && g < padded;
-    s_r[local] = (local < per && g < n) ? r[g] : 0.0f;
-    __syncthreads();
-    if (row) {
-      const float* inv = inv_t + (g - i) * bs + i;  // block g / bs, column i
-      const float* rb = s_r + (local - i);
-      float acc = 0.0f;
-      for (int k = 0; k < bs; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(__ldg(inv + static_cast<int64_t>(k) * bs), rb[k]));
-      if (g < n) y[g] = acc;
-    }
-    __syncthreads();
-  }
+  __shared__ float stage[kThreads];
+  ogl::bj::apply_tiles(inv_t, ogl::bj::tiling(n, bs), RSource{r}, YSink{y}, n, stage,
+                       blockIdx.x, gridDim.x);
 }
 
 }  // namespace
@@ -60,7 +52,8 @@ __global__ void __launch_bounds__(kThreads)
 // launched).
 extern "C" int ogl_block_jacobi(const float* inv_t, const float* r, float* y, int64_t n,
                                 int bs, int64_t blocks, void* stream) {
-  if (n < 0 || bs < 2 || bs > 32 || blocks < 1 || blocks > INT32_MAX)
+  if (n < 0 || bs < ogl::bj::kMinBlock || bs > ogl::bj::kMaxBlock || blocks < 1 ||
+      blocks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   block_jacobi_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,

@@ -33,81 +33,22 @@
 // where they fit, w's slice held for the whole step where it fits), with the
 // plan of ogl_tpu_torch/kernels/gmres.py `arnoldi_plan`.
 //
-// Design (combine).  One thread per row quad, grid-stride; for each k in
-// order acc = acc + y_k * V_k, every product and sum rounded, as the twin
-// writes it, so kernel and twin give the same bits.
+// Design (combine): the body of gmres_combine.cuh (a column group of 4
+// entries per thread, its rows' loads issued in pairs before the adds) over
+// a grid of the co-resident CTAs, grid-stride; each product and sum rounded
+// in k order, as the twin writes it, so kernel and twin give the same bits.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gmres_arnoldi.cuh"
+#include "gmres_combine.cuh"
 #include "loop.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// Row quads of the basis, float32 or bfloat16, read through the read-only
-// path (the basis rows a launch reads are not written by it).
-template <bool BF16>
-struct Basis;
-
-template <>
-struct Basis<false> {
-  using T = float;
-  static __device__ __forceinline__ float4 load(const float* row, int64_t i, int64_t n) {
-    if (i + 4 <= n) return __ldg(reinterpret_cast<const float4*>(row + i));
-    float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int t = 0; t < 4 && i + t < n; ++t) e[t] = __ldg(row + i + t);
-    return make_float4(e[0], e[1], e[2], e[3]);
-  }
-  static __device__ __forceinline__ void store(float* row, int64_t i, float4 q, int64_t n) {
-    if (i + 4 <= n) {
-      *reinterpret_cast<float4*>(row + i) = q;
-      return;
-    }
-    const float e[4] = {q.x, q.y, q.z, q.w};
-    for (int t = 0; t < 4 && i + t < n; ++t) row[i + t] = e[t];
-  }
-};
-
-__device__ __forceinline__ float bf16_bits(unsigned int u) { return __uint_as_float(u << 16); }
-
-template <>
-struct Basis<true> {
-  using T = __nv_bfloat16;
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* row, int64_t i,
-                                                int64_t n) {
-    if (i + 4 <= n) {
-      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(row + i));
-      return make_float4(bf16_bits(raw.x & 0xffffu), __uint_as_float(raw.x & 0xffff0000u),
-                         bf16_bits(raw.y & 0xffffu), __uint_as_float(raw.y & 0xffff0000u));
-    }
-    const unsigned short* u = reinterpret_cast<const unsigned short*>(row);
-    float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int t = 0; t < 4 && i + t < n; ++t) e[t] = bf16_bits(__ldg(u + i + t));
-    return make_float4(e[0], e[1], e[2], e[3]);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* row, int64_t i, float4 q,
-                                               int64_t n) {
-    const unsigned int u[4] = {__bfloat16_as_ushort(__float2bfloat16_rn(q.x)),
-                               __bfloat16_as_ushort(__float2bfloat16_rn(q.y)),
-                               __bfloat16_as_ushort(__float2bfloat16_rn(q.z)),
-                               __bfloat16_as_ushort(__float2bfloat16_rn(q.w))};
-    if (i + 4 <= n) {
-      uint2 raw;
-      raw.x = u[0] | (u[1] << 16);
-      raw.y = u[2] | (u[3] << 16);
-      *reinterpret_cast<uint2*>(row + i) = raw;
-      return;
-    }
-    unsigned short* d = reinterpret_cast<unsigned short*>(row);
-    for (int t = 0; t < 4 && i + t < n; ++t) d[i + t] = static_cast<unsigned short>(u[t]);
-  }
-};
 
 template <bool BF16>
 __global__ void __launch_bounds__(ogl::arnoldi::kThreads, 1)
@@ -122,26 +63,18 @@ __global__ void __launch_bounds__(ogl::arnoldi::kThreads, 1)
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-    gmres_combine_kernel(const typename Basis<BF16>::T* __restrict__ V, int64_t ld,
+__global__ void __launch_bounds__(ogl::combine::kThreads)
+    gmres_combine_kernel(const typename ogl::combine::Cols<BF16>::T* __restrict__ V, int64_t ld,
                          const float* __restrict__ y, int j, float* __restrict__ out,
                          int64_t n) {
-  using B = Basis<BF16>;
-  const int64_t nq = (n + 3) / 4;
-  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; q < nq;
-       q += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t i = q * 4;
-    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int k = 0; k < j; ++k) {
-      const float yk = __ldg(y + k);
-      const float4 v = B::load(V + static_cast<int64_t>(k) * ld, i, n);
-      a.x = __fadd_rn(a.x, __fmul_rn(yk, v.x));
-      a.y = __fadd_rn(a.y, __fmul_rn(yk, v.y));
-      a.z = __fadd_rn(a.z, __fmul_rn(yk, v.z));
-      a.w = __fadd_rn(a.w, __fmul_rn(yk, v.w));
-    }
-    Basis<false>::store(out, i, a, n);
-  }
+  ogl::combine::combine_groups<BF16>(
+      V, ld, y, j, out, n, static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+      static_cast<int64_t>(gridDim.x) * blockDim.x);
+}
+
+const void* combine_kernel(int bf16) {
+  return bf16 ? reinterpret_cast<const void*>(&gmres_combine_kernel<true>)
+              : reinterpret_cast<const void*>(&gmres_combine_kernel<false>);
 }
 
 const void* arnoldi_kernel(int bf16) {
@@ -216,6 +149,12 @@ extern "C" int ogl_gmres_arnoldi(int bf16, const void* V, int64_t ld, float* w, 
                           static_cast<size_t>(smem));
 }
 
+// The co-resident CTAs of 256 threads of the combine kernel (bf16: the
+// basis type) on the current device: the grid ogl_gmres_combine is sized to.
+extern "C" int ogl_gmres_combine_grid(int bf16, int64_t* blocks) {
+  return ogl::coop_grid(combine_kernel(bf16), ogl::combine::kThreads, blocks);
+}
+
 // Launches `blocks` blocks of 256 threads on `stream`: out (n,) = the sum of
 // y[k] * V[k] over k < j, in k order.  Returns cudaGetLastError() (0 =
 // launched).
@@ -226,11 +165,12 @@ extern "C" int ogl_gmres_combine(int bf16, const void* V, int64_t ld, const floa
   if (bad_rows(bf16, V, ld, n) || ogl::misaligned(out, 16))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int grid = static_cast<unsigned int>(blocks);
   if (bf16)
-    gmres_combine_kernel<true><<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+    gmres_combine_kernel<true><<<grid, ogl::combine::kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(V), ld, y, j, out, n);
   else
-    gmres_combine_kernel<false><<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+    gmres_combine_kernel<false><<<grid, ogl::combine::kThreads, 0, s>>>(
         static_cast<const float*>(V), ld, y, j, out, n);
   return static_cast<int>(cudaGetLastError());
 }

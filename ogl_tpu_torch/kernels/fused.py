@@ -52,7 +52,8 @@ criterion inside one `jax.lax.while_loop`):
   barrier
 the whole general BiCGStab loop (solve/bicgstab.py, `fusedBiCGStab` false)
 on a Dia, a Gdia or (through kernels/xell.py `XellCgKernels`) an Xell
-matrix with identity or scalar Jacobi preconditioning as a fourth
+matrix with identity, scalar Jacobi or block-Jacobi preconditioning as a
+fourth
 (`bicgstab_gen_loop`; the reference runs two SpMVs, the elementwise passes,
 the reductions and the criterion inside one `jax.lax.while_loop`):
   each iteration the criterion on ‖r‖₁, β, SpMV A (v' = A M⁻¹p' with p' =
@@ -60,7 +61,10 @@ the reductions and the criterion inside one `jax.lax.while_loop`):
   `csrc/dia_rows.cuh`, the Gdia one, `csrc/gdia_k1.cuh`, or the Xell band
   body, `csrc/xell_band.cuh`), a grid
   barrier, α, SpMV B (t = A M⁻¹s, s = r − α·v'), a grid barrier, ω, the
-  update of x and r, a grid barrier
+  update of x and r, a grid barrier; with block Jacobi (`inv_t`, bit
+  LOOP_BLOCK_JACOBI) p' and y = M⁻¹p' are formed first over whole Jacobi
+  blocks (the body `csrc/block_jacobi.cuh`) behind a barrier of their own,
+  and s and z = M⁻¹s the same way before SpMV B: five barriers
 and the AMG smoother's two passes, each one stencil apply:
   sweep  out = x + relax·invd ⊙ (b − A x)
   resid  out = b − A x
@@ -116,13 +120,15 @@ import torch
 
 from ogl_tpu_torch import kernels
 from ogl_tpu_torch.kernels import _build, gdia
+from ogl_tpu_torch.kernels.block_jacobi import block_jacobi_plain, check_inverses
 from ogl_tpu_torch.kernels.dia_spmv import (THREADS, DiaPlan, check_operands,
                                             check_scalar, dia_spmv, dia_spmv_plain, on_cpu,
                                             persistent_launch, require_cuda, sm_count,
                                             stream_of)
 
 __all__ = ["CgKernels", "GdiaCgKernels", "LOOP_JACOBI", "LOOP_GDIA", "LOOP_XELL", "LOOP_ELL",
-           "LOOP_CSR", "LOOP_SELL",
+           "LOOP_CSR", "LOOP_SELL", "LOOP_BLOCK_JACOBI", "gen_loop_precond",
+           "gen_loop_preconditioner",
            "k1_plain",
            "k2_plain", "k2i_plain", "k2n_plain", "cg_loop_plain", "ka_plain", "kb_pipe_plain",
            "cg_pipe_loop_plain", "k1b_plain", "kb_update_plain", "bicgstab_loop_plain",
@@ -143,6 +149,9 @@ LOOP_THREADS = 512
 # apply (kernels/ell.py), the Csr (and device Coo) apply and the Sell apply
 # (kernels/gather_loop.py)
 LOOP_JACOBI, LOOP_GDIA, LOOP_XELL, LOOP_ELL, LOOP_CSR, LOOP_SELL = 1, 2, 4, 8, 16, 32
+# the general-BiCGStab loop's block-Jacobi variants (csrc/bicgstab_gen_loop.cu
+# kBlockJacobi; not with LOOP_JACOBI): M⁻¹ the transposed block inverses inv_t
+LOOP_BLOCK_JACOBI = 64
 # coefficient types the smoother kernels take (csrc/amg_smooth.cu templates)
 SMOOTHER_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -344,6 +353,33 @@ def gen_update_plain(ops, x, r, y, z, s, t, rhat, alpha, omega):
     return gen_check_sums(ops, r, rhat)
 
 
+def gen_loop_precond(x, invd=None, inv_t=None):
+    """The preconditioner of a general-BiCGStab loop on x's rows as its twin
+    applies it: None (identity), invd ⊙ · (scalar Jacobi) or the
+    block-Jacobi twin over the transposed block inverses inv_t, checked
+    against x (kernels/block_jacobi.py check_inverses); invd and inv_t
+    exclude each other."""
+    if invd is not None and inv_t is not None:
+        raise ValueError("bicgstab_gen_loop: invd (scalar Jacobi) and inv_t (block Jacobi) "
+                         "exclude each other")
+    if inv_t is not None:
+        check_inverses(inv_t, x)
+        return functools.partial(block_jacobi_plain, inv_t)
+    return None if invd is None else (lambda w: invd * w)
+
+
+def gen_loop_preconditioner(x, invd=None, inv_t=None):
+    """The general-BiCGStab loop launch's preconditioner operands (invd and
+    inv_t checked by gen_loop_precond): (variant bits, the pointer of invd
+    or inv_t or None, the block size or 0, and the scratch vectors y and z
+    the block-Jacobi variants write, or Nones)."""
+    if inv_t is None:
+        return ((0, None, 0, None, None) if invd is None
+                else (LOOP_JACOBI, invd.data_ptr(), 0, None, None))
+    return (LOOP_BLOCK_JACOBI, inv_t.data_ptr(), inv_t.shape[1], torch.empty_like(x),
+            torch.empty_like(x))
+
+
 def bicgstab_gen_loop_plain(ops, x, r, rhat, rho, absr, nf, cfg):
     """The general-BiCGStab loop kernel's function (csrc/bicgstab_gen_loop.cu)
     and the host loop of solve/bicgstab.py: the recurrence over the phase
@@ -405,6 +441,11 @@ def _check_no_overlap(what: str, out: torch.Tensor, *operands) -> None:
             if a < hi and lo < b:
                 raise ValueError(f"{what}: out overlaps an operand; it needs a "
                                  "buffer of its own")
+
+
+def _ptr(t: torch.Tensor | None):
+    """A tensor's device pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _read_record(record: torch.Tensor) -> tuple:
@@ -535,8 +576,8 @@ class CgKernels:
         return self._coop_blocks("bicgstab_loop", self._bicgstab_loop_blocks, 0)
 
     def gen_loop_blocks(self, variant: int = 0) -> int:
-        """loop_blocks for the general-BiCGStab loop kernel (LOOP_JACOBI |
-        LOOP_GDIA bits)."""
+        """loop_blocks for the general-BiCGStab loop kernel (LOOP_JACOBI or
+        LOOP_BLOCK_JACOBI, and LOOP_GDIA bits)."""
         return self._coop_blocks("bicgstab_gen_loop", self._gen_loop_blocks, variant)
 
     def _coop_blocks(self, kernel: str, cache: dict, variant: int) -> int:
@@ -746,27 +787,29 @@ class CgKernels:
         return _read_record(record)
 
     # ---- the general BiCGStab: the whole loop (CUDA C++) ------------------
-    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None):
+    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None, inv_t=None):
         """The general BiCGStab loop of solve/bicgstab.py from its set-up: x
         and r = b − A x, updated in place; the shadow residual r̂ (a copy of
         r0); ρ = Σ r̂·r, ‖r‖₁ and the norm factor as 0-d tensors; cfg the
-        StoppingParams; invd the Jacobi inverse diagonal (None: identity).
-        One cooperative launch on the card (csrc/bicgstab_gen_loop.cu, its two
-        SpMV phases the format's row body), then one host read of its record;
-        returns (iterations, final and initial normalised residual,
-        converged) — an int and three 0-d CPU tensors."""
+        StoppingParams; invd the Jacobi inverse diagonal, or inv_t the
+        transposed block-Jacobi inverses (ceil(n / bs), bs, bs) (both None:
+        identity).  One cooperative launch on the card
+        (csrc/bicgstab_gen_loop.cu, its two SpMV phases the format's row
+        body, with inv_t its two block-Jacobi phases), then one host read of
+        its record; returns (iterations, final and initial normalised
+        residual, converged) — an int and three 0-d CPU tensors."""
         coef = data if isinstance(data, tuple) else (data,)
-        if on_cpu(*coef, x, r, rhat, rho, absr, nf, invd):
+        pc = gen_loop_precond(x, invd, inv_t)
+        if on_cpu(*coef, x, r, rhat, rho, absr, nf, invd, inv_t):
             from ogl_tpu_torch.solve.krylov import single_device_ops  # solve imports this module
-            ops = single_device_ops(functools.partial(self.spmv, data), self.n,
-                                    precond=None if invd is None else (lambda w: invd * w))
+            ops = single_device_ops(functools.partial(self.spmv, data), self.n, precond=pc)
             return bicgstab_gen_loop_plain(ops, x, r, rhat, rho, absr, nf, cfg)
         require_cuda("bicgstab_gen_loop", x)
-        jacobi = invd is not None
-        vectors = (x, r, rhat, invd) if jacobi else (x, r, rhat)
+        vectors = (x, r, rhat) if invd is None else (x, r, rhat, invd)
         variant, apply = self._loop_apply(data, vectors)
         gdia_v = bool(variant & LOOP_GDIA)
-        variant |= LOOP_JACOBI if jacobi else 0
+        bits, pc_ptr, bs, y, z = gen_loop_preconditioner(x, invd, inv_t)
+        variant |= bits
         for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
             check_scalar(what, sc, self.device)
         blocks = min(self.gen_loop_blocks(variant), -(-self.n // LOOP_THREADS))
@@ -774,12 +817,13 @@ class CgKernels:
         pn, vn, s, t = (torch.empty_like(x) for _ in range(4))
         partials = torch.empty(5 * blocks, dtype=torch.float32, device=self.device)
         record = torch.empty(4, dtype=torch.float32, device=self.device)
-        streams = (*vectors, p, pn, v, vn, s, t, *(() if gdia_v else coef))
+        streams = (*vectors, p, pn, v, vn, s, t, *(() if y is None else (y, z)),
+                   *(() if gdia_v else coef))
         vec = int((gdia_v or self.n % 4 == 0) and all(u.data_ptr() % 16 == 0 for u in streams))
         _build.check(_build.library().ogl_bicgstab_gen_loop(
-            variant, *apply, invd.data_ptr() if jacobi else None, rhat.data_ptr(), x.data_ptr(),
-            r.data_ptr(), p.data_ptr(), pn.data_ptr(), v.data_ptr(), vn.data_ptr(), s.data_ptr(),
-            t.data_ptr(), rho.data_ptr(), absr.data_ptr(), nf.data_ptr(), partials.data_ptr(),
+            variant, *apply, pc_ptr, bs, rhat.data_ptr(), x.data_ptr(), r.data_ptr(),
+            p.data_ptr(), pn.data_ptr(), v.data_ptr(), vn.data_ptr(), s.data_ptr(), t.data_ptr(),
+            _ptr(y), _ptr(z), rho.data_ptr(), absr.data_ptr(), nf.data_ptr(), partials.data_ptr(),
             record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter, cfg.max_iter,
             cfg.frequency, vec, LOOP_THREADS, blocks, stream_of(x)), "bicgstab_gen_loop")
         kernels.launches["bicgstab_gen_loop"] += 1

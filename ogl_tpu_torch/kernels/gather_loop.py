@@ -8,8 +8,9 @@ Ell and Hybrid plan, `EllCgKernels`, is in kernels/ell.py.
 
 Counterpart: none in ogl_tpu.  The reference solves these formats on its
 general loops (ogl_tpu/solve/cg.py, bicgstab.py) over XLA SpMVs; here
-GKOCG and GKOBiCGStab with `none` or scalar `BJ` on them run their whole
-loop, criterion included, as one cooperative launch on the card.
+GKOCG and GKOBiCGStab with `none` or scalar `BJ` (GKOBiCGStab also with a
+blocked BJ, `inv_t`) on them run their whole loop, criterion included, as
+one cooperative launch on the card.
 
 A plan holds the sparsity, checked once when it is made; the values travel
 as `data = pack_values(mat)`, a tuple, so one plan serves every value
@@ -35,8 +36,9 @@ from ogl_tpu_torch.core.formats import Csr, Ell, Hybrid, Sell
 from ogl_tpu_torch.kernels import _build, gather_spmv
 from ogl_tpu_torch.kernels.dia_spmv import check_scalar, on_cpu, require_cuda, stream_of
 from ogl_tpu_torch.kernels.fused import (LOOP_CSR, LOOP_JACOBI, LOOP_SELL, LOOP_THREADS,
-                                         CgKernels, _read_record, bicgstab_gen_loop_plain,
-                                         cg_loop_plain)
+                                         CgKernels, _ptr, _read_record, bicgstab_gen_loop_plain,
+                                         cg_loop_plain, gen_loop_precond,
+                                         gen_loop_preconditioner)
 
 __all__ = ["GatherCgKernels", "CsrCgKernels", "SellCgKernels", "gather_k1_plain"]
 
@@ -165,36 +167,37 @@ class GatherCgKernels:
         return self._d._coop_blocks("bicgstab_gen_loop", self._gen_loop_blocks,
                                     self.LOOP if variant is None else variant)
 
-    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None):
+    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None, inv_t=None):
         """The general BiCGStab loop of solve/bicgstab.py, as
         CgKernels.bicgstab_gen_loop: one cooperative launch of the loop
         kernel's variant of this format on the card (its two SpMV phases the
-        format's row body over this plan), then one host read of its record;
-        CPU tensors run the twin `bicgstab_gen_loop_plain` over this plan's
-        SpMV."""
-        if on_cpu(*data, x, r, rhat, rho, absr, nf, invd):
+        format's row body over this plan; with inv_t its block-Jacobi
+        phases), then one host read of its record; CPU tensors run the twin
+        `bicgstab_gen_loop_plain` over this plan's SpMV."""
+        pc = gen_loop_precond(x, invd, inv_t)
+        if on_cpu(*data, x, r, rhat, rho, absr, nf, invd, inv_t):
             from ogl_tpu_torch.solve.krylov import single_device_ops  # solve imports this module
-            ops = single_device_ops(functools.partial(self.spmv, data), self.n,
-                                    precond=None if invd is None else (lambda w: invd * w))
+            ops = single_device_ops(functools.partial(self.spmv, data), self.n, precond=pc)
             return bicgstab_gen_loop_plain(ops, x, r, rhat, rho, absr, nf, cfg)
         what = f"{self.NAME}_bicgstab_gen_loop"
         require_cuda(what, x)
-        jacobi = invd is not None
-        vectors = (x, r, rhat, invd) if jacobi else (x, r, rhat)
+        vectors = (x, r, rhat) if invd is None else (x, r, rhat, invd)
         matrix = self._operands(what, data, vectors)
         for name, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
             check_scalar(name, sc, self.device)
-        variant = self.LOOP | (LOOP_JACOBI if jacobi else 0)
+        bits, pc_ptr, bs, y, z = gen_loop_preconditioner(x, invd, inv_t)
+        variant = self.LOOP | bits
         blocks = min(self.gen_loop_blocks(variant), -(-self.n // LOOP_THREADS))
         p, v = torch.zeros_like(x), torch.zeros_like(x)
         pn, vn, s, t = (torch.empty_like(x) for _ in range(4))
         partials = torch.empty(5 * blocks, dtype=torch.float32, device=self.device)
         record = torch.empty(4, dtype=torch.float32, device=self.device)
-        vec = int(all(u.data_ptr() % 16 == 0 for u in (*vectors, p, pn, v, vn, s, t)))
+        vec = int(all(u.data_ptr() % 16 == 0 for u in (*vectors, p, pn, v, vn, s, t, y, z)
+                      if u is not None))
         _build.check(getattr(_build.library(), f"ogl_bicgstab_gen_loop_{self.NAME}")(
-            variant, *matrix, invd.data_ptr() if jacobi else None, rhat.data_ptr(),
-            x.data_ptr(), r.data_ptr(), p.data_ptr(), pn.data_ptr(), v.data_ptr(), vn.data_ptr(),
-            s.data_ptr(), t.data_ptr(), rho.data_ptr(), absr.data_ptr(), nf.data_ptr(),
+            variant, *matrix, pc_ptr, bs, rhat.data_ptr(), x.data_ptr(), r.data_ptr(),
+            p.data_ptr(), pn.data_ptr(), v.data_ptr(), vn.data_ptr(), s.data_ptr(), t.data_ptr(),
+            _ptr(y), _ptr(z), rho.data_ptr(), absr.data_ptr(), nf.data_ptr(),
             partials.data_ptr(), record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol,
             cfg.min_iter, cfg.max_iter, cfg.frequency, vec, LOOP_THREADS, blocks,
             stream_of(x)), what)

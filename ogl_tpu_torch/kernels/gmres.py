@@ -17,7 +17,10 @@ float32.
       (`gmres_arnoldi` counter), its shared memory laid out by
       `arnoldi_plan(n, bf16, sms)`.
   gmres_combine(V, y, j)  Σ_{k<j} y_k V_k over the live rows (`gmres_combine`
-      counter; j = 0 gives zeros and launches nothing).
+      counter; j = 0 gives zeros and launches nothing): the body of
+      `csrc/gmres_combine.cuh`, one column group of 4 entries per thread,
+      its rows' loads issued in pairs, on a grid of the co-resident CTAs
+      (`combine_grid`).
 
 On CPU tensors the wrappers run the twins; on a CUDA tensor they launch the
 kernel or raise.  The combine kernel is bit-equal to its twin (each product
@@ -42,7 +45,8 @@ from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import on_cpu, require_cuda, sm_count, stream_of
 
 __all__ = ["BLOCK", "ArnoldiPlan", "arnoldi_plan", "launch_plan", "new_basis", "gmres_arnoldi",
-           "gmres_arnoldi_plain", "gmres_combine", "gmres_combine_plain", "ARNOLDI_THREADS"]
+           "gmres_arnoldi_plain", "gmres_combine", "gmres_combine_plain", "combine_grid",
+           "ARNOLDI_THREADS"]
 
 BLOCK = 8  # basis rows per block of the blocked MGS (the reference's _BLOCK)
 # The Arnoldi launch (csrc/gmres_arnoldi.cuh; these mirror its constants)
@@ -58,11 +62,12 @@ SMEM_MAX = 232_448  # the dynamic shared memory one CTA can have on Hopper
 # rows that are not held are read first with an L2 evict_last policy where
 # all of them fit in this share of the 50 MB L2, so their re-read hits it
 L2_HOLD_BYTES = 25 << 20
-COMBINE_THREADS = 256
-COMBINE_BLOCKS_PER_SM = 16
+COMBINE_THREADS = 256  # csrc/gmres_combine.cuh kThreads
+COMBINE_COLS = 4  # entries of a thread's column group (csrc/gmres_combine.cuh Cols)
 TINY = 1e-12  # small_of(float32)², the reference's breakdown guard
 
 _plans: dict = {}
+_combine_grids: dict = {}  # (device index, bf16) -> co-resident CTAs of the combine
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +231,20 @@ def gmres_arnoldi(V: torch.Tensor, w: torch.Tensor, j: int, h: torch.Tensor,
     return w if bf16 else vnext[:n]
 
 
+def combine_grid(bf16: bool, device) -> int:
+    """The co-resident CTAs of the combine kernel (bf16: the basis type) on
+    `device`, queried once per device and type: the grid the combine walks
+    its column groups with."""
+    key = (device.index, bool(bf16))
+    if key not in _combine_grids:
+        blocks = ctypes.c_int64()
+        with torch.cuda.device(device):
+            _build.check(_build.library().ogl_gmres_combine_grid(int(bf16), ctypes.byref(blocks)),
+                         "gmres_combine (occupancy query)")
+        _combine_grids[key] = blocks.value
+    return _combine_grids[key]
+
+
 def gmres_combine(V: torch.Tensor, y: torch.Tensor, j: int, n: int) -> torch.Tensor:
     """Σ_{k<j} y_k V_k (n,) float32; y a float32 vector of at least j entries."""
     if on_cpu(V, y):
@@ -239,11 +258,11 @@ def gmres_combine(V: torch.Tensor, y: torch.Tensor, j: int, n: int) -> torch.Ten
     out = torch.empty(n, dtype=torch.float32, device=V.device)
     if j == 0:
         return out.zero_()
-    quads = -(-n // 4)
-    blocks = max(min(-(-quads // COMBINE_THREADS),
-                     COMBINE_BLOCKS_PER_SM * sm_count(V.device.index)), 1)
+    bf16 = V.dtype == torch.bfloat16
+    groups = -(-n // COMBINE_COLS)
+    blocks = max(min(-(-groups // COMBINE_THREADS), combine_grid(bf16, V.device)), 1)
     _build.check(_build.library().ogl_gmres_combine(
-        int(V.dtype == torch.bfloat16), V.data_ptr(), V.shape[1], y.data_ptr(), j,
-        out.data_ptr(), n, blocks, stream_of(V)), "gmres_combine")
+        int(bf16), V.data_ptr(), V.shape[1], y.data_ptr(), j, out.data_ptr(), n, blocks,
+        stream_of(V)), "gmres_combine")
     kernels.launches["gmres_combine"] += 1
     return out

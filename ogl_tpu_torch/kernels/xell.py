@@ -60,8 +60,9 @@ from ogl_tpu_torch import kernels
 from ogl_tpu_torch.core.formats import Coo
 from ogl_tpu_torch.kernels import _build
 from ogl_tpu_torch.kernels.dia_spmv import check_scalar, on_cpu, require_cuda, stream_of
-from ogl_tpu_torch.kernels.fused import (LOOP_JACOBI, LOOP_THREADS, LOOP_XELL, CgKernels,
-                                         _read_record, bicgstab_gen_loop_plain, cg_loop_plain)
+from ogl_tpu_torch.kernels.fused import (LOOP_JACOBI, LOOP_THREADS, LOOP_XELL, CgKernels, _ptr,
+                                         _read_record, bicgstab_gen_loop_plain, cg_loop_plain,
+                                         gen_loop_precond, gen_loop_preconditioner)
 
 LANES = 128
 TB = 128  # block rows per destination tile
@@ -573,39 +574,41 @@ class XellCgKernels:
     # ---- the general BiCGStab: the whole loop (CUDA C++) ------------------
     def gen_loop_blocks(self, variant: int = LOOP_XELL) -> int:
         """loop_blocks for the general-BiCGStab loop kernel's Xell variants
-        (LOOP_XELL, with LOOP_JACOBI or not)."""
+        (LOOP_XELL, with LOOP_JACOBI, LOOP_BLOCK_JACOBI or neither)."""
         return self._d._coop_blocks("bicgstab_gen_loop", self._gen_loop_blocks, variant)
 
-    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None):
+    def bicgstab_gen_loop(self, data, x, r, rhat, rho, absr, nf, cfg, invd=None, inv_t=None):
         """The general BiCGStab loop of solve/bicgstab.py, as
         CgKernels.bicgstab_gen_loop: one cooperative launch of the loop
         kernel's Xell variant on the card (its two SpMV phases the band body
-        over this plan), then one host read of its record; CPU tensors run
-        the twin `bicgstab_gen_loop_plain` over this plan's SpMV."""
-        if on_cpu(*data, x, r, rhat, rho, absr, nf, invd):
+        over this plan; with inv_t its block-Jacobi phases), then one host
+        read of its record; CPU tensors run the twin
+        `bicgstab_gen_loop_plain` over this plan's SpMV."""
+        pc = gen_loop_precond(x, invd, inv_t)
+        if on_cpu(*data, x, r, rhat, rho, absr, nf, invd, inv_t):
             from ogl_tpu_torch.solve.krylov import single_device_ops  # solve imports this module
-            ops = single_device_ops(functools.partial(self.spmv, data), self.n,
-                                    precond=None if invd is None else (lambda w: invd * w))
+            ops = single_device_ops(functools.partial(self.spmv, data), self.n, precond=pc)
             return bicgstab_gen_loop_plain(ops, x, r, rhat, rho, absr, nf, cfg)
         require_cuda("bicgstab_gen_loop", x)
-        jacobi = invd is not None
-        vectors = (x, r, rhat, invd) if jacobi else (x, r, rhat)
+        vectors = (x, r, rhat) if invd is None else (x, r, rhat, invd)
         vals, ll, bbT, spill_vals = data
         _check(self.plan, vals, ll, bbT, spill_vals, *vectors)
         for what, sc in (("rho", rho), ("absr", absr), ("nf", nf)):
             check_scalar(what, sc, self.device)
-        variant = LOOP_XELL | (LOOP_JACOBI if jacobi else 0)
+        bits, pc_ptr, bs, y, z = gen_loop_preconditioner(x, invd, inv_t)
+        variant = LOOP_XELL | bits
         blocks = min(self.gen_loop_blocks(variant), -(-self.n // LOOP_THREADS))
         p, v = torch.zeros_like(x), torch.zeros_like(x)
         pn, vn, s, t = (torch.empty_like(x) for _ in range(4))
         partials = torch.empty(5 * blocks, dtype=torch.float32, device=self.device)
         record = torch.empty(4, dtype=torch.float32, device=self.device)
-        vec = int(all(u.data_ptr() % 16 == 0 for u in (*vectors, p, pn, v, vn, s, t)))
+        vec = int(all(u.data_ptr() % 16 == 0 for u in (*vectors, p, pn, v, vn, s, t, y, z)
+                      if u is not None))
         _build.check(_build.library().ogl_bicgstab_gen_loop_xell(
             variant, vals.data_ptr(), ll.data_ptr(), bbT.data_ptr(), self.plan.n_slots,
             self.plan.c_left, *_spill_args(self.plan, spill_vals),
-            invd.data_ptr() if jacobi else None, rhat.data_ptr(), x.data_ptr(), r.data_ptr(),
-            p.data_ptr(), pn.data_ptr(), v.data_ptr(), vn.data_ptr(), s.data_ptr(), t.data_ptr(),
+            pc_ptr, bs, rhat.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(), pn.data_ptr(),
+            v.data_ptr(), vn.data_ptr(), s.data_ptr(), t.data_ptr(), _ptr(y), _ptr(z),
             rho.data_ptr(), absr.data_ptr(), nf.data_ptr(), partials.data_ptr(),
             record.data_ptr(), self.n, cfg.tolerance, cfg.rel_tol, cfg.min_iter, cfg.max_iter,
             cfg.frequency, vec, LOOP_THREADS, blocks, stream_of(x)), "bicgstab_gen_loop")

@@ -10,7 +10,7 @@ the foam path.
 
 Where the matrix is Ell, Hybrid, Csr (or a device Coo) or Sell and the
 preconditioner `none` or scalar `BJ` (`why_not` None; a blocked BJ, ISAI,
-GISAI or Multigrid keeps the host loop, ops.precond), the solver passes
+GISAI or Multigrid keeps the CG's host loop, ops.precond), the solver passes
 the format's plan: with the plan itself (kernels/ell.py `EllCgKernels`,
 kernels/gather_loop.py `CsrCgKernels`, `SellCgKernels`, not a subclass) on
 CUDA tensors, the set-up below runs as ever and the whole loop, criterion
@@ -35,7 +35,7 @@ from ogl_tpu_torch.kernels.gather_spmv import CSR_GROUP_FROM, csr_group
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.krylov import Ops
 
-__all__ = ["cg", "SolveResult", "why_not", "precond_why_not", "LOOP_PLANS"]
+__all__ = ["cg", "SolveResult", "why_not", "precond_why_not", "gather_why_not", "LOOP_PLANS"]
 
 # the plans of the gather formats' loop kernels, by the matrix's exact type
 # (a DeviceCoo is a Csr by its storage)
@@ -51,10 +51,11 @@ class SolveResult(NamedTuple):
 
 
 def precond_why_not(precond_name: str, max_block_size: int = 1) -> str | None:
-    """Why a loop kernel cannot take the preconditioner, or None: the loops'
-    phases apply identity or scalar Jacobi (invd ⊙ r) only, so a blocked BJ
-    (its block-Jacobi kernel), ISAI and GISAI (SpMVs of M) and Multigrid keep
-    the host loop."""
+    """Why a loop kernel cannot take the preconditioner, or None: the CG
+    loops' phases apply identity or scalar Jacobi (invd ⊙ r) only, so a
+    blocked BJ (its block-Jacobi kernel), ISAI and GISAI (SpMVs of M) and
+    Multigrid keep the host loop.  The general BiCGStab's loop kernel also
+    takes a blocked BJ (solve/bicgstab.py why_not)."""
     if precond_name not in ("none", "BJ"):
         return f"preconditioner {precond_name}"
     if precond_name == "BJ" and max_block_size != 1:
@@ -72,9 +73,12 @@ def why_not(mat, precond_name: str, max_block_size: int = 1) -> str | None:
     Dia, Gdia and Xell take the merged route (solve/cg_fused.py) instead."""
     if not isinstance(mat, (Ell, Hybrid, Csr, Sell)):
         return f"the {format_name(mat)} format (no loop kernel on this route)"
-    pc = precond_why_not(precond_name, max_block_size)
-    if pc is not None:
-        return pc
+    return precond_why_not(precond_name, max_block_size) or gather_why_not(mat)
+
+
+def gather_why_not(mat) -> str | None:
+    """Why a gather-format matrix has no loop plan, or None: a Csr whose SpMV
+    takes more than one lane per row (the loop phases walk one)."""
     if isinstance(mat, Csr) and csr_group(mat.shape[0], mat.nnz) > 1:
         return (f"the {format_name(mat)} format at {mat.nnz / mat.shape[0]:.1f} entries per "
                 f"row on mean: from {CSR_GROUP_FROM} its SpMV takes "

@@ -30,14 +30,17 @@ from ogl_tpu.core import ldu as ref_ldu
 from ogl_tpu.core import reorder as ref_reorder
 from ogl_tpu.kernels import gdia as ref_gdia
 from ogl_tpu.kernels import spmv as ref_spmv
+from ogl_tpu.precond.jacobi import block_jacobi as ref_block_jacobi
 from ogl_tpu.precond.jacobi import diagonal_of as ref_diagonal_of
 from ogl_tpu.solve.bicgstab import bicgstab as ref_bicgstab
 from ogl_tpu.solve.krylov import single_device_ops as ref_ops
 from ogl_tpu_torch import foam, interop, kernels, registry, testing
 from ogl_tpu_torch.core import formats
 from ogl_tpu_torch.kernels import gdia, spmv
+from ogl_tpu_torch.kernels.block_jacobi import block_jacobi_plain
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, gen_check_sums,
                                          gen_phase_a_plain, gen_phase_b_plain, gen_update_plain)
+from ogl_tpu_torch.precond.jacobi import block_inverses
 from ogl_tpu_torch.kernels.xell import xell_from_coo
 from ogl_tpu_torch.solve import bicgstab, stopping
 from ogl_tpu_torch.solve.bicgstab import _safe_div, why_not
@@ -77,13 +80,19 @@ def _shuffle(n, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
+def _coo(problem, fmt):
+    """The COO of PROBLEMS[problem], renumbered for Gdia."""
+    m = PROBLEMS[problem]()
+    coo = ref_ldu.ldu_to_coo_host(m, dtype=np.float32)
+    return ref_reorder.permute_coo(coo, _shuffle(m.n)) if fmt == "Gdia" else coo
+
+
+@functools.lru_cache(maxsize=None)
 def _system(problem, fmt):
     """(reference matrix, port matrix, dense A, b = A·x_true, 1/diag) of
     PROBLEMS[problem] as Dia, or renumbered as Gdia."""
-    m = PROBLEMS[problem]()
-    coo = ref_ldu.ldu_to_coo_host(m, dtype=np.float32)
+    coo = _coo(problem, fmt)
     if fmt == "Gdia":
-        coo = ref_reorder.permute_coo(coo, _shuffle(m.n))
         ref = ref_gdia.gdia_from_coo(coo)
         mat = gdia.gdia_from_coo(formats.Coo(rows=np.asarray(coo.rows),
                                              cols=np.asarray(coo.cols),
@@ -93,7 +102,7 @@ def _system(problem, fmt):
         ref = ref_formats.coo_to_dia(coo)
         mat = interop.dia_from_arrays(np.asarray(ref.data), ref.offsets, ref.shape)
     a = np.asarray(ref_formats.to_dense(coo))
-    x_true = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    x_true = np.random.default_rng(0).normal(size=coo.shape[0]).astype(np.float32)
     b = (a @ x_true).astype(np.float32)
     invd = (1.0 / ref_diagonal_of(coo)).astype(np.float32)
     return ref, mat, a, b, invd
@@ -105,25 +114,27 @@ def _plan(mat):
     return CgKernels(mat.shape[0], mat.offsets, "cpu")
 
 
-def _port(mat, b, invd, cfg, x0=None):
+def _port(mat, b, invd, cfg, x0=None, inv_t=None):
     """solve/bicgstab.py handed the plan of the loop kernel (on CPU tensors:
-    the twin)."""
+    the twin); inv_t: the block-Jacobi inverses in place of invd."""
     kern = _plan(mat)
     iv = None if invd is None else torch.tensor(invd)
-    ops = single_device_ops(spmv.matvec(mat), mat.shape[0],
-                            precond=None if iv is None else (lambda r: iv * r))
+    pc = None if iv is None else (lambda r: iv * r)
+    if inv_t is not None:
+        pc = functools.partial(block_jacobi_plain, inv_t)
+    ops = single_device_ops(spmv.matvec(mat), mat.shape[0], precond=pc)
     bt = torch.tensor(b)
     x0 = torch.zeros_like(bt) if x0 is None else torch.tensor(x0)
     kernels.reset_launches()
-    res = bicgstab(ops, bt, x0, cfg, kern, kern.pack_values(mat), iv)
+    res = bicgstab(ops, bt, x0, cfg, kern, kern.pack_values(mat), iv, inv_t)
     assert sum(kernels.launches.values()) == 0  # CPU tensors run the twin
     return res
 
 
-def _reference(ref, b, invd, cfg, x0=None):
+def _reference(ref, b, invd, cfg, x0=None, precond=None):
     ij = None if invd is None else jnp.asarray(invd)
     ops = ref_ops(ref_spmv.matvec(ref), ref.shape[0],
-                  precond=None if ij is None else (lambda r: ij * r))
+                  precond=precond if ij is None else (lambda r: ij * r))
     bj = jnp.asarray(b)
     return ref_bicgstab(ops, bj, jnp.zeros_like(bj) if x0 is None else jnp.asarray(x0), cfg)
 
@@ -238,6 +249,85 @@ def test_phase_twins_are_the_host_loops_expressions(fmt, pc):
     assert torch.equal(got[2], host.init_res_norm) and torch.equal(got[3], host.converged)
 
 
+@functools.lru_cache(maxsize=None)
+def _block_jacobi(problem, fmt, bs):
+    """(the reference's block-Jacobi apply, the port's inverses inv_t) of bs
+    rows on the system's COO."""
+    coo = _coo(problem, fmt)
+    port = formats.Coo(rows=np.asarray(coo.rows), cols=np.asarray(coo.cols),
+                       vals=np.asarray(coo.vals), shape=coo.shape)
+    return ref_block_jacobi(coo, bs), torch.tensor(block_inverses(port, bs))
+
+
+@pytest.mark.parametrize("bs", [3, 4])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_block_jacobi_pinned_twin_matches_reference(fmt, bs):
+    """GKOBiCGStab + BJ maxBlockSize bs (2,048 rows: bs 3 leaves a padded
+    block): the loop plan handed inv_t runs the twin over block_jacobi_plain,
+    against the reference's BiCGStab over its own block-Jacobi apply."""
+    ref, mat, _, b, _ = _system("poisson", fmt)
+    ref_pc, inv_t = _block_jacobi("poisson", fmt, bs)
+    ours = _port(mat, b, None, PINNED, inv_t=inv_t)
+    want = _reference(ref, b, None, PINNED, precond=ref_pc)
+    assert ours.iters == int(want.iters) == 10
+    x_ref = np.asarray(want.x)
+    np.testing.assert_allclose(ours.x.numpy(), x_ref, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(x_ref).max()))
+
+
+@pytest.mark.parametrize("bs", [2, 4, 32])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_block_jacobi_free_running_twin_matches_reference(fmt, bs):
+    ref, mat, _, b, _ = _system("convection_diffusion", fmt)
+    ref_pc, inv_t = _block_jacobi("convection_diffusion", fmt, bs)
+    ours = _port(mat, b, None, FREE, inv_t=inv_t)
+    want = _reference(ref, b, None, FREE, precond=ref_pc)
+    assert bool(ours.converged) and bool(want.converged)
+    assert abs(ours.iters - int(want.iters)) <= 1
+    np.testing.assert_allclose(ours.x.numpy(), np.asarray(want.x), atol=1e-3)
+
+
+@pytest.mark.parametrize("bs", [2, 3, 32])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_block_jacobi_plan_gives_the_host_loops_bits(fmt, bs):
+    """The plan's wrapper with inv_t on CPU tensors (its own Ops over the
+    plan's SpMV and block_jacobi_plain) gives solve/bicgstab.py's host loop
+    over the same twins bit for bit: iterate, count and norms."""
+    _, mat, _, b, _ = _system("convection_diffusion", fmt)
+    _, inv_t = _block_jacobi("convection_diffusion", fmt, bs)
+    mv = spmv.matvec(mat)
+    ops = single_device_ops(mv, mat.shape[0], precond=functools.partial(block_jacobi_plain, inv_t))
+    bt = torch.tensor(b)
+    host = bicgstab(ops, bt, torch.zeros_like(bt), GATED)
+    kern = _plan(mat)
+    x0 = torch.zeros_like(bt)
+    r0 = bt - mv(x0)
+    nf = stopping.initial_norm_factor(ops, r0, x0, bt)
+    rh = r0.clone()
+    got = kern.bicgstab_gen_loop(kern.pack_values(mat), x0, r0, rh, torch.sum(rh * r0),
+                                 torch.sum(torch.abs(r0)), nf, GATED, inv_t=inv_t)
+    assert got[0] == host.iters and torch.equal(x0, host.x)
+    assert torch.equal(got[1], host.final_res_norm)
+    assert torch.equal(got[2], host.init_res_norm) and torch.equal(got[3], host.converged)
+
+
+def test_plans_refuse_inconsistent_block_inverses():
+    """inv_t excludes invd, and its shape must be (ceil(n / bs), bs, bs) for
+    bs from 2 to 32, on every plan and every device."""
+    _, mat, _, b, invd = _system("convection_diffusion", "Dia")
+    _, inv_t = _block_jacobi("convection_diffusion", "Dia", 4)
+    kern = _plan(mat)
+    x, r = torch.zeros(mat.shape[0]), torch.tensor(b)
+    one = torch.ones(())
+    args = (kern.pack_values(mat), x, r, r.clone(), one, one, one, GATED)
+    with pytest.raises(ValueError, match="exclude each other"):
+        kern.bicgstab_gen_loop(*args, invd=torch.tensor(invd), inv_t=inv_t)
+    with pytest.raises(ValueError, match="blocks of 4"):
+        kern.bicgstab_gen_loop(*args, inv_t=inv_t[:-1].contiguous())
+    with pytest.raises(ValueError, match="block size 33"):
+        kern.bicgstab_gen_loop(*args, inv_t=torch.zeros((-(-mat.shape[0] // 33), 33, 33)))
+
+
 def test_safe_div_guard():
     """sdiv of the loop kernel: n / d when |d| > small_of(float32)², else 0."""
     one = torch.tensor(1.0)
@@ -252,13 +342,16 @@ MESHES = {"Dia": lambda: testing.convection_diffusion_ldu(DIMS),
           "Gdia": lambda: testing.shuffled_poisson_ldu(DIMS)}
 
 
-@pytest.mark.parametrize("pc", ["none", {"preconditioner": "BJ"}], ids=PCS)
+@pytest.mark.parametrize("pc", ["none", {"preconditioner": "BJ"},
+                                {"preconditioner": "BJ", "maxBlockSize": 4}],
+                         ids=[*PCS, "BJ4"])
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_foam_dispatch_runs_the_twin(mesh, pc, monkeypatch):
     """GKOBiCGStab through foam.solve on CPU tensors keeps the route name
     "bicgstab" and `fusedBiCGStab` false, keeps the format's plan for the
-    loop kernel (why_not None: on the card one launch) and here runs the
-    twin once per solve, no launch counted."""
+    loop kernel (why_not None: on the card one launch; a blocked BJ's
+    inverses handed beside it) and here runs the twin once per solve, no
+    launch counted."""
     m = MESHES[mesh]()
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
     ctl = {"solver": "GKOBiCGStab", "executor": "cpu", "tolerance": 1e-6, "relTol": 0,

@@ -2620,8 +2620,10 @@ def test_gkogmres_solve_on_the_card(dev, pc, fmt, basis, monkeypatch):
 
 @pytest.mark.parametrize("fmt", ["Dia", "Csr"])
 def test_blocked_bj_bicgstab_on_the_card(dev, fmt):
-    """GKOBiCGStab + BJ maxBlockSize 4: the host loop, two block-Jacobi
-    launches per iteration, no loop kernel; ±1 of the CPU solve."""
+    """GKOBiCGStab + BJ maxBlockSize 4: one launch of the general-BiCGStab
+    loop kernel's block-Jacobi variant of the format, the SpMV 2 + 9 times
+    (the set-up, the residual-eval timing), no block-Jacobi launch; ±1 of
+    the CPU solve."""
     m = testing.convection_diffusion_ldu((32, 32, 16))
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
     ctl = {"solver": "GKOBiCGStab", "tolerance": 1e-6, "relTol": 0, "matrixFormat": fmt,
@@ -2630,8 +2632,209 @@ def test_blocked_bj_bicgstab_on_the_card(dev, fmt):
     kernels.reset_launches()
     x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
     torch.cuda.synchronize()
-    assert kernels.launches["block_jacobi"] == 2 * perf.n_iterations
-    assert not any(v for k, v in kernels.launches.items() if k.endswith("loop"))
+    loop, mv = {"Dia": ("bicgstab_gen_loop", "dia_spmv"),
+                "Csr": ("csr_bicgstab_gen_loop", "csr_spmv")}[fmt]
+    assert {k: v for k, v in kernels.launches.items() if v} == {loop: 1, mv: 11}
     registry.global_registry.clear()
     _, perf_cpu = foam.solve("p", m, b, {**ctl, "executor": "cpu"})
     assert perf.converged and abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+
+
+# ---- slice 19: block Jacobi as phases of the general-BiCGStab loop ----------
+
+# (format, system, size): convection-diffusion grids (2,048 rows, and 1,105:
+# n % 4 = 1, the rows branch, blocks of 4 and 32 ragged) and the kNN-6 mesh
+# at 20,000 and 20,003 cells (a last warp of 3 rows), each format's loop plan
+BJ_LOOP_CASES = {"Dia": ("Dia", "cd", (16, 16, 8)), "Dia n%4=1": ("Dia", "cd", (17, 13, 5)),
+                 "Gdia": ("Gdia", "cd", (16, 16, 8)), "Xell": ("Xell", "knn", 20000),
+                 "Ell n%32=3": ("Ell", "knn", 20003), "Hybrid": ("Hybrid", "knn", 20000),
+                 "Coo": ("Coo", "knn", 20000), "Csr n%32=3": ("Csr", "knn", 20003),
+                 "Sell": ("Sell", "knn", 20000)}
+BJ_LOOP_LAUNCH = {"Dia": ("bicgstab_gen_loop", "dia_spmv"),
+                  "Gdia": ("bicgstab_gen_loop", "gdia_spmv"),
+                  "Xell": ("bicgstab_gen_loop", "xell_spmv"),
+                  **{f: (f"{'ell' if f in ('Ell', 'Hybrid') else 'sell' if f == 'Sell' else 'csr'}"
+                         "_bicgstab_gen_loop", GATHER_LAUNCH[f])
+                     for f in ("Ell", "Hybrid", "Coo", "Csr", "Sell")}}
+
+
+def _bj_loop_setup(case, bs, dev):
+    """(plan, data, matrix, b, inv_t): BJ_LOOP_CASES[case] in its format on
+    the card, with the transposed inverses of its blocks of bs rows."""
+    from ogl_tpu_torch.kernels.ell import EllCgKernels
+    from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
+    from ogl_tpu_torch.precond.jacobi import block_inverses
+
+    fmt, system, size = BJ_LOOP_CASES[case]
+    if system == "knn":
+        coo = _knn_coo(size)
+    else:
+        coo = ldu.ldu_to_coo_host(testing.convection_diffusion_ldu(size), dtype=np.float32)
+    n = coo.shape[0]
+    if fmt == "Gdia":  # renumbered inside each run of 128 rows
+        inv = np.empty(n, np.int64)
+        inv[_shuffled(n)] = np.arange(n)
+        rows, cols = inv[np.asarray(coo.rows)], inv[np.asarray(coo.cols)]
+        order = np.lexsort((cols, rows))
+        coo = formats.Coo(rows=rows[order].astype(np.int32), cols=cols[order].astype(np.int32),
+                          vals=np.asarray(coo.vals)[order], shape=coo.shape)
+        mat = gdia.gdia_from_coo(coo, device=dev)
+        kern = GdiaCgKernels(n, mat.plane_offsets, dev)
+    elif fmt == "Dia":
+        mat = formats.coo_to_dia(coo, dev)
+        kern = CgKernels(n, mat.offsets, dev)
+    elif fmt == "Xell":
+        mat = xell.xell_from_coo(coo, device=dev)
+        kern = xell.XellCgKernels.for_matrix(mat)
+    else:
+        mat = _gather_mat(fmt, coo, dev)
+        kern = {"Ell": EllCgKernels, "Hybrid": EllCgKernels, "Sell": SellCgKernels}.get(
+            fmt, CsrCgKernels).for_matrix(mat)
+    inv_t = torch.tensor(block_inverses(coo, bs), device=dev)
+    return kern, kern.pack_values(mat), mat, _vec(n, 11, dev), inv_t
+
+
+def _bj_solve(kern, data, mat, b, inv_t, cfg, loop=True):
+    """solve/bicgstab.py with block Jacobi from a zero guess: the plan's loop
+    kernel handed inv_t, or (loop=False) the host loop over the plain SpMV
+    and block_jacobi_plain on the card — the twin's operations in order."""
+    from ogl_tpu_torch.kernels.block_jacobi import block_jacobi_plain
+
+    mv = spmv.matvec(mat) if loop else (lambda v: spmv.spmv(mat, v))
+    ops = single_device_ops(mv, kern.n, precond=functools.partial(block_jacobi_plain, inv_t))
+    return bicgstab(ops, b, torch.zeros_like(b), cfg,
+                    *((kern, data, None, inv_t) if loop else ()))
+
+
+@pytest.mark.parametrize("bs", [2, 4, 32])
+@pytest.mark.parametrize("case", list(BJ_LOOP_CASES))
+def test_bicgstab_gen_loop_block_jacobi_matches_plain(dev, case, bs):
+    """The loop kernel's block-Jacobi variant of each format against the host
+    loop over the twins on the card, pinned at 10 iterations (x and the
+    normalised residual rtol 1e-4) and, on convection-diffusion,
+    free-running to LOOP_TOL (±1 iteration, the float64 residual within 10
+    x LOOP_TOL): three launches repeat their count and iterate exactly, each
+    one loop launch and the format's SpMV twice (the set-up's), no
+    block-Jacobi launch."""
+    kern, data, mat, b, inv_t = _bj_loop_setup(case, bs, dev)
+    loop, mv = BJ_LOOP_LAUNCH[BJ_LOOP_CASES[case][0]]
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=10, max_iter=10,
+                                     frequency=1)
+    free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0, max_iter=2000,
+                                   frequency=1)
+    for cfg in (pinned, free) if BJ_LOOP_CASES[case][1] == "cd" else (pinned,):
+        twin = _bj_solve(kern, data, mat, b, inv_t, cfg, loop=False)
+        runs = []
+        for _ in range(3):
+            kernels.reset_launches()
+            runs.append(_bj_solve(kern, data, mat, b, inv_t, cfg))
+            torch.cuda.synchronize()
+            assert {k: v for k, v in kernels.launches.items() if v} == {loop: 1, mv: 2}
+        res = runs[0]
+        assert all(r.iters == res.iters and torch.equal(r.x, res.x) for r in runs[1:])
+        if cfg is pinned:
+            assert res.iters == twin.iters == 10 and not bool(res.converged)
+            _close(res.x, twin.x, rtol=1e-4)
+            torch.testing.assert_close(res.final_res_norm, twin.final_res_norm.cpu(),
+                                       rtol=1e-4, atol=1e-6 * float(res.init_res_norm))
+        else:
+            assert bool(res.converged) and bool(twin.converged)
+            assert abs(res.iters - twin.iters) <= 1 and float(res.final_res_norm) < LOOP_TOL
+            mat64 = formats.cast_values(mat, torch.float64)
+            x64 = res.x.double()
+            assert float((b.double() - spmv.spmv(mat64, x64)).abs().sum()
+                         / b.double().abs().sum()) <= 10 * LOOP_TOL
+
+
+def test_bicgstab_gen_loop_block_jacobi_at_1m(dev):
+    """The Dia block-Jacobi variant on the 1M convection-diffusion grid (the
+    main path's size; row quads, a grid far below one tile per row) against
+    the host loop over the twins, pinned at 10 iterations."""
+    kern, data, mat, b, _ = _gen_system("convection_diffusion", (128, 128, 64), "Dia", dev)
+    from ogl_tpu_torch.precond.jacobi import block_inverses
+
+    coo = ldu.ldu_to_coo_host(testing.convection_diffusion_ldu((128, 128, 64)),
+                              dtype=np.float32)
+    inv_t = torch.tensor(block_inverses(coo, 4), device=dev)
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=10, max_iter=10,
+                                     frequency=1)
+    twin = _bj_solve(kern, data, mat, b, inv_t, pinned, loop=False)
+    kernels.reset_launches()
+    res = _bj_solve(kern, data, mat, b, inv_t, pinned)
+    torch.cuda.synchronize()
+    assert kernels.launches["bicgstab_gen_loop"] == 1 and kernels.launches["block_jacobi"] == 0
+    assert res.iters == 10
+    _close(res.x, twin.x, rtol=1e-4)
+
+
+def test_bicgstab_gen_loop_block_jacobi_refused_launch_raises(dev):
+    """Four times the co-resident grid of the block-Jacobi variant is refused
+    by the cooperative launch: the wrapper raises, counts nothing, leaves no
+    error behind, and the next launch is unaffected; inconsistent inverses
+    raise before any launch."""
+    from ogl_tpu_torch.kernels.fused import LOOP_BLOCK_JACOBI
+    from ogl_tpu_torch.precond.jacobi import block_inverses
+
+    kern, data, mat, b, invd = _gen_system("poisson", (128, 128, 64), "Dia", dev)
+    coo = ldu.ldu_to_coo_host(testing.poisson_ldu((128, 128, 64)), dtype=np.float32)
+    inv_t = torch.tensor(block_inverses(coo, 4), device=dev)
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=0, max_iter=5,
+                                  frequency=1)
+    assert _bj_solve(kern, data, mat, b, inv_t, cfg).iters == 5
+    co_resident = kern._gen_loop_blocks[LOOP_BLOCK_JACOBI]
+    assert 0 < co_resident < -(-kern.n // 512)
+    kern._gen_loop_blocks[LOOP_BLOCK_JACOBI] = 4 * co_resident
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="bicgstab_gen_loop: CUDA error"):
+        _bj_solve(kern, data, mat, b, inv_t, cfg)
+    assert kernels.launches["bicgstab_gen_loop"] == 0
+    torch.cuda.synchronize()
+    kern._gen_loop_blocks[LOOP_BLOCK_JACOBI] = co_resident
+    assert _bj_solve(kern, data, mat, b, inv_t, cfg).iters == 5
+    x, r = torch.zeros_like(b), b.clone()
+    one = torch.ones((), device=dev)
+    with pytest.raises(ValueError, match="exclude each other"):
+        kern.bicgstab_gen_loop(data, x, r, r.clone(), one, one, one, cfg, invd=invd, inv_t=inv_t)
+    with pytest.raises(ValueError, match="blocks of 4"):
+        kern.bicgstab_gen_loop(data, x, r, r.clone(), one, one, one, cfg,
+                               inv_t=inv_t[1:].contiguous())
+    with pytest.raises(ValueError, match="inv_t on cpu"):
+        kern.bicgstab_gen_loop(data, x, r, r.clone(), one, one, one, cfg, inv_t=inv_t.cpu())
+
+
+@pytest.mark.parametrize("n", [4097, (1 << 20) + 3, 8_388_608 + 5])
+@pytest.mark.parametrize("bs", [3, 4, 7, 32])
+def test_block_jacobi_kernel_bit_equal_at_ragged_n(dev, bs, n):
+    """The standalone apply over the body of block_jacobi.cuh: bit-equal to
+    its twin where n is a multiple of neither bs nor the tile."""
+    from ogl_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_plain
+
+    g = torch.Generator(device=dev).manual_seed(bs)
+    inv_t = torch.randn((-(-n // bs), bs, bs), device=dev, generator=g)
+    r = torch.randn(n, device=dev, generator=g)
+    kernels.reset_launches()
+    y = block_jacobi(inv_t, r)
+    torch.cuda.synchronize()
+    assert kernels.launches["block_jacobi"] == 1
+    assert torch.equal(y, block_jacobi_plain(inv_t, r))
+
+
+@pytest.mark.parametrize("n", [5003, (1 << 20) + 3, 8_388_608])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("j", [1, 9, 100])
+def test_gmres_combine_bit_equal_at_ragged_n(dev, j, dtype, n):
+    """The combine over the body of gmres_combine.cuh (rows in pairs, a
+    column group of 4 entries per thread): bit-equal to its twin at n ragged
+    against the group, NaN in every row's padding, nothing stored past n."""
+    from ogl_tpu_torch.kernels.gmres import gmres_combine, gmres_combine_plain, new_basis
+
+    g = torch.Generator(device=dev).manual_seed(j)
+    V = new_basis(j, n, dtype, dev)
+    V[:, n:] = float("nan")
+    V[:j, :n] = torch.randn((j, n), device=dev, generator=g).to(dtype)
+    y = torch.randn(j, device=dev, generator=g)
+    kernels.reset_launches()
+    got = gmres_combine(V, y, j, n)
+    torch.cuda.synchronize()
+    assert kernels.launches["gmres_combine"] == 1
+    assert torch.equal(got, gmres_combine_plain(V, y, j, n))

@@ -24,6 +24,8 @@ from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.foam import solver as solver_mod
 from ogl_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_plain
+from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels
 from ogl_tpu_torch.precond import PORTED, build
 from ogl_tpu_torch.precond.jacobi import block_inverses
 
@@ -300,15 +302,19 @@ def test_skip_sorting_false_sorts_the_coo(name):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-# ---- routing: a blocked BJ or an ISAI never reaches a loop kernel ----------
+# ---- routing: an ISAI never reaches a loop kernel; a blocked BJ only ---------
+# ---- GKOBiCGStab's (its loop kernel's block-Jacobi variants) ----------------
 
 
 @pytest.mark.parametrize("pc", [{"preconditioner": "BJ", "maxBlockSize": 4}, "ISAI", "GISAI"])
 @pytest.mark.parametrize("solver,fmt", [("GKOCG", "Dia"), ("GKOCG", "Gdia"), ("GKOCG", "Ell"),
                                         ("GKOBiCGStab", "Dia"), ("GKOBiCGStab", "Csr")])
 def test_blocked_bj_and_isai_keep_the_host_loop(solver, fmt, pc, monkeypatch):
-    """No plan, no merged route, no scalar invd: `_route`, both `why_not`s
-    and the route call."""
+    """No merged route, no scalar invd: `_route`, both `why_not`s and the
+    route call.  ISAI, GISAI and GKOCG + blocked BJ: no plan, the host
+    loop.  GKOBiCGStab + blocked BJ: the format's loop plan and the block
+    inverses (the state, as inv_t) reach solve/bicgstab.py, whose loop
+    kernel takes them on the card (the CPU runs its twin)."""
     seen = {}
 
     def spy(name, fn):
@@ -330,18 +336,27 @@ def test_blocked_bj_and_isai_keep_the_host_loop(solver, fmt, pc, monkeypatch):
     x, perf = foam.solve("p", _port(m), b, ctl)
     slv = registry.global_registry.get("p_solver")
     assert slv.route == ("cg" if solver == "GKOCG" else "bicgstab")
-    assert slv.kern is None
-    a, kw = seen[slv.route]
-    assert len(a) == 4 and not kw  # (ops, b, x0, params): no plan, data or invd
-    assert perf.converged
     name = pc if isinstance(pc, str) else "BJ"
+    a, kw = seen[slv.route]
+    if solver == "GKOBiCGStab" and name == "BJ":
+        assert type(slv.kern) is {"Dia": CgKernels, "Csr": CsrCgKernels}[fmt]
+        # (ops, b, x0, params, kern, data, invd, inv_t): the plan and the inverses
+        assert len(a) == 8 and not kw
+        assert a[4] is slv.kern and a[6] is None and a[7] is slv._precond_op.state
+        assert tuple(a[7].shape) == (-(-slv.matrix.shape[0] // 4), 4, 4)
+    else:
+        assert slv.kern is None
+        assert len(a) == 4 and not kw  # (ops, b, x0, params): no plan, data or invd
+    assert perf.converged
     assert cg_mod.why_not(slv.matrix, name, 4) is not None
-    assert bicgstab_mod.why_not(slv.matrix, name, 4) is not None
+    assert (bicgstab_mod.why_not(slv.matrix, name, 4) is None) == (name == "BJ")
 
 
 def test_why_not_names_blocked_bj_and_isai():
     dia = formats.coo_to_dia(_coos(ref_testing.poisson_ldu((6, 5, 3)))[1], "cpu")
-    assert "maxBlockSize 4 > 1" in bicgstab_mod.why_not(dia, "BJ", 4)
+    assert bicgstab_mod.why_not(dia, "BJ", 4) is None  # the loop's block-Jacobi phases
+    assert "maxBlockSize 4 > 1" in cg_mod.precond_why_not("BJ", 4)
+    assert "maxBlockSize 33 > 1" in bicgstab_mod.why_not(dia, "BJ", 33)
     assert bicgstab_mod.why_not(dia, "BJ", 1) is None
     assert "preconditioner ISAI" in bicgstab_mod.why_not(dia, "ISAI")
     assert "preconditioner GISAI" in cg_mod.precond_why_not("GISAI")
@@ -370,6 +385,10 @@ FOAM_CASES = {
     "GKOBiCGStab BJ8 Dia cd": ("GKOBiCGStab", {"preconditioner": "BJ", "maxBlockSize": 8},
                                "Dia", "cd"),
     "GKOBiCGStab GISAI Xell": ("GKOBiCGStab", "GISAI", "Xell", "cd"),
+    # blocked BJ on the loop plans of the other formats (the loop kernel's
+    # block-Jacobi variants on the card; here their twin)
+    **{f"GKOBiCGStab BJ4 {fmt} cd": ("GKOBiCGStab", {"preconditioner": "BJ", "maxBlockSize": 4},
+                                     fmt, "cd") for fmt in ("Gdia", "Xell", "Ell", "Sell")},
 }
 
 
