@@ -6,7 +6,7 @@
     python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the gather formats' part alone)
     python3 chip_smoke.py --turns-gmres PARENT . . PARENT   (the GMRES basis kernels and solves)
 
-Drives the port's seven main paths at 1,048,576 cells in OpenFOAM LDU form,
+Drives the port's main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
 system, GKOCG with preconditioner `none` and scalar `BJ` (slice 1; each
 solve's whole loop one launch of the persistent CG kernel) and the
@@ -27,7 +27,9 @@ ladder's Ell landing on a small unstructured mesh (GKOCG and GKOBiCGStab
 `none`/`BJ` on every one of them one launch of a loop kernel); then
 (slice 17, BASELINE.json configs 2 and 3) GKOBiCGStab + blocked `BJ`
 and GKOGMRES + ISAI/GISAI on the Poisson grid, convection-diffusion and
-the kNN-6 mesh — after
+the kNN-6 mesh; then (slice 20) the ILU family, GKOCG + IC and ICT,
+GKOBiCGStab + ILU, IRILU and ILUT and GKOGMRES + ILU, approximate and
+`triSolve exact` — after
 building the port's kernels from the sources in this checkout and holding
 each against its plain PyTorch version on the card, at the slices' size
 and at 8,388,608 rows.
@@ -189,7 +191,22 @@ Phases (any failure raises, and the script exits non-zero):
      then the three kernels against their twins at 1M and 8.4M rows (block
      Jacobi at bs 4 and 8 and the combine bit-equal, the Arnoldi step at j
      = 99 within the vector tolerance; float32 and bfloat16 bases) with
-     torch.bmm and torch.mv beside.
+     torch.bmm and torch.mv beside;
+ 13. slice 20, the ILU family: GKOCG + IC (`pIC`) and + IC `triSolve
+     exact` (`pICx`) on the Poisson grid, GKOBiCGStab + ILU and IRILU and
+     GKOGMRES + ILU exact on convection-diffusion (`uILU`, `uIRILU`,
+     `wILUx`), GKOBiCGStab + ILUT and GKOCG + ICT on phase 12's
+     262,144-cell kNN-6 mesh as Csr (`uKILUT`, `pKICT`); each solve: one
+     tri_sweep (exact: tri_levels) launch per preconditioner apply the host
+     loop made, none of the other, no loop kernel; iterations ±1 against the
+     route over the plain twins on the card (`uKILUT` pinned at 10), the
+     true float64 residual, generate_preconditioner and factor_depth; then
+     both kernels against their twins on the grid's IC(0) and ILU(0)
+     factors at 1M and 8.4M rows (bit-equal; kernel 2 also bit-equal to
+     kernel 1 run to the factors' depths), with the apply's least bytes,
+     the bytes streamed over the sweeps, the levels times the measured cost
+     of an empty level, and torch.triangular_solve with a sparse-CSR A
+     (one call per triangle) beside kernel 2.
 Each phase prints its wall time.  Each path's launch counts are set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  The line before the last is one JSON object
@@ -218,6 +235,7 @@ on the Poisson grid) on resident state.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -244,6 +262,8 @@ from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b
                                          kb_pipe_plain, kb_update_plain, kresid_plain,
                                          ksweep_plain)
 from ogl_tpu_torch.precond import amg
+from ogl_tpu_torch.precond import ilu
+from ogl_tpu_torch.kernels import tri_solve
 from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.kernels.fused import (LOOP_BLOCK_JACOBI, LOOP_CSR, LOOP_ELL, LOOP_GDIA,
                                          LOOP_JACOBI, LOOP_SELL, LOOP_THREADS, LOOP_XELL,
@@ -417,6 +437,16 @@ KERNELS = {
     "gmres_combine": ("cuda", "ogl_tpu_torch/kernels/csrc/gmres.cu",
                       "no TPU kernel: XLA ops in the reference, ogl_tpu/solve/gmres.py:108-123 "
                       "(x_at)", "gmres_combine", None),
+    # slice 20 (phase 13): the ILU family's apply on the Poisson grid's IC(0)
+    # factor (cases [ILU] beside): kernel 1, the Jacobi sweeps of both
+    # factors, and kernel 2, exact substitution level by level; the
+    # reference runs both as XLA ops over its factors' SpMV, no TPU kernel
+    "tri_sweep": ("cuda", "ogl_tpu_torch/kernels/csrc/tri_sweep.cu",
+                  "no TPU kernel: XLA ops in the reference, ogl_tpu/precond/ilu.py:65-110 "
+                  "(_sweep, make_lu_apply, make_ic_apply)", "tri_sweep", None),
+    "tri_levels": ("cuda", "ogl_tpu_torch/kernels/csrc/tri_levels.cu",
+                   "no TPU kernel: XLA ops in the reference, ogl_tpu/precond/ilu.py:65-110 run "
+                   "to factor_depth (:45-62) under triSolve exact", "tri_levels", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -611,11 +641,12 @@ def poisson_dia(dims, device):
     return data.contiguous(), (-nx * ny, -nx, -1, 0, 1, nx, nx * ny)
 
 
-def time_turns(fns, reps=20):
-    """Median ms of each function of the dict `fns`, CUDA events, warmed up,
-    timed in turns: the functions in order, then in reverse order."""
+def time_turns(fns, reps=20, warmup=3):
+    """Median ms of each function of the dict `fns`, CUDA events, warmed up
+    (`warmup` calls each), timed in turns: the functions in order, then in
+    reverse order."""
     for fn in fns.values():
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     samples = {tag: [] for tag in fns}
     for tag in [*fns, *reversed(fns)]:
@@ -630,10 +661,10 @@ def time_turns(fns, reps=20):
     return {tag: statistics.median(v) for tag, v in samples.items()}
 
 
-def time_pair(kernel_fn, plain_fn, reps=20):
+def time_pair(kernel_fn, plain_fn, reps=20, warmup=3):
     """Median ms of kernel and plain version, timed in turns (plain, kernel,
     kernel, plain)."""
-    t = time_turns({"p": plain_fn, "k": kernel_fn}, reps)
+    t = time_turns({"p": plain_fn, "k": kernel_fn}, reps, warmup)
     return t["k"], t["p"]
 
 
@@ -1221,20 +1252,21 @@ def check_gdia(grids, device, report):
         torch.cuda.empty_cache()
 
 
-def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None, err=vec_err):
+def compare(name, label, kfn, pfn, nbytes, nflops, report, kt=None, pt=None, err=vec_err,
+            reps=20, warmup=3):
     """Run kernel and plain version once on the same inputs (each returns
     (vectors, sums)), hold them to the tolerances (`err` for the vectors),
-    time them (`kt`/`pt` when the timed call differs) and record the row in
-    `report`, with the least time the card could take: the larger of the
-    minimum bytes over the memory rate and the operations over the float32
-    rate."""
+    time them (`kt`/`pt` when the timed call differs; `warmup` calls, then
+    `reps` calls a turn) and record the row in `report`, with the least time the card could
+    take: the larger of the minimum bytes over the memory rate and the
+    operations over the float32 rate."""
     (kv, ks), (pv, ps) = kfn(), pfn()
     torch.cuda.synchronize()
     errs = [err(a, b) for a, b in zip(kv, pv)]
     max_err = max(e for e, _ in errs)
     sums = [sum_err(a, b) for a, b in zip(ks, ps)]
     ok = all(e <= t for e, t in errs) and all(s <= SUM_RTOL for s in sums)
-    ms, plain_ms = time_pair(kt or kfn, pt or pfn)
+    ms, plain_ms = time_pair(kt or kfn, pt or pfn, reps, warmup)
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nflops / PEAK_F32_FLOPS * 1e3
     print(f"  {name:22s} {label:12s} max_abs_err {max_err:.3e} (tol "
           f"{max(t for _, t in errs):.1e}) sum_rel_err "
@@ -2681,10 +2713,13 @@ SLICE17_SOLVES = {
 
 def plain_precond(slv):
     """The plain twin of a solver's preconditioner apply: the block-Jacobi
-    twin over its inverses, or the plain SpMV of M (and Mᵀ)."""
+    twin over its inverses, the ILU family's triangular twins over its
+    factors, or the plain SpMV of M (and Mᵀ)."""
     op = slv._precond_op
     if slv.cfg.precond.name == "BJ":
         return lambda r: block_jacobi_plain(op.state, r)
+    if isinstance(op.state, ilu.IluState):
+        return ilu_plain(op.state)
     mats = op.state
     if len(mats) == 1:
         return lambda r: spmv.spmv(mats[0], r)
@@ -2848,8 +2883,9 @@ def slice17_kernels(n, label, device, report):
 
 
 def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tuple:
-    """Phase 12.  Returns the launch counts of the path and its kernel
-    report."""
+    """Phase 12.  Returns the launch counts of the path, its kernel report
+    and the 262,144-cell kNN-6 system (its matrix and b), which phase 13
+    solves again."""
     print(f"== phase 12: slice 17, blocked Jacobi, ISAI/GISAI and GKOGMRES (BASELINE configs "
           f"2 and 3), foam.solve at {m_grid.n} (Poisson, convection-diffusion) and {m_knn.n} "
           "(kNN-6) cells")
@@ -2994,6 +3030,357 @@ def slice17_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
           f"{VEC_RTOL:.0e}*max|plain|, no floor):")
     for dims in (grid, grid_big):
         slice17_kernels(int(np.prod(dims)), "x".join(map(str, dims)), device, report)
+    return launches, report, systems["knn hybrid"]
+
+
+# ---- phase 13: slice 20, the ILU family ---------------------------------------
+
+# the kernels phase 13's path must launch: the sweeps on every approximate
+# ILU-family apply, the levels on every `triSolve exact` one
+SLICE20_KERNELS = ("tri_sweep", "tri_levels")
+# field -> (system, controls, gate): GKOCG + IC (and exact) on the Poisson
+# grid, GKOBiCGStab + ILU and IRILU and GKOGMRES + ILU exact on
+# convection-diffusion ("free": ±1 against the route over the plain twins,
+# as uCD* and wK* are held), GKOBiCGStab + ILUT and GKOCG + ICT on phase 12's
+# 262,144-cell kNN-6 mesh as Csr (cut from 1M for the ILUT/ICT host
+# factorisation; float32 BiCGStab there is held pinned, as phase 12's uKHBJ*)
+ILU_EXACT = {"preconditioner": "ILU", "triSolve": "exact"}
+SLICE20_SOLVES = {
+    "pIC": ("poisson", {"solver": "GKOCG", "preconditioner": "IC"}, "free"),
+    "pICx": ("poisson", {"solver": "GKOCG",
+                         "preconditioner": {"preconditioner": "IC", "triSolve": "exact"}}, "free"),
+    "uILU": ("cd", {"solver": "GKOBiCGStab", "preconditioner": "ILU"}, "free"),
+    "uIRILU": ("cd", {"solver": "GKOBiCGStab", "preconditioner": "IRILU"}, "free"),
+    "wILUx": ("cd", {"solver": "GKOGMRES", "preconditioner": ILU_EXACT}, "free"),
+    "uKILUT": ("knn", {"solver": "GKOBiCGStab", "preconditioner": "ILUT", "matrixFormat": "Csr"},
+               "pinned"),
+    "pKICT": ("knn", {"solver": "GKOCG", "preconditioner": "ICT", "matrixFormat": "Csr"}, "free"),
+}
+# the levels of the barrier probe: an empty factor of this many levels, each
+# as wide as the checked factor's widest, walked by kernel 2 on its grid
+BARRIER_PROBE_LEVELS = 256
+# kernel 2's twin walks ~640 (1M) or ~1,270 (8.4M) levels of torch ops per
+# call (0.2-0.6 s): its row is timed after one warm-up call over 2 calls a
+# turn, and torch.triangular_solve beside kernel 2 over 3
+LEVEL_TWIN_REPS = 2
+LEVEL_LIBRARY_REPS = 3
+
+
+def ilu_plain(state):
+    """The plain twin of an ILU-family apply over its state; the level twin
+    on the card replayed from a CUDA graph (`graphed`)."""
+    fn = tri_solve.tri_levels_plain if state.exact else tri_solve.tri_sweep_plain
+    apply = lambda r: fn(state.lower, state.upper, r)  # noqa: E731
+    vals = state.lower.mat.vals
+    return graphed(apply, state.lower.n, vals.device) if state.exact and vals.is_cuda else apply
+
+
+def graphed(fn, n, device):
+    """`fn` of an (n,) float32 vector, captured once in a CUDA graph and
+    replayed per call on a static copy of its input: the same kernels on the
+    same data, so the same bits, without the host's launch of each of the
+    thousands of torch ops that the level twin issues per call."""
+    x = torch.zeros(n, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(x)  # builds the twin's tables (host reads) outside the capture
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fn(x)
+
+    def run(r):
+        x.copy_(r)
+        graph.replay()
+        return y.clone()
+    return run
+
+
+def grid_coo(dims, device):
+    """The Poisson grid's COO (poisson_dia's entries), row-major sorted on
+    the device and brought to the host, as the factorisations take it."""
+    data, offsets = poisson_dia(dims, device)
+    n = data.shape[1]
+    r, c, v = dia_coo(data, offsets)
+    order = torch.argsort(r * n + c)
+    return formats.Coo(rows=r[order].int().cpu().numpy(), cols=c[order].int().cpu().numpy(),
+                       vals=v[order].cpu().numpy(), shape=(n, n))
+
+
+def tri_bytes(st, ic: bool):
+    """(least bytes of one apply, bytes streamed per sweep pass summed over
+    the approximate apply's passes, operations of one approximate apply):
+    the least bytes read each factor (row offsets, columns, values), r and
+    each d once and write the result once.  IC's two triangles are L and
+    Lᵀ with one d, so its least bytes count L and d once; the port's own
+    copy of Lᵀ shows only in the streamed figure."""
+    n = st.lower.n
+
+    def factor(t):
+        return 4 * (n + 1) + 8 * t.mat.nnz
+
+    if ic:
+        least = factor(st.lower) + 4 * n + 8 * n
+    else:
+        dvec = sum(4 * n for t in (st.lower, st.upper) if t.d is not None)
+        least = factor(st.lower) + factor(st.upper) + 8 * n + dvec
+    streamed = ops = 0
+    for t in (st.lower, st.upper):
+        passes = max(t.sweeps, 1)
+        streamed += passes * (factor(t) + 12 * n + (4 * n if t.d is not None else 0))
+        ops += passes * (2 * t.mat.nnz + 2 * n)
+    return least, streamed, ops
+
+
+def barrier_ms(st, device):
+    """The cost of one level of kernel 2 without work: an empty factor of
+    BARRIER_PROBE_LEVELS levels as wide as the checked factors' widest, on
+    the grid kernel 2 takes for them, timed with CUDA events; ms per level."""
+    w, levels = max(st.lower.widest, st.upper.widest), BARRIER_PROBE_LEVELS
+    n = w * levels
+    empty = formats.Csr(row_ptr=torch.zeros(n + 1, dtype=torch.int32, device=device),
+                        cols=torch.zeros(0, dtype=torch.int32, device=device),
+                        vals=torch.zeros(0, device=device), shape=(n, n))
+    probe = tri_solve.Triangle(
+        mat=empty, d=None, sweeps=0, depth=levels - 1,
+        order=torch.arange(n, dtype=torch.int32, device=device),
+        level_ptr=torch.arange(0, n + 1, w, dtype=torch.int32, device=device),
+        level_sizes=np.full(levels, w))
+    r = torch.ones(n, device=device)
+    ms = time_turns({"k": lambda: tri_solve.tri_levels(probe, probe, r)}, 10)["k"]
+    return ms / (2 * levels)
+
+
+def library_trisolve(lo_full, up_full, unit_lower):
+    """torch.triangular_solve with a sparse-CSR A on the card, once per
+    triangle (the library's exact apply), or None where this torch refuses
+    it."""
+    def solve(r):
+        y = torch.triangular_solve(r.view(-1, 1), lo_full, upper=False,
+                                   unitriangular=unit_lower).solution
+        return torch.triangular_solve(y, up_full, upper=True).solution.view(-1)
+    return solve
+
+
+def factor_csr(rows, cols, vals, diag, n, device):
+    """torch's CSR tensor of a strict factor's host triples with `diag` on
+    its diagonal (None: no diagonal stored), for library_ms."""
+    if diag is not None:
+        i = np.arange(n)
+        rows, cols, vals = np.r_[rows, i], np.r_[cols, i], np.r_[vals, diag]
+    return csr_of_coo(*(torch.tensor(np.asarray(a, t), device=device) for a, t in (
+        (rows, np.int64), (cols, np.int64), (vals, np.float32))), n)
+
+
+def slice20_kernels(dims, device, report):
+    """Kernels 1 and 2 against their twins on the IC and ILU factors of the
+    Poisson grid at `dims` (launches not counted): bit-equal, and within
+    VEC_RTOL by compare's rule; kernel 2 bit-equal to kernel 1 run to each
+    factor's depth; timed with the bound, the levels times the measured
+    cost of a level, and torch.triangular_solve beside kernel 2."""
+    label = "x".join(map(str, dims))
+    t0 = time.perf_counter()
+    coo = grid_coo(dims, device)
+    n = coo.shape[0]
+
+    def ic():
+        f = ilu.ic0_factor(coo)
+        return f, ilu.state_from_factors(f[0], None, f[1], "ic", device)
+
+    def lu():
+        f = ilu.ilu0_factors(coo)
+        return f, ilu.state_from_factors(*f, "lu", device)
+
+    # the two host set-ups side by side (numpy and the native calls release
+    # the interpreter's lock for most of their time)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = {"IC": pool.submit(ic), "ILU": pool.submit(lu)}
+        fac, states = {}, {}
+        for kind, job in jobs.items():
+            fac[kind], states[kind] = job.result()
+    print(f"  {label}: the grid's COO, IC(0) and ILU(0) factors and their level schedules on "
+          f"the host in {time.perf_counter() - t0:.2f} s (two threads)")
+    g = torch.Generator(device=device).manual_seed(20)
+    r = torch.randn(n, device=device, generator=g)
+    for kind, st in states.items():
+        tag = "" if kind == "IC" else "[ILU]"
+        lo, up = st.lower, st.upper
+        least, streamed, ops = tri_bytes(st, kind == "IC")
+        got = tri_solve.tri_sweep(lo, up, r)
+        want = tri_solve.tri_sweep_plain(lo, up, r)
+        compare("tri_sweep" + tag, label, lambda: ([got], []), lambda: ([want], []), least, ops,
+                report, kt=lambda: tri_solve.tri_sweep(lo, up, r),
+                pt=lambda: tri_solve.tri_sweep_plain(lo, up, r))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"tri_sweep{tag} at {label} is not bit-equal to its twin")
+        row = report["tri_sweep" + tag][label]
+        row["library_ms"] = None  # no single call computes k Jacobi sweeps
+        print(f"    tri_sweep{tag}: {lo.sweeps} + {up.sweeps} sweeps, factors of {lo.mat.nnz} "
+              f"and {up.mat.nnz} entries; least bytes {least / n:.1f} B/row (bound "
+              f"{least / PEAK_BYTES_PER_S * 1e3:.4f} ms); streamed per sweep, summed over the "
+              f"passes {streamed / n:.1f} B/row ({streamed / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
+        got = tri_solve.tri_levels(lo, up, r)
+        want = tri_solve.tri_levels_plain(lo, up, r)
+        exact_ops = 2 * (lo.mat.nnz + up.mat.nnz) + 4 * n
+        compare("tri_levels" + tag, label, lambda: ([got], []), lambda: ([want], []), least,
+                exact_ops, report, kt=lambda: tri_solve.tri_levels(lo, up, r),
+                pt=lambda: tri_solve.tri_levels_plain(lo, up, r), reps=LEVEL_TWIN_REPS,
+                warmup=1)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"tri_levels{tag} at {label} is not bit-equal to its twin")
+        del want
+        deep = tuple(dataclasses.replace(t, sweeps=t.depth, _tables={}) for t in (lo, up))
+        if not torch.equal(got, tri_solve.tri_sweep(*deep, r)):
+            raise RuntimeError(f"tri_levels{tag} at {label} is not bit-equal to tri_sweep run "
+                               f"to the depths {lo.depth}, {up.depth}")
+        per_level = barrier_ms(st, device)
+        row = report["tri_levels" + tag][label]
+        row.update(levels=(lo.levels, up.levels), level_ms=per_level,
+                   levels_bound_ms=(lo.levels + up.levels) * per_level)
+        print(f"    tri_levels{tag}: bit-equal to its twin and to tri_sweep run to the depths "
+              f"{lo.depth} and {up.depth}; {lo.levels} + {up.levels} levels (widest "
+              f"{max(lo.widest, up.widest)} rows, {tri_solve.level_blocks(lo, up, device)} "
+              f"blocks) x {per_level * 1e3:.2f} us per empty level = "
+              f"{row['levels_bound_ms']:.4f} ms")
+        # the library: one sparse triangular solve per triangle
+        (lr, lc, lv) = fac[kind][0]
+        if kind == "IC":
+            lo_full = factor_csr(lr, lc, lv, fac[kind][1], n, device)
+            up_full = factor_csr(lc, lr, lv, fac[kind][1], n, device)
+        else:
+            (ur, uc, uv), ud = fac[kind][1], fac[kind][2]
+            lo_full = factor_csr(lr, lc, lv, None, n, device)
+            up_full = factor_csr(ur, uc, uv, ud, n, device)
+        lib = library_trisolve(lo_full, up_full, unit_lower=kind == "ILU")
+        try:
+            want = lib(r)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as exc:
+            row["library_ms"] = None
+            print(f"    torch.triangular_solve with a sparse CSR A: no single call on this torch "
+                  f"({type(exc).__name__}: {str(exc).splitlines()[0][:120]})")
+            continue
+        t = time_turns({"library": lambda: lib(r), "kernel": lambda: tri_solve.tri_levels(
+            lo, up, r)}, LEVEL_LIBRARY_REPS)
+        err, tol = rel_err(got, want)
+        row.update(library_ms=t["library"], kernel_ms_beside_library=t["kernel"])
+        print(f"    torch.triangular_solve (sparse CSR, L then U) {t['library']:.4f} ms beside "
+              f"tri_levels{tag} {t['kernel']:.4f} ms; max abs difference {err:.1e} (the "
+              f"library solves with the float64 factors rounded to float32, kernel 2 with "
+              f"1/diag rounded; printed, not gated)")
+        del lo_full, up_full
+    del states
+    torch.cuda.empty_cache()
+
+
+def check_slice20_launches(field, slv, before, applies):
+    """Between `before` and now: the ILU family's kernel of the apply
+    (tri_levels exact, else tri_sweep) once per preconditioner apply the
+    host loop made (`applies`, counted by the apply itself), the other
+    never, and no loop kernel; GKOGMRES also its Arnoldi kernel once per
+    step."""
+    got = {k: kernels.launches[k] - before[k] for k in kernels.launches
+           if kernels.launches[k] != before[k]}
+    print(f"  {field}: launches in this solve {got}; preconditioner applies {applies}")
+    loops = [k for k in got if k.endswith("loop")]
+    if loops:
+        raise RuntimeError(f"{field}: a loop kernel ran on a host-loop route: {loops}")
+    exact = slv._precond_op.state.exact
+    want = {"tri_levels" if exact else "tri_sweep": applies,
+            "tri_sweep" if exact else "tri_levels": 0}
+    bad = {k: got.get(k, 0) for k, v in want.items() if got.get(k, 0) != v}
+    if bad or applies < 1:
+        raise RuntimeError(f"{field}: launched {bad} in one solve, not {want}")
+
+
+def slice20_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> tuple:
+    """Phase 13.  Returns the launch counts of the path and its kernel
+    report."""
+    print(f"== phase 13: slice 20, the ILU family (ILU, ILUT, IRILU, IC, ICT, triSolve exact), "
+          f"foam.solve at {m_grid.n} (Poisson, convection-diffusion) and {m_knn.n} (kNN-6) "
+          "cells")
+    info = _build.build_info()
+    for kern, what in (("tri_sweep_kernel", "tri_sweep"), ("tri_levels_kernel", "tri_levels")):
+        print(f"{what}: ptxas: " + "; ".join(loop_ptxas(info["log"], None, kern)))
+    ctl = {**ctl, "verbose": 0}
+    t0 = time.perf_counter()
+    systems = {"poisson": (m_grid, b_grid), "knn": (m_knn, b_knn),
+               "cd": (testing.convection_diffusion_ldu(grid), b_grid)}
+    print(f"host set-up: convection-diffusion system {time.perf_counter() - t0:.2f} s")
+    records, report = {}, {}
+    kernels.reset_launches()
+    for field, (system, spec, gate) in SLICE20_SOLVES.items():
+        mk, bk = systems[system]
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        x, perf = foam.solve(field, mk, bk, {**ctl, **spec})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        slv = registry.global_registry.get(f"{field}_solver")
+        st = slv._precond_op.state
+        check_slice20_launches(field, slv, before, st.applies)
+        it = max(perf.n_iterations, 1)
+        lt = slv.last_timings
+        print(f"{field} ({formats.format_name(slv.matrix)}, route {slv.route}, "
+              f"{'tri_levels' if st.exact else 'tri_sweep'} over Csr factors of "
+              f"{st.lower.mat.nnz} + {st.upper.mat.nnz} entries, factor_depth "
+              f"{st.lower.depth} / {st.upper.depth}, sweeps {st.lower.sweeps}): first solve wall "
+              f"{wall:.3f} s; generate_preconditioner {lt['generate_preconditioner'] * 1e3:.1f} "
+              f"ms, solve {lt['solve'] * 1e3:.3f} ms = {lt['solve'] / it * 1e6:.1f} us per "
+              f"iteration; on resident state {slv.time_device_solve() / it * 1e6:.2f} us per "
+              "iteration")
+        records[field] = (x, perf, snapshot17(slv), torch.tensor(bk, device=device),
+                          stopping.StoppingParams.of(slv.cfg.stopping), gate)
+    launches = {k: kernels.launches[k] for k in SLICE20_KERNELS}
+    print(f"launch counts over the path: {dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"slice 20's path never launched {missing}")
+
+    # ---- checks of the path (launches not counted) --------------------------
+    for field, (x, perf, slv, bb, params, gate) in records.items():
+        mat = slv.matrix
+        n = mat.shape[0]
+        if not perf.converged:
+            raise RuntimeError(f"{field}: did not converge: {perf}")
+        if x.shape != (n,) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{field}: solution not finite of shape ({n},)")
+        mat64 = formats.cast_values(mat, torch.float64)
+        tr = true_residual_mv(lambda v, mat64=mat64: spmv.spmv(mat64, v), x, bb)
+        t0 = time.perf_counter()
+        plain = slice17_route(slv, bb, params, plain=True)
+        torch.cuda.synchronize()
+        line = (f"{field}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
+                f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
+                f"card: {plain.iters} iterations ({gate}; {time.perf_counter() - t0:.2f} s)")
+        if gate == "pinned":
+            pin = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0,
+                                          min_iter=PINNED_ITERS[0], max_iter=PINNED_ITERS[0],
+                                          frequency=1)
+            rk, rp = (float(slice17_route(slv, bb, pin, twins).final_res_norm)
+                      for twins in (False, True))
+            rel = abs(rk - rp) / rp
+            line += f"; pinned {PINNED_ITERS[0]}: residual {rk:.4e} vs {rp:.4e} (rel {rel:.1e})"
+            if rel > PINNED_RTOL:
+                raise RuntimeError(f"{field}: pinned, the kernels' residual {rk:.4e} differs "
+                                   f"from the plain twins' {rp:.4e}")
+        print(line)
+        if gate == "free" and abs(plain.iters - perf.n_iterations) > 1:
+            raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain.iters} over "
+                               "the plain twins")
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
+    del records
+    torch.cuda.empty_cache()
+
+    # ---- the kernels against their twins ------------------------------------
+    print("slice 20's kernels vs their twins on the Poisson grid's IC(0) and ILU(0) factors "
+          f"(vector tol {VEC_RTOL:.0e}*max(1,max|plain|); both bit-equal required):")
+    for dims in (grid, grid_big):
+        slice20_kernels(dims, device, report)
     return launches, report
 
 
@@ -3402,13 +3789,17 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     launches_14, report_14 = gather_path(device, *knn_system, m, b, grid_main, grid_big, ctl)
     report.update(report_14)
     t_ph = phase_done("phase 11", t_ph)
-    launches_17, report_17 = slice17_path(device, *knn_system, m, b, grid_main, grid_big, ctl)
+    launches_17, report_17, knn_small = slice17_path(device, *knn_system, m, b, grid_main,
+                                                     grid_big, ctl)
     report.update(report_17)
-    phase_done("phase 12", t_ph)
+    t_ph = phase_done("phase 12", t_ph)
+    launches_20, report_20 = slice20_path(device, *knn_small, m, b, grid_main, grid_big, ctl)
+    report.update(report_20)
+    phase_done("phase 13", t_ph)
 
     rows = []
     paths = (launches, launches_amg, launches_un, launches_4, launches_5, launches_14,
-             launches_17)
+             launches_17, launches_20)
     labels = {None: "x".join(map(str, grid_main)), "big": "x".join(map(str, grid_big))}
     for name, (route, source, replaces, case, label) in KERNELS.items():
         r = report[case][labels.get(label, label)]

@@ -1,9 +1,10 @@
 """LDU → row-major sparse conversion (the HostMatrix layer).
 
 Counterpart: ogl_tpu/core/ldu.py.  The host half (sparsity build, raw
-source blocks, host assembly) is the reference's numpy branch carried over
-unchanged — the branch the JAX package takes when its native C++ helper
-library is absent.  The device half is one gather on the solver's device:
+source blocks, host assembly) is the reference's: its native C++ sparsity
+build and counting sort (ogl_tpu_torch/native `init_local_sparsity`,
+`sort_coo`, bit-equal to the reference's library) where the native runtime
+builds, else its numpy branch, carried over unchanged.  The device half is one gather on the solver's device:
 `assemble_from_blocks` concatenates the resident source blocks and
 gathers them into row-major entry order with `torch.index_select`.
 
@@ -99,8 +100,13 @@ def _interior_sparsity(n: int, lower_addr, upper_addr, symmetric: bool):
     (reference init_local_sparsity, HostMatrixFreeFunctions.C:105-201).
     permute: upper face f -> f; lower face f -> f (symmetric) or F + f;
     diag row r -> after_nbrs + r, after_nbrs = F (symmetric) or 2F."""
+    from ogl_tpu_torch import native
+
     lower_addr = np.asarray(lower_addr, np.int64)
     upper_addr = np.asarray(upper_addr, np.int64)
+    nat = native.init_local_sparsity(n, lower_addr, upper_addr, symmetric)
+    if nat is not None:
+        return nat  # int32 triple, as LduSparsity stores it
     nf = len(upper_addr)
     after_nbrs = nf if symmetric else 2 * nf
     faces = np.arange(nf, dtype=np.int64)
@@ -132,8 +138,15 @@ def build_local_sparsity(ldu: LduMatrix) -> LduSparsity:
         rows = np.concatenate([rows, irows])
         cols = np.concatenate([cols, icols])
         permute = np.concatenate([permute, isrc])
-        order = np.lexsort((cols, rows))
-        rows, cols, permute = rows[order], cols[order], permute[order]
+        from ogl_tpu_torch import native
+
+        nat = native.sort_coo(ldu.n, rows, cols)
+        if nat is not None:  # native counting sort (HostMatrix.C:506-586 role)
+            rows, cols, order = nat
+        else:
+            order = np.lexsort((cols, rows))
+            rows, cols = rows[order], cols[order]
+        permute = permute[order]
     return LduSparsity(
         n=ldu.n,
         n_faces=ldu.n_faces,

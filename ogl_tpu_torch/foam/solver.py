@@ -13,9 +13,10 @@ Counterpart: ogl_tpu/foam/solver.py.
                  a changed operator and the TTL → merged-kernel CG
 
 Slices implemented: GKOCG, GKOBiCGStab and GKOGMRES with preconditioner
-`none`, `BJ` (scalar, or blocked up to maxBlockSize 32), `ISAI`, `GISAI` or
-`Multigrid` (AMG), and GKOMultigrid (Richardson around one AMG cycle);
-float32, one device.  Without an explicit matrixFormat the
+`none`, `BJ` (scalar, or blocked up to maxBlockSize 32), `ISAI`, `GISAI`,
+`ILU`, `ILUT`, `IRILU`, `IC`, `ICT` or `Multigrid` (AMG), and GKOMultigrid
+(Richardson around one AMG cycle or another preconditioner); float32, one
+device.  Without an explicit matrixFormat the
 matrix takes the reference's format ladder (kernels/spmv.py `pack_fast`):
 Dia, else Gdia, else Xell, else Ell (under 32,768 rows; above, the
 reference's error); an explicit matrixFormat (Coo, Csr, Ell, Sell, Dia,
@@ -50,8 +51,8 @@ ISAI/GISAI through the SpMV kernels of M (and Mᵀ), on a host loop:
                        inverses passed as inv_t) one launch of its loop
                        kernel on the card (on every format, bar a Csr of 16
                        or more entries per row on mean), else (ISAI, GISAI,
-                       Multigrid) the host loop over the format's SpMV
-                       kernel; `fusedBiCGStab true` with `none` on Dia
+                       the ILU family, Multigrid) the host loop over the
+                       format's SpMV kernel; `fusedBiCGStab true` with `none` on Dia
                        → the merged BiCGStab (K1B, K1B, KB_update;
                        solve/bicgstab_fused.py; on the card one launch of
                        its loop kernel)
@@ -145,8 +146,6 @@ def unsupported(cfg: SolverConfig) -> str | None:
     pc = cfg.precond
     if cfg.solver not in ("GKOCG", "GKOBiCGStab", "GKOGMRES", "GKOMultigrid"):
         return f"solver {cfg.solver} (ROADMAP.md A9)"
-    if pc.name not in precond.PORTED:
-        return f"preconditioner {pc.name} (ROADMAP.md A10)"
     if pc.name == "BJ" and pc.max_block_size > MAX_BLOCK:
         return (f"BJ maxBlockSize {pc.max_block_size} (the block-Jacobi kernel takes at most "
                 f"{MAX_BLOCK}; ROADMAP.md A10)")
@@ -162,6 +161,29 @@ def unsupported(cfg: SolverConfig) -> str | None:
     if cfg.export or cfg.debug:
         return "export/debug (ROADMAP.md A15)"
     return None
+
+
+def _mesh_xell(coo: formats.Coo, device, ladder):
+    """The field's Xell, with the packing (`xell_layout`, seconds at 1M)
+    another field on the same sparsity took: the fields of one mesh share
+    it.  The registry keeps one entry per (n, nnz): the sparsity, its
+    layout and whether the format ladder chose Xell for it; a hit needs the
+    rows and columns equal entry by entry.  `ladder` (None: an explicit
+    Xell) returns the ladder's format, Xell or another, which a hit from
+    the ladder skips, since the ladder's pick is a function of the sparsity
+    alone."""
+    store = registry.global_registry.get_or_init("xell_layouts", dict)
+    key = (coo.shape[0], len(coo.rows))
+    hit = store.get(key)
+    if hit is not None and not (np.array_equal(hit[0], coo.rows)
+                                and np.array_equal(hit[1], coo.cols)):
+        hit = None
+    if hit is not None and (ladder is None or hit[3]):
+        return xell_from_coo(coo, device=device, layout=hit[2])
+    mat = xell_from_coo(coo, device=device) if ladder is None else ladder()
+    if isinstance(mat, Xell):
+        store[key] = (coo.rows, coo.cols, mat.layout, ladder is not None)
+    return mat
 
 
 def _uses_amg(cfg: SolverConfig) -> bool:
@@ -276,9 +298,11 @@ class FoamSolver:
         fmt = self.cfg.matrix_format
         n = coo.shape[0]
         if self.cfg.matrix_format_explicit:
+            if fmt == "Xell":
+                return _mesh_xell(coo, self.device, None)
             return _CONVERTERS[fmt](coo, device=self.device)
-        mat = spmv.pack_fast(coo.rows, coo.cols, coo.vals, n, presorted=True,
-                             device=self.device)
+        mat = _mesh_xell(coo, self.device, lambda: spmv.pack_fast(
+            coo.rows, coo.cols, coo.vals, n, presorted=True, device=self.device))
         eff = formats.format_name(mat)
         if eff == "Ell" and n >= spmv.XELL_MIN_ROWS:
             raise RuntimeError(

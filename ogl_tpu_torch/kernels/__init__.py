@@ -21,7 +21,8 @@ launches: dict[str, int] = {"dia_spmv": 0, "cg_k1": 0, "cg_k2": 0, "cg_k2i": 0,
                             "ell_bicgstab_gen_loop": 0, "csr_cg_loop": 0,
                             "csr_bicgstab_gen_loop": 0, "sell_cg_loop": 0,
                             "sell_bicgstab_gen_loop": 0, "block_jacobi": 0,
-                            "gmres_arnoldi": 0, "gmres_combine": 0}
+                            "gmres_arnoldi": 0, "gmres_combine": 0,
+                            "tri_sweep": 0, "tri_levels": 0}
 
 
 def reset_launches() -> None:

@@ -4,7 +4,9 @@ Counterpart: ogl_tpu/native/__init__.py, with the same ten entry points and
 the same contract: each returns None when the library is unavailable, and
 its caller then takes its NumPy path (host set-up code, never a device
 fallback).  src/ogl_host.cpp is a copy of the reference's source, so the
-two libraries compute the same bits from the same inputs.
+two libraries compute the same bits from the same inputs, plus one entry
+point of the port's own: `tri_levels`, the dependency level of every row of
+a strict triangular factor in one pass (precond/ilu.py `factor_levels`).
 
 The library is compiled with the reference's g++ flags on first use into
 native/build/ (listed in .gitignore), keyed by a hash of the source and
@@ -28,7 +30,7 @@ import numpy as np
 
 __all__ = ["lib", "available", "init_local_sparsity", "ilu0_csr", "ic0_csr",
            "pgm_aggregate", "sort_coo", "isai_build", "ilut_triples",
-           "ict_triples", "dia_layout", "dia_pack_f32"]
+           "ict_triples", "dia_layout", "dia_pack_f32", "tri_levels"]
 
 _HERE = Path(__file__).resolve().parent
 SRC = _HERE / "src" / "ogl_host.cpp"
@@ -83,6 +85,7 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
         "ogl_isai_build": ([i64, p64, p32, pf32, p64, p32, i64, p32, pu8, pf32], None),
         "ogl_ilut": ([i64, p64, p32, pf, f64, i64, i64, p32, p32, pf, pf], i64),
         "ogl_ict": ([i64, p64, p32, pf, f64, i64, p32, p32, pf, pf], i64),
+        "ogl_tri_levels": ([i64, i64, p64, p64, p32], i64),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(L, name)
@@ -231,6 +234,22 @@ def ict_triples(n, indptr, cols, vals, drop_tol=1e-3, fill_factor=10.0):
     if cnt < 0:
         raise RuntimeError("native ICT failed (fill overflow)")
     return (orows[:cnt].copy(), ocols[:cnt].copy(), ovals[:cnt].copy()), ldiag
+
+
+def tri_levels(rows, cols, n):
+    """The dependency level of every row of a strict triangular factor
+    (int32 (n,)), or None.  Raises ValueError when the entries are not all
+    strictly below or all strictly above the diagonal."""
+    L = lib()
+    if L is None:
+        return None
+    rows = np.ascontiguousarray(rows, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    level = np.zeros(n, np.int32)
+    if L.ogl_tri_levels(n, len(rows), rows, cols, level) < 0:
+        raise ValueError("not a strict triangular factor: entries on both sides of the "
+                         "diagonal, on it, or outside the matrix")
+    return level
 
 
 def dia_layout(rows, cols, n):

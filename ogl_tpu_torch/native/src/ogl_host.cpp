@@ -559,4 +559,37 @@ int64_t ogl_ict(int64_t n, const int64_t* indptr, const int32_t* cols,
   return out;
 }
 
+// Dependency levels of a strict triangular factor (the port's own entry
+// point; the reference computes the same levels by a fixpoint over all
+// entries, ogl_tpu.precond.ilu.factor_depth): level[i] = 0 for a row
+// without entries, else 1 + max level[j] over its entries (i, j).  One pass
+// over the rows in dependency order: ascending for a strictly lower factor
+// (every j < i), descending for a strictly upper one (every j > i).
+// Returns the largest level, or -1 when the entries lie on both sides of
+// the diagonal, on it, or outside [0, n).
+int64_t ogl_tri_levels(int64_t n, int64_t nnz, const int64_t* rows,
+                       const int64_t* cols, int32_t* level) {
+  bool lower = true, upper = true;
+  for (int64_t p = 0; p < nnz; ++p) {
+    if (rows[p] < 0 || rows[p] >= n || cols[p] < 0 || cols[p] >= n) return -1;
+    lower = lower && rows[p] > cols[p];
+    upper = upper && rows[p] < cols[p];
+  }
+  if (nnz > 0 && !lower && !upper) return -1;
+  std::vector<int64_t> ptr(n + 1, 0);
+  for (int64_t p = 0; p < nnz; ++p) ++ptr[rows[p] + 1];
+  for (int64_t i = 0; i < n; ++i) ptr[i + 1] += ptr[i];
+  std::vector<int64_t> dep(nnz), fill(ptr.begin(), ptr.end() - 1);
+  for (int64_t p = 0; p < nnz; ++p) dep[fill[rows[p]]++] = cols[p];
+  int32_t depth = 0;
+  for (int64_t s = 0; s < n; ++s) {
+    const int64_t i = lower ? s : n - 1 - s;
+    int32_t lv = 0;
+    for (int64_t p = ptr[i]; p < ptr[i + 1]; ++p) lv = std::max(lv, level[dep[p]] + 1);
+    level[i] = lv;
+    depth = std::max(depth, lv);
+  }
+  return depth;
+}
+
 }  // extern "C"

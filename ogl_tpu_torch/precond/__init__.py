@@ -1,10 +1,12 @@
 """Preconditioners of the port.
 
-Counterpart: ogl_tpu/precond/__init__.py.  The port covers `none`, `BJ`
-(scalar, and blocked up to maxBlockSize 32: precond/jacobi.py), `ISAI` and
-`GISAI` (precond/isai.py) and `Multigrid` (precond/amg.py); `build` raises
-NotImplementedError for every other name (ILU, ILUT, IRILU, IC, ICT) and
-for `precision bfloat16`, naming the ROADMAP.md item that ports it.
+Counterpart: ogl_tpu/precond/__init__.py.  The port covers every name of
+the reference: `none`, `BJ` (scalar, and blocked up to maxBlockSize 32:
+precond/jacobi.py), `ISAI` and `GISAI` (precond/isai.py), `ILU`, `ILUT`,
+`IRILU`, `IC` and `ICT` (precond/ilu.py; `triSolveSweeps`, `triSolve
+exact`) and `Multigrid` (precond/amg.py); `build` raises
+NotImplementedError for `precision bfloat16`, naming the ROADMAP.md item
+that ports it.
 `skipSorting false` sorts the COO row-major first, as the reference does.
 """
 
@@ -17,16 +19,16 @@ import torch
 from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.core.formats import Coo
 
-__all__ = ["PrecondOp", "build", "amg_of", "block_jacobi", "isai", "VALID", "PORTED"]
+__all__ = ["PrecondOp", "build", "amg_of", "block_jacobi", "isai", "ilu0", "ilut", "ic0", "ict",
+           "VALID"]
 
 VALID = ("none", "BJ", "ILU", "ILUT", "IRILU", "IC", "ICT", "ISAI", "GISAI", "Multigrid")
-PORTED = ("none", "BJ", "ISAI", "GISAI", "Multigrid")
 
 
 class PrecondOp:
     """A preconditioner as (apply function, state): `state` holds the
-    device tensors (invd for Jacobi, the levels for AMG), `apply_fn(state,
-    r)` applies M⁻¹."""
+    device tensors (invd for Jacobi, the levels for AMG, the factors for the
+    ILU family), `apply_fn(state, r)` applies M⁻¹."""
 
     def __init__(self, apply_fn: Callable[[Any, Any], Any], state: Any):
         self.apply_fn = apply_fn
@@ -40,6 +42,7 @@ class PrecondOp:
 
 
 from ogl_tpu_torch.precond import amg  # noqa: E402  (the module)
+from ogl_tpu_torch.precond.ilu import ic0, ict, ilu0, ilut  # noqa: E402
 from ogl_tpu_torch.precond.isai import isai  # noqa: E402
 from ogl_tpu_torch.precond.jacobi import block_jacobi  # noqa: E402
 
@@ -51,6 +54,10 @@ def build(cfg: PrecondConfig, coo: Coo, device, verbose: int = 0) -> PrecondOp:
         raise NotImplementedError(
             "preconditioner precision bfloat16 (the state cast) is not ported yet "
             "(ROADMAP.md A10)")
+    if verbose > 0 and cfg.name == "ICT":
+        # the reference logs the knob and drops it (Preconditioner.H:201-204)
+        print(f"Generate preconditioner ICT with approximate select "
+              f"{int(cfg.approximate_select)} (log-only, as in the reference)")
     if verbose > 0 and cfg.name == "Multigrid":
         print(f"Generate preconditioner Multigrid MaxLevels {cfg.max_levels} "
               f"MinCoarseRows {cfg.min_coarse_rows} ZeroGuess "
@@ -70,11 +77,19 @@ def build(cfg: PrecondConfig, coo: Coo, device, verbose: int = 0) -> PrecondOp:
         return isai(coo, device, sparsity_power=cfg.sparsity_power, spd=True)
     if cfg.name == "GISAI":  # general variant (:241-259)
         return isai(coo, device, sparsity_power=cfg.sparsity_power, spd=False)
+    exact = cfg.tri_solve == "exact"
+    if cfg.name == "ILU":
+        return ilu0(coo, device, sweeps=cfg.tri_solve_sweeps, exact=exact)
+    if cfg.name == "ILUT":
+        return ilut(coo, device, sweeps=cfg.tri_solve_sweeps, exact=exact)
+    if cfg.name == "IRILU":  # ILU with 5-step Richardson trisolves (:146-178)
+        return ilu0(coo, device, sweeps=5)
+    if cfg.name == "IC":
+        return ic0(coo, device, sweeps=cfg.tri_solve_sweeps, exact=exact)
+    if cfg.name == "ICT":
+        return ict(coo, device, sweeps=cfg.tri_solve_sweeps, exact=exact)
     if cfg.name == "Multigrid":
         return amg_of(cfg, coo, device)
-    if cfg.name in VALID:
-        raise NotImplementedError(
-            f"preconditioner {cfg.name} is not ported yet (ROADMAP.md A10)")
     raise ValueError(
         f"unsupported preconditioner: {cfg.name}\nValid choices: {', '.join(VALID)}")
 

@@ -24,8 +24,8 @@ whole loop, criterion included, is one launch of the plan's
 the format's SpMV body, and whose block-Jacobi phases are the body of
 csrc/block_jacobi.cuh).  A refused launch
 raises; there is no fallback to the host loop.  Everything else (the CPU,
-ISAI, GISAI, Multigrid, a subclassed plan) runs the host loop,
-`bicgstab_gen_loop_plain`
+ISAI, GISAI, the ILU family, Multigrid, a subclassed plan) runs the host
+loop, `bicgstab_gen_loop_plain`
 (kernels/fused.py), which is also the loop kernel's plain twin: host
 integers for the count and the gating, 0-d device tensors for ρ, α, ω and
 the sums, one bool read per checked iteration.  The check is at the top of
@@ -58,7 +58,7 @@ def why_not(mat, precond_name: str, max_block_size: int = 1) -> str | None:
     format's plan): on Dia, Gdia, Xell and the gather formats the general
     CG takes (solve/cg.py why_not), with `none`, scalar `BJ` or a blocked
     `BJ` of 2 to MAX_BLOCK rows (the loop's block-Jacobi phases).  ISAI,
-    GISAI and Multigrid keep the host loop."""
+    GISAI, the ILU family and Multigrid keep the host loop."""
     if not isinstance(mat, (Dia, Gdia, Xell, Ell, Hybrid, Csr, Sell)):
         return f"the {format_name(mat)} format (no loop kernel on this route)"
     if not (precond_name == "BJ" and 1 < max_block_size <= MAX_BLOCK):

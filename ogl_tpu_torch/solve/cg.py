@@ -10,16 +10,16 @@ the foam path.
 
 Where the matrix is Ell, Hybrid, Csr (or a device Coo) or Sell and the
 preconditioner `none` or scalar `BJ` (`why_not` None; a blocked BJ, ISAI,
-GISAI or Multigrid keeps the CG's host loop, ops.precond), the solver passes
-the format's plan: with the plan itself (kernels/ell.py `EllCgKernels`,
-kernels/gather_loop.py `CsrCgKernels`, `SellCgKernels`, not a subclass) on
-CUDA tensors, the set-up below runs as ever and the whole loop, criterion
-included, is then one launch of its `cg_loop` (csrc/cg_loop.cu's variant of
-the format).  That
-loop computes this one's values in the merged order of solve/cg_fused.py:
-ρ and ‖r‖₁ come from the update of r (K2), z, p and q = A p from one phase
-(K1), so only the order of the reductions differs.  A refused launch
-raises.  Everything else runs the host loop below.
+GISAI, the ILU family or Multigrid keeps the CG's host loop, ops.precond),
+the solver passes the format's plan: with the plan itself (kernels/ell.py
+`EllCgKernels`, kernels/gather_loop.py `CsrCgKernels`, `SellCgKernels`, not
+a subclass) on CUDA tensors, the set-up below runs as ever and the whole
+loop, criterion included, is then one launch of its `cg_loop`
+(csrc/cg_loop.cu's variant of the format). That loop computes this one's
+values in the merged order of solve/cg_fused.py: ρ and ‖r‖₁ come from the
+update of r (K2), z, p and q = A p from one phase (K1), so only the order
+of the reductions differs. A refused launch raises. Everything else runs
+the host loop below.
 """
 
 from __future__ import annotations
@@ -53,8 +53,8 @@ class SolveResult(NamedTuple):
 def precond_why_not(precond_name: str, max_block_size: int = 1) -> str | None:
     """Why a loop kernel cannot take the preconditioner, or None: the CG
     loops' phases apply identity or scalar Jacobi (invd ⊙ r) only, so a
-    blocked BJ (its block-Jacobi kernel), ISAI and GISAI (SpMVs of M) and
-    Multigrid keep the host loop.  The general BiCGStab's loop kernel also
+    blocked BJ (its block-Jacobi kernel), ISAI and GISAI (SpMVs of M), the
+    ILU family (its triangular kernels) and Multigrid keep the host loop.  The general BiCGStab's loop kernel also
     takes a blocked BJ (solve/bicgstab.py why_not)."""
     if precond_name not in ("none", "BJ"):
         return f"preconditioner {precond_name}"

@@ -1,5 +1,6 @@
-// A CPU stand-in for the CUDA pieces that csrc/block_jacobi.cuh and
-// csrc/gmres_combine.cuh use, so that their bodies run as written: the
+// A CPU stand-in for the CUDA pieces that csrc/block_jacobi.cuh,
+// csrc/gmres_combine.cuh, csrc/tri_sweep.cuh and csrc/tri_levels.cuh use, so
+// that their bodies run as written: the
 // built-in indices as thread-local variables (one std::thread per CUDA
 // thread where the body synchronises, a plain loop over the threads where
 // it does not), a std::barrier per CTA for __syncthreads, the vector types,
@@ -13,6 +14,7 @@
 #include <string.h>
 
 #include <barrier>
+#include <cstdlib>
 
 #define __global__
 #define __device__
@@ -55,3 +57,6 @@ inline float __uint_as_float(unsigned u) {
   memcpy(&f, &u, 4);
   return f;
 }
+// csr_rows.cuh's many-lane body shuffles; the emulated bodies take its
+// one-lane body only, so a shuffle here is a fault of the harness
+inline float __shfl_xor_sync(unsigned, float, int) { std::abort(); }

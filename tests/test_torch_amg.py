@@ -370,7 +370,8 @@ def test_verbose_logs_the_multigrid_build(capsys):
 @pytest.mark.parametrize("controls,item", [
     ({"solver": "GKOIR"}, "A9"),
     ({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}}, "A10"),
-    ({"solver": "GKOMultigrid", "preconditioner": "ILU"}, "A10"),
+    ({"solver": "GKOMultigrid",
+      "preconditioner": {"preconditioner": "ILU", "precision": "bfloat16"}}, "A10"),
 ], ids=str)
 def test_unported_amg_controls_raise(controls, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):

@@ -90,7 +90,7 @@ def test_testing_problems_match_reference(dims):
 
 UNSUPPORTED = [
     ({"solver": "GKOIR"}, "A9"),
-    ({"preconditioner": "ILU"}, "A10"),
+    ({"preconditioner": {"preconditioner": "ILU", "precision": "bfloat16"}}, "A10"),
     ({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}}, "A10"),
     ({"preconditioner": {"preconditioner": "ISAI", "precision": "bfloat16"}}, "A10"),
     ({"matrixFormat": "Csr", "preconditioner": "Multigrid"}, "A11"),

@@ -2838,3 +2838,144 @@ def test_gmres_combine_bit_equal_at_ragged_n(dev, j, dtype, n):
     torch.cuda.synchronize()
     assert kernels.launches["gmres_combine"] == 1
     assert torch.equal(got, gmres_combine_plain(V, y, j, n))
+
+
+# ---- slice 20: the ILU family's triangular kernels --------------------------------
+
+
+def _tri_state(name, system, device, sweeps=8, exact=False):
+    """The apply state of an ILU-family name on `system` on `device`."""
+    from ogl_tpu_torch.config import PrecondConfig
+    from ogl_tpu_torch.precond import build
+
+    m = {"poisson": lambda: testing.poisson_ldu((32, 16, 8)),
+         "poisson1m": lambda: testing.poisson_ldu((128, 128, 64)),
+         "cd": lambda: testing.convection_diffusion_ldu((32, 16, 8)),
+         "knn": lambda: testing.knn_ldu(20000)[0]}[system]()
+    coo = ldu.ldu_to_coo_host(m, dtype=np.float32)
+    cfg = PrecondConfig(name=name, tri_solve_sweeps=sweeps,
+                        tri_solve="exact" if exact else "approx")
+    return build(cfg, coo, device).state
+
+
+TRI_CASES = [("IC", "poisson"), ("ILU", "cd"), ("ILUT", "cd"), ("ICT", "knn"), ("ILU", "knn")]
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 3, 8])
+@pytest.mark.parametrize("name,system", TRI_CASES)
+def test_tri_sweep_kernel_bit_equal_to_twin(dev, name, system, sweeps):
+    from ogl_tpu_torch.kernels import tri_solve
+
+    st = _tri_state(name, system, dev, sweeps)
+    r = _vec(st.lower.n, sweeps, dev)
+    kernels.reset_launches()
+    got = tri_solve.tri_sweep(st.lower, st.upper, r)
+    torch.cuda.synchronize()
+    assert kernels.launches["tri_sweep"] == 1
+    assert torch.equal(got, tri_solve.tri_sweep_plain(st.lower, st.upper, r))
+
+
+@pytest.mark.parametrize("name,system", TRI_CASES + [("IC", "poisson1m"), ("ILU", "poisson1m")])
+def test_tri_levels_kernel_bit_equal_to_twin_and_to_the_sweeps_at_depth(dev, name, system):
+    from ogl_tpu_torch.kernels import tri_solve
+
+    st = _tri_state(name, system, dev, exact=True)
+    lo, up = st.lower, st.upper
+    r = _vec(lo.n, 3, dev)
+    kernels.reset_launches()
+    got = tri_solve.tri_levels(lo, up, r)
+    torch.cuda.synchronize()
+    assert kernels.launches["tri_levels"] == 1
+    assert torch.equal(got, tri_solve.tri_levels_plain(lo, up, r))
+    deep = _at_depth(lo), _at_depth(up)
+    assert torch.equal(got, tri_solve.tri_sweep(*deep, r))
+    assert kernels.launches["tri_sweep"] == 1
+
+
+def _at_depth(t):
+    """The factor with its sweep count raised to its dependency depth."""
+    import dataclasses
+
+    return dataclasses.replace(t, sweeps=t.depth, _tables={})
+
+
+def test_tri_wrappers_never_take_a_twin_on_the_card(dev, monkeypatch):
+    from ogl_tpu_torch.kernels import tri_solve
+    from ogl_tpu_torch.precond import ilu
+
+    st = _tri_state("IC", "poisson", dev)
+    r = _vec(st.lower.n, 1, dev)
+    want = tri_solve.tri_sweep_plain(st.lower, st.upper, r)
+    want_exact = tri_solve.tri_levels_plain(st.lower, st.upper, r)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a twin ran on CUDA tensors")
+
+    for fn in ("tri_sweep_plain", "tri_levels_plain", "_sweeps_plain", "_levels_plain"):
+        monkeypatch.setattr(tri_solve, fn, refuse)
+    kernels.reset_launches()
+    assert torch.equal(ilu.apply(st, r), want)
+    st.exact = True
+    assert torch.equal(ilu.apply(st, r), want_exact)
+    torch.cuda.synchronize()
+    assert kernels.launches["tri_sweep"] == 1 and kernels.launches["tri_levels"] == 1
+    assert st.applies == 2
+
+
+def test_tri_refused_launch_raises(dev, monkeypatch):
+    """A grid above the co-resident blocks is refused by the cooperative
+    launch: the wrapper raises, counts nothing, and the next launch runs."""
+    from ogl_tpu_torch.kernels import tri_solve
+
+    st = _tri_state("ILU", "cd", dev)
+    r = _vec(st.lower.n, 2, dev)
+    sweep_co = tri_solve._coop_blocks("ogl_tri_sweep_grid", dev.index or 0)
+    level_co = tri_solve._coop_blocks("ogl_tri_levels_grid", dev.index or 0)
+    kernels.reset_launches()
+    with monkeypatch.context() as mp:
+        mp.setattr(tri_solve, "sweep_blocks", lambda n, d: 4 * sweep_co)
+        mp.setattr(tri_solve, "level_blocks", lambda lo, up, d: 4 * level_co)
+        with pytest.raises(RuntimeError, match="tri_sweep: CUDA error"):
+            tri_solve.tri_sweep(st.lower, st.upper, r)
+        with pytest.raises(RuntimeError, match="tri_levels: CUDA error"):
+            tri_solve.tri_levels(st.lower, st.upper, r)
+    assert kernels.launches["tri_sweep"] == 0 and kernels.launches["tri_levels"] == 0
+    torch.cuda.synchronize()
+    assert torch.equal(tri_solve.tri_sweep(st.lower, st.upper, r),
+                       tri_solve.tri_sweep_plain(st.lower, st.upper, r))
+    with pytest.raises(ValueError, match="contiguous"):
+        tri_solve.tri_sweep(st.lower, st.upper, r.double())
+
+
+ILU_SOLVES = {
+    "GKOCG IC": ("GKOCG", "IC", "poisson"),
+    "GKOCG ICT exact": ("GKOCG", {"preconditioner": "ICT", "triSolve": "exact"}, "poisson"),
+    "GKOBiCGStab ILU": ("GKOBiCGStab", "ILU", "cd"),
+    "GKOBiCGStab IRILU": ("GKOBiCGStab", "IRILU", "cd"),
+    "GKOGMRES ILUT exact": ("GKOGMRES", {"preconditioner": "ILUT", "triSolve": "exact"}, "cd"),
+}
+
+
+@pytest.mark.parametrize("case", list(ILU_SOLVES))
+def test_ilu_family_solves_on_the_card(dev, case):
+    """foam.solve on the card: one tri_sweep (or, exact, tri_levels) launch
+    per preconditioner apply and none of the other, ±1 iteration of the
+    same solve on the CPU over the twins, the true residual in bounds."""
+    solver, pc, system = ILU_SOLVES[case]
+    m = (testing.poisson_ldu((32, 32, 16)) if system == "poisson"
+         else testing.convection_diffusion_ldu((32, 32, 16)))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": solver, "tolerance": 1e-6, "relTol": 0, "preconditioner": pc,
+           "adaptMinIter": False}
+    kernels.reset_launches()
+    x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
+    torch.cuda.synchronize()
+    st = registry.global_registry.get("p_solver")._precond_op.state
+    exact = st.exact
+    assert kernels.launches["tri_levels" if exact else "tri_sweep"] == st.applies > 0
+    assert kernels.launches["tri_sweep" if exact else "tri_levels"] == 0
+    registry.global_registry.clear()
+    _, perf_cpu = foam.solve("p", m, b, {**ctl, "executor": "cpu"})
+    assert perf.converged and perf_cpu.converged
+    assert abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    assert _true_residual64(m, b, x) < 10 * 1e-6

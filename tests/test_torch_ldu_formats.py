@@ -103,3 +103,19 @@ def test_value_map_rejects_changed_sparsity():
     other = ldu.build_local_sparsity(_port_ldu(ref_testing.poisson_ldu((8, 4, 2))))
     with pytest.raises(ValueError, match="sparsity changed"):
         formats.value_map(mat, other.rows, other.cols)
+
+
+@pytest.mark.parametrize("kind,dims", CASES)
+def test_native_and_numpy_sparsity_builds_agree(kind, dims, monkeypatch):
+    """The native sparsity build and counting sort (the path taken where the
+    native runtime builds, as the reference takes it) and the numpy branch
+    give the same rows, cols and permute, local interfaces included."""
+    from ogl_tpu_torch import native
+
+    m = _port_ldu(_ref_case(kind, dims))
+    fast = ldu.build_local_sparsity(m)
+    monkeypatch.setattr(native, "lib", lambda: None)
+    slow = ldu.build_local_sparsity(m)
+    for f in ("rows", "cols", "permute"):
+        np.testing.assert_array_equal(getattr(fast, f), getattr(slow, f))
+        assert getattr(fast, f).dtype == np.int32

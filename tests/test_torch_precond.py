@@ -26,7 +26,7 @@ from ogl_tpu_torch.foam import solver as solver_mod
 from ogl_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_plain
 from ogl_tpu_torch.kernels.fused import CgKernels
 from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels
-from ogl_tpu_torch.precond import PORTED, build
+from ogl_tpu_torch.precond import VALID, build
 from ogl_tpu_torch.precond.jacobi import block_inverses
 
 # the modules themselves (the packages re-export functions of the same names)
@@ -278,12 +278,18 @@ def test_isai_names_its_host_memory_on_a_wide_pattern(monkeypatch):
 
 
 def test_factory_ports_bj_isai_gisai_and_keeps_refusing_the_rest():
-    assert PORTED == ("none", "BJ", "ISAI", "GISAI", "Multigrid")
+    """Every name of the reference builds (the ILU family since slice 20,
+    approximate and exact); `precision bfloat16` still refuses every ported
+    name but `none`, naming A10."""
+    assert VALID == ("none", "BJ", "ILU", "ILUT", "IRILU", "IC", "ICT", "ISAI", "GISAI",
+                      "Multigrid")
     _, coo = _coos(ref_testing.poisson_ldu((6, 5, 3)))
     for name in ("ILU", "ILUT", "IRILU", "IC", "ICT"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-            build(PrecondConfig(name=name), coo, "cpu")
-    for name in ("BJ", "ISAI", "GISAI"):
+        for tri in ("approx", "exact"):
+            op = build(PrecondConfig(name=name, tri_solve=tri), coo, "cpu")
+            assert op.state.exact == (tri == "exact" and name != "IRILU")
+            assert op.state.lower.sweeps == (5 if name == "IRILU" else 8)
+    for name in VALID[1:]:
         with pytest.raises(NotImplementedError, match="bfloat16.*A10"):
             build(PrecondConfig(name=name, value_precision="bfloat16"), coo, "cpu")
 

@@ -25,7 +25,7 @@ from ogl_tpu.core import ldu as ref_ldu
 from ogl_tpu.core import reorder as ref_reorder
 from ogl_tpu.kernels import spmv as ref_spmv
 from ogl_tpu.kernels import xell as ref_xell
-from ogl_tpu_torch import interop, kernels, registry, testing
+from ogl_tpu_torch import foam, interop, kernels, registry, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels import spmv, xell
 
@@ -305,3 +305,40 @@ def test_band_grid_covers_the_rows_inside_the_padded_tiles(n, bands):
     assert bands * xell.BAND_ROWS >= n
     tiles = max(-(-max(-(-n // xell.LANES), 1) // xell.TB), 1)
     assert bands * xell.BAND_ROWS <= tiles * xell.TB * xell.LANES
+
+
+def test_fields_of_one_mesh_share_the_xell_packing(monkeypatch):
+    """foam.solve on two fields of one kNN mesh (other values) packs the
+    Xell layout once, with matrixFormat Xell and by the format ladder alike,
+    and the second field gets the container a fresh packing gives.  An
+    explicit Xell does not stand for the ladder's pick: the ladder runs
+    once on the mesh itself, and on a grid it still picks Dia."""
+    calls = []
+    real = xell.xell_layout
+    monkeypatch.setattr(xell, "xell_layout", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    monkeypatch.setattr(spmv, "XELL_MIN_ROWS", 1024)
+    m, perm = testing.knn_ldu(4096)
+    m = testing.renumber_ldu(m, np.argsort(perm))
+    m2 = dataclasses.replace(m, upper=np.asarray(m.upper) * 2, diag=np.asarray(m.diag) * 3)
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"executor": "cpu", "tolerance": 1e-6, "relTol": 0, "maxIter": 3}
+    xl = {**ctl, "matrixFormat": "Xell"}
+
+    def solver(field, mat, controls):
+        foam.solve(field, mat, b, controls)
+        return registry.global_registry.get(f"{field}_solver")
+
+    first = solver("pA", m, xl)
+    second = solver("pB", m2, xl)
+    assert len(calls) == 1 and second.matrix.layout is first.matrix.layout
+    fresh = xell.xell_from_coo(second.coo_host())
+    for f in ("vals", "ll", "bbT"):
+        assert torch.equal(getattr(second.matrix, f), getattr(fresh, f))
+    assert len(calls) == 2
+    laddered = [solver(f, m2, ctl) for f in ("pC", "pD")]
+    assert len(calls) == 3 and all(type(s.matrix) is xell.Xell for s in laddered)
+    assert laddered[1].matrix.layout is laddered[0].matrix.layout
+    grid = testing.poisson_ldu((16, 16, 8))
+    b = np.ones(grid.n, np.float32)
+    assert type(solver("gA", grid, xl).matrix) is xell.Xell and len(calls) == 4
+    assert type(solver("gB", grid, ctl).matrix) is formats.Dia and len(calls) == 4
