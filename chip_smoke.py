@@ -5,6 +5,7 @@
     python3 chip_smoke.py --turns PARENT . . PARENT   (phase 3's kernels in turns)
     python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the gather formats' part alone)
     python3 chip_smoke.py --turns-gmres PARENT . . PARENT   (the GMRES basis kernels and solves)
+    python3 chip_smoke.py --turns-tri PARENT . . PARENT   (the ILU family's kernels and solves)
 
 Drives the port's main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
@@ -204,9 +205,11 @@ Phases (any failure raises, and the script exits non-zero):
      both kernels against their twins on the grid's IC(0) and ILU(0)
      factors at 1M and 8.4M rows (bit-equal; kernel 2 also bit-equal to
      kernel 1 run to the factors' depths), with the apply's least bytes,
-     the bytes streamed over the sweeps, the levels times the measured cost
-     of an empty level, and torch.triangular_solve with a sparse-CSR A
-     (one call per triangle) beside kernel 2.
+     a model of the bytes kernel 1 moves from device memory over its sweeps
+     (its factors' rows held in shared memory read once), the dependency depth
+     times the µs of one dependent hop of kernel 2 (a chain probe), and
+     torch.triangular_solve with a sparse-CSR A (one call per triangle)
+     beside kernel 2.
 Each phase prints its wall time.  Each path's launch counts are set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  The line before the last is one JSON object
@@ -230,7 +233,10 @@ torch's CSR SpMV); `--turns-gmres` runs the Arnoldi step at j = 0, 12,
 49 and 99 in float32 and bfloat16 at 262,144 and 1,048,576 rows and at
 j = 99 at 8,388,608, the combine at j = 100 beside torch.mv at 1M in five
 rounds (three in bfloat16 and at 8.4M), and wK (GKOGMRES + GISAI on the kNN-6 mesh), wP and wPbf (+ ISAI
-on the Poisson grid) on resident state.
+on the Poisson grid) on resident state; `--turns-tri` runs kernels 1 and 2
+on the Poisson grid's IC(0) and ILU(0) factors at 1M and 8.4M rows and on
+the 262,144-cell kNN-6 mesh's ILUT and ICT factors, and pIC, pICx, wILUx
+and pKICT on resident state.
 """
 
 from __future__ import annotations
@@ -3056,9 +3062,10 @@ SLICE20_SOLVES = {
                "pinned"),
     "pKICT": ("knn", {"solver": "GKOCG", "preconditioner": "ICT", "matrixFormat": "Csr"}, "free"),
 }
-# the levels of the barrier probe: an empty factor of this many levels, each
-# as wide as the checked factor's widest, walked by kernel 2 on its grid
-BARRIER_PROBE_LEVELS = 256
+# the rows of each factor of the chain probe: every row depends on the one
+# before (lower) or after (upper), so kernel 2 walks 2 x (CHAIN_ROWS - 1)
+# dependent hops one after another
+CHAIN_ROWS = 4096
 # kernel 2's twin walks ~640 (1M) or ~1,270 (8.4M) levels of torch ops per
 # call (0.2-0.6 s): its row is timed after one warm-up call over 2 calls a
 # turn, and torch.triangular_solve beside kernel 2 over 3
@@ -3108,13 +3115,14 @@ def grid_coo(dims, device):
                        vals=v[order].cpu().numpy(), shape=(n, n))
 
 
-def tri_bytes(st, ic: bool):
-    """(least bytes of one apply, bytes streamed per sweep pass summed over
-    the approximate apply's passes, operations of one approximate apply):
-    the least bytes read each factor (row offsets, columns, values), r and
-    each d once and write the result once.  IC's two triangles are L and
-    Lᵀ with one d, so its least bytes count L and d once; the port's own
-    copy of Lᵀ shows only in the streamed figure."""
+def tri_bytes(st, ic: bool, blocks, capacity):
+    """(least bytes of one apply, a model of the bytes kernel 1 moves from
+    device memory over the approximate apply's passes on a grid of `blocks`
+    CTAs with `capacity` bytes of shared memory each (`sweep_bytes_model`),
+    operations of one approximate apply): the least bytes read each factor
+    (row offsets, columns, values), r and each d once and write the result
+    once.  IC's two triangles are L and Lᵀ with one d, so its least bytes
+    count L and d once; the port's own copy of Lᵀ shows only in the model."""
     n = st.lower.n
 
     def factor(t):
@@ -3125,31 +3133,50 @@ def tri_bytes(st, ic: bool):
     else:
         dvec = sum(4 * n for t in (st.lower, st.upper) if t.d is not None)
         least = factor(st.lower) + factor(st.upper) + 8 * n + dvec
-    streamed = ops = 0
-    for t in (st.lower, st.upper):
-        passes = max(t.sweeps, 1)
-        streamed += passes * (factor(t) + 12 * n + (4 * n if t.d is not None else 0))
-        ops += passes * (2 * t.mat.nnz + 2 * n)
-    return least, streamed, ops
+    moved = sum(sweep_bytes_model(t, blocks, capacity) for t in (st.lower, st.upper))
+    ops = sum(max(t.sweeps, 1) * (2 * t.mat.nnz + 2 * n) for t in (st.lower, st.upper))
+    return least, moved, ops
 
 
-def barrier_ms(st, device):
-    """The cost of one level of kernel 2 without work: an empty factor of
-    BARRIER_PROBE_LEVELS levels as wide as the checked factors' widest, on
-    the grid kernel 2 takes for them, timed with CUDA events; ms per level."""
-    w, levels = max(st.lower.widest, st.upper.widest), BARRIER_PROBE_LEVELS
-    n = w * levels
-    empty = formats.Csr(row_ptr=torch.zeros(n + 1, dtype=torch.int32, device=device),
-                        cols=torch.zeros(0, dtype=torch.int32, device=device),
-                        vals=torch.zeros(0, device=device), shape=(n, n))
-    probe = tri_solve.Triangle(
-        mat=empty, d=None, sweeps=0, depth=levels - 1,
-        order=torch.arange(n, dtype=torch.int32, device=device),
-        level_ptr=torch.arange(0, n + 1, w, dtype=torch.int32, device=device),
-        level_sizes=np.full(levels, w))
-    r = torch.ones(n, device=device)
-    ms = time_turns({"k": lambda: tri_solve.tri_levels(probe, probe, r)}, 10)["k"]
-    return ms / (2 * levels)
+def chain_hop_ms(device):
+    """The cost of one dependent hop of kernel 2: a chain of CHAIN_ROWS rows
+    per factor (each row's one source the row before it, or after it in the
+    upper factor), through tri_levels, timed with CUDA events; ms per hop.
+    Held to its twin's bits first."""
+    g = np.random.default_rng(21)
+    i = np.arange(1, CHAIN_ROWS)
+    st = ilu.state_from_factors((i, i - 1, g.uniform(-0.9, 0.9, CHAIN_ROWS - 1)),
+                                (i - 1, i, g.uniform(-0.9, 0.9, CHAIN_ROWS - 1)),
+                                g.uniform(1.0, 2.0, CHAIN_ROWS), "lu", device, exact=True)
+    r = torch.ones(CHAIN_ROWS, device=device)
+    if not torch.equal(tri_solve.tri_levels(st.lower, st.upper, r),
+                       tri_solve.tri_levels_plain(st.lower, st.upper, r)):
+        raise RuntimeError("tri_levels on the chain probe is not bit-equal to its twin")
+    ms = time_turns({"k": lambda: tri_solve.tri_levels(st.lower, st.upper, r)}, 10)["k"]
+    return ms / (st.lower.depth + st.upper.depth)
+
+
+def sweep_bytes_model(t, blocks, capacity):
+    """A model of the bytes kernel 1 moves from device memory over one
+    triangle's passes, as its plan lays the rows out (printed, not measured
+    and not reported): the held rows' offsets and entries once, the rest of
+    the factor every pass (none without a sweep), and per pass b and d, the
+    sources read and the result written.  The kernel keeps b and d of a
+    thread's first rows in registers, and at 1M rows a pass may find what
+    it streams in L2, so it moves less."""
+    n = t.n
+    rp = t.mat.row_ptr.cpu().numpy().astype(np.int64)
+    plan = tri_solve.sweep_plan(t, blocks, capacity, tri_solve.SWEEP_HOLD_SHARE)
+    passes = max(t.sweeps, 1)
+    factor = 4 * (n + 1) + 8 * t.mat.nnz
+    held_bytes = 0
+    if plan is not None:
+        bounds, held = (a.cpu().numpy().astype(np.int64) for a in plan)
+        r0 = bounds[:-1]
+        held_bytes = int((4 * (held - r0 + (held > r0)) + 8 * (rp[held] - rp[r0])).sum())
+    factor_bytes = held_bytes + (factor - held_bytes) * passes if t.sweeps > 0 else 0
+    bd = 4 + (4 if t.d is not None else 0)
+    return factor_bytes + (bd + 8) * n * passes
 
 
 def library_trisolve(lo_full, up_full, unit_lower):
@@ -3173,12 +3200,13 @@ def factor_csr(rows, cols, vals, diag, n, device):
         (rows, np.int64), (cols, np.int64), (vals, np.float32))), n)
 
 
-def slice20_kernels(dims, device, report):
+def slice20_kernels(dims, device, report, hop_ms):
     """Kernels 1 and 2 against their twins on the IC and ILU factors of the
     Poisson grid at `dims` (launches not counted): bit-equal, and within
     VEC_RTOL by compare's rule; kernel 2 bit-equal to kernel 1 run to each
-    factor's depth; timed with the bound, the levels times the measured
-    cost of a level, and torch.triangular_solve beside kernel 2."""
+    factor's depth; timed with the bound, the dependency depth times
+    `hop_ms` (the chain probe's ms per dependent hop), and
+    torch.triangular_solve beside kernel 2."""
     label = "x".join(map(str, dims))
     t0 = time.perf_counter()
     coo = grid_coo(dims, device)
@@ -3203,10 +3231,12 @@ def slice20_kernels(dims, device, report):
           f"the host in {time.perf_counter() - t0:.2f} s (two threads)")
     g = torch.Generator(device=device).manual_seed(20)
     r = torch.randn(n, device=device, generator=g)
+    blocks = tri_solve.sweep_blocks(n, device)
+    capacity = tri_solve.sweep_grid(device.index or 0)[1]
     for kind, st in states.items():
         tag = "" if kind == "IC" else "[ILU]"
         lo, up = st.lower, st.upper
-        least, streamed, ops = tri_bytes(st, kind == "IC")
+        least, moved, ops = tri_bytes(st, kind == "IC", blocks, capacity)
         got = tri_solve.tri_sweep(lo, up, r)
         want = tri_solve.tri_sweep_plain(lo, up, r)
         compare("tri_sweep" + tag, label, lambda: ([got], []), lambda: ([want], []), least, ops,
@@ -3216,10 +3246,17 @@ def slice20_kernels(dims, device, report):
             raise RuntimeError(f"tri_sweep{tag} at {label} is not bit-equal to its twin")
         row = report["tri_sweep" + tag][label]
         row["library_ms"] = None  # no single call computes k Jacobi sweeps
+        held = [tri_solve.sweep_plan(t, blocks, capacity, tri_solve.SWEEP_HOLD_SHARE)
+                for t in (lo, up)]
+        share = [0.0 if p is None else float((p[1] - p[0][:-1]).sum()) / n for p in held]
+        mode = (f"{blocks} CTAs with {capacity} bytes of shared memory hold "
+                f"{share[0]:.3f} / {share[1]:.3f} of the rows"
+                if any(p is not None for p in held) else f"{blocks} CTAs stream every row")
         print(f"    tri_sweep{tag}: {lo.sweeps} + {up.sweeps} sweeps, factors of {lo.mat.nnz} "
-              f"and {up.mat.nnz} entries; least bytes {least / n:.1f} B/row (bound "
-              f"{least / PEAK_BYTES_PER_S * 1e3:.4f} ms); streamed per sweep, summed over the "
-              f"passes {streamed / n:.1f} B/row ({streamed / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
+              f"and {up.mat.nnz} entries; {mode}; least bytes "
+              f"{least / n:.1f} B/row (bound {least / PEAK_BYTES_PER_S * 1e3:.4f} ms); moved "
+              f"from device memory over the passes, a model (b and d counted every pass) "
+              f"{moved / n:.1f} B/row ({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
         got = tri_solve.tri_levels(lo, up, r)
         want = tri_solve.tri_levels_plain(lo, up, r)
         exact_ops = 2 * (lo.mat.nnz + up.mat.nnz) + 4 * n
@@ -3234,15 +3271,16 @@ def slice20_kernels(dims, device, report):
         if not torch.equal(got, tri_solve.tri_sweep(*deep, r)):
             raise RuntimeError(f"tri_levels{tag} at {label} is not bit-equal to tri_sweep run "
                                f"to the depths {lo.depth}, {up.depth}")
-        per_level = barrier_ms(st, device)
         row = report["tri_levels" + tag][label]
-        row.update(levels=(lo.levels, up.levels), level_ms=per_level,
-                   levels_bound_ms=(lo.levels + up.levels) * per_level)
+        row.update(levels=(lo.levels, up.levels), hop_ms=hop_ms,
+                   depth_bound_ms=(lo.depth + up.depth) * hop_ms)
         print(f"    tri_levels{tag}: bit-equal to its twin and to tri_sweep run to the depths "
-              f"{lo.depth} and {up.depth}; {lo.levels} + {up.levels} levels (widest "
-              f"{max(lo.widest, up.widest)} rows, {tri_solve.level_blocks(lo, up, device)} "
-              f"blocks) x {per_level * 1e3:.2f} us per empty level = "
-              f"{row['levels_bound_ms']:.4f} ms")
+              f"{lo.depth} and {up.depth}; "
+              f"{tri_solve.level_blocks(tri_solve.level_launch(lo, up), device)} blocks, "
+              f"(block, threads, blocks per SM, nap ns) "
+              f"{tri_solve.level_launch(lo, up)}; depth {lo.depth} + {up.depth} x "
+              f"{hop_ms * 1e3:.3f} "
+              f"us per dependent hop = depth bound {row['depth_bound_ms']:.4f} ms")
         # the library: one sparse triangular solve per triangle
         (lr, lc, lv) = fac[kind][0]
         if kind == "IC":
@@ -3301,8 +3339,17 @@ def slice20_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
           f"foam.solve at {m_grid.n} (Poisson, convection-diffusion) and {m_knn.n} (kNN-6) "
           "cells")
     info = _build.build_info()
-    for kern, what in (("tri_sweep_kernel", "tri_sweep"), ("tri_levels_kernel", "tri_levels")):
-        print(f"{what}: ptxas: " + "; ".join(loop_ptxas(info["log"], None, kern)))
+    blocks, capacity = tri_solve.sweep_grid(device.index or 0)
+    print("tri_sweep: ptxas: " + "; ".join(loop_ptxas(info["log"], None, "tri_sweep_kernel"))
+          + f"; dynamic shared memory {capacity} bytes per CTA, {blocks} co-resident CTAs of "
+          f"{tri_solve.SWEEP_THREADS}; a factor held where {tri_solve.SWEEP_HOLD_SHARE} of its "
+          f"bytes fit, else streamed")
+    for block in tri_solve.LEVEL_BLOCKS:
+        print(f"tri_levels (blocks of {block} entries): ptxas: " + "; ".join(loop_ptxas(
+            info["log"], None, f"tri_levels_kernelILi{block}E")) + "; no dynamic shared "
+            "memory; co-resident blocks: " + ", ".join(
+                f"{tri_solve.level_grid(device.index or 0, t, block)} of {t}"
+                for t in sorted({tri_solve.LEVEL_WIDE[0], tri_solve.LEVEL_NARROW[0]})))
     ctl = {**ctl, "verbose": 0}
     t0 = time.perf_counter()
     systems = {"poisson": (m_grid, b_grid), "knn": (m_knn, b_knn),
@@ -3379,8 +3426,11 @@ def slice20_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
     # ---- the kernels against their twins ------------------------------------
     print("slice 20's kernels vs their twins on the Poisson grid's IC(0) and ILU(0) factors "
           f"(vector tol {VEC_RTOL:.0e}*max(1,max|plain|); both bit-equal required):")
+    hop = chain_hop_ms(device)
+    print(f"chain probe: {CHAIN_ROWS} + {CHAIN_ROWS} rows, each depending on the one before, "
+          f"bit-equal to the twin; {hop * 1e3:.3f} us per dependent hop")
     for dims in (grid, grid_big):
-        slice20_kernels(dims, device, report)
+        slice20_kernels(dims, device, report, hop)
     return launches, report
 
 
@@ -3560,16 +3610,64 @@ TURN_GMRES_CODE = TURN_HEAD + (
     "    print(f'  gmres_solve {f} {mm.n} cells: {perf.n_iterations} iterations; on resident state "
     "(three times the best of 3) {us[0]:.2f}, {us[1]:.2f}, {us[2]:.2f} us per iteration')\n")
 
+# one turn of `--turns-tri`: kernels 1 and 2 on the Poisson grid's IC(0) and
+# ILU(0) factors at 1M and 8.4M rows and on the 262,144-cell kNN-6 mesh's
+# ILUT and ICT factors (RCM-numbered, as phase 12 makes it), each pair timed
+# in turns (time_turns) in three rounds; then pIC, pICx, wILUx and pKICT on
+# resident state (time_device_solve, itself the best of three solves, three
+# times) — only what this script's earlier versions have too
+TURN_TRI_CODE = TURN_HEAD + (
+    "g = torch.Generator(device=d).manual_seed(21)\n"
+    "def tri_rounds(label, st, r, rounds=3):\n"
+    "    lo, up = st.lower, st.upper\n"
+    "    fns = {'sweep': lambda: s.tri_solve.tri_sweep(lo, up, r), "
+    "'levels': lambda: s.tri_solve.tri_levels(lo, up, r)}\n"
+    "    for rnd in range(rounds):\n"
+    "        t = s.time_turns(fns, reps=10)\n"
+    "        print(f'  tri_turn {rnd} {label} {lo.n} rows (depth {lo.depth} + {up.depth}, "
+    "{lo.sweeps} + {up.sweeps} sweeps): tri_sweep {t[\"sweep\"]:.4f} ms, tri_levels "
+    "{t[\"levels\"]:.4f} ms')\n"
+    "for dims in (s.GRID_1M, s.GRID_8M):\n"
+    "    coo = s.grid_coo(dims, d)\n"
+    "    r = torch.randn(coo.shape[0], device=d, generator=g)\n"
+    "    f = s.ilu.ic0_factor(coo)\n"
+    "    tri_rounds('IC(0)', s.ilu.state_from_factors(f[0], None, f[1], 'ic', d), r)\n"
+    "    tri_rounds('ILU(0)', s.ilu.state_from_factors(*s.ilu.ilu0_factors(coo), 'lu', d), r)\n"
+    "    del coo, f, r\n"
+    "    torch.cuda.empty_cache()\n"
+    "mo, perm = s.testing.knn_ldu(1 << 18)\n"
+    "mk = s.testing.renumber_ldu(mo, np.argsort(perm))\n"
+    "bk = np.random.default_rng(0).normal(size=mk.n).astype(np.float32)\n"
+    "coo = s.ldu.ldu_to_coo_host(mk, dtype=np.float32)\n"
+    "r = torch.randn(mk.n, device=d, generator=g)\n"
+    "tri_rounds('kNN ILUT', s.ilu.state_from_factors(*s.ilu.ilut_factors(coo), 'lu', d), r)\n"
+    "f = s.ilu.ict_factor(coo)\n"
+    "tri_rounds('kNN ICT', s.ilu.state_from_factors(f[0], None, f[1], 'ic', d), r)\n"
+    "m = s.testing.poisson_ldu(s.GRID_1M)\n"
+    "rhs = np.random.default_rng(0).normal(size=m.n).astype(np.float32)\n"
+    "systems = {'poisson': (m, rhs), 'cd': (s.testing.convection_diffusion_ldu(s.GRID_1M), "
+    "rhs), 'knn': (mk, bk)}\n"
+    "for f in ('pIC', 'pICx', 'wILUx', 'pKICT'):\n"
+    "    system, spec, _ = s.SLICE20_SOLVES[f]\n"
+    "    mm, bb = systems[system]\n"
+    "    _, perf = s.foam.solve(f, mm, bb, {'executor': 'cuda', 'tolerance': s.TOL, "
+    "'relTol': 0, **spec})\n"
+    "    slv = s.registry.global_registry.get(f + '_solver')\n"
+    "    us = sorted(slv.time_device_solve() / perf.n_iterations * 1e6 for _ in range(3))\n"
+    "    print(f'  tri_solve {f} {mm.n} cells: {perf.n_iterations} iterations; on resident "
+    "state (three times the best of 3) {us[0]:.2f}, {us[1]:.2f}, {us[2]:.2f} us per "
+    "iteration')\n")
+
 TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
               "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_",
               "gather_solve", "ell_spmv", "hybrid_spmv", "csr_spmv", "sell_spmv", "torch CSR",
-              "arnoldi_step", "combine_turn", "gmres_solve")
+              "arnoldi_step", "combine_turn", "gmres_solve", "tri_turn", "tri_solve")
 
 
 def turns(trees, code=TURN_CODE) -> int:
     """Phase 3's kernel checks and the rest of `code` (TURN_CODE, or
     TURN_GATHER_CODE for `--turns-gather`, TURN_GMRES_CODE for
-    `--turns-gmres`) from each checkout of `trees` in
+    `--turns-gmres`, TURN_TRI_CODE for `--turns-tri`) from each checkout of `trees` in
     order, one process each, run from that checkout (so with its own
     kernels): give an earlier commit unpacked with `git archive` and this
     one, as `--turns PARENT . . PARENT`, to time both on one card in turns.
@@ -3602,6 +3700,8 @@ def main() -> int:
         return turns(sys.argv[2:], TURN_GATHER_CODE)
     if sys.argv[1:2] == ["--turns-gmres"]:
         return turns(sys.argv[2:], TURN_GMRES_CODE)
+    if sys.argv[1:2] == ["--turns-tri"]:
+        return turns(sys.argv[2:], TURN_TRI_CODE)
     return run(torch.device("cuda"), GRID_1M, GRID_8M, KNN_1M)
 
 

@@ -168,18 +168,17 @@ _SIGNATURES = {
     "ogl_gmres_combine_grid": (_INT, ctypes.POINTER(_I64)),
     # bf16, V, ld, y, j, out, n, blocks, stream
     "ogl_gmres_combine": (_INT, _P, _I64, _P, _INT, _P, _I64, _I64, _P),
-    # blocks (out)
-    "ogl_tri_sweep_grid": (ctypes.POINTER(_I64),),
-    # l_ptr, l_cols, l_vals, l_d, kl, u_ptr, u_cols, u_vals, u_d, ku, r, t0, t1, out, n,
-    # blocks, stream
-    "ogl_tri_sweep": (_P, _P, _P, _P, _INT, _P, _P, _P, _P, _INT, _P, _P, _P, _P, _I64, _I64,
-                      _P),
-    # blocks (out)
-    "ogl_tri_levels_grid": (ctypes.POINTER(_I64),),
-    # l_ptr, l_cols, l_vals, l_d, l_order, l_level_ptr, l_levels, u_ptr, u_cols, u_vals, u_d,
-    # u_order, u_level_ptr, u_levels, r, z, out, n, blocks, stream
-    "ogl_tri_levels": (_P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P,
-                       _I64, _I64, _P),
+    # blocks (out), capacity (out)
+    "ogl_tri_sweep_grid": (ctypes.POINTER(_I64), ctypes.POINTER(_I64)),
+    # l_ptr, l_cols, l_vals, l_d, kl, l_bounds, l_held, u_ptr, u_cols, u_vals, u_d, ku,
+    # u_bounds, u_held, r, t0, t1, out, n, blocks, capacity, stream
+    "ogl_tri_sweep": (_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P, _P,
+                      _P, _I64, _I64, _I64, _P),
+    # block, threads, blocks (out)
+    "ogl_tri_levels_grid": (_INT, _INT, ctypes.POINTER(_I64)),
+    # l_ptr, l_src, l_vals, l_rows, l_inv, l_d, u_ptr, u_src, u_vals, u_rows, u_inv, u_d, r,
+    # out, l_words, u_words, epoch, sleep_ns, limit_ns, block, n, threads, blocks, stream
+    "ogl_tri_levels": (*(_P,) * 16, _I64, _INT, _I64, _INT, _I64, _INT, _I64, _P),
     # row_ptr, cols, vals, x, y, n, group, blocks, stream
     "ogl_csr_spmv": (_P, _P, _P, _P, _P, _I64, _INT, _I64, _P),
     # cols, vals, warp_slots, tail_ptr (NULL = no tail), tail_cols, tail_vals, x, y, n,

@@ -4,9 +4,9 @@
 // built-in indices as thread-local variables (one std::thread per CUDA
 // thread where the body synchronises, a plain loop over the threads where
 // it does not), a std::barrier per CTA for __syncthreads, the vector types,
-// the read-only loads as plain loads, and the rounded operations as the
-// float operations they are (compile with -ffp-contract=off: no fused
-// multiply-add).
+// the read-only loads as plain loads, __nanosleep as a yield, __trap as
+// abort, and the rounded operations as the float operations they are
+// (compile with -ffp-contract=off: no fused multiply-add).
 #pragma once
 #include <math.h>
 #include <stddef.h>
@@ -15,6 +15,7 @@
 
 #include <barrier>
 #include <cstdlib>
+#include <thread>
 
 #define __global__
 #define __device__
@@ -49,6 +50,8 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+[[noreturn]] inline void __trap() { std::abort(); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -56,6 +59,11 @@ inline float __uint_as_float(unsigned u) {
   float f;
   memcpy(&f, &u, 4);
   return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
 }
 // csr_rows.cuh's many-lane body shuffles; the emulated bodies take its
 // one-lane body only, so a shuffle here is a fault of the harness

@@ -2850,12 +2850,20 @@ def _tri_state(name, system, device, sweeps=8, exact=False):
 
     m = {"poisson": lambda: testing.poisson_ldu((32, 16, 8)),
          "poisson1m": lambda: testing.poisson_ldu((128, 128, 64)),
+         "poisson2m": lambda: testing.poisson_ldu((256, 128, 64)),
          "cd": lambda: testing.convection_diffusion_ldu((32, 16, 8)),
-         "knn": lambda: testing.knn_ldu(20000)[0]}[system]()
+         "knn": lambda: testing.knn_ldu(20000)[0],
+         "knn262k": lambda: _knn_rcm(1 << 18)}[system]()
     coo = ldu.ldu_to_coo_host(m, dtype=np.float32)
     cfg = PrecondConfig(name=name, tri_solve_sweeps=sweeps,
                         tri_solve="exact" if exact else "approx")
     return build(cfg, coo, device).state
+
+
+def _knn_rcm(n):
+    """The kNN-6 mesh of n cells in its RCM numbering, as phase 12 solves it."""
+    m, perm = testing.knn_ldu(n)
+    return testing.renumber_ldu(m, np.argsort(perm))
 
 
 TRI_CASES = [("IC", "poisson"), ("ILU", "cd"), ("ILUT", "cd"), ("ICT", "knn"), ("ILU", "knn")]
@@ -2929,12 +2937,13 @@ def test_tri_refused_launch_raises(dev, monkeypatch):
 
     st = _tri_state("ILU", "cd", dev)
     r = _vec(st.lower.n, 2, dev)
-    sweep_co = tri_solve._coop_blocks("ogl_tri_sweep_grid", dev.index or 0)
-    level_co = tri_solve._coop_blocks("ogl_tri_levels_grid", dev.index or 0)
+    sweep_co = tri_solve.sweep_grid(dev.index or 0)[0]
+    block, threads, _, _ = tri_solve.level_launch(st.lower, st.upper)
+    level_co = tri_solve.level_grid(dev.index or 0, threads, block)
     kernels.reset_launches()
     with monkeypatch.context() as mp:
         mp.setattr(tri_solve, "sweep_blocks", lambda n, d: 4 * sweep_co)
-        mp.setattr(tri_solve, "level_blocks", lambda lo, up, d: 4 * level_co)
+        mp.setattr(tri_solve, "level_blocks", lambda cfg, d: 4 * level_co)
         with pytest.raises(RuntimeError, match="tri_sweep: CUDA error"):
             tri_solve.tri_sweep(st.lower, st.upper, r)
         with pytest.raises(RuntimeError, match="tri_levels: CUDA error"):
@@ -2945,6 +2954,150 @@ def test_tri_refused_launch_raises(dev, monkeypatch):
                        tri_solve.tri_sweep_plain(st.lower, st.upper, r))
     with pytest.raises(ValueError, match="contiguous"):
         tri_solve.tri_sweep(st.lower, st.upper, r.double())
+
+
+# slice 21: both kernels redesigned (kernel 1 over factors held in shared
+# memory, kernel 2 on ready words with no grid barrier)
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["sweeps", "exact"])
+@pytest.mark.parametrize("name,system", [("ILUT", "knn262k"), ("ICT", "knn262k"),
+                                         ("IC", "poisson2m")])
+def test_tri_kernels_bit_equal_on_knn_threshold_factors_and_beyond_shared_memory(
+        dev, name, system, exact):
+    """The 262,144-cell kNN mesh's ILUT and ICT factors (1,699-3,010 levels
+    deep), and an IC(0) factor of 2M rows, about twice what the card's shared
+    memory holds: kernel 1 streams it, and, held as far as it fits, streams
+    the rest of each CTA's rows in the same pass."""
+    from ogl_tpu_torch.kernels import tri_solve
+
+    st = _tri_state(name, system, dev, exact=exact)
+    lo, up = st.lower, st.upper
+    r = _vec(lo.n, 5, dev)
+    kernels.reset_launches()
+    if exact:
+        got = tri_solve.tri_levels(lo, up, r)
+        assert torch.equal(got, tri_solve.tri_levels_plain(lo, up, r))
+        assert torch.equal(got, tri_solve.tri_sweep(_at_depth(lo), _at_depth(up), r))
+    else:
+        want = tri_solve.tri_sweep_plain(lo, up, r)
+        assert torch.equal(tri_solve.tri_sweep(lo, up, r), want)
+        if system == "poisson2m":
+            blocks = tri_solve.sweep_blocks(lo.n, dev)
+            cap = tri_solve.sweep_grid(dev.index or 0)[1]
+            assert 4 * (lo.n + 1) + 8 * lo.mat.nnz > blocks * cap
+            for share in (1.0, 0.0):  # every row streamed; held as far as it fits
+                plan = tri_solve.sweep_plan(lo, blocks, cap, share)
+                if share:
+                    assert plan is None
+                else:
+                    bounds, held = (a.cpu() for a in plan)
+                    assert bool((held > bounds[:-1]).all() and (held < bounds[1:]).all())
+                assert torch.equal(tri_solve._launch_sweeps(lo, up, r, share), want)
+    torch.cuda.synchronize()
+    assert kernels.launches["tri_levels" if exact else "tri_sweep"] == (1 if exact or
+                                                                       system != "poisson2m"
+                                                                       else 3)
+
+
+def _chain_state(n, device, seed=1):
+    """Strict factors of n rows where every row depends on the one before
+    (lower) or after (upper): depth n - 1 each, one row per level."""
+    from ogl_tpu_torch.precond import ilu
+
+    g = np.random.default_rng(seed)
+    i = np.arange(1, n)
+    lower = (i, i - 1, g.uniform(-0.9, 0.9, n - 1))
+    upper = (i - 1, i, g.uniform(-0.9, 0.9, n - 1))
+    return ilu.state_from_factors(lower, upper, g.uniform(1.0, 2.0, n), "lu", device,
+                                  exact=True)
+
+
+@pytest.mark.parametrize("n", [33, 4097])
+def test_tri_kernels_on_a_chain_factor(dev, n):
+    from ogl_tpu_torch.kernels import tri_solve
+
+    st = _chain_state(n, dev)
+    lo, up = st.lower, st.upper
+    assert lo.depth == up.depth == n - 1
+    r = _vec(n, 7, dev)
+    got = tri_solve.tri_levels(lo, up, r)
+    assert torch.equal(got, tri_solve.tri_levels_plain(lo, up, r))
+    assert torch.equal(got, tri_solve.tri_sweep(_at_depth(lo), _at_depth(up), r))
+
+
+def test_tri_levels_many_applies_past_an_epoch_wrap(dev, monkeypatch):
+    """Applies in a row on one state, each on a new r: the epoch passes a
+    small EPOCH_MAX twice, the ready words are zeroed and the epochs start
+    again, and every apply stays bit-equal to the twin."""
+    from ogl_tpu_torch.kernels import tri_solve
+
+    monkeypatch.setattr(tri_solve, "EPOCH_MAX", 4)
+    st = _tri_state("ILUT", "cd", dev, exact=True)
+    lo, up = st.lower, st.upper
+    lo.ready.epoch = up.ready.epoch = 2  # a start near the wrap
+    seen = []
+    for k in range(11):
+        r = _vec(lo.n, 100 + k, dev)
+        got = tri_solve.tri_levels(lo, up, r)
+        seen.append(lo.ready.epoch)
+        assert torch.equal(got, tri_solve.tri_levels_plain(lo, up, r)), k
+    assert seen == [3, 4, 1, 2, 3, 4, 1, 2, 3, 4, 1]
+    assert up.ready.epoch == lo.ready.epoch
+
+
+def test_tri_levels_refuses_graph_capture_and_shared_words(dev):
+    import dataclasses
+
+    from ogl_tpu_torch.kernels import tri_solve
+
+    st = _tri_state("IC", "poisson", dev, exact=True)
+    r = _vec(st.lower.n, 1, dev)
+    with pytest.raises(ValueError, match="share their ready words"):
+        tri_solve.tri_levels(st.lower, dataclasses.replace(st.lower), r)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side), pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph, stream=side):
+            tri_solve.tri_levels(st.lower, st.upper, r)
+    torch.cuda.synchronize()
+    assert torch.equal(tri_solve.tri_levels(st.lower, st.upper, r),
+                       tri_solve.tri_levels_plain(st.lower, st.upper, r))
+
+
+TRAP_SCRIPT = """
+import numpy as np, torch, sys
+sys.path.insert(0, {root!r})
+from ogl_tpu_torch.kernels import tri_solve
+from ogl_tpu_torch.precond import ilu
+tri_solve.LEVEL_LIMIT_NS = 2 * 10**8
+n = 16384  # more rows than threads: a waiting thread holds a later row
+i = np.arange(1, n)
+st = ilu.state_from_factors((i, i - 1, np.full(n - 1, 0.5)), (i - 1, i, np.full(n - 1, 0.5)),
+                            np.ones(n), "lu", torch.device("cuda"), exact=True)
+st.lower.order = torch.flip(st.lower.order, [0])  # every row before its source
+out = tri_solve._launch_levels(st.lower, st.upper, torch.ones(n, device="cuda"),
+                               (4, 32, 1, {sleep}))
+torch.cuda.synchronize()
+print("returned", float(out.sum()))
+"""
+
+
+@pytest.mark.parametrize("sleep", [0, 32])
+def test_tri_levels_traps_on_a_row_before_its_source(dev, sleep):
+    """A schedule that places rows before their sources cannot finish: the
+    waits pass their bound, the kernel traps and the process sees a CUDA
+    error at the synchronisation, in seconds, with no result."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    res = subprocess.run([sys.executable, "-c", TRAP_SCRIPT.format(root=root, sleep=sleep)],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0, res.stdout
+    assert "returned" not in res.stdout
+    assert "CUDA" in res.stderr or "cuda" in res.stderr, res.stderr[-2000:]
 
 
 ILU_SOLVES = {
