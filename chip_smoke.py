@@ -237,6 +237,22 @@ on the Poisson grid) on resident state; `--turns-tri` runs kernels 1 and 2
 on the Poisson grid's IC(0) and ILU(0) factors at 1M and 8.4M rows and on
 the 262,144-cell kNN-6 mesh's ILUT and ICT factors, and pIC, pICx, wILUx
 and pKICT on resident state.
+Phase 14 (slice 22, AMG on unstructured meshes): GKOCG + Multigrid on the 1M
+kNN-6 mesh as Csr (BASELINE config 4) with aggregation auto (`pKMG`) and pgm
+(`pKMGpgm`, the native aggregation and the pgm transfer kernels),
+GKOMultigrid on it as Ell (`gKMG`), GKOCG + Multigrid on the 1M shuffled grid
+through the format ladder (`pSMG`, a Gdia matrix, a Gdia fine level) and on the
+kNN mesh
+through the ladder (`pKMGx`, Xell); each solve: its level formats, the
+generate_preconditioner ms, µs per iteration on resident state, its launches
+(each smoothing level's format its sweep and residual kernels, pgm its
+transfer kernels, no AMG loop kernel), the true float64 residual and the
+iterations against the same route over the plain twins on the card (±1, +2
+with bfloat16 packing); the native pgm aggregation beside the pure-Python loop
+on the 262,144-cell kNN mesh; then the Ell and Gdia level smoothers in both
+value types and the pgm transfers against their twins at 1M (bit-equal),
+torch.addmv beside the float32 residuals and index_add_ beside the
+restriction.
 """
 
 from __future__ import annotations
@@ -258,8 +274,8 @@ import torch
 from ogl_tpu_torch import bench, foam, kernels, native, registry, testing
 from ogl_tpu_torch.config import parse_controls
 from ogl_tpu_torch.core import formats, ldu
-from ogl_tpu_torch.kernels import (_build, amg_loop, device_time, gather_spmv, gdia, roofline,
-                                   spmv, xell)
+from ogl_tpu_torch.kernels import (_build, amg_level, amg_loop, device_time, gather_spmv, gdia,
+                                   roofline, spmv, xell)
 from ogl_tpu_torch.kernels import gmres as gmres_kernels
 from ogl_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_plain
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
@@ -453,6 +469,29 @@ KERNELS = {
     "tri_levels": ("cuda", "ogl_tpu_torch/kernels/csrc/tri_levels.cu",
                    "no TPU kernel: XLA ops in the reference, ogl_tpu/precond/ilu.py:65-110 run "
                    "to factor_depth (:45-62) under triSolve exact", "tri_levels", None),
+    # slice 22 (phase 14): the level smoothers on pKMG's fine Ell level (kNN)
+    # and pSMG's fine Gdia level (shuffled grid), sweep rows in bfloat16 (the
+    # path's packing), residual rows in float32 (torch.addmv beside them;
+    # the other type under cases), and the pgm transfers of pKMGpgm's first
+    # level
+    "amg_ell_sweep": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_ell_smooth.cu",
+                      "no TPU kernel: XLA ops in the reference, ogl_tpu/precond/amg.py:420-430 "
+                      "(_smooth) over ogl_tpu/kernels/spmv.py:50 (spmv_ell)",
+                      "amg_ell_sweep[bf16]", "knn"),
+    "amg_ell_resid": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_ell_smooth.cu",
+                      "no TPU kernel: XLA ops in the reference, ogl_tpu/precond/amg.py:520 "
+                      "(b - _apply_mat) over ogl_tpu/kernels/spmv.py:50 (spmv_ell)",
+                      "amg_ell_resid[f32]", "knn"),
+    "amg_gdia_sweep": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_gdia_smooth.cu",
+                       "ogl_tpu/kernels/gdia.py:183", "amg_gdia_sweep[bf16]", "shuffled"),
+    "amg_gdia_resid": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_gdia_smooth.cu",
+                       "ogl_tpu/kernels/gdia.py:183", "amg_gdia_resid[f32]", "shuffled"),
+    "pgm_restrict": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_transfer.cu",
+                     "no TPU kernel: XLA op in the reference, ogl_tpu/precond/amg.py:350-357 "
+                     "(_restrict, jax.ops.segment_sum)", "pgm_restrict", "knn"),
+    "pgm_prolong": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_transfer.cu",
+                    "no TPU kernel: XLA op in the reference, ogl_tpu/precond/amg.py:360-367 "
+                    "(_prolong, jnp.take)", "pgm_prolong", "knn"),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -1459,17 +1498,44 @@ def describe_hierarchy(levels) -> None:
             what = f"smoother coefficients {str(lv.data_s.dtype).removeprefix('torch.')}"
         else:
             what = "dense inverse" if lv.coarse_inv is not None else "fixed-iteration CG"
-        print(f"  level {i}: {lv.n} rows, offsets {lv.mat.offsets}, {what}")
+        print(f"  level {i}: {level_text(lv)}, {what}")
+
+
+def level_text(lv) -> str:
+    """A level's format, rows and structure: Dia offsets, Gdia planes, Ell
+    width."""
+    m = lv.mat
+    kind = type(m).__name__
+    shape = (f"{len(m.plane_offsets)} planes" if kind == "Gdia" else
+             f"K {m.row_width}" if kind == "Ell" else f"offsets {m.offsets}")
+    return f"{kind} {lv.n} rows, {shape}"
 
 
 def plain_cycle(op):
     """The same hierarchy and host-launched cycle, at the op's settings, with
-    every kernel call replaced by its plain twin: the independent reference
-    of the host cycle on the card."""
-    levels = [dataclasses.replace(lv, kern=PlainCgKernels(lv.n, lv.mat.offsets,
-                                                          lv.mat.data.device))
-              for lv in op.state]
-    return amg.cycle_op(levels, op.cycle, op.relax, op.smooth_iters, op.coarse_solver_iters)
+    every kernel call replaced by its plain twin (`plain_level`): the
+    independent reference of the host cycle on the card."""
+    return amg.cycle_op([plain_level(lv) for lv in op.state], op.cycle, op.relax,
+                        op.smooth_iters, op.coarse_solver_iters)
+
+
+def plain_level(lv):
+    """The level with every kernel call replaced by its plain twin on the
+    card: the smoother (any level format), the pgm transfers and the coarse
+    SpMV."""
+    if isinstance(lv.kern, CgKernels):
+        kern = PlainCgKernels(lv.n, lv.mat.offsets, lv.mat.data.device)
+    else:
+        kern = types.SimpleNamespace(
+            sweep=lambda vals, x, b, invd, relax, k=lv.kern: k.twin(vals, x, b, invd, relax),
+            resid=lambda vals, x, b, k=lv.kern: k.twin(vals, x, b, None, 0.0))
+    transfer = None if lv.transfer is None else types.SimpleNamespace(
+        agg=lv.transfer.agg,
+        restrict=lambda r, t=lv.transfer: amg_level.pgm_restrict_plain(t.table, r),
+        prolong_add=lambda x, ec, t=lv.transfer: amg_level.pgm_prolong_add_plain(
+            t.agg.long(), x, ec))
+    mv = None if lv.matvec is None else (lambda v, m=lv.mat: spmv.spmv(m, v))
+    return dataclasses.replace(lv, kern=kern, transfer=transfer, matvec=mv)
 
 
 def next_params(field, ctl):
@@ -3434,6 +3500,245 @@ def slice20_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
     return launches, report
 
 
+# ---- phase 14: slice 22, AMG on unstructured meshes -------------------------
+
+# the kernels phase 14's path must launch: the Ell and Gdia level smoothers'
+# sweep and residual, and the pgm transfers
+SLICE22_KERNELS = ("amg_ell_sweep", "amg_ell_resid", "amg_gdia_sweep", "amg_gdia_resid",
+                   "pgm_restrict", "pgm_prolong")
+# the launch counter of each level format's sweep (its residual: _resid)
+LEVEL_SMOOTHERS = {"Dia": "amg", "Gdia": "amg_gdia", "Ell": "amg_ell"}
+MULTIGRID = {"preconditioner": "Multigrid", "maxLevels": 9, "minCoarseRows": 10}
+# field -> (mesh, controls): BASELINE config 4, GKOCG + Multigrid on the
+# kNN-6 mesh as Csr, with the default and the pgm aggregation; GKOMultigrid
+# on it as Ell; GKOCG + Multigrid on the shuffled grid and on the kNN mesh
+# through the format ladder (Gdia and Xell outer matrices)
+SLICE22_SOLVES = {
+    "pKMG": ("knn", {"solver": "GKOCG", "matrixFormat": "Csr",
+                     "preconditioner": {**MULTIGRID, "aggregation": "auto"}}),
+    "pKMGpgm": ("knn", {"solver": "GKOCG", "matrixFormat": "Csr",
+                        "preconditioner": {**MULTIGRID, "aggregation": "pgm"}}),
+    "gKMG": ("knn", {"solver": "GKOMultigrid", "matrixFormat": "Ell",
+                     "preconditioner": {**MULTIGRID, "preconditioner": "none",
+                                        "aggregation": "auto"}}),
+    "pSMG": ("shuffled", {"solver": "GKOCG",
+                          "preconditioner": {**MULTIGRID, "aggregation": "auto"}}),
+    "pKMGx": ("knn", {"solver": "GKOCG", "preconditioner": {**MULTIGRID, "aggregation": "auto"}}),
+}
+SLICE22_FORMATS = {"pKMG": "Csr", "pKMGpgm": "Csr", "gKMG": "Ell", "pSMG": "Gdia",
+                   "pKMGx": "Xell"}
+PGM_PLAIN_CELLS = 1 << 18  # the pure-Python pgm loop is timed once, at this size
+
+
+def slice22_route(slv, b, params):
+    """A solver's route from a zero guess over the plain twins on the card:
+    the merged CG's host loop (Gdia, Xell), the general CG (the gather
+    formats) or Richardson (GKOMultigrid), with the plain cycle."""
+    mat, pc = slv.matrix, plain_cycle(slv._precond_op)
+    x0 = torch.zeros_like(b)
+    if slv.route == "cg_fused":
+        kern = plain_plan(mat)
+        return cg_fused(kern, kern.pack_values(mat), b, x0, params, precond=pc)
+    ops = krylov.single_device_ops(lambda v: spmv.spmv(mat, v), mat.shape[0], precond=pc)
+    return (ir if slv.route == "ir" else cg)(ops, b, x0, params)
+
+
+def check_slice22_launches(field, slv, before):
+    """Between `before` and now: each smoothing level's format its sweep
+    and residual kernels, the pgm transfer kernels exactly where the
+    hierarchy aggregates by pgm, no AMG loop kernel (a hierarchy with a Gdia
+    or Ell level keeps the host cycle)."""
+    got = {k: kernels.launches[k] - before[k] for k in kernels.launches
+           if kernels.launches[k] != before[k]}
+    print(f"  {field}: launches in this solve {got}")
+    levels = slv._precond_op.state
+    want_pos = {f"{LEVEL_SMOOTHERS[type(lv.mat).__name__]}_{step}"
+                for lv in levels[:-1] for step in ("sweep", "resid")}
+    pgm = any(lv.transfer is not None for lv in levels)
+    bad = [k for k in want_pos if not got.get(k)]
+    bad += [k for k in ("amg_cg_loop", "amg_ir_loop") if got.get(k)]
+    bad += [k for k in ("pgm_restrict", "pgm_prolong") if bool(got.get(k)) != pgm]
+    if bad:
+        raise RuntimeError(f"{field}: launched {got}; wrong counts of {bad}")
+
+
+def bit_err(got, want):
+    """Bit equality: the largest difference, held to 0."""
+    return float((got - want).abs().max()), 0.0
+
+
+def ell_csr(m):
+    """torch's CSR tensor of an Ell level's entries (padding dropped), for
+    library_ms."""
+    k, n = m.cols.shape
+    rows = torch.arange(n, device=m.cols.device).expand(k, n)
+    live = (m.cols != rows) | (m.vals != 0)
+    return csr_of_coo(rows[live], m.cols[live].long(), m.vals[live], n)
+
+
+def gdia_csr(m):
+    """torch's CSR tensor of a Gdia level's entries, for library_ms."""
+    npl, r, lanes = m.vals.shape
+    n = m.shape[0]
+    q = torch.tensor(m.plane_offsets, device=m.vals.device)[:, None, None]
+    i = torch.arange(r * lanes, device=m.vals.device).view(1, r, lanes)
+    src = (i // lanes + q) * lanes + m.lidx.long()
+    live = (m.vals != 0) & (i < n) & (src >= 0) & (src < n)
+    return csr_of_coo(i.expand_as(m.vals)[live], src[live], m.vals[live], n)
+
+
+def slice22_kernels(ops, report):
+    """K-E on pKMG's fine level (Ell), K-G on pSMG's fine level (Gdia), in
+    both value types, and K-T on pKMGpgm's first level, each against its
+    twin on the card (bit-equal), with torch.addmv beside the float32
+    residuals and index_add_ beside the restriction."""
+    device = ops["pKMG"].state[0].inv_diag.device
+    g = torch.Generator(device=device).manual_seed(22)
+    for field, label in (("pKMG", "knn"), ("pSMG", "shuffled")):
+        lv = ops[field].state[0]
+        kind = type(lv.mat).__name__
+        name = LEVEL_SMOOTHERS[kind]
+        n = lv.n
+        x, b = (torch.randn(n, device=device, generator=g) for _ in range(2))
+        if kind == "Ell":
+            nnz = int(((lv.mat.cols != torch.arange(n, device=x.device)) | (lv.mat.vals != 0))
+                      .sum())
+            lane = 4  # each entry's column
+        else:
+            nnz = int((lv.mat.vals != 0).sum())
+            lane = 1  # each entry's source lane
+        for tag, vals in (("bf16", lv.data_s.to(torch.bfloat16)), ("f32", lv.mat.vals)):
+            entry = nnz * (vals.element_size() + lane)
+            compare(f"{name}_sweep[{tag}]", label,
+                    lambda v=vals: ((lv.kern.sweep(v, x, b, lv.inv_diag, RELAX),), ()),
+                    lambda v=vals: ((lv.kern.twin(v, x, b, lv.inv_diag, RELAX),), ()),
+                    entry + 4 * n * 4, 2 * nnz + 4 * n, report, err=bit_err)
+            compare(f"{name}_resid[{tag}]", label,
+                    lambda v=vals: ((lv.kern.resid(v, x, b),), ()),
+                    lambda v=vals: ((lv.kern.twin(v, x, b, None, 0.0),), ()),
+                    entry + 3 * n * 4, 2 * nnz + n, report, err=bit_err)
+        csr = ell_csr(lv.mat) if kind == "Ell" else gdia_csr(lv.mat)
+        f32 = lv.mat.vals
+        library_call(f"{name}_resid[f32]", label, "torch.addmv(b, A_csr, x, alpha=-1)",
+                     lambda: torch.addmv(b, csr, x, alpha=-1),
+                     lambda: lv.kern.resid(f32, x, b), f"{kind} level of {n} rows", report)
+        del csr
+    lv = ops["pKMGpgm"].state[0]
+    tr = lv.transfer
+    n, nc = tr.n, tr.nc
+    r, x = (torch.randn(n, device=device, generator=g) for _ in range(2))
+    ec = torch.randn(nc, device=device, generator=g)
+    agg64 = tr.agg.long()
+    compare("pgm_restrict", "knn", lambda: ((tr.restrict(r),), ()),
+            lambda: ((amg_level.pgm_restrict_plain(tr.table, r),), ()),
+            n * 8 + (nc + 1) * 4 + nc * 4, n, report, err=bit_err)
+    if not torch.equal(tr.restrict(r), tr.restrict(r)):
+        raise RuntimeError("pgm_restrict: two runs gave different bits")
+    compare("pgm_prolong", "knn", lambda: ((tr.prolong_add(x, ec),), ()),
+            lambda: ((amg_level.pgm_prolong_add_plain(agg64, x, ec),), ()),
+            n * 12 + nc * 4, n, report, err=bit_err)
+    library_call("pgm_restrict", "knn", "torch.zeros(nc).index_add_(0, agg, r)",
+                 lambda: torch.zeros(nc, device=device).index_add_(0, agg64, r),
+                 lambda: tr.restrict(r), f"{n} fine rows into {nc} aggregates", report)
+    print(f"  pgm_restrict: the same bits on two runs ({n} rows into {nc} aggregates)")
+
+
+def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
+    """Phase 14.  Returns the launch counts of the path and its kernel
+    report."""
+    print(f"== phase 14: slice 22, AMG on unstructured meshes (Gdia and Ell levels, pgm "
+          f"transfers), foam.solve at {m_knn.n} (kNN-6) and {int(np.prod(grid))} (shuffled "
+          "grid) cells")
+    info = _build.build_info()
+    for kernel in ("ell_smooth_kernel", "gdia_smooth_kernel", "restrict_kernel",
+                   "prolong_kernel"):
+        print(f"{kernel}: ptxas: " + "; ".join(loop_ptxas(info["log"], None, kernel)))
+    t0 = time.perf_counter()
+    m_shuf = testing.shuffled_poisson_ldu(grid)
+    b_shuf = np.random.default_rng(0).normal(size=m_shuf.n).astype(np.float32)
+    print(f"host set-up: shuffled grid {time.perf_counter() - t0:.2f} s")
+    systems = {"knn": (m_knn, b_knn), "shuffled": (m_shuf, b_shuf)}
+    ctl = {**ctl, "verbose": 0, "adaptMinIter": False}
+    records, ops = {}, {}
+    kernels.reset_launches()
+    for field, (mesh, spec) in SLICE22_SOLVES.items():
+        mk, bk = systems[mesh]
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        x, perf = foam.solve(field, mk, bk, {**ctl, **spec})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        perf.print()
+        slv = registry.global_registry.get(f"{field}_solver")
+        check_slice22_launches(field, slv, before)
+        if perf.solver_name != f"{spec['solver']}_{SLICE22_FORMATS[field]}":
+            raise RuntimeError(f"{field} ran as {perf.solver_name}")
+        it = max(perf.n_iterations, 1)
+        lt = slv.last_timings
+        print(f"{field} (route {slv.route}): first solve wall {wall:.3f} s; "
+              f"generate_preconditioner {lt['generate_preconditioner'] * 1e3:.1f} ms, solve "
+              f"{lt['solve'] * 1e3:.3f} ms = {lt['solve'] / it * 1e6:.1f} us per iteration; on "
+              f"resident state {slv.time_device_solve() / it * 1e6:.2f} us per iteration")
+        describe_hierarchy(slv._precond_op.state)
+        ops[field] = slv._precond_op
+        records[field] = (x, perf, snapshot17(slv), torch.tensor(bk, device=device),
+                          stopping.StoppingParams.of(slv.cfg.stopping))
+    launches = {k: kernels.launches[k] for k in SLICE22_KERNELS}
+    print(f"launch counts over the path: {dict(kernels.launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"slice 22's path never launched {missing}")
+
+    # ---- checks of the path (launches not counted) --------------------------
+    for field, (x, perf, slv, bb, params) in records.items():
+        mat = slv.matrix
+        n = mat.shape[0]
+        if not perf.converged:
+            raise RuntimeError(f"{field}: did not converge: {perf}")
+        if x.shape != (n,) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{field}: solution not finite of shape ({n},)")
+        mat64 = formats.cast_values(mat, torch.float64)
+        tr = true_residual_mv(lambda v, mat64=mat64: spmv.spmv(mat64, v), x, bb)
+        t0 = time.perf_counter()
+        plain = slice22_route(slv, bb, params).iters
+        torch.cuda.synchronize()
+        bf16 = slv._precond_op.state[0].data_s.dtype == torch.bfloat16
+        print(f"{field}: iterations {perf.n_iterations}, final residual "
+              f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
+              f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
+              f"card: {plain} iterations ({time.perf_counter() - t0:.2f} s)")
+        if not -1 <= perf.n_iterations - plain <= (2 if bf16 else 1):
+            raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain} over the "
+                               "plain twins")
+        if tr > TRUE_RESIDUAL_MARGIN * TOL:
+            raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
+    del records
+
+    # the pgm aggregation: the native runtime against the pure-Python loop
+    import scipy.sparse as sp
+
+    c = ldu.ldu_to_coo_host(knn_small[0], dtype=np.float32)
+    a = sp.csr_matrix((c.vals, (c.rows, c.cols)), shape=c.shape)
+    t0 = time.perf_counter()
+    agg = amg.pgm_aggregate(a)
+    t1 = time.perf_counter()
+    agg_plain = amg.pgm_aggregate_plain(a)
+    t2 = time.perf_counter()
+    if not np.array_equal(agg, agg_plain):
+        raise RuntimeError("the native pgm aggregation differs from the pure-Python loop")
+    print(f"pgm aggregation of the {a.shape[0]}-cell kNN-6 fine level (host): native "
+          f"{(t1 - t0) * 1e3:.1f} ms, the pure-Python loop {(t2 - t1) * 1e3:.1f} ms, equal")
+
+    # ---- the kernels against their twins ------------------------------------
+    print("slice 22's kernels vs their twins at 1M (bit-equal required; bound: the least "
+          f"bytes over {PEAK_BYTES_PER_S / 1e12:.2f} TB/s):")
+    report = {}
+    slice22_kernels(ops, report)
+    del ops
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 # one turn of `--turns`: phase 3's Dia kernels at 1M and 8.4M rows, then the
 # Gdia SpMV and K1 on the shuffled grid built on the device at both sizes,
 # then 200 checked iterations of the merged pipelined CG and of the merged
@@ -3895,11 +4200,14 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     t_ph = phase_done("phase 12", t_ph)
     launches_20, report_20 = slice20_path(device, *knn_small, m, b, grid_main, grid_big, ctl)
     report.update(report_20)
-    phase_done("phase 13", t_ph)
+    t_ph = phase_done("phase 13", t_ph)
+    launches_22, report_22 = slice22_path(device, *knn_system, knn_small, grid_main, ctl)
+    report.update(report_22)
+    phase_done("phase 14", t_ph)
 
     rows = []
     paths = (launches, launches_amg, launches_un, launches_4, launches_5, launches_14,
-             launches_17, launches_20)
+             launches_17, launches_20, launches_22)
     labels = {None: "x".join(map(str, grid_main)), "big": "x".join(map(str, grid_big))}
     for name, (route, source, replaces, case, label) in KERNELS.items():
         r = report[case][labels.get(label, label)]

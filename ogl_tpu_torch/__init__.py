@@ -9,7 +9,8 @@ Slices covered so far: the GKOCG pressure solve — OpenFOAM LDU ingest,
 the Dia, Gdia and Xell formats with the reference's auto-routing between
 them (and `reorder rcm`), the delta-gated coefficient upload, and the
 merged two-kernel CG with the OpenFOAM stopping criterion, preconditioner
-`none`, scalar `BJ` or `Multigrid` (AMG, Dia only) — GKOMultigrid, the
+`none`, scalar `BJ` or `Multigrid` (AMG over Dia, Gdia and Ell levels,
+on any matrix format) — GKOMultigrid, the
 pipelined GKOCG (`pipelinedCG true`) and GKOBiCGStab on symmetric and
 asymmetric matrices (merged with `fusedBiCGStab true`), GKOGMRES, blocked
 `BJ` and ISAI/GISAI (over the native host runtime, native/); float32, one

@@ -20,9 +20,10 @@ device.  Without an explicit matrixFormat the
 matrix takes the reference's format ladder (kernels/spmv.py `pack_fast`):
 Dia, else Gdia, else Xell, else Ell (under 32,768 rows; above, the
 reference's error); an explicit matrixFormat (Coo, Csr, Ell, Sell, Dia,
-Gdia, Hybrid, Xell) is honoured.  AMG runs on Dia only.  Every control
-outside the slices raises NotImplementedError naming its ROADMAP.md item;
-none is silently ignored.
+Gdia, Hybrid, Xell) is honoured.  AMG (Multigrid, GKOMultigrid) runs on
+any format, over a hierarchy of Dia, Gdia and Ell levels picked as the
+reference picks them.  Every control outside the slices raises
+NotImplementedError naming its ROADMAP.md item; none is silently ignored.
 
 Routing follows the reference's `_make_solve_fn`.  "Scalar BJ" below is
 `BJ` with maxBlockSize 1; a blocked BJ applies through the block-Jacobi
@@ -61,11 +62,14 @@ ISAI/GISAI through the SpMV kernels of M (and Mᵀ), on a host loop:
                        of the Arnoldi kernel and one read of h; `krylovDim`,
                        `basisPrecision bfloat16`
   GKOMultigrid         Richardson around one AMG cycle (solve/ir.py
-                       `ir_fused` on the Dia plan)
-GKOCG + Multigrid (merged) and GKOMultigrid run their whole solve, V-cycle
-included, as one launch of the AMG loop kernel on the card when the
-hierarchy qualifies (kernels/amg_loop.py: cycle v, grid or natural
-transfers, a dense coarse inverse); otherwise the host launches the cycle.
+                       `ir_fused` on the Dia plan; on any other format
+                       `ir` over the format's SpMV kernel)
+GKOCG + Multigrid (merged, on Dia) and GKOMultigrid on Dia run their whole
+solve, V-cycle included, as one launch of the AMG loop kernel on the card
+when the hierarchy qualifies (kernels/amg_loop.py: cycle v, Dia levels,
+grid or natural transfers, a dense coarse inverse); otherwise the host
+launches the cycle — on Gdia and Xell inside the merged CG (the format's
+K1, K2n), on Coo, Csr, Ell, Sell and Hybrid inside the general CG.
 The reference's TPU-only route gates (Pallas usability, the 32k-row floor
 of the merged kernels, the f32-frame test, the working-set gate of the
 z-free variant, the frame geometry its framed AMG must share) are not
@@ -103,7 +107,7 @@ from ogl_tpu_torch.solve.cg_fused import cg_fused
 from ogl_tpu_torch.solve.cg_pipe import cg_pipelined
 from ogl_tpu_torch.solve.cg_pipe_fused import cg_pipelined_fused
 from ogl_tpu_torch.solve.gmres import gmres
-from ogl_tpu_torch.solve.ir import ir_fused
+from ogl_tpu_torch.solve.ir import ir, ir_fused
 from ogl_tpu_torch.solve.krylov import single_device_ops
 
 __all__ = ["SolverPerformance", "FoamSolver", "solve", "unsupported"]
@@ -151,9 +155,6 @@ def unsupported(cfg: SolverConfig) -> str | None:
                 f"{MAX_BLOCK}; ROADMAP.md A10)")
     if pc.name != "none" and pc.value_precision == "bfloat16":
         return "preconditioner precision bfloat16 (ROADMAP.md A10)"
-    if (cfg.matrix_format_explicit and cfg.matrix_format != "Dia"
-            and _uses_amg(cfg)):
-        return f"Multigrid on a {cfg.matrix_format} matrix (ROADMAP.md A11)"
     if cfg.dtype != "float32":
         return f"dtype {cfg.dtype} (ROADMAP.md A14)"
     if cfg.upload_precision != "default":
@@ -184,10 +185,6 @@ def _mesh_xell(coo: formats.Coo, device, ladder):
     if isinstance(mat, Xell):
         store[key] = (coo.rows, coo.cols, mat.layout, ladder is not None)
     return mat
-
-
-def _uses_amg(cfg: SolverConfig) -> bool:
-    return cfg.precond.name == "Multigrid" or cfg.solver == "GKOMultigrid"
 
 
 def _diag_pc(cfg: SolverConfig) -> bool:
@@ -376,17 +373,14 @@ class FoamSolver:
                     # leave the raw blocks resident: later steps upload
                     # only the blocks whose values change
                     self._stage_blocks()
-            if _uses_amg(cfg) and not isinstance(self.matrix, formats.Dia):
-                raise NotImplementedError(
-                    f"{self.field}: Multigrid on a {formats.format_name(self.matrix)} matrix "
-                    "(AMG on a non-Dia operator) is not ported to "
-                    "ogl_tpu_torch yet (ROADMAP.md A11)")
             self.route = _route(cfg, self.matrix)
-            # "ir" (GKOMultigrid, Dia only) keeps the plan for its device loop,
+            # "ir" (GKOMultigrid) keeps the Dia plan for its device loop,
             # "bicgstab" and "cg" where their loop kernel takes the solve
             # (why_not None)
             why_not = {"bicgstab": bicgstab_why_not, "cg": cg_why_not}.get(self.route)
-            if self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused", "ir"):
+            dia = isinstance(self.matrix, formats.Dia)
+            if (self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused")
+                    or (self.route == "ir" and dia)):
                 self.kern = self._kernel_plan()
             elif why_not is not None and why_not(self.matrix, cfg.precond.name,
                                                  cfg.precond.max_block_size) is None:
@@ -530,6 +524,9 @@ class FoamSolver:
         basis = torch.bfloat16 if self.cfg.basis_precision == "bfloat16" else None
 
         def run():
+            if route == "ir" and kern is None:  # GKOMultigrid off Dia
+                return ir(single_device_ops(spmv.matvec(mat), n, precond=apply_pc), b_dev, x0,
+                          params)
             if route == "gmres":
                 ops = single_device_ops(spmv.matvec(mat), n, precond=apply_pc)
                 return gmres(ops, b_dev, x0, params, self.cfg.krylov_dim, basis)

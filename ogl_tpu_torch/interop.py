@@ -63,21 +63,23 @@ def unframe_reference(xf, n: int, tile: int) -> np.ndarray:
 def amg_levels_from_reference(levels, device: torch.device | str = "cpu",
                               smoother_dtype: torch.dtype = torch.float32) -> list[Level]:
     """The port's AMG levels from the reference's `_Level` list
-    (ogl_tpu/precond/amg.py): each level's Dia operator (`mat.data`,
-    `mat.offsets`, `mat.shape`), `inv_diag`, `agg` (pgm) or `grid` tuple,
+    (ogl_tpu/precond/amg.py): each level's operator — Dia (`mat.data`,
+    `mat.offsets`, `mat.shape`), Gdia (`gdia_from_reference`) or Ell
+    (`ell_from_reference`) —, `inv_diag`, `agg` (pgm) or `grid` tuple,
     `natural`, `width`, `nc` and `coarse_inv`, read with np.asarray.  The
     smoother coefficients are packed in `smoother_dtype` (float32 here:
     the reference's CPU cycle is float32 throughout)."""
+    convert = {"Dia": lambda m: dia_from_arrays(m.data, m.offsets, m.shape, device),
+               "Gdia": lambda m: gdia_from_reference(m, device),
+               "Ell": lambda m: ell_from_reference(m, device)}
     out = []
     for lv in levels:
-        mat = lv.mat
-        kind = type(mat).__name__
-        if kind != "Dia":
-            # AMG on Gdia, Xell or Ell levels is A11
-            raise TypeError(f"level operator {kind}: only Dia levels have a port "
-                            "counterpart (ROADMAP.md A11)")
+        kind = type(lv.mat).__name__
+        if kind not in convert:
+            raise TypeError(f"level operator {kind}: the reference builds Dia, Gdia or Ell "
+                            "levels")
         out.append(make_level(
-            dia_from_arrays(mat.data, mat.offsets, mat.shape, device),
+            convert[kind](lv.mat),
             np.asarray(lv.inv_diag), int(lv.nc),
             agg=None if lv.agg is None else np.asarray(lv.agg),
             natural=bool(lv.natural), grid=lv.grid, width=int(lv.width),

@@ -57,6 +57,18 @@ _SIGNATURES = {
     "ogl_amg_sweep": (_P, _INT, _P, _INT, _P, _P, _P, _F32, _P, _I64, _INT, _P),
     # data, data_bf16, offsets, nd, x, b, out, n, threads, stream
     "ogl_amg_resid": (_P, _INT, _P, _INT, _P, _P, _P, _I64, _INT, _P),
+    # cols, vals, vals_bf16, warp_slots, x, b, invd, relax, out, n, blocks, stream
+    "ogl_amg_ell_sweep": (_P, _P, _INT, _P, _P, _P, _P, _F32, _P, _I64, _I64, _P),
+    # cols, vals, vals_bf16, warp_slots, x, b, out, n, blocks, stream
+    "ogl_amg_ell_resid": (_P, _P, _INT, _P, _P, _P, _P, _I64, _I64, _P),
+    # vals, vals_bf16, lidx, qoffs, np, r, x, b, invd, relax, out, n, blocks, stream
+    "ogl_amg_gdia_sweep": (_P, _INT, _P, _P, _INT, _I64, _P, _P, _P, _F32, _P, _I64, _I64, _P),
+    # vals, vals_bf16, lidx, qoffs, np, r, x, b, out, n, blocks, stream
+    "ogl_amg_gdia_resid": (_P, _INT, _P, _P, _INT, _I64, _P, _P, _P, _I64, _I64, _P),
+    # starts, members, r, rc, nc, blocks, stream
+    "ogl_pgm_restrict": (_P, _P, _P, _P, _I64, _I64, _P),
+    # x, ec, agg, out, n, blocks, stream
+    "ogl_pgm_prolong_add": (_P, _P, _P, _P, _I64, _I64, _P),
     # vals, lidx, qoffs, np, r, x, y, n, vec, blocks, stream
     "ogl_gdia_spmv": (_P, _P, _P, _INT, _I64, _P, _P, _I64, _INT, _I64, _P),
     # vals, lidx, qoffs, np, r, z, p, beta, pout, q, partials, n, vec, blocks, stream

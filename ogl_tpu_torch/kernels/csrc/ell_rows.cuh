@@ -39,26 +39,31 @@
 #include <stdint.h>
 
 #include "dia_rows.cuh"  // mul_add_rn, XSource, K1Source
+#include "widen.cuh"      // to_f32
 
 namespace ogl {
 
 constexpr int kEllChunk = 4;  // slots whose loads a row issues before adding them
 
 // An Ell matrix, or the Ell part and tail of a Hybrid one, as the row body
-// reads it; everything is read-only for a launch.
-struct EllOperands {
+// reads it; everything is read-only for a launch.  The values are float, or
+// bfloat16 for the AMG level smoother (amg_ell_smooth.cu), widened to float
+// before each product.
+template <typename T>
+struct EllOperandsOf {
   const int* cols;        // (K, n) slot-major
-  const float* vals;      // (K, n)
+  const T* vals;          // (K, n)
   const int* warp_slots;  // (ceil(n / 32),): the longest row of each 32-row group
   const int* tail_ptr;    // (n + 1,) Hybrid tail row offsets; null: no tail
   const int* tail_cols;
   const float* tail_vals;
 };
+using EllOperands = EllOperandsOf<float>;
 
 // Row i's sum (0 <= i < n); the caller's warp holds i's 32-row group.
-template <class Src>
-__device__ __forceinline__ float ell_row(const EllOperands& m, const Src& src, int64_t i,
-                                         int64_t n) {
+template <class Src, typename T>
+__device__ __forceinline__ float ell_row(const EllOperandsOf<T>& m, const Src& src,
+                                         int64_t i, int64_t n) {
   const int w = __ldg(m.warp_slots + (i >> 5));
   float acc = 0.0f;
   for (int k0 = 0; k0 < w; k0 += kEllChunk) {
@@ -69,7 +74,8 @@ __device__ __forceinline__ float ell_row(const EllOperands& m, const Src& src, i
       c[e] = k0 + e < w ? __ldg(m.cols + static_cast<int64_t>(k0 + e) * n + i) : 0;
 #pragma unroll
     for (int e = 0; e < kEllChunk; ++e) {
-      v[e] = k0 + e < w ? __ldg(m.vals + static_cast<int64_t>(k0 + e) * n + i) : 0.0f;
+      v[e] = k0 + e < w ? to_f32(__ldg(m.vals + static_cast<int64_t>(k0 + e) * n + i))
+                        : 0.0f;
       g[e] = k0 + e < w ? src.at(c[e]) : 0.0f;
     }
 #pragma unroll

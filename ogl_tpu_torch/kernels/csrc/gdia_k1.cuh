@@ -32,6 +32,7 @@
 #include <stdint.h>
 
 #include "dia_rows.cuh"  // K1Source
+#include "widen.cuh"      // load4_f32
 
 namespace ogl {
 
@@ -59,8 +60,10 @@ __device__ __forceinline__ void gdia_gather(float& acc, float v, int64_t j, int6
 // The sums of the rows 4t .. 4t+3 of row quad t (rows at or past n read
 // padding: value 0, lane 0, and their sums go unused).  plane = R * 128 (the
 // stride between planes); s_q: the np block-row offsets in shared memory.
-template <class Src>
-__device__ __forceinline__ void gdia_quad_sums(const float* __restrict__ vals,
+// The values are float, or bfloat16 for the AMG level smoother
+// (amg_gdia_smooth.cu: one 8-byte load of a quad's four), widened to float.
+template <typename T, class Src>
+__device__ __forceinline__ void gdia_quad_sums(const T* __restrict__ vals,
                                                const int8_t* __restrict__ lidx, const int* s_q,
                                                int np, int64_t plane, const Src& src, int64_t t,
                                                int64_t n, float (&acc)[4]) {
@@ -69,7 +72,7 @@ __device__ __forceinline__ void gdia_quad_sums(const float* __restrict__ vals,
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
   for (int k = 0; k < np; ++k) {
     const int64_t at = static_cast<int64_t>(k) * plane + i0;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(vals + at));
+    const float4 v = load4_f32(vals + at);
     const char4 l = __ldg(reinterpret_cast<const char4*>(lidx + at));
     const int64_t base = (row + s_q[k]) * kGdiaLanes;
     gdia_gather(a0, v.x, base + l.x, n, src);

@@ -874,8 +874,8 @@ class GdiaCgKernels(CgKernels):
     `gdia_k1`); K2, K2i and K2n are the structure-free kernels of
     CgKernels, and the loop kernel runs its Gdia variants (the K1 phase
     from `csrc/gdia_k1.cuh`).  Packed coefficients are a (vals, lidx) pair.
-    The Dia smoother passes are not for a Gdia matrix (AMG on Gdia levels
-    is not ported: the solver raises before it would build one)."""
+    The Dia smoother passes are not for a Gdia matrix: a Gdia AMG level
+    smooths through kernels/amg_level.py `GdiaSmoother`."""
 
     def __init__(self, n: int, plane_offsets, device: torch.device | str):
         super().__init__(n, (), device)

@@ -7,41 +7,51 @@ transfers, `_smooth`, `_coarse_solve`, `cg_fixed_iters`, `amg`).
 
 Setup runs on the host, as in the reference: aggregation (2×-per-axis
 geometric blocks for a box-grid stencil — `auto`/`grid` —, consecutive
-runs — `natural` —, or greedy pairwise matching — `pgm`, the pure-Python
-loop, slow at 1M rows), Galerkin coarse operators by index-mapped duplicate
-sums in SciPy, and a dense inverse of the coarsest operator.  The numpy
-and SciPy steps are the reference's, step for step, so both packages build
-the same hierarchy from the same COO.  Each level is then uploaded once:
-its Dia operator (float32), 1/diag, and — on every level but the coarsest
-— the coefficients the smoother reads, packed in `smoother_dtype`.
+runs — `natural` —, or greedy pairwise matching — `pgm`, through the
+native runtime, native/src/ogl_host.cpp, as the reference calls its own;
+`pgm_aggregate_plain` is the pure-Python loop), Galerkin coarse operators
+by index-mapped duplicate sums in SciPy, and a dense inverse of the
+coarsest operator.  The numpy and SciPy steps are the reference's, step for
+step, so both packages build the same hierarchy from the same COO.  Each
+level operator takes the reference's format (`_ell_of`): Dia (at most 64
+distinct offsets), else Gdia (at most GDIA_MAX_PLANES planes), else the
+port's slot-major Ell.  Each level is then uploaded once: its operator
+(float32), 1/diag, and — on every level but the coarsest — the
+coefficients the smoother reads, packed in `smoother_dtype` in the
+format's own layout.
 
 The cycle (v, w or f; one cycle from a zero guess per application) runs
-every Jacobi sweep and residual through the smoother kernels
-(`CgKernels.ksweep`/`kresid`, CUDA C++ on the card, plain twins on the
-CPU), the transfers as plain reshapes and sums (`grid`/`natural`) or
-`index_add_`/`index_select` (`pgm`) — XLA ops in the reference, not
-Pallas kernels —, and the coarsest solve as one `torch.mv` against the
-dense inverse (or, for `coarseSolver cg`, fixed-iteration CG on the Dia
-SpMV kernel).  `cycle_op` returns an `AmgOp`, which records the settings
-the cycle runs at: a hierarchy that kernels/amg_loop.py `qualifies` (cycle
-v, grid or natural transfers, a dense coarse inverse) runs its whole solve
-with the cycle on the device on the card instead (kernels/csrc/amg_loop.cu),
-over a level table built once per hierarchy and kept on the op.
+every Jacobi sweep and residual through the level format's smoother
+kernels — Dia: `CgKernels.ksweep`/`kresid` (csrc/amg_smooth.cu); Gdia and
+Ell: kernels/amg_level.py `GdiaSmoother`/`EllSmoother` (csrc/
+amg_gdia_smooth.cu, amg_ell_smooth.cu) —, CUDA C++ on the card, plain twins
+on the CPU; the transfers as plain reshapes and sums (`grid`/`natural`) or
+the pgm transfer kernels (kernels/amg_level.py `PgmTransfer`, csrc/
+amg_transfer.cu: each coarse row sums its members in order, no float
+atomics) — XLA ops in the reference, not Pallas kernels —, and the coarsest
+solve as one `torch.mv` against the dense inverse (or, for `coarseSolver
+cg`, fixed-iteration CG on the coarsest level's own SpMV kernel).
+`cycle_op` returns an `AmgOp`, which records the settings the cycle runs
+at: a hierarchy that kernels/amg_loop.py `qualifies` (cycle v, Dia levels,
+grid or natural transfers, a dense coarse inverse) runs its whole solve
+with the cycle on the device on the card instead (kernels/csrc/
+amg_loop.cu), over a level table built once per hierarchy and kept on the
+op; any other hierarchy — a Gdia or Ell level, pgm transfers — keeps this
+host-launched cycle.
 
 Deliberate differences from the reference:
   * smoother coefficients are packed in `smoother_dtype` (bfloat16 by
-    default) on every smoothing level and on either device.  The
-    reference packs bfloat16 only for its fused TPU levels of at least
-    32k rows (amg.py:301-324) and stays float32 on the CPU; the float32
-    packing is `smoother_dtype=torch.float32` (fvSolution: the
+    default) on every smoothing level, of any format, and on either
+    device.  The reference packs bfloat16 only for its fused TPU Dia levels
+    of at least 32k rows (amg.py:301-324) and stays float32 on the CPU; the
+    float32 packing is `smoother_dtype=torch.float32` (fvSolution: the
     preconditioner's `precision float32`).
   * the reference keeps a second, halo-framed copy of the cycle
     (`framed_fn`, `fine_plan`) so that its merged CG shares the fine
     level's frame; the port's vectors are flat, so the merged CG calls
     `apply_fn` itself.
-  * a level operator with more than 64 distinct offsets raises
-    NotImplementedError (the reference falls back to Gdia, then Ell:
-    AMG on those levels is ROADMAP.md A11).
+  * the pgm restriction sums each aggregate's fine rows in ascending order
+    (the reference's `segment_sum` leaves the order to XLA).
 """
 
 from __future__ import annotations
@@ -51,14 +61,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from ogl_tpu_torch.core.formats import Coo, Dia, coo_to_dia
-from ogl_tpu_torch.kernels.dia_spmv import MAX_DIAGS, dia_spmv
+from ogl_tpu_torch import native
+from ogl_tpu_torch.core.formats import Coo, Dia, Ell, coo_to_dia, coo_to_ell
+from ogl_tpu_torch.kernels import spmv
+from ogl_tpu_torch.kernels.amg_level import EllSmoother, GdiaSmoother, PgmTransfer
+from ogl_tpu_torch.kernels.dia_spmv import MAX_DIAGS
 from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
 from ogl_tpu_torch.precond import PrecondOp
 
 __all__ = ["Level", "AmgOp", "make_level", "amg", "cycle_op", "build_hierarchy",
-           "pgm_aggregate", "natural_aggregate", "grid_dims_of", "grid_aggregate",
-           "grid_restrict", "grid_prolong", "cg_fixed_iters"]
+           "pgm_aggregate", "pgm_aggregate_plain", "natural_aggregate", "grid_dims_of",
+           "grid_aggregate", "grid_restrict", "grid_prolong", "cg_fixed_iters"]
 
 LANES = 128  # the reference's Gdia row width (kernels/gdia.py)
 GDIA_MAX_PLANES = 48  # the plane budget of its Gdia level operators (amg.py:394)
@@ -70,7 +84,20 @@ def pgm_aggregate(a_csr) -> np.ndarray:
     amgx_pgm with deterministic matching): each unaggregated vertex pairs
     with its strongest unaggregated neighbour; leftovers join their
     strongest neighbour's aggregate; isolated vertices become singletons.
-    Returns agg[i] = coarse index.  Pure Python: O(nnz) interpreted steps."""
+    Returns agg[i] = coarse index.  Through the native runtime
+    (`native.pgm_aggregate`, one pass of compiled C++), as the reference
+    calls its own; `pgm_aggregate_plain` where the runtime is unavailable."""
+    n = a_csr.shape[0]
+    nat = native.pgm_aggregate(n, a_csr.indptr.astype(np.int64), a_csr.indices,
+                               np.abs(a_csr.data))
+    if nat is not None:
+        return nat[0].astype(np.int64)
+    return pgm_aggregate_plain(a_csr)
+
+
+def pgm_aggregate_plain(a_csr) -> np.ndarray:
+    """`pgm_aggregate` as a pure-Python loop: O(nnz) interpreted steps, the
+    plain version the native call is held to."""
     n = a_csr.shape[0]
     indptr, indices, data = a_csr.indptr, a_csr.indices, np.abs(a_csr.data)
     agg = np.full(n, -1, np.int64)
@@ -154,55 +181,86 @@ def grid_aggregate(dims):
 
 @dataclasses.dataclass(frozen=True)
 class Level:
-    """One level of the hierarchy, on the device.  `agg` is set for pgm
-    aggregation only (natural and grid transfers are reshapes); `data_s`
-    (the smoother's coefficients) on every level but the coarsest, and
-    `coarse_inv` on the coarsest when the direct solve applies."""
+    """One level of the hierarchy, on the device.  `transfer` (and with it
+    `agg`) is set for pgm aggregation only (natural and grid transfers are
+    reshapes); `data_s` (the smoother's coefficients, in the format's own
+    layout) on every level but the coarsest; `coarse_inv` on the coarsest
+    when the direct solve applies, else `matvec`, its SpMV kernel, for the
+    coarse CG."""
 
     n: int
     nc: int  # coarse rows; 0 on the coarsest level
-    mat: Dia  # float32 level operator
+    mat: Dia | Gdia | Ell  # float32 level operator
     inv_diag: torch.Tensor  # (n,) float32
-    kern: CgKernels  # the level's Dia plan: smoother passes, coarse SpMV
-    agg: torch.Tensor | None = None  # (n,) int64 coarse ids (pgm)
+    # the level's smoother plan: Dia the CgKernels plan (ksweep/kresid),
+    # Gdia and Ell their kernels/amg_level.py smoother (sweep/resid)
+    kern: CgKernels | GdiaSmoother | EllSmoother
+    transfer: PgmTransfer | None = None  # the pgm transfer kernels and their table
     natural: bool = False
     grid: tuple | None = None  # (nz, ny, nx, nzc, nyc, nxc)
     width: int = 2  # natural aggregate size
-    data_s: torch.Tensor | None = None  # (nd, n) smoother coefficients
+    data_s: torch.Tensor | None = None  # smoother coefficients (Dia (nd, n))
     coarse_inv: torch.Tensor | None = None  # (n, n) float32
+    matvec: object = None  # the coarsest level's SpMV without a dense inverse
+
+    @property
+    def agg(self) -> torch.Tensor | None:
+        """(n,) int32 coarse ids of a pgm level, else None."""
+        return None if self.transfer is None else self.transfer.agg
 
 
-def make_level(mat: Dia, inv_diag, nc: int, *, agg=None, natural=False, grid=None,
+def smoother_plan(mat) -> CgKernels | GdiaSmoother | EllSmoother:
+    """The smoother plan of a level operator's format."""
+    if isinstance(mat, Dia):
+        return CgKernels(mat.shape[0], mat.offsets, mat.data.device)
+    if isinstance(mat, Gdia):
+        return GdiaSmoother(mat)
+    if isinstance(mat, Ell):
+        return EllSmoother(mat)
+    raise TypeError(f"no AMG smoother for a {type(mat).__name__} level operator")
+
+
+def make_level(mat, inv_diag, nc: int, *, agg=None, natural=False, grid=None,
                width=2, coarse_inv=None, smoother_dtype=torch.bfloat16) -> Level:
-    """A Level from its operator and host (numpy) arrays, copied to the
-    operator's device; packs the smoother coefficients when nc > 0."""
-    device = mat.data.device
-    kern = CgKernels(mat.shape[0], mat.offsets, device)
+    """A Level from its operator (Dia, Gdia or Ell) and host (numpy) arrays,
+    copied to the operator's device; packs the smoother coefficients when
+    nc > 0 and, for pgm aggregates, builds the transfers' table."""
+    kern = smoother_plan(mat)
+    device = kern.device
+    last = nc == 0
     return Level(
         n=mat.shape[0], nc=nc, mat=mat, kern=kern,
         inv_diag=torch.tensor(np.asarray(inv_diag), device=device),
-        agg=None if agg is None else torch.tensor(
-            np.asarray(agg).astype(np.int64), device=device),
+        transfer=None if agg is None else PgmTransfer(agg, nc, device),
         natural=natural, grid=None if grid is None else tuple(int(g) for g in grid),
         width=width,
-        data_s=kern.pack_values(mat, dtype=smoother_dtype) if nc > 0 else None,
+        data_s=None if last else kern.pack_values(mat, dtype=smoother_dtype),
         coarse_inv=None if coarse_inv is None else torch.tensor(
-            np.asarray(coarse_inv), device=device))
+            np.asarray(coarse_inv), device=device),
+        matvec=spmv.matvec(mat) if last and coarse_inv is None else None)
 
 
 def _gdia_planes(rows: np.ndarray, cols: np.ndarray) -> int:
     """Planes of the reference's Gdia packing (kernels/gdia.py gdia_layout):
     summed over the 128-row block offsets q, the most entries one row has
-    at q."""
+    at q.  The entries come row-major with ascending columns, so each
+    row's entries at one q form a run: one pass, no sort."""
+    if not len(rows):
+        return 0
     q = cols // LANES - rows // LANES
-    pairs, counts = np.unique(np.stack([q, rows]), axis=1, return_counts=True)
-    starts = np.flatnonzero(np.r_[True, np.diff(pairs[0]) != 0])
-    return int(np.maximum.reduceat(counts, starts).sum())
+    starts = np.flatnonzero(np.r_[True, (np.diff(rows) != 0) | (np.diff(q) != 0)])
+    runs = np.diff(np.r_[starts, len(q)])
+    qs = q[starts] - q.min()
+    most = np.zeros(int(qs.max()) + 1, np.int64)
+    np.maximum.at(most, qs, runs)
+    return int(most.sum())
 
 
-def _ell_of(a_csr, dtype, device) -> Dia:
-    """The level operator as a port Dia (at most 64 distinct offsets).
-    Wider operators raise, naming the format the reference would pick."""
+def _ell_of(a_csr, dtype, device) -> Dia | Gdia | Ell:
+    """The level operator in the reference's format (its `_ell_of`): Dia
+    when it has at most 64 distinct offsets, else Gdia when it packs in at
+    most GDIA_MAX_PLANES planes (counted first, without the packing), else
+    the port's slot-major Ell."""
     a_csr.sort_indices()
     a = a_csr.tocoo()
     coo = Coo(rows=a.row.astype(np.int32, copy=False),
@@ -212,15 +270,11 @@ def _ell_of(a_csr, dtype, device) -> Dia:
     diffs = np.subtract(coo.cols, coo.rows, dtype=np.int64)
     present = np.zeros(2 * n - 1, np.bool_)
     present[diffs + (n - 1)] = True
-    n_offs = int(present.sum())
-    if n_offs <= MAX_DIAGS:
+    if int(present.sum()) <= MAX_DIAGS:
         return coo_to_dia(coo, device)
-    planes = _gdia_planes(coo.rows.astype(np.int64), coo.cols.astype(np.int64))
-    fmt = "Gdia" if planes <= GDIA_MAX_PLANES else "Ell"
-    raise NotImplementedError(
-        f"AMG level of {n} rows has {n_offs} distinct diagonals (> {MAX_DIAGS}): "
-        f"it needs the {fmt} level format (AMG on non-Dia levels, ROADMAP.md A11), "
-        "not ported to ogl_tpu_torch yet")
+    if _gdia_planes(coo.rows.astype(np.int64), coo.cols.astype(np.int64)) <= GDIA_MAX_PLANES:
+        return gdia_from_coo(coo, max_planes=GDIA_MAX_PLANES, device=device)
+    return coo_to_ell(coo, device=device)
 
 
 def build_hierarchy(coo: Coo, max_levels: int, min_coarse_rows: int,
@@ -333,15 +387,40 @@ def _restrict(lv: Level, r: torch.Tensor) -> torch.Tensor:
         pad = lv.width * lv.nc - lv.n
         rp = torch.nn.functional.pad(r, (0, pad)) if pad else r
         return rp.reshape(lv.nc, lv.width).sum(dim=1)
-    return torch.zeros(lv.nc, dtype=r.dtype, device=r.device).index_add_(0, lv.agg, r)
+    return lv.transfer.restrict(r)
 
 
 def _prolong(lv: Level, ec: torch.Tensor) -> torch.Tensor:
+    """P e_c (the cycle adds it to x through `_prolong_add`)."""
     if lv.grid is not None:
         return grid_prolong(lv.grid, ec)
     if lv.natural:
         return ec[:, None].expand(lv.nc, lv.width).reshape(-1)[: lv.n]
     return ec.index_select(0, lv.agg)
+
+
+def _prolong_add(lv: Level, x: torch.Tensor, ec: torch.Tensor) -> torch.Tensor:
+    """x + P e_c: the pgm transfer kernel's gather and add on a pgm level."""
+    if lv.transfer is not None:
+        return lv.transfer.prolong_add(x, ec)
+    return x + _prolong(lv, ec)
+
+
+# ---- smoother passes -------------------------------------------------------
+
+
+def _sweep(lv: Level, x: torch.Tensor, b: torch.Tensor, relax: float) -> torch.Tensor:
+    """x + relax·invd ⊙ (b − A x) through the level format's smoother."""
+    if isinstance(lv.kern, CgKernels):
+        return lv.kern.ksweep(lv.data_s, x, b, lv.inv_diag, relax)
+    return lv.kern.sweep(lv.data_s, x, b, lv.inv_diag, relax)
+
+
+def _resid(lv: Level, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """b − A x through the level format's smoother."""
+    if isinstance(lv.kern, CgKernels):
+        return lv.kern.kresid(lv.data_s, x, b)
+    return lv.kern.resid(lv.data_s, x, b)
 
 
 # ---- coarse solve and cycle ---------------------------------------------
@@ -372,7 +451,7 @@ def cg_fixed_iters(apply_fn, b: torch.Tensor, iters: int) -> torch.Tensor:
 def _coarse_solve(lv: Level, b: torch.Tensor, iters: int) -> torch.Tensor:
     if lv.coarse_inv is not None:
         return torch.mv(lv.coarse_inv, b)
-    return cg_fixed_iters(lambda v: dia_spmv(lv.kern.plan, lv.mat.data, v), b, iters)
+    return cg_fixed_iters(lv.matvec, b, iters)
 
 
 class AmgOp(PrecondOp):
@@ -400,7 +479,7 @@ def cycle_op(levels, cycle: str = "v", relax: float = 0.9, smooth_iters: int = 2
 
     def sweeps(lv: Level, x, b, k: int):
         for _ in range(k):
-            x = lv.kern.ksweep(lv.data_s, x, b, lv.inv_diag, relax)
+            x = _sweep(lv, x, b, relax)
         return x
 
     def run_level(lvls, li: int, b, w_mode: bool):
@@ -414,10 +493,10 @@ def cycle_op(levels, cycle: str = "v", relax: float = 0.9, smooth_iters: int = 2
         else:
             x = torch.zeros_like(b)
         for cyc in range(recurse):
-            r = lv.kern.kresid(lv.data_s, x, b)
+            r = _resid(lv, x, b)
             ec = run_level(lvls, li + 1, _restrict(lv, r),
                            w_mode or (cycle == "f" and cyc == 0))
-            x = sweeps(lv, x + _prolong(lv, ec), b, smooth_iters)
+            x = sweeps(lv, _prolong_add(lv, x, ec), b, smooth_iters)
         return x
 
     def apply(lvls, r):

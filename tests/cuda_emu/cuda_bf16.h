@@ -6,3 +6,4 @@
 struct __nv_bfloat16 {
   unsigned short v;
 };
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }

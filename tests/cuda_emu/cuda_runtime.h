@@ -1,5 +1,6 @@
 // A CPU stand-in for the CUDA pieces that csrc/block_jacobi.cuh,
-// csrc/gmres_combine.cuh, csrc/tri_sweep.cuh and csrc/tri_levels.cuh use, so
+// csrc/gmres_combine.cuh, csrc/tri_sweep.cuh, csrc/tri_levels.cuh and
+// csrc/amg_level.cuh (with the Ell and Gdia row bodies) use, so
 // that their bodies run as written: the
 // built-in indices as thread-local variables (one std::thread per CUDA
 // thread where the body synchronises, a plain loop over the threads where
@@ -43,6 +44,9 @@ struct float4 {
 };
 struct uint2 {
   unsigned x, y;
+};
+struct char4 {
+  signed char x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 

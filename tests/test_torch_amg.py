@@ -22,9 +22,10 @@ from ogl_tpu import foam as ref_foam
 from ogl_tpu import testing as ref_testing
 from ogl_tpu.core import formats as ref_formats
 from ogl_tpu.core import ldu as ref_ldu
-from ogl_tpu_torch import foam, interop, kernels, registry
+from ogl_tpu_torch import foam, interop, kernels, registry, testing
 from ogl_tpu_torch.config import PrecondConfig
 from ogl_tpu_torch.core import formats
+from ogl_tpu_torch.kernels import amg_level
 from ogl_tpu_torch.precond import amg, build
 
 ref_amg = importlib.import_module("ogl_tpu.precond.amg")
@@ -91,6 +92,9 @@ def test_build_hierarchy_matches_reference(aggregation, dims):
         assert (p.agg is None) == (r.agg is None)
         if p.agg is not None:
             np.testing.assert_array_equal(p.agg.numpy(), np.asarray(r.agg))
+            # a pgm level on Dia transfers through the pgm kernels too (no
+            # index_add_, whose float atomics on the card reorder the sums)
+            assert isinstance(p.transfer, amg_level.PgmTransfer)
         assert (p.coarse_inv is None) == (r.coarse_inv is None)
         if p.coarse_inv is not None:
             _close_rel(p.coarse_inv.numpy(), r.coarse_inv)
@@ -111,15 +115,36 @@ def test_bf16_packing_and_coarse_cg_hierarchy():
 @pytest.mark.parametrize("dims,want", [((16, 16), "Gdia"), ((64, 64), "Ell")], ids=str)
 def test_wide_level_raises_naming_its_format(dims, want):
     """pgm on a renumbered operator: the reference packs the level as Gdia
-    or, past Gdia's plane budget, as Ell; the port raises, naming the
-    format and AMG on non-Dia levels (A11) — the Ell format itself is
-    ported, its AMG levels are not."""
+    or, past Gdia's plane budget, as Ell.  The port once raised there, naming
+    the format and A11 (done); it now picks the reference's format, Gdia or
+    Ell, on every level, with the reference's sizes and aggregates."""
     coo = _permuted(dims)
     ref = ref_amg.build_hierarchy(coo, 9, 10, "pgm", width=8)
     assert type(ref[0].mat).__name__ == want
-    with pytest.raises(NotImplementedError,
-                       match=f"{want} level format \\(AMG on non-Dia levels, ROADMAP.md A11\\)"):
-        amg.build_hierarchy(_port_coo(coo), 9, 10, "pgm", width=8)
+    port = amg.build_hierarchy(_port_coo(coo), 9, 10, "pgm", width=8)
+    assert [type(lv.mat).__name__ for lv in port] == [type(lv.mat).__name__ for lv in ref]
+    assert [(lv.n, lv.nc) for lv in port] == [(lv.n, lv.nc) for lv in ref]
+    for p, r in zip(port[:-1], ref[:-1]):
+        np.testing.assert_array_equal(p.agg.numpy(), np.asarray(r.agg))
+
+
+@pytest.mark.parametrize("solver", ["GKOCG", "GKOMultigrid"])
+def test_pgm_solve_on_ell_matches_reference(solver):
+    """pgm aggregation (the native runtime) on the kNN-6 mesh as Ell: every
+    level transfers through the pgm transfer kernels' twins, and the solve
+    takes the reference's iterations ±1 (float32 smoother packing)."""
+    m = testing.knn_ldu(4096)[0]
+    b = _rhs(m.n)
+    pc = {"preconditioner": "Multigrid" if solver == "GKOCG" else "none",
+          "aggregation": "pgm", "precision": "float32"}
+    ctl = {"executor": "cpu", "solver": solver, "matrixFormat": "Ell", "tolerance": 1e-6,
+           "relTol": 0, "adaptMinIter": False, "preconditioner": pc}
+    _, perf_ref = ref_foam.solve("p", m, b, ctl)
+    _, perf = foam.solve("p", m, b, ctl)
+    levels = registry.global_registry.get("p_solver")._precond_op.state
+    assert all(lv.transfer is not None for lv in levels[:-1])
+    assert {type(lv.mat).__name__ for lv in levels} == {"Ell", "Gdia"}
+    assert perf.converged and abs(perf.n_iterations - perf_ref.n_iterations) <= 1
 
 
 def test_pgm_aggregate_and_grid_dims_match_reference():

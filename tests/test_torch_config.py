@@ -88,21 +88,21 @@ def test_testing_problems_match_reference(dims):
     assert testing.grid_shape(dims) == ref_testing.grid_shape(dims)
 
 
+# the ids are the list's positions before the AMG controls below (A11)
+# left it: they solve now
 UNSUPPORTED = [
-    ({"solver": "GKOIR"}, "A9"),
-    ({"preconditioner": {"preconditioner": "ILU", "precision": "bfloat16"}}, "A10"),
-    ({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}}, "A10"),
-    ({"preconditioner": {"preconditioner": "ISAI", "precision": "bfloat16"}}, "A10"),
-    ({"matrixFormat": "Csr", "preconditioner": "Multigrid"}, "A11"),
-    ({"matrixFormat": "Ell", "solver": "GKOMultigrid"}, "A11"),
-    ({"dtype": "float64"}, "A14"),
-    ({"solver": "GKOBiCGStab", "dtype": "float64"}, "A14"),
-    ({"matrixFormat": "Gdia", "preconditioner": "Multigrid"}, "A11"),
-    ({"uploadPrecision": "bfloat16"}, "A7"),
-    ({"export": True}, "A15"),
-    ({"debug": True}, "A15"),
-    ({"matrixFormat": "Xell", "solver": "GKOMultigrid"}, "A11"),
-    ({"matrixFormat": "Sell", "preconditioner": "Multigrid"}, "A11"),
+    pytest.param({"solver": "GKOIR"}, "A9", id="controls0-A9"),
+    pytest.param({"preconditioner": {"preconditioner": "ILU", "precision": "bfloat16"}}, "A10",
+                 id="controls1-A10"),
+    pytest.param({"preconditioner": {"preconditioner": "Multigrid", "precision": "bfloat16"}},
+                 "A10", id="controls2-A10"),
+    pytest.param({"preconditioner": {"preconditioner": "ISAI", "precision": "bfloat16"}}, "A10",
+                 id="controls3-A10"),
+    pytest.param({"dtype": "float64"}, "A14", id="controls6-A14"),
+    pytest.param({"solver": "GKOBiCGStab", "dtype": "float64"}, "A14", id="controls7-A14"),
+    pytest.param({"uploadPrecision": "bfloat16"}, "A7", id="controls9-A7"),
+    pytest.param({"export": True}, "A15", id="controls10-A15"),
+    pytest.param({"debug": True}, "A15", id="controls11-A15"),
 ]
 
 
@@ -111,6 +111,35 @@ def test_unsupported_controls_raise(controls, item):
     ctl = {"executor": "cpu", **controls}
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         FoamSolver("p", ctl)
+
+
+# AMG on a matrix format other than Dia (ROADMAP.md A11, once refused like
+# the controls above): each solves on the CPU in the reference's iterations,
+# +2 at most with the port's default bfloat16 smoother packing (the
+# reference's CPU cycle is float32), -1 at least
+FORMER_A11 = [
+    pytest.param({"matrixFormat": "Csr", "preconditioner": "Multigrid"}, id="controls4-A11"),
+    pytest.param({"matrixFormat": "Ell", "solver": "GKOMultigrid"}, id="controls5-A11"),
+    pytest.param({"matrixFormat": "Gdia", "preconditioner": "Multigrid"}, id="controls8-A11"),
+    pytest.param({"matrixFormat": "Xell", "solver": "GKOMultigrid"}, id="controls12-A11"),
+    pytest.param({"matrixFormat": "Sell", "preconditioner": "Multigrid"}, id="controls13-A11"),
+]
+
+
+@pytest.mark.parametrize("controls", FORMER_A11)
+def test_former_a11_controls_solve_like_the_reference(controls):
+    from ogl_tpu import foam as ref_foam
+
+    m = testing.shuffled_poisson_ldu((16, 8, 8))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"executor": "cpu", "tolerance": 1e-6, "relTol": 0, "adaptMinIter": False,
+           **controls}
+    _, perf_ref = ref_foam.solve(f"p_{controls['matrixFormat']}", m, b, ctl)
+    _, perf = FoamSolver("p", ctl).solve(m, b)
+    solver = controls.get("solver", "GKOCG")
+    assert perf.solver_name == perf_ref.solver_name == f"{solver}_{controls['matrixFormat']}"
+    assert perf.converged and perf_ref.converged
+    assert perf_ref.n_iterations - 1 <= perf.n_iterations <= perf_ref.n_iterations + 2
 
 
 def test_executor_mapping_and_no_silent_cpu_fallback():

@@ -3132,3 +3132,139 @@ def test_ilu_family_solves_on_the_card(dev, case):
     assert perf.converged and perf_cpu.converged
     assert abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     assert _true_residual64(m, b, x) < 10 * 1e-6
+
+
+# slice 22: AMG on unstructured meshes — the Ell and Gdia level smoothers
+# (csrc/amg_ell_smooth.cu, amg_gdia_smooth.cu) and the pgm transfers
+# (csrc/amg_transfer.cu), each bit-equal to its twin run on the card
+
+
+def _amg_levels(mesh, aggregation, dtype, dev):
+    """The hierarchy of a small unstructured mesh on the card: the kNN-6
+    graph (4,096 or, "knn32k", 32,768 cells; Ell levels, Gdia once pgm has
+    coarsened the smaller one) or the shuffled Poisson grid (32, 32, 16)
+    (Gdia levels over a Dia coarsest)."""
+    m = {"knn": lambda: testing.knn_ldu(4096)[0], "knn32k": lambda: testing.knn_ldu(1 << 15)[0],
+         "shuffled": lambda: testing.shuffled_poisson_ldu((32, 32, 16))}[mesh]()
+    coo = ldu.ldu_to_coo_host(m, dtype=np.float32)
+    return amg.build_hierarchy(coo, 9, 10, aggregation, width=8, device=dev,
+                               smoother_dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mesh,aggregation", [("knn", "pgm"), ("shuffled", "auto"),
+                                              ("knn32k", "auto")], ids=str)
+def test_amg_level_smoothers_bit_equal_to_twins(dev, mesh, aggregation, dtype):
+    levels = _amg_levels(mesh, aggregation, dtype, dev)
+    kinds = set()
+    for lv in levels[:-1]:
+        kind = type(lv.mat).__name__
+        if kind == "Dia":
+            continue
+        kinds.add(kind)
+        name = "amg_ell" if kind == "Ell" else "amg_gdia"
+        x, b = _vec(lv.n, lv.n, dev), _vec(lv.n, lv.n + 1, dev)
+        kernels.reset_launches()
+        got_s = lv.kern.sweep(lv.data_s, x, b, lv.inv_diag, 0.9)
+        got_r = lv.kern.resid(lv.data_s, x, b)
+        torch.cuda.synchronize()
+        assert kernels.launches[f"{name}_sweep"] == kernels.launches[f"{name}_resid"] == 1
+        assert torch.equal(got_s, lv.kern.twin(lv.data_s, x, b, lv.inv_diag, 0.9))
+        assert torch.equal(got_r, lv.kern.twin(lv.data_s, x, b, None, 0.0))
+    assert kinds == {"knn": {"Ell", "Gdia"}, "shuffled": {"Gdia"}, "knn32k": {"Ell"}}[mesh]
+
+
+@pytest.mark.parametrize("n,nc", [(4096, 1901), (1 << 20, 524_288), ((1 << 20) + 3, 300_001)],
+                         ids=str)
+def test_pgm_transfers_bit_equal_and_repeatable(dev, n, nc):
+    from ogl_tpu_torch.kernels import amg_level
+
+    rng = np.random.default_rng(n)
+    agg = np.concatenate([np.arange(nc), rng.integers(0, nc, n - nc)])
+    rng.shuffle(agg)
+    tr = amg_level.PgmTransfer(agg, nc, dev)
+    r, x = _vec(n, 1, dev), _vec(n, 2, dev)
+    ec = _vec(nc, 3, dev)
+    kernels.reset_launches()
+    rc1, rc2 = tr.restrict(r), tr.restrict(r)
+    out = tr.prolong_add(x, ec)
+    torch.cuda.synchronize()
+    assert kernels.launches["pgm_restrict"] == 2 and kernels.launches["pgm_prolong"] == 1
+    assert torch.equal(rc1, rc2)  # no float atomics: the same bits on every run
+    assert torch.equal(rc1, amg_level.pgm_restrict_plain(tr.table, r))
+    assert torch.equal(out, amg_level.pgm_prolong_add_plain(tr.agg.long(), x, ec))
+    exact = torch.zeros(nc, dtype=torch.float64, device=dev).index_add_(
+        0, torch.tensor(agg, device=dev), r.double())
+    _close(rc1.double(), exact, rtol=1e-5)
+
+
+def test_amg_level_wrappers_raise_on_bad_operands_and_refused_launches(dev, monkeypatch):
+    from ogl_tpu_torch.kernels import amg_level
+
+    lv = next(lv for lv in _amg_levels("knn", "pgm", torch.bfloat16, dev)
+              if isinstance(lv.mat, formats.Ell) and lv.transfer is not None)
+    x, b = _vec(lv.n, 1, dev), _vec(lv.n, 2, dev)
+    with pytest.raises(TypeError, match="float32"):
+        lv.kern.sweep(lv.data_s, x.double(), b, lv.inv_diag, 0.9)
+    with pytest.raises(ValueError, match="shape"):
+        lv.kern.resid(lv.data_s[:, 1:].contiguous(), x, b)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        lv.kern.resid(lv.data_s, x.cpu(), b)
+    with pytest.raises(ValueError, match="shape"):
+        lv.transfer.restrict(x[1:])
+    kernels.reset_launches()
+    with monkeypatch.context() as mp:  # a grid of no blocks: the launch is refused
+        mp.setattr(amg_level, "_blocks", lambda items, device: 0)
+        with pytest.raises(RuntimeError, match="amg_ell_sweep: CUDA error"):
+            lv.kern.sweep(lv.data_s, x, b, lv.inv_diag, 0.9)
+        with pytest.raises(RuntimeError, match="pgm_restrict: CUDA error"):
+            lv.transfer.restrict(x)
+    assert sum(kernels.launches.values()) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(lv.kern.resid(lv.data_s, x, b),
+                       lv.kern.twin(lv.data_s, x, b, None, 0.0))
+
+
+AMG_LEVEL_SOLVES = {
+    "GKOCG+MG Csr kNN": ("GKOCG", "Csr", "knn32k", "auto"),
+    "GKOCG+MG Ell kNN pgm": ("GKOCG", "Ell", "knn32k", "pgm"),
+    "GKOMultigrid Ell kNN": ("GKOMultigrid", "Ell", "knn32k", "auto"),
+    "GKOCG+MG ladder shuffled": ("GKOCG", None, "shuffled", "auto"),
+    "GKOCG+MG ladder kNN": ("GKOCG", None, "knn32k rcm", "auto"),
+}
+
+
+@pytest.mark.parametrize("case", list(AMG_LEVEL_SOLVES))
+def test_amg_on_unstructured_meshes_on_the_card(dev, case):
+    """foam.solve on the card over a hierarchy of Ell and Gdia levels: the
+    level kernels and (pgm) the transfer kernels launched, no AMG loop kernel,
+    ±1 iteration (bfloat16 packing on both) of the same solve on the CPU over
+    the twins, the true residual in bounds."""
+    solver, fmt, mesh, aggregation = AMG_LEVEL_SOLVES[case]
+    if mesh == "shuffled":
+        m = testing.shuffled_poisson_ldu((32, 32, 32))
+    else:
+        m, perm = testing.knn_ldu(1 << 15)
+        if mesh.endswith("rcm"):
+            m = testing.renumber_ldu(m, np.argsort(perm))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    pc = {"preconditioner": "Multigrid" if solver == "GKOCG" else "none",
+          "aggregation": aggregation}
+    ctl = {"solver": solver, "tolerance": 1e-6, "relTol": 0, "preconditioner": pc,
+           "adaptMinIter": False, **({"matrixFormat": fmt} if fmt else {})}
+    kernels.reset_launches()
+    x, perf = foam.solve("p", m, b, {**ctl, "executor": "cuda"})
+    torch.cuda.synchronize()
+    slv = registry.global_registry.get("p_solver")
+    levels = slv._precond_op.state
+    got = dict(kernels.launches)
+    assert got["amg_cg_loop"] == got["amg_ir_loop"] == 0
+    for lv in levels[:-1]:
+        name = {"Ell": "amg_ell", "Gdia": "amg_gdia", "Dia": "amg"}[type(lv.mat).__name__]
+        assert got[f"{name}_sweep"] > 0 and got[f"{name}_resid"] > 0
+    assert (got["pgm_restrict"] > 0) == (got["pgm_prolong"] > 0) == (aggregation == "pgm")
+    registry.global_registry.clear()
+    _, perf_cpu = foam.solve("p", m, b, {**ctl, "executor": "cpu"})
+    assert perf.converged and perf_cpu.converged
+    assert abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
+    assert _true_residual64(m, b, x) < 10 * 1e-6

@@ -404,6 +404,23 @@ def test_foam_solver_takes_the_ell_plan_where_its_loops_run(case):
 
 
 def test_multigrid_on_ell_stays_refused():
-    with pytest.raises(NotImplementedError, match="Multigrid on a Ell matrix"):
-        foam.FoamSolver("p", {"solver": "GKOCG", "executor": "cpu", "matrixFormat": "Ell",
-                              "preconditioner": "Multigrid"})
+    """GKOCG + Multigrid on an Ell matrix once raised (ROADMAP.md A11, done):
+    it now solves in the reference's iterations ±1 (float32 smoother
+    packing), and the Ell loop kernel still refuses it — its phases apply
+    identity or scalar Jacobi only —, so the solve keeps the general CG's
+    host loop over the Ell SpMV, with no loop plan."""
+    m, perm = testing.knn_ldu(3000)
+    m = testing.renumber_ldu(m, np.argsort(perm))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"solver": "GKOCG", "executor": "cpu", "matrixFormat": "Ell", "tolerance": 1e-6,
+           "relTol": 0, "preconditioner": {"preconditioner": "Multigrid",
+                                           "precision": "float32"}}
+    _, perf = foam.solve("p", m, b, ctl)
+    slv = registry.global_registry.get("p_solver")
+    assert slv.route == "cg" and slv.kern is None
+    assert cg_mod.why_not(slv.matrix, "Multigrid") == "preconditioner Multigrid"
+    ref_m = ref_ldu.LduMatrix(n=m.n, lower_addr=m.lower_addr, upper_addr=m.upper_addr,
+                              diag=m.diag, upper=m.upper, lower=m.lower)
+    _, perf_ref = ref_foam.solve("p", ref_m, b, ctl)
+    assert perf.solver_name == "GKOCG_Ell"
+    assert perf.converged and abs(perf.n_iterations - perf_ref.n_iterations) <= 1

@@ -1,10 +1,11 @@
-"""Repairs of the port's own faults (ROADMAP.md §C): the item that the
-interop bridge names for a non-Dia AMG level, and the host-clock branch of
-`roofline.measure_chained` under a stalled chain."""
+"""Repairs of the port's own faults (ROADMAP.md §C): the interop bridge's
+non-Dia AMG levels (once refused, naming A11; now carried across), and the
+host-clock branch of `roofline.measure_chained` under a stalled chain."""
 
 import importlib
 import itertools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,7 @@ from ogl_tpu_torch import interop, testing
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels import roofline
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv
+from ogl_tpu_torch.precond import amg
 
 ref_amg = importlib.import_module("ogl_tpu.precond.amg")
 
@@ -36,12 +38,18 @@ def _permuted(dims, seed=0):
 @pytest.mark.parametrize("dims,kind,item", [((16, 16), "Gdia", "A11"), ((64, 64), "Ell", "A11")],
                          ids=str)
 def test_interop_names_the_open_item_for_a_non_dia_level(dims, kind, item):
-    """AMG on Gdia or Ell levels is A11 (A13, the Gdia and Xell formats, and
-    A2, the Ell format, are done)."""
-    levels = ref_amg.build_hierarchy(_permuted(dims), 9, 10, "pgm", width=8)
-    assert type(levels[0].mat).__name__ == kind
-    with pytest.raises(TypeError, match=f"level operator {kind}: .*\\(ROADMAP.md {item}\\)$"):
-        interop.amg_levels_from_reference(levels)
+    """AMG on Gdia or Ell levels (A11, done) once made the bridge raise,
+    naming the item: it now carries the levels across, and the port's cycle
+    on them equals the reference's `amg` cycle within 1e-5 of the output's
+    largest entry (float32 sums in another order)."""
+    op = ref_amg.amg(_permuted(dims), aggregation="pgm", width=8)
+    assert type(op.state[0].mat).__name__ == kind
+    levels = interop.amg_levels_from_reference(op.state)
+    assert [type(lv.mat).__name__ for lv in levels] == [type(lv.mat).__name__ for lv in op.state]
+    r = np.random.default_rng(1).normal(size=levels[0].n).astype(np.float32)
+    want = np.asarray(op(jnp.asarray(r)))
+    got = amg.cycle_op(levels)(torch.tensor(r)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
 def test_measure_chained_survives_a_stalled_chain(monkeypatch):

@@ -316,12 +316,24 @@ def test_verbose_names_the_routed_format(capsys):
 
 @pytest.mark.parametrize("solver", ["GKOCG", "GKOMultigrid"])
 def test_multigrid_on_an_unstructured_matrix_raises(solver):
+    """Multigrid on the shuffled grid (routed to Gdia) once raised, naming
+    A11 (done): it now solves through the format ladder in the reference's
+    iterations ±1 (float32 smoother packing), over a hierarchy whose fine
+    level is Gdia, on the merged CG's host loop (GKOCG) or Richardson over
+    the Gdia SpMV (GKOMultigrid)."""
     m = testing.shuffled_poisson_ldu((32, 16, 8))
-    ctl = {"solver": solver, "executor": "cpu", "tolerance": 1e-6, "relTol": 0}
-    if solver == "GKOCG":
-        ctl["preconditioner"] = "Multigrid"
-    with pytest.raises(NotImplementedError, match="Gdia matrix.*ROADMAP.md A11"):
-        foam.solve("p", m, _rhs(m.n), ctl)
+    b = _rhs(m.n)
+    pc = {"preconditioner": "Multigrid" if solver == "GKOCG" else "none",
+          "precision": "float32"}
+    ctl = {"solver": solver, "executor": "cpu", "tolerance": 1e-6, "relTol": 0,
+           "adaptMinIter": False, "preconditioner": pc}
+    _, perf_ref = ref_foam.solve("p", m, b, ctl)
+    x, perf = foam.solve("p", m, b, ctl)
+    slv = registry.global_registry.get("p_solver")
+    assert perf.solver_name == f"{solver}_Gdia"  # the reference names the configured Coo
+    assert slv.route == ("cg_fused" if solver == "GKOCG" else "ir")
+    assert type(slv._precond_op.state[0].mat).__name__ == "Gdia"
+    assert perf.converged and abs(perf.n_iterations - perf_ref.n_iterations) <= 1
 
 
 @pytest.mark.parametrize("fmt", ["Gdia", "Xell"])
