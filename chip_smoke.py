@@ -6,6 +6,7 @@
     python3 chip_smoke.py --turns-gather PARENT . . PARENT   (the gather formats' part alone)
     python3 chip_smoke.py --turns-gmres PARENT . . PARENT   (the GMRES basis kernels and solves)
     python3 chip_smoke.py --turns-tri PARENT . . PARENT   (the ILU family's kernels and solves)
+    python3 chip_smoke.py --turns-amg PARENT . . PARENT   (the unstructured AMG solves and kernels)
 
 Drives the port's main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
@@ -164,10 +165,13 @@ Phases (any failure raises, and the script exits non-zero):
      the bytes its slices read), the CSR kernel at its number of lanes per
      row and the next (also on random graphs of 16, 64 and 256 entries per
      row), and the profiler's device time per launch on the kNN mesh.  The
-     loop rows of phase 3 are timed over 20 iterations (200 before phase
+     loop rows of phase 3 are timed over 5 iterations (200 before phase
      11 joined, 100 before phase 12, 30 before phase 12 took the blocked
-     loops), phase 8's Xell loops over 10, phase 11's over 10 and the AMG
-     loops over 20;
+     loops, 20 before phase 14 took the device V-cycle's unstructured
+     variants), phase 8's Xell loops over 5, phase 11's over 5 and the AMG
+     loops over 10, the twins and the host loops at those counts; every
+     loop kernel's ms per iteration is from pinned launches of 30 less
+     those, its set-up and record read subtracted (LOOP_TIMED_LONG);
  12. slice 17, BASELINE.json configs 2 and 3: the native host runtime
      built (asserted), the block-Jacobi, Arnoldi and combine kernels' and
      the general-BiCGStab loop's block-Jacobi variants' registers, spills
@@ -237,22 +241,31 @@ on the Poisson grid) on resident state; `--turns-tri` runs kernels 1 and 2
 on the Poisson grid's IC(0) and ILU(0) factors at 1M and 8.4M rows and on
 the 262,144-cell kNN-6 mesh's ILUT and ICT factors, and pIC, pICx, wILUx
 and pKICT on resident state.
-Phase 14 (slice 22, AMG on unstructured meshes): GKOCG + Multigrid on the 1M
-kNN-6 mesh as Csr (BASELINE config 4) with aggregation auto (`pKMG`) and pgm
-(`pKMGpgm`, the native aggregation and the pgm transfer kernels),
+Phase 14 (slices 22-23, AMG on unstructured meshes): GKOCG + Multigrid on the
+1M kNN-6 mesh as Csr (BASELINE config 4) with aggregation auto (`pKMG`) and
+pgm (`pKMGpgm`, the native aggregation and the pgm transfer kernels),
 GKOMultigrid on it as Ell (`gKMG`), GKOCG + Multigrid on the 1M shuffled grid
-through the format ladder (`pSMG`, a Gdia matrix, a Gdia fine level) and on the
-kNN mesh
-through the ladder (`pKMGx`, Xell); each solve: its level formats, the
+through the format ladder (`pSMG`, a Gdia matrix, a Gdia fine level), on the
+kNN mesh through the ladder (`pKMGx`, Xell) and with cycle w on the
+262,144-cell shuffled grid (`pSMGw`); each solve: its level formats, the
 generate_preconditioner ms, µs per iteration on resident state, its launches
-(each smoothing level's format its sweep and residual kernels, pgm its
-transfer kernels, no AMG loop kernel), the true float64 residual and the
-iterations against the same route over the plain twins on the card (±1, +2
-with bfloat16 packing); the native pgm aggregation beside the pure-Python loop
-on the 262,144-cell kNN mesh; then the Ell and Gdia level smoothers in both
-value types and the pgm transfers against their twins at 1M (bit-equal),
-torch.addmv beside the float32 residuals and index_add_ beside the
-restriction.
+(`pKMG`, `gKMG`, `pSMG`: one launch of the device V-cycle's loop kernel, the
+outer set-up's SpMVs, no level or transfer kernel; `pKMGpgm`, `pKMGx`,
+`pSMGw`: the host cycle, each smoothing level's format its sweep and residual
+kernels, pgm its transfer kernels, amg_loop.why_not naming the reason), the
+true float64 residual and the iterations against the host cycle over the
+plain twins on the card (±1, +2 with bfloat16 packing) and, for the loop
+solves, against the loop's plain twin (±1); the native pgm aggregation beside
+the pure-Python loop on the 262,144-cell kNN mesh; then the three new loop
+variants (Csr, Ell and Gdia outer) against their twins, timed per iteration in
+turns with the host cycle over the standalone kernels; then the Ell and Gdia
+level smoothers in both value types and the pgm transfers against their twins
+at 1M (bit-equal), with the profiler's device time and the chained time of
+the path's cases, torch.addmv beside the float32 residuals and index_add_
+beside the restriction (also by device time).
+`--turns-amg` runs pMG, pGMG, pKMG, gKMG and pSMG on resident state, the
+Dia V-cycle's loop kernel by device time per iteration, and the level
+kernels by device, chained and around-each-call time in each tree.
 """
 
 from __future__ import annotations
@@ -492,6 +505,24 @@ KERNELS = {
     "pgm_prolong": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_transfer.cu",
                     "no TPU kernel: XLA op in the reference, ogl_tpu/precond/amg.py:360-367 "
                     "(_prolong, jnp.take)", "pgm_prolong", "knn"),
+    # slice 23 (phase 14): the device V-cycle over Ell and Gdia levels on the
+    # outer operators of pKMG (Csr), gKMG (Ell) and pSMG (Gdia): the loop
+    # kernel's variants from amg_loop_csr_cg.cu, amg_loop_ell_ir.cu and
+    # amg_loop_gdia_cg.cu; their rows' times are per iteration, their launches
+    # the path's launches of amg_cg_loop / amg_ir_loop in those solves
+    "amg_cg_loop_csr": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_loop_csr_cg.cu",
+                        "no TPU kernel: the reference's CG loop with the V-cycle in its body, "
+                        "ogl_tpu/solve/cg.py:93 and ogl_tpu/precond/amg.py:471-545, over the "
+                        "XLA ops ogl_tpu/kernels/spmv.py:38 (spmv_csr) and :50 (spmv_ell)",
+                        "amg_cg_loop_csr[bf16]", "knn"),
+    "amg_ir_loop_ell": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_loop_ell_ir.cu",
+                        "no TPU kernel: the reference's Richardson loop with the V-cycle in its "
+                        "body, ogl_tpu/solve/ir.py:64 and ogl_tpu/precond/amg.py:471-545, over "
+                        "the XLA op ogl_tpu/kernels/spmv.py:50 (spmv_ell)",
+                        "amg_ir_loop_ell[bf16]", "knn"),
+    "amg_cg_loop_gdia": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_loop_gdia_cg.cu",
+                         "ogl_tpu/kernels/fused.py:111, ogl_tpu/kernels/fused.py:382, "
+                         "ogl_tpu/kernels/gdia.py:183", "amg_cg_loop_gdia[bf16]", "shuffled"),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -559,13 +590,25 @@ XELL_LOOP_VARIANTS = {0: "none", LOOP_JACOBI: "BJ"}  # csrc/xell_cg_loop.cu
 P_ITERS = 275  # field p at 1M cells, as the merged CG over the plain twins takes it
 # the loop's check (x against the plain twin), its timing (200 until the
 # formats' phase 11 joined the script, 100 until phase 12 did, 30 until
-# phase 12 took the blocked loops; 20 keeps the script within its time)
-LOOP_ITERS = (30, 20)
+# phase 12 took the blocked loops; 20 until phase 14 took the device
+# V-cycle's unstructured variants; 5 keeps the script within its time)
+LOOP_ITERS = (30, 5)
+# every loop kernel's ms per iteration: a pinned launch of this many
+# iterations less one of the timing's, so the set-up and the record's read
+# (a run's fixed 0.3-0.4 ms) drop out of the row (30, not 50, keeps the
+# script within its time)
+LOOP_TIMED_LONG = 30
 # the Xell loops': their plain twins' SpMV takes 3-9 ms per iteration at
 # 1M-8.4M rows (the general BiCGStab's check stays BICGSTAB_LOOP_CHECK);
-# timed over 10 since phase 12 took the blocked loops (15 since phase 12
+# timed over 5 since phase 14 took the device V-cycle's unstructured
+# variants (10 since phase 12 took the blocked loops, 15 since phase 12
 # joined, 30 before)
-XELL_LOOP_ITERS = (30, 10)
+XELL_LOOP_ITERS = (30, 5)
+# every loop kernel's ms per iteration: a pinned launch of this many
+# iterations less one of the timing's, so the set-up and the record's read
+# (a run's fixed 0.3-0.4 ms) drop out of the row (30, not 50, keeps the
+# script within its time)
+LOOP_TIMED_LONG = 30
 # the BiCGStab loop's check: float32 BiCGStab on the Poisson grid from a
 # random b parts from another summation order within 30 iterations (phase 3
 # prints the gap there), so x is held to the twin after 10, as phase 9 pins
@@ -589,11 +632,13 @@ AMG_LOOP_SOLVE_LAUNCHES = {
 AMG_HOST_SOLVE = ("pMGw", {"solver": "GKOCG",
                            "preconditioner": {"preconditioner": "Multigrid", "cycle": "w"}})
 AMG_ITERS = {"pMG": 16, "pGMG": 54}  # at 1M cells, as their plain twins take them
-# the AMG loops' check and timing iterations (timed over 50 until phase 12 joined)
-AMG_LOOP_CHECK, AMG_LOOP_TIMED = 10, 20
+# the AMG loops' check and timing iterations (timed over 50 until phase 12
+# joined, over 20 until phase 14 took the unstructured variants)
+AMG_LOOP_CHECK, AMG_LOOP_TIMED = 10, 10
 # x after AMG_LOOP_CHECK iterations against the twin: the restricting sums,
 # the coarse product and the partial sums add in another order
 AMG_LOOP_RTOL = 1e-4
+# the Dia outer's variants (Dia levels only), which phases 3 and 7 run
 AMG_LOOP_VARIANTS = {0: "CG f32", amg_loop.VARIANT_BF16: "CG bf16",
                      amg_loop.VARIANT_IR: "IR f32",
                      amg_loop.VARIANT_IR | amg_loop.VARIANT_BF16: "IR bf16"}
@@ -959,34 +1004,45 @@ def loop_row(case, label, run, host_solve, host_what, nbytes, n, report,
     returns (x, iterations, normalised residual); after `check` iterations x
     is held to the vector tolerance (`vec_rtol`) and the residual to
     PINNED_RTOL, or to within `res_atol` of the twin's (0: no such floor);
-    then both are timed in turns over `iters` with
-    `host_solve(k)`, the host loop over the standalone kernels (whose time
-    also holds the set-up's two applies): ms per iteration, and the bound
-    per iteration (`nbytes` over the memory rate)."""
+    then both are timed in turns over `iters` with `host_solve(k)`, the host
+    loop over the standalone kernels (the twin's and the host loop's ms per
+    iteration hold the set-up's applies and the record's read), and the
+    kernel also over LOOP_TIMED_LONG iterations: its ms per iteration is the
+    difference of its two launches over the difference of their iterations,
+    the set-up and the record's read subtracted.  The bound is per iteration
+    (`nbytes` over the memory rate)."""
     (xk, ik, rk), (xp, ip, rp) = run(check, False), run(check, True)
     err = float((xk - xp).abs().max())
     tol = vec_rtol * max(1.0, float(xp.abs().max()))
     rel = sum_err(rk, rp)
     k = iters
+    k_long = run(LOOP_TIMED_LONG, False)[1]  # a breakdown may stop it early
+    # one warm-up each: the check above has run the kernel and the twin
     t = time_turns({"plain": lambda: run(k, True), "kernel": lambda: run(k, False),
-                    "host loop": lambda: host_solve(k)}, reps=5)
+                    "kernel long": lambda: run(LOOP_TIMED_LONG, False),
+                    "host loop": lambda: host_solve(k)}, reps=5, warmup=1)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
     ms = {tag: v / k for tag, v in t.items()}
+    setup_ms, timed = ms["kernel"], k
+    if k_long > k:
+        ms["kernel"], timed = (t["kernel long"] - t["kernel"]) / (k_long - k), k_long - k
     ok = (err <= tol and (rel <= PINNED_RTOL or abs(float(rk) - float(rp)) <= res_atol)
           and ik == ip == check)
     floor = f" or {res_atol:.1e} apart: {float(rk):.4e} vs {float(rp):.4e}" if res_atol else ""
     print(f"  {case:22s} {label:20s} max_abs_err {err:.3e} (tol {tol:.1e}), residual rel err "
           f"{rel:.1e} (tol {PINNED_RTOL:.0e}{floor}) after "
-          f"{ik} / {ip} iterations; per iteration (over {k}, checked at each): kernel "
-          f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s, plain "
-          f"{ms['plain']:.4f} ms, host loop over {host_what} {ms['host loop']:.4f} ms, bound "
-          f"{bound:.4f} ms ({nbytes / n:.0f} B/row)  {'ok' if ok else 'FAIL'}")
+          f"{ik} / {ip} iterations; per iteration (checked at each): kernel "
+          f"{ms['kernel']:.4f} ms {nbytes / ms['kernel'] / 1e6:.1f} GB/s (over {timed}: launches "
+          f"of {k_long} less {k} iterations; over {k} with the set-up {setup_ms:.4f} ms), plain "
+          f"{ms['plain']:.4f} ms, host loop over {host_what} {ms['host loop']:.4f} ms (over "
+          f"{k}), bound {bound:.4f} ms ({nbytes / n:.0f} B/row)  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{case} at {label} disagrees with its plain version")
     report.setdefault(case, {})[label] = {
         "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
         "host_loop_ms": ms["host loop"], "gbps": nbytes / ms["kernel"] / 1e6,
-        "bound_ms": bound, "bound_by": "bytes", "per": "iteration", "iterations": k}
+        "bound_ms": bound, "bound_by": "bytes", "per": "iteration", "iterations": timed,
+        "ms_with_setup": setup_ms, "plain_iterations": k}
 
 
 def check_loop(kern, data, plain_k1, label, report, invd=None, case="cg_loop",
@@ -1177,30 +1233,6 @@ def check_gen_loop(kern, data, label, report, invd=None, iters=LOOP_ITERS[1], in
              res_atol=res_atol * float(state[1] / state[2]))
 
 
-def amg_loop_bytes(op, data, ir_loop):
-    """Minimum bytes per iteration of the AMG loop kernel, phase by phase
-    (csrc/amg_loop.cu): on each smoothing level of n rows, nd coefficients
-    of c bytes and s sweeps, down the zero-guess sweep (coefficients, b,
-    invd in; x out: nd·c + 12; with s = 1 folded into the restricting
-    residual), s − 2 more sweeps (nd·c + 16 each), the restricting residual
-    (coefficients, x, b in: nd·c + 8; the coarse b out); up the
-    prolongation (x in and out: 8), s sweeps (nd·c + 16 each; level 0's
-    last writes z and reads r for ρ, or adds z to x: + 8); the coarsest
-    level's dense inverse and b once; the fine operator's K1 + K2n (CG:
-    (nd + 4)·4 + 24) or the residual r − A z (IR: nd·4 + 12)."""
-    s = op.smooth_iters
-    total = 0
-    for i, lv in enumerate(op.state[:-1]):
-        row = len(lv.mat.offsets) * lv.data_s.element_size()
-        down = (row + 12) * (s == 1) + ((row + 12) + (s - 2) * (row + 16) + (row + 8)) * (s > 1)
-        total += lv.n * (down + 8 + s * (row + 16)) + 4 * op.state[i + 1].n
-    nc = op.state[-1].n
-    total += 4 * nc * nc + 4 * nc
-    n, nd = data.shape[1], data.shape[0]
-    total += n * (8 * ir_loop + (nd * 4 + 12 if ir_loop else (nd + 4) * 4 + 24))
-    return total
-
-
 def check_amg_loops(grid, device, report, dtypes=(torch.bfloat16, torch.float32)):
     """The AMG loop kernel's CG and IR variants against their plain twins
     (amg_cg_loop_plain, amg_ir_loop_plain over the plain K1 or SpMV and
@@ -1253,7 +1285,8 @@ def check_amg_loops(grid, device, report, dtypes=(torch.bfloat16, torch.float32)
 
             loop_row(f"amg_{name}_loop[{tag}]", label, run, host_solve,
                      "the host cycle" + ("" if ir_loop else " + K1 + K2n"),
-                     amg_loop_bytes(op, data, ir_loop), n, report, check=AMG_LOOP_CHECK,
+                     amg_loop_bytes(op, data.numel() * 4, n, ir_loop), n, report,
+                     check=AMG_LOOP_CHECK,
                      iters=AMG_LOOP_TIMED, vec_rtol=AMG_LOOP_RTOL)
         del op, cycle
     del mat, data, kern, host
@@ -2367,8 +2400,14 @@ GATHER_PLANS = {formats.Ell: EllCgKernels, formats.Hybrid: EllCgKernels,
 GATHER_ITERS = {"none": 28, "BJ": 23, "uK": 21, "uKBJ": 17, "gP": 275, "gCD": 24}
 # the gather loop rows' check and timing iterations (their plain twins take
 # 2-12 ms per iteration at kNN 1M: three torch ops per slot or entry step of
-# an SpMV; 20 timed iterations keep phase 11 within the script's time)
-GATHER_LOOP_ITERS = (30, 10)
+# an SpMV; timed over 20, then 10, and 5 since phase 14 took the device
+# V-cycle's unstructured variants, to keep the script within its time)
+GATHER_LOOP_ITERS = (30, 5)
+# every loop kernel's ms per iteration: a pinned launch of this many
+# iterations less one of the timing's, so the set-up and the record's read
+# (a run's fixed 0.3-0.4 ms) drop out of the row (30, not 50, keeps the
+# script within its time)
+LOOP_TIMED_LONG = 30
 ELL_LANDING_CELLS = 20000  # the kNN-6 mesh in its points' numbering: lands on Ell
 CSR_GROUPS = (1, 2, 4, 8, 16, 32)  # the CSR kernel's lanes per row
 
@@ -3503,16 +3542,21 @@ def slice20_path(device, m_knn, b_knn, m_grid, b_grid, grid, grid_big, ctl) -> t
 # ---- phase 14: slice 22, AMG on unstructured meshes -------------------------
 
 # the kernels phase 14's path must launch: the Ell and Gdia level smoothers'
-# sweep and residual, and the pgm transfers
+# sweep and residual, and the pgm transfers (on the host cycle of pKMGpgm,
+# pKMGx and pSMGw), and the device V-cycle's Csr, Ell and Gdia outer
+# variants (pKMG, gKMG, pSMG)
 SLICE22_KERNELS = ("amg_ell_sweep", "amg_ell_resid", "amg_gdia_sweep", "amg_gdia_resid",
-                   "pgm_restrict", "pgm_prolong")
+                   "pgm_restrict", "pgm_prolong", "amg_cg_loop_csr", "amg_ir_loop_ell",
+                   "amg_cg_loop_gdia")
 # the launch counter of each level format's sweep (its residual: _resid)
 LEVEL_SMOOTHERS = {"Dia": "amg", "Gdia": "amg_gdia", "Ell": "amg_ell"}
 MULTIGRID = {"preconditioner": "Multigrid", "maxLevels": 9, "minCoarseRows": 10}
 # field -> (mesh, controls): BASELINE config 4, GKOCG + Multigrid on the
 # kNN-6 mesh as Csr, with the default and the pgm aggregation; GKOMultigrid
 # on it as Ell; GKOCG + Multigrid on the shuffled grid and on the kNN mesh
-# through the format ladder (Gdia and Xell outer matrices)
+# through the format ladder (Gdia and Xell outer matrices); and, since the
+# device V-cycle takes the Gdia hierarchy, GKOCG + Multigrid with cycle w on
+# the shuffled grid of 262,144 cells (a Gdia fine level on the host cycle)
 SLICE22_SOLVES = {
     "pKMG": ("knn", {"solver": "GKOCG", "matrixFormat": "Csr",
                      "preconditioner": {**MULTIGRID, "aggregation": "auto"}}),
@@ -3524,9 +3568,32 @@ SLICE22_SOLVES = {
     "pSMG": ("shuffled", {"solver": "GKOCG",
                           "preconditioner": {**MULTIGRID, "aggregation": "auto"}}),
     "pKMGx": ("knn", {"solver": "GKOCG", "preconditioner": {**MULTIGRID, "aggregation": "auto"}}),
+    "pSMGw": ("shuffled 262144", {"solver": "GKOCG",
+                                  "preconditioner": {**MULTIGRID, "aggregation": "auto",
+                                                     "cycle": "w"}}),
 }
 SLICE22_FORMATS = {"pKMG": "Csr", "pKMGpgm": "Csr", "gKMG": "Ell", "pSMG": "Gdia",
-                   "pKMGx": "Xell"}
+                   "pKMGx": "Xell", "pSMGw": "Gdia"}
+SHUFFLED_SMALL = (64, 64, 64)
+# the solves the device V-cycle takes (slice 23): field -> (its loop kernel,
+# its row of the kernels line, the set-up's launches: the outer operator's
+# apply twice (r0 and the norm factor), then the criterion's residual-eval
+# timing)
+SLICE23_LOOPS = {
+    "pKMG": ("amg_cg_loop", "amg_cg_loop_csr", {"csr_spmv": 2 + RES_EVAL_SPMVS}),
+    "gKMG": ("amg_ir_loop", "amg_ir_loop_ell", {"ell_spmv": 2 + RES_EVAL_SPMVS}),
+    "pSMG": ("amg_cg_loop", "amg_cg_loop_gdia", {"gdia_k1": 2, "gdia_spmv": RES_EVAL_SPMVS}),
+}
+# the solves that keep the host cycle, and the reason kernels/amg_loop.py
+# why_not names first
+SLICE23_HOST = {"pKMGpgm": "aggregation pgm", "pKMGx": "the outer plan XellCgKernels",
+                "pSMGw": "cycle w"}
+# every standalone kernel of the host cycle: none of them in a loop solve
+HOST_CYCLE_KERNELS = ("amg_sweep", "amg_resid", "amg_ell_sweep", "amg_ell_resid",
+                      "amg_gdia_sweep", "amg_gdia_resid", "pgm_restrict", "pgm_prolong", "cg_k2n")
+# the device V-cycle rows' check and timing iterations over their plain twins
+# (the twin's cycle over the levels' twins takes 20-40 ms per iteration at 1M)
+SLICE23_LOOP_ITERS = (5, 2)
 PGM_PLAIN_CELLS = 1 << 18  # the pure-Python pgm loop is timed once, at this size
 
 
@@ -3544,14 +3611,30 @@ def slice22_route(slv, b, params):
 
 
 def check_slice22_launches(field, slv, before):
-    """Between `before` and now: each smoothing level's format its sweep
-    and residual kernels, the pgm transfer kernels exactly where the
-    hierarchy aggregates by pgm, no AMG loop kernel (a hierarchy with a Gdia
-    or Ell level keeps the host cycle)."""
+    """The launches between `before` and now, gated.  A solve the device
+    V-cycle takes (SLICE23_LOOPS): its loop kernel once, the outer set-up's
+    launches, no standalone level kernel, transfer kernel or K2n.  One that
+    keeps the host cycle (SLICE23_HOST, kernels/amg_loop.py why_not naming
+    its reason first): each smoothing level's format its sweep and residual
+    kernels, the pgm transfer kernels exactly where the hierarchy aggregates
+    by pgm, no AMG loop kernel.  Returns this solve's launches."""
     got = {k: kernels.launches[k] - before[k] for k in kernels.launches
            if kernels.launches[k] != before[k]}
     print(f"  {field}: launches in this solve {got}")
     levels = slv._precond_op.state
+    why = amg_loop.why_not(slv._precond_op, slv.kern)
+    print(f"  {field}: outer plan {type(slv.kern).__name__}; the device V-cycle "
+          + ("takes the solve" if why is None else f"leaves it to the host cycle: {why}"))
+    if field in SLICE23_LOOPS:
+        loop, _, setup = SLICE23_LOOPS[field]
+        want = {"amg_cg_loop": 0, "amg_ir_loop": 0, **dict.fromkeys(HOST_CYCLE_KERNELS, 0),
+                **setup, loop: 1}
+        have = {k: got.get(k, 0) for k in want}
+        if why is not None or have != want:
+            raise RuntimeError(f"{field}: launched {have}, not {want} (why_not: {why})")
+        return got
+    if why is None or not why.startswith(SLICE23_HOST[field]):
+        raise RuntimeError(f"{field}: why_not says {why!r}, not {SLICE23_HOST[field]!r}")
     want_pos = {f"{LEVEL_SMOOTHERS[type(lv.mat).__name__]}_{step}"
                 for lv in levels[:-1] for step in ("sweep", "resid")}
     pgm = any(lv.transfer is not None for lv in levels)
@@ -3560,6 +3643,144 @@ def check_slice22_launches(field, slv, before):
     bad += [k for k in ("pgm_restrict", "pgm_prolong") if bool(got.get(k)) != pgm]
     if bad:
         raise RuntimeError(f"{field}: launched {got}; wrong counts of {bad}")
+    return got
+
+
+def outer_plain(slv):
+    """(K1, SpMV, set-up plan) of a loop solve's outer operator over plain
+    twins on the card: the loop twin's K1 (CG) and SpMV (IR), and a plan
+    whose `apply` is the plain SpMV (the set-up's r0 and norm factor)."""
+    mat, kern = slv.matrix, slv.kern
+    if isinstance(kern, GdiaCgKernels):
+        vals, lidx = kern.pack_values(mat)
+        k1 = functools.partial(gdia.gdia_k1_plain, vals, lidx, mat.plane_offsets)
+        mv = functools.partial(gdia.gdia_spmv_plain, vals, lidx, mat.plane_offsets)
+    else:
+        k1 = functools.partial(gather_k1_plain, mat)
+        mv = functools.partial(gather_spmv.spmv_csr if isinstance(mat, formats.Csr)
+                               else gather_spmv.spmv_ell, mat)
+    plan = types.SimpleNamespace(apply=lambda data, v: mv(v), n=mat.shape[0],
+                                 dtype=torch.float32)
+    return k1, mv, plan
+
+
+def loop_twin_solve(field, slv, b, cfg):
+    """The device V-cycle's plain twin on the card (amg_cg_loop_plain or
+    amg_ir_loop_plain over the outer operator's plain K1 or SpMV and
+    vcycle_plain), from the routes' set-up: (x, iterations, final
+    residual)."""
+    k1, mv, plan = outer_plain(slv)
+    op = slv._precond_op
+    x = torch.zeros_like(b)
+    r = b - mv(x)
+    nf = merged_norm_factor(plan, None, r, x, b)
+    cycle = functools.partial(amg_loop.vcycle_plain, op.state, relax=op.relax,
+                              sweeps=op.smooth_iters)
+    if SLICE23_LOOPS[field][0] == "amg_ir_loop":
+        rec = amg_loop.amg_ir_loop_plain(mv, x, r, torch.sum(torch.abs(r)), nf, cfg, cycle)
+    else:
+        rec = amg_loop.amg_cg_loop_plain(k1, x, r, torch.sum(torch.abs(r)), nf, cfg, cycle)
+    return x, rec[0], rec[1]
+
+
+def level_entry_bytes(m, value_bytes):
+    """The least bytes of one pass over a level or outer operator's entries:
+    each stored value (Dia: every diagonal slot; Gdia and Ell: the live
+    entries, with their lane or column; Csr: values, columns and row
+    offsets)."""
+    if isinstance(m, formats.Dia):
+        return len(m.offsets) * m.shape[0] * value_bytes
+    if isinstance(m, gdia.Gdia):
+        return int((m.vals != 0).sum()) * (value_bytes + 1)
+    if isinstance(m, formats.Csr):
+        return m.nnz * (value_bytes + 4) + (m.shape[0] + 1) * 4
+    n = m.shape[0]
+    live = (m.cols != torch.arange(n, device=m.cols.device)) | (m.vals != 0)
+    return int(live.sum()) * (value_bytes + 4)
+
+
+def amg_loop_bytes(op, outer_bytes, n, ir_loop):
+    """Minimum bytes per iteration of the AMG loop kernel, phase by phase
+    (csrc/amg_loop.cuh): on each smoothing level of n rows, E bytes of
+    entries (level_entry_bytes: Dia diagonals, Gdia or Ell entries in the
+    smoother's packing) and s sweeps, down the zero-guess sweep (E + b and
+    invd in, x out: 12 B/row; with s = 1 folded into the restricting
+    residual), s − 2 more sweeps (E + 16 B/row each), the restricting
+    residual (E + x, b in: 8 B/row; the coarse b out); up the prolongation (x
+    in and out: 8 B/row), s sweeps (E + 16 B/row each; level 0's last writes
+    z and reads r for ρ, or adds z to x: + 8 B/row); the coarsest level's
+    dense inverse and b once; the outer operator's `outer_bytes` with K1 +
+    K2n (CG: z, p in, p', q out, then x, r, p', q in, x, r out: 40 B/row) or
+    the residual r − A z (IR: z, r in, r out: 12 B/row) and x += z (8)."""
+    s = op.smooth_iters
+    total = 0
+    for i, lv in enumerate(op.state[:-1]):
+        e = level_entry_bytes(lv.mat, lv.data_s.element_size())
+        down = (e + 12 * lv.n) if s == 1 else (
+            (e + 12 * lv.n) + (s - 2) * (e + 16 * lv.n) + (e + 8 * lv.n))
+        total += down + 8 * lv.n + s * (e + 16 * lv.n) + 4 * op.state[i + 1].n
+    nc = op.state[-1].n
+    total += 4 * nc * nc + 4 * nc
+    return total + outer_bytes + n * (20 if ir_loop else 40)
+
+
+def slice23_loop_rows(loops, report):
+    """Each new loop variant (pKMG's Csr, gKMG's Ell, pSMG's Gdia outer) at
+    its solve's size, against its plain twin on the card from one set-up
+    (b random, x0 = 0; x after SLICE23_LOOP_ITERS[0] pinned iterations within
+    AMG_LOOP_RTOL) and timed in turns with the host cycle over the
+    standalone kernels (the route on the same plan: the general CG, Richardson
+    over the plan's SpMV, or the merged CG with a plan that keeps the host
+    loop): loop_row."""
+    for field, slv in loops.items():
+        _, row, _ = SLICE23_LOOPS[field]
+        op, kern, mat = slv._precond_op, slv.kern, slv.matrix
+        data = kern.pack_values(mat)
+        n, dev = kern.n, kern.device
+        ir_loop = SLICE23_LOOPS[field][0] == "amg_ir_loop"
+        label = "shuffled" if isinstance(kern, GdiaCgKernels) else "knn"
+        k1, mv, plan = outer_plain(slv)
+        b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(23))
+        x0 = torch.zeros_like(b)
+        r0 = b - kern.apply(data, x0)
+        state = (torch.sum(torch.abs(r0)), merged_norm_factor(kern, data, r0, x0, b))
+        cycle = functools.partial(amg_loop.vcycle_plain, op.state, relax=op.relax,
+                                  sweeps=op.smooth_iters)
+
+        def run(k, plain, kern=kern, data=data, op=op, state=state, r0=r0, mv=mv, k1=k1,
+                cycle=cycle, ir_loop=ir_loop):
+            x, r = torch.zeros_like(r0), r0.clone()
+            cfg = checked_iterations(k)
+            if not plain:
+                rec = (amg_loop.amg_ir_loop if ir_loop else amg_loop.amg_cg_loop)(
+                    kern, data, op, x, r, *state, cfg)
+            elif ir_loop:
+                rec = amg_loop.amg_ir_loop_plain(mv, x, r, *state, cfg, cycle)
+            else:
+                rec = amg_loop.amg_cg_loop_plain(k1, x, r, *state, cfg, cycle)
+            return x, rec[0], rec[1]
+
+        ops = krylov.single_device_ops(functools.partial(kern.spmv, data), n, precond=op)
+        if ir_loop:
+            host_solve = lambda k, ops=ops, b=b: ir(ops, b, torch.zeros_like(b),  # noqa: E731
+                                                    checked_iterations(k))
+        elif isinstance(kern, GdiaCgKernels):
+            host = HostLoopGdiaCgKernels(n, kern.plane_offsets, dev)
+            host_solve = lambda k, host=host, data=data, b=b, op=op: cg_fused(  # noqa: E731
+                host, data, b, torch.zeros_like(b), checked_iterations(k), precond=op)
+        else:
+            host_solve = lambda k, ops=ops, b=b: cg(ops, b, torch.zeros_like(b),  # noqa: E731
+                                                    checked_iterations(k))
+        what = "the host cycle + " + ("the SpMV" if ir_loop else "K1 + K2n" if isinstance(
+            kern, GdiaCgKernels) else "the SpMV + torch ops")
+        tab = amg_loop.table_of(op)
+        print(f"  [{row}: {field}'s hierarchy "
+              f"{[f'{type(lv.mat).__name__} {lv.n}' for lv in op.state]}, stages "
+              f"{tab.table[:, 22].tolist()}, {tab.smem} bytes of dynamic shared memory]")
+        loop_row(f"{row}[bf16]", label, run, host_solve, what,
+                 amg_loop_bytes(op, level_entry_bytes(mat, 4), n, ir_loop), n, report,
+                 check=SLICE23_LOOP_ITERS[0], iters=SLICE23_LOOP_ITERS[1],
+                 vec_rtol=AMG_LOOP_RTOL)
 
 
 def bit_err(got, want):
@@ -3589,9 +3810,11 @@ def gdia_csr(m):
 
 def slice22_kernels(ops, report):
     """K-E on pKMG's fine level (Ell), K-G on pSMG's fine level (Gdia), in
-    both value types, and K-T on pKMGpgm's first level, each against its
-    twin on the card (bit-equal), with torch.addmv beside the float32
-    residuals and index_add_ beside the restriction."""
+    both value types, each against its twin on the card (bit-equal), with
+    the profiler's device time per launch and the chained time of the
+    path's cases beside the CUDA events around each call, torch.addmv beside
+    the float32 residuals; and K-T on pKMGpgm's first level, index_add_
+    beside the restriction (also by device and chained time)."""
     device = ops["pKMG"].state[0].inv_diag.device
     g = torch.Generator(device=device).manual_seed(22)
     for field, label in (("pKMG", "knn"), ("pSMG", "shuffled")):
@@ -3607,7 +3830,8 @@ def slice22_kernels(ops, report):
         else:
             nnz = int((lv.mat.vals != 0).sum())
             lane = 1  # each entry's source lane
-        for tag, vals in (("bf16", lv.data_s.to(torch.bfloat16)), ("f32", lv.mat.vals)):
+        bf16 = lv.data_s.to(torch.bfloat16)
+        for tag, vals in (("bf16", bf16), ("f32", lv.mat.vals)):
             entry = nnz * (vals.element_size() + lane)
             compare(f"{name}_sweep[{tag}]", label,
                     lambda v=vals: ((lv.kern.sweep(v, x, b, lv.inv_diag, RELAX),), ()),
@@ -3619,9 +3843,17 @@ def slice22_kernels(ops, report):
                     entry + 3 * n * 4, 2 * nnz + n, report, err=bit_err)
         csr = ell_csr(lv.mat) if kind == "Ell" else gdia_csr(lv.mat)
         f32 = lv.mat.vals
-        library_call(f"{name}_resid[f32]", label, "torch.addmv(b, A_csr, x, alpha=-1)",
-                     lambda: torch.addmv(b, csr, x, alpha=-1),
-                     lambda: lv.kern.resid(f32, x, b), f"{kind} level of {n} rows", report)
+        addmv = lambda: torch.addmv(b, csr, x, alpha=-1)  # noqa: E731
+        resid = lambda: lv.kern.resid(f32, x, b)  # noqa: E731
+        library_call(f"{name}_resid[f32]", label, "torch.addmv(b, A_csr, x, alpha=-1)", addmv,
+                     resid, f"{kind} level of {n} rows", report)
+        device_beside(f"{name}_resid[f32]", label, resid, addmv, report)
+        row = report[f"{name}_sweep[bf16]"][label]
+        sweep = lambda: lv.kern.sweep(bf16, x, b, lv.inv_diag, RELAX)  # noqa: E731
+        row["device_ms"], row["chain_ms"] = device_ms_per_launch(sweep), chain_ms(sweep)
+        dev = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.4f} ms"
+        print(f"  {name}_sweep[bf16] ({label}): device time per launch {dev} (profiler), "
+              f"chained {row['chain_ms']:.4f} ms, around each call {row['ms']:.4f} ms")
         del csr
     lv = ops["pKMGpgm"].state[0]
     tr = lv.transfer
@@ -3637,18 +3869,20 @@ def slice22_kernels(ops, report):
     compare("pgm_prolong", "knn", lambda: ((tr.prolong_add(x, ec),), ()),
             lambda: ((amg_level.pgm_prolong_add_plain(agg64, x, ec),), ()),
             n * 12 + nc * 4, n, report, err=bit_err)
-    library_call("pgm_restrict", "knn", "torch.zeros(nc).index_add_(0, agg, r)",
-                 lambda: torch.zeros(nc, device=device).index_add_(0, agg64, r),
+    index_add = lambda: torch.zeros(nc, device=device).index_add_(0, agg64, r)  # noqa: E731
+    library_call("pgm_restrict", "knn", "torch.zeros(nc).index_add_(0, agg, r)", index_add,
                  lambda: tr.restrict(r), f"{n} fine rows into {nc} aggregates", report)
+    device_beside("pgm_restrict", "knn", lambda: tr.restrict(r), index_add, report)
     print(f"  pgm_restrict: the same bits on two runs ({n} rows into {nc} aggregates)")
 
 
 def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
     """Phase 14.  Returns the launch counts of the path and its kernel
     report."""
-    print(f"== phase 14: slice 22, AMG on unstructured meshes (Gdia and Ell levels, pgm "
-          f"transfers), foam.solve at {m_knn.n} (kNN-6) and {int(np.prod(grid))} (shuffled "
-          "grid) cells")
+    print(f"== phase 14: slices 22-23, AMG on unstructured meshes (Gdia and Ell levels; the "
+          f"device V-cycle on Csr, Ell and Gdia outer operators; pgm transfers, the Xell outer "
+          f"and cycle w on the host cycle), foam.solve at {m_knn.n} (kNN-6) and "
+          f"{int(np.prod(grid))} (shuffled grid) cells")
     info = _build.build_info()
     for kernel in ("ell_smooth_kernel", "gdia_smooth_kernel", "restrict_kernel",
                    "prolong_kernel"):
@@ -3656,10 +3890,13 @@ def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
     t0 = time.perf_counter()
     m_shuf = testing.shuffled_poisson_ldu(grid)
     b_shuf = np.random.default_rng(0).normal(size=m_shuf.n).astype(np.float32)
-    print(f"host set-up: shuffled grid {time.perf_counter() - t0:.2f} s")
-    systems = {"knn": (m_knn, b_knn), "shuffled": (m_shuf, b_shuf)}
+    m_small = testing.shuffled_poisson_ldu(SHUFFLED_SMALL)
+    b_small = np.random.default_rng(0).normal(size=m_small.n).astype(np.float32)
+    print(f"host set-up: shuffled grids {time.perf_counter() - t0:.2f} s")
+    systems = {"knn": (m_knn, b_knn), "shuffled": (m_shuf, b_shuf),
+               "shuffled 262144": (m_small, b_small)}
     ctl = {**ctl, "verbose": 0, "adaptMinIter": False}
-    records, ops = {}, {}
+    records, ops, loops, launches = {}, {}, {}, {}
     kernels.reset_launches()
     for field, (mesh, spec) in SLICE22_SOLVES.items():
         mk, bk = systems[mesh]
@@ -3670,7 +3907,11 @@ def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
         wall = time.perf_counter() - t0
         perf.print()
         slv = registry.global_registry.get(f"{field}_solver")
-        check_slice22_launches(field, slv, before)
+        got = check_slice22_launches(field, slv, before)
+        if field in SLICE23_LOOPS:
+            loop, row, _ = SLICE23_LOOPS[field]
+            launches[row] = got[loop]
+            loops[field] = snapshot17(slv)
         if perf.solver_name != f"{spec['solver']}_{SLICE22_FORMATS[field]}":
             raise RuntimeError(f"{field} ran as {perf.solver_name}")
         it = max(perf.n_iterations, 1)
@@ -3683,11 +3924,21 @@ def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
         ops[field] = slv._precond_op
         records[field] = (x, perf, snapshot17(slv), torch.tensor(bk, device=device),
                           stopping.StoppingParams.of(slv.cfg.stopping))
-    launches = {k: kernels.launches[k] for k in SLICE22_KERNELS}
+    launches.update({k: kernels.launches[k] for k in SLICE22_KERNELS if k not in launches})
     print(f"launch counts over the path: {dict(kernels.launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
-        raise RuntimeError(f"slice 22's path never launched {missing}")
+        raise RuntimeError(f"slices 22-23's path never launched {missing}")
+    for variant in sorted({amg_loop.table_of(ops[f]).variant | amg_loop.OUTER_BITS[type(
+            slv.kern)] | (amg_loop.VARIANT_IR if SLICE23_LOOPS[f][0] == "amg_ir_loop" else 0)
+            for f, slv in loops.items()}):
+        smem = max(amg_loop.table_of(ops[f]).smem for f in loops)
+        blocks = amg_loop.loop_blocks(variant, device, smem)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"amg_loop grid, variant {variant} (amg_loop_kernel<{variant}>) at {smem} bytes "
+              f"of dynamic shared memory: {blocks} co-resident blocks of 512 ({blocks // sms} "
+              "per SM); ptxas: " + "; ".join(loop_ptxas(info["log"], variant,
+                                                        "amg_loop_kernel")))
 
     # ---- checks of the path (launches not counted) --------------------------
     for field, (x, perf, slv, bb, params) in records.items():
@@ -3703,13 +3954,22 @@ def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
         plain = slice22_route(slv, bb, params).iters
         torch.cuda.synchronize()
         bf16 = slv._precond_op.state[0].data_s.dtype == torch.bfloat16
-        print(f"{field}: iterations {perf.n_iterations}, final residual "
-              f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
-              f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the route over the plain twins on the "
-              f"card: {plain} iterations ({time.perf_counter() - t0:.2f} s)")
+        line = (f"{field}: iterations {perf.n_iterations}, final residual "
+                f"{perf.final_residual:.3e}, true float64 residual {tr:.3e} (limit "
+                f"{TRUE_RESIDUAL_MARGIN:g} x {TOL:g}); the host cycle over the plain twins on "
+                f"the card: {plain} iterations ({time.perf_counter() - t0:.2f} s)")
         if not -1 <= perf.n_iterations - plain <= (2 if bf16 else 1):
             raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {plain} over the "
                                "plain twins")
+        if field in SLICE23_LOOPS:
+            t0 = time.perf_counter()
+            _, twin, _ = loop_twin_solve(field, slv, bb, params)
+            line += (f"; the loop's plain twin on the card: {twin} iterations "
+                     f"({time.perf_counter() - t0:.2f} s)")
+            if abs(perf.n_iterations - twin) > 1:
+                raise RuntimeError(f"{field}: {perf.n_iterations} iterations vs {twin} over "
+                                   "the loop's plain twin")
+        print(line)
         if tr > TRUE_RESIDUAL_MARGIN * TOL:
             raise RuntimeError(f"{field}: true residual {tr:.3e} above the limit")
     del records
@@ -3730,9 +3990,14 @@ def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
           f"{(t1 - t0) * 1e3:.1f} ms, the pure-Python loop {(t2 - t1) * 1e3:.1f} ms, equal")
 
     # ---- the kernels against their twins ------------------------------------
+    report = {}
+    print("slice 23's device V-cycle variants vs their plain twins (x after "
+          f"{SLICE23_LOOP_ITERS[0]} pinned iterations within {AMG_LOOP_RTOL:.0e}*max(1,max|plain|)"
+          f"), per iteration over {SLICE23_LOOP_ITERS[1]} in turns with the host cycle:")
+    slice23_loop_rows(loops, report)
+    del loops
     print("slice 22's kernels vs their twins at 1M (bit-equal required; bound: the least "
           f"bytes over {PEAK_BYTES_PER_S / 1e12:.2f} TB/s):")
-    report = {}
     slice22_kernels(ops, report)
     del ops
     torch.cuda.empty_cache()
@@ -3963,6 +4228,84 @@ TURN_TRI_CODE = TURN_HEAD + (
     "state (three times the best of 3) {us[0]:.2f}, {us[1]:.2f}, {us[2]:.2f} us per "
     "iteration')\n")
 
+# one turn of `--turns-amg`: pKMG, gKMG and pSMG of phase 14 through
+# foam.solve at 1M cells (the kNN-6 mesh RCM-numbered, the shuffled grid),
+# and pMG and pGMG of phase 7 on the Poisson grid (the Dia device V-cycle),
+# each on resident state (time_device_solve, itself the best of 3, three
+# times) with its launches; then the Dia V-cycle's loop kernel alone on the
+# Poisson grids of 1M cells and 64x64x48 (bfloat16 coefficients, CG and
+# IR): the profiler's device time of pinned launches of 10 and 50
+# iterations, three rounds, whose difference over 40 is its time per
+# iteration; then the level smoothers of rows 27-28 on those
+# solves' fine levels (the Ell sweep in bfloat16, the residual in float32,
+# and the same on the Gdia level) by the profiler's device time per launch,
+# the chained time and CUDA events around each call, in three rounds; then
+# the pgm restriction of the kNN mesh's fine level (row 29) beside
+# index_add_ the same ways — only what this script's earlier versions have
+# too
+TURN_AMG_CODE = TURN_HEAD + TURN_KNN + (
+    "import scipy.sparse as sp\n"
+    "m_shuf = s.testing.shuffled_poisson_ldu(s.GRID_1M)\n"
+    "b_shuf = np.random.default_rng(0).normal(size=m_shuf.n).astype(np.float32)\n"
+    "m_p = s.testing.poisson_ldu(s.GRID_1M)\n"
+    "b_p = np.random.default_rng(0).normal(size=m_p.n).astype(np.float32)\n"
+    "systems = {'knn': (mk, bk), 'shuffled': (m_shuf, b_shuf), 'poisson': (m_p, b_p)}\n"
+    "solves = {**s.SLICE22_SOLVES, **{f: ('poisson', v) for f, v in s.AMG_SOLVES.items()}}\n"
+    "ctl = {'executor': 'cuda', 'tolerance': s.TOL, 'relTol': 0, 'adaptMinIter': False}\n"
+    "ops = {}\n"
+    "for f in ('pMG', 'pGMG', 'pKMG', 'gKMG', 'pSMG'):\n"
+    "    mesh, spec = solves[f]\n"
+    "    mm, bb = systems[mesh]\n"
+    "    s.kernels.reset_launches()\n"
+    "    _, perf = s.foam.solve(f, mm, bb, {**ctl, **spec})\n"
+    "    launched = {k: v for k, v in s.kernels.launches.items() if v}\n"
+    "    slv = s.registry.global_registry.get(f + '_solver')\n"
+    "    us = sorted(slv.time_device_solve() / perf.n_iterations * 1e6 for _ in range(3))\n"
+    "    print(f'  amg_solve {f}: {perf.n_iterations} iterations; on resident state (three times "
+    "the best of 3) {us[0]:.2f}, {us[1]:.2f}, {us[2]:.2f} us per iteration; the first solve '"
+    "f'launched {launched}')\n"
+    "    ops[f] = slv._precond_op\n"
+    "for grid in (s.GRID_1M, s.LOOP_FIXED_GRID):\n"
+    "    coo = s.ldu.ldu_to_coo_host(s.testing.poisson_ldu(grid), dtype=np.float32)\n"
+    "    mat = s.formats.coo_to_dia(coo, d)\n"
+    "    kern = s.CgKernels(mat.shape[0], mat.offsets, d)\n"
+    "    data = kern.pack_values(mat)\n"
+    "    op = s.amg.amg(coo, d, aggregation='auto', smoother_dtype=torch.bfloat16)\n"
+    "    b = torch.randn(kern.n, device=d, generator=torch.Generator(device=d).manual_seed(1))\n"
+    "    x0 = torch.zeros_like(b)\n"
+    "    r0 = b - kern.apply(data, x0)\n"
+    "    st = (torch.sum(torch.abs(r0)), s.merged_norm_factor(kern, data, r0, x0, b))\n"
+    "    for name, loop in (('cg', s.amg_loop.amg_cg_loop), ('ir', s.amg_loop.amg_ir_loop)):\n"
+    "        for rnd in range(3):\n"
+    "            t = {k: s.device_ms_per_launch(lambda k=k: loop(kern, data, op, x0.clone(), "
+    "r0.clone(), *st, s.checked_iterations(k)), reps=5) for k in (10, 50)}\n"
+    "            per = 'not measured' if None in t.values() else f'{(t[50] - t[10]) / 40 * 1e3:.2f}'\n"
+    "            print(f'  amg_dia_loop {rnd} {name} bf16 {kern.n} rows: device {per} us per "
+    "iteration (launches of 10 and 50 pinned: {t[10]} / {t[50]} ms)')\n"
+    "    del kern, data, op\n"
+    "g = torch.Generator(device=d).manual_seed(23)\n"
+    "def three(tag, fn):\n"
+    "    for rnd in range(3):\n"
+    "        dev, ch = s.device_ms_per_launch(fn), s.chain_ms(fn)\n"
+    "        ev = s.time_turns({'k': fn})['k']\n"
+    "        dev = 'not measured' if dev is None else f'{dev:.4f}'\n"
+    "        print(f'  amg_kernel {rnd} {tag}: device {dev} ms, chained {ch:.4f} ms, around each "
+    "call {ev:.4f} ms')\n"
+    "for f, label in (('pKMG', 'Ell kNN 1M'), ('pSMG', 'Gdia shuffled 1M')):\n"
+    "    lv = ops[f].state[0]\n"
+    "    x, b = (torch.randn(lv.n, device=d, generator=g) for _ in range(2))\n"
+    "    bf, f32 = lv.data_s.to(torch.bfloat16), lv.mat.vals\n"
+    "    three(f'sweep[bf16] {label}', lambda: lv.kern.sweep(bf, x, b, lv.inv_diag, 0.9))\n"
+    "    three(f'resid[f32] {label}', lambda: lv.kern.resid(f32, x, b))\n"
+    "c = s.ldu.ldu_to_coo_host(mk, dtype=np.float32)\n"
+    "agg = s.amg.pgm_aggregate(sp.csr_matrix((c.vals, (c.rows, c.cols)), shape=c.shape))\n"
+    "tr = s.amg_level.PgmTransfer(agg, int(agg.max()) + 1, d)\n"
+    "rr = torch.randn(tr.n, device=d, generator=g)\n"
+    "agg64 = tr.agg.long()\n"
+    "three(f'pgm_restrict kNN 1M into {tr.nc}', lambda: tr.restrict(rr))\n"
+    "three(f'index_add_ kNN 1M into {tr.nc}', lambda: torch.zeros(tr.nc, device=d)"
+    ".index_add_(0, agg64, rr))\n")
+
 TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
               "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_",
               "gather_solve", "ell_spmv", "hybrid_spmv", "csr_spmv", "sell_spmv", "torch CSR",
@@ -4007,6 +4350,8 @@ def main() -> int:
         return turns(sys.argv[2:], TURN_GMRES_CODE)
     if sys.argv[1:2] == ["--turns-tri"]:
         return turns(sys.argv[2:], TURN_TRI_CODE)
+    if sys.argv[1:2] == ["--turns-amg"]:
+        return turns(sys.argv[2:], TURN_AMG_CODE)
     return run(torch.device("cuda"), GRID_1M, GRID_8M, KNN_1M)
 
 

@@ -2,17 +2,25 @@
 
     python -m ogl_tpu_torch.amg_phases
 
-Builds `kernels/csrc/amg_loop.cu` once more with a stamp of %globaltimer
-(block 0, thread 0) at the start of the launch and after every grid
-barrier, into its own library under `kernels/build/phases/`, and runs 3
+Builds the kernel of `kernels/csrc/amg_loop.cuh` once more with a stamp of
+%globaltimer (block 0, thread 0) at the start of the launch and after every
+grid barrier, its Dia outer's variants and the mixed ones on the Csr and
+Gdia outers with amg_loop.cu's entry points, into its own library under
+`kernels/build/phases/`, and runs 3
 pinned iterations of the CG and the IR variant (bfloat16 smoother
-coefficients, the `auto` hierarchy of `testing.poisson_ldu`) at 1,048,576
-cells and at 64×64×48.  It prints, for each phase in the kernel's order,
-the microseconds from the barrier before it to the barrier after it (the
-phase's work and its barrier), the median over the pinned iterations, and
-then the stamped and the package's own kernel per iteration over 50 pinned
-iterations (CUDA events), which shows what the stamps cost.  Needs a card;
-nothing else of the package uses this module.
+coefficients) on two kinds of hierarchy: the `auto` hierarchy of
+`testing.poisson_ldu` (Dia levels, Dia outer) at 1,048,576 cells and at
+64×64×48, and GKOCG + Multigrid on the RCM-numbered kNN-6 mesh of
+1,048,576 cells as Csr (`pKMG` of chip_smoke.py: Ell levels, natural
+transfers, a Dia coarsest level) and GKOCG + Multigrid on the shuffled
+grid of 1,048,576 cells as Gdia (`pSMG`: a Gdia fine level), each with the
+levels staged and with the register and direct bodies (`unstaged`: the
+same table with no Ell level staged).  It prints, for each
+phase in the kernel's order, the microseconds from the barrier before it to the barrier
+after it (the phase's work and its barrier), the median over the pinned
+iterations, and then the stamped and the package's own kernel per
+iteration over 50 pinned iterations (CUDA events), which shows what the
+stamps cost.  Needs a card; nothing else of the package uses this module.
 """
 
 from __future__ import annotations
@@ -27,13 +35,16 @@ import torch
 
 from ogl_tpu_torch import testing
 from ogl_tpu_torch.core import formats, ldu
-from ogl_tpu_torch.kernels import _build, amg_loop
-from ogl_tpu_torch.kernels.fused import LOOP_THREADS, CgKernels
+from ogl_tpu_torch.kernels import _build, amg_loop, gdia
+from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
+from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels
 from ogl_tpu_torch.precond import amg
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
 
 GRIDS = ((128, 128, 64), (64, 64, 48))
+KNN_CELLS = 1 << 20  # the kNN-6 mesh of pKMG (chip_smoke.py phase 14)
+STAGE_FIELD = 22  # a level's slots per staged Ell chunk in the table (amg_loop.LevelTable)
 PINNED, TIMED = 3, 50
 STAMP = """
 __device__ unsigned long long g_stamp[1024];
@@ -58,21 +69,36 @@ _ANCHORS = ("namespace cg = cooperative_groups;\n", "grid.sync();",
 
 
 def stamped_source(src: str) -> str:
-    """amg_loop.cu with a stamp at the launch's start and after every
+    """amg_loop.cuh with a stamp at the launch's start and after every
     grid.sync(); raises if the source no longer has the anchors."""
     for a in _ANCHORS:
         if a not in src:
-            raise RuntimeError(f"amg_loop.cu has no {a!r}: update amg_phases.py")
+            raise RuntimeError(f"amg_loop.cuh has no {a!r}: update amg_phases.py")
     src = src.replace(_ANCHORS[0], _ANCHORS[0] + STAMP, 1)
     src = src.replace(_ANCHORS[1], "grid.sync(); stamp();")
     return src.replace(_ANCHORS[2], _ANCHORS[2].replace("\n\n", "\n  stamp();\n\n"))
 
 
+# the stamped library's variants: the Dia outer's (amg_loop.cu), and the
+# mixed ones on the Csr and Gdia outers (the Ell outer's are left out: their
+# entries return no kernel)
+_OUTERS = ("OGL_AMG_LOOP_KERNELS(loop_kernel_csr_cg, ogl::amg::kOuterCsr)\n"
+           "OGL_AMG_LOOP_KERNELS(loop_kernel_csr_ir, ogl::amg::kOuterCsr | ogl::amg::kIr)\n"
+           "OGL_AMG_LOOP_KERNELS(loop_kernel_gdia_cg, ogl::amg::kOuterGdia)\n"
+           "OGL_AMG_LOOP_KERNELS(loop_kernel_gdia_ir, ogl::amg::kOuterGdia | ogl::amg::kIr)\n"
+           "namespace ogl {\nnamespace amg {\n"
+           + "".join(f"const void* loop_kernel_{k}(int) {{ return nullptr; }}\n"
+                     for k in ("ell_cg", "ell_ir"))
+           + "}\n}\n")
+
+
 def build() -> ctypes.CDLL:
-    src = stamped_source((_build.CSRC / "amg_loop.cu").read_text())
-    out = _build.BUILD / "phases" / hashlib.sha256(src.encode()).hexdigest()[:16]
+    header = stamped_source((_build.CSRC / "amg_loop.cuh").read_text())
+    unit = (_build.CSRC / "amg_loop.cu").read_text() + _OUTERS
+    out = _build.BUILD / "phases" / hashlib.sha256((header + unit).encode()).hexdigest()[:16]
     out.mkdir(parents=True, exist_ok=True)
-    (out / "amg_loop.cu").write_text(src)
+    (out / "amg_loop.cuh").write_text(header)  # found before csrc/'s by the unit's include
+    (out / "amg_loop.cu").write_text(unit)
     lib_path = out / "lib.so"
     if not lib_path.is_file():
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
@@ -88,7 +114,7 @@ def build() -> ctypes.CDLL:
 
 
 def phase_names(op, ir: bool, iters: int) -> list[str]:
-    """The kernel's barriers in order, named (csrc/amg_loop.cu vcycle)."""
+    """The kernel's barriers in order, named (csrc/amg_loop.cuh vcycle)."""
     s, nlev = op.smooth_iters, len(op.state)
     cycle = []
     for lv in range(nlev - 1):
@@ -107,24 +133,18 @@ def phase_names(op, ir: bool, iters: int) -> list[str]:
 
 def launch(lib, kern, data, op, x, r, absr, nf, cfg, ir):
     """amg_loop._launch through `lib`."""
-    tab = amg_loop.table_of(op)
-    variant = tab.variant | (amg_loop.VARIANT_IR if ir else 0)
-    blocks = ctypes.c_int64()
-    _build.check(lib.ogl_amg_loop_grid(variant, LOOP_THREADS, ctypes.byref(blocks)), "grid")
-    nb = min(blocks.value, -(-kern.n // LOOP_THREADS))
-    z = torch.empty_like(x)
-    p, pn, q = ((None,) * 3 if ir else
-                (torch.zeros_like(x), torch.empty_like(x), torch.empty_like(x)))
-    partials = torch.empty(3 * nb, device=x.device)
-    record = torch.empty(4, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _build.check(lib.ogl_amg_loop(
-        variant, tab.table.data_ptr(), tab.n_levels, data.data_ptr(),
-        kern.plan.offsets_dev.data_ptr(), len(kern.offsets), x.data_ptr(), r.data_ptr(),
-        z.data_ptr(), ptr(p), ptr(pn), ptr(q), absr.data_ptr(), nf.data_ptr(),
-        partials.data_ptr(), record.data_ptr(), kern.n, int(kern.n % 4 == 0), op.relax,
-        op.smooth_iters, cfg.tolerance, cfg.rel_tol, cfg.min_iter, cfg.max_iter,
-        cfg.frequency, LOOP_THREADS, nb, torch.cuda.current_stream().cuda_stream), "amg_loop")
+    amg_loop._launch("amg_ir_loop" if ir else "amg_cg_loop", kern, data, op, x, r, absr, nf,
+                     cfg, lib=lib)
+
+
+def unstaged(op) -> amg_loop.LevelTable:
+    """op's level table with no level staged: every Ell level's stage
+    column (its slots per staged chunk) 0, the register body, and no dynamic
+    shared memory."""
+    tab = amg_loop.LevelTable(op.state)
+    tab.table[:, STAGE_FIELD] = 0
+    tab.smem = 0
+    return tab
 
 
 def per_iteration_ms(fn, reps=5) -> float:
@@ -140,24 +160,48 @@ def per_iteration_ms(fn, reps=5) -> float:
     return statistics.median(times)
 
 
+def systems(dev):
+    """(label, plan, packed values, AmgOp) of each hierarchy measured: the
+    Poisson grids' Dia hierarchies, then pKMG's (kNN-6 mesh as Csr)."""
+    for grid in GRIDS:
+        coo = ldu.ldu_to_coo_host(testing.poisson_ldu(grid), dtype=np.float32)
+        mat = formats.coo_to_dia(coo, dev)
+        kern = CgKernels(mat.shape[0], mat.offsets, dev)
+        op = amg.amg(coo, dev, aggregation="auto", smoother_dtype=torch.bfloat16)
+        yield "x".join(map(str, grid)), kern, kern.pack_values(mat), op
+    mo, perm = testing.knn_ldu(KNN_CELLS)
+    coo = ldu.ldu_to_coo_host(testing.renumber_ldu(mo, np.argsort(perm)), dtype=np.float32)
+    mat = formats.coo_to_csr(coo, dev)
+    kern = CsrCgKernels(mat)
+    op = amg.amg(coo, dev, max_levels=9, min_coarse_rows=10, aggregation="auto",
+                 smoother_dtype=torch.bfloat16)
+    yield f"pKMG kNN-6 {KNN_CELLS} as Csr", kern, kern.pack_values(mat), op
+    op.loop_table = unstaged(op)
+    yield f"pKMG kNN-6 {KNN_CELLS} as Csr, unstaged", kern, kern.pack_values(mat), op
+    coo = ldu.ldu_to_coo_host(testing.shuffled_poisson_ldu(GRIDS[0]), dtype=np.float32)
+    mat = gdia.gdia_from_coo(coo, device=dev)
+    kern = GdiaCgKernels(mat.shape[0], mat.plane_offsets, dev)
+    op = amg.amg(coo, dev, max_levels=9, min_coarse_rows=10, aggregation="auto",
+                 smoother_dtype=torch.bfloat16)
+    yield f"pSMG shuffled {mat.shape[0]} as Gdia", kern, kern.pack_values(mat), op
+    op.loop_table = unstaged(op)
+    yield f"pSMG shuffled {mat.shape[0]} as Gdia, unstaged", kern, kern.pack_values(mat), op
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("amg_phases needs an NVIDIA GPU")
     dev = torch.device("cuda")
     lib = build()
     buf, count = (ctypes.c_ulonglong * 1024)(), ctypes.c_int()
-    for grid in GRIDS:
-        coo = ldu.ldu_to_coo_host(testing.poisson_ldu(grid), dtype=np.float32)
-        mat = formats.coo_to_dia(coo, dev)
-        kern = CgKernels(mat.shape[0], mat.offsets, dev)
-        data = kern.pack_values(mat)
-        op = amg.amg(coo, dev, aggregation="auto", smoother_dtype=torch.bfloat16)
+    for label, kern, data, op in systems(dev):
         b = torch.randn(kern.n, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
         x0 = torch.zeros_like(b)
         r0 = b - kern.apply(data, x0)
         state = (torch.sum(torch.abs(r0)), merged_norm_factor(kern, data, r0, x0, b))
-        label = "x".join(map(str, grid))
-        print(f"== {label}: levels {[lv.n for lv in op.state]}, bfloat16 smoother coefficients")
+        levels = ", ".join(f"{type(lv.mat).__name__} {lv.n}" for lv in op.state)
+        print(f"== {label}: levels {levels}, bfloat16 smoother coefficients, "
+              f"{amg_loop.table_of(op).smem} bytes of staged shared memory")
         for ir in (False, True):
             name = "amg_ir_loop" if ir else "amg_cg_loop"
             pinned = stopping.StoppingParams(0.0, 0.0, PINNED, PINNED, 1)
@@ -186,6 +230,8 @@ def main() -> int:
             print(f"  {name} {label}: phases sum to {total:.1f} us per iteration; over {TIMED} "
                   f"pinned iterations {ms_stamped:.4f} ms stamped, {ms_package:.4f} ms the "
                   "package's kernel")
+        del kern, data, op
+        torch.cuda.empty_cache()
     return 0
 
 

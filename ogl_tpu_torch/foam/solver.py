@@ -62,14 +62,17 @@ ISAI/GISAI through the SpMV kernels of M (and Mᵀ), on a host loop:
                        of the Arnoldi kernel and one read of h; `krylovDim`,
                        `basisPrecision bfloat16`
   GKOMultigrid         Richardson around one AMG cycle (solve/ir.py
-                       `ir_fused` on the Dia plan; on any other format
-                       `ir` over the format's SpMV kernel)
-GKOCG + Multigrid (merged, on Dia) and GKOMultigrid on Dia run their whole
-solve, V-cycle included, as one launch of the AMG loop kernel on the card
-when the hierarchy qualifies (kernels/amg_loop.py: cycle v, Dia levels,
-grid or natural transfers, a dense coarse inverse); otherwise the host
-launches the cycle — on Gdia and Xell inside the merged CG (the format's
-K1, K2n), on Coo, Csr, Ell, Sell and Hybrid inside the general CG.
+                       `ir_fused` on the plan of Dia, Gdia, Ell, Hybrid,
+                       Csr or Coo; on Xell and Sell `ir` over the format's
+                       SpMV kernel)
+GKOCG + Multigrid (merged on Dia and Gdia, the general CG on Ell, Hybrid,
+Csr and Coo) and GKOMultigrid on those formats run their whole solve,
+V-cycle included, as one launch of the AMG loop kernel on the card when
+the hierarchy qualifies (kernels/amg_loop.py: cycle v, Dia, Gdia and Ell
+levels, grid or natural transfers, a dense coarse inverse); otherwise the
+host launches the cycle — on Xell inside the merged CG (the format's K1,
+K2n), on Sell inside the general CG, and on every format for pgm, cycle w
+or f and a coarse CG.
 The reference's TPU-only route gates (Pallas usability, the 32k-row floor
 of the merged kernels, the f32-frame test, the working-set gate of the
 z-free variant, the frame geometry its framed AMG must share) are not
@@ -90,7 +93,7 @@ from ogl_tpu_torch import common, device_for, precond, registry
 from ogl_tpu_torch.config import SolverConfig, parse_controls
 from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.core.reorder import rcm_permutation
-from ogl_tpu_torch.kernels import spmv
+from ogl_tpu_torch.kernels import amg_loop, spmv
 from ogl_tpu_torch.kernels.block_jacobi import MAX_BLOCK
 from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
@@ -102,6 +105,7 @@ from ogl_tpu_torch.solve.bicgstab import bicgstab
 from ogl_tpu_torch.solve.bicgstab import why_not as bicgstab_why_not
 from ogl_tpu_torch.solve.bicgstab_fused import bicgstab_fused
 from ogl_tpu_torch.solve.cg import cg
+from ogl_tpu_torch.solve.cg import gather_why_not
 from ogl_tpu_torch.solve.cg import why_not as cg_why_not
 from ogl_tpu_torch.solve.cg_fused import cg_fused
 from ogl_tpu_torch.solve.cg_pipe import cg_pipelined
@@ -325,6 +329,21 @@ class FoamSolver:
             return CgKernels(self._n, m.offsets, self.device)
         raise TypeError(f"no merged-CG plan for the {formats.format_name(m)} format")
 
+    def _amg_outer_plan(self, merged: bool):
+        """The plan the AMG loop kernel takes as its outer operator
+        (kernels/amg_loop.py OUTER_PLANS: Dia and Gdia where `merged` —
+        GKOMultigrid; the general GKOCG + Multigrid on them is `fusedCG
+        false`, which keeps its host loop —, Ell and Hybrid, Csr and Coo), or
+        None (Xell, Sell, a Csr whose SpMV takes more than one lane per
+        row)."""
+        m = self.matrix
+        if isinstance(m, (formats.Dia, Gdia)):
+            return self._kernel_plan() if merged else None
+        plan = _GATHER_PLANS.get(type(m))
+        if plan in amg_loop.OUTER_PLANS and gather_why_not(m) is None:
+            return plan.for_matrix(m)
+        return None
+
     def _init_reorder(self) -> None:
         """`reorder rcm`: the RCM permutation of the sparsity and the
         renumbered row-major structure (the reference's renumberMesh
@@ -374,14 +393,17 @@ class FoamSolver:
                     # only the blocks whose values change
                     self._stage_blocks()
             self.route = _route(cfg, self.matrix)
-            # "ir" (GKOMultigrid) keeps the Dia plan for its device loop,
+            # "ir" (GKOMultigrid) keeps the plan of the AMG loop's outer
+            # formats for its device loop, and so does "cg" with Multigrid;
             # "bicgstab" and "cg" where their loop kernel takes the solve
             # (why_not None)
             why_not = {"bicgstab": bicgstab_why_not, "cg": cg_why_not}.get(self.route)
-            dia = isinstance(self.matrix, formats.Dia)
-            if (self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused")
-                    or (self.route == "ir" and dia)):
+            amg_outer = self.route == "ir" or (self.route == "cg"
+                                               and cfg.precond.name == "Multigrid")
+            if self.route in ("cg_fused", "cg_pipe_fused", "bicgstab_fused"):
                 self.kern = self._kernel_plan()
+            elif amg_outer:
+                self.kern = self._amg_outer_plan(self.route == "ir")
             elif why_not is not None and why_not(self.matrix, cfg.precond.name,
                                                  cfg.precond.max_block_size) is None:
                 # the general loops' plan: a gather format's own, else the merged one
@@ -521,6 +543,7 @@ class FoamSolver:
         invd = self._precond_op.state if scalar_bj else None
         inv_t = self._precond_op.state if bj and not scalar_bj else None
         general = {"cg": cg, "cg_pipe": cg_pipelined, "bicgstab": bicgstab}
+        multigrid = self.cfg.precond.name == "Multigrid"
         basis = torch.bfloat16 if self.cfg.basis_precision == "bfloat16" else None
 
         def run():
@@ -536,6 +559,8 @@ class FoamSolver:
                     data = kern.pack_values(mat)
                     if route == "bicgstab":
                         return bicgstab(ops, b_dev, x0, params, kern, data, invd, inv_t)
+                    if route == "cg" and multigrid:  # the AMG loop's outer plan
+                        return cg(ops, b_dev, x0, params, kern, data, precond=apply_pc)
                     return general[route](ops, b_dev, x0, params, kern, data, invd)
                 return general[route](ops, b_dev, x0, params)
             data = kern.pack_values(mat)

@@ -199,13 +199,14 @@ _SIGNATURES = {
     # table, n_buckets, slice_buckets, slice_widths, slot_rows, cols, vals, slots,
     # slice_height, x, y, n, blocks, stream
     "ogl_sell_spmv": (_P, _INT, _P, _P, _P, _P, _P, _I64, _INT, _P, _P, _I64, _I64, _P),
-    # variant, threads, blocks (out)
-    "ogl_amg_loop_grid": (_INT, _INT, ctypes.POINTER(_I64)),
-    # variant, table, levels, data, offsets, nd, x, r, z, p, pn, q, absr, nf, partials, record,
-    # n, vec, relax, sweeps, tol, rel_tol, min_iter, max_iter, frequency, threads, blocks,
-    # stream
-    "ogl_amg_loop": (_INT, _P, _INT, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                     _INT, _F32, _INT, _F32, _F32, _INT, _INT, _INT, _INT, _I64, _P),
+    # variant, threads, smem, blocks (out)
+    "ogl_amg_loop_grid": (_INT, _INT, _I64, ctypes.POINTER(_I64)),
+    # variant, table, levels, outer (8 int64 words on the host), x, r, z, p, pn, q, absr, nf,
+    # partials, record, n, vec, relax, sweeps, tol, rel_tol, min_iter, max_iter, frequency,
+    # threads, blocks, smem, stream
+    "ogl_amg_loop": (_INT, _P, _INT, ctypes.POINTER(_I64), _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _I64, _INT, _F32, _INT, _F32, _F32, _INT, _INT, _INT, _INT, _I64, _I64,
+                     _P),
 }
 
 _lock = threading.Lock()

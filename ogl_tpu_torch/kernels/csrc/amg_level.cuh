@@ -66,6 +66,24 @@ __device__ __forceinline__ void gdia_smooth_quad(const T* __restrict__ vals,
   }
 }
 
+// Row i of a Gdia level alone: its row of gdia_quad_sums (the planes in
+// order, each term rounded as gdia_gather rounds it), for the callers that
+// walk rows, not quads (the device V-cycle's transfers).
+template <typename T, class Src>
+__device__ __forceinline__ float gdia_row_sum(const T* __restrict__ vals,
+                                              const int8_t* __restrict__ lidx, const int* s_q,
+                                              int np, int64_t plane, const Src& src, int64_t i,
+                                              int64_t n) {
+  const int64_t row = i / kGdiaLanes;
+  float acc = 0.0f;
+  for (int k = 0; k < np; ++k) {
+    const int64_t at = static_cast<int64_t>(k) * plane + i;
+    const int64_t j = (row + s_q[k]) * kGdiaLanes + __ldg(lidx + at);
+    gdia_gather(acc, to_f32(__ldg(vals + at)), j, n, src);
+  }
+  return acc;
+}
+
 // Coarse row c of the restriction: members[starts[c] .. starts[c+1]) are its
 // fine rows, ascending.
 __device__ __forceinline__ float pgm_restrict_row(const int* __restrict__ starts,

@@ -1,0 +1,8 @@
+// The AMG loop kernel's float32 and bfloat16 variants of GKOMultigrid (the
+// Richardson loop) on an Ell or Hybrid outer operator: the IR residual takes
+// ell_rows.cuh's row body (with a Hybrid's tail).  The kernel, its phases and
+// their design are amg_loop.cuh's; the entry points are amg_loop.cu's.  A
+// source of its own, so that nvcc builds it beside the others.
+#include "amg_loop.cuh"
+
+OGL_AMG_LOOP_KERNELS(loop_kernel_ell_ir, ogl::amg::kOuterEll | ogl::amg::kIr)

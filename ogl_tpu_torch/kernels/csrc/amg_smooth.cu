@@ -10,7 +10,7 @@
 // window of x per sequential tile (double-buffered) and shift it with lane
 // rolls; here the shift is the choice of one or two aligned quads.  The row
 // body is amg_smooth.cuh, also the smoothing phases of the device V-cycle
-// (amg_loop.cu).
+// (amg_loop.cuh).
 //
 // Bound: device-memory bandwidth.  Per row: nd coefficients (4 bytes each in
 // float32, 2 in bfloat16), x, b (and invd) in, out written; the shifted x

@@ -1,6 +1,6 @@
 // The row body of the AMG smoother passes, shared by the standalone sweep
 // and residual (amg_smooth.cu) and the smoothing phases of the device
-// V-cycle (amg_loop.cu), so both run the same arithmetic:
+// V-cycle (amg_loop.cuh), so both run the same arithmetic:
 //   (A x)[i] = sum_k data[k*n + i] * x(i + off_k)   (terms outside [0, n) dropped)
 //   sweep:  out[i] = x(i) + (relax * invd[i]) * (b[i] - (A x)[i])
 //   resid:  out[i] = b[i] - (A x)[i]

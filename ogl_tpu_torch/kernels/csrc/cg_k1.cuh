@@ -1,6 +1,6 @@
 // The row body of K1, shared by the standalone K1 (cg_k1.cu) and the K1
 // phases of the persistent CG loop (cg_loop.cu) and of the device V-cycle's
-// CG loop (amg_loop.cu), so all run the same arithmetic:
+// CG loop (amg_loop.cuh), so all run the same arithmetic:
 //   p'(j) = z[j] + beta * p[j]
 //   q[i]  = sum_k data[k*n + i] * p'(i + off_k)   (terms outside [0, n) dropped)
 // p' at the neighbours is recomputed from z and p rather than read back:

@@ -8,7 +8,7 @@
 // Replaces: ogl_tpu/kernels/fused.py `_k2n_kernel` (called through
 // `CgKernels.k2n`, on the host-launched AMG route: a hierarchy the device
 // V-cycle does not take).  Its body (cg_k2n.cuh) is also the K2n phase of
-// the device V-cycle's CG loop (amg_loop.cu).  Plain twin: `k2n_plain` in
+// the device V-cycle's CG loop (amg_loop.cuh).  Plain twin: `k2n_plain` in
 // ogl_tpu_torch/kernels/fused.py.
 //
 // Bound: device-memory bandwidth.  Per row it reads x, r, p, q and writes x

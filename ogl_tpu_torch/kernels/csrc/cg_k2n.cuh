@@ -1,6 +1,6 @@
 // The body of K2n (the K2 of a CG preconditioned by a rich preconditioner,
 // here the AMG cycle), shared by the standalone K2n (cg_k2n.cu) and the K2n
-// phase of the device V-cycle's CG loop (amg_loop.cu):
+// phase of the device V-cycle's CG loop (amg_loop.cuh):
 //   x[i] += alpha * p[i] ;  r[i] -= alpha * q[i]      (in place)
 //   ab += |r'[i]|                                     (this thread's share)
 // over rows first, first + step, ... (vec = 0) or over row quads (vec = 1:

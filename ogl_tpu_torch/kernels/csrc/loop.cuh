@@ -1,6 +1,6 @@
 // What the persistent cooperative loop kernels share (cg_loop.cu,
 // xell_cg_loop.cu, cg_pipe_loop.cu, bicgstab_loop.cu, bicgstab_gen_loop.cu,
-// amg_loop.cu).
+// amg_loop.cuh).
 //   * the OpenFOAM criterion as it runs on the device (stopping.py
 //     `check_from_norm`): the minIter/frequency gating on the iteration
 //     index, the normalised residual in float32, tol and relTol as float;

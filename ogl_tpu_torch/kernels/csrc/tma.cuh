@@ -65,6 +65,12 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// The issuing thread's cross-proxy fence before its bulk copies overwrite
+// shared memory that plain loads and stores last read or wrote.
+__device__ __forceinline__ void fence_proxy_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // L2 policies for a copy's lines: kept before other lines (a first read
 // whose bytes are read again soon), or dropped first (their last read).
 __device__ __forceinline__ uint64_t evict_last_policy() {

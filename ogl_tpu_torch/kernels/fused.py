@@ -6,7 +6,7 @@ in CUDA C++ (`csrc/cg_k1.cu`, `csrc/cg_k2.cu`, `csrc/cg_k2i.cu`,
 `csrc/bicgstab_kb_update.cu`, `csrc/cg_k2n.cu`, `csrc/amg_smooth.cu`,
 `csrc/cg_loop.cu`, `csrc/cg_pipe_loop.cu`, `csrc/bicgstab_loop.cu`,
 `csrc/bicgstab_gen_loop.cu`), each beside its plain PyTorch twin (the AMG
-solves' own loop kernel, `csrc/amg_loop.cu`, is wrapped by
+solves' own loop kernel, `csrc/amg_loop.cuh`, is wrapped by
 kernels/amg_loop.py).
 
 Counterpart: ogl_tpu/kernels/fused.py (`CgKernels.k1`/`k2`/`k2i`/`k2n`/

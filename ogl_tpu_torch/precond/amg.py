@@ -32,12 +32,12 @@ atomics) — XLA ops in the reference, not Pallas kernels —, and the coarsest
 solve as one `torch.mv` against the dense inverse (or, for `coarseSolver
 cg`, fixed-iteration CG on the coarsest level's own SpMV kernel).
 `cycle_op` returns an `AmgOp`, which records the settings the cycle runs
-at: a hierarchy that kernels/amg_loop.py `qualifies` (cycle v, Dia levels,
-grid or natural transfers, a dense coarse inverse) runs its whole solve
-with the cycle on the device on the card instead (kernels/csrc/
-amg_loop.cu), over a level table built once per hierarchy and kept on the
-op; any other hierarchy — a Gdia or Ell level, pgm transfers — keeps this
-host-launched cycle.
+at: a hierarchy that kernels/amg_loop.py `qualifies` (cycle v, Dia, Gdia
+and Ell levels, grid or natural transfers, a dense coarse inverse) runs
+its whole solve with the cycle on the device on the card instead
+(kernels/csrc/amg_loop.cuh), over a level table built once per hierarchy
+and kept on the op; any other hierarchy — pgm transfers, cycle w or f, a
+coarse CG — keeps this host-launched cycle.
 
 Deliberate differences from the reference:
   * smoother coefficients are packed in `smoother_dtype` (bfloat16 by
@@ -66,7 +66,7 @@ from ogl_tpu_torch.core.formats import Coo, Dia, Ell, coo_to_dia, coo_to_ell
 from ogl_tpu_torch.kernels import spmv
 from ogl_tpu_torch.kernels.amg_level import EllSmoother, GdiaSmoother, PgmTransfer
 from ogl_tpu_torch.kernels.dia_spmv import MAX_DIAGS
-from ogl_tpu_torch.kernels.fused import CgKernels
+from ogl_tpu_torch.kernels.fused import CgKernels, kresid_plain, ksweep_plain
 from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
 from ogl_tpu_torch.precond import PrecondOp
 
@@ -409,17 +409,28 @@ def _prolong_add(lv: Level, x: torch.Tensor, ec: torch.Tensor) -> torch.Tensor:
 # ---- smoother passes -------------------------------------------------------
 
 
-def _sweep(lv: Level, x: torch.Tensor, b: torch.Tensor, relax: float) -> torch.Tensor:
-    """x + relax·invd ⊙ (b − A x) through the level format's smoother."""
+def _sweep(lv: Level, x: torch.Tensor, b: torch.Tensor, relax: float,
+           plain: bool = False) -> torch.Tensor:
+    """x + relax·invd ⊙ (b − A x) through the level format's smoother, or
+    with `plain` through its plain twin on either device."""
     if isinstance(lv.kern, CgKernels):
+        if plain:
+            return ksweep_plain(lv.data_s, lv.mat.offsets, x, b, lv.inv_diag, relax)
         return lv.kern.ksweep(lv.data_s, x, b, lv.inv_diag, relax)
+    if plain:
+        return lv.kern.twin(lv.data_s, x, b, lv.inv_diag, relax)
     return lv.kern.sweep(lv.data_s, x, b, lv.inv_diag, relax)
 
 
-def _resid(lv: Level, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """b − A x through the level format's smoother."""
+def _resid(lv: Level, x: torch.Tensor, b: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """b − A x through the level format's smoother, or with `plain` its
+    plain twin."""
     if isinstance(lv.kern, CgKernels):
+        if plain:
+            return kresid_plain(lv.data_s, lv.mat.offsets, x, b)
         return lv.kern.kresid(lv.data_s, x, b)
+    if plain:
+        return lv.kern.twin(lv.data_s, x, b, None, 0.0)
     return lv.kern.resid(lv.data_s, x, b)
 
 

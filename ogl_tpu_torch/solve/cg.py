@@ -18,7 +18,11 @@ loop, criterion included, is then one launch of its `cg_loop`
 (csrc/cg_loop.cu's variant of the format). That loop computes this one's
 values in the merged order of solve/cg_fused.py: ρ and ‖r‖₁ come from the
 update of r (K2), z, p and q = A p from one phase (K1), so only the order
-of the reductions differs. A refused launch raises. Everything else runs
+of the reductions differs. With Multigrid (`precond`, the AmgOp) on an Ell,
+Hybrid, Csr or device-Coo plan, a hierarchy the device V-cycle takes
+(kernels/amg_loop.py `takes_loop`) runs the whole solve as one launch of
+`amg_cg_loop` (csrc/amg_loop.cuh, the plan's K1 phase), in the same merged
+order after the same set-up. A refused launch raises. Everything else runs
 the host loop below.
 """
 
@@ -29,6 +33,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ogl_tpu_torch.core.formats import Csr, Ell, Hybrid, Sell, format_name
+from ogl_tpu_torch.kernels import amg_loop
 from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
 from ogl_tpu_torch.kernels.gather_spmv import CSR_GROUP_FROM, csr_group
@@ -87,16 +92,24 @@ def gather_why_not(mat) -> str | None:
     return None
 
 
-def cg(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None) -> SolveResult:
+def cg(ops: Ops, b, x0, cfg, kern=None, data=None, invd=None, precond=None) -> SolveResult:
     """kern, data: the matrix's plan and kern.pack_values(mat), where
-    why_not is None (else None: the host loop); invd: the scalar Jacobi
-    inverse diagonal when ops.precond is invd ⊙ ·, None with identity."""
+    why_not is None or, with Multigrid, the device V-cycle may take the
+    plan (else None: the host loop); invd: the scalar Jacobi inverse
+    diagonal when ops.precond is invd ⊙ ·, None with identity; precond: the
+    AmgOp that ops.precond applies, with Multigrid."""
     dtype = b.dtype
     x = x0.to(dtype).clone()
     r = b - ops.matvec(x)
     nf = stopping.initial_norm_factor(ops, r, x, b)
+    if precond is not None:
+        if amg_loop.takes_loop(kern, precond, b):
+            iters, rn, init_rn, converged = amg_loop.amg_cg_loop(
+                kern, data, precond, x, r, torch.sum(torch.abs(r)), nf, cfg)
+            return SolveResult(x=x, iters=iters, init_res_norm=init_rn, final_res_norm=rn,
+                               converged=converged)
     # the exact type: a subclass that overrides a step keeps the host loop
-    if type(kern) in LOOP_PLANS and b.device.type == "cuda":
+    elif type(kern) in LOOP_PLANS and b.device.type == "cuda":
         z = r if invd is None else invd * r
         iters, rn, init_rn, converged = kern.cg_loop(
             data, x, r, torch.sum(r * z), torch.sum(torch.abs(r)), nf, cfg, invd=invd,

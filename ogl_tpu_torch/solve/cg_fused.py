@@ -15,11 +15,11 @@ persistent kernel (`CgKernels.cg_loop`, csrc/cg_loop.cu; Xell:
 `XellCgKernels.cg_loop`, csrc/xell_cg_loop.cu, its K1 phase the Xell band
 body): one launch per solve and one host read of its record, as the
 reference runs the loop as one device program.  So is the
-AMG-preconditioned loop on a Dia matrix on the card when the hierarchy
-qualifies (kernels/amg_loop.py `takes_loop`: cycle v, grid or natural
-transfers, a dense coarse inverse): K1, K2n and the V-cycle are the phases
-of `amg_cg_loop` (csrc/amg_loop.cu), whose set-up's z = M r₀ runs inside
-the launch too.  Every other case — the CPU, a hierarchy that keeps the
+AMG-preconditioned loop on a Dia or Gdia matrix on the card when the
+hierarchy qualifies (kernels/amg_loop.py `takes_loop`: cycle v, Dia, Gdia
+and Ell levels, grid or natural transfers, a dense coarse inverse): K1,
+K2n and the V-cycle are the phases of `amg_cg_loop` (csrc/amg_loop.cuh),
+whose set-up's z = M r₀ runs inside the launch too.  Every other case — the CPU, a hierarchy that keeps the
 host cycle, a plan that subclasses one of these to override a step —
 loops on the host.  The iteration counter and the minIter/frequency gating
 are then host integers; α, β, ρ, δ, ‖r‖₁ and the normalised residual stay 0-d

@@ -4,19 +4,21 @@ Counterpart: ogl_tpu/solve/ir.py (the shape without `inner_solve`).  It is
 what GKOMultigrid runs, with M⁻¹ one AMG cycle.  Same OpenFOAM criterion
 and host loop as solve/cg.py: the residual is the recurrence r − A dx, and
 the host reads one bool per checked iteration.  `ir_fused` is the same
-solve on a Dia plan: on the card, with a hierarchy that qualifies
-(kernels/amg_loop.py `takes_loop`), the whole loop — criterion, V-cycle,
-x += z, r −= A z — is one launch of `amg_ir_loop` (csrc/amg_loop.cu);
-otherwise it is `ir` over the plan's SpMV.  The `inner` sub-dictionary of
+solve on a loop plan (kernels/amg_loop.py OUTER_PLANS: Dia, Gdia, Ell or
+Hybrid, Csr or Coo): on the card, with a hierarchy that qualifies
+(`takes_loop`), the whole loop — criterion, V-cycle, x += z, r −= A z —
+is one launch of `amg_ir_loop` (csrc/amg_loop.cuh); otherwise it is `ir`
+over the plan's SpMV.  The `inner` sub-dictionary of
 GKOIR (an inner CG per step) is not ported (ROADMAP.md A9).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ogl_tpu_torch.kernels import amg_loop
-from ogl_tpu_torch.kernels.dia_spmv import dia_spmv
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.cg import SolveResult
 from ogl_tpu_torch.solve.cg_fused import merged_norm_factor
@@ -50,12 +52,13 @@ def ir(ops: Ops, b, x0, cfg) -> SolveResult:
 
 
 def ir_fused(kern, data, b, x0, cfg, precond) -> SolveResult:
-    """GKOMultigrid on a Dia plan (kern: CgKernels, data: kern.pack_values(
-    mat)) with `precond` the AmgOp: one `amg_ir_loop` launch on the card
-    from the set-up's r = b − A x and norm factor (both through K1's apply)
-    when `amg_loop.takes_loop`; else `ir` over the plan's SpMV."""
+    """GKOMultigrid on a loop plan (kern: one of amg_loop.OUTER_PLANS,
+    data: kern.pack_values(mat)) with `precond` the AmgOp: one
+    `amg_ir_loop` launch on the card from the set-up's r = b − A x and norm
+    factor (both through the plan's apply) when `amg_loop.takes_loop`; else
+    `ir` over the plan's SpMV."""
     if not amg_loop.takes_loop(kern, precond, b):
-        ops = single_device_ops(lambda v: dia_spmv(kern.plan, data, v), kern.n, precond=precond)
+        ops = single_device_ops(functools.partial(kern.spmv, data), kern.n, precond=precond)
         return ir(ops, b, x0, cfg)
     x = x0.to(b.dtype).clone()
     r = b - kern.apply(data, x)

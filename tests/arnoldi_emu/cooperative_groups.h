@@ -9,4 +9,5 @@ namespace cooperative_groups {
 struct grid_group {
   void sync() { grid_barrier->arrive_and_wait(); }
 };
+inline grid_group this_grid() { return grid_group{}; }
 }  // namespace cooperative_groups

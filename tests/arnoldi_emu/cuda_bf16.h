@@ -11,3 +11,13 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {static_cast<unsigned short>(u >> 16)};
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
+inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(unsigned{b.v} << 16); }
+struct __nv_bfloat162 {
+  __nv_bfloat16 x, y;
+};
+struct float2 {
+  float x, y;
+};
+inline float2 __bfloat1622float2(__nv_bfloat162 b) {
+  return float2{__bfloat162float(b.x), __bfloat162float(b.y)};
+}

@@ -13,6 +13,8 @@ most 2 iterations more than the reference, whose CPU cycle is float32, and
 the true residual below 1e-5 of ‖b‖₁."""
 
 import dataclasses
+import functools
+import types
 
 import numpy as np
 import pytest
@@ -152,6 +154,50 @@ def test_twin_matches_reference_solve(name, dims, precision):
         assert np.abs(b - a @ x.numpy().astype(np.float64)).sum() / np.abs(b).sum() < 1e-5
 
 
+# the unstructured meshes of tests/test_torch_amg_levels.py: the kNN-6 graph
+# of 4,096 cells (Ell levels; RCM-numbered: natural runs of 8, the last
+# level Dia) and the shuffled Poisson grid (16, 16, 32) (a Gdia fine level,
+# then Ell, then Dia)
+_MESHES: dict = {}
+
+
+def _mesh(name):
+    if name not in _MESHES:
+        if name == "knn":
+            m, perm = testing.knn_ldu(4096)
+            _MESHES[name] = testing.renumber_ldu(m, np.argsort(perm))
+        else:
+            _MESHES[name] = testing.shuffled_poisson_ldu((16, 16, 32))
+    return _MESHES[name]
+
+
+def _outer_plan(fmt, coo):
+    """(plan, packed values) of the outer matrix `fmt` of `coo` on the CPU,
+    the plan foam/solver.py takes for it."""
+    from ogl_tpu_torch.kernels import gdia, xell
+    from ogl_tpu_torch.kernels.ell import EllCgKernels
+    from ogl_tpu_torch.kernels.fused import GdiaCgKernels
+    from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
+
+    if fmt == "Dia":
+        mat = formats.coo_to_dia(coo)
+        kern = CgKernels(mat.shape[0], mat.offsets, "cpu")
+    elif fmt == "Gdia":
+        mat = gdia.gdia_from_coo(coo)
+        kern = GdiaCgKernels(mat.shape[0], mat.plane_offsets, "cpu")
+    elif fmt == "Xell":
+        mat = xell.xell_from_coo(coo)
+        kern = xell.XellCgKernels.for_matrix(mat)
+    else:
+        conv = {"Csr": formats.coo_to_csr, "Coo": formats.coo_to_device, "Ell": formats.coo_to_ell,
+                "Hybrid": formats.coo_to_hybrid, "Sell": formats.coo_to_sell}[fmt]
+        mat = conv(coo)
+        plan = {"Csr": CsrCgKernels, "Coo": CsrCgKernels, "Ell": EllCgKernels,
+                "Hybrid": EllCgKernels, "Sell": SellCgKernels}[fmt]
+        kern = plan.for_matrix(mat)
+    return kern, kern.pack_values(mat)
+
+
 @pytest.mark.parametrize("kw,why", [
     ({"cycle": "w"}, "cycle w"),
     ({"cycle": "f"}, "cycle f"),
@@ -162,20 +208,69 @@ def test_twin_matches_reference_solve(name, dims, precision):
     ({}, None),
     ({"aggregation": "natural"}, None),
     ({"smooth_iters": 1}, None),
+    ({"mesh": "knn"}, None),
+    ({"mesh": "shuffled"}, None),
+    ({"mesh": "knn", "aggregation": "pgm"}, "aggregation pgm"),
+    ({"mesh": "knn", "outer": "Csr"}, None),
+    ({"mesh": "knn", "outer": "Coo"}, None),
+    ({"mesh": "knn", "outer": "Ell"}, None),
+    ({"mesh": "knn", "outer": "Hybrid"}, None),
+    ({"mesh": "shuffled", "outer": "Gdia"}, None),
+    ({"outer": "Dia"}, None),
+    ({"mesh": "knn", "outer": "Dia"}, "a Dia outer over Gdia or Ell levels"),
+    ({"mesh": "shuffled", "outer": "Dia"}, "a Dia outer over Gdia or Ell levels"),
+    ({"mesh": "knn", "outer": "Xell"}, "the outer plan XellCgKernels"),
+    ({"mesh": "knn", "outer": "Sell"}, "the outer plan SellCgKernels"),
+    ({"mesh": "knn", "aggregation": "pgm", "outer": "Xell"}, "aggregation pgm"),
 ], ids=str)
 def test_the_predicate_names_what_keeps_the_host_cycle(kw, why):
+    """The first reason found, or None: on the Poisson grid (Dia levels), on
+    the kNN mesh (Ell levels) and the shuffled grid (a Gdia level), without
+    and with an outer plan (on those meshes a Dia outer is a banded plan of
+    their size: its variants hold Dia levels only)."""
     kw = {"aggregation": "auto", **kw}
-    _, _, _, op = _system((12, 10, 8), smoother_dtype=torch.bfloat16, **kw)
-    got = amg_loop.why_not(op)
+    mesh, outer = kw.pop("mesh", None), kw.pop("outer", None)
+    if mesh is None:
+        _, _, _, op = _system((12, 10, 8), smoother_dtype=torch.bfloat16, **kw)
+        coo = ldu.ldu_to_coo_host(testing.poisson_ldu((12, 10, 8)), dtype=np.float32)
+    else:
+        coo = ldu.ldu_to_coo_host(_mesh(mesh), dtype=np.float32)
+        op = amg.amg(coo, width=8, smoother_dtype=torch.bfloat16, **kw)
+        kinds = {type(lv.mat).__name__ for lv in op.state[:-1]}
+        assert kinds & ({"Ell"} if mesh == "knn" else {"Gdia"})
+    if outer == "Dia" and mesh is not None:
+        kern = CgKernels(coo.shape[0], (-1, 0, 1), "cpu")
+    else:
+        kern = None if outer is None else _outer_plan(outer, coo)[0]
+    got = amg_loop.why_not(op, kern)
     assert (got is None) if why is None else got.startswith(why)
-    assert amg_loop.qualifies(op) == (why is None)
+    assert amg_loop.qualifies(op, kern) == (why is None)
 
 
 def test_takes_loop_needs_the_dia_plan_a_card_and_an_amg_op():
+    """An outer plan of OUTER_PLANS itself (Dia, Gdia, Ell and Hybrid, Csr
+    and Coo; not a subclass, not Xell or Sell), a CUDA tensor and an AmgOp
+    that qualifies; a Dia plan only over Dia levels."""
     kern, data, b, op = _system((12, 10, 8), "auto", torch.bfloat16)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
     assert not amg_loop.takes_loop(kern, op, b)  # CPU tensors: the host route
-    assert not amg_loop.takes_loop(kern, None, b)
-    assert not amg_loop.takes_loop(kern, lambda r: r, b)
+    assert amg_loop.takes_loop(kern, op, on_card)
+    assert not amg_loop.takes_loop(kern, None, on_card)
+    assert not amg_loop.takes_loop(kern, lambda r: r, on_card)
+
+    class HostLoop(CgKernels):
+        pass
+
+    assert not amg_loop.takes_loop(HostLoop(kern.n, kern.offsets, "cpu"), op, on_card)
+    coo = ldu.ldu_to_coo_host(_mesh("knn"), dtype=np.float32)
+    knn_op = amg.amg(coo, width=8, aggregation="auto", smoother_dtype=torch.bfloat16)
+    pgm_op = amg.amg(coo, width=8, aggregation="pgm", smoother_dtype=torch.bfloat16)
+    for fmt in ("Csr", "Coo", "Ell", "Hybrid", "Xell", "Sell"):
+        plan = _outer_plan(fmt, coo)[0]
+        assert amg_loop.takes_loop(plan, knn_op, on_card) == (type(plan) in amg_loop.OUTER_PLANS)
+        assert amg_loop.takes_loop(plan, knn_op, on_card) == (fmt not in ("Xell", "Sell"))
+        assert not amg_loop.takes_loop(plan, pgm_op, on_card)
+    assert not amg_loop.takes_loop(CgKernels(coo.shape[0], (-1, 0, 1), "cpu"), knn_op, on_card)
     with pytest.raises(ValueError, match="cycle w"):
         _, _, _, w = _system((12, 10, 8), "auto", torch.bfloat16, cycle="w")
         _twin("cg", kern, data, b, w)
@@ -229,13 +324,13 @@ def test_level_table_is_rebuilt_with_the_hierarchy():
 @pytest.mark.parametrize("name", ["cg", "ir"])
 def test_phase_tool_names_every_barrier(name, sweeps):
     """python -m ogl_tpu_torch.amg_phases stamps the start and every grid
-    barrier of csrc/amg_loop.cu: one name per barrier of the kernel's
+    barrier of csrc/amg_loop.cuh: one name per barrier of the kernel's
     phases — per cycle 2 s (levels − 1) + 1, and per CG iteration K1 and
     K2n, per IR iteration the residual."""
     from ogl_tpu_torch import amg_phases
     from ogl_tpu_torch.kernels import _build
 
-    src = (_build.CSRC / "amg_loop.cu").read_text()
+    src = (_build.CSRC / "amg_loop.cuh").read_text()
     stamped = amg_phases.stamped_source(src)
     assert stamped.count("stamp();") == src.count("grid.sync();") + 1
     _, _, _, op = _system((16, 16, 16), "auto", torch.bfloat16, smooth_iters=sweeps)
@@ -244,3 +339,111 @@ def test_phase_tool_names_every_barrier(name, sweeps):
     want = 3 * (per_cycle + 1) if name == "ir" else 3 * per_cycle + 3 * 2
     assert len(names) == want
     assert names.count("K1") == (0 if name == "ir" else 3)
+
+
+# ---- the device loop's twins over Gdia and Ell levels (slice 23) ----------------
+
+UNSTRUCTURED = {"kNN Csr": ("knn", "Csr"), "kNN Ell": ("knn", "Ell"),
+                "shuffled Gdia": ("shuffled", "Gdia")}
+
+
+def _unstructured_twin(name, kern, data, b, op, cfg=CFG):
+    """The loop wrapper on CPU tensors from the set-up of the routes: (x,
+    iterations, final residual, converged)."""
+    x = torch.zeros_like(b)
+    r = b - kern.apply(data, x)
+    nf = merged_norm_factor(kern, data, r, x, b)
+    loop = amg_loop.amg_cg_loop if name == "cg" else amg_loop.amg_ir_loop
+    kernels.reset_launches()
+    it, rn, _, conv = loop(kern, data, op, x, r, torch.sum(torch.abs(r)), nf, cfg)
+    assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
+    return x, it, rn, conv
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(UNSTRUCTURED))
+@pytest.mark.parametrize("name", ["cg", "ir"])
+def test_twin_on_unstructured_levels_matches_host_route_and_reference(name, case, precision):
+    """The loop's twin on the kNN-6 mesh (Csr and Ell outer, Ell levels) and
+    the shuffled grid (Gdia outer, a Gdia fine level) against the port's
+    host route on the same plan — the merged CG (Gdia) and Richardson over
+    the plan's SpMV: the same functions in the same order, so the same
+    iterations and bits; the general CG (Csr, Ell): its reductions in
+    another order, ±1 iteration — and against `ogl_tpu.foam.solve`, with the
+    tolerances of tests/test_torch_amg_levels.py: ±1 iteration with
+    `precision float32`, from 1 below to 2 above with the default bfloat16
+    packing, the true residual below 1e-4 of ‖b‖₁."""
+    import scipy.sparse as sp
+
+    from ogl_tpu_torch.solve.cg import cg
+
+    mesh, fmt = UNSTRUCTURED[case]
+    m = _mesh(mesh)
+    coo = ldu.ldu_to_coo_host(m, dtype=np.float32)
+    kern, data = _outer_plan(fmt, coo)
+    dtype = torch.float32 if precision == "float32" else torch.bfloat16
+    op = amg.amg(coo, max_levels=9, min_coarse_rows=10, aggregation="auto", width=8,
+                 smoother_dtype=dtype)
+    assert amg_loop.qualifies(op, kern)
+    b_np = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    b = torch.tensor(b_np)
+    x, it, rn, conv = _unstructured_twin(name, kern, data, b, op)
+    assert bool(conv) and float(rn) < TOL
+    x0 = torch.zeros_like(b)
+    if name == "ir":
+        host = ir(single_device_ops(functools.partial(kern.spmv, data), kern.n, precond=op),
+                  b, x0, CFG)
+    elif fmt == "Gdia":
+        host = cg_fused(kern, data, b, x0, CFG, precond=op)
+    else:
+        host = cg(single_device_ops(functools.partial(kern.spmv, data), kern.n, precond=op),
+                  b, x0, CFG, kern, data, precond=op)
+    assert bool(host.converged)
+    if name == "ir" or fmt == "Gdia":
+        assert it == host.iters
+        torch.testing.assert_close(x, host.x, rtol=0, atol=0)
+    else:
+        assert abs(it - host.iters) <= 1
+        torch.testing.assert_close(x, host.x, rtol=0, atol=1e-4 * max(1.0, float(x.abs().max())))
+    pc = {"preconditioner": "Multigrid" if name == "cg" else "none", "aggregation": "auto"}
+    if precision == "float32":
+        pc["precision"] = "float32"
+    ctl = {"executor": "cpu", "solver": "GKOCG" if name == "cg" else "GKOMultigrid",
+           "matrixFormat": fmt, "tolerance": TOL, "relTol": 0, "adaptMinIter": False,
+           "preconditioner": pc}
+    _, perf_ref = ref_foam.solve(f"ref_{name}_{case}_{precision}", m, b_np, ctl)
+    assert perf_ref.converged
+    if precision == "float32":
+        assert abs(it - perf_ref.n_iterations) <= 1
+    else:
+        assert perf_ref.n_iterations - 1 <= it <= perf_ref.n_iterations + 2
+    c = ldu.ldu_to_coo_host(m, dtype=np.float64)
+    a = sp.csr_matrix((np.asarray(c.vals), (np.asarray(c.rows), np.asarray(c.cols))),
+                      shape=c.shape)
+    assert np.abs(b_np - a @ x.numpy().astype(np.float64)).sum() / np.abs(b_np).sum() < 1e-4
+
+
+@pytest.mark.parametrize("solver,fmt,mesh", [("GKOCG", "Csr", "knn"), ("GKOCG", "Ell", "knn"),
+                                             ("GKOMultigrid", "Ell", "knn"),
+                                             ("GKOMultigrid", "Gdia", "shuffled"),
+                                             ("GKOCG", "Sell", "knn"),
+                                             ("GKOMultigrid", "Xell", "knn")], ids=str)
+def test_foam_keeps_the_outer_plan_the_loop_takes(solver, fmt, mesh):
+    """foam.solve keeps, for GKOCG + Multigrid on the general CG's formats
+    and for GKOMultigrid, the plan of the AMG loop's outer format (Csr, Ell,
+    Gdia), and none for the formats the loop lacks (Sell, Xell), which keep
+    the host cycle; on the CPU every route runs its host loop."""
+    m = _mesh(mesh)
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    pc = {"preconditioner": "Multigrid" if solver == "GKOCG" else "none", "aggregation": "auto"}
+    ctl = {"executor": "cpu", "solver": solver, "matrixFormat": fmt, "tolerance": TOL,
+           "relTol": 0, "adaptMinIter": False, "preconditioner": pc}
+    _, perf = foam.solve("p", m, b, ctl)
+    slv = registry.global_registry.get("p_solver")
+    assert perf.converged
+    if fmt in ("Sell", "Xell"):
+        assert slv.kern is None or type(slv.kern) not in amg_loop.OUTER_PLANS
+        assert amg_loop.why_not(slv._precond_op, slv.kern) is not None or slv.kern is None
+    else:
+        assert type(slv.kern) in amg_loop.OUTER_PLANS
+        assert amg_loop.why_not(slv._precond_op, slv.kern) is None

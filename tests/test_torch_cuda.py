@@ -502,7 +502,7 @@ def test_foam_amg_host_cycle_on_card_matches_cpu(dev, solver):
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=0, atol=1e-3)
 
 
-# ---- the device V-cycle (csrc/amg_loop.cu) ----------------------------------
+# ---- the device V-cycle (csrc/amg_loop.cuh) ---------------------------------
 
 # odd axes (n = 2,431: rows, not quads; grid_restrict's padding), a box
 # grid (quads), a natural hierarchy with a partial last aggregate (8 rows
@@ -623,7 +623,7 @@ def test_amg_loop_refused_cooperative_launch_raises(dev):
     cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=3, max_iter=3,
                                   frequency=1)
     amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)
-    key = (kern.device.index, amg_loop.VARIANT_BF16)
+    key = (kern.device.index, amg_loop.VARIANT_BF16, amg_loop.table_of(op).smem)
     co_resident = amg_loop._grids[key]
     assert 0 < co_resident < -(-kern.n // 512) // 4
     amg_loop._grids[key] = 4 * co_resident
@@ -3236,10 +3236,13 @@ AMG_LEVEL_SOLVES = {
 
 @pytest.mark.parametrize("case", list(AMG_LEVEL_SOLVES))
 def test_amg_on_unstructured_meshes_on_the_card(dev, case):
-    """foam.solve on the card over a hierarchy of Ell and Gdia levels: the
-    level kernels and (pgm) the transfer kernels launched, no AMG loop kernel,
-    ±1 iteration (bfloat16 packing on both) of the same solve on the CPU over
-    the twins, the true residual in bounds."""
+    """foam.solve on the card over a hierarchy of Ell and Gdia levels: with
+    grid or natural transfers on an outer plan the device V-cycle takes
+    (Csr, Ell, Gdia), one launch of its loop kernel and no standalone level
+    kernel; with pgm, or on the ladder's Xell, the level kernels and (pgm)
+    the transfer kernels, no AMG loop kernel; ±1 iteration (bfloat16
+    packing on both) of the same solve on the CPU over the twins, the true
+    residual in bounds."""
     solver, fmt, mesh, aggregation = AMG_LEVEL_SOLVES[case]
     if mesh == "shuffled":
         m = testing.shuffled_poisson_ldu((32, 32, 32))
@@ -3258,13 +3261,154 @@ def test_amg_on_unstructured_meshes_on_the_card(dev, case):
     slv = registry.global_registry.get("p_solver")
     levels = slv._precond_op.state
     got = dict(kernels.launches)
-    assert got["amg_cg_loop"] == got["amg_ir_loop"] == 0
+    on_loop = aggregation != "pgm" and not isinstance(slv.matrix, xell.Xell)
+    loop = "amg_cg_loop" if solver == "GKOCG" else "amg_ir_loop"
+    assert got["amg_cg_loop"] + got["amg_ir_loop"] == got[loop] == int(on_loop)
     for lv in levels[:-1]:
         name = {"Ell": "amg_ell", "Gdia": "amg_gdia", "Dia": "amg"}[type(lv.mat).__name__]
-        assert got[f"{name}_sweep"] > 0 and got[f"{name}_resid"] > 0
+        assert (got[f"{name}_sweep"] > 0 and got[f"{name}_resid"] > 0) == (not on_loop)
     assert (got["pgm_restrict"] > 0) == (got["pgm_prolong"] > 0) == (aggregation == "pgm")
     registry.global_registry.clear()
     _, perf_cpu = foam.solve("p", m, b, {**ctl, "executor": "cpu"})
     assert perf.converged and perf_cpu.converged
     assert abs(perf.n_iterations - perf_cpu.n_iterations) <= 1
     assert _true_residual64(m, b, x) < 10 * 1e-6
+
+
+# slice 23: the device V-cycle over Ell and Gdia levels, on the Gdia, Ell and
+# Csr outer operators (csrc/amg_loop.cuh, its staged level phases over
+# csrc/amg_stage.cuh), and the standalone level smoothers' staged bodies
+
+
+def _unstructured_loop_setup(case, dtype, dev, dims=(32, 32, 32)):
+    """(plan, packed values, b, op, plain K1, plain SpMV) of a device-loop
+    case: the RCM-numbered kNN-6 mesh of 32,768 cells as Csr, the device
+    Coo, Ell or Hybrid (a non-empty tail; Ell levels, natural runs of 8) or
+    the shuffled grid `dims` as Gdia (a Gdia fine level), its `auto`
+    hierarchy with `dtype` coefficients."""
+    from ogl_tpu_torch.kernels import gather_spmv
+    from ogl_tpu_torch.kernels.ell import EllCgKernels
+    from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, gather_k1_plain
+
+    if case == "shuffled Gdia":
+        coo = ldu.ldu_to_coo_host(testing.shuffled_poisson_ldu(dims), dtype=np.float32)
+        mat = gdia.gdia_from_coo(coo, device=dev)
+        kern = GdiaCgKernels(mat.shape[0], mat.plane_offsets, dev)
+        data = kern.pack_values(mat)
+        k1 = functools.partial(gdia.gdia_k1_plain, data[0], data[1], mat.plane_offsets)
+        apply = functools.partial(gdia.gdia_spmv_plain, data[0], data[1], mat.plane_offsets)
+    else:
+        m, perm = testing.knn_ldu(1 << 15)
+        coo = ldu.ldu_to_coo_host(testing.renumber_ldu(m, np.argsort(perm)), dtype=np.float32)
+        fmt = case.split()[-1]
+        conv = {"Csr": formats.coo_to_csr, "Coo": formats.coo_to_device,
+                "Ell": formats.coo_to_ell, "Hybrid": formats.coo_to_hybrid}[fmt]
+        mat = conv(coo, device=dev)
+        kern = (CsrCgKernels if fmt in ("Csr", "Coo") else EllCgKernels)(mat)
+        assert fmt != "Hybrid" or kern.n_tail > 0
+        data = kern.pack_values(mat)
+        k1 = functools.partial(gather_k1_plain, mat)
+        apply = functools.partial({"Csr": gather_spmv.spmv_csr, "Coo": gather_spmv.spmv_csr,
+                                   "Ell": gather_spmv.spmv_ell,
+                                   "Hybrid": gather_spmv.spmv_hybrid}[fmt], mat)
+    op = amg.amg(coo, dev, max_levels=9, min_coarse_rows=10, aggregation="auto",
+                 smoother_dtype=dtype)
+    assert amg_loop.qualifies(op, kern)
+    kinds = {type(lv.mat).__name__ for lv in op.state[:-1]}
+    assert kinds & {"Ell", "Gdia"}
+    return kern, data, _vec(mat.shape[0], 23, dev), op, k1, apply
+
+
+UNSTRUCTURED_LOOP_CASES = ["kNN Csr", "kNN Coo", "kNN Ell", "kNN Hybrid", "shuffled Gdia"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", UNSTRUCTURED_LOOP_CASES)
+@pytest.mark.parametrize("name", ["cg", "ir"])
+def test_amg_loop_on_unstructured_levels_matches_plain(dev, name, case, dtype):
+    """Each new variant against its plain twin on the card (the plan's plain
+    K1 or SpMV, vcycle_plain over the levels' twins): pinned, x within
+    AMG_LOOP_RTOL; free-running, ±1 iteration and the true residual in
+    bounds; one launch of the loop, repeating its bits, and no standalone
+    level kernel."""
+    kern, data, b, op, k1, apply = _unstructured_loop_setup(case, dtype, dev)
+    loop = amg_loop.amg_cg_loop if name == "cg" else amg_loop.amg_ir_loop
+    cycle = functools.partial(amg_loop.vcycle_plain, op.state, relax=op.relax,
+                              sweeps=op.smooth_iters)
+    pinned = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=AMG_LOOP_PINNED,
+                                     max_iter=AMG_LOOP_PINNED, frequency=1)
+    free = stopping.StoppingParams(tolerance=LOOP_TOL, rel_tol=0.0, min_iter=0, max_iter=1000,
+                                   frequency=1)
+    for cfg in (pinned, free):
+        state_p = _amg_state(kern, data, b)
+        twin = amg_loop.amg_cg_loop_plain if name == "cg" else amg_loop.amg_ir_loop_plain
+        it_p, rn_p, _, conv_p = twin(k1 if name == "cg" else apply, *state_p, cfg, cycle)
+        runs = []
+        for _ in range(2):
+            state = _amg_state(kern, data, b)
+            kernels.reset_launches()
+            runs.append((state[0], *loop(kern, data, op, *state, cfg)))
+            torch.cuda.synchronize()
+            assert kernels.launches[f"amg_{name}_loop"] == 1
+            assert not any(kernels.launches[k] for k in ("amg_ell_sweep", "amg_ell_resid",
+                                                         "amg_gdia_sweep", "amg_gdia_resid"))
+        x, it, rn, _, conv = runs[0]
+        assert runs[1][1] == it and torch.equal(runs[1][0], x)
+        if cfg is pinned:
+            assert it == it_p == AMG_LOOP_PINNED and not conv
+            _close(x, state_p[0], rtol=AMG_LOOP_RTOL)
+            torch.testing.assert_close(rn, rn_p.cpu(), rtol=AMG_LOOP_RTOL, atol=0)
+        else:
+            assert bool(conv) and bool(conv_p) and abs(it - it_p) <= 1
+            assert float(rn) < LOOP_TOL
+            r64 = b.double() - apply(x).double()  # float64 of the float32 product
+            assert float(r64.abs().sum() / state[-1].double()) <= 10 * LOOP_TOL
+
+
+@pytest.mark.parametrize("mesh", ["knn", "shuffled"])
+def test_amg_level_smoothers_bit_equal_at_1m(dev, mesh):
+    """The standalone Ell and Gdia smoothers at the 1M fine levels of
+    chip_smoke.py's pKMG (kNN-6, RCM-numbered; Ell K 17) and pSMG (the
+    shuffled grid (128, 128, 64); Gdia), in float32 and bfloat16: every
+    output bit-equal to its twin."""
+    if mesh == "knn":
+        m, perm = testing.knn_ldu(1 << 20)
+        m = testing.renumber_ldu(m, np.argsort(perm))
+    else:
+        m = testing.shuffled_poisson_ldu((128, 128, 64))
+    coo = ldu.ldu_to_coo_host(m, dtype=np.float32)
+    lv = amg.build_hierarchy(coo, 1, 10, "auto", width=8, coarse_solver="cg", device=dev,
+                             smoother_dtype=torch.float32)[0]
+    assert type(lv.mat).__name__ == ("Ell" if mesh == "knn" else "Gdia")
+    x, b = _vec(lv.n, 5, dev), _vec(lv.n, 6, dev)
+    for vals in (lv.data_s, lv.data_s.to(torch.bfloat16)):
+        got_s = lv.kern.sweep(vals, x, b, lv.inv_diag, 0.9)
+        got_r = lv.kern.resid(vals, x, b)
+        assert torch.equal(got_s, lv.kern.twin(vals, x, b, lv.inv_diag, 0.9))
+        assert torch.equal(got_r, lv.kern.twin(vals, x, b, None, 0.0))
+
+
+def test_amg_loop_on_gdia_refused_cooperative_launch_raises(dev):
+    """A grid above the co-resident blocks of the Gdia-outer variant at its
+    staged shared memory (the shuffled grid of 1M cells: a Gdia fine level,
+    then a staged Ell level) is refused; the wrapper raises and launches
+    nothing, and the next launch runs."""
+    kern, data, b, op, _, _ = _unstructured_loop_setup("shuffled Gdia", torch.bfloat16, dev,
+                                                       (128, 128, 64))
+    cfg = stopping.StoppingParams(tolerance=0.0, rel_tol=0.0, min_iter=3, max_iter=3,
+                                  frequency=1)
+    amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)
+    tab = amg_loop.table_of(op)
+    assert tab.smem > 0  # the Ell level's stages
+    key = (kern.device.index, amg_loop.VARIANT_BF16 | amg_loop.OUTER_BITS[type(kern)], tab.smem)
+    co_resident = amg_loop._grids[key]
+    assert 0 < co_resident < -(-kern.n // 512)
+    amg_loop._grids[key] = co_resident + 1
+    kernels.reset_launches()
+    try:
+        with pytest.raises(RuntimeError, match="amg_cg_loop: CUDA error"):
+            amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)
+        assert kernels.launches["amg_cg_loop"] == 0
+    finally:
+        amg_loop._grids[key] = co_resident
+    assert amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)[0] == 3

@@ -38,7 +38,7 @@ from ogl_tpu.solve.cg import cg as ref_cg
 from ogl_tpu.solve.krylov import single_device_ops as ref_ops
 from ogl_tpu_torch import foam, interop, registry, testing
 from ogl_tpu_torch.core import formats, ldu
-from ogl_tpu_torch.kernels import gather_spmv, spmv
+from ogl_tpu_torch.kernels import amg_loop, gather_spmv, spmv
 from ogl_tpu_torch.kernels.ell import EllCgKernels, ell_k1_plain
 from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
 from ogl_tpu_torch.solve import stopping
@@ -406,9 +406,11 @@ def test_foam_solver_takes_the_ell_plan_where_its_loops_run(case):
 def test_multigrid_on_ell_stays_refused():
     """GKOCG + Multigrid on an Ell matrix once raised (ROADMAP.md A11, done):
     it now solves in the reference's iterations ±1 (float32 smoother
-    packing), and the Ell loop kernel still refuses it — its phases apply
-    identity or scalar Jacobi only —, so the solve keeps the general CG's
-    host loop over the Ell SpMV, with no loop plan."""
+    packing), and the Ell CG loop kernel still refuses it — its phases apply
+    identity or scalar Jacobi only.  The solver keeps the Ell plan for the
+    AMG loop kernel instead (kernels/amg_loop.py, its Ell outer variant,
+    which the hierarchy qualifies for); on the CPU the general CG's host
+    loop runs, over the Ell SpMV's twin."""
     m, perm = testing.knn_ldu(3000)
     m = testing.renumber_ldu(m, np.argsort(perm))
     b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
@@ -417,8 +419,9 @@ def test_multigrid_on_ell_stays_refused():
                                            "precision": "float32"}}
     _, perf = foam.solve("p", m, b, ctl)
     slv = registry.global_registry.get("p_solver")
-    assert slv.route == "cg" and slv.kern is None
+    assert slv.route == "cg" and type(slv.kern) is EllCgKernels
     assert cg_mod.why_not(slv.matrix, "Multigrid") == "preconditioner Multigrid"
+    assert amg_loop.why_not(slv._precond_op, slv.kern) is None
     ref_m = ref_ldu.LduMatrix(n=m.n, lower_addr=m.lower_addr, upper_addr=m.upper_addr,
                               diag=m.diag, upper=m.upper, lower=m.lower)
     _, perf_ref = ref_foam.solve("p", ref_m, b, ctl)
