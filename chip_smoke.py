@@ -7,6 +7,7 @@
     python3 chip_smoke.py --turns-gmres PARENT . . PARENT   (the GMRES basis kernels and solves)
     python3 chip_smoke.py --turns-tri PARENT . . PARENT   (the ILU family's kernels and solves)
     python3 chip_smoke.py --turns-amg PARENT . . PARENT   (the unstructured AMG solves and kernels)
+    python3 chip_smoke.py --turns-step PARENT . . PARENT   (the 1M steady steps' phase split)
 
 Drives the port's main paths at 1,048,576 cells in OpenFOAM LDU form,
 through `ogl_tpu_torch.foam.solve`: on a 128x128x64 Poisson pressure
@@ -266,6 +267,24 @@ beside the restriction (also by device time).
 `--turns-amg` runs pMG, pGMG, pKMG, gKMG and pSMG on resident state, the
 Dia V-cycle's loop kernel by device time per iteration, and the level
 kernels by device, chained and around-each-call time in each tree.
+Phase 15 (slice 24, the transient steady step): GKOCG on the 1M Poisson
+grid as Dia (`pVU`: a diag-only step stages 1 of 2 blocks, takes the diag
+block's affine plan and launches value_update once; then an all-block
+step), on the 1M kNN-6 mesh as Csr (`pKVU`: both steps, scatter and gather +
+scatter plans), with `uploadPrecision bfloat16` (`pVUbf`: the first
+steady step sends the diag at full width, as the reference's does, the
+next the diag block and b as bfloat16 deltas, half the block's bytes, the
+decoded copies bit-equal to the host mirrors) and GKOBiCGStab on the grid with every third
+x face duplicated by a cyclic interface (`pVUacc`: the accumulate plan);
+each step's container bit-equal to the full path, to itself on a second
+run and to the twin on CPU copies; both examples (cavity n 32, Karman
+96x32) for 40 steps on the card, ψ within 1e-4 of the same steps on the
+CPU; then value_update against its twin on the card (bit-equal) on those
+plans at 1M and an affine run of 8.4M, flat.index_copy_ beside the
+one-block identity-src plans.  `--turns-step` runs three diag-only and
+three all-block steps at 1M on the Poisson grid as Dia and the kNN mesh as
+Csr, with bfloat16 deltas where a tree has them, each step's wall and
+phase split, in each tree.
 """
 
 from __future__ import annotations
@@ -290,6 +309,7 @@ from ogl_tpu_torch.core import formats, ldu
 from ogl_tpu_torch.kernels import (_build, amg_level, amg_loop, device_time, gather_spmv, gdia,
                                    roofline, spmv, xell)
 from ogl_tpu_torch.kernels import gmres as gmres_kernels
+from ogl_tpu_torch.kernels import value_update as vu
 from ogl_tpu_torch.kernels.block_jacobi import block_jacobi, block_jacobi_plain
 from ogl_tpu_torch.kernels.dia_spmv import DiaPlan, dia_spmv, dia_spmv_plain
 from ogl_tpu_torch.kernels.fused import (CgKernels, GdiaCgKernels, k1_plain, k1b_plain,
@@ -523,6 +543,14 @@ KERNELS = {
     "amg_cg_loop_gdia": ("cuda", "ogl_tpu_torch/kernels/csrc/amg_loop_gdia_cg.cu",
                          "ogl_tpu/kernels/fused.py:111, ogl_tpu/kernels/fused.py:382, "
                          "ogl_tpu/kernels/gdia.py:183", "amg_cg_loop_gdia[bf16]", "shuffled"),
+    # slice 24 (phase 15): the steady step's value update, the Dia diag block's
+    # affine plan at 1M (an affine run of 8.4M beside; cases: the kNN Csr
+    # scatter, gather + scatter and full plans, a bfloat16 delta, the
+    # accumulate plan)
+    "value_update": ("cuda", "ogl_tpu_torch/kernels/csrc/value_update.cu",
+                     "no TPU kernel: XLA ops in the reference, ogl_tpu/foam/solver.py:483-529 "
+                     "(_apply_block_updates) and :38-42 (_apply_delta), "
+                     "ogl_tpu/core/formats.py:641-654 (ValueMap.update)", "value_update", None),
 }
 SLICE1_KERNELS = ("dia_spmv", "cg_k1", "cg_loop")
 # the loops (pMG, pGMG, the steps); the standalone smoother kernels and
@@ -758,10 +786,11 @@ def time_pair(kernel_fn, plain_fn, reps=20, warmup=3):
     return t["k"], t["p"]
 
 
-def device_ms_per_launch(fn, reps=50):
+def device_ms_per_launch(fn, reps=25):
     """The device time of one call of `fn` from the profiler's timeline: the
-    summed durations of its kernels over `reps` calls, over reps (None, not
-    measured, when two profiles record no kernel).  Beside the CUDA-event
+    summed durations of its kernels over `reps` calls (25; 50 until phase 15
+    joined), over reps (None, not measured, when two profiles record no
+    kernel).  Beside the CUDA-event
     time it says whether the call is bound by the host's launch or by the
     device."""
     fn()
@@ -3172,10 +3201,11 @@ SLICE20_SOLVES = {
 # dependent hops one after another
 CHAIN_ROWS = 4096
 # kernel 2's twin walks ~640 (1M) or ~1,270 (8.4M) levels of torch ops per
-# call (0.2-0.6 s): its row is timed after one warm-up call over 2 calls a
-# turn, and torch.triangular_solve beside kernel 2 over 3
-LEVEL_TWIN_REPS = 2
-LEVEL_LIBRARY_REPS = 3
+# call (0.2-0.6 s): its row is timed after one warm-up call over 1 call a
+# turn (2 until phase 15 joined), and torch.triangular_solve beside kernel 2
+# over 2 (3 until then)
+LEVEL_TWIN_REPS = 1
+LEVEL_LIBRARY_REPS = 2
 
 
 def ilu_plain(state):
@@ -4004,6 +4034,263 @@ def slice22_path(device, m_knn, b_knn, knn_small, grid, ctl) -> tuple:
     return launches, report
 
 
+# ---- phase 15: slice 24, the transient steady step ----------------------------
+
+# a step's relative change of the changed coefficients (the bench's steps):
+# small enough for a bfloat16 delta under tolerance 1e-6 (error cap 1e-7)
+STEP_REL = 1e-7
+# each example's steps on the card in the smoke (cavity n 32, Karman 96x32),
+# held to the same steps on the CPU
+EXAMPLE_STEPS = 40
+EXAMPLE_PSI_ATOL = 1e-4
+SLICE24_KERNELS = ("value_update",)
+
+
+def dup_faces_ldu(m):
+    """`m` with a cyclic interface that couples every third x face's cells
+    again: those entries share their faces' slots, so its value map sums
+    several entries per slot (the accumulate plan).  Diagonally dominant."""
+    lo, up = np.asarray(m.lower_addr), np.asarray(m.upper_addr)
+    pick = np.flatnonzero(up - lo == 1)[::3]
+    li = ldu.LocalInterface(rows=np.concatenate([lo[pick], up[pick]]),
+                            cols=np.concatenate([up[pick], lo[pick]]),
+                            coeffs=-np.linspace(0.1, 0.4, 2 * len(pick)).astype(np.float32))
+    return dataclasses.replace(m, local_interfaces=(li,))
+
+
+def cpu_write(w):
+    """A value-update Write with its tables on the CPU."""
+    c = (lambda t: None if t is None else t.cpu())
+    return vu.Write(w.block, c(w.src), c(w.dest), c(w.seg), w.start, w.items, w.scale)
+
+
+def check_step_values(what, slv, spent):
+    """The container of the solver's last step against the full path (the
+    kernel writing every block into zeros) and against the twin doing the
+    same on CPU copies of the resident blocks: bit-equal, and the full path
+    twice the same bits.  Launches of this check are not the path's: they
+    are added to `spent`, which the path's count leaves out."""
+    nb = len(slv._blocks_host)
+    before = kernels.launches["value_update"]
+    step = formats.values_flat(slv.matrix)
+    full = [formats.values_flat(slv._apply_block_updates(range(nb), False)) for _ in range(2)]
+    twin = torch.zeros(step.numel())
+    vu.value_update_plain(twin, [(d.cpu(), None, None) for d in slv._blocks_dev],
+                          [cpu_write(w) for w in slv.update_writes(range(nb))])
+    same = (torch.equal(step, full[0]), torch.equal(full[0], full[1]),
+            torch.equal(step.cpu().view(torch.int32), twin.view(torch.int32)))
+    spent["value_update"] += kernels.launches["value_update"] - before
+    print(f"  {what}: the step's container bit-equal to the full path {same[0]}, the full "
+          f"path repeats its bits {same[1]}, bit-equal to the twin on CPU copies {same[2]}")
+    if not all(same):
+        raise RuntimeError(f"{what}: the value update's bits disagree: {same}")
+
+
+def step_once(field, mk, bk, ctl, want_blocks, want_launches=1):
+    """One steady step of `field` through foam.solve; the blocks it uploaded
+    and its value_update launches gated.  Returns the solver."""
+    before = kernels.launches["value_update"]
+    t0 = time.perf_counter()
+    _, perf = foam.solve(field, mk, bk, ctl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    slv = registry.global_registry.get(f"{field}_solver")
+    got = kernels.launches["value_update"] - before
+    lt = slv.last_timings
+    print(f"  {field} step: wall {wall * 1e3:.3f} ms = " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in sorted(lt.items())) + f" ms; {perf.n_iterations} "
+        f"iterations; blocks changed {slv.last_blocks_changed}, uploaded "
+        f"{slv.last_blocks_uploaded} (bf16 {slv.last_blocks_bf16[0]}), "
+        f"{slv.last_upload_bytes} bytes, rhs bf16 {slv.last_rhs_bf16}; value_update launches "
+        f"{got}")
+    if not perf.converged:
+        raise RuntimeError(f"{field} step did not converge: {perf}")
+    if slv.last_blocks_uploaded != want_blocks or got != want_launches:
+        raise RuntimeError(f"{field} step: uploaded {slv.last_blocks_uploaded}, launched "
+                           f"value_update {got} times; want {want_blocks}, {want_launches}")
+    return slv
+
+
+def nudged(m, rel, blocks):
+    """`m` with the named coefficient blocks scaled by 1 + rel."""
+    f = np.float32(1.0 + rel)
+    return dataclasses.replace(m, **{k: np.asarray(getattr(m, k)) * f for k in blocks})
+
+
+def run_examples(device):
+    """Both example applications on the card for EXAMPLE_STEPS steps, ψ held
+    to the same steps on the CPU.  Returns the value_update launches of the
+    card's runs."""
+    from ogl_tpu_torch.examples import cavity, karman
+
+    before = kernels.launches["value_update"]
+    out = {}
+    for name, fn in (("cavity n 32", lambda ex: cavity.run(
+            n=32, steps=EXAMPLE_STEPS, verbose=False, executor=ex)[0]),
+                     ("karman 96x32", lambda ex: karman.run(
+            nx=96, ny=32, d=6, steps=EXAMPLE_STEPS, verbose=False, executor=ex)[0])):
+        registry.global_registry.clear()
+        t0 = time.perf_counter()
+        card = fn("cuda")
+        wall = time.perf_counter() - t0
+        registry.global_registry.clear()
+        host = fn("cpu")
+        err = float(np.abs(card.psi - host.psi).max())
+        print(f"  example {name}: {EXAMPLE_STEPS} steps on the card in {wall:.2f} s, psi min "
+              f"{float(card.psi.min()):.5f}, |psi - psi on the CPU| max {err:.2e} (tol "
+              f"{EXAMPLE_PSI_ATOL:.0e})")
+        if not np.all(np.isfinite(card.psi)) or err > EXAMPLE_PSI_ATOL:
+            raise RuntimeError(f"example {name}: psi off the CPU run's by {err:.2e}")
+        out[name] = wall
+    registry.global_registry.clear()
+    got = kernels.launches["value_update"] - before
+    print(f"  the examples launched value_update {got} times on the card")
+    if got < 2 * (EXAMPLE_STEPS - 1):  # the ω operator changes at every step after the first
+        raise RuntimeError(f"the examples launched value_update {got} times")
+    return got
+
+
+def slice24_kernels(slv_dia, slv_knn, slv_acc, grid_main, grid_big, report):
+    """value_update against its twin on the card (bit-equal) on the path's
+    plans: the Dia diag block's affine plan at 1M (and an affine run of
+    8.4M), the Csr diag block's scatter plan and upper block's gather +
+    scatter plan and both blocks from zeros on the kNN mesh, a bfloat16
+    delta decoded while the Dia diag plan writes, and the accumulate plan
+    of the duplicated-faces grid; flat.index_copy_ beside the one-block
+    identity-src plans."""
+    label = "x".join(map(str, grid_main))
+    dev = slv_dia.device
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def case(name, lab, flat, sources, writes, entries=None, lib=None):
+        fk, fp = flat.clone(), flat.clone()
+        outs = [(o, None if o is None else o.clone()) for _, _, o in sources]
+        psrc = [(a, d, po) for (a, d, _), (_, po) in zip(sources, outs)]
+
+        def kern():
+            vu.value_update(fk, sources, writes)
+            return (fk, *[o for o, _ in outs if o is not None]), ()
+
+        def plain():
+            vu.value_update_plain(fp, psrc, writes)
+            return (fp, *[po for _, po in outs if po is not None]), ()
+
+        compare(name, lab, kern, plain, vu.bytes_moved(sources, writes, entries), 0, report,
+                err=bit_err)
+        if lib is not None:
+            library_call(name, lab, "flat.index_copy_(0, dest, v)", lib, lambda: kern()[0][0],
+                         f"one block of {writes[0].items} entries", report)
+            device_beside(name, lab, lambda: kern(), lib, report)
+
+    def plan_case(name, lab, slv, indices, zeros=False, lib=False):
+        sources = [(slv._blocks_dev[i], None, None) for i in indices]
+        writes = slv.update_writes(indices)
+        flat = (torch.zeros(formats.values_flat(slv.matrix).numel(), device=slv.device)
+                if zeros else formats.fresh_values(slv.matrix))
+        entries = (int(slv._acc_plan.seg[-1]) if slv._block_plans is None else None)
+        call = None
+        if lib:
+            w = writes[0]
+            dest = (w.dest.long() if w.dest is not None else
+                    torch.arange(w.start, w.start + w.items, device=slv.device))
+            v = sources[0][0] * torch.tensor(w.scale, device=slv.device)
+            fl = flat.clone()
+            call = lambda: fl.index_copy_(0, dest, v)  # noqa: E731
+        case(name, lab, flat, sources, writes, entries, call)
+
+    plan_case("value_update", label, slv_dia, [1], lib=True)
+    n8 = int(np.prod(grid_big))
+    blk8 = torch.randn(n8, device=dev, generator=g)
+    dest8 = torch.arange(3 * n8, 4 * n8, device=dev)
+    flat8 = torch.zeros(7 * n8, device=dev)
+    case("value_update", "x".join(map(str, grid_big)), flat8, [(blk8, None, None)],
+         [vu.Write(0, None, None, None, 3 * n8, n8, 1.0)],
+         lib=lambda: flat8.index_copy_(0, dest8, blk8))
+    del flat8, blk8, dest8
+    plan_case("value_update[scatter]", "knn", slv_knn, [1], lib=True)
+    plan_case("value_update[gather_scatter]", "knn", slv_knn, [0])
+    plan_case("value_update[full]", "knn", slv_knn, [0, 1], zeros=True)
+    nd = slv_dia._blocks_dev[1]
+    delta = (STEP_REL * torch.randn(nd.numel(), device=dev, generator=g) * nd
+             ).to(torch.bfloat16)
+    case("value_update[bf16]", label, formats.fresh_values(slv_dia.matrix),
+         [(nd, delta, torch.empty_like(nd))], slv_dia.update_writes([1]))
+    plan_case("value_update[accumulate]", label, slv_acc, range(len(slv_acc._blocks_host)),
+              zeros=True)
+
+
+def slice24_path(device, m, b, m_knn, b_knn, grid_main, grid_big, ctl) -> tuple:
+    """Phase 15.  Returns the launch counts of the path and its kernel
+    report."""
+    print(f"== phase 15: slice 24, the transient steady step (value_update), foam.solve at "
+          f"{m.n} (Poisson, Dia) and {m_knn.n} (kNN-6, Csr) cells, and the examples")
+    ctl = {**ctl, "verbose": 0, "solver": "GKOCG", "preconditioner": "none"}
+    dia = {**ctl, "matrixFormat": "Dia"}
+    csr = {**ctl, "matrixFormat": "Csr"}
+    bf = {**dia, "uploadPrecision": "bfloat16"}
+    m_acc = dup_faces_ldu(m)
+    acc = {**dia, "solver": "GKOBiCGStab"}
+    report: dict = {}
+    spent = {k: 0 for k in SLICE24_KERNELS}  # the checks' launches
+    kernels.reset_launches()
+    for field, mm, bb, c in (("pVU", m, b, dia), ("pKVU", m_knn, b_knn, csr),
+                             ("pVUbf", m, b, bf), ("pVUacc", m_acc, b, acc)):
+        t0 = time.perf_counter()
+        _, perf = foam.solve(field, mm, bb, c)
+        torch.cuda.synchronize()
+        print(f"  {field}: first solve {time.perf_counter() - t0:.2f} s, "
+              f"{perf.n_iterations} iterations")
+    # a diag-only step on Dia: one of two blocks staged, the affine plan, one launch
+    m1 = nudged(m, STEP_REL, ("diag",))
+    slv = step_once("pVU", m1, b, dia, (1, 2))
+    if slv._block_plans[1].dest is not None or slv._block_plans[1].src is not None:
+        raise RuntimeError("pVU: the diag block's plan is not affine")
+    check_step_values("pVU diag-only", slv, spent)
+    slv = step_once("pVU", nudged(m1, STEP_REL, ("diag", "upper")), b, dia, (2, 2))
+    check_step_values("pVU all blocks", slv, spent)
+    slv_dia = slv
+    mk1 = nudged(m_knn, STEP_REL, ("diag",))
+    slv = step_once("pKVU", mk1, b_knn, csr, (1, 2))
+    check_step_values("pKVU diag-only", slv, spent)
+    slv = step_once("pKVU", nudged(mk1, STEP_REL, ("diag", "upper")), b_knn, csr, (2, 2))
+    check_step_values("pKVU all blocks", slv, spent)
+    slv_knn = slv
+    # bfloat16 deltas: the first steady step sends the diag at full width
+    # (as the reference's), the next one as a delta of half the bytes, the
+    # decoded copies the host mirrors' bits
+    n = m.n
+    slv = step_once("pVUbf", m1, b, bf, (1, 2))
+    if slv.last_blocks_bf16 != (0, 2) or slv.last_upload_bytes != 4 * n:
+        raise RuntimeError("pVUbf: the first steady step did not send the diag at full width")
+    b1 = (b * np.float32(1.0 + STEP_REL)).astype(np.float32)
+    slv = step_once("pVUbf", nudged(m1, STEP_REL, ("diag",)), b1, bf, (1, 2), want_launches=2)
+    bits = (torch.equal(slv._blocks_dev[1].cpu(), torch.from_numpy(slv._blocks_mirror[1])),
+            torch.equal(slv._b_dev.cpu(), torch.from_numpy(slv._b_mirror)))
+    print(f"  pVUbf: {slv.last_upload_bytes} bytes for the {n}-entry diag block (float32: "
+          f"{4 * n}); decoded diag and b bit-equal to the host mirrors {bits}")
+    if (slv.last_blocks_bf16 != (1, 2) or not slv.last_rhs_bf16
+            or slv.last_upload_bytes * 2 != 4 * n or not all(bits)):
+        raise RuntimeError("pVUbf: the bfloat16 step did not halve the bytes or its decode "
+                           "left the mirrors")
+    check_step_values("pVUbf diag-only", slv, spent)
+    # slots of several entries: the accumulate plan, the same bits every run
+    slv = step_once("pVUacc", nudged(m_acc, STEP_REL, ("diag",)), b, acc, (1, 3))
+    if slv._block_plans is not None:
+        raise RuntimeError("pVUacc: the duplicated faces did not make an accumulate map")
+    check_step_values("pVUacc diag-only (accumulate plan)", slv, spent)
+    slv_acc = slv
+    run_examples(device)
+    launches = {k: kernels.launches[k] - spent[k] for k in SLICE24_KERNELS}
+    print(f"launch counts over phase 15's path: {launches} (the checks' {spent} left out)")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"phase 15's path never launched {missing}")
+    slice24_kernels(slv_dia, slv_knn, slv_acc, grid_main, grid_big, report)
+    for field in ("pVU", "pKVU", "pVUbf", "pVUacc"):
+        registry.global_registry.pop(f"{field}_solver", None)
+    return launches, report
+
+
 # one turn of `--turns`: phase 3's Dia kernels at 1M and 8.4M rows, then the
 # Gdia SpMV and K1 on the shuffled grid built on the device at both sizes,
 # then 200 checked iterations of the merged pipelined CG and of the merged
@@ -4306,7 +4593,44 @@ TURN_AMG_CODE = TURN_HEAD + TURN_KNN + (
     "three(f'index_add_ kNN 1M into {tr.nc}', lambda: torch.zeros(tr.nc, device=d)"
     ".index_add_(0, agg64, rr))\n")
 
-TURN_LINES = ("dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
+# one turn of `--turns-step`: the steady step at 1M through foam.solve, the
+# Poisson grid as Dia and the kNN-6 mesh as Csr, three diag-only and three
+# all-block steps each (b changed too), with `uploadPrecision bfloat16` where
+# the tree has it; each step's wall and phase split
+TURN_STEP_CODE = TURN_HEAD + TURN_KNN + (
+    "import dataclasses, time\n"
+    "mp = s.testing.poisson_ldu(s.GRID_1M)\n"
+    "bp = np.random.default_rng(0).normal(size=mp.n).astype(np.float32)\n"
+    "base = {'solver': 'GKOCG', 'executor': 'cuda', 'tolerance': s.TOL, 'relTol': 0}\n"
+    "def nud(mm, k, blocks):\n"
+    "    f = np.float32(1.0 + 1e-7 * k)\n"
+    "    return dataclasses.replace(mm, **{n: np.asarray(getattr(mm, n)) * f for n in blocks})\n"
+    "for sysname, mm, bb, fmt in (('poisson Dia', mp, bp, 'Dia'), ('kNN Csr', mk, bk, 'Csr')):\n"
+    "    for up in ('default', 'bfloat16'):\n"
+    "        ctl = {**base, 'matrixFormat': fmt, 'uploadPrecision': up}\n"
+    "        field = 'st' + fmt + up\n"
+    "        try:\n"
+    "            s.foam.solve(field, mm, bb, ctl)\n"
+    "        except NotImplementedError as e:\n"
+    "            print(f'  step_turn {sysname} {up}: not in this tree ({e})')\n"
+    "            continue\n"
+    "        slv = s.registry.global_registry.get(field + '_solver')\n"
+    "        for kind, blocks, k0 in (('diag-only', ('diag',), 0), ('all-block', ('diag', 'upper'), 10)):\n"
+    "            for k in range(1, 4):\n"
+    "                bkk = (bb * np.float32(1.0 + 1e-7 * (k + k0))).astype(np.float32)\n"
+    "                mkk = nud(mm, k + k0, blocks)\n"
+    "                torch.cuda.synchronize()\n"
+    "                t0 = time.perf_counter()\n"
+    "                _, perf = s.foam.solve(field, mkk, bkk, ctl)\n"
+    "                torch.cuda.synchronize()\n"
+    "                wall = time.perf_counter() - t0\n"
+    "                split = ', '.join(f'{a} {v * 1e3:.3f}' for a, v in sorted(slv.last_timings.items()))\n"
+    "                print(f'  step_turn {sysname} {up} {kind} {k}: wall {wall * 1e3:.3f} ms = {split} ms; '\n"
+    "                      f'{perf.n_iterations} iterations; uploaded {slv.last_blocks_uploaded}, '\n"
+    "                      f'{slv.last_upload_bytes} bytes')\n"
+    "        s.registry.global_registry.clear()\n")
+
+TURN_LINES = ("step_turn", "dia_spmv ", "cg_k2 ", "cg_k2i ", "cg_k2n ", "gdia_k1 ", "gdia_spmv ", "cg_loop",
               "cg_ka", "cg_kb_pipe", "cg_pipe", "bicgstab", "amg_", "gen_solve", "xell_",
               "gather_solve", "ell_spmv", "hybrid_spmv", "csr_spmv", "sell_spmv", "torch CSR",
               "arnoldi_step", "combine_turn", "gmres_solve", "tri_turn", "tri_solve")
@@ -4352,6 +4676,8 @@ def main() -> int:
         return turns(sys.argv[2:], TURN_TRI_CODE)
     if sys.argv[1:2] == ["--turns-amg"]:
         return turns(sys.argv[2:], TURN_AMG_CODE)
+    if sys.argv[1:2] == ["--turns-step"]:
+        return turns(sys.argv[2:], TURN_STEP_CODE)
     return run(torch.device("cuda"), GRID_1M, GRID_8M, KNN_1M)
 
 
@@ -4548,11 +4874,14 @@ def run(device, grid_main, grid_big, knn_n) -> int:
     t_ph = phase_done("phase 13", t_ph)
     launches_22, report_22 = slice22_path(device, *knn_system, knn_small, grid_main, ctl)
     report.update(report_22)
-    phase_done("phase 14", t_ph)
+    t_ph = phase_done("phase 14", t_ph)
+    launches_24, report_24 = slice24_path(device, m, b, *knn_system, grid_main, grid_big, ctl)
+    report.update(report_24)
+    phase_done("phase 15", t_ph)
 
     rows = []
     paths = (launches, launches_amg, launches_un, launches_4, launches_5, launches_14,
-             launches_17, launches_20, launches_22)
+             launches_17, launches_20, launches_22, launches_24)
     labels = {None: "x".join(map(str, grid_main)), "big": "x".join(map(str, grid_big))}
     for name, (route, source, replaces, case, label) in KERNELS.items():
         r = report[case][labels.get(label, label)]

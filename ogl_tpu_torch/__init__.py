@@ -13,8 +13,10 @@ merged two-kernel CG with the OpenFOAM stopping criterion, preconditioner
 on any matrix format) — GKOMultigrid, the
 pipelined GKOCG (`pipelinedCG true`) and GKOBiCGStab on symmetric and
 asymmetric matrices (merged with `fusedBiCGStab true`), GKOGMRES, blocked
-`BJ` and ISAI/GISAI (over the native host runtime, native/); float32, one
-device.  Controls outside those slices raise NotImplementedError (see
+`BJ` and ISAI/GISAI (over the native host runtime, native/), and the
+transient steady step (per-block value plans, `uploadPrecision bfloat16`
+deltas, one value-update launch a step; examples/ runs the two example
+applications on it); float32, one device.  Controls outside those slices raise NotImplementedError (see
 ogl_tpu_torch.foam.solver).  The measurement path of the reference's
 bench: kernels/roofline.py (the read-peak kernel, chained timing over
 CUDA graphs), kernels/device_time.py (device busy time from

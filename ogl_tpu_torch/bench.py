@@ -287,8 +287,12 @@ def cg_lane(mat: formats.Dia, seed: int, max_iter: int, pk: dict, device,
 
 def foam_step_lane(dims, device) -> dict:
     """Lane 4 (the reference's `_foam_large_benches` (a)): GKOCG through
-    foam.solve — first solve, three steady steps, the phase split, the
-    device-only solve, three diag-only steps."""
+    foam.solve — first solve, three steady steps, the phase split
+    (`update_local_matrix`, `update_device_values`, `solve`, `res_eval`),
+    the device-only solve, three diag-only steps (the diag block's affine
+    plan: one value-update launch), and the same diag-only steps with
+    `uploadPrecision bfloat16` (the reference's bf16-upload lane,
+    bench.py:634)."""
     t0 = time.perf_counter()
     m = testing.poisson_ldu(dims)
     n = m.n
@@ -298,18 +302,19 @@ def foam_step_lane(dims, device) -> dict:
            "executor": "cuda" if device.type == "cuda" else "cpu"}
     registry.global_registry.clear()
 
-    def step(mk, what=None):
+    def step(mk, what=None, field="benchStep", extra=None):
         t0 = time.perf_counter()
-        x, perf = foam.solve("benchStep", mk, b, ctl)
+        x, perf = foam.solve(field, mk, b, {**ctl, **(extra or {})})
         _sync(device)
         wall = time.perf_counter() - t0
-        slv = registry.global_registry.get("benchStep_solver")
+        slv = registry.global_registry.get(f"{field}_solver")
         _check_solve(f"foam step of {n} cells", perf, slv.matrix, x,
                      torch.from_numpy(b).to(device))
         if what:
             log(f"  {what}: wall {wall * 1e3:.2f} ms = " + ", ".join(
                 f"{k} {v * 1e3:.2f}" for k, v in sorted(slv.last_timings.items())) +
-                f" ms; iters {perf.n_iterations}, blocks uploaded {slv.last_blocks_uploaded}")
+                f" ms; iters {perf.n_iterations}, blocks uploaded {slv.last_blocks_uploaded} "
+                f"(bf16 {slv.last_blocks_bf16[0]}), {slv.last_upload_bytes} bytes")
         return wall, perf, slv
 
     first, perf, slv = step(m)
@@ -343,8 +348,27 @@ def foam_step_lane(dims, device) -> dict:
             raise RuntimeError(f"diag-only step {i}: uploaded {slv.last_blocks_uploaded} "
                                "blocks, not (1, 2)")
     out["diag_only_ms"] = min(walls) * 1e3
+    out["diag_only_split_ms"] = {k: v * 1e3 for k, v in sorted(slv.last_timings.items())}
     log(f"per-step diag-only change (delta upload {slv.last_blocks_uploaded}): "
         f"{min(walls) * 1e3:.2f} ms, iters={perf.n_iterations}")
+    bf = {"uploadPrecision": "bfloat16"}
+    step(m_k, field="benchStepBf", extra=bf)  # first solve: blocks resident at full width
+    # the first steady step sends its changed block at full width (the
+    # reference's), and sets the host mirror the deltas start from
+    m_k = dataclasses.replace(m_k, diag=m.diag * (1.0 + 1e-7 * 8))
+    step(m_k, field="benchStepBf", extra=bf)
+    walls = []
+    for i in range(3):
+        m_k = dataclasses.replace(m_k, diag=m.diag * (1.0 + 1e-7 * (i + 9)))
+        wall, perf, slv = step(m_k, f"diag-only bf16 step {i + 1}", "benchStepBf", bf)
+        walls.append(wall)
+        if slv.last_blocks_bf16 != (1, 2):
+            raise RuntimeError(f"diag-only bf16 step {i}: {slv.last_blocks_bf16} bf16 blocks, "
+                               "not (1, 2)")
+    out["diag_only_bf16_ms"] = min(walls) * 1e3
+    out["diag_only_bf16_split_ms"] = {k: v * 1e3 for k, v in sorted(slv.last_timings.items())}
+    log(f"per-step diag-only change, uploadPrecision bfloat16 ({slv.last_upload_bytes} bytes "
+        f"uploaded): {min(walls) * 1e3:.2f} ms, iters={perf.n_iterations}")
     return out
 
 

@@ -9,9 +9,13 @@ Counterpart: ogl_tpu/core/formats.py (`Coo`, `Csr`, `Ell`, `Dia`, `Sell`,
 `Hybrid`, `coo_from_dense`, `to_dense`, `coo_to_csr`, `ell_layout`,
 `coo_to_ell`, `coo_to_hybrid`, `dia_layout`, `coo_to_dia`, `sell_layout`,
 `coo_to_sell`, `with_values`, `values_flat`, `cast_values`,
-`ValueMap`/`value_map`).  The layout functions are the reference's numpy
-branches carried over unchanged; the containers hold torch tensors
-instead of JAX pytrees.  `BlockUpdatePlan` is not ported (ROADMAP.md A7).
+`ValueMap`/`value_map`, `BlockUpdatePlan`/`block_update_plans`).  The
+layout functions are the reference's numpy branches carried over
+unchanged (the Dia layout and float32 packing through the native runtime
+where it builds, as the reference's); the containers hold torch tensors
+instead of JAX pytrees.  `AccumulatePlan` has no counterpart: it is the
+slot-sorted form of a value map whose slots take several entries, which
+the value-update kernel sums in a fixed order.
 
   Coo    — row/col/val triplets, row-major sorted: the host exchange
            format (numpy arrays).  `matrixFormat Coo` puts it on the device
@@ -55,7 +59,9 @@ __all__ = ["Coo", "Csr", "DeviceCoo", "Ell", "Sell", "Hybrid", "Dia", "format_na
            "ELL_GROUP", "ell_warp_slots", "coo_to_ell", "coo_to_hybrid", "dia_layout",
            "coo_to_dia", "sell_layout", "sell_device_index", "sell_table", "sell_slices",
            "coo_to_sell",
-           "with_values", "values_flat", "cast_values", "ValueMap", "value_map"]
+           "with_values", "values_flat", "fresh_values", "cast_values", "ValueMap",
+           "value_map", "BlockUpdatePlan", "block_update_plans", "AccumulatePlan",
+           "accumulate_plan"]
 
 
 def _np(a) -> np.ndarray:
@@ -337,12 +343,18 @@ def dia_layout(rows: np.ndarray, cols: np.ndarray, n: int):
     """Entry→slot layout for DIA packing: returns (offsets, dest) where
     dest[i] is the flat index of entry i into the (n_diags, n) data array.
 
-    Offset ranks come from a boolean presence table + short cumsum
-    (O(nnz + n)) instead of np.unique's O(nnz log nnz) sort."""
+    The native runtime's two passes where it builds; else offset ranks
+    from a boolean presence table + short cumsum (O(nnz + n)) instead of
+    np.unique's O(nnz log nnz) sort."""
     rows = np.asarray(rows)
     cols = np.asarray(cols)
     if len(rows) == 0 or n == 0:
         return (), np.zeros(0, np.int64)
+    from ogl_tpu_torch import native
+
+    nat = native.dia_layout(rows, cols, n)
+    if nat is not None:
+        return nat
     shifted = np.subtract(cols, rows, dtype=np.int64)
     shifted += n - 1  # in [0, 2n-2]
     present = np.zeros(2 * n - 1, np.bool_)
@@ -357,11 +369,18 @@ def dia_layout(rows: np.ndarray, cols: np.ndarray, n: int):
 
 
 def coo_to_dia(m: Coo, device: torch.device | str = "cpu") -> Dia:
-    """Host COO -> Dia with its data uploaded to `device` (duplicates sum,
-    as in the reference's bincount pass)."""
+    """Host COO -> Dia with its data uploaded to `device` (duplicates sum:
+    in float32 by the native runtime's packing where it builds, else in
+    float64 by a bincount pass, as the reference packs)."""
     rows, cols, vals = (np.asarray(a) for a in (m.rows, m.cols, m.vals))
     n = m.shape[0]
     offs, dest = dia_layout(rows, cols, n)
+    if vals.dtype == np.float32 and len(offs):
+        from ogl_tpu_torch import native
+
+        data = native.dia_pack_f32(dest, vals, len(offs), n)
+        if data is not None:
+            return Dia(data=torch.tensor(data, device=device), offsets=offs, shape=m.shape)
     data = np.bincount(dest, weights=vals.astype(np.float64),
                        minlength=len(offs) * n).astype(vals.dtype)
     return Dia(data=torch.tensor(data.reshape(len(offs), n), device=device),
@@ -528,6 +547,14 @@ def values_flat(m) -> torch.Tensor:
     return m.vals.reshape(-1)  # Coo/Csr/Ell/Sell/Gdia
 
 
+def fresh_values(m) -> torch.Tensor:
+    """A copy of the container's flat value storage that no container
+    shares: the value update writes into it, so the container it came from
+    (and anything that still holds that container) keeps its values."""
+    flat = values_flat(m)
+    return flat if isinstance(m, Hybrid) or type(m).__name__ == "Xell" else flat.clone()
+
+
 def cast_values(m, dtype):
     """Same-sparsity container with every floating tensor cast to `dtype`
     (index tensors untouched; nested containers too)."""
@@ -544,38 +571,28 @@ def cast_values(m, dtype):
 
 @dataclasses.dataclass(frozen=True)
 class ValueMap:
-    """Static entry→slot map making the steady-state coefficient update one
-    scatter on the device (the reference's in-place device value
-    overwrite, CsrMatrixWrapper.H:74-136).
+    """Static entry→slot map of a container's values (the reference's
+    `ValueMap`; its in-place device value overwrite,
+    CsrMatrixWrapper.H:74-136), from which `block_update_plans` and
+    `accumulate_plan` build the steady step's value-update writes.  The
+    reference's `ValueMap.update` has no counterpart: the port's one update
+    path is those plans and the value-update kernel.
 
     `dest[i]` is the flat index of COO entry i in the container's value
-    storage (int64, on the matrix's device; None = the storage IS the entry
+    storage (int32, on the matrix's device; None = the storage IS the entry
     order: Coo, Csr, DeviceCoo).  `unique` means no two entries share a
-    slot, so the scatter is a set; otherwise duplicates accumulate
-    (matching the converters' bincount)."""
+    slot, so each slot is set from its entry; otherwise a slot sums its
+    entries (matching the converters' bincount)."""
 
     dest: torch.Tensor | None
     out_shape: tuple
     unique: bool
 
-    def update(self, m, coo_vals: torch.Tensor):
-        """New container with the same sparsity, values from the row-major
-        COO entry array (already on the matrix's device)."""
-        if self.dest is None:
-            return with_values(m, coo_vals)
-        size = int(np.prod(self.out_shape))
-        flat = torch.zeros(size, dtype=coo_vals.dtype, device=coo_vals.device)
-        if self.unique:
-            flat[self.dest] = coo_vals
-        else:
-            flat.index_add_(0, self.dest, coo_vals)
-        return with_values(m, flat.view(self.out_shape))
-
 
 def value_map(m, rows, cols) -> ValueMap:
     """Build the ValueMap for container `m` from the host COO structure
-    (row-major sorted, the order ldu.assemble_from_blocks emits values in).
-    One-time setup; the returned map's `update` is the per-step path.  A
+    (row-major sorted, the order the LDU sparsity emits values in).
+    One-time setup; the per-step path is the plans built from it.  A
     Gdia or Xell container that still carries the host layout of its
     conversion reuses it (the reference recomputes `gdia_layout` or
     `xell_layout`, a second or more at 1M)."""
@@ -645,5 +662,120 @@ def value_map(m, rows, cols) -> ValueMap:
     seen = np.zeros(int(np.prod(shape)), np.bool_)
     seen[dest] = True
     unique = int(seen.sum()) == len(dest)
-    return ValueMap(dest=torch.tensor(dest, device=device), out_shape=shape,
-                    unique=unique)
+    if int(np.prod(shape)) >= 2**31:
+        raise ValueError("value storage too large for int32 slot indices")
+    return ValueMap(dest=torch.tensor(np.asarray(dest, np.int32), device=device),
+                    out_shape=shape, unique=unique)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockUpdatePlan:
+    """One source block's slice of the steady-state value update (the
+    reference's `BlockUpdatePlan`): which container slots (`dest`) read
+    which positions of the block (`src`).  `dest is None` marks the affine
+    case — the block maps onto one contiguous run starting at `dest_start`
+    in block order (the LDU diag block onto the Dia main plane) —, `src is
+    None` block order (src == arange).  Tables int32 on the matrix's
+    device; `length` is the block's size (a symmetric matrix's upper block
+    feeds 2·length slots)."""
+
+    dest: torch.Tensor | None
+    src: torch.Tensor | None
+    dest_start: int
+    length: int
+
+    @property
+    def items(self) -> int:
+        """The slots this plan writes."""
+        return self.length if self.dest is None else int(self.dest.shape[0])
+
+    def write(self, block: int, scale: float):
+        """The value-update Write of this plan, reading source `block`."""
+        from ogl_tpu_torch.kernels.value_update import Write
+
+        return Write(block=block, src=self.src, dest=self.dest, seg=None,
+                     start=self.dest_start, items=self.items, scale=scale)
+
+
+def _dest_all(vm: ValueMap, n_entries: int) -> np.ndarray:
+    return (np.arange(n_entries, dtype=np.int64) if vm.dest is None
+            else vm.dest.cpu().numpy().astype(np.int64))
+
+
+def block_update_plans(vm: ValueMap, perm2, sizes, device=None) -> list | None:
+    """Per-source-block incremental update plans for a ValueMap (the
+    reference's `block_update_plans`, ogl_tpu/core/formats.py:569-608).
+
+    `perm2` is the entry->source-position map the full update applies
+    (sparsity.permute composed with any reorder entry_order; NOT a
+    bijection — a symmetric matrix's upper block feeds both triangles) and
+    `sizes` the raw LDU block sizes in source order.  A step that changes
+    some blocks then writes only their entries.  None when a per-block set
+    is unsound (slots that take several entries: vm.unique False — see
+    `accumulate_plan`).  `device`: where the tables go (vm.dest's device by
+    default, else the CPU)."""
+    if not vm.unique:
+        return None
+    if device is None:
+        device = vm.dest.device if vm.dest is not None else torch.device("cpu")
+    perm2 = np.asarray(perm2, np.int64)
+    dest_all = _dest_all(vm, len(perm2))
+    if len(dest_all) != len(perm2):
+        return None
+    plans = []
+    off = 0
+    for size in sizes:
+        q = np.flatnonzero((perm2 >= off) & (perm2 < off + size))
+        src = perm2[q] - off
+        d = dest_all[q]
+        o = np.argsort(src, kind="stable")
+        src, d = src[o], d[o]
+        identity = len(src) == size and np.array_equal(src, np.arange(size))
+        if identity and size and np.all(np.diff(d) == 1):
+            plans.append(BlockUpdatePlan(None, None, int(d[0]), int(size)))
+        else:
+            plans.append(BlockUpdatePlan(
+                torch.tensor(d.astype(np.int32), device=device),
+                None if identity else torch.tensor(src.astype(np.int32), device=device),
+                0, int(size)))
+        off += size
+    return plans
+
+
+@dataclasses.dataclass(frozen=True)
+class AccumulatePlan:
+    """The value update of a map whose slots take several entries (a
+    cyclic interface onto a face's own slot): the written slots ascending
+    (`slots`), and for slot k its entries' source positions
+    src[seg[k]:seg[k + 1]] in ascending entry order.  The kernel sums each
+    slot's entries in that order from 0 and writes the slot once, so the
+    result is the same on every run (float atomics would add in whatever
+    order the card runs them).  int32 tables on the matrix's device."""
+
+    slots: torch.Tensor
+    seg: torch.Tensor
+    src: torch.Tensor
+
+    def write(self, block: int, scale: float):
+        from ogl_tpu_torch.kernels.value_update import Write
+
+        return Write(block=block, src=self.src, dest=self.slots, seg=self.seg, start=0,
+                     items=int(self.slots.shape[0]), scale=scale)
+
+
+def accumulate_plan(vm: ValueMap, perm2, device=None) -> AccumulatePlan:
+    """The AccumulatePlan of `vm` with entry i reading source position
+    perm2[i] (built once per sparsity on the host: a stable sort of the
+    entries by slot)."""
+    perm2 = np.asarray(perm2, np.int64)
+    dest = _dest_all(vm, len(perm2))
+    if device is None:
+        device = vm.dest.device if vm.dest is not None else torch.device("cpu")
+    order = np.argsort(dest, kind="stable")
+    d = dest[order]
+    first = np.flatnonzero(np.r_[True, d[1:] != d[:-1]]) if len(d) else np.zeros(0, np.int64)
+    seg = np.append(first, len(d))
+    return AccumulatePlan(
+        slots=torch.tensor(d[first].astype(np.int32), device=device),
+        seg=torch.tensor(seg.astype(np.int32), device=device),
+        src=torch.tensor(perm2[order].astype(np.int32), device=device))

@@ -4,9 +4,11 @@ Counterpart: ogl_tpu/core/ldu.py.  The host half (sparsity build, raw
 source blocks, host assembly) is the reference's: its native C++ sparsity
 build and counting sort (ogl_tpu_torch/native `init_local_sparsity`,
 `sort_coo`, bit-equal to the reference's library) where the native runtime
-builds, else its numpy branch, carried over unchanged.  The device half is one gather on the solver's device:
-`assemble_from_blocks` concatenates the resident source blocks and
-gathers them into row-major entry order with `torch.index_select`.
+builds, else its numpy branch, carried over unchanged.  The device half,
+the reference's `_assemble_from_blocks` gather followed by the value map's
+scatter, is the value-update kernel's (kernels/value_update.py), which
+reads the resident blocks through per-block plans (core/formats.py
+`block_update_plans`) and needs no assembled entry array.
 
 OpenFOAM stores a matrix as (diag, upper, lower) plus face addressing
 (lowerAddr = owner cell, upperAddr = neighbour cell per internal face).
@@ -31,7 +33,6 @@ __all__ = [
     "LduSparsity",
     "build_local_sparsity",
     "assemble_coeffs_host",
-    "assemble_from_blocks",
     "ldu_to_coo_host",
 ]
 
@@ -172,15 +173,6 @@ def host_blocks(sp: LduSparsity, m: LduMatrix, dtype) -> list:
         parts.append(-np.concatenate(
             [np.asarray(li.coeffs, dtype) for li in m.local_interfaces]))
     return parts
-
-
-def assemble_from_blocks(blocks, permute: torch.Tensor, scale: float) -> torch.Tensor:
-    """Device-side concat of the resident source blocks + the row-major
-    gather (counterpart of `_assemble_from_blocks`): one `index_select`
-    on the blocks' device, entries in the sparsity's row-major order."""
-    src = torch.cat(blocks) if len(blocks) > 1 else blocks[0]
-    vals = torch.index_select(src, 0, permute)
-    return vals if scale == 1.0 else scale * vals
 
 
 def assemble_coeffs_host(sp: LduSparsity, m: LduMatrix, dtype, scale=1.0) -> np.ndarray:

@@ -7,10 +7,15 @@ Counterpart: ogl_tpu/foam/solver.py.
                  the matrix format on the device (raw LDU blocks left
                  resident) → preconditioner → merged-kernel CG (Dia, Gdia,
                  Xell) or the general loop over the format's SpMV
-  steady state:  per-block delta upload (unchanged blocks never cross to
-                 the device) → one on-device gather + scatter into the
-                 container's values → preconditioner regeneration gated on
-                 a changed operator and the TTL → merged-kernel CG
+  steady state:  per-block change detection → only the changed blocks
+                 cross to the device (full width, or under `uploadPrecision
+                 bfloat16` as an error-feedback bfloat16 delta) → one launch
+                 of the value-update kernel (kernels/value_update.py): a
+                 partial change writes only its blocks' entries through
+                 their plans (core/formats.py `block_update_plans`; the LDU
+                 diag onto the Dia main plane is one contiguous run), any
+                 other change every block's → preconditioner regeneration
+                 gated on a changed operator and the TTL → merged-kernel CG
 
 Slices implemented: GKOCG, GKOBiCGStab and GKOGMRES with preconditioner
 `none`, `BJ` (scalar, or blocked up to maxBlockSize 32), `ISAI`, `GISAI`,
@@ -99,6 +104,7 @@ from ogl_tpu_torch.kernels.ell import EllCgKernels
 from ogl_tpu_torch.kernels.gather_loop import CsrCgKernels, SellCgKernels
 from ogl_tpu_torch.kernels.fused import CgKernels, GdiaCgKernels
 from ogl_tpu_torch.kernels.gdia import Gdia, gdia_from_coo
+from ogl_tpu_torch.kernels.value_update import Write, value_update
 from ogl_tpu_torch.kernels.xell import Xell, XellCgKernels, xell_from_coo
 from ogl_tpu_torch.solve import stopping
 from ogl_tpu_torch.solve.bicgstab import bicgstab
@@ -161,8 +167,6 @@ def unsupported(cfg: SolverConfig) -> str | None:
         return "preconditioner precision bfloat16 (ROADMAP.md A10)"
     if cfg.dtype != "float32":
         return f"dtype {cfg.dtype} (ROADMAP.md A14)"
-    if cfg.upload_precision != "default":
-        return f"uploadPrecision {cfg.upload_precision} (ROADMAP.md A7)"
     if cfg.export or cfg.debug:
         return "export/debug (ROADMAP.md A15)"
     return None
@@ -266,22 +270,27 @@ class FoamSolver:
         self._reorder = None  # (perm, inv, rows, cols, entry_order) under rcm
         self._inv_dev = None
         self._value_map = None
-        self._permute_dev = None
+        self._block_plans = None  # per-block plans (None: slots take several entries)
+        self._acc_plan = None  # the whole update's slot-sorted plan where plans are None
         self._coo_host_cache = None
         self._blocks_host = None  # raw LDU source blocks of the last update
         self._blocks_prev = None  # private copies backing the delta compare
         self._blocks_dev = None  # device-resident per-block uploads
         self._blocks_stale = None  # device copy out of date vs host values
+        self._blocks_mirror = None  # uploadPrecision bfloat16: the device values on the host
         self._b_prev = None
         self._b_dev = None
+        self._b_mirror = None
         self._precond_op = None
         self._pc_built_epoch = None
         self._res_eval_time = 0.0
         self._redispatch = None  # the last solve's route over its resident state
         self.last_blocks_changed = (0, 0)
         self.last_blocks_uploaded = (0, 0)
+        self.last_blocks_bf16 = (0, 0)  # of the uploaded blocks, those sent as bf16 deltas
         self.last_upload_bytes = 0
         self.last_rhs_uploaded = False
+        self.last_rhs_bf16 = False
         self.last_timings: dict = {}
         self.props = registry.global_registry.properties(field_name)
         self.timings = common.Timings()
@@ -385,13 +394,18 @@ class FoamSolver:
             self._blocks_prev = [np.array(blk) for blk in self._blocks_host]
             self._blocks_dev = [None] * nb
             self._blocks_stale = [False] * nb
+            self._blocks_mirror = [None] * nb
             self.last_blocks_changed = (nb, nb)
             with self._timed("convert_format"):
                 self.matrix = self._convert(self.coo_host())
                 if not cfg.regenerate:
                     # leave the raw blocks resident: later steps upload
-                    # only the blocks whose values change
-                    self._stage_blocks()
+                    # only the blocks whose values change.  No bfloat16
+                    # mirror yet: the reference stages its blocks at the
+                    # first steady step, so that step sends its changed
+                    # blocks at full width, exact, and so does this one
+                    self._stage_blocks(range(nb))
+                    self._blocks_mirror = [None] * nb
             self.route = _route(cfg, self.matrix)
             # "ir" (GKOMultigrid) keeps the plan of the AMG loop's outer
             # formats for its device loop, and so does "cg" with Multigrid;
@@ -413,60 +427,177 @@ class FoamSolver:
             else:
                 self.kern = None
             return
-        # steady state: upload the changed raw blocks, then one gather +
-        # scatter on the device (the reference's in-place device value
-        # overwrite, CsrMatrixWrapper.H:74-136)
+        # steady state (the reference's ogl_tpu/foam/solver.py:306-354):
+        # upload the changed raw blocks, then one launch of the value-update
+        # kernel writes their entries into a fresh copy of the container's
+        # values (the solve's plans take the values from the container at
+        # each call, so the new container is all they need)
         if self._value_map is None:
-            c = self.coo_host()
-            self._value_map = formats.value_map(self.matrix, c.rows, c.cols)
-            if isinstance(self.matrix, (Gdia, Xell)):
-                # the value map holds what the host layout was kept for
-                self.matrix = dataclasses.replace(self.matrix, layout=None)
-            permute = self.sparsity.permute.astype(np.int64)
-            if self._reorder is not None:
-                # compose with the renumbering: one gather per step yields
-                # the values in the renumbered row-major order
-                permute = permute[self._reorder[4]]
-            self._permute_dev = torch.tensor(permute, device=self.device)
+            self._init_update_plans()
         with self._timed("update_device_values"):
-            self._detect_changed_blocks()
-            blocks_dev = self._stage_blocks()
-            vals = ldu.assemble_from_blocks(blocks_dev, self._permute_dev,
-                                            cfg.scaling)
-            self.matrix = self._value_map.update(self.matrix, vals)
-        if self.last_blocks_changed[0] > 0:
+            changed = self._detect_changed_blocks()
+            if changed:
+                partial = self._block_plans is not None and len(changed) < nb
+                self.matrix = self._apply_block_updates(changed if partial else range(nb),
+                                                        partial)
+            else:  # no block changed: the container's values are current
+                self.last_blocks_uploaded = (0, nb)
+                self.last_blocks_bf16 = (0, nb)
+                self.last_upload_bytes = 0
+        if changed:
             self._coeff_epoch += 1
 
-    def _detect_changed_blocks(self) -> None:
+    def _init_update_plans(self) -> None:
+        """The first steady step's set-up: the value map of the container,
+        and from it the per-block plans (or, where slots take several
+        entries, the slot-sorted plan of the whole update), over the entry
+        -> source-position map the reference's full path applies
+        (sparsity.permute composed with the renumbering's entry order)."""
+        c = self.coo_host()
+        self._value_map = formats.value_map(self.matrix, c.rows, c.cols)
+        if isinstance(self.matrix, (Gdia, Xell)):
+            # the value map holds what the host layout was kept for
+            self.matrix = dataclasses.replace(self.matrix, layout=None)
+        perm2 = self.sparsity.permute.astype(np.int64)
+        if self._reorder is not None:
+            perm2 = perm2[self._reorder[4]]
+        self._block_plans = formats.block_update_plans(
+            self._value_map, perm2, [blk.size for blk in self._blocks_host], self.device)
+        if self._block_plans is None:
+            self._acc_plan = formats.accumulate_plan(self._value_map, perm2, self.device)
+
+    def _apply_block_updates(self, indices, partial: bool):
+        """Stage the blocks `indices` and write their entries (the
+        reference's `_apply_block_updates`, and its full path where
+        `partial` is false) in one launch of the value-update kernel: a
+        partial change into a copy of the current values, the blocks' plans
+        (an affine plan is one contiguous run, a symmetric upper block's
+        plan reads its positions twice); every block into zeros, each by its
+        plan, or, where slots take several entries, all entries by the
+        slot-sorted plan, each slot summed in entry order."""
+        staged = self._stage_blocks(indices)
+        sources = [staged[i] for i in indices]
+        vm = self._value_map
+        if partial:
+            flat = formats.fresh_values(self.matrix)
+        else:
+            flat = torch.zeros(int(np.prod(vm.out_shape)), dtype=self.dtype,
+                               device=self.device)
+        value_update(flat, sources, self.update_writes(indices))
+        for i, (_, _, out) in zip(indices, sources):
+            if out is not None:  # the decoded copy is the block's resident copy now
+                self._blocks_dev[i] = out
+        return formats.with_values(self.matrix, flat.view(vm.out_shape))
+
+    def update_writes(self, indices) -> list:
+        """The value-update writes of the blocks `indices` (in that order, as
+        the kernel's sources): each block's plan, or the slot-sorted plan's
+        one write over all blocks where the map has no per-block plans."""
+        scale = float(self.cfg.scaling)
+        if self._block_plans is None:
+            return [self._acc_plan.write(block=-1, scale=scale)]
+        return [self._block_plans[i].write(block=k, scale=scale)
+                for k, i in enumerate(indices)]
+
+    def _delta_tol(self) -> float:
+        """uploadDeltaTol, or by default 1e-5 capped at tolerance/10 and
+        relTol/10: the solve converges against the compressed operands, so a
+        looser delta would let finalResidual overstate the accuracy."""
+        tol = self.cfg.upload_delta_tol
+        if tol is None:
+            tol = 1e-5
+            st = self.cfg.stopping
+            if st.tolerance > 0.0:
+                tol = min(tol, st.tolerance / 10.0)
+            if st.rel_tol > 0.0:
+                tol = min(tol, st.rel_tol / 10.0)
+        return tol
+
+    def _bf16_delta(self, new_f32: np.ndarray, mirror):
+        """Error-feedback bfloat16 delta encoding (uploadPrecision bfloat16;
+        the reference's `_bf16_delta`, ogl_tpu/foam/solver.py:369-405):
+        quantise new − mirror to bfloat16, rounding to nearest even, and
+        advance the mirror by the same quantised value the device adds, so
+        the host mirror and the device copy stay bit-equal and the
+        quantisation error never accumulates.  Returns (delta as a bfloat16
+        CPU tensor, new mirror), or None when the remaining error would
+        exceed the delta tolerance of the block's magnitude (a full-width
+        upload instead)."""
+        if mirror is None or mirror.shape != new_f32.shape:
+            return None
+        if not new_f32.size:
+            return torch.zeros(0, dtype=torch.bfloat16), mirror.copy()
+        # torch's CPU ops, on all cores, with three buffers: the same float32
+        # roundings as the reference's numpy, a few times faster at 1M+
+        new, old = torch.from_numpy(new_f32), torch.from_numpy(mirror)
+        delta = new - old
+        dbf = delta.to(torch.bfloat16)
+        mirror2 = dbf.float().add_(old)
+        lo, hi = torch.aminmax(new)
+        ref = max(float(hi), -float(lo))
+        lo, hi = torch.aminmax(torch.sub(new, mirror2, out=delta))
+        err = max(float(hi), -float(lo))
+        if ref > 0.0 and err > self._delta_tol() * ref:
+            return None
+        return dbf, mirror2.numpy()
+
+    def _detect_changed_blocks(self) -> list:
         """Host-side per-block change detection against the previous step's
-        values; marks changed blocks' device copies stale."""
-        changed = 0
+        values; marks changed blocks' device copies stale and returns their
+        indices (np.array_equal stops at the first difference)."""
+        changed = []
         for i, blk in enumerate(self._blocks_host):
             prev = self._blocks_prev[i]
             if prev.shape == blk.shape and np.array_equal(prev, blk):
                 continue
-            changed += 1
+            changed.append(i)
             self._blocks_stale[i] = True
             # private copy: a caller mutating its LDU arrays in place must
-            # not alias the compare baseline
-            self._blocks_prev[i] = np.array(blk)
-        self.last_blocks_changed = (changed, len(self._blocks_host))
+            # not alias the compare baseline (into the old one's buffer)
+            if prev.shape == blk.shape:
+                np.copyto(prev, blk)
+            else:
+                self._blocks_prev[i] = np.array(blk)
+        self.last_blocks_changed = (len(changed), len(self._blocks_host))
+        return changed
 
-    def _stage_blocks(self) -> list:
-        """Upload every block whose device copy is missing or stale;
-        resident-and-current blocks never cross to the device."""
-        uploaded = 0
-        nbytes = 0
-        for i, blk in enumerate(self._blocks_host):
-            if self._blocks_dev[i] is not None and not self._blocks_stale[i]:
+    def _stage_blocks(self, indices) -> dict:
+        """Upload each requested block whose device copy is missing or stale;
+        resident-and-current blocks never cross to the device, and blocks
+        not requested stay as they are.  Under uploadPrecision bfloat16 a
+        changed resident block crosses as a bfloat16 delta (_bf16_delta),
+        which the value-update kernel decodes.  Returns {index: (resident
+        copy, delta or None, buffer for the decoded copy or None)}, the
+        value-update kernel's sources."""
+        compress = self.cfg.upload_precision == "bfloat16"
+        staged = {}
+        uploaded = bf16 = nbytes = 0
+        for i in indices:
+            blk = self._blocks_host[i]
+            dev = self._blocks_dev[i]
+            if dev is not None and not self._blocks_stale[i]:
+                staged[i] = (dev, None, None)
                 continue
-            self._blocks_dev[i] = torch.tensor(blk, device=self.device)
+            enc = (self._bf16_delta(np.asarray(blk, np.float32), self._blocks_mirror[i])
+                   if compress and dev is not None else None)
+            if enc is not None:
+                dbf, self._blocks_mirror[i] = enc
+                staged[i] = (dev, dbf.to(self.device), torch.empty_like(dev))
+                bf16 += 1
+                nbytes += dbf.numel() * dbf.element_size()
+            else:
+                dev = self._blocks_dev[i] = torch.tensor(blk, device=self.device)
+                if compress:
+                    self._blocks_mirror[i] = np.array(blk, np.float32)
+                staged[i] = (dev, None, None)
+                nbytes += blk.nbytes
             self._blocks_stale[i] = False
             uploaded += 1
-            nbytes += blk.nbytes
-        self.last_blocks_uploaded = (uploaded, len(self._blocks_host))
+        nb = len(self._blocks_host)
+        self.last_blocks_uploaded = (uploaded, nb)
+        self.last_blocks_bf16 = (bf16, nb)
         self.last_upload_bytes = nbytes
-        return self._blocks_dev
+        return staged
 
     def coo_host(self) -> formats.Coo:
         """Host-side COO of the CURRENT coefficients (lazy row-major
@@ -526,7 +657,23 @@ class FoamSolver:
                 and np.array_equal(self._b_prev, b_host)):
             self.last_rhs_uploaded = False  # unchanged RHS stays resident
             return self._b_dev
-        self._b_dev = torch.tensor(b_host, device=self.device)
+        compress = self.cfg.upload_precision == "bfloat16"
+        enc = (self._bf16_delta(b_host, self._b_mirror)
+               if compress and self._b_dev is not None else None)
+        if enc is not None:
+            # the delta decoded by the value-update kernel: an identity plan
+            # from the resident b (read with the delta) into a new b
+            dbf, self._b_mirror = enc
+            old = self._b_dev
+            self._b_dev = torch.empty_like(old)
+            value_update(self._b_dev, [(old, dbf.to(self.device), None)],
+                         [Write(block=0, src=None, dest=None, seg=None, start=0,
+                                items=old.numel(), scale=1.0)])
+        else:
+            self._b_dev = torch.tensor(b_host, device=self.device)
+            if compress:
+                self._b_mirror = np.array(b_host)
+        self.last_rhs_bf16 = enc is not None
         self._b_prev = np.array(b_host)
         self.last_rhs_uploaded = True
         return self._b_dev
@@ -647,8 +794,12 @@ class FoamSolver:
         self.timings.clear()
         iters = res.iters
 
+        # the criterion's per-check cost, measured on every solve as OGL
+        # does; the measurement's own wall time shows in the step's split
+        t0 = time.perf_counter()
         self._res_eval_time = _res_eval_seconds(
             spmv.matvec(self.matrix), res.x, b_dev, self.device)
+        self.last_timings["res_eval"] = time.perf_counter() - t0
         time_per_iter = solve_t / max(iters, 1)
         self.props.prev_rel_res_cost = time_per_iter / self._res_eval_time
         self.props.prev_solve_iters = iters

@@ -24,7 +24,8 @@ launches: dict[str, int] = {"dia_spmv": 0, "cg_k1": 0, "cg_k2": 0, "cg_k2i": 0,
                             "gmres_arnoldi": 0, "gmres_combine": 0,
                             "tri_sweep": 0, "tri_levels": 0, "amg_ell_sweep": 0,
                             "amg_ell_resid": 0, "amg_gdia_sweep": 0, "amg_gdia_resid": 0,
-                            "pgm_restrict": 0, "pgm_prolong": 0}
+                            "pgm_restrict": 0, "pgm_prolong": 0,
+                            "value_update": 0}
 
 
 def reset_launches() -> None:

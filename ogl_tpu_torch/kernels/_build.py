@@ -69,6 +69,10 @@ _SIGNATURES = {
     "ogl_pgm_restrict": (_P, _P, _P, _P, _I64, _I64, _P),
     # x, ec, agg, out, n, blocks, stream
     "ogl_pgm_prolong_add": (_P, _P, _P, _P, _I64, _I64, _P),
+    # source_words (5 int64 per source), n_sources, write_words (6 per write), scales,
+    # n_writes, flat, blocks, stream
+    "ogl_value_update": (ctypes.POINTER(_I64), _INT, ctypes.POINTER(_I64),
+                         ctypes.POINTER(_F32), _INT, _P, _I64, _P),
     # vals, lidx, qoffs, np, r, x, y, n, vec, blocks, stream
     "ogl_gdia_spmv": (_P, _P, _P, _INT, _I64, _P, _P, _I64, _INT, _I64, _P),
     # vals, lidx, qoffs, np, r, z, p, beta, pout, q, partials, n, vec, blocks, stream

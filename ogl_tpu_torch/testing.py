@@ -1,25 +1,47 @@
 """Problem generators shared by tests and the chip smoke run.
 
 Counterpart: ogl_tpu/testing.py (`grid_shape`, `poisson_ldu`,
-`convection_diffusion_ldu`, `to_dense_ldu`, `poisson_dense`), carried over
-unchanged: the same numpy outputs, returned as the port's LduMatrix.
+`convection_diffusion_ldu`, `to_dense_ldu`, `poisson_dense`,
+`channel_ldu`), carried over unchanged: the same numpy outputs, returned as
+the port's LduMatrix.
 
 The unstructured meshes have no counterpart there: `knn_ldu` is the
 fully unstructured FV graph of the reference's bench (bench.py:987-1005,
 with the shifted-Laplacian values of :1063-1076) in LDU form,
 `shuffled_poisson_ldu` a Poisson grid renumbered inside each 128-cell run,
 and `renumber_ldu` applies a cell renumbering to a symmetric LDU system.
+`entries_update` writes a container's values from a COO entry array by
+the steady step's own plans (the reference's `ValueMap.update`, which the
+port does not carry).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ogl_tpu_torch.core import ldu
+from ogl_tpu_torch.core import formats, ldu
 
 __all__ = ["poisson_ldu", "poisson_dense", "convection_diffusion_ldu",
-           "to_dense_ldu", "grid_shape", "renumber_ldu", "knn_ldu",
-           "shuffled_poisson_ldu"]
+           "to_dense_ldu", "grid_shape", "channel_ldu", "renumber_ldu", "knn_ldu",
+           "shuffled_poisson_ldu", "entries_update"]
+
+
+def entries_update(vm: formats.ValueMap, m, vals: torch.Tensor):
+    """The container `m` with the values of the row-major COO entry array
+    `vals` (on the matrix's device), written as a steady step writes one
+    block read at positions 0..n-1: its `block_update_plans` plan, or the
+    `accumulate_plan` where slots take several entries, through the
+    value-update kernel into zeros."""
+    from ogl_tpu_torch.kernels.value_update import value_update
+
+    ident = np.arange(len(vals))
+    plans = formats.block_update_plans(vm, ident, [len(vals)], vals.device)
+    write = (plans[0].write(block=0, scale=1.0) if plans is not None else
+             formats.accumulate_plan(vm, ident, vals.device).write(block=0, scale=1.0))
+    flat = torch.zeros(int(np.prod(vm.out_shape)), dtype=vals.dtype, device=vals.device)
+    value_update(flat, [(vals, None, None)], [write])
+    return formats.with_values(m, flat.view(vm.out_shape))
 
 
 def renumber_ldu(m: ldu.LduMatrix, inv) -> ldu.LduMatrix:
@@ -172,3 +194,49 @@ def to_dense_ldu(m: ldu.LduMatrix) -> np.ndarray:
 
 def poisson_dense(dims, dirichlet_boundary: bool = True) -> np.ndarray:
     return to_dense_ldu(poisson_ldu(dims, dirichlet_boundary))
+
+
+def channel_ldu(dims, aniso: float = 4.0) -> ldu.LduMatrix:
+    """Periodic-channel pressure system (the reference's second integration
+    case family: periodicPlaneChannel/channel395, a cyclic-BC LES channel,
+    test_matrix.json + integration.yaml): FV Poisson on a structured grid,
+    PERIODIC in x via a cyclic LocalInterface pairing the first and last
+    x-planes, wall-normal anisotropy `aniso` on the y-direction couplings
+    (stretched-grid transmissibility).  Diagonal gets a small fixed-value
+    pin so the periodic system stays SPD."""
+    nx, ny, nz = grid_shape(dims)
+    base = poisson_ldu(dims, dirichlet_boundary=False)
+    n = base.n
+    cid = np.arange(n).reshape(nz, ny, nx)
+
+    # anisotropy: faces in the y direction carry coefficient -aniso
+    upper = np.asarray(base.upper).copy()
+    diag = np.asarray(base.diag).copy()
+    if ny > 1:
+        lo, up = base.lower_addr, base.upper_addr
+        y_face = (up - lo) == nx  # neighbour one y-row away
+        upper[y_face] = -aniso
+        extra = (aniso - 1.0)
+        np.add.at(diag, lo[y_face], extra)
+        np.add.at(diag, up[y_face], extra)
+
+    ifaces = ()
+    if nx > 2:
+        left = cid[:, :, 0].ravel()
+        right = cid[:, :, -1].ravel()
+        rows = np.concatenate([left, right])
+        cols = np.concatenate([right, left])
+        coeffs = np.ones(rows.shape[0])
+        ifaces = (ldu.LocalInterface(rows=rows, cols=cols, coeffs=coeffs),)
+        np.add.at(diag, left, 1.0)
+        np.add.at(diag, right, 1.0)
+    # pin the nullspace (pure-Neumann + periodic would be singular)
+    diag[0] += 1.0
+    return ldu.LduMatrix(
+        n=n,
+        lower_addr=base.lower_addr,
+        upper_addr=base.upper_addr,
+        diag=diag,
+        upper=upper,
+        local_interfaces=ifaces,
+    )

@@ -88,8 +88,8 @@ def test_testing_problems_match_reference(dims):
     assert testing.grid_shape(dims) == ref_testing.grid_shape(dims)
 
 
-# the ids are the list's positions before the AMG controls below (A11)
-# left it: they solve now
+# the ids are the list's positions before the AMG controls (A11) and
+# uploadPrecision bfloat16 (A7) below left it: they solve now
 UNSUPPORTED = [
     pytest.param({"solver": "GKOIR"}, "A9", id="controls0-A9"),
     pytest.param({"preconditioner": {"preconditioner": "ILU", "precision": "bfloat16"}}, "A10",
@@ -100,7 +100,6 @@ UNSUPPORTED = [
                  id="controls3-A10"),
     pytest.param({"dtype": "float64"}, "A14", id="controls6-A14"),
     pytest.param({"solver": "GKOBiCGStab", "dtype": "float64"}, "A14", id="controls7-A14"),
-    pytest.param({"uploadPrecision": "bfloat16"}, "A7", id="controls9-A7"),
     pytest.param({"export": True}, "A15", id="controls10-A15"),
     pytest.param({"debug": True}, "A15", id="controls11-A15"),
 ]
@@ -142,6 +141,32 @@ def test_former_a11_controls_solve_like_the_reference(controls):
     assert perf_ref.n_iterations - 1 <= perf.n_iterations <= perf_ref.n_iterations + 2
 
 
+# uploadPrecision bfloat16 (ROADMAP.md A7, once refused like the controls
+# above): a steady step sends its changed blocks as bfloat16 deltas and
+# solves in the reference's iterations
+FORMER_A7 = [pytest.param({"uploadPrecision": "bfloat16"}, id="controls9-A7")]
+
+
+@pytest.mark.parametrize("controls", FORMER_A7)
+def test_former_a7_controls_solve_like_the_reference(controls):
+    import dataclasses as dc
+
+    from ogl_tpu import foam as ref_foam
+
+    m = testing.poisson_ldu((16, 8, 8))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    ctl = {"executor": "cpu", "tolerance": 1e-6, "relTol": 0, "adaptMinIter": False,
+           "matrixFormat": "Dia", **controls}
+    ref, ours = ref_foam.FoamSolver("p", ctl), FoamSolver("p", ctl)
+    for k in range(3):
+        mk = dc.replace(m, diag=np.asarray(m.diag) * np.float32(1.0 + 1e-6 * k))
+        _, perf_ref = ref.solve(mk, b)
+        _, perf = ours.solve(mk, b)
+        assert perf.converged and perf_ref.converged
+        assert abs(perf.n_iterations - perf_ref.n_iterations) <= 1
+    assert ours.last_blocks_bf16 == ref.last_blocks_bf16 == (1, 2)
+
+
 def test_executor_mapping_and_no_silent_cpu_fallback():
     for ex in ("reference", "omp", "cpu"):
         assert device_for(ex) == torch.device("cpu")
@@ -163,9 +188,12 @@ def test_executor_mapping_and_no_silent_cpu_fallback():
 def test_port_imports_neither_jax_nor_ogl_tpu():
     code = (
         "import sys, ogl_tpu_torch, ogl_tpu_torch.foam, ogl_tpu_torch.interop, "
-        "ogl_tpu_torch.testing, ogl_tpu_torch.kernels._build; "
+        "ogl_tpu_torch.testing, ogl_tpu_torch.kernels._build, "
+        "ogl_tpu_torch.kernels.value_update, ogl_tpu_torch.examples.cavity, "
+        "ogl_tpu_torch.examples.karman; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'ogl_tpu' or m.startswith('ogl_tpu.') or m == 'triton']; "
+        "or m == 'ogl_tpu' or m.startswith('ogl_tpu.') or m == 'triton' "
+        "or m == 'ml_dtypes']; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -12,6 +12,7 @@ use).  Tolerances: elementwise outputs may differ by the fused
 multiply-adds the compilers form (a few ulp); block sums are summed in
 another order than torch.sum's (rtol 1e-4)."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -3412,3 +3413,231 @@ def test_amg_loop_on_gdia_refused_cooperative_launch_raises(dev):
     finally:
         amg_loop._grids[key] = co_resident
     assert amg_loop.amg_cg_loop(kern, data, op, *_amg_state(kern, data, b), cfg)[0] == 3
+
+
+# ---- slice 24: the steady step's value update --------------------------------
+
+
+def _vu_case(name, n, device, seed=0):
+    """(flat, sources, writes) of one value-update case, on `device`."""
+    from ogl_tpu_torch.kernels.value_update import Write
+
+    rng = np.random.default_rng(seed)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device=device)
+
+    def blocks(sizes, delta=()):
+        out = []
+        for k, size in enumerate(sizes):
+            old = torch.from_numpy(rng.normal(size=size).astype(np.float32)).to(device)
+            if k in delta:
+                d = torch.from_numpy((1e-3 * rng.normal(size=size)).astype(np.float32))
+                d[:2] = torch.tensor([-0.0, 3.0e-39])
+                out.append((old, d.to(torch.bfloat16).to(device),
+                            torch.empty(size, device=device)))
+            else:
+                out.append((old, None, None))
+        return out
+
+    zeros = functools.partial(torch.zeros, device=device)
+    if name == "affine":
+        return zeros(7 * n), blocks([n]), [Write(0, None, None, None, 3 * n, n, 1.0)]
+    if name == "scatter":
+        return (zeros(3 * n) + 7.0, blocks([n]),
+                [Write(0, None, i32(rng.permutation(3 * n)[:n]), None, 0, n, 2.5)])
+    if name == "gather_scatter":
+        pos = np.concatenate([np.arange(n), rng.permutation(n)])
+        return (zeros(2 * n + 5), blocks([n]),
+                [Write(0, i32(pos), i32(rng.permutation(2 * n + 5)[:2 * n]), None, 0, 2 * n,
+                       -0.75)])
+    if name == "bf16_decode":
+        pos = np.concatenate([np.arange(n), rng.permutation(n)])
+        dest = rng.permutation(4 * n)
+        return (zeros(4 * n), blocks([n, 2 * n], delta=(0, 1)),
+                [Write(0, i32(pos), i32(dest[:2 * n]), None, 0, 2 * n, 1.0),
+                 Write(1, None, i32(dest[2 * n:]), None, 0, 2 * n, 1.0)])
+    if name == "rhs_identity":
+        old, delta, _ = blocks([n], delta=(0,))[0]
+        return (torch.empty(n, device=device), [(old, delta, None)],
+                [Write(0, None, None, None, 0, n, 1.0)])
+    if name == "accumulate":
+        src = blocks([n, n // 3 + 1, 41], delta=(1,))
+        total = sum(s[0].numel() for s in src)
+        items = n // 2
+        seg = np.concatenate([[0], np.cumsum(rng.integers(1, 5, size=items))])
+        return (zeros(2 * n), src,
+                [Write(-1, i32(rng.integers(0, total, size=int(seg[-1]))),
+                       i32(np.sort(rng.permutation(2 * n)[:items])), i32(seg), 0, items, 1.5)])
+    if name == "many_blocks":
+        dest = n + rng.permutation(5 * n)
+        src = blocks([n, n, 513, 64], delta=(2,))
+        return (torch.randn(6 * n, generator=torch.Generator().manual_seed(3)).to(device), src,
+                [Write(0, None, None, None, 0, n, 2.0),
+                 Write(1, i32(rng.permutation(n)), i32(dest[:n]), None, 0, n, 2.0),
+                 Write(2, None, i32(dest[n:n + 513]), None, 0, 513, 2.0),
+                 Write(3, i32(rng.integers(0, 64, 200)), i32(dest[n + 513:n + 713]), None, 0,
+                       200, 2.0)])
+    raise AssertionError(name)
+
+
+VU_CASES = ["affine", "scatter", "gather_scatter", "bf16_decode", "rhs_identity", "accumulate",
+            "many_blocks"]
+
+
+def _vu_cpu(flat, sources, writes):
+    from ogl_tpu_torch.kernels.value_update import Write
+
+    def c(t):
+        return None if t is None else t.cpu()
+
+    return (flat.cpu(), [tuple(c(t) for t in s) for s in sources],
+            [Write(w.block, c(w.src), c(w.dest), c(w.seg), w.start, w.items, w.scale)
+             for w in writes])
+
+
+@pytest.mark.parametrize("n", [1000, 4097, 1 << 20])
+@pytest.mark.parametrize("name", VU_CASES)
+def test_value_update_kernel_bit_equal_to_twin(dev, name, n):
+    from ogl_tpu_torch.kernels.value_update import value_update, value_update_plain
+
+    flat, sources, writes = _vu_case(name, n, dev)
+    cflat, csources, cwrites = _vu_cpu(flat, sources, writes)
+    kernels.reset_launches()
+    value_update(flat, sources, writes)
+    torch.cuda.synchronize()
+    assert kernels.launches["value_update"] == 1
+    value_update_plain(cflat, csources, cwrites)
+    assert torch.equal(flat.cpu().view(torch.int32), cflat.view(torch.int32))
+    for (_, _, o), (_, _, co) in zip(sources, csources):
+        if o is not None:
+            assert torch.equal(o.cpu().view(torch.int32), co.view(torch.int32))
+
+
+def test_value_update_raises_on_bad_operands_and_refused_launches(dev, monkeypatch):
+    from ogl_tpu_torch.kernels import _build
+    from ogl_tpu_torch.kernels.value_update import Write, value_update
+
+    flat = torch.zeros(10, device=dev)
+    blk = torch.ones(5, device=dev)
+    w = Write(0, None, None, None, 0, 5, 1.0)
+    with pytest.raises(TypeError):
+        value_update(flat, [(blk.double(), None, None)], [w])
+    with pytest.raises(ValueError):
+        value_update(flat, [(blk, None, None)], [Write(0, None, None, None, 8, 5, 1.0)])
+    with pytest.raises(ValueError):
+        value_update(flat, [(blk, None, None)] * 9, [w])
+    with pytest.raises(ValueError):
+        value_update(flat, [(blk, None, torch.empty(5, device=dev))], [w])
+    with pytest.raises(ValueError):  # a CUDA flat with a CPU block: no twin, no launch
+        value_update(flat, [(blk.cpu(), None, None)], [w])
+    lib = _build.library()
+    monkeypatch.setattr(_build, "library", lambda: type("L", (), {
+        "ogl_value_update": staticmethod(lambda *a: 1),
+        "ogl_error_string": lib.ogl_error_string})())
+    with pytest.raises(RuntimeError, match="value_update"):
+        value_update(flat, [(blk, None, None)], [w])
+
+
+def _duplicated_faces_ldu(dims):
+    """A Poisson grid whose cyclic interface couples every third x face's
+    cells again: those entries share their faces' slots (an accumulate
+    value map)."""
+    m = testing.poisson_ldu(dims)
+    lo, up = np.asarray(m.lower_addr), np.asarray(m.upper_addr)
+    pick = np.flatnonzero(up - lo == 1)[::3]
+    rows = np.concatenate([lo[pick], up[pick]])
+    cols = np.concatenate([up[pick], lo[pick]])
+    li = ldu.LocalInterface(rows=rows, cols=cols,
+                            coeffs=-np.linspace(0.1, 0.4, len(rows)).astype(np.float32))
+    return ldu.LduMatrix(n=m.n, lower_addr=lo, upper_addr=up, diag=m.diag, upper=m.upper,
+                         local_interfaces=(li,))
+
+
+STEP_CASES = {  # name: (system, matrixFormat, uploadPrecision)
+    "dia": ("poisson", "Dia", "default"), "dia_bf16": ("poisson", "Dia", "bfloat16"),
+    "csr": ("knn", "Csr", "default"), "csr_bf16": ("knn", "Csr", "bfloat16"),
+    "ell_cd": ("convection", "Ell", "default"), "sell_bf16": ("poisson", "Sell", "bfloat16"),
+    "accumulate": ("duplicated", "Dia", "default")}
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_steady_steps_on_the_card_equal_the_cpu_solver(dev, name):
+    """Diag-only and all-block steps (and a bf16 RHS) through foam on the
+    card: each step one value_update launch for the matrix (one more for a
+    bf16 RHS), the container and the resident blocks bit-equal to the same
+    steps on the CPU, and the accumulate path repeating its bits."""
+    system, fmt, up = STEP_CASES[name]
+    if system == "poisson":
+        m = testing.poisson_ldu((24, 20, 16))
+    elif system == "convection":
+        m = testing.convection_diffusion_ldu((24, 20, 16))
+    elif system == "knn":
+        m = testing.knn_ldu(20000)[0]
+    else:
+        m = _duplicated_faces_ldu((24, 20, 16))
+    b = np.random.default_rng(0).normal(size=m.n).astype(np.float32)
+    solver = "GKOBiCGStab" if system in ("convection", "duplicated") else "GKOCG"
+    ctl = {"solver": solver, "tolerance": 1e-6, "relTol": 0, "matrixFormat": fmt,
+           "uploadPrecision": up}
+    gpu = foam.FoamSolver("p", {**ctl, "executor": "cuda"})
+    cpu = foam.FoamSolver("p", {**ctl, "executor": "cpu"})
+    steps = [m]
+    for k in range(1, 4):
+        f = np.float32(1.0 + 1e-6 * k)
+        steps.append(dataclasses.replace(steps[-1], diag=np.asarray(m.diag) * f))
+    steps.append(dataclasses.replace(steps[-1], upper=np.asarray(m.upper) * np.float32(1.0 + 3e-7),
+                                     diag=np.asarray(steps[-1].diag) * np.float32(1.0 + 1e-6)))
+    for k, mk in enumerate(steps):
+        bk = (b * np.float32(1.0 + 1e-6 * k)).astype(np.float32)
+        kernels.reset_launches()
+        x, perf = gpu.solve(mk, bk)
+        torch.cuda.synchronize()
+        launches = kernels.launches["value_update"]
+        cpu.solve(mk, bk)
+        assert perf.converged
+        if k:
+            assert launches == 1 + gpu.last_rhs_bf16, (k, launches)
+            assert gpu.last_blocks_uploaded == cpu.last_blocks_uploaded
+            assert gpu.last_blocks_bf16 == cpu.last_blocks_bf16
+        assert torch.equal(formats.values_flat(gpu.matrix).cpu(),
+                           formats.values_flat(cpu.matrix))
+        for dg, dc in zip(gpu._blocks_dev, cpu._blocks_dev):
+            assert torch.equal(dg.cpu(), dc)
+        assert torch.equal(gpu._b_dev.cpu(), cpu._b_dev)
+        if up == "bfloat16" and k:
+            # a block's first upload after the first solve goes at full width,
+            # as the reference's; the diag's later ones go as deltas (the
+            # all-block step sends the upper block for the first time)
+            assert gpu.last_blocks_uploaded[0] == 1 + (k == 4)
+            assert gpu.last_blocks_bf16[0] == int(k >= 2)
+    if name == "accumulate":
+        assert gpu._block_plans is None
+        again = gpu._apply_block_updates(range(len(gpu._blocks_host)), False)
+        assert torch.equal(formats.values_flat(again), formats.values_flat(gpu.matrix))
+
+
+def test_accumulate_update_repeats_its_bits_at_1m(dev):
+    """The 1M grid with duplicated faces (an accumulate value map): two full
+    updates give the same bits, equal to the twin's on CPU copies."""
+    from ogl_tpu_torch.kernels.value_update import value_update_plain
+
+    m = _duplicated_faces_ldu((128, 128, 64))
+    b = np.ones(m.n, np.float32)
+    slv = foam.FoamSolver("p", {"solver": "GKOBiCGStab", "executor": "cuda",
+                                "matrixFormat": "Dia", "maxIter": 3})
+    slv.solve(m, b)
+    slv.solve(dataclasses.replace(m, diag=np.asarray(m.diag) * np.float32(1.01)), b)
+    assert slv._block_plans is None and slv._acc_plan is not None
+    nb = len(slv._blocks_host)
+    one = formats.values_flat(slv._apply_block_updates(range(nb), False))
+    two = formats.values_flat(slv._apply_block_updates(range(nb), False))
+    assert torch.equal(one, two)
+    flat = torch.zeros(one.numel())
+    plan = slv._acc_plan
+    w = plan.write(block=-1, scale=1.0)
+    from ogl_tpu_torch.kernels.value_update import Write
+
+    value_update_plain(flat, [(d.cpu(), None, None) for d in slv._blocks_dev],
+                       [Write(-1, w.src.cpu(), w.dest.cpu(), w.seg.cpu(), 0, w.items, 1.0)])
+    assert torch.equal(one.cpu(), flat)

@@ -136,7 +136,7 @@ def test_warp_slots_are_each_groups_longest_row(fmt, name):
     new = formats.with_values(m, formats.values_flat(m) * 2.0)
     assert _ell_of(new).warp_slots is ell.warp_slots
     vmap = formats.value_map(m, coo.rows, coo.cols)
-    updated = vmap.update(m, torch.tensor(np.asarray(coo.vals) * 3.0))
+    updated = testing.entries_update(vmap, m, torch.tensor(np.asarray(coo.vals) * 3.0))
     assert _ell_of(updated).warp_slots is ell.warp_slots
     assert torch.equal(_ell_of(formats.cast_values(m, torch.float64)).warp_slots,
                        ell.warp_slots)

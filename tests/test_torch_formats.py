@@ -5,8 +5,8 @@ flat value storage and the byte/flop model.
 The converters must give the reference's containers bit for bit, Ell and
 Sell mapped back from the port's slot-major layouts to the reference's;
 `value_map` the reference's destinations (mapped the same way) and
-uniqueness; `ValueMap.update` the container a fresh conversion of the new
-values gives."""
+uniqueness; the value update through the map's plans (`testing.entries_update`)
+the container a fresh conversion of the new values gives."""
 
 import dataclasses
 
@@ -16,7 +16,7 @@ import torch
 
 from ogl_tpu.core import formats as ref_formats
 from ogl_tpu.kernels import roofline as ref_roofline
-from ogl_tpu_torch import interop
+from ogl_tpu_torch import interop, testing
 from ogl_tpu_torch.core import formats
 from ogl_tpu_torch.kernels import roofline
 
@@ -246,7 +246,7 @@ def test_value_map_matches_reference_and_fresh_conversion(fmt, n):
                                       _port_dest(fmt, m, np.asarray(rvm.dest, np.int64), n))
         assert int(np.prod(vm.out_shape)) == int(np.prod(rvm.out_shape))
     new = np.random.default_rng(9).normal(size=len(ours.vals)).astype(np.float32)
-    got = vm.update(m, torch.tensor(new))
+    got = testing.entries_update(vm, m, torch.tensor(new))
     fresh = PORT[fmt](formats.Coo(ours.rows, ours.cols, new, ours.shape))
     for x, y in zip(_tensors(got), _tensors(fresh)):
         assert torch.equal(x, y)

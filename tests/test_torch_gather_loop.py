@@ -169,7 +169,8 @@ def test_sell_slices_from_conversion_and_from_the_bridge(name, c, sigma):
     new = formats.with_values(m, formats.values_flat(m) * 2.0)
     assert new.slice_widths is m.slice_widths and new.slice_buckets is m.slice_buckets
     vmap = formats.value_map(m, rows, cols)
-    assert vmap.update(m, torch.tensor(np.asarray(vals) * 3.0)).slice_widths is m.slice_widths
+    assert testing.entries_update(vmap, m, torch.tensor(np.asarray(vals) * 3.0)
+                                  ).slice_widths is m.slice_widths
 
 
 def _system(fmt):

@@ -21,7 +21,7 @@ from ogl_tpu.core import ldu as ref_ldu
 from ogl_tpu.core import reorder as ref_reorder
 from ogl_tpu.kernels import gdia as ref_gdia
 from ogl_tpu.kernels.fused import GdiaCgKernels as RefGdiaCgKernels
-from ogl_tpu_torch import interop, kernels, registry
+from ogl_tpu_torch import interop, kernels, registry, testing
 from ogl_tpu_torch.core import formats, reorder
 from ogl_tpu_torch.kernels import gdia, spmv
 from ogl_tpu_torch.kernels.fused import GdiaCgKernels
@@ -159,7 +159,7 @@ def test_value_map_update_equals_fresh_convert(kind, keep_layout):
     vm = formats.value_map(mat, pc.rows, pc.cols)
     assert vm.unique and vm.out_shape == tuple(mat.vals.shape)
     new = (np.random.default_rng(2).normal(size=len(pc.vals))).astype(np.float32)
-    updated = vm.update(mat, torch.tensor(new))
+    updated = testing.entries_update(vm, mat, torch.tensor(new))
     fresh = gdia.gdia_from_coo(formats.Coo(pc.rows, pc.cols, new, pc.shape),
                                max_planes=max_planes)
     torch.testing.assert_close(updated.vals, fresh.vals, rtol=0, atol=0)

@@ -10,8 +10,9 @@ import torch
 from ogl_tpu import testing as ref_testing
 from ogl_tpu.core import formats as ref_formats
 from ogl_tpu.core import ldu as ref_ldu
-from ogl_tpu_torch import interop, registry
+from ogl_tpu_torch import interop, registry, testing
 from ogl_tpu_torch.core import formats, ldu
+from ogl_tpu_torch.kernels.value_update import value_update
 
 torch.set_num_threads(2)
 
@@ -77,9 +78,9 @@ def test_host_assembly_matches_reference():
 
 @pytest.mark.parametrize("kind,dims", CASES)
 def test_dia_value_map_update_equals_fresh_convert(kind, dims):
-    """The steady-state path (resident blocks → device gather → value-map
-    scatter) yields exactly the Dia data a fresh conversion of the new
-    coefficients gives."""
+    """The steady-state path (resident blocks → the value update through
+    every block's plan) yields exactly the Dia data a fresh conversion of
+    the new coefficients gives, as one identity block of the entries does."""
     m0 = _ref_case(kind, dims)
     m1 = dataclasses.replace(m0, diag=np.asarray(m0.diag) * 1.01,
                              upper=np.asarray(m0.upper) * 0.5)
@@ -88,9 +89,15 @@ def test_dia_value_map_update_equals_fresh_convert(kind, dims):
     mat0 = formats.coo_to_dia(ldu.ldu_to_coo_host(p0, dtype=np.float32))
     vm = formats.value_map(mat0, sp.rows, sp.cols)
     assert vm.unique
-    blocks = [torch.tensor(b) for b in ldu.host_blocks(sp, p1, np.float32)]
-    vals = ldu.assemble_from_blocks(blocks, torch.tensor(sp.permute.astype(np.int64)), 1.0)
-    updated = vm.update(mat0, vals)
+    host = ldu.host_blocks(sp, p1, np.float32)
+    plans = formats.block_update_plans(vm, sp.permute, [b.size for b in host])
+    flat = torch.zeros(int(np.prod(vm.out_shape)))
+    value_update(flat, [(torch.tensor(b), None, None) for b in host],
+                 [p.write(k, 1.0) for k, p in enumerate(plans)])
+    updated = formats.with_values(mat0, flat)
+    vals = np.concatenate(host)[sp.permute]
+    np.testing.assert_array_equal(testing.entries_update(vm, mat0, torch.tensor(vals)).data.numpy(),
+                                  updated.data.numpy())
     fresh = formats.coo_to_dia(ldu.ldu_to_coo_host(p1, dtype=np.float32))
     np.testing.assert_array_equal(updated.data.numpy(), fresh.data.numpy())
     ref_fresh = ref_formats.coo_to_dia(ref_ldu.ldu_to_coo_host(m1, dtype=np.float32))
@@ -119,3 +126,35 @@ def test_native_and_numpy_sparsity_builds_agree(kind, dims, monkeypatch):
     for f in ("rows", "cols", "permute"):
         np.testing.assert_array_equal(getattr(fast, f), getattr(slow, f))
         assert getattr(fast, f).dtype == np.int32
+
+
+@pytest.mark.parametrize("native_on", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("kind,dims", CASES)
+def test_dia_layout_and_packing_match_reference(kind, dims, native_on, monkeypatch):
+    """The Dia layout and float32 packing (through the native runtime where
+    it builds, its numpy branch where it does not, in both packages) give
+    the reference's offsets, dest and data — duplicate entries summed."""
+    from ogl_tpu import native as ref_native
+    from ogl_tpu_torch import native
+
+    if not native_on:
+        monkeypatch.setattr(native, "lib", lambda: None)
+        monkeypatch.setattr(ref_native, "lib", lambda: None)
+    assert (native.lib() is not None) == (ref_native.lib() is not None) == native_on
+    m = _ref_case(kind, dims)
+    coo = ldu.ldu_to_coo_host(_port_ldu(m), dtype=np.float32)
+    # every fifth entry twice more: the packing sums duplicates
+    dup = np.arange(0, coo.nnz, 5)
+    rows = np.concatenate([coo.rows, coo.rows[dup], coo.rows[dup]])
+    cols = np.concatenate([coo.cols, coo.cols[dup], coo.cols[dup]])
+    vals = np.concatenate([coo.vals, coo.vals[dup] * np.float32(0.3),
+                           coo.vals[dup] * np.float32(-1.7)]).astype(np.float32)
+    offs, dest = formats.dia_layout(rows, cols, m.n)
+    ref_offs, ref_dest = ref_formats.dia_layout(rows, cols, m.n)
+    assert offs == ref_offs
+    np.testing.assert_array_equal(dest, ref_dest)
+    ours = formats.coo_to_dia(formats.Coo(rows, cols, vals, (m.n, m.n)))
+    ref = ref_formats.coo_to_dia(ref_formats.Coo(rows=rows, cols=cols, vals=vals,
+                                                 shape=(m.n, m.n)))
+    assert ours.offsets == ref.offsets
+    np.testing.assert_array_equal(ours.data.numpy(), np.asarray(ref.data))

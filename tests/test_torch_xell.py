@@ -219,7 +219,7 @@ def test_value_map_update_equals_fresh_convert(case, keep_layout):
         return
     vm = formats.value_map(m0, pc.rows, pc.cols)
     new = np.random.default_rng(3).normal(size=len(pc.vals)).astype(np.float32)
-    up = vm.update(m0, torch.tensor(new))
+    up = testing.entries_update(vm, m0, torch.tensor(new))
     fresh = xell.xell_from_coo(formats.Coo(pc.rows, pc.cols, new, pc.shape),
                                spill_frac=spill_frac)
     torch.testing.assert_close(up.vals, fresh.vals, rtol=0, atol=0)
